@@ -9,3 +9,5 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (subprocess compiles)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips inside the test without one)")
