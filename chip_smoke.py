@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases kernels,serving] [--requests 8]
+    python3 chip_smoke.py [--phases kernels,serving,lm_serving]
+                          [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -12,14 +13,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
      tiles, every epilogue with bias, bf16) and the four projection shapes
      of BERT-base at M=384 with 128x128 tiles, with kernel, plain and
-     library (torch.matmul on the densified weight) times;
+     library (torch.matmul on the densified weight) times; then K2
+     (flash_decode) and K3 (paged_flash_decode) against theirs -- ragged
+     and scalar pos with inactive slots, shared and per-slot position
+     maps, ring windows, T not a multiple of the split count, G = 1 and
+     16, unmapped and poisoned pages, K3 bit-exact against K2 over the
+     gathered view -- and at the gemma3_4b decode shapes (B=4, Hkv=4, G=2,
+     D=256, bf16; a 1280-slot linear cache, its 80-page paged form, a
+     1024-slot ring) with kernel, plain, bound and library
+     (scaled_dot_product_attention with the same mask) times;
   3. serving: BERT-base at full width (12 layers, d=768, d_ff=3072, vocab
      30522, seeded random weights) pruned 80% at 128x128 with tied masks,
      fused QKV and cross-layer union, served through backend 'plan_pallas'
      (every projection through K1): a few (1, 384) requests and one
      (8, 384) batch, logits checked against the dense path on the same
      pruned weights, 12 x 4 K1 launches per forward, then save / reload
-     with bit-equal logits.
+     with bit-equal logits;
+  4. lm_serving: gemma3_4b at full width and depth (34 layers, bf16,
+     seeded random weights) pruned 80% at 128x128, served by the
+     continuous-batching engine (4 slots x 1280 positions, fused windows of
+     8) in the dense and the paged KV layout: 6 requests (prompts of 37 to
+     1100 tokens, 32 new tokens each), every request done, K1 / K2 / K3
+     launches per decode step checked against the layer routing, ms per
+     decode step and tokens/s, a profiler breakdown of one decode window,
+     dense vs paged greedy-token agreement, and decode_step logits with
+     the kernels against the plain decode_attention composition.
 
 The line before the last is the kernels JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -39,6 +57,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/plan_dds.cu"
 REPLACES = "src/repro/kernels/bsr_matmul.py:368"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:150",
+                   "paged_flash_decode": "src/repro/kernels/flash_decode.py:214"}
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the fp32
 # rate outside the tensor cores -- K1 runs fp32 FMA.
@@ -55,6 +76,13 @@ TOL_BF16 = 2e-2
 # Served logits against the dense path on the same pruned weights (the
 # repository example's parity bar).
 TOL_LOGITS = 1e-3
+# K2 / K3 against their plain versions: both fold the same splits with fp32
+# math and differ only in summation order, so fp32 outputs agree within 1e-5
+# of max|ref| (an output is a convex mix of V rows, |out| <= max|v|); bf16
+# outputs within 2e-2 of max|ref|, one bf16 rounding step of the output
+# (2^-7) with margin.
+TOL_DECODE_F32 = 1e-5
+TOL_DECODE_BF16 = 2e-2
 
 MAIN_SHAPES = (("qkv", 2304, 768), ("attn_out", 768, 768),
                ("ffn_in", 3072, 768), ("ffn_out", 768, 3072))
@@ -140,7 +168,7 @@ def _profile(label, fn, top: int = 8):
         print(f"  {ms:9.4f} ms {count:5d}x  {key[:90]}")
 
 
-def _compare(name, got, ref, tol_rel):
+def _compare(name, got, ref, tol_rel, kernel="K1"):
     import torch
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
@@ -148,7 +176,7 @@ def _compare(name, got, ref, tol_rel):
     ok = err <= tol_rel * scale and bool(torch.isfinite(got).all())
     print(f"  {name:34s} max|d|={err:.3e}  tol={tol_rel * scale:.3e}  "
           f"{'ok' if ok else 'FAIL'}")
-    check(ok, f"K1 disagrees with its plain version on {name}")
+    check(ok, f"{kernel} disagrees with its plain version on {name}")
     return err
 
 
@@ -292,6 +320,243 @@ def phase_kernels(seed: int):
 
 
 # --------------------------------------------------------------------------
+# phase 2b: K2 (flash_decode) and K3 (paged_flash_decode) against their plain
+# versions
+# --------------------------------------------------------------------------
+
+def _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d):
+    import numpy as np
+    import torch
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+    return rnd(b, 1, hq, d), rnd(b, t, hkv, d), rnd(b, t, hkv, d)
+
+
+def _ring_map(t, pos):
+    """Slot j of a T-slot ring holds the latest position <= pos congruent to
+    j (-1 where none): the map a ring cache has after writing 0..pos."""
+    import numpy as np
+    j = np.arange(t)
+    src = j + t * ((pos - j) // t)
+    return np.where((src >= 0) & (src <= pos), src, -1).astype(np.int32)
+
+
+def _decode_bound_ms(kvp, pos, window, b, hq, hkv, d, itemsize):
+    """Least time for one decode call: the K and V rows of the visible
+    positions, the position map, pos, q and out over the HBM rate, against
+    4 * visible * Hq * D fp32 operations (q.k and p.v) over the fp32 rate."""
+    import numpy as np
+    posv = np.broadcast_to(np.asarray(pos), (b,))[:, None]
+    kv = np.broadcast_to(np.asarray(kvp), (b, np.asarray(kvp).shape[-1]))
+    ok = (kv >= 0) & (kv <= posv)
+    if window > 0:
+        ok &= kv > posv - window
+    vis = int(ok.sum())
+    n_bytes = (2 * vis * hkv * d * itemsize + kv.size * 4 + b * 4
+               + 2 * b * hq * d * itemsize)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 4 * vis * (hq // hkv) * d / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _sdpa_ms(q, k, v, kvp, pos, window):
+    """One torch.nn.functional.scaled_dot_product_attention call with the
+    same boolean mask and enable_gqa=True, timed as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    b = q.shape[0]
+    kvp = kvp if kvp.dim() == 2 else kvp[None].expand(b, -1)
+    posv = pos.reshape(-1, 1).expand(b, 1)
+    ok = (kvp >= 0) & (kvp <= posv)
+    if window > 0:
+        ok &= kvp > posv - window
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = ok[:, None, None, :]
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+
+
+def phase_decode_kernels(seed: int):
+    """K2 and K3 against their plain versions on the card: the small
+    layout cases, then the gemma3_4b decode shapes with times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_plain, paged_flash_decode,
+        paged_flash_decode_plain)
+    from repro_torch.models.common import paged_view
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 1)
+    i32 = torch.int32
+
+    def tol(dtype):
+        return TOL_DECODE_F32 if dtype == torch.float32 else TOL_DECODE_BF16
+
+    print("[kernels] K2 flash_decode vs plain, small cases")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        # ragged pos with an inactive row, per-slot (B, T) maps, T = 30 not a
+        # multiple of 4 splits, window 0 and 8
+        b, t, hq, hkv, d = 3, 30, 8, 4, 16
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)[None].expand(b, t)
+        kvp = kvp.contiguous()
+        pos = torch.tensor([t - 1, -1, 11], dtype=i32, device=dev)
+        for window in (0, 8):
+            for ks in (1, 2, 4):
+                out = flash_decode(q, k, v, kvp, pos, window=window,
+                                   kv_split=ks)
+                ref = flash_decode_plain(q, k, v, kvp, pos, window=window,
+                                         kv_split=ks)
+                _compare(f"K2 {dn} ragged w={window} split={ks}", out, ref,
+                         tol(dtype), "K2")
+                check(float(out[1].float().abs().max()) == 0.0,
+                      "K2: an inactive slot did not give zeros")
+        # MHA (G = 1), scalar pos, shared (T,) map
+        b, t, h, d = 2, 24, 4, 8
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, h, h, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)
+        out = flash_decode(q, k, v, kvp, t - 1)
+        _compare(f"K2 {dn} MHA scalar pos shared map", out,
+                 flash_decode_plain(q, k, v, kvp, t - 1), tol(dtype), "K2")
+        # G = 16 (chatglm3's grouping), D = 128
+        b, t, hq, hkv, d = 2, 200, 32, 2, 128
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)
+        pos = torch.tensor([199, 57], dtype=i32, device=dev)
+        _compare(f"K2 {dn} G=16 D=128", flash_decode(q, k, v, kvp, pos),
+                 flash_decode_plain(q, k, v, kvp, pos), tol(dtype), "K2")
+        # a wrapped ring: T = 32 slots, window 32, positions past T
+        b, t, hq, hkv, d = 2, 32, 4, 2, 64
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        posl = [70, 40]
+        kvp = torch.from_numpy(np.stack([_ring_map(t, p) for p in posl])).to(
+            dev)
+        pos = torch.tensor(posl, dtype=i32, device=dev)
+        _compare(f"K2 {dn} ring wrap window=32",
+                 flash_decode(q, k, v, kvp, pos, window=32),
+                 flash_decode_plain(q, k, v, kvp, pos, window=32),
+                 tol(dtype), "K2")
+
+    print("[kernels] K3 paged_flash_decode vs plain and vs K2, small cases")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        b, npg, ps, hkv, hq, d = 2, 4, 8, 2, 4, 16
+        kp = torch.from_numpy(rng.randn(b * npg + 3, ps, hkv, d).astype(
+            np.float32)).to(dev, dtype)
+        vp = torch.from_numpy(rng.randn(b * npg + 3, ps, hkv, d).astype(
+            np.float32)).to(dev, dtype)
+        table = torch.tensor([[2, 5, 7, -1], [1, 9, -1, -1]], dtype=i32,
+                             device=dev)
+        pm = torch.full((b, npg * ps), -1, dtype=i32, device=dev)
+        pm[0, :3 * ps] = torch.arange(3 * ps, dtype=i32, device=dev)
+        pm[1, :2 * ps] = torch.arange(2 * ps, dtype=i32, device=dev)
+        pos = torch.tensor([3 * ps - 1, ps + 3], dtype=i32, device=dev)
+        q = torch.from_numpy(rng.randn(b, 1, hq, d).astype(np.float32)).to(
+            dev, dtype)
+        out = paged_flash_decode(q, kp, vp, table, pm, pos)
+        _compare(f"K3 {dn} holes in the table", out,
+                 paged_flash_decode_plain(q, kp, vp, table, pm, pos),
+                 tol(dtype), "K3")
+        kv, vv = paged_view(kp, table, pm), paged_view(vp, table, pm)
+        dense = flash_decode(q, kv, vv, pm, pos, kv_split=npg)
+        torch.cuda.synchronize()
+        check(torch.equal(out, dense), "K3 is not bit-exact against K2 over "
+              "the gathered view")
+        print(f"  K3 {dn} bit-exact vs K2 over the gathered view: ok")
+        # stale and poisoned unmapped pages never leak into the result
+        kp2, vp2 = kp.clone(), vp.clone()
+        for pg in (0, 3, 4, 6, 8, 10):
+            kp2[pg] = 1e4
+            vp2[pg] = float("nan")
+        again = paged_flash_decode(q, kp2, vp2, table, pm, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), "K3 read a stale or unmapped page")
+        print(f"  K3 {dn} stale and NaN pages ignored: ok")
+
+    print("[kernels] K2 and K3 at the gemma3_4b decode shapes: B=4, Hkv=4, "
+          "G=2, D=256, bf16")
+    per_shape = {}
+    b, hkv, g, d = 4, 4, 2, 256
+    hq = hkv * g
+    dtype = torch.bfloat16
+    # global layers: a linear cache of 1280 slots (ragged, all active)
+    posl = [1279, 1105, 700, 333]
+    t = 1280
+    q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+    kvp = torch.arange(t, dtype=i32, device=dev)[None].expand(b, t)
+    kvp = torch.where(kvp <= torch.tensor(posl, device=dev)[:, None], kvp,
+                      torch.full_like(kvp, -1)).contiguous()
+    pos = torch.tensor(posl, dtype=i32, device=dev)
+    out = flash_decode(q, k, v, kvp, pos)
+    err = _compare("K2 global T=1280", out, flash_decode_plain(
+        q, k, v, kvp, pos), TOL_DECODE_BF16, "K2")
+    bound, by = _decode_bound_ms(kvp.cpu().numpy(), posl, 0, b, hq, hkv, d,
+                                 2)
+    per_shape["global_1280"] = {
+        "t": t, "window": 0, "max_abs_err": err,
+        "ms": _time_ms(lambda: flash_decode(q, k, v, kvp, pos)),
+        "plain_ms": _time_ms(lambda: flash_decode_plain(q, k, v, kvp, pos)),
+        "library_ms": _sdpa_ms(q, k, v, kvp, pos, 0),
+        "bound_ms": bound, "bound_by": by}
+    # the same cache paged: 80 pages of 16 positions, pages shuffled
+    ps = 16
+    npg = t // ps
+    perm = torch.from_numpy(rng.permutation(b * npg).astype(np.int32)).to(dev)
+    table = perm.reshape(b, npg).contiguous()
+    kp = torch.empty((b * npg, ps, hkv, d), dtype=dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[table.long()] = k.reshape(b, npg, ps, hkv, d)
+    vp[table.long()] = v.reshape(b, npg, ps, hkv, d)
+    out3 = paged_flash_decode(q, kp, vp, table, kvp, pos)
+    err3 = _compare("K3 global T=1280 (80 pages)", out3,
+                    paged_flash_decode_plain(q, kp, vp, table, kvp, pos),
+                    TOL_DECODE_BF16, "K3")
+    same = flash_decode(q, paged_view(kp, table, kvp),
+                        paged_view(vp, table, kvp), kvp, pos, kv_split=npg)
+    torch.cuda.synchronize()
+    check(torch.equal(out3, same), "K3 is not bit-exact against K2 at the "
+          "main-path shape")
+    print("  K3 bit-exact vs K2 over the gathered view (80 splits): ok")
+    per_shape["paged_1280"] = {
+        "t": t, "page_size": ps, "max_abs_err": err3,
+        "ms": _time_ms(lambda: paged_flash_decode(q, kp, vp, table, kvp,
+                                                  pos)),
+        "plain_ms": _time_ms(lambda: paged_flash_decode_plain(
+            q, kp, vp, table, kvp, pos), reps=5, warmup=1),
+        "library_ms": per_shape["global_1280"]["library_ms"],
+        "bound_ms": bound, "bound_by": by}
+    # local layers: a 1024-slot ring, window 1024, positions past the ring
+    t, window = 1024, 1024
+    posl = [1279, 1105, 700, 333]
+    q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+    kvp_np = np.stack([_ring_map(t, p) for p in posl])
+    kvp = torch.from_numpy(kvp_np).to(dev)
+    pos = torch.tensor(posl, dtype=i32, device=dev)
+    out = flash_decode(q, k, v, kvp, pos, window=window)
+    err = _compare("K2 ring T=1024 window=1024", out, flash_decode_plain(
+        q, k, v, kvp, pos, window=window), TOL_DECODE_BF16, "K2")
+    bound, by = _decode_bound_ms(kvp_np, posl, window, b, hq, hkv, d, 2)
+    per_shape["ring_1024"] = {
+        "t": t, "window": window, "max_abs_err": err,
+        "ms": _time_ms(lambda: flash_decode(q, k, v, kvp, pos,
+                                            window=window)),
+        "plain_ms": _time_ms(lambda: flash_decode_plain(
+            q, k, v, kvp, pos, window=window)),
+        "library_ms": _sdpa_ms(q, k, v, kvp, pos, window),
+        "bound_ms": bound, "bound_by": by}
+    for name, rec in per_shape.items():
+        print(f"  {name:12s} kernel_ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+              f"max|d|={rec['max_abs_err']:.3e}")
+    return per_shape
+
+
+# --------------------------------------------------------------------------
 # phase 3: BERT-base block-sparse serving through K1
 # --------------------------------------------------------------------------
 
@@ -395,12 +660,222 @@ def phase_serving(seed: int, n_requests: int):
         y2 = again.forward(reqs[0])
         check(torch.equal(y2, outs[0]), "reloaded logits are not bit-equal")
     print("[serving] save -> load_servable: logits bit-equal")
-    return launches
+    return {"plan_dds": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 4: gemma3_4b continuous-batching decode through K1, K2 and K3
+# --------------------------------------------------------------------------
+
+LM_PROMPTS = (37, 300, 700, 1100, 300, 37)
+LM_NEW_TOKENS = 32
+# decode_step logits with the flash kernels against the plain
+# decode_attention composition on the same bf16 cache: the composition
+# rounds the probabilities to bf16 before the value product and the kernels
+# keep them fp32, so each attention output differs by about one bf16
+# rounding step (2^-8 relative) and 34 residual layers carry that to the
+# logits. Bar: 5% of max|logits|.
+TOL_FLASH_VS_XLA = 5e-2
+
+
+def _lm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3_4b")
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.n_layers) == (2560, 8, 4, 256, 10240, 262144,
+                                             34),
+          "not gemma3_4b at full width and depth")
+    return cfg
+
+
+def _layer_counts(cfg):
+    prefix, pattern, n_periods, suffix = cfg.layer_plan()
+    kinds = list(prefix) + list(pattern) * n_periods + list(suffix)
+    n_global = sum(1 for k in kinds if k.window == 0)
+    return len(kinds), n_global, len(kinds) - n_global
+
+
+def phase_lm_serving(seed: int):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (decode_kernel_override,
+                                                  flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.models import api as model_api
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    cfg = _lm_config()
+    n_layers, n_global, n_local = _layer_counts(cfg)
+    windows = sorted({k.window for k in cfg.pattern if k.window})
+    print(f"[lm_serving] {cfg.arch}: {n_layers} layers ({n_local} local, "
+          f"window {windows}; {n_global} global), d={cfg.d_model}, "
+          f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}")
+    spec = ServingSpec(tile=(128, 128), sparsity=0.8, prune="tied",
+                       fuse_qkv=True, backend="plan_pallas",
+                       decode_kernel="flash")
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    servable = prepare_servable(params, cfg, spec, device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st = servable.stats()
+    print(f"[lm_serving] init {t_init:.1f} s, prune + export "
+          f"{time.perf_counter() - t0 - t_init:.1f} s; "
+          f"{st['packed_projections']} packed projections, "
+          f"{st['unique_patterns']} unique patterns, density "
+          f"{st['density']:.3f}, registry {st['registry']}; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # every packed projection of a layer is one K1 launch a forward
+    k1_per_pass = sum(
+        cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+        for k in servable.packs)
+    print(f"[lm_serving] K1 launches per decode step and per prefill: "
+          f"{k1_per_pass} (fused QKV, attn wo, ffn wi and wo of every "
+          f"layer; ffn/wg is not a prune target of the spec, so it stays a "
+          f"dense matmul)")
+
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+    results, stats = {}, {}
+    counts = {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    for layout in ("dense", "paged"):
+        eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                              kv_layout=layout)
+        check(eng.kv_layout == layout, f"engine fell back from {layout}")
+        # warm-up: one short request (library loads, cuBLAS handles)
+        eng.submit(prompts[0][:8], max_new_tokens=2)
+        eng.run()
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        # --- the counted main-path run: every count set to 0 just before
+        plan_dds.launches = 0
+        flash_decode.launches = 0
+        paged_flash_decode.launches = 0
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+                   for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"plan_dds": plan_dds.launches,
+               "flash_decode": flash_decode.launches,
+               "paged_flash_decode": paged_flash_decode.launches}
+        for k, v in got.items():
+            counts[k] += v
+        es = eng.stats
+        for h in handles:
+            check(h.status == "done", f"{layout}: request {h.req_id} ended "
+                  f"{h.status} ({h.failure})")
+            check(len(h.tokens) == LM_NEW_TOKENS, f"{layout}: request "
+                  f"{h.req_id} has {len(h.tokens)} tokens")
+        steps = es.steps
+        want = {"plan_dds": k1_per_pass * (steps + es.prefills),
+                "flash_decode": steps * (n_layers if layout == "dense"
+                                         else n_local),
+                "paged_flash_decode": steps * (0 if layout == "dense"
+                                               else n_global)}
+        print(f"[lm_serving] {layout}: {len(handles)} requests done, "
+              f"{es.tokens_generated} tokens, {steps} decode steps in "
+              f"{es.windows} windows, {es.prefills} prefills "
+              f"(buckets {dict(es.bucket_hits)}), mean occupancy "
+              f"{es.mean_occupancy:.2f}")
+        print(f"[lm_serving] {layout}: launches {got} (expected {want})")
+        check(got == want, f"{layout}: kernel launch counts {got} differ "
+              f"from the layer routing {want}")
+        decode_tokens = es.tokens_generated - es.prefills
+        print(f"[lm_serving] {layout}: wall {wall:.3f} s; prefill "
+              f"{es.prefill_s:.3f} s, decode {es.decode_s:.3f} s, sync "
+              f"{es.sync_s:.3f} s; {1e3 * es.decode_s / steps:.3f} ms per "
+              f"decode step, {decode_tokens / es.decode_s:.1f} decode "
+              f"tokens/s, {es.tokens_generated / wall:.1f} tokens/s end to "
+              f"end (host clock, synchronized per window)")
+        results[layout] = [list(h.tokens) for h in handles]
+        stats[layout] = {"steps": steps, "wall_s": wall,
+                         "decode_s": es.decode_s,
+                         "ms_per_step": 1e3 * es.decode_s / steps,
+                         "launches": got}
+        print(f"[lm_serving] {layout}: kv {eng.kv_stats()}")
+
+        # one fused window over four live slots, under the profiler
+        prof_eng = servable.engine(max_slots=4, cache_len=1280,
+                                   sync_every=8, kv_layout=layout)
+        for p in prompts[:4]:
+            prof_eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+        prof_eng._schedule()
+        live = [s for s in range(4) if prof_eng._pos[s] >= 0]
+        check(len(live) == 4, f"{layout}: profiler setup has {live} live")
+
+        def window(e=prof_eng):
+            e.servable.decode_many(
+                e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
+                remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
+        window()
+        _profile(f"{layout} decode window (8 steps, 4 slots)", window, top=10)
+        del prof_eng, eng
+
+    agree = sum(a == b for ra, rb in zip(results["dense"], results["paged"])
+                for a, b in zip(ra, rb))
+    total = sum(len(r) for r in results["dense"])
+    first = [next((i for i, (a, b) in enumerate(zip(ra, rb)) if a != b),
+                  None) for ra, rb in zip(results["dense"],
+                                          results["paged"])]
+    print(f"[lm_serving] greedy tokens, dense vs paged layout: {agree} of "
+          f"{total} equal; first difference per request: {first}")
+
+    # decode_step with the flash kernels against the plain composition on
+    # the same cache (four prefilled slots at ragged positions)
+    cache = servable.init_cache(4, 1280)
+    sub = servable.init_cache(1, 1280)
+    toks, posl = [], []
+    for slot, p in enumerate(prompts[:4]):
+        bucket = min(1280, 1 << (len(p) - 1).bit_length())
+        padded = np.zeros((bucket,), np.int32)
+        padded[:len(p)] = p
+        sub, logits = servable.engine_prefill(
+            sub, torch.from_numpy(padded).to(dev), len(p))
+        servable.engine_write_slot(cache, slot, sub)
+        toks.append(int(torch.argmax(logits[len(p) - 1])))
+        posl.append(len(p))
+    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        with decode_kernel_override("flash"):
+            before = flash_decode.launches
+            y_flash, _ = model_api.decode_step(servable.params, cache, cfg,
+                                               tok, pos, packs=servable.packs)
+            check(flash_decode.launches - before == n_layers,
+                  "the flash decode_step did not run K2 on every layer")
+        with decode_kernel_override("xla"):
+            before = flash_decode.launches
+            y_xla, _ = model_api.decode_step(servable.params, cache, cfg,
+                                             tok, pos, packs=servable.packs)
+            check(flash_decode.launches == before,
+                  "the xla decode_step launched K2")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y_flash).all() and torch.isfinite(y_xla).all()),
+          "non-finite decode logits")
+    err = float((y_flash - y_xla).abs().max())
+    scale = float(y_xla.abs().max())
+    same = int((y_flash.argmax(-1) == y_xla.argmax(-1)).sum())
+    print(f"[lm_serving] decode_step logits, flash vs xla on the same cache: "
+          f"max|d|={err:.4e}, max|logits|={scale:.4e}, tol "
+          f"{TOL_FLASH_VS_XLA * scale:.4e}; greedy tokens equal in "
+          f"{same} of 4 slots")
+    check(err <= TOL_FLASH_VS_XLA * scale,
+          "decode_step logits with the flash kernels disagree with xla")
+    return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serving")
+    ap.add_argument("--phases", default="kernels,serving,lm_serving")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -419,18 +894,25 @@ def main() -> int:
 
     try:
         card = phase_build()
-        per_shape, launches = [], None
+        per_shape, decode_shapes, launches = [], {}, {}
         if "kernels" in phases:
             per_shape = phase_kernels(args.seed)
+            decode_shapes = phase_decode_kernels(args.seed)
         if "serving" in phases:
-            launches = phase_serving(args.seed, args.requests)
+            launches["bert"] = phase_serving(args.seed, args.requests)
+        if "lm_serving" in phases:
+            launches["lm"] = phase_lm_serving(args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    record = {
+    def total(name):
+        counts = [c[name] for c in launches.values() if name in c]
+        return sum(counts) if counts else None
+
+    records = [{
         "name": "plan_dds", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "replaces": REPLACES, "launches": total("plan_dds"),
         # one encoder layer's four projections at M=384 (times summed)
         "max_abs_err": max((r["max_abs_err"] for r in per_shape),
                            default=None),
@@ -444,10 +926,27 @@ def main() -> int:
                       else "operations") if per_shape else None),
         "library_ms": (sum(r["library_ms"] for r in per_shape)
                        if per_shape else None),
+        "launches_by_path": {k: c.get("plan_dds") for k, c in
+                             launches.items()},
         "per_shape": per_shape,
-    }
+    }]
+    # K2 at the ring shape (29 of gemma3_4b's 34 layers), K3 at the paged
+    # global shape; every shape's numbers ride along in per_shape
+    for name, main_shape, shapes in (
+            ("flash_decode", "ring_1024", ("ring_1024", "global_1280")),
+            ("paged_flash_decode", "paged_1280", ("paged_1280",))):
+        rec = decode_shapes.get(main_shape, {})
+        records.append({
+            "name": name, "route": "cuda", "source": DECODE_SOURCE,
+            "replaces": DECODE_REPLACES[name], "launches": total(name),
+            "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
+            "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms"),
+            "per_shape": {k: decode_shapes[k] for k in shapes
+                          if k in decode_shapes}})
     print(f"card: {card}")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

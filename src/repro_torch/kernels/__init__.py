@@ -1,4 +1,5 @@
-"""Block-sparse kernels: host packs, execution plans, kernel K1."""
+"""Kernels: host packs, execution plans, K1 (block-sparse matmul) and
+K2 / K3 (split-K decode attention)."""
 from repro_torch.kernels.bsr_matmul import (KernelBSR, PlanSchedule,
                                             pack_bsr, plan_dds)
 from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
@@ -11,4 +12,10 @@ from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
                                            plan_linear_pallas, plan_matmul,
                                            plan_matmul_pallas, plan_schedule,
                                            unpack_plan_data)
+from repro_torch.kernels.flash_decode import (decode_kernel_override,
+                                              default_kv_split, flash_decode,
+                                              flash_decode_plain,
+                                              paged_flash_decode,
+                                              paged_flash_decode_plain,
+                                              resolved_decode_kernel)
 from repro_torch.kernels.ops import default_plan_backend, plan_dispatch

@@ -60,21 +60,22 @@ def _host(w) -> np.ndarray:
     return np.asarray(w)
 
 
-def pack_bsr(w, tile: Tuple[int, int], nnzt: int | None = None) -> KernelBSR:
-    """Pack a dense (N, K) weight (numpy or tensor) into a KernelBSR.
-
-    Guarantees every block row AND every block column stores >= 1 tile
-    (zero-valued if empty), so the write-on-row-change protocol covers all
-    outputs in the forward and the transposed orientation.
-    """
-    w = _host(w)
-    n, k = w.shape
+def pattern_from_mask(mask: np.ndarray, shape: Tuple[int, int],
+                      tile: Tuple[int, int], nnzt: int | None = None,
+                      dtype=np.float32) -> Tuple[KernelBSR, np.ndarray,
+                                                 np.ndarray]:
+    """The KernelBSR pattern of a (n_brows, n_bcols) tile mask, with every
+    block row AND every block column given >= 1 stored tile (a zero tile
+    where empty), so the write-on-row-change protocol covers all outputs in
+    the forward and the transposed orientation. Returns (pack with zero
+    ``data``, stored-tile rows, stored-tile cols) -- the caller fills
+    ``data`` from the weight."""
+    n, k = shape
     bn, bk = tile
-    assert n % bn == 0 and k % bk == 0, (w.shape, tile)
-    nbr, nbc = n // bn, k // bk
-
-    blocks = w.reshape(nbr, bn, nbc, bk).transpose(0, 2, 1, 3)
-    mask = np.any(blocks != 0, axis=(2, 3))
+    if n % bn or k % bk:
+        raise ValueError(f"shape {shape} is not a multiple of tile {tile}")
+    nbr = n // bn
+    mask = np.array(mask, dtype=bool)
     for r in np.nonzero(~mask.any(axis=1))[0]:
         mask[r, 0] = True
     for c in np.nonzero(~mask.any(axis=0))[0]:
@@ -85,17 +86,29 @@ def pack_bsr(w, tile: Tuple[int, int], nnzt: int | None = None) -> KernelBSR:
         nnzt = real
     if real > nnzt:
         raise ValueError(f"nnzt={nnzt} < required tiles {real}")
-
-    data = np.zeros((nnzt, bn, bk), dtype=w.dtype)
-    data[:real] = blocks[rows, cols]
     row_id = np.full((nnzt + 1,), nbr, dtype=np.int32)
     row_id[:real] = rows
     row_id[real:nnzt] = nbr - 1        # padding tiles live in the last row
     col_id = np.zeros((nnzt,), dtype=np.int32)
     col_id[:real] = cols
-
     t_perm = np.lexsort((row_id[:nnzt], col_id)).astype(np.int32)
-    return KernelBSR(data, row_id, col_id, t_perm, real, (n, k), tile)
+    data = np.zeros((nnzt, bn, bk), dtype=dtype)
+    return (KernelBSR(data, row_id, col_id, t_perm, real, (n, k), tile),
+            rows, cols)
+
+
+def pack_bsr(w, tile: Tuple[int, int], nnzt: int | None = None) -> KernelBSR:
+    """Pack a dense (N, K) weight (numpy or tensor) into a KernelBSR
+    (pattern from :func:`pattern_from_mask` over the nonzero tiles)."""
+    w = _host(w)
+    n, k = w.shape
+    bn, bk = tile
+    assert n % bn == 0 and k % bk == 0, (w.shape, tile)
+    blocks = w.reshape(n // bn, bn, k // bk, bk).transpose(0, 2, 1, 3)
+    pack, rows, cols = pattern_from_mask(
+        np.any(blocks != 0, axis=(2, 3)), (n, k), tile, nnzt, w.dtype)
+    pack.data[:len(rows)] = blocks[rows, cols]
+    return pack
 
 
 # --------------------------------------------------------------------------

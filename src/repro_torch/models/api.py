@@ -1,7 +1,12 @@
-"""Family-dispatching model API (this slice: the ``bert`` family).
+"""Family-dispatching model API: the ``bert`` family and the LM half for the
+``dense`` family.
 
-Counterpart of ``repro/models/api.py``; batch key for bert: ``tokens``.
-The other families come with ROADMAP.md Queue 1 items 9 and slice 5.
+Counterpart of ``repro/models/api.py``. Batch keys: ``tokens`` (B, S) for
+both families. Decode caches are preallocated and updated **in place**
+(where the reference returns updated copies and its engine donates the old
+buffers): every function below that takes a cache writes into it and
+returns the same tree. The other families come with ROADMAP.md Queue 1
+slice 5; audio (enc-dec) decoding with it too.
 """
 from __future__ import annotations
 
@@ -10,32 +15,195 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import bert as bert_mod
+from repro_torch.models import lm as lm_mod
+from repro_torch.models.attention import as_slot_positions
+from repro_torch.models.sampling import sample_tokens
 
-_ITEM_FAMILIES = ("ROADMAP.md Queue 1 item 9 (LM path) and slice 5 (the "
-                  "other families)")
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
+_FAMILIES = ("bert", "dense")
 
 
-def _bert_only(cfg: ModelConfig):
-    if cfg.family != "bert":
+def _ported(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with "
             f"{_ITEM_FAMILIES}")
 
 
+def _lm_only(cfg: ModelConfig):
+    _ported(cfg)
+    if cfg.family == "bert":
+        raise ValueError("encoder-only arch has no decode step")
+
+
 def init_model(seed, cfg: ModelConfig, device=None):
     """Seeded random weights on ``device`` (the CUDA card by default).
     ``seed`` is an int or a ``torch.Generator`` on that device."""
-    _bert_only(cfg)
+    _ported(cfg)
     dev = resolve_device(device)
     gen = seed
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-    return bert_mod.init_bert(gen, cfg, device=dev)
+    if cfg.family == "bert":
+        return bert_mod.init_bert(gen, cfg, device=dev)
+    return lm_mod.init_lm(gen, cfg, device=dev)
 
 
 def model_forward(params, cfg: ModelConfig, batch, packs=None):
     """-> (logits fp32, aux)."""
-    _bert_only(cfg)
-    logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    _ported(cfg)
+    if cfg.family == "bert":
+        logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+    return lm_mod.forward(params, cfg, batch["tokens"], packs=packs)
+
+
+def _device_of(params):
+    return params["embed"]["w"].device
+
+
+def init_cache(params, cfg: ModelConfig, batch_size, cache_len, frames=None,
+               paged=None):
+    """A zeroed decode cache on the params' device. ``paged``
+    (``models.common.PagedLayout`` or None): page-pool storage for the
+    global attention layers (``serving/paging.py`` hands out page ids)."""
+    _lm_only(cfg)
+    if frames is not None:
+        raise NotImplementedError(f"encoder frames come with {_ITEM_FAMILIES}")
+    return lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
+                             device=_device_of(params))
+
+
+def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
+    """``pos``: scalar or int32 (B,) ragged per-slot positions; rows with
+    pos < 0 are inactive slots whose cache state is left untouched. Returns
+    (logits (B, 1, V) fp32, cache) with the cache written in place."""
+    _lm_only(cfg)
+    return lm_mod.decode_step(params, cache, cfg, token, pos, packs=packs)
+
+
+def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
+                packs=None, remaining=None, eos_id=None, key=None,
+                temperature: float = 0.0, top_k: int = 0):
+    """``n_steps`` decode steps with greedy sampling, per-slot EOS / token
+    budget handling and position bookkeeping all on the device: a Python
+    loop that never reads a device value, so the host syncs once per window
+    (when the caller reads the results).
+
+    token (B, 1) int; pos scalar or (B,) (pos < 0 = inactive, a no-op row);
+    ``remaining`` optional (B,) token budget (a slot that spends it
+    deactivates); ``eos_id`` optional scalar or (B,) stop token (-1 = none;
+    sampling it deactivates the slot after emitting it). A slot whose logits
+    row goes non-finite is quarantined on the device: its token is not
+    emitted, it deactivates and ``state['failed']`` flags it; other slots
+    are untouched.
+
+    Returns ``(tokens (K, B) int32, valid (K, B) bool, state)`` with state
+    ``{'token', 'pos', 'remaining', 'failed', 'cache'}``.
+    """
+    _lm_only(cfg)
+    dev = _device_of(params)
+    b = token.shape[0]
+    tok = torch.as_tensor(token, device=dev).to(torch.int32)
+    pos = as_slot_positions(pos, b, dev)
+    if remaining is None:
+        rem = torch.full((b,), (2 ** 31 - 1) // 2, dtype=torch.int32,
+                         device=dev)
+    else:
+        rem = torch.as_tensor(remaining, device=dev).to(torch.int32)
+    if eos_id is None:
+        eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    else:
+        eos = torch.as_tensor(eos_id, device=dev).to(torch.int32).expand(b)
+    bad = torch.zeros((b,), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    toks, valid = [], []
+    for _ in range(int(n_steps)):
+        logits, cache = decode_step(params, cache, cfg, tok, pos,
+                                    packs=packs)
+        rows = logits[:, 0, :]
+        finite = torch.isfinite(rows).all(dim=-1)
+        nxt = sample_tokens(rows, key, pos, temperature=temperature,
+                            top_k=top_k)
+        active = pos >= 0
+        poisoned = active & ~finite
+        emit = active & finite
+        nxt = torch.where(emit, nxt, zero)
+        rem = torch.where(emit, rem - 1, rem)
+        done = emit & ((rem <= 0) | ((eos >= 0) & (nxt == eos)))
+        pos = torch.where(done | poisoned, minus1,
+                          torch.where(active, pos + 1, pos))
+        tok = torch.where(emit, nxt, tok[:, 0])[:, None]
+        bad = bad | poisoned
+        toks.append(nxt)
+        valid.append(emit)
+    state = {"token": tok, "pos": pos, "remaining": rem, "failed": bad,
+             "cache": cache}
+    return torch.stack(toks), torch.stack(valid), state
+
+
+def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None,
+                  packs=None):
+    """One-pass prompt prefill into a decode cache: forward-path compute for
+    tokens (B, S), in-place cache rewrite for positions 0..length-1. Returns
+    (logits (B, S, V) fp32, cache)."""
+    _lm_only(cfg)
+    return lm_mod.prefill_cache(params, cache, cfg, tokens, length,
+                                packs=packs)
+
+
+def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
+                   length=None, packs=None):
+    """Prefill only the suffix of a prompt whose first ``start`` tokens are
+    already resident in slot ``slot`` of the batched paged engine cache
+    (the prefix-cache hit path; see lm.prefill_suffix)."""
+    _lm_only(cfg)
+    return lm_mod.prefill_suffix(params, cache, cfg, tokens, slot, start,
+                                 length, packs=packs)
+
+
+# ---------------------------------------------------------------------------
+# slot lifecycle: the batch dimension of a decode cache is request slots
+# ---------------------------------------------------------------------------
+
+def reset_slot(cache, cfg: ModelConfig, slot):
+    """Empty one request slot in place (KV zeros, pos_map -1)."""
+    _lm_only(cfg)
+    return lm_mod.reset_slot(cache, slot)
+
+
+def alloc_slot(cache, cfg: ModelConfig, slot):
+    """Claim ``slot`` for a new request (a fresh slot is an empty slot)."""
+    return reset_slot(cache, cfg, slot)
+
+
+def free_slot(cache, cfg: ModelConfig, slot):
+    """Retire ``slot`` after its request ends (recycle hygiene)."""
+    return reset_slot(cache, cfg, slot)
+
+
+def write_slot(cache, cfg: ModelConfig, slot, sub):
+    """Copy a batch-1 cache (e.g. a prefill result) into ``slot``."""
+    _lm_only(cfg)
+    return lm_mod.write_slot(cache, slot, sub)
+
+
+def read_slot(cache, cfg: ModelConfig, slot):
+    """``slot`` as a new batch-1 cache (write_slot's inverse; a copy)."""
+    _lm_only(cfg)
+    return lm_mod.read_slot(cache, slot)
+
+
+def write_slot_paged(cache, cfg: ModelConfig, slot, sub, page_row):
+    """Insert a dense batch-1 prefill result into paged slot ``slot``."""
+    _lm_only(cfg)
+    return lm_mod.write_slot_paged(cache, slot, sub, page_row)
+
+
+def restore_slot_paged(cache, cfg: ModelConfig, slot, page_row, resume_len):
+    """Re-attach retained pages to ``slot`` (see lm.restore_slot_paged)."""
+    _lm_only(cfg)
+    return lm_mod.restore_slot_paged(cache, slot, page_row, resume_len)

@@ -1,19 +1,80 @@
-"""Attention for the BERT encoder: bidirectional, no cache.
+"""Attention: GQA with RoPE, causal / windowed / chunked-flash prefill,
+and single-token decode against (ring-)KV caches, dense or paged.
 
-Counterpart of the BERT part of ``repro/models/attention.py``: the head
-split/merge, ``init_attention``, the materialized-scores ``full_attention``
-with ``causal=False``, and the no-cache branch of ``apply_attention``
-(including the fused-QKV split). Written as plain tensor code like the
-reference's einsums. The causal, windowed, flash and cached decode paths
-come with the LM slice (ROADMAP.md Queue 1 item 9).
+Counterpart of ``repro/models/attention.py``. The decode branches reach the
+split-K kernels of ``kernels/flash_decode.py`` (K2 for dense slot caches,
+K3 for page pools) or the plain ``decode_attention`` composition, as
+:func:`~repro_torch.kernels.flash_decode.resolved_decode_kernel` says.
+
+Caches are preallocated and written **in place**: where the reference
+returns an updated copy of the cache (and its serving engine donates the
+old buffers to the compiled step), every cached branch here writes the new
+K/V rows and positions into the given tensors and returns the same dict.
+
+Not ported here: the int8 KV cache (``kv_cache_quant``), cross-attention
+(``kv_override``, the audio family), the dense chunk-prefill branch of the
+SLO scheduler and the flash-attention backward; each raises, naming the
+ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import init_linear, linear
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              paged_flash_decode,
+                                              resolved_decode_kernel)
+from repro_torch.models.common import (apply_rope, init_linear, linear,
+                                       paged_row_write, paged_view, rms_norm)
 
-_ITEM_LM = "ROADMAP.md Queue 1 item 9 (the LM model path)"
+NEG_INF = -1e30
+
+_ITEM_INT8 = "ROADMAP.md Queue 1 item 11 (the int8 KV cache)"
+_ITEM_SCHED = "ROADMAP.md Queue 1 item 11 (SchedSpec chunked prefill)"
+_ITEM_AUDIO = "ROADMAP.md Queue 1 slice 5 (the audio family)"
+
+
+def as_slot_positions(pos, batch, device=None):
+    """Normalize ``pos`` to the ragged per-slot form: an int32 (B,) vector.
+
+    A scalar ``pos`` -- the single-request calling convention -- broadcasts
+    to every row. Negative entries mark inactive slots: their cache writes
+    are suppressed and their outputs are meaningless."""
+    pos = torch.as_tensor(pos, device=device)
+    return pos.to(torch.int32).expand(batch).contiguous()
+
+
+def _masked_row_write(buf, rows, slot, val, active):
+    """Write ``val[i]`` into ``buf[i, slot[i]]`` where ``active[i]``, in
+    place; inactive rows store their old content back (one scatter, no host
+    sync; ``rows`` are distinct, so no two writers meet)."""
+    keep = active.reshape((-1,) + (1,) * (val.dim() - 1))
+    old = buf[rows, slot]
+    buf[rows, slot] = torch.where(keep, val.to(buf.dtype), old)
+    return buf
+
+
+def slot_reset_value(name: str) -> int:
+    """Reset value for one cache leaf's slot slice: ``pos_map`` and
+    ``page_table`` empty out to -1, everything else to 0. Page-pool leaves
+    (``*_pages``) are never reset per slot: their axis 0 is physical pages."""
+    return -1 if name in ("pos_map", "page_table") else 0
+
+
+def prefill_slot_sources(t, length, s, device=None):
+    """Cache-slot gather plan for a one-pass prompt prefill.
+
+    A prompt of ``length`` tokens (padded to ``s``, positions 0..length-1)
+    lands in a T-slot ring cache at slot = pos % T; slot j ends up holding
+    the latest position congruent to j. Returns ``(src, pos)``: per-slot
+    source index into the (B, S, ...) prefill tensors (clipped) and the
+    per-slot absolute position (-1 = empty). Linear caches (T >= prompt)
+    are the ring's trivial case: slot j <- position j."""
+    j = torch.arange(t, device=device)
+    last = int(length) - 1
+    src = j + t * torch.div(last - j, t, rounding_mode="floor")
+    ok = (src >= 0) & (src <= last)
+    return (src.clamp(0, s - 1),
+            torch.where(ok, src, torch.full_like(src, -1)).to(torch.int32))
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -25,6 +86,195 @@ def _merge_heads(x):
     b, s, h, d = x.shape
     return x.reshape(b, s, h * d)
 
+
+# ---------------------------------------------------------------------------
+# core attention math (all paths share the grouped-heads convention)
+# ---------------------------------------------------------------------------
+
+def _neg_inf_like(s):
+    return torch.full((), NEG_INF, dtype=s.dtype, device=s.device)
+
+
+def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                   softcap=0.0):
+    """Materialized-scores path for short sequences. q: (B,S,Hq,D), k/v:
+    (B,T,Hkv,D). Scores in fp32 scaled by D**-0.5, softmax in fp32,
+    probabilities cast to v's dtype before the value product."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                          k.float()) * (d ** -0.5)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    if causal or window > 0:
+        qpos = q_offset + torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window > 0:
+            ok = ok & ((qpos - kpos) < window)
+        scores = torch.where(ok, scores, _neg_inf_like(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype), v)
+    return out.reshape(b, s, hq, d)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    q_chunk=1024, kv_chunk=1024, softcap=0.0):
+    """Chunked online-softmax attention, forward only: O(Cq*Ckv) scores live
+    at a time. The reference's forward (``_flash_fwd_impl``) as a plain
+    composition: per (query chunk, KV chunk) tile, masked scores, the
+    running max, probabilities stored in q's dtype, fp32 sums."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    cq, ck = min(q_chunk, s), min(kv_chunk, t)
+    nq, nk = -(-s // cq), -(-t // ck)
+    scale = d ** -0.5
+    qg = q.reshape(b, s, hkv, g, d)
+    outs = []
+    for qi in range(nq):
+        qblk = qg[:, qi * cq:(qi + 1) * cq].permute(0, 2, 3, 1, 4).float()
+        n_q = qblk.shape[3]
+        qpos = q_offset + qi * cq + torch.arange(n_q, device=q.device)
+        m = torch.full((b, hkv, g, n_q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, n_q, d), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            kblk = k[:, ki * ck:(ki + 1) * ck].permute(0, 2, 1, 3)
+            vblk = v[:, ki * ck:(ki + 1) * ck].permute(0, 2, 1, 3)
+            kpos = ki * ck + torch.arange(kblk.shape[2], device=q.device)
+            s_ = torch.einsum("bhgqd,bhkd->bhgqk", qblk,
+                              kblk.float()) * scale
+            if softcap > 0:
+                s_ = torch.tanh(s_ / softcap) * softcap
+            ok = torch.ones((n_q, kpos.shape[0]), dtype=torch.bool,
+                            device=q.device)
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            if window > 0:
+                ok = ok & ((qpos[:, None] - kpos[None, :]) < window)
+            m_new = torch.maximum(m, torch.where(
+                ok, s_, _neg_inf_like(s_)).amax(dim=-1))
+            p = torch.where(ok, torch.exp(s_ - m_new[..., None]),
+                            torch.zeros((), device=q.device)).to(q.dtype)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.float().sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p.float(), vblk.float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, n_q, hq, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def local_attention(q, k, v, *, window, q_offset=0):
+    """Banded causal attention: FLOPs O(S * window), not O(S^2). Each query
+    chunk (chunk size C divides the window) attends the previous
+    ``window // C`` key chunks plus its own."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if s != t:
+        raise ValueError("local_attention is a self-attention prefill path")
+    g = hq // hkv
+    c = min(window, 1024)
+    if window % c:
+        raise ValueError(f"window {window} is not a multiple of {c}")
+    n_prev = window // c
+    pad = (-s) % c
+
+    def padded(x):
+        if not pad:
+            return x
+        z = x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))
+        return torch.cat([x, z], dim=1)
+    q, k, v = padded(q), padded(k), padded(v)
+    n = (s + pad) // c
+    qb = q.reshape(b, n, c, hkv, g, d)
+    kc = k.reshape(b, n, c, hkv, d)
+    vc = v.reshape(b, n, c, hkv, d)
+
+    def shifted(x, sh):  # chunk i -> chunk i-sh (zero for i<sh)
+        z = x.new_zeros((x.shape[0], sh) + tuple(x.shape[2:]))
+        return torch.cat([z, x], dim=1)[:, :n]
+
+    k_ext = torch.cat([shifted(kc, p) for p in range(n_prev, 0, -1)] + [kc],
+                      dim=2)                       # (b, n, (n_prev+1)c, h, d)
+    v_ext = torch.cat([shifted(vc, p) for p in range(n_prev, 0, -1)] + [vc],
+                      dim=2)
+    scores = torch.einsum("bnchgd,bnkhd->bnhgck", qb.float(),
+                          k_ext.float()) * (d ** -0.5)
+    dev = q.device
+    ci = torch.arange(n, device=dev)[:, None, None]
+    a = torch.arange(c, device=dev)[None, :, None]
+    bcol = torch.arange((n_prev + 1) * c, device=dev)[None, None, :]
+    qpos = ci * c + a
+    kpos = (ci - n_prev) * c + bcol
+    ok = (kpos >= 0) & (kpos <= qpos) & (qpos - kpos < window) & (kpos < s)
+    scores = torch.where(ok[None, :, None, None], scores,
+                         _neg_inf_like(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnhgck,bnkhd->bnchgd", p.to(v_ext.dtype), v_ext)
+    return out.reshape(b, n * c, hq, d)[:, :s]
+
+
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0):
+    """One-step decode, the plain composition: q (B,1,Hq,D) vs caches
+    (B,T,Hkv,D). ``kv_positions`` holds the absolute position stored in
+    each cache slot (-1 = empty), (T,) shared or (B,T) per slot; ``pos`` a
+    scalar or ragged (B,) vector. Probabilities are cast to the cache dtype
+    for the value product, as the reference does."""
+    b, _, hq, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, 1, hkv, g, d)
+    scores = torch.einsum("bqhgd,bthd->bhgqt", qg.float(),
+                          k_cache.float()) * (d ** -0.5)
+    kvp = kv_positions if kv_positions.dim() == 2 else kv_positions[None, :]
+    posv = torch.as_tensor(pos, device=q.device).to(torch.int32)
+    posv = posv[:, None] if posv.dim() else posv.reshape(1, 1)
+    ok = (kvp >= 0) & (kvp <= posv)
+    if window > 0:
+        ok = ok & (kvp > posv - window)
+    scores = torch.where(ok[:, None, None, None, :], scores,
+                         _neg_inf_like(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqt,bthd->bqhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, hq, d)
+
+
+def masked_attention(q, k, v, ok):
+    """Materialized-scores attention under an explicit boolean mask ``ok``
+    (B, S, T): q (B,S,Hq,D) vs k/v (B,T,Hkv,D)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                          k.float()) * (d ** -0.5)
+    scores = torch.where(ok[:, None, None], scores, _neg_inf_like(scores))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype), v)
+    return out.reshape(b, s, hq, d)
+
+
+def paged_suffix_positions(pos_map_len, start, length, device=None):
+    """pos_map row after a suffix prefill of ``length`` real tokens starting
+    at absolute position ``start`` on a slot whose shared-prefix pages
+    already cover positions 0..start-1."""
+    ar = torch.arange(pos_map_len, device=device, dtype=torch.int32)
+    return torch.where(ar < int(start) + int(length), ar,
+                       torch.full_like(ar, -1))
+
+
+# ---------------------------------------------------------------------------
+# the GQA attention layer (projections + rope + cache plumbing)
+# ---------------------------------------------------------------------------
 
 def init_attention(gen, cfg, device=None):
     d, hd = cfg.d_model, cfg.head_dim
@@ -39,38 +289,108 @@ def init_attention(gen, cfg, device=None):
     return p
 
 
-def full_attention(q, k, v, *, causal=False):
-    """Materialized-scores attention. q: (B,S,Hq,D), k/v: (B,T,Hkv,D).
-    Scores in fp32 scaled by D**-0.5, softmax in fp32, probabilities cast
-    to v's dtype before the value product."""
-    if causal:
-        raise NotImplementedError(f"causal attention comes with {_ITEM_LM}")
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, s, hkv, g, d)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
-                          k.float()) * (d ** -0.5)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype), v)
-    return out.reshape(b, s, hq, d)
+def init_cache_attn(cfg, batch, cache_len, window=0, dtype=None, paged=None,
+                    device=None):
+    """Linear cache for global layers, ring cache (len = window) for local.
+    ``pos_map`` is (batch, T): each request slot tracks its own occupancy.
+
+    ``paged`` (a ``models.common.PagedLayout``) switches GLOBAL layers to
+    the pooled layout: K/V live in (n_pages, page_size, Hkv, D) page pools
+    addressed through a per-slot ``page_table`` (batch, T // page_size)
+    (-1 = unmapped); ``pos_map`` keeps its dense (batch, T) form. Ring
+    caches (window > 0) stay slot-dense."""
+    if cfg.kv_cache_quant:
+        raise NotImplementedError(f"kv_cache_quant comes with {_ITEM_INT8}")
+    t = min(cache_len, window) if window > 0 else cache_len
+    dtype = dtype or cfg.tdtype
+    i32 = torch.int32
+    if paged is not None and window == 0:
+        npg = paged.table_width(cache_len)
+        pshape = (paged.n_pages, paged.page_size, cfg.n_kv_heads,
+                  cfg.head_dim)
+        return {"k_pages": torch.zeros(pshape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(pshape, dtype=dtype, device=device),
+                "page_table": torch.full((batch, npg), -1, dtype=i32,
+                                         device=device),
+                "pos_map": torch.full((batch, t), -1, dtype=i32,
+                                      device=device)}
+    shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos_map": torch.full((batch, t), -1, dtype=i32, device=device)}
 
 
-def apply_attention(p, x, cfg, *, causal=True, packs=None):
-    """x: (B,S,d) -> (out, None), the no-cache bidirectional path.
+def _write_prefill_kv(cache, k, v, length):
+    """One-pass prompt prefill, in place: replace the slot cache's contents
+    with the K/V of positions 0..length-1 (k/v: (B, S>=length, Hkv, D)).
+    Ring caches keep the window-latest positions; every other slot becomes
+    empty (zeros, position -1), so a reused cache keeps nothing of its
+    previous prompt."""
+    b, s = k.shape[0], k.shape[1]
+    t = cache["k"].shape[1]
+    src, slot_pos = prefill_slot_sources(t, length, s, device=k.device)
+    keep = (slot_pos >= 0).reshape(1, t, 1, 1)
+    zero = torch.zeros((), dtype=cache["k"].dtype, device=k.device)
+    cache["k"].copy_(torch.where(keep, k[:, src].to(zero.dtype), zero))
+    cache["v"].copy_(torch.where(keep, v[:, src].to(zero.dtype), zero))
+    cache["pos_map"].copy_(slot_pos[None].expand(b, t))
+    return cache
+
+
+def _suffix_prefill_paged(p, q, k, v, cache, packs, *, length, page_slot,
+                          page_start):
+    """Paged suffix prefill: one slot's new prompt tokens at absolute
+    positions page_start.. are written into its installed pages (valid
+    rows only) and attend over the page view, whose low pages hold a shared
+    prefix that was never re-prefilled."""
+    b, s = q.shape[0], q.shape[1]
+    if b != 1:
+        raise ValueError("a paged suffix prefill takes one slot's tokens")
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    n, ps = kp.shape[0], kp.shape[1]
+    npg = cache["page_table"].shape[1]
+    slot, start = int(page_slot), int(page_start)
+    dev = q.device
+    pt_row = cache["page_table"][slot]                          # (NP,)
+    pos_i = start + torch.arange(s, device=dev)
+    pp = pt_row[(pos_i // ps).clamp(0, npg - 1)].long()
+    valid = (torch.arange(s, device=dev) < int(length)) & (pp >= 0)
+    dest = (pp * ps + pos_i % ps)[valid]
+    kp.view((n * ps,) + tuple(kp.shape[2:]))[dest] = k[0][valid].to(kp.dtype)
+    vp.view((n * ps,) + tuple(vp.shape[2:]))[dest] = v[0][valid].to(vp.dtype)
+    pm_row = paged_suffix_positions(npg * ps, start, length, device=dev)
+    cache["pos_map"][slot] = pm_row
+    k_view = paged_view(kp, pt_row[None], pm_row[None])          # (1,T,H,D)
+    v_view = paged_view(vp, pt_row[None], pm_row[None])
+    qpos = pos_i[None, :, None]                                  # (1,S,1)
+    ok = (pm_row[None, None, :] >= 0) & (pm_row[None, None, :] <= qpos)
+    out = masked_attention(q, k_view, v_view, ok)
+    return linear(p["wo"], _merge_heads(out), packs and packs.get("wo"))
+
+
+def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
+                    pos=None, packs=None, causal=True, kv_override=None,
+                    prefill_len=None, page_slot=None, page_start=None):
+    """x: (B,S,d) -> (out, cache). No cache: the train/encoder path (BERT
+    calls it with ``causal=False``). With a cache and S > 1, a prompt
+    prefill: causal attention over the S tokens plus an in-place bulk write
+    of positions 0..prefill_len-1 (tokens past it are bucket padding and
+    leave no trace). With S == 1, one decode step at ragged ``pos``: the new
+    K/V rows are written in place and attention runs through K2/K3 or the
+    plain composition (``resolved_decode_kernel``).
+
+    A paged cache (``k_pages``/``v_pages``/``page_table``) decodes straight
+    off its pools and, with ``page_slot``/``page_start`` and S > 1, runs
+    the shared-prefix suffix prefill. Whole-cache prefill on a paged layout
+    is not defined: the engine prefills a dense batch-1 sub-cache and
+    page-writes it (``lm.write_slot_paged``).
 
     When the sparse export fused the q/k/v projections (``packs['wqkv']``),
     one block-sparse matmul produces all three and the output is split at
     the (Hq*D, Hkv*D, Hkv*D) boundaries."""
-    if causal:
-        raise NotImplementedError(
-            f"causal and cached attention come with {_ITEM_LM}")
-    if "q_norm" in p or cfg.rotary_fraction > 0:
-        raise NotImplementedError(f"qk-norm and RoPE come with {_ITEM_LM}")
-    s = x.shape[1]
-    if s > 2048:
-        raise NotImplementedError(
-            f"flash attention (sequences over 2048) comes with {_ITEM_LM}")
+    if kv_override is not None:
+        raise NotImplementedError(f"cross-attention comes with {_ITEM_AUDIO}")
+    b, s, _ = x.shape
     hd = cfg.head_dim
     fused = packs.get("wqkv") if packs else None
     if fused is not None:
@@ -86,6 +406,82 @@ def apply_attention(p, x, cfg, *, causal=True, packs=None):
                          cfg.n_kv_heads, hd)
         v = _split_heads(linear(p["wv"], x, packs and packs.get("wv")),
                          cfg.n_kv_heads, hd)
-    out = full_attention(q, k, v, causal=False)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
+    if cfg.rotary_fraction > 0 and positions is not None:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       rotary_fraction=cfg.rotary_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       rotary_fraction=cfg.rotary_fraction)
+
+    paged = cache is not None and "k_pages" in cache
+    if cache is not None and "k_scale" in cache:
+        raise NotImplementedError(f"kv_cache_quant comes with {_ITEM_INT8}")
+    if cache is not None and s > 1 and page_slot is not None:
+        if not paged:
+            raise NotImplementedError(
+                f"dense chunked prefill comes with {_ITEM_SCHED}")
+        out = _suffix_prefill_paged(
+            p, q, k, v, cache, packs, page_slot=page_slot,
+            page_start=page_start,
+            length=s if prefill_len is None else prefill_len)
+        return out, cache
+    if paged and s > 1:
+        raise NotImplementedError(
+            "whole-cache prompt prefill is undefined for a paged KV layout; "
+            "prefill a dense batch-1 sub-cache and insert it with "
+            "write_slot_paged, or pass page_slot/page_start for a "
+            "shared-prefix suffix prefill")
+    if cache is None or s > 1:
+        if not causal:
+            out = full_attention(q, k, v, causal=False) if s <= 2048 else \
+                flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+        elif window > 0 and s > window:
+            out = local_attention(q, k, v, window=window)
+        elif s <= 1024:
+            out = full_attention(q, k, v, causal=True, window=window)
+        else:
+            out = flash_attention(q, k, v, causal=True, window=window,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                  softcap=cfg.attn_logit_softcap)
+        if cache is not None:       # prompt prefill: bulk-write the KV
+            _write_prefill_kv(cache, k, v,
+                              s if prefill_len is None else prefill_len)
+    else:
+        if pos is None:
+            raise ValueError("a decode step (S == 1) needs pos")
+        posv = as_slot_positions(pos, b, x.device)
+        active = posv >= 0
+        rows = torch.arange(b, device=x.device)
+        kind = resolved_decode_kernel(q.device)
+        pm = cache["pos_map"]
+        if paged:
+            kp, vp, pt = cache["k_pages"], cache["v_pages"], \
+                cache["page_table"]
+            paged_row_write(kp, pt, posv, k[:, 0], active)
+            paged_row_write(vp, pt, posv, v[:, 0], active)
+            slot = posv.long().clamp_min(0)
+            _masked_row_write(pm, rows, slot, posv.clamp_min(0), active)
+            if kind == "flash":
+                # K3 reads the pages in place through the table
+                out = paged_flash_decode(q, kp, vp, pt, pm, posv,
+                                         window=window)
+            else:
+                out = decode_attention(q, paged_view(kp, pt, pm),
+                                       paged_view(vp, pt, pm), pm, posv,
+                                       window=window)
+        else:
+            ck, cv = cache["k"], cache["v"]
+            t = ck.shape[1]
+            slot = posv.long().clamp_min(0) % t              # ring slots
+            _masked_row_write(pm, rows, slot, posv.clamp_min(0), active)
+            _masked_row_write(ck, rows, slot, k[:, 0], active)
+            _masked_row_write(cv, rows, slot, v[:, 0], active)
+            if kind == "flash":
+                out = flash_decode(q, ck, cv, pm, posv, window=window)
+            else:
+                out = decode_attention(q, ck, cv, pm, posv, window=window)
     out = linear(p["wo"], _merge_heads(out), packs and packs.get("wo"))
-    return out, None
+    return out, cache

@@ -1,0 +1,407 @@
+"""Decoder-only LM of the dense family (global and windowed attention layers,
+dense MLPs): forward, one-pass prefill into a KV cache, suffix prefill,
+batched decode over request slots, and the slot lifecycle.
+
+Counterpart of the dense-family part of ``repro/models/lm.py``. Layer stacks
+follow the config's ``layer_plan()``: an unrolled prefix, ``n_periods``
+repetitions of the (possibly heterogeneous) ``pattern`` -- stored stacked,
+period axis first, as the reference's ``lax.scan`` carries them, so a JAX
+tree bridges over as it is -- and an unrolled suffix. Here the periods run
+as a Python loop over views of the stacked leaves.
+
+Caches are preallocated and written **in place**: the reference returns an
+updated copy of the cache from every step and its serving engine donates
+the old buffers; here ``decode_step``, ``prefill_cache``, ``prefill_suffix``
+and the slot ops write into the cache's tensors and return the same tree.
+
+Logits are fp32, as the reference's einsum with fp32 accumulation and
+output gives them: the head is applied as an fp32 matrix product, and for a
+bf16 model one fp32 copy of the (tied) head is made on first use and kept
+as long as the head tensor lives (``_head_f32``).
+
+The MoE, MLA, SSM, RG-LRU and VLM layers raise, naming ROADMAP.md Queue 1
+slice 5.
+"""
+from __future__ import annotations
+
+import weakref
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import LayerKind, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm, normal_init,
+                                       paged_bulk_write)
+
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other model families)"
+
+
+def _check_kind(kind: LayerKind):
+    if kind.mixer not in ("attn", "local") or kind.ffn not in ("dense",
+                                                               "none"):
+        raise NotImplementedError(
+            f"layer kind {kind} (mixer {kind.mixer!r}, ffn {kind.ffn!r}) "
+            f"comes with {_ITEM_FAMILIES}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _stacked(n, fn):
+    """``fn()`` drawn ``n`` times, stacked leafwise on a new leading axis."""
+    parts = [fn() for _ in range(n)]
+    return _tree_stack(parts)
+
+
+def _tree_stack(parts):
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([p[k] for p in parts]) for k in first}
+    return torch.stack(parts)
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: LayerKind, device):
+    _check_kind(kind)
+    dt = cfg.tdtype
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device),
+         "attn": attn.init_attention(gen, cfg, device)}
+    if kind.ffn == "dense":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device)
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+    return p
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """Seeded random weights in the reference's tree layout: ``embed``,
+    ``final_norm`` (+ ``lm_head`` when untied), ``prefix``, ``blocks`` (one
+    period-stacked dict per pattern entry) and ``suffix``."""
+    prefix, pattern, n_periods, suffix = cfg.layer_plan()
+    dt = cfg.tdtype
+    params = {"embed": {"w": normal_init(gen, (cfg.vocab_size, cfg.d_model),
+                                         0.02, dt, device)},
+              "final_norm": init_norm(cfg.d_model, cfg.norm, dt, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": normal_init(
+            gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, device)}
+    params["prefix"] = tuple(_init_layer(gen, cfg, kind, device)
+                             for kind in prefix)
+    params["blocks"] = tuple(
+        _stacked(n_periods, lambda kind=kind: _init_layer(gen, cfg, kind,
+                                                          device))
+        for kind in pattern) if n_periods > 0 else ()
+    params["suffix"] = tuple(_init_layer(gen, cfg, kind, device)
+                             for kind in suffix)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# layer walk
+# ---------------------------------------------------------------------------
+
+def _index(tree, i):
+    """Period ``i`` of a stacked subtree (views, no copies)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layer_packs(packs, scope):
+    """Select a scope's packs: keys '<scope>/<name>' -> {'<name>': pack}."""
+    if not packs:
+        return None
+    pre = scope + "/"
+    sel = {k[len(pre):]: v for k, v in packs.items() if k.startswith(pre)}
+    return sel or None
+
+
+def _layers(params, cfg: ModelConfig, cache=None):
+    """(kind, layer params, layer cache or None, pack scope) in execution
+    order: prefix, then period by period the pattern, then suffix."""
+    prefix, pattern, n_periods, suffix = cfg.layer_plan()
+    for i, kind in enumerate(prefix):
+        yield (kind, params["prefix"][i],
+               cache["prefix"][i] if cache else None, f"prefix/{i}")
+    for per in range(n_periods):
+        for i, kind in enumerate(pattern):
+            yield (kind, _index(params["blocks"][i], per),
+                   _index(cache["blocks"][i], per) if cache else None,
+                   f"blocks/{i}")
+    for i, kind in enumerate(suffix):
+        yield (kind, params["suffix"][i],
+               cache["suffix"][i] if cache else None, f"suffix/{i}")
+
+
+def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
+                 pos=None, packs=None, prefill_len=None, page_slot=None,
+                 page_start=None):
+    _check_kind(kind)
+    hn = apply_norm(p["norm1"], h, cfg.norm)
+    out, _ = attn.apply_attention(
+        p["attn"], hn, cfg, positions=positions, window=kind.window,
+        cache=cache["mix"] if cache else None, pos=pos,
+        packs=_layer_packs(packs, "attn"), prefill_len=prefill_len,
+        page_slot=page_slot, page_start=page_start)
+    h = h + out
+    if kind.ffn != "none" and "ffn" in p:
+        hn = apply_norm(p["norm2"], h, cfg.norm)
+        h = h + apply_mlp(p["ffn"], hn, cfg.act,
+                          packs=_layer_packs(packs, "ffn"))
+    return h
+
+
+def _run_layers(params, cfg, h, cache=None, packs=None, **kw):
+    for kind, lp, lc, scope in _layers(params, cfg, cache):
+        h = _apply_layer(lp, h, cfg, kind, cache=lc,
+                         packs=_layer_packs(packs, scope), **kw)
+    return h
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    h = params["embed"]["w"][tokens.long()]
+    if cfg.scale_embedding:
+        # the reference multiplies by sqrt(d) rounded to the model dtype;
+        # the factor is rounded on the host, so no copy to the device
+        h = h * float(torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype))
+    return h
+
+
+# id(head tensor) -> (weak ref to it, its version, fp32 copy)
+_HEAD_F32: Dict[int, tuple] = {}
+
+
+def _head_f32(head: torch.Tensor) -> torch.Tensor:
+    """The head as fp32: the tensor itself when it is fp32, else one fp32
+    copy made on first use, dropped when the head tensor dies and remade if
+    it is written in place."""
+    if head.dtype == torch.float32:
+        return head
+    key = id(head)
+    hit = _HEAD_F32.get(key)
+    if hit is not None and hit[0]() is head and hit[1] == head._version:
+        return hit[2]
+    f32 = head.float()
+    _HEAD_F32[key] = (weakref.ref(head), head._version, f32)
+    weakref.finalize(head, _HEAD_F32.pop, key, None)
+    return f32
+
+
+def _logits(params, cfg: ModelConfig, h):
+    """Final norm, then fp32 logits (B, S, V) over the (tied) head."""
+    h = apply_norm(params["final_norm"], h, cfg.norm)
+    head = params["embed"]["w"] if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+    return torch.matmul(h.float(), _head_f32(head).t())
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, tokens, *, packs=None):
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux loss 0)."""
+    b, s = tokens.shape
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=h.device)[None, :]
+    h = _run_layers(params, cfg, h, packs=packs, positions=positions)
+    return (_logits(params, cfg, h),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(cfg, kind: LayerKind, batch, cache_len, paged, lead,
+                      device):
+    _check_kind(kind)
+    one = attn.init_cache_attn(cfg, batch, cache_len, kind.window,
+                               paged=paged, device=device)
+    if lead:
+        # real storage per period (written in place), not a broadcast view
+        one = {k: x[None].repeat((lead[0],) + (1,) * x.dim())
+               for k, x in one.items()}
+    return {"mix": one}
+
+
+def init_cache(cfg: ModelConfig, batch, cache_len, paged=None, device=None):
+    """Zeroed decode cache for ``batch`` request slots. ``paged`` (a
+    ``models.common.PagedLayout``) moves every global (window 0) attention
+    layer onto page pools; ring caches stay slot-dense."""
+    prefix, pattern, n_periods, suffix = cfg.layer_plan()
+    return {
+        "prefix": tuple(_init_layer_cache(cfg, k, batch, cache_len, paged,
+                                          (), device) for k in prefix),
+        "blocks": tuple(_init_layer_cache(cfg, k, batch, cache_len, paged,
+                                          (n_periods,), device)
+                        for k in pattern) if n_periods > 0 else (),
+        "suffix": tuple(_init_layer_cache(cfg, k, batch, cache_len, paged,
+                                          (), device) for k in suffix),
+    }
+
+
+# ---------------------------------------------------------------------------
+# slot lifecycle (the batch dim is request slots). Cache leaves carry the
+# slot dim at axis 0 in the unrolled prefix/suffix sections and at axis 1 in
+# the period-stacked ``blocks``. Page pools (``*_pages``) are skipped by the
+# per-slot ops: their axis 0 is physical pages.
+# ---------------------------------------------------------------------------
+
+def _sections(cache):
+    """(layer cache, slot axis) for every layer."""
+    for c in cache["prefix"]:
+        yield c, 0
+    for c in cache["blocks"]:
+        yield c, 1
+    for c in cache["suffix"]:
+        yield c, 0
+
+
+def _slot(x, axis, slot):
+    return x[slot] if axis == 0 else x[:, slot]
+
+
+def reset_slot(cache, slot):
+    """Empty request slot ``slot`` in place: KV zeros, ``pos_map`` and
+    ``page_table`` -1, so a recycled slot cannot leak its previous request
+    (stale page content becomes unreachable)."""
+    slot = int(slot)
+    for c, axis in _sections(cache):
+        for name, x in c["mix"].items():
+            if not name.endswith("_pages"):
+                _slot(x, axis, slot).fill_(attn.slot_reset_value(name))
+    return cache
+
+
+def write_slot(cache, slot, sub):
+    """Copy the batch-1 cache ``sub`` (e.g. a prefill result) into slot
+    ``slot`` of the batched ``cache``, in place."""
+    slot = int(slot)
+    for (c, axis), (s, _) in zip(_sections(cache), _sections(sub)):
+        for name, x in c["mix"].items():
+            _slot(x, axis, slot).copy_(_slot(s["mix"][name], axis, 0))
+    return cache
+
+
+def read_slot(cache, slot):
+    """Slot ``slot`` as a new batch-1 cache (a copy: writes to it do not
+    reach ``cache``)."""
+    slot = int(slot)
+
+    def section(cs, axis):
+        return tuple({"mix": {k: (x[slot:slot + 1] if axis == 0
+                                  else x[:, slot:slot + 1]).clone()
+                              for k, x in c["mix"].items()}} for c in cs)
+    return {"prefix": section(cache["prefix"], 0),
+            "blocks": section(cache["blocks"], 1),
+            "suffix": section(cache["suffix"], 0)}
+
+
+# pool leaf -> the dense batch-1 sub-cache leaf that feeds it
+_POOL_SRC = {"k_pages": "k", "v_pages": "v"}
+
+
+def write_slot_paged(cache, slot, sub, page_row):
+    """Insert a dense batch-1 prefill result ``sub`` into paged slot
+    ``slot``, in place: each pool leaf takes the sub-cache rows page by
+    page into the physical pages named by ``page_row`` (int (NP,), -1 =
+    unallocated, skipped), the slot's ``page_table`` row becomes
+    ``page_row`` and ``pos_map`` copies over. Every allocated page is fully
+    written, so recycled pages cannot leak stale values. Ring caches take
+    the ordinary dense slot write."""
+    slot = int(slot)
+    for (c, axis), (s, _) in zip(_sections(cache), _sections(sub)):
+        m, ms = c["mix"], s["mix"]
+        if "page_table" not in m:
+            for name, x in m.items():
+                _slot(x, axis, slot).copy_(_slot(ms[name], axis, 0))
+            continue
+        row = torch.as_tensor(page_row, device=m["page_table"].device).to(
+            torch.int32)
+        for name, x in m.items():
+            if name in _POOL_SRC:
+                y = ms[_POOL_SRC[name]]
+                if axis == 0:
+                    paged_bulk_write(x, row, y[0])
+                else:                       # (P, n_pages, ps, ...) pools
+                    for per in range(x.shape[0]):
+                        paged_bulk_write(x[per], row, y[per, 0])
+            elif name == "page_table":
+                _slot(x, axis, slot).copy_(row)
+            else:                           # pos_map: plain dense insert
+                _slot(x, axis, slot).copy_(_slot(ms[name], axis, 0))
+    return cache
+
+
+def restore_slot_paged(cache, slot, page_row, resume_len):
+    """Re-attach retained pages to slot ``slot`` after a preemption (or
+    install a prefix hit's pages): ``page_row`` back into the slot's page
+    table and positions 0..resume_len-1 live in ``pos_map``. Page content
+    is untouched. Paged layers only."""
+    slot = int(slot)
+    for c, axis in _sections(cache):
+        m = c["mix"]
+        if "page_table" not in m:
+            continue
+        t = m["pos_map"].shape[-1]
+        ar = torch.arange(t, device=m["pos_map"].device, dtype=torch.int32)
+        pm_row = torch.where(ar < int(resume_len), ar, torch.full_like(ar,
+                                                                       -1))
+        _slot(m["page_table"], axis, slot).copy_(torch.as_tensor(
+            page_row, device=ar.device).to(torch.int32))
+        _slot(m["pos_map"], axis, slot).copy_(pm_row)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode and prefill
+# ---------------------------------------------------------------------------
+
+def decode_step(params, cache, cfg: ModelConfig, token, pos, *, packs=None):
+    """token (B, 1) + cache at ragged positions ``pos`` (scalar or (B,);
+    rows with pos < 0 are inactive, their cache untouched) -> (logits
+    (B, 1, V) fp32, cache), the new K/V rows written in place."""
+    b = token.shape[0]
+    h = _embed(params, cfg, token)
+    pos = attn.as_slot_positions(pos, b, h.device)
+    positions = pos.clamp_min(0)[:, None]              # (B, 1), rope-safe
+    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                    pos=pos)
+    return _logits(params, cfg, h), cache
+
+
+def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None, *,
+                  packs=None):
+    """One-pass prompt prefill: ``tokens`` (B, S) from position 0 run
+    through the forward attention paths while every layer rewrites its
+    cache with positions 0..length-1 (``length`` <= S; the tail is bucket
+    padding and leaves no trace). Returns (logits (B, S, V) fp32, cache);
+    sample the next token from ``logits[:, length - 1]``."""
+    b, s = tokens.shape
+    length = s if length is None else int(length)
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=h.device)[None, :]
+    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                    prefill_len=length)
+    return _logits(params, cfg, h), cache
+
+
+def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
+                   length=None, *, packs=None):
+    """Prefill only the suffix ``tokens`` (1, S) of a prompt whose first
+    ``start`` tokens are already resident in slot ``slot`` of the batched
+    paged cache (a prefix-cache hit): each layer writes the suffix K/V at
+    positions start..start+length-1 and attends over resident prefix +
+    suffix. Sample the next token from ``logits[0, length - 1]``."""
+    b, s = tokens.shape
+    length = s if length is None else int(length)
+    h = _embed(params, cfg, tokens)
+    positions = int(start) + torch.arange(s, device=h.device)[None, :]
+    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                    prefill_len=length, page_slot=int(slot),
+                    page_start=int(start))
+    return _logits(params, cfg, h), cache

@@ -6,12 +6,21 @@
     logits = servable.forward(tokens)
     servable.save("ckpt/")
     servable = load_servable("ckpt/")
+
+    engine = servable.engine(max_slots=4, cache_len=1280)   # continuous
+    h = engine.submit(prompt_tokens, max_new_tokens=32)     # batching
+    engine.run(); print(h.tokens)
 """
-from repro_torch.serving.export import (export_bert_sparse, export_params,
-                                        pack_single, pack_stacked)
+from repro_torch.serving.engine import (EngineRequest, EngineStats,
+                                        FailureReason, ServingEngine,
+                                        TERMINAL_STATES)
+from repro_torch.serving.export import (export_bert_sparse, export_lm_sparse,
+                                        export_params, pack_single,
+                                        pack_stacked)
 from repro_torch.serving.serialize import ServableLoadError
 from repro_torch.serving.servable import (SERVABLE_STEP, Servable,
                                           load_servable, prepare_servable)
-from repro_torch.serving.spec import DEFAULT_TARGETS, SchedSpec, ServingSpec
+from repro_torch.serving.spec import (DEFAULT_TARGETS, OVERFLOW_POLICIES,
+                                      SchedSpec, ServingSpec)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,11 +1,15 @@
-"""BSR export for the BERT encoder (the TVM relay-conversion analogue).
+"""BSR export for the BERT encoder and the dense-family LMs (the TVM
+relay-conversion analogue).
 
-Counterpart of the bert part of ``repro/serving/export.py``. Training keeps
-dense weights; serving packs the pruned projections into tile-granular BSR
-on the host (numpy, byte-identical to the reference) and lowers each
-pattern to a :class:`~repro_torch.kernels.exec_plan.RowPackPlan`, storing
-the tile values already row-grouped on the serving device. Two
-pattern-level optimizations happen here, offline:
+Counterpart of ``repro/serving/export.py`` (bert and lm passes). Training
+keeps dense weights; serving packs the pruned projections into tile-granular
+BSR patterns (byte-identical to the reference) and lowers each pattern to a
+:class:`~repro_torch.kernels.exec_plan.RowPackPlan`, storing the tile values
+already row-grouped on the serving device. The BERT pass packs on the host
+in numpy; the LM pass computes each tile mask where the weights live and
+brings only the mask to the host, gathering the tile values on the device,
+so a full-width model never crosses to the host. Two pattern-level
+optimizations happen here, offline:
 
   * **fused QKV** (``fuse_qkv=True``): wq/wk/wv concatenated along N into
     one pack -- one block-sparse matmul per attention layer;
@@ -23,43 +27,51 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pattern_reuse import PatternRegistry
-from repro_torch.kernels.bsr_matmul import KernelBSR, pack_bsr
+from repro_torch.kernels.bsr_matmul import (KernelBSR, pack_bsr,
+                                            pattern_from_mask)
 from repro_torch.kernels.exec_plan import (PlanChoice, pack_plan_data,
                                            plan_for_pack)
 
 _QKV = ("wq", "wk", "wv")
+_ATTN_PROJS = ("wq", "wk", "wv", "wo")
+_FFN_PROJS = ("wi", "wg", "wo")
 
 _ITEM_BSR = "ROADMAP.md Queue 1 item 4 (bsr_linear backends)"
-_ITEM_LM = "ROADMAP.md Queue 1 item 9 (the LM model path)"
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
 
 
-def _tile_mask(w: np.ndarray, tile) -> np.ndarray:
-    n, k = w.shape
+def _tile_masks(w: torch.Tensor, tile) -> torch.Tensor:
+    """(..., N, K) weight -> (..., N/bn, K/bk) bool: tiles holding a nonzero."""
+    lead = tuple(w.shape[:-2])
+    n, k = w.shape[-2:]
     bn, bk = tile
-    return np.any(w.reshape(n // bn, bn, k // bk, bk) != 0, axis=(1, 3))
+    return (w.reshape(lead + (n // bn, bn, k // bk, bk)) != 0).any(
+        dim=-1).any(dim=-2)
 
 
-def pack_stacked(w_stacked: np.ndarray, tile) -> Tuple[KernelBSR, np.ndarray,
-                                                       Dict]:
-    """(L, N, K) -> (union pattern pack, per-layer data (L, nnzt, bn, bk),
-    union stats)."""
-    l, n, k = w_stacked.shape
+def pack_stacked(w_stacked, tile) -> Tuple[KernelBSR, torch.Tensor, Dict]:
+    """(N, K) or layer-stacked (L, N, K) weight (numpy or tensor) -> (union
+    pattern pack, per-layer tile values (..., nnzt, bn, bk) where the
+    weight lives, union stats). The pattern is the reference's: the union
+    over layers of the nonzero tiles, with :func:`pattern_from_mask`'s
+    empty row / column fix-ups. Only the tile mask visits the host, so a
+    weight on the card stays there."""
+    w = torch.as_tensor(w_stacked)
+    lead = tuple(w.shape[:-2])
+    n, k = w.shape[-2:]
     bn, bk = tile
-    masks = np.stack([_tile_mask(w_stacked[i], tile) for i in range(l)])
-    union = masks.any(axis=0)
-    proto = np.kron(union.astype(np.float32), np.ones(tile, np.float32))
-    pack = pack_bsr(proto, tile)
-    rows = pack.row_id[: pack.nnzt]
-    cols = pack.col_id
-    blocks = w_stacked.reshape(l, n // bn, bn, k // bk, bk).transpose(
-        0, 1, 3, 2, 4)
-    data = blocks[:, rows, cols]                      # (L, nnzt, bn, bk)
-    per_layer_nnz = masks.sum(axis=(1, 2))
-    stats = {
-        "union_nnzt": int(union.sum()),
-        "mean_layer_nnzt": float(per_layer_nnz.mean()),
-        "union_overhead": float(union.sum() / max(per_layer_nnz.mean(), 1.0)),
-    }
+    masks = _tile_masks(w, tile)
+    flat = masks.reshape((-1,) + tuple(masks.shape[-2:]))
+    union = flat.any(dim=0)
+    pack, rows, cols = pattern_from_mask(union.cpu().numpy(), (n, k), tile)
+    blocks = w.reshape(lead + (n // bn, bn, k // bk, bk)).transpose(-3, -2)
+    data = blocks[..., torch.from_numpy(rows).to(w.device),
+                  torch.from_numpy(cols).to(w.device), :, :]
+    per_layer = flat.sum(dim=(1, 2)).double().cpu().numpy()
+    n_union = int(union.sum())
+    stats = {"union_nnzt": n_union,
+             "mean_layer_nnzt": float(per_layer.mean()),
+             "union_overhead": float(n_union / max(per_layer.mean(), 1.0))}
     return pack, data, stats
 
 
@@ -81,8 +93,9 @@ def _realize_backend(pack, data, backend: str,
         raise NotImplementedError(
             f"serving backend {backend!r} comes with {_ITEM_BSR}")
     plan = plan_for_pack(pack, registry)
-    vals = pack_plan_data(plan, torch.from_numpy(
-        np.ascontiguousarray(data)).to(device))
+    if not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.ascontiguousarray(data))
+    vals = pack_plan_data(plan, data.to(device))
     return (PlanChoice(plan) if backend == "plan_pallas" else plan), vals
 
 
@@ -231,20 +244,128 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
     return new, packs
 
 
+# --------------------------------------------------------------------------
+# LM pass
+# --------------------------------------------------------------------------
+
+def _is_sparse(w: torch.Tensor, tile) -> bool:
+    """True iff the (stacked-union) tile occupancy is < 100%: packing a
+    dense projection only adds padding and gather overhead."""
+    masks = _tile_masks(w, tile)
+    return not bool(masks.reshape((-1,) + tuple(masks.shape[-2:])).any(
+        dim=0).all())
+
+
+def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
+                     fuse_qkv: bool = True, use_plans: bool = True,
+                     include_ffn: bool = True,
+                     registry: Optional[PatternRegistry] = None,
+                     backend_chooser=None, device=None):
+    """Replace attention (and pruned FFN) projections of a dense-family LM
+    param tree with packed values.
+
+    Returns (sparse_params, packs, stats): ``packs`` maps layer scopes
+    ('blocks/<i>/attn/wqkv', 'suffix/<i>/ffn/wo', ...) to static plans.
+    Period-stacked layer groups are union-packed (one plan, per-period
+    values, stacked on the period axis); with ``fuse_qkv`` the q/k/v
+    projections share one fused pack per group. With ``include_ffn`` the
+    dense-MLP projections are exported too, but only when they are actually
+    block-sparse at the kernel tile. The export walks the tree projection
+    by projection, so at most one projection's temporaries are alive."""
+    if not use_plans and backend_chooser is None:
+        raise NotImplementedError(f"backend 'bsr' comes with {_ITEM_BSR}")
+    if device is None:
+        device = params["embed"]["w"].device
+    packs: Dict[str, object] = {}
+    stats: Dict[str, Dict] = {}
+
+    def export_one(w, scope, stacked, dtype):
+        pack, data, st = pack_stacked(w, tile)
+        if not stacked:
+            st = {"union_nnzt": int(pack.real_nnzt)}
+        backend = "plan"
+        if backend_chooser is not None:
+            choice = backend_chooser(pack)
+            backend = choice.backend
+            st = dict(st, autotune={"backend": choice.backend,
+                                    "cache_hit": choice.cache_hit,
+                                    "mode": choice.mode})
+        pk, vals = _realize_backend(pack, data, backend, registry, device)
+        stats[scope] = st
+        packs[scope] = pk
+        return _param_entry(vals, dtype)
+
+    def export_attn(lp, scope, stacked):
+        if "attn" not in lp:
+            return lp
+        ap = dict(lp["attn"])
+        projs = list(_ATTN_PROJS)
+        if fuse_qkv and all(proj in ap for proj in _QKV) and all(
+                _divisible(ap[proj]["w"].shape, tile) for proj in _QKV):
+            w_qkv = torch.cat([ap[proj]["w"] for proj in _QKV],
+                              dim=1 if stacked else 0)
+            ap["wqkv"] = export_one(w_qkv, f"{scope}/wqkv", stacked,
+                                    ap["wq"]["w"].dtype)
+            del w_qkv
+            for proj in _QKV:
+                del ap[proj]
+            projs = ["wo"]
+        for proj in projs:
+            if proj in ap and _divisible(ap[proj]["w"].shape, tile):
+                ap[proj] = export_one(ap[proj]["w"], f"{scope}/{proj}",
+                                      stacked, ap[proj]["w"].dtype)
+        return dict(lp, attn=ap)
+
+    def export_ffn(lp, scope, stacked):
+        if "ffn" not in lp or not isinstance(lp["ffn"].get("wi"), dict):
+            return lp
+        fp = dict(lp["ffn"])
+        for proj in _FFN_PROJS:
+            if proj not in fp:
+                continue
+            w = fp[proj]["w"]
+            if _divisible(w.shape, tile) and _is_sparse(w, tile):
+                fp[proj] = export_one(w, f"{scope}/{proj}", stacked, w.dtype)
+        return dict(lp, ffn=fp)
+
+    def export_layer(lp, scope, stacked):
+        lp = export_attn(lp, f"{scope}/attn", stacked)
+        if include_ffn:
+            lp = export_ffn(lp, f"{scope}/ffn", stacked)
+        return lp
+
+    new = dict(params)
+    new["prefix"] = tuple(export_layer(lp, f"prefix/{i}", False)
+                          for i, lp in enumerate(params["prefix"]))
+    new["blocks"] = tuple(export_layer(lp, f"blocks/{i}", True)
+                          for i, lp in enumerate(params["blocks"]))
+    new["suffix"] = tuple(export_layer(lp, f"suffix/{i}", False)
+                          for i, lp in enumerate(params["suffix"]))
+    return new, packs, stats
+
+
 def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
                   fuse_qkv: bool = True, cross_layer_union: bool = True,
                   include_ffn: bool = True, use_plans: bool = True,
                   registry: Optional[PatternRegistry] = None,
                   backend_chooser=None, device=None):
     """Export a model's param tree to serving form. Returns
-    ``(sparse_params, packs, stats)``; this slice exports the bert family."""
-    if cfg.family != "bert":
-        raise NotImplementedError(
-            f"export of family {cfg.family!r} comes with {_ITEM_LM}")
-    stats: Dict[str, Dict] = {}
-    sparse_params, packs = export_bert_sparse(
-        params, cfg, tile=tile, include_ffn=include_ffn, fuse_qkv=fuse_qkv,
-        cross_layer_union=cross_layer_union, use_plans=use_plans,
-        registry=registry, stats_out=stats, backend_chooser=backend_chooser,
-        device=device)
-    return sparse_params, packs, stats
+    ``(sparse_params, packs, stats)``: bert through
+    :func:`export_bert_sparse`, the dense LM family through
+    :func:`export_lm_sparse` (its stacked groups always union-pack)."""
+    if cfg.family == "bert":
+        stats: Dict[str, Dict] = {}
+        sparse_params, packs = export_bert_sparse(
+            params, cfg, tile=tile, include_ffn=include_ffn,
+            fuse_qkv=fuse_qkv, cross_layer_union=cross_layer_union,
+            use_plans=use_plans, registry=registry, stats_out=stats,
+            backend_chooser=backend_chooser, device=device)
+        return sparse_params, packs, stats
+    if cfg.family == "dense":
+        return export_lm_sparse(params, cfg, tile=tile, fuse_qkv=fuse_qkv,
+                                use_plans=use_plans, include_ffn=include_ffn,
+                                registry=registry,
+                                backend_chooser=backend_chooser,
+                                device=device)
+    raise NotImplementedError(
+        f"export of family {cfg.family!r} comes with {_ITEM_FAMILIES}")

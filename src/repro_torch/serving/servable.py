@@ -1,8 +1,9 @@
 """prepare_servable / Servable / load_servable: the serving facade.
 
-Counterpart of ``repro/serving/servable.py`` for this slice (the bert
-family; backends ``plan``, ``plan_pallas`` and ``dense``). One spec-driven
-entry point owns the pipeline the paper argues must be co-designed:
+Counterpart of ``repro/serving/servable.py`` for the bert family and the
+dense LM family (backends ``plan``, ``plan_pallas`` and ``dense``). One
+spec-driven entry point owns the pipeline the paper argues must be
+co-designed:
 
     prune (core.pruner recipe)            -- algorithm side
     -> BSR export (serving.export)        -- layout
@@ -12,6 +13,12 @@ entry point owns the pipeline the paper argues must be co-designed:
 ``save`` / :func:`load_servable` use the reference's artifact layout, so a
 servable saved by the JAX package loads here (and the other way round for
 fp32 artifacts).
+
+LM servables decode: :meth:`Servable.decode_step` / :meth:`decode_many`
+and the continuous-batching :meth:`Servable.engine`. Where the reference
+jits each engine function once per servable (with the cache donated), the
+port runs them as plain methods (``engine_decode``, ``engine_prefill``,
+...) that update the preallocated cache in place.
 """
 from __future__ import annotations
 
@@ -29,7 +36,9 @@ from repro_torch.core.tree import flatten_with_path, map_with_path, \
     norm_path, path_name
 from repro_torch.device import resolve_device
 from repro_torch.kernels.exec_plan import RowPackPlan
+from repro_torch.kernels.flash_decode import decode_kernel_override
 from repro_torch.models import api as model_api
+from repro_torch.models.sampling import sample_tokens
 from repro_torch.serving.export import export_params
 from repro_torch.serving.serialize import (LeafReader, ServableLoadError,
                                            build_like, config_from_dict,
@@ -108,6 +117,117 @@ class Servable:
                 self.params, self.cfg, self._as_batch(batch),
                 packs=self.packs)
         return logits
+
+    # -- decoding (LM families) -------------------------------------------
+    def init_cache(self, batch_size: int, cache_len: int, frames=None,
+                   paged=None):
+        """A zeroed decode cache for ``batch_size`` slots on the servable's
+        device (``paged``: a ``models.common.PagedLayout``)."""
+        return model_api.init_cache(self.params, self.cfg, batch_size,
+                                    cache_len, frames=frames, paged=paged)
+
+    def decode_kernel_kind(self) -> str:
+        """The attention decode kernel every decode call of this servable
+        pins ('xla' | 'flash' | 'auto'): a non-'auto' ``REPRO_DECODE_KERNEL``
+        env value wins, then a non-'auto' ``spec.decode_kernel``; 'auto'
+        leaves the choice to the platform (the flash kernels on the card,
+        the plain composition on the CPU)."""
+        env = os.environ.get("REPRO_DECODE_KERNEL", "").strip()
+        if env and env != "auto":
+            return env
+        return self.spec.decode_kernel
+
+    def decode_step(self, cache, token, pos):
+        """(cache, token (B,1), pos) -> (logits (B,1,V) fp32, cache); the
+        new K/V rows are written into ``cache`` in place. ``pos`` is a
+        scalar or a ragged int32 (B,) vector (-1 = inactive row)."""
+        with torch.no_grad(), decode_kernel_override(
+                self.decode_kernel_kind()):
+            return model_api.decode_step(
+                self.params, cache, self.cfg, self._tensor(token),
+                self._tensor(pos), packs=self.packs)
+
+    def decode_many(self, cache, token, pos, n_steps, *, remaining=None,
+                    eos_id=None, key=None, temperature: float = 0.0,
+                    top_k: int = 0):
+        """K fused decode steps (``models.api.decode_many``): greedy
+        sampling and per-slot EOS / budget masking on the device, one host
+        sync when the caller reads the results. Returns ``(tokens (K, B),
+        valid (K, B), state)``; the cache is updated in place."""
+        with torch.no_grad(), decode_kernel_override(
+                self.decode_kernel_kind()):
+            return model_api.decode_many(
+                self.params, cache, self.cfg, self._tensor(token),
+                self._tensor(pos), int(n_steps), packs=self.packs,
+                remaining=None if remaining is None
+                else self._tensor(remaining),
+                eos_id=None if eos_id is None else self._tensor(eos_id),
+                key=key, temperature=temperature, top_k=top_k)
+
+    def engine(self, max_slots: int = 8, cache_len: int = 256, **kw):
+        """A continuous-batching :class:`~repro_torch.serving.engine.
+        ServingEngine` over this servable."""
+        from repro_torch.serving.engine import ServingEngine
+        return ServingEngine(self, max_slots=max_slots, cache_len=cache_len,
+                             **kw)
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, device=self.device)
+
+    # -- the engine's functions (cache updated in place) ------------------
+    def engine_decode(self, cache, token, pos, *, temperature: float = 0.0,
+                      top_k: int = 0):
+        """One batched decode step with on-device sampling: returns
+        ``(sampled (B,) int32, ok (B,) bool, logits (B,1,V), cache)``; ``ok``
+        False marks a slot whose logits row went non-finite."""
+        pos = self._tensor(pos)
+        logits, cache = self.decode_step(cache, token, pos)
+        rows = logits[:, 0, :]
+        ok = torch.isfinite(rows).all(dim=-1)
+        nxt = sample_tokens(rows, None, pos, temperature=temperature,
+                            top_k=top_k)
+        return nxt, ok, logits, cache
+
+    def engine_prefill(self, cache1, tokens, length):
+        """One-pass prompt prefill of a bucket-padded prompt (tokens
+        (bucket,)) into the batch-1 cache ``cache1``, which it rewrites
+        entirely. Returns ``(cache1, logits (bucket, V))``."""
+        with torch.no_grad():
+            logits, cache1 = model_api.prefill_cache(
+                self.params, cache1, self.cfg, self._tensor(tokens)[None],
+                int(length), packs=self.packs)
+        return cache1, logits[0]
+
+    def suffix_prefill(self, cache, tokens, slot, start, length):
+        """Prefill only the uncached suffix (tokens (S,)) of slot ``slot``'s
+        prompt against its resident shared prefix. Returns ``(cache, logits
+        (S, V))``."""
+        with torch.no_grad():
+            logits, cache = model_api.prefill_suffix(
+                self.params, cache, self.cfg, self._tensor(tokens)[None],
+                int(slot), int(start), int(length), packs=self.packs)
+        return cache, logits[0]
+
+    def engine_write_slot(self, cache, slot, sub):
+        """Copy the batch-1 prefill cache ``sub`` into ``slot``, in place."""
+        return model_api.write_slot(cache, self.cfg, slot, sub)
+
+    def engine_free_slot(self, cache, slot):
+        """Empty ``slot`` in place (recycle hygiene)."""
+        return model_api.free_slot(cache, self.cfg, slot)
+
+    def engine_write_paged(self, cache, slot, sub, page_row):
+        """Write ``sub`` into the pages of ``page_row`` and map them to
+        ``slot``, in place."""
+        return model_api.write_slot_paged(cache, self.cfg, slot, sub,
+                                          self._tensor(page_row))
+
+    def engine_restore_paged(self, cache, slot, page_row, resume_len):
+        """Map ``page_row`` to ``slot`` with positions 0..resume_len-1 live
+        (retained pages, or a shared prefix), in place."""
+        return model_api.restore_slot_paged(cache, self.cfg, slot,
+                                            self._tensor(page_row),
+                                            int(resume_len))
 
     # -- instrumentation --------------------------------------------------
     def stats(self) -> Dict[str, Any]:

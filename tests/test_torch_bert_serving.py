@@ -228,7 +228,8 @@ def test_options_outside_the_slice_raise(bert, kw, item):
 
 
 def test_other_families_raise():
-    cfg = get_config("deepseek_7b", smoke=True)
+    # the dense LM family (deepseek_7b, ...) is ported; the SSM family not
+    cfg = get_config("mamba2_780m", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         init_model(0, cfg, device="cpu")
 
