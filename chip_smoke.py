@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases kernels,serving,lm_serving]
+    python3 chip_smoke.py [--phases kernels,serving,lm_serving,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -13,7 +13,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
      tiles, every epilogue with bias, bf16) and the four projection shapes
      of BERT-base at M=384 with 128x128 tiles, with kernel, plain and
-     library (torch.matmul on the densified weight) times; then K2
+     library (torch.matmul on the densified weight) times; K4 (dds, dds_t,
+     plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
+     tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
+     (padding tiles exactly zero), the spilling plan -- and plan_dds_t /
+     plan_sddmm at the four BERT-base shapes at M=3072 (the training batch)
+     with kernel, plain, bound and library (torch.matmul of dY with the
+     dense weight; of dY^T with X) times; then K2
      (flash_decode) and K3 (paged_flash_decode) against theirs -- ragged
      and scalar pos with inactive slots, shared and per-slot position
      maps, ring windows, T not a multiple of the split count, G = 1 and
@@ -39,6 +45,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      dense vs paged greedy-token agreement, and decode_step logits with
      the kernels against the plain decode_attention composition.
 
+  5. training: BERT-base at full width from seeded random weights,
+     trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
+     pruning to 80% at 128x128 (attention projections) and one injected
+     fault recovered from the step-4 checkpoint (Supervisor.restarts == 1);
+     handed to serving with prepare_servable (prune='none', fused QKV,
+     cross-layer union, backend 'plan_pallas'); then 4 packed fine-tuning
+     steps through make_train_step, each with exactly one K1, K4
+     (plan_dds_t) and K5 (plan_sddmm) launch per packed projection; the
+     first step's loss and gradient norm against the plain plan
+     composition, every padding slot exactly 0 afterwards, a (1, 384)
+     forward of the fine-tuned packs against the dense forward of the
+     unpacked weights, ms per step of both kinds and a profiler breakdown
+     of one packed step.
+
 The line before the last is the kernels JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -58,6 +78,10 @@ SRC = os.path.join(REPO, "src")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/plan_dds.cu"
 REPLACES = "src/repro/kernels/bsr_matmul.py:368"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+DDS_SOURCE = "src/repro_torch/kernels/csrc/dds.cu"
+DDS_REPLACES = "src/repro/kernels/bsr_matmul.py:159"
+SDDMM_SOURCE = "src/repro_torch/kernels/csrc/sddmm.cu"
+SDDMM_REPLACES = "src/repro/kernels/bsr_matmul.py:235"
 DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:150",
                    "paged_flash_decode": "src/repro/kernels/flash_decode.py:214"}
 
@@ -136,7 +160,7 @@ def _profile(label, fn, top: int = 8):
     """One call of ``fn`` under torch.profiler: device time by kernel (the
     trace's device-side events only), their total, and the device's idle
     share of the wall time (the profiler's own overhead counts in the wall
-    time)."""
+    time). Returns the (ms, count, name) rows, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,12 +184,13 @@ def _profile(label, fn, top: int = 8):
     if not rows:
         print(f"[profile] {label}: no device time in the trace "
               f"(wall {wall:.3f} ms); device busy share not measured")
-        return
+        return rows
     print(f"[profile] {label}: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms in {sum(r[1] for r in rows)} device events, "
           f"idle share {max(0.0, 1 - busy / wall):.3f}")
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.4f} ms {count:5d}x  {key[:90]}")
+    return rows
 
 
 def _compare(name, got, ref, tol_rel, kernel="K1"):
@@ -316,6 +341,132 @@ def phase_kernels(seed: int):
               f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
               f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
               f"tiles={plan.real_nnzt}")
+    return per_shape
+
+
+# --------------------------------------------------------------------------
+# phase 2a: K4 (dds, dds_t, plan_dds_t) and K5 (sddmm, plan_sddmm) against
+# their plain versions
+# --------------------------------------------------------------------------
+
+# (M, N, K, tile, density) of tests/test_kernels.py's sweep, plus the paper's
+# (32, 1) tile
+BWD_SHAPES = ((32, 128, 128, (32, 64), 0.4), (64, 256, 128, (64, 128), 0.25),
+              (100, 128, 384, (32, 128), 0.5), (16, 512, 256, (128, 128), 0.1),
+              (8, 64, 64, (64, 64), 1.0), (40, 64, 96, (32, 1), 0.3))
+TRAIN_M = 3072      # (8, 384) tokens: the packed fine-tuning batch
+
+
+def phase_backward_kernels(seed: int):
+    """K4 and K5 against their plain versions on the card: every entry
+    point on the small cases (fp32 and bf16, padded nnzt, (32, 1) tiles,
+    the spilling plan), then plan_dds_t / plan_sddmm at the BERT-base
+    projection shapes at M=3072 with times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels.bsr_matmul import pack_bsr
+    from repro_torch.kernels.exec_plan import plan_schedule, plan_t_schedule
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 3)
+
+    def tol(dtype):
+        return TOL_F32 if dtype == torch.float32 else TOL_BF16
+
+    print("[kernels] K4 dds / dds_t and K5 sddmm vs plain, small cases")
+    for m, n, k, tile, dens in BWD_SHAPES:
+        w = _sparse_weight(rng, n, k, tile, dens)
+        for pad in (0, 3):
+            pk = pack_bsr(w, tile)
+            if pad:
+                pk = pack_bsr(w, tile, nnzt=pk.real_nnzt + pad)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = "fp32" if dtype == torch.float32 else "bf16"
+                name = f"{m}x({n},{k}) {tile} +{pad} {dn}"
+                data = torch.from_numpy(pk.data).to(dev, dtype)
+                x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+                    dev, dtype)
+                dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(
+                    dev, dtype)
+                _compare(f"K4 dds {name}", bm.dds(x, pk, data),
+                         bm.dds_plain(x, pk, data), tol(dtype), "K4")
+                _compare(f"K4 dds_t {name}", bm.dds_t(dy, pk, data),
+                         bm.dds_t_plain(dy, pk, data), tol(dtype), "K4")
+                g = bm.sddmm(dy, x, pk, data)
+                _compare(f"K5 sddmm {name}", g,
+                         bm.sddmm_plain(dy, x, pk, data), tol(dtype), "K5")
+                check(float(g[pk.real_nnzt:].float().abs().sum()) == 0.0,
+                      "K5 sddmm wrote a non-zero padding tile")
+
+    print("[kernels] K4 plan_dds_t and K5 plan_sddmm vs plain, plan cases")
+    spill = np.zeros((128, 1024), np.float32)
+    spill[:16, :] = rng.randn(16, 1024)
+    for i in range(1, 8):
+        spill[16 * i: 16 * (i + 1), 64 * i: 64 * (i + 1)] = \
+            0.1 * rng.randn(16, 64)
+    cases = [("random d=0.4 (16,32) +5", _sparse_weight(
+                  rng, 96, 128, (16, 32), 0.4), (16, 32), 5, 24),
+             ("spill edge rows (16,64)", spill, (16, 64), 0, 20),
+             ("(32,1) tiles", _sparse_weight(rng, 64, 64, (32, 1), 0.3),
+              (32, 1), 0, 40)]
+    for name, w, tile, pad, m in cases:
+        plan, data = _plan_case(w, tile, pad)
+        n, k = w.shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = "fp32" if dtype == torch.float32 else "bf16"
+            d = data.to(dev, dtype)
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+                dev, dtype)
+            dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(
+                dev, dtype)
+            ts, s = plan_t_schedule(plan), plan_schedule(plan)
+            _compare(f"K4 plan_dds_t {name} {dn}",
+                     bm.plan_dds_t(dy, d, ts, k=k, tile=tile),
+                     bm.plan_dds_t_plain(dy, d, ts, k=k, tile=tile),
+                     tol(dtype), "K4")
+            _compare(f"K5 plan_sddmm {name} {dn}",
+                     bm.plan_sddmm(dy, x, s, tile=tile),
+                     bm.plan_sddmm_plain(dy, x, s, tile=tile), TOL_F32, "K5")
+
+    print(f"[kernels] K4 plan_dds_t and K5 plan_sddmm at the BERT-base "
+          f"projection shapes, M={TRAIN_M}, 128x128 tiles, density 0.2")
+    per_shape = {"dds": [], "sddmm": []}
+    m, tile = TRAIN_M, (128, 128)
+    for name, n, k in MAIN_SHAPES:
+        w = _sparse_weight(rng, n, k, tile, 0.2)
+        plan, data = _plan_case(w, tile)
+        data = data.to(dev)
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+        dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(dev)
+        w_dense = torch.from_numpy(w).to(dev)
+        ts, s = plan_t_schedule(plan), plan_schedule(plan)
+        nnz = plan.real_nnzt * tile[0] * tile[1]
+        flops = 2 * m * nnz
+        for kname, fn, plain, lib, n_bytes in (
+                ("dds", lambda: bm.plan_dds_t(dy, data, ts, k=k, tile=tile),
+                 lambda: bm.plan_dds_t_plain(dy, data, ts, k=k, tile=tile),
+                 lambda: torch.matmul(dy, w_dense),
+                 4 * (m * n + nnz + m * k)),
+                ("sddmm", lambda: bm.plan_sddmm(dy, x, s, tile=tile),
+                 lambda: bm.plan_sddmm_plain(dy, x, s, tile=tile),
+                 lambda: torch.matmul(dy.t(), x),
+                 4 * (m * n + m * k + nnz))):
+            kern = "K4" if kname == "dds" else "K5"
+            err = _compare(f"{kern} {name} ({n},{k})", fn(), plain(),
+                           TOL_F32, kern)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+            rec = {"shape": name, "m": m, "n": n, "k": k,
+                   "tiles": plan.real_nnzt, "max_abs_err": err,
+                   "ms": _time_ms(fn), "plain_ms": _time_ms(plain),
+                   "library_ms": _time_ms(lib),
+                   "bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            per_shape[kname].append(rec)
+            print(f"  {kern} {name:9s} kernel_ms={rec['ms']:.4f} plain_ms="
+                  f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f}"
+                  f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+                  f"tiles={plan.real_nnzt}")
     return per_shape
 
 
@@ -664,6 +815,253 @@ def phase_serving(seed: int, n_requests: int):
 
 
 # --------------------------------------------------------------------------
+# phase 5: sparse BERT-base training -- dense steps with gradual block
+# pruning, hand-off to the packed layout, packed fine-tuning through K1, K4
+# and K5
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 12
+PACKED_STEPS = 4
+# The first packed step through the kernels against the same step through
+# the plain plan composition on the card (same params, same batch): both
+# accumulate in fp32 and differ only in summation order, through 12 layers
+# forward and back and the 48 packed products. Bar: 1e-4 relative on the
+# loss and on the gradient norm.
+TOL_PACKED_STEP = 1e-4
+
+
+def _unpacked_dense(params, packs, cfg):
+    """The dense weights the packed values stand for: every packed
+    projection scattered back to (N, K), a fused QKV split into wq/wk/wv."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.exec_plan import unpack_plan_data
+    layers = [{g: dict(v) for g, v in lp.items()} for lp in params["layers"]]
+    for key, pk in packs.items():
+        _, i, group, name = key.split("/")
+        plan = pk.plan
+        vals = layers[int(i)][group][name]["w"]
+        tiles = unpack_plan_data(plan, vals)
+        rows = plan.row_of_vrow[plan.vrow].astype(np.int64)
+        cols = plan.col_idx[plan.vrow, plan.slot].astype(np.int64)
+        (n, k), (bn, bk) = plan.shape, plan.tile
+        blocks = tiles.new_zeros((n // bn, k // bk, bn, bk))
+        blocks[torch.from_numpy(rows).to(vals.device),
+               torch.from_numpy(cols).to(vals.device)] = tiles
+        w = blocks.permute(0, 2, 1, 3).reshape(n, k)
+        if name == "wqkv":
+            del layers[int(i)][group][name]
+            dq, dkv = cfg.q_dim, cfg.kv_dim
+            for proj, (a, b) in (("wq", (0, dq)), ("wk", (dq, dq + dkv)),
+                                 ("wv", (dq + dkv, dq + 2 * dkv))):
+                layers[int(i)][group][proj] = {"w": w[a:b]}
+        else:
+            layers[int(i)][group][name] = {"w": w}
+    out = dict(params)
+    out["layers"] = tuple(layers)
+    return out
+
+
+def phase_training(seed: int):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import sparsity_report
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels import plan_dds
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models.api import model_forward
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault_tolerance import (FaultInjector,
+                                                     FaultToleranceConfig)
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp = SparsityConfig(block_shape=(128, 128), sparsity=0.8,
+                        lambda_reg=1e-4, start_step=2, end_step=8)
+    cfg = dataclasses.replace(get_config("bert_base"), sparsity=sp)
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+          == (12, 768, 3072, 30522), "not BERT-base at full width")
+    dcfg = DataConfig(seq_len=384, global_batch=8, vocab_size=30522)
+    opt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                      weight_decay=0.01)
+    counters = {"plan_dds": plan_dds, "dds": bm.dds, "dds_t": bm.dds_t,
+                "plan_dds_t": bm.plan_dds_t, "sddmm": bm.sddmm,
+                "plan_sddmm": bm.plan_sddmm}
+    # --- the counted main-path run: every count set to 0 just before
+    for fn in counters.values():
+        fn.launches = 0
+
+    # 1. dense training with gradual block pruning, one injected fault
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(n_steps=TRAIN_STEPS, ckpt_dir=tmp, seed=seed,
+                           log_every=1, opt=opt, prune=True,
+                           ft=FaultToleranceConfig(checkpoint_every=4))
+        inj = FaultInjector(fail_at_steps=(6,))
+        tr = Trainer(cfg, tcfg, device=dev, data_cfg=dcfg,
+                     fault_injector=inj)
+        times = []
+        one_step = tr._one_step
+
+        def timed(state, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = one_step(state, step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        tr._one_step = timed
+        t0 = time.perf_counter()
+        state, hist = tr.fit(resume=False)
+        wall = time.perf_counter() - t0
+        restarts = tr.supervisor.restarts
+    losses = [loss for _, loss in hist]
+    print(f"[training] {cfg.arch} dense: {len(hist)} steps run for "
+          f"{TRAIN_STEPS} (fault at step 6, restart from the step-4 "
+          f"checkpoint), wall {wall:.2f} s; loss by step "
+          f"{[(s, round(loss, 4)) for s, loss in hist]}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(restarts == 1, f"Supervisor.restarts = {restarts}, expected 1")
+    check(inj.fired == {6}, f"injected faults fired at {inj.fired}")
+    check(int(state["opt"]["step"]) == TRAIN_STEPS,
+          f"optimizer step {int(state['opt']['step'])}")
+    print(f"[training] dense Trainer ms per step over {len(times)} steps "
+          f"(host clock, synchronized; includes the batch and the mask "
+          f"update): median {1e3 * np.median(times):.3f}, min "
+          f"{1e3 * min(times):.3f}, max {1e3 * max(times):.3f}")
+    report = sparsity_report(state["params"], sp)
+    check(len(report) == 4 * cfg.n_layers, f"report covers {len(report)}")
+    low = min(report.values())
+    print(f"[training] block sparsity of the {len(report)} targeted weights "
+          f"after step {TRAIN_STEPS - 1}: min {low:.4f}, max "
+          f"{max(report.values()):.4f} (target {sp.sparsity})")
+    check(low >= sp.sparsity, f"targeted weights only {low:.4f} sparse")
+
+    # 2. hand-off to the packed serving layout (examples/train_lm_sparse.py)
+    spec = ServingSpec(tile=(128, 128), prune="none", fuse_qkv=True,
+                       cross_layer_union=True, backend="plan_pallas")
+    servable = prepare_servable(state["params"], cfg, spec, device=dev)
+    packs = servable.packs
+    n_packed = len(packs)
+    check(n_packed == 4 * cfg.n_layers, f"{n_packed} packed projections")
+    st = servable.stats()
+    print(f"[training] hand-off: {n_packed} packed projections, "
+          f"{st['unique_patterns']} unique patterns, density "
+          f"{st['density']:.3f}")
+    del state, tr
+
+    # 3. packed fine-tuning: K1 forward, K4 for dX, K5 for the values' grad
+    params = servable.params
+    opt_state = init_opt_state(params, opt)
+    step_fn = make_train_step(cfg, opt, packs=packs)
+    pipe = DataPipeline(dcfg)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in pipe.batch_at(TRAIN_STEPS + i).items()}
+               for i in range(PACKED_STEPS)]
+    pipe.close()
+
+    # the first step through the plain plan composition, for comparison
+    plain_step = make_train_step(cfg, opt,
+                                 packs={k: v.plan for k, v in packs.items()})
+    before = {n: fn.launches for n, fn in counters.items()}
+    _, _, m_plain = plain_step(params, opt_state, batches[0])
+    torch.cuda.synchronize()
+    check(all(fn.launches == before[n] for n, fn in counters.items()),
+          "the plain plan composition launched a kernel")
+
+    ms, first = [], None
+    for i, batch in enumerate(batches):
+        before = {n: fn.launches for n, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        got = {n: fn.launches - before[n] for n, fn in counters.items()}
+        want = {"plan_dds": n_packed, "dds": 0, "dds_t": 0,
+                "plan_dds_t": n_packed, "sddmm": 0, "plan_sddmm": n_packed}
+        check(got == want, f"packed step {i}: launches {got}, expected "
+              f"{want} (one K1, K4 and K5 per packed projection)")
+        check(np.isfinite(loss), f"packed step {i}: loss {loss}")
+        if first is None:
+            first = metrics
+        print(f"[training] packed step {i}: loss {loss:.6f}, grad_norm "
+              f"{float(metrics['grad_norm']):.6f}, {ms[-1]:.3f} ms, "
+              f"launches {got}")
+    for name in ("loss", "grad_norm"):
+        a, b = float(first[name]), float(m_plain[name])
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        print(f"[training] first packed step {name}: kernels {a:.7f}, "
+              f"plain composition {b:.7f}, rel diff {rel:.3e} (tol "
+              f"{TOL_PACKED_STEP})")
+        check(rel <= TOL_PACKED_STEP, f"packed step {name} differs from "
+              f"the plain composition")
+    print(f"[training] packed ms per step over {len(ms)} steps (host clock, "
+          f"synchronized): median {np.median(ms):.3f}, min {min(ms):.3f}, "
+          f"max {max(ms):.3f}")
+
+    dead = 0
+    for key, pk in packs.items():
+        _, i, group, name = key.split("/")
+        vals = params["layers"][int(i)][group][name]["w"]
+        mask = torch.from_numpy(~pk.plan.slot_mask).to(dev)
+        pad = vals[mask]
+        dead += pad.numel()
+        check(bool((pad == 0).all()), f"{key}: a padding slot became live")
+    print(f"[training] padding slots after {PACKED_STEPS} packed steps: "
+          f"{dead} values, all exactly 0")
+
+    tuned = type(servable)(params, cfg, spec, packs, servable.registry, dev)
+    dense = _unpacked_dense(params, packs, cfg)
+    rng = np.random.RandomState(seed + 4)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 384))).to(dev)
+    y = tuned.forward(toks)
+    with torch.no_grad():
+        y_dense = model_forward(dense, cfg, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    err = float((y - y_dense).abs().max())
+    print(f"[training] fine-tuned packed forward (1, 384) vs the dense "
+          f"forward of the unpacked weights: max |d logits| = {err:.3e} "
+          f"(tol {TOL_LOGITS})")
+    check(bool(torch.isfinite(y).all()) and err <= TOL_LOGITS,
+          "fine-tuned packed forward disagrees with the dense forward")
+
+    state_box = {"p": params, "o": opt_state}
+
+    def packed_step():
+        state_box["p"], state_box["o"], _ = step_fn(
+            state_box["p"], state_box["o"], batches[0])
+    rows = _profile("packed train step (8, 384)", packed_step, top=12)
+    # the packed products of one pass (each of K1, K4, K5 does this many):
+    # 2 * M * stored values over the 48 packs
+    m = batches[0]["tokens"].numel()
+    flops = sum(2 * m * pk.plan.real_nnzt * pk.plan.tile[0] * pk.plan.tile[1]
+                for pk in packs.values())
+    print(f"[training] packed products per pass (M={m}): "
+          f"{flops / 1e12:.4f} TFLOP")
+    for kname, tag in (("K1", "plan_dds_kernel"), ("K4", "::dds_kernel"),
+                       ("K5", "sddmm_kernel")):
+        dev_ms = sum(r[0] for r in rows if tag in r[2])
+        if dev_ms > 0:
+            print(f"[training] {kname} in the packed step: {dev_ms:.3f} ms "
+                  f"device, {flops / (dev_ms * 1e-3) / 1e12:.2f} TFLOP/s "
+                  f"({flops / (dev_ms * 1e-3) / FP32_FLOP_PER_S:.3f} of the "
+                  f"fp32 peak)")
+    n_params = sum(v.numel() for v in leaves(params))
+    print(f"[training] packed params {n_params}; device memory peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {n: fn.launches for n, fn in counters.items()}
+
+
+# --------------------------------------------------------------------------
 # phase 4: gemma3_4b continuous-batching decode through K1, K2 and K3
 # --------------------------------------------------------------------------
 
@@ -875,7 +1273,8 @@ def phase_lm_serving(seed: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serving,lm_serving")
+    ap.add_argument("--phases",
+                    default="kernels,serving,lm_serving,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -894,14 +1293,17 @@ def main() -> int:
 
     try:
         card = phase_build()
-        per_shape, decode_shapes, launches = [], {}, {}
+        per_shape, bwd_shapes, decode_shapes, launches = [], {}, {}, {}
         if "kernels" in phases:
             per_shape = phase_kernels(args.seed)
+            bwd_shapes = phase_backward_kernels(args.seed)
             decode_shapes = phase_decode_kernels(args.seed)
         if "serving" in phases:
             launches["bert"] = phase_serving(args.seed, args.requests)
         if "lm_serving" in phases:
             launches["lm"] = phase_lm_serving(args.seed)
+        if "training" in phases:
+            launches["training"] = phase_training(args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -930,6 +1332,32 @@ def main() -> int:
                              launches.items()},
         "per_shape": per_shape,
     }]
+    # K4 and K5 at the four BERT-base projection shapes at M=3072 (times
+    # summed: one layer's packed backward); launches over every entry point
+    for name, kernel, entries, source, replaces in (
+            ("dds", "K4", ("dds", "dds_t", "plan_dds_t"), DDS_SOURCE,
+             DDS_REPLACES),
+            ("sddmm", "K5", ("sddmm", "plan_sddmm"), SDDMM_SOURCE,
+             SDDMM_REPLACES)):
+        recs = bwd_shapes.get(name, [])
+        counts = [total(e) for e in entries]
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": (sum(c for c in counts if c is not None)
+                         if any(c is not None for c in counts) else None),
+            "launches_by_entry": dict(zip(entries, counts)),
+            "max_abs_err": max((r["max_abs_err"] for r in recs),
+                               default=None),
+            "ms": sum(r["ms"] for r in recs) if recs else None,
+            "plain_ms": sum(r["plain_ms"] for r in recs) if recs else None,
+            "bound_ms": sum(r["bound_ms"] for r in recs) if recs else None,
+            "bound_by": (("bytes" if sum(r["bytes_ms"] for r in recs)
+                          >= sum(r["operations_ms"] for r in recs)
+                          else "operations") if recs else None),
+            "library_ms": (sum(r["library_ms"] for r in recs)
+                           if recs else None),
+            "per_shape": recs})
     # K2 at the ring shape (29 of gemma3_4b's 34 layers), K3 at the paged
     # global shape; every shape's numbers ride along in per_shape
     for name, main_shape, shapes in (

@@ -3,6 +3,10 @@
 Layout: ``<dir>/step_<N>/`` holding ``arrays.npz`` (leaves ``a0``, ``a1``,
 ... as host arrays) and ``meta.json``. Writes go to ``step_<N>.tmp`` and are
 renamed into place, so a crashed writer never corrupts the latest step.
+With ``blocking=False`` the device-to-host copy happens in the call and the
+serialization on a background thread (one save in flight at a time;
+:meth:`CheckpointStore.wait` drains it), as in the reference; unlike the
+reference, a save blocks unless asked not to.
 
 Leaves are numbered in the reference's flatten order -- dicts by **sorted
 key**, tuples in order, ``None`` an empty subtree -- whatever the insertion
@@ -15,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any, Optional
 
@@ -39,13 +44,16 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def from_host(arr: np.ndarray, dtype: str, device=None) -> torch.Tensor:
     """Inverse of :func:`to_host`: ``dtype`` is the recorded dtype name."""
+    # np.ascontiguousarray makes a 0-d array 1-d: reshape back
+    shape = np.shape(arr)
     if dtype == "bfloat16":
         if arr.dtype.itemsize != 2:
             raise ValueError(f"bfloat16 leaf stored as {arr.dtype}")
-        raw = np.ascontiguousarray(arr).view(np.int16)
+        raw = np.ascontiguousarray(arr).view(np.int16).reshape(shape)
         return torch.from_numpy(raw).view(torch.bfloat16).to(device)
     arr = np.asarray(arr).astype(_NP_DTYPES[dtype], copy=False)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(shape)).to(
+        device)
 
 
 class CheckpointStore:
@@ -53,10 +61,23 @@ class CheckpointStore:
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
 
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
-        """Write ``tree``'s leaves and ``extra`` meta as step ``step``."""
+    def save(self, step: int, tree: Any, blocking: bool = True,
+             extra: Optional[dict] = None):
+        """Write ``tree``'s leaves and ``extra`` meta as step ``step``: the
+        host copy now, the files now or (``blocking=False``) on a background
+        thread."""
         host = [to_host(leaf) for leaf in tree_leaves(tree)]
+        self.wait()   # one in-flight save at a time
+        if blocking:  # in this thread, so a failed write raises here
+            self._write(step, host, extra or {})
+            return
+        self._thread = threading.Thread(
+            target=self._write, args=(step, host, extra or {}), daemon=True)
+        self._thread.start()
+
+    def _write(self, step: int, host, extra: dict):
         tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
         final = os.path.join(self.dir, f"step_{step:09d}")
         os.makedirs(tmp, exist_ok=True)
@@ -64,11 +85,16 @@ class CheckpointStore:
                  **{f"a{i}": a for i, a in enumerate(host)})
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, "n_arrays": len(host),
-                       "time": time.time(), **(extra or {})}, f)
+                       "time": time.time(), **extra}, f)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
+
+    def wait(self):
+        """Block until the in-flight save (if any) is on disk."""
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join()
 
     def _gc(self):
         steps = self.all_steps()
@@ -83,10 +109,18 @@ class CheckpointStore:
                 out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, like: Any, step: int, device=None) -> Any:
-        """Restore step ``step`` into the structure of ``like``, whose leaves
-        are dtype names (``serving.serialize.build_like``), onto
-        ``device``."""
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like: Any, step: Optional[int] = None,
+                device=None) -> Any:
+        """Restore step ``step`` (default: the latest) into the structure of
+        ``like``, whose leaves are dtype names
+        (``serving.serialize.build_like``), onto ``device``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:09d}", "arrays.npz")
         with np.load(path) as data:
             new = [from_host(data[f"a{i}"], dtype, device)

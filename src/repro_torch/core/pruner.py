@@ -1,9 +1,14 @@
-"""One-shot block-magnitude pruning (paper §2.1), serving-side recipes.
+"""Block-magnitude pruning (paper §2.1): the gradual training schedule and
+the one-shot serving-side recipes.
 
-Counterpart of the one-shot part of ``repro/core/pruner.py``: ``oneshot_prune``
-(independent per-leaf masks) and ``tied_prune`` (one mask per projection
-group across layers). Path names and group order follow the reference's tree
-walk (:mod:`repro_torch.core.tree`), so the same weights give the same masks.
+Counterpart of ``repro/core/pruner.py``: the cubic schedule with its mask
+state (``cubic_sparsity``, ``init_masks``, ``update_masks``,
+``apply_masks``, ``sparsity_report``) and ``oneshot_prune`` (independent
+per-leaf masks) / ``tied_prune`` (one mask per projection group across
+layers). Path names and group order follow the reference's tree walk
+(:mod:`repro_torch.core.tree`), and the schedule and the quantile threshold
+are computed in fp32 as the reference computes them, so the same weights
+give the same masks.
 """
 from __future__ import annotations
 
@@ -11,10 +16,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.sparsity import (SparsityConfig, apply_block_mask,
-                                       block_norms, expand_block_mask,
-                                       topk_block_mask, topk_flat_mask)
-from repro_torch.core.tree import flatten_with_path, path_name, unflatten
+import numpy as np
+
+from repro_torch.core.sparsity import (SparsityConfig, actual_sparsity,
+                                       apply_block_mask, block_norms,
+                                       expand_block_mask, topk_block_mask,
+                                       topk_flat_mask)
+from repro_torch.core.tree import (flatten_with_path, map_with_path,
+                                   path_name, unflatten)
 
 
 def _prunable(cfg: SparsityConfig, name: str, leaf) -> bool:
@@ -23,6 +32,100 @@ def _prunable(cfg: SparsityConfig, name: str, leaf) -> bool:
         return False
     bh, bw = cfg.block_shape
     return leaf.shape[-2] % bh == 0 and leaf.shape[-1] % bw == 0
+
+
+def cubic_sparsity(step: int, cfg: SparsityConfig) -> float:
+    """Zhu & Gupta cubic ramp s(t) = s_f * (1 - (1 - t_norm)^3), clipped;
+    computed in fp32 as the reference does."""
+    span = max(1, cfg.end_step - cfg.start_step)
+    t = np.float32(np.clip((step - cfg.start_step) / span, 0.0, 1.0))
+    u = np.float32(1.0) - t
+    return float(np.float32(cfg.sparsity) * (np.float32(1.0) - u * u * u))
+
+
+def _per_layer(fn, leaf, *rest):
+    """Apply a 2-D-weight function to a 2-D or layer-stacked 3-D leaf."""
+    if leaf.ndim == 2:
+        return fn(leaf, *rest)
+    return torch.stack([fn(*args) for args in zip(leaf, *rest)])
+
+
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile`` (linear) of a flat tensor, in fp32 step by step."""
+    a = torch.sort(x.float()).values
+    n = a.numel()
+    qn = torch.tensor(q, dtype=torch.float32) * np.float32(n - 1)
+    low, high = torch.floor(qn), torch.ceil(qn)
+    hw = qn - low
+    lw = 1.0 - hw
+    lo = int(min(max(low.item(), 0), n - 1))
+    hi = int(min(max(high.item(), 0), n - 1))
+    return a[lo] * lw.to(a.device) + a[hi] * hw.to(a.device)
+
+
+def _mask_at(masks, path):
+    node = masks
+    for k in path:
+        if node is None:
+            return None
+        node = node[k]
+    return node
+
+
+def init_masks(params, cfg: SparsityConfig):
+    """All-ones block masks for every prunable leaf, None elsewhere;
+    layer-stacked leaves get per-layer masks (L, nbr, nbc)."""
+    bh, bw = cfg.block_shape
+
+    def one(path, leaf):
+        if not _prunable(cfg, path_name(path), leaf):
+            return None
+        shape = tuple(leaf.shape[:-2]) + (leaf.shape[-2] // bh,
+                                          leaf.shape[-1] // bw)
+        return torch.ones(shape, dtype=torch.bool, device=leaf.device)
+    return map_with_path(one, params)
+
+
+def update_masks(params, masks, step: int, cfg: SparsityConfig):
+    """Recompute block masks at the scheduled sparsity for this step: a
+    block is kept where its norm exceeds the target quantile of its leaf's
+    block norms."""
+    target = cubic_sparsity(step, cfg)
+
+    def upd_2d(leaf):
+        norms = block_norms(leaf.float(), cfg.block_shape,
+                            cfg.group_norm_ord)
+        return norms > _quantile(norms.reshape(-1), target)
+
+    def upd(path, leaf):
+        if _mask_at(masks, path) is None:
+            return None
+        return _per_layer(upd_2d, leaf)
+    return map_with_path(upd, params)
+
+
+def apply_masks(params, masks, cfg: SparsityConfig):
+    """Zero out masked blocks (keeps pruned weights dead after the optimizer
+    step)."""
+    def app(path, leaf):
+        mask = _mask_at(masks, path)
+        if mask is None:
+            return leaf
+        return _per_layer(lambda w, m: apply_block_mask(w, m, cfg.block_shape),
+                          leaf, mask)
+    return map_with_path(app, params)
+
+
+def sparsity_report(params, cfg: SparsityConfig) -> Dict[str, float]:
+    """Per-target actual block sparsity (mean over a stack's layers)."""
+    out = {}
+    for path, leaf in flatten_with_path(params):
+        name = path_name(path)
+        if _prunable(cfg, name, leaf):
+            s = _per_layer(lambda w: actual_sparsity(w, cfg.block_shape),
+                           leaf)
+            out[name] = float(s.float().mean())
+    return out
 
 
 def oneshot_prune(params, cfg: SparsityConfig):

@@ -77,3 +77,10 @@ def expand_block_mask(mask: torch.Tensor,
 def apply_block_mask(w: torch.Tensor, mask: torch.Tensor,
                      block_shape: Tuple[int, int]) -> torch.Tensor:
     return w * expand_block_mask(mask, block_shape).to(w.dtype)
+
+
+def actual_sparsity(w: torch.Tensor,
+                    block_shape: Tuple[int, int]) -> torch.Tensor:
+    """Fraction of all-zero blocks in ``w`` (fp32 0-d tensor)."""
+    norms = block_norms(w, block_shape, ord=1)
+    return (norms == 0).float().mean()

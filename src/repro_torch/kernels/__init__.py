@@ -1,7 +1,9 @@
-"""Kernels: host packs, execution plans, K1 (block-sparse matmul) and
-K2 / K3 (split-K decode attention)."""
+"""Kernels: host packs, execution plans, K1 (block-sparse matmul), K4 / K5
+(its backward: DDS and SDDMM) and K2 / K3 (split-K decode attention)."""
 from repro_torch.kernels.bsr_matmul import (KernelBSR, PlanSchedule,
-                                            pack_bsr, plan_dds)
+                                            TileSequence, dds, dds_t,
+                                            pack_bsr, plan_dds, plan_dds_t,
+                                            plan_sddmm, sddmm)
 from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
                                            build_plan, default_plan_registry,
                                            kernel_pattern_fingerprint,
@@ -11,6 +13,7 @@ from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
                                            plan_kernel_sequence, plan_linear,
                                            plan_linear_pallas, plan_matmul,
                                            plan_matmul_pallas, plan_schedule,
+                                           plan_t_schedule, plan_t_sequence,
                                            unpack_plan_data)
 from repro_torch.kernels.flash_decode import (decode_kernel_override,
                                               default_kv_split, flash_decode,
@@ -18,4 +21,5 @@ from repro_torch.kernels.flash_decode import (decode_kernel_override,
                                               paged_flash_decode,
                                               paged_flash_decode_plain,
                                               resolved_decode_kernel)
-from repro_torch.kernels.ops import default_plan_backend, plan_dispatch
+from repro_torch.kernels.ops import (bsr_linear, default_backend,
+                                     default_plan_backend, plan_dispatch)

@@ -1,15 +1,29 @@
-"""Block-sparse linear layers: the host-side tile pack and kernel K1.
+"""Block-sparse linear layers: the host-side tile pack and kernels K1, K4
+and K5.
 
 Counterpart of ``repro/kernels/bsr_matmul.py``:
 
   * :class:`KernelBSR` / :func:`pack_bsr` -- the offline tile-granular BSR
     pack, plain numpy, byte-identical to the reference;
-  * :func:`plan_dds` -- ``Y = act(X @ W^T + bias)`` from the RowPackPlan's
-    row-grouped ``(V, P, bn, bk)`` pack, walking the row-sorted tile
-    schedule of ``exec_plan.plan_kernel_sequence``, by launching the
-    hand-written Hopper kernel ``csrc/plan_dds.cu`` (which replaces the
-    Pallas ``_plan_dds_kernel``). Its plain version, which CPU tensors run,
-    is ``exec_plan.plan_fused_linear_plain``.
+  * :func:`plan_dds` (K1) -- ``Y = act(X @ W^T + bias)`` from the
+    RowPackPlan's row-grouped ``(V, P, bn, bk)`` pack, walking the
+    row-sorted tile schedule of ``exec_plan.plan_kernel_sequence``, by
+    launching ``csrc/plan_dds.cu`` (which replaces the Pallas
+    ``_plan_dds_kernel``). Its plain version, which CPU tensors run, is
+    ``exec_plan.plan_fused_linear_plain``;
+  * :func:`dds`, :func:`dds_t` and :func:`plan_dds_t` (K4) -- ``X @ W^T``
+    over a flat KernelBSR and ``dY @ W`` over a KernelBSR or the plan
+    layout, one kernel ``csrc/dds.cu`` (replacing ``_dds_kernel``) walking
+    a row-sorted :class:`TileSequence`, the transposed products reading
+    each tile through strides;
+  * :func:`sddmm` and :func:`plan_sddmm` (K5) -- the stored tiles' gradient
+    ``dW[j] = dY[:, row_j]^T @ X[:, col_j]``, kernel ``csrc/sddmm.cu``
+    (replacing ``_sddmm_kernel``).
+
+Every kernel wrapper runs its plain version (the reference's arithmetic in
+torch ops, beside it here) on a CPU tensor, launches its kernel on a CUDA
+tensor and counts the launch in ``<wrapper>.launches``, and raises on
+anything else: nothing falls back.
 """
 from __future__ import annotations
 
@@ -34,7 +48,7 @@ class KernelBSR:
     detect the last tile of each block row without branching on bounds.
     """
 
-    data: np.ndarray         # (nnzt, bn, bk) stored tile values
+    data: np.ndarray         # (nnzt, bn, bk) tile values (numpy or tensor)
     row_id: np.ndarray       # (nnzt + 1,) int32, sorted, sentinel-terminated
     col_id: np.ndarray       # (nnzt,) int32
     t_perm: np.ndarray       # (nnzt,) permutation sorting tiles by (col, row)
@@ -49,6 +63,27 @@ class KernelBSR:
     @property
     def n_brows(self) -> int:
         return self.shape[0] // self.tile[0]
+
+    @property
+    def n_bcols(self) -> int:
+        return self.shape[1] // self.tile[1]
+
+    @property
+    def density(self) -> float:
+        return self.real_nnzt / max(1, self.n_brows * self.n_bcols)
+
+    def pad_mask(self) -> np.ndarray:
+        m = np.zeros((self.nnzt,), bool)
+        m[: self.real_nnzt] = True
+        return m
+
+    # transpose-pattern views (for dX = dY @ W)
+    def t_row_id(self) -> np.ndarray:
+        t = self.col_id[self.t_perm]
+        return np.concatenate([t, [self.n_bcols]]).astype(np.int32)
+
+    def t_col_id(self) -> np.ndarray:
+        return self.row_id[:-1][self.t_perm].astype(np.int32)
 
 
 def _host(w) -> np.ndarray:
@@ -131,36 +166,59 @@ def act_epilogue(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     return y
 
 
-class PlanSchedule:
-    """The forward tile schedule of one plan, in the form the kernel reads.
+class TileSequence:
+    """A row-sorted tile sequence in the form kernels K1 and K4 read.
 
-    ``row_seq`` (sentinel-terminated), ``col_seq``, ``vrow_seq`` and
-    ``slot_seq`` are ``exec_plan.plan_kernel_sequence``'s arrays. The host
-    derives, once, each block row's run ``seg[r]:seg[r + 1]`` of the
-    row-sorted schedule and each tile's index ``vrow * P + slot`` in the
-    flattened pack; :meth:`on` keeps one device copy per device.
+    ``row_ids`` (sorted, no sentinel) is each tile's output block,
+    ``in_blocks`` the block of the input it reads and ``tiles`` its index in
+    the flat tile values. The host derives, once, each output block's run
+    ``seg[r]:seg[r + 1]``; :meth:`on` keeps one device copy per device.
     """
 
-    def __init__(self, row_seq, col_seq, vrow_seq, slot_seq, *,
-                 n_brows: int, n_bcols: int, p_max: int):
-        self.n_brows, self.n_bcols, self.p_max = n_brows, n_bcols, p_max
-        self.col_seq = np.asarray(col_seq, np.int32)
-        self.seg = np.searchsorted(np.asarray(row_seq[:-1], np.int64),
-                                   np.arange(n_brows + 1)).astype(np.int32)
-        self.tile_seq = (np.asarray(vrow_seq, np.int64) * p_max
-                         + np.asarray(slot_seq, np.int64)).astype(np.int32)
+    def __init__(self, row_ids, in_blocks, tiles, *, n_out: int, n_in: int):
+        row_ids = np.asarray(row_ids, np.int64)
+        if np.any(np.diff(row_ids) < 0):
+            raise ValueError("a tile sequence must be sorted by output block")
+        self.n_out, self.n_in = n_out, n_in
+        self.row_ids = row_ids.astype(np.int32)
+        self.col_seq = np.asarray(in_blocks, np.int32)
+        self.tile_seq = np.asarray(tiles, np.int32)
+        self.seg = np.searchsorted(row_ids, np.arange(n_out + 1)).astype(
+            np.int32)
         self._dev: Dict[str, Dict[str, torch.Tensor]] = {}
 
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tile_seq.shape[0])
+
     def on(self, device) -> Dict[str, torch.Tensor]:
-        """The kernel's int32 ``seg``, ``col`` and ``tile`` on ``device``."""
+        """The kernels' int32 ``seg``, ``row``, ``col`` and ``tile`` on
+        ``device``."""
         key = str(device)
         if key not in self._dev:
-            arrs = {"seg": self.seg, "col": self.col_seq,
-                    "tile": self.tile_seq}
+            arrs = {"seg": self.seg, "row": self.row_ids,
+                    "col": self.col_seq, "tile": self.tile_seq}
             self._dev[key] = {
                 k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for k, a in arrs.items()}
         return self._dev[key]
+
+
+class PlanSchedule(TileSequence):
+    """The forward tile schedule of one plan: ``row_seq`` (sentinel-
+    terminated), ``col_seq``, ``vrow_seq`` and ``slot_seq`` are
+    ``exec_plan.plan_kernel_sequence``'s arrays; each tile's index in the
+    flattened pack is ``vrow * P + slot``."""
+
+    def __init__(self, row_seq, col_seq, vrow_seq, slot_seq, *,
+                 n_brows: int, n_bcols: int, p_max: int):
+        tiles = (np.asarray(vrow_seq, np.int64) * p_max
+                 + np.asarray(slot_seq, np.int64))
+        super().__init__(np.asarray(row_seq)[:-1], col_seq, tiles,
+                         n_out=n_brows, n_in=n_bcols)
+        self.n_brows, self.n_bcols, self.p_max = n_brows, n_bcols, p_max
+        self.vrow_seq = np.asarray(vrow_seq, np.int64)
+        self.slot_seq = np.asarray(slot_seq, np.int64)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -237,3 +295,332 @@ def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
 
 
 plan_dds.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the shared host side of K4 and K5
+# --------------------------------------------------------------------------
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# K4 dds_launch(x, w, y, seg, in_blk, tile_seq, M, K_in, N_out, n_out, ow,
+# iw, transposed, x_bf16, w_bf16, stream); K5 sddmm_launch(dy, x, out,
+# row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16, out_bf16,
+# stream)
+_ENTRY = {
+    "dds": ("dds_launch",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "sddmm": ("sddmm_launch",
+              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+}
+
+
+def _entry(name: str):
+    """The C entry point of library ``name`` (built on first use)."""
+    if name not in _LIBS:
+        from repro_torch.kernels.build import load_library
+        lib = load_library(name)
+        fn_name, argtypes = _ENTRY[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return getattr(_LIBS[name], _ENTRY[name][0])
+
+
+def _device_route(what: str, *tensors) -> bool:
+    """True to launch the kernel (CUDA tensors), False for the plain
+    version (CPU tensors); raises on mixed or other devices."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{what} has no kernel for {dev}")
+    for t in tensors:
+        if t.dtype not in _KERNEL_DTYPES:
+            raise TypeError(f"{what} kernel takes fp32/bf16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous inputs")
+    return True
+
+
+def _check_launch(what: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def tile_values(w: KernelBSR, like: torch.Tensor) -> torch.Tensor:
+    """The pack's tile values as a tensor on ``like``'s device."""
+    d = w.data
+    if not isinstance(d, torch.Tensor):
+        d = torch.from_numpy(np.ascontiguousarray(d))
+    return d.to(like.device)
+
+
+def core_bsr(w: KernelBSR, data: torch.Tensor):
+    """View a KernelBSR pattern with values ``data`` as a core BSR (the
+    plain compositions' operand)."""
+    from repro_torch.core.bsr import BSR
+    counts = np.bincount(w.row_id[:-1], minlength=w.n_brows)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return BSR(data, np.asarray(w.col_id, np.int32), indptr, w.shape,
+               w.tile)
+
+
+def _pattern_key(w: KernelBSR, kind: str) -> tuple:
+    return (kind, w.shape, w.tile, w.real_nnzt, w.row_id.tobytes(),
+            w.col_id.tobytes())
+
+
+_SEQ_CACHE: Dict[tuple, TileSequence] = {}
+
+
+def bsr_sequence(w: KernelBSR) -> TileSequence:
+    """K4's sequence for ``dds``: every stored tile (padding included, as
+    the reference's grid visits it) in the pack's row-sorted order."""
+    key = _pattern_key(w, "fwd")
+    if key not in _SEQ_CACHE:
+        _SEQ_CACHE[key] = TileSequence(
+            w.row_id[:-1], w.col_id, np.arange(w.nnzt), n_out=w.n_brows,
+            n_in=w.n_bcols)
+    return _SEQ_CACHE[key]
+
+
+def bsr_t_sequence(w: KernelBSR) -> TileSequence:
+    """K4's sequence for ``dds_t``: the tiles sorted by (block column,
+    block row) through ``t_perm``; output blocks are W's block columns."""
+    key = _pattern_key(w, "t")
+    if key not in _SEQ_CACHE:
+        _SEQ_CACHE[key] = TileSequence(
+            w.t_row_id()[:-1], w.t_col_id(), w.t_perm, n_out=w.n_bcols,
+            n_in=w.n_brows)
+    return _SEQ_CACHE[key]
+
+
+# --------------------------------------------------------------------------
+# K4: DDS over a row-sorted tile sequence (dds, dds_t, plan_dds_t)
+# --------------------------------------------------------------------------
+
+def _dds_launch(x: torch.Tensor, values: torch.Tensor, seq: TileSequence, *,
+                ow: int, iw: int, transposed: bool) -> torch.Tensor:
+    """Y(M, n_out * ow) with output block r = sum over its run of tiles j of
+    X[:, in_j * iw : (in_j + 1) * iw] @ T_j^T, T_j the tile (ow, iw) --
+    read as stored (bn=ow, bk=iw) or, ``transposed``, as the transpose of a
+    stored (bn=iw, bk=ow) tile. Checked by the caller."""
+    m = x.shape[0]
+    n_out = seq.n_out * ow
+    y = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    ix = seq.on(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _entry("dds")(
+        x.data_ptr(), values.data_ptr(), y.data_ptr(), ix["seg"].data_ptr(),
+        ix["col"].data_ptr(), ix["tile"].data_ptr(), m, x.shape[1], n_out,
+        seq.n_out, ow, iw, int(transposed), int(x.dtype == torch.bfloat16),
+        int(values.dtype == torch.bfloat16), stream)
+    _check_launch("dds", err)
+    return y
+
+
+def _check_seq_values(what, values, seq: TileSequence, tile):
+    if (values.dim() != 3 or tuple(values.shape[1:]) != tuple(tile)
+            or (seq.n_tiles and int(seq.tile_seq.max()) >= values.shape[0])):
+        raise ValueError(f"{what}: tile values {tuple(values.shape)} do not "
+                         f"fit tile {tile} and the sequence's "
+                         f"{seq.n_tiles} tiles")
+
+
+def dds_plain(x: torch.Tensor, w: KernelBSR,
+              data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`dds`: the reference's gather composition."""
+    from repro_torch.kernels.ref import bsr_matmul_gather
+    data = tile_values(w, x) if data is None else data
+    return bsr_matmul_gather(x, core_bsr(w, data))
+
+
+def dds(x: torch.Tensor, w: KernelBSR,
+        data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Y(M, N) = X(M, K) @ W^T with tile skipping (kernel K4 over the pack's
+    row-sorted tiles). ``data`` overrides the pack's tile values."""
+    data = tile_values(w, x) if data is None else data
+    if x.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"dds: x {tuple(x.shape)} against W {w.shape}")
+    seq = bsr_sequence(w)
+    _check_seq_values("dds", data, seq, w.tile)
+    if not _device_route("dds", x, data):
+        return dds_plain(x, w, data)
+    y = _dds_launch(x, data, seq, ow=w.tile[0], iw=w.tile[1],
+                    transposed=False)
+    dds.launches += 1
+    return y
+
+
+def dds_t_plain(dy: torch.Tensor, w: KernelBSR,
+                data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`dds_t`: the reference's transpose gather."""
+    from repro_torch.kernels.ref import bsr_matmul_t_gather
+    data = tile_values(w, dy) if data is None else data
+    return bsr_matmul_t_gather(dy, core_bsr(w, data))
+
+
+def dds_t(dy: torch.Tensor, w: KernelBSR,
+          data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dX(M, K) = dY(M, N) @ W: kernel K4 on the column-sorted transposed
+    pattern, each tile read as its transpose in place."""
+    data = tile_values(w, dy) if data is None else data
+    if dy.dim() != 2 or dy.shape[1] != w.shape[0]:
+        raise ValueError(f"dds_t: dy {tuple(dy.shape)} against W {w.shape}")
+    seq = bsr_t_sequence(w)
+    _check_seq_values("dds_t", data, seq, w.tile)
+    if not _device_route("dds_t", dy, data):
+        return dds_t_plain(dy, w, data)
+    dx = _dds_launch(dy, data, seq, ow=w.tile[1], iw=w.tile[0],
+                     transposed=True)
+    dds_t.launches += 1
+    return dx
+
+
+def plan_dds_t_plain(dy: torch.Tensor, data_rp: torch.Tensor,
+                     t_schedule: TileSequence, *, k: int,
+                     tile: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of :func:`plan_dds_t`: per tile of the transposed
+    schedule ``dY[:, row] @ T``, ordered segment sum into block columns."""
+    from repro_torch.kernels.ref import segment_sum
+    bn, bk = tile
+    m, n = dy.shape
+    dev = dy.device
+    flat = data_rp.reshape(-1, bn, bk)[torch.from_numpy(
+        t_schedule.tile_seq.astype(np.int64)).to(dev)]
+    g = dy.reshape(m, n // bn, bn)[:, torch.from_numpy(
+        t_schedule.col_seq.astype(np.int64)).to(dev)]        # (M, J, bn)
+    prod = torch.einsum("mjn,jnk->jmk", g.float(), flat.float())
+    dx = segment_sum(prod, t_schedule.row_ids, k // bk)     # (C, M, bk)
+    return dx.permute(1, 0, 2).reshape(m, k).to(dy.dtype)
+
+
+def plan_dds_t(dy: torch.Tensor, data_rp: torch.Tensor,
+               t_schedule: TileSequence, *, k: int,
+               tile: Tuple[int, int]) -> torch.Tensor:
+    """dX(M, K) = dY(M, N) @ W from the row-grouped (V, P, bn, bk) pack, on
+    the transposed schedule (``exec_plan.plan_t_schedule``): kernel K4
+    reads the pack in place, each tile as its transpose."""
+    bn, bk = tile
+    if (dy.dim() != 2 or dy.shape[1] != t_schedule.n_in * bn
+            or k != t_schedule.n_out * bk or data_rp.dim() != 4):
+        raise ValueError(f"plan_dds_t: dy {tuple(dy.shape)}, data_rp "
+                         f"{tuple(data_rp.shape)}, k={k}, tile={tile}")
+    values = data_rp.reshape(-1, bn, bk)
+    _check_seq_values("plan_dds_t", values, t_schedule, tile)
+    if not _device_route("plan_dds_t", dy, data_rp):
+        return plan_dds_t_plain(dy, data_rp, t_schedule, k=k, tile=tile)
+    dx = _dds_launch(dy, values, t_schedule, ow=bk, iw=bn, transposed=True)
+    plan_dds_t.launches += 1
+    return dx
+
+
+dds.launches = 0
+dds_t.launches = 0
+plan_dds_t.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: SDDMM, the stored tiles' gradient (sddmm, plan_sddmm)
+# --------------------------------------------------------------------------
+
+def _sddmm_launch(dy: torch.Tensor, x: torch.Tensor, row_blk, col_blk, *,
+                  tile: Tuple[int, int], n_real: int,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """(J, bn, bk) tile gradients for tiles at block (row_blk[j],
+    col_blk[j]); tiles j >= n_real are written as zeros."""
+    bn, bk = tile
+    if dy.dtype != x.dtype:
+        raise TypeError(f"sddmm kernel takes dy and x of one dtype, got "
+                        f"{dy.dtype} and {x.dtype}")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"sddmm kernel writes fp32/bf16, not {out_dtype}")
+    j = int(row_blk.shape[0])
+    out = torch.empty((j, bn, bk), dtype=out_dtype, device=dy.device)
+    if j == 0:
+        return out
+    if dy.shape[0] == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    err = _entry("sddmm")(
+        dy.data_ptr(), x.data_ptr(), out.data_ptr(), row_blk.data_ptr(),
+        col_blk.data_ptr(), dy.shape[0], dy.shape[1], x.shape[1], bn, bk, j,
+        n_real, int(dy.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), stream)
+    _check_launch("sddmm", err)
+    return out
+
+
+def _check_sddmm(what, dy, x, n, k):
+    if (dy.dim() != 2 or x.dim() != 2 or dy.shape[0] != x.shape[0]
+            or dy.shape[1] != n or x.shape[1] != k):
+        raise ValueError(f"{what}: dy {tuple(dy.shape)}, x {tuple(x.shape)} "
+                         f"against W ({n}, {k})")
+
+
+def sddmm_plain(dy: torch.Tensor, x: torch.Tensor, w: KernelBSR,
+                data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`sddmm`: ``ref.sddmm_ref``, padding tiles
+    zeroed."""
+    from repro_torch.kernels.ref import sddmm_ref
+    data = tile_values(w, dy) if data is None else data
+    g = sddmm_ref(dy, x, core_bsr(w, data))
+    return g * torch.from_numpy(w.pad_mask()).to(g.device)[:, None, None]
+
+
+def sddmm(dy: torch.Tensor, x: torch.Tensor, w: KernelBSR,
+          data: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gradient w.r.t. the stored tiles: (nnzt, bn, bk) in the values'
+    dtype, padding tiles exactly zero (they must stay dead). Kernel K5."""
+    data = tile_values(w, dy) if data is None else data
+    _check_sddmm("sddmm", dy, x, *w.shape)
+    if not _device_route("sddmm", dy, x):
+        return sddmm_plain(dy, x, w, data)
+    ix = bsr_sequence(w).on(dy.device)
+    g = _sddmm_launch(dy, x, ix["row"], ix["col"], tile=w.tile,
+                      n_real=w.real_nnzt, out_dtype=data.dtype)
+    sddmm.launches += 1
+    return g
+
+
+def plan_sddmm_plain(dy: torch.Tensor, x: torch.Tensor,
+                     schedule: TileSequence, *, tile: Tuple[int, int],
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of :func:`plan_sddmm`: gathered blocks, one einsum."""
+    bn, bk = tile
+    m = dy.shape[0]
+    dev = dy.device
+    gy = dy.reshape(m, -1, bn)[:, torch.from_numpy(
+        schedule.row_ids.astype(np.int64)).to(dev)]
+    gx = x.reshape(m, -1, bk)[:, torch.from_numpy(
+        schedule.col_seq.astype(np.int64)).to(dev)]
+    return torch.einsum("mjn,mjk->jnk", gy.float(), gx.float()).to(out_dtype)
+
+
+def plan_sddmm(dy: torch.Tensor, x: torch.Tensor, schedule: TileSequence, *,
+               tile: Tuple[int, int],
+               out_dtype=torch.float32) -> torch.Tensor:
+    """Per-tile gradient ``dW[j] = dY[:, row_j]^T @ X[:, col_j]`` over the
+    schedule order (``exec_plan.plan_schedule``); (J, bn, bk) in
+    ``out_dtype``. Every schedule tile is real. Kernel K5."""
+    bn, bk = tile
+    _check_sddmm("plan_sddmm", dy, x, schedule.n_out * bn,
+                 schedule.n_in * bk)
+    if not _device_route("plan_sddmm", dy, x):
+        return plan_sddmm_plain(dy, x, schedule, tile=tile,
+                                out_dtype=out_dtype)
+    ix = schedule.on(dy.device)
+    g = _sddmm_launch(dy, x, ix["row"], ix["col"], tile=tile,
+                      n_real=schedule.n_tiles, out_dtype=out_dtype)
+    plan_sddmm.launches += 1
+    return g
+
+
+sddmm.launches = 0
+plan_sddmm.launches = 0

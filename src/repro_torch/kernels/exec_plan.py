@@ -31,7 +31,9 @@ import torch
 
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.kernels.bsr_matmul import (KernelBSR, PlanSchedule,
-                                            act_epilogue, plan_dds)
+                                            TileSequence, act_epilogue,
+                                            plan_dds, plan_dds_t, plan_sddmm)
+from repro_torch.kernels.ref import segment_index
 
 # GEMM-efficiency floor for the batched matmul's inner dimension P*bk
 _MIN_INNER = 128
@@ -219,14 +221,7 @@ def unpack_plan_data(plan: RowPackPlan, data_rp) -> torch.Tensor:
 def _vrow_segments(plan: RowPackPlan) -> np.ndarray:
     """(R, 1 + max spill) vrow indices per block row -- the home vrow, then
     its spill vrows in order -- padded with V (a zero row)."""
-    rov = np.asarray(plan.row_of_vrow, np.int64)
-    order = np.argsort(rov, kind="stable")
-    counts = np.bincount(rov, minlength=plan.n_brows)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    pos = np.arange(max(1, int(counts.max())))[None, :]
-    return np.where(pos < counts[:, None],
-                    order[np.minimum(starts[:, None] + pos, len(order) - 1)],
-                    plan.n_vrows)
+    return segment_index(plan.row_of_vrow, plan.n_brows)
 
 
 def _gather_x(x: torch.Tensor, plan: RowPackPlan) -> torch.Tensor:
@@ -249,11 +244,64 @@ def _plan_fwd_f32(x: torch.Tensor, data_rp: torch.Tensor,
     return y.permute(1, 0, 2).reshape(m, plan.shape[0])
 
 
+def _dx_segments(plan: RowPackPlan) -> np.ndarray:
+    """(C, L) flat slot indices ``v * P + p`` feeding each input block
+    column, in slot order, padded with ``V * P`` (a zero entry): the
+    ordered form of the reference's ``dx.at[:, col_idx].add``."""
+    return segment_index(np.asarray(plan.col_idx).reshape(-1), plan.n_bcols)
+
+
+def _plan_bwd(plan: RowPackPlan, x: torch.Tensor, data_rp: torch.Tensor,
+              dy: torch.Tensor, need_dx: bool = True, need_ddata: bool = True):
+    """The reference's ``_plan_bwd``: dY gathered per vrow, the values'
+    gradient masked by ``slot_mask`` (padding slots exactly zero), dX
+    summed back over ``col_idx`` in a fixed order (no atomics)."""
+    m = x.shape[0]
+    bn, bk = plan.tile
+    dy_v = dy.reshape(m, plan.n_brows, bn).float()
+    if plan.spilled:
+        dy_v = dy_v[:, _dev_index(plan, "row_of_vrow", plan.row_of_vrow,
+                                  dy.device)]                 # (M, V, bn)
+    dx = ddata = None
+    if need_ddata:
+        xg = _gather_x(x, plan).float()
+        ddata = torch.einsum("mvn,mvpk->vpnk", dy_v, xg)
+        mask = torch.from_numpy(np.asarray(plan.slot_mask)).to(ddata.device)
+        ddata = (ddata * mask[:, :, None, None].to(ddata.dtype)).to(
+            data_rp.dtype)
+    if need_dx:
+        dxg = torch.einsum("mvn,vpnk->mvpk", dy_v, data_rp.float())
+        flat = dxg.reshape(m, plan.n_vrows * plan.p_max, bk)
+        flat = torch.cat([flat, flat.new_zeros((m, 1, bk))], dim=1)
+        idx = _dev_index(plan, "dx_segments", _dx_segments(plan), dy.device)
+        dx = flat[:, idx].sum(dim=2).reshape(m, plan.shape[1]).to(x.dtype)
+    return dx, ddata
+
+
+class _PlanLinear(torch.autograd.Function):
+    """``plan_linear`` with the reference's custom backward."""
+
+    @staticmethod
+    def forward(ctx, x, data_rp, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(x, data_rp)
+        return _plan_fwd_f32(x, data_rp, plan).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, data_rp = ctx.saved_tensors
+        dx, ddata = _plan_bwd(ctx.plan, x, data_rp, dy,
+                              ctx.needs_input_grad[0],
+                              ctx.needs_input_grad[1])
+        return dx, ddata, None
+
+
 def plan_linear(x: torch.Tensor, data_rp: torch.Tensor,
                 plan: RowPackPlan) -> torch.Tensor:
     """Y(M, N) = X(M, K) @ W^T with W given as a plan + row-grouped values,
-    accumulated in fp32 and returned in ``x``'s dtype."""
-    return _plan_fwd_f32(x, data_rp, plan).to(x.dtype)
+    accumulated in fp32 and returned in ``x``'s dtype. Differentiable in
+    ``x`` and ``data_rp``; padding-slot gradients are exactly zero."""
+    return _PlanLinear.apply(x, data_rp, plan)
 
 
 def plan_matmul(x: torch.Tensor, data_rp: torch.Tensor, plan: RowPackPlan):
@@ -291,11 +339,87 @@ def plan_schedule(plan: RowPackPlan) -> PlanSchedule:
                         n_bcols=plan.n_bcols, p_max=plan.p_max)
 
 
+@functools.lru_cache(maxsize=None)
+def plan_t_sequence(plan: RowPackPlan):
+    """Transposed schedule (tiles sorted by block column, then row) for
+    dX = dY @ W. Returns ``(t_row_seq, t_col_seq, t_flat)``: the block
+    column of each tile (sentinel-terminated), its block row, and its index
+    in the flattened (V * P, bn, bk) values."""
+    vrow = np.asarray(plan.vrow, np.int64)
+    slot = np.asarray(plan.slot, np.int64)
+    t_row = np.asarray(plan.row_of_vrow, np.int64)[vrow]
+    t_col = np.asarray(plan.col_idx, np.int64)[vrow, slot]
+    assert np.array_equal(np.unique(t_col), np.arange(plan.n_bcols)), \
+        "plan does not cover every input block column"
+    order = np.lexsort((t_row, t_col))
+    t_row_seq = np.concatenate(
+        [t_col[order], [plan.n_bcols]]).astype(np.int32)
+    t_col_seq = t_row[order].astype(np.int32)
+    t_flat = (vrow[order] * plan.p_max + slot[order]).astype(np.int32)
+    return t_row_seq, t_col_seq, t_flat
+
+
+@functools.lru_cache(maxsize=None)
+def plan_t_schedule(plan: RowPackPlan) -> TileSequence:
+    """:func:`plan_t_sequence` in the form kernel K4 reads: output blocks
+    are the plan's block columns, inputs its block rows."""
+    t_row_seq, t_col_seq, t_flat = plan_t_sequence(plan)
+    return TileSequence(t_row_seq[:-1], t_col_seq, t_flat,
+                        n_out=plan.n_bcols, n_in=plan.n_brows)
+
+
+def _k1(x: torch.Tensor, data_rp: torch.Tensor, plan: RowPackPlan, *,
+        bias=None, act: str | None = None) -> torch.Tensor:
+    """Kernel K1 on a CUDA ``x``, its plain version on a CPU ``x``."""
+    if x.dim() != 2 or x.shape[1] != plan.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} does not fit a plan of shape "
+                         f"{plan.shape}")
+    if x.device.type == "cpu":
+        return plan_fused_linear_plain(x, data_rp, plan, bias=bias, act=act)
+    return plan_dds(x.contiguous(), data_rp, plan_schedule(plan),
+                    n=plan.shape[0], tile=plan.tile, bias=bias, act=act)
+
+
+class _PlanLinearPallas(torch.autograd.Function):
+    """K1 forward; K4 (``plan_dds_t``) for dX and K5 (``plan_sddmm``) for
+    the values' gradient -- the reference's ``_plan_pallas_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, data_rp, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(x, data_rp)
+        return _k1(x, data_rp, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, data_rp = ctx.saved_tensors
+        plan = ctx.plan
+        dy = dy.contiguous()
+        dx = ddata = None
+        if ctx.needs_input_grad[0]:
+            dx = plan_dds_t(dy, data_rp, plan_t_schedule(plan),
+                            k=plan.shape[1], tile=plan.tile).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            sched = plan_schedule(plan)
+            g = plan_sddmm(dy, x.contiguous().to(dy.dtype), sched,
+                           tile=plan.tile, out_dtype=torch.float32)
+            # schedule-ordered tile grads into the row-grouped layout by
+            # index assignment; untouched (padding) slots stay exactly zero
+            ddata = torch.zeros(data_rp.shape, dtype=torch.float32,
+                                device=data_rp.device)
+            ddata[_dev_index(plan, "vrow_seq", sched.vrow_seq, g.device),
+                  _dev_index(plan, "slot_seq", sched.slot_seq, g.device)] = g
+            ddata = ddata.to(data_rp.dtype)
+        return dx, ddata, None
+
+
 def plan_linear_pallas(x: torch.Tensor, data_rp: torch.Tensor,
                        plan: RowPackPlan) -> torch.Tensor:
-    """Y(M, N) = X(M, K) @ W^T through kernel K1 (forward only). Same layout
-    contract as :func:`plan_linear`."""
-    return plan_fused_linear(x, data_rp, plan)
+    """Y(M, N) = X(M, K) @ W^T through kernel K1, differentiable through
+    kernels K4 (dX) and K5 (the values' gradient; padding slots exactly
+    zero). Same layout contract as :func:`plan_linear`; a CPU ``x`` runs
+    the plain versions of all three."""
+    return _PlanLinearPallas.apply(x, data_rp, plan)
 
 
 def plan_fused_linear_plain(x: torch.Tensor, data_rp: torch.Tensor,
@@ -312,17 +436,17 @@ def plan_fused_linear_plain(x: torch.Tensor, data_rp: torch.Tensor,
 def plan_fused_linear(x: torch.Tensor, data_rp: torch.Tensor,
                       plan: RowPackPlan, *, bias=None,
                       act: str | None = None) -> torch.Tensor:
-    """Forward entry with the fused epilogue: bias add + activation ('relu'
-    / 'gelu' / 'silu') folded into the kernel's single output write. A CPU
-    ``x`` runs :func:`plan_fused_linear_plain`; a tensor on any other device
-    goes to kernel K1, which launches or raises."""
-    if x.dim() != 2 or x.shape[1] != plan.shape[1]:
-        raise ValueError(f"x {tuple(x.shape)} does not fit a plan of shape "
-                         f"{plan.shape}")
-    if x.device.type == "cpu":
-        return plan_fused_linear_plain(x, data_rp, plan, bias=bias, act=act)
-    return plan_dds(x.contiguous(), data_rp, plan_schedule(plan),
-                    n=plan.shape[0], tile=plan.tile, bias=bias, act=act)
+    """Forward-only entry with the fused epilogue: bias add + activation
+    ('relu' / 'gelu' / 'silu') folded into the kernel's single output
+    write. A CPU ``x`` runs :func:`plan_fused_linear_plain`; a tensor on any
+    other device goes to kernel K1, which launches or raises. It has no
+    backward (as in the reference), so inputs that require grad raise
+    rather than silently cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, data_rp, bias)):
+        raise RuntimeError("plan_fused_linear is forward-only; use "
+                           "plan_linear_pallas for a differentiable product")
+    return _k1(x, data_rp, plan, bias=bias, act=act)
 
 
 def plan_matmul_pallas(x: torch.Tensor, data_rp: torch.Tensor,

@@ -2,7 +2,8 @@
 gated MLPs and the paged-KV primitives.
 
 Counterpart of ``repro/models/common.py`` (without the tensor-parallel hook,
-the conv history of the recurrent families and the quantized/bsr packs).
+the conv history of the recurrent families and the quantized, autotuned and
+masked packs).
 Parameters are plain dicts of tensors, laid out as in the reference: a
 linear weight is stored (d_out, d_in) and applied as ``y = x @ w.T`` (the
 BSR layout).
@@ -14,7 +15,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-_ITEM_BSR = "ROADMAP.md Queue 1 item 4 (bsr_linear backends)"
+_ITEM_PACKS = {
+    "QuantPlan": "ROADMAP.md Queue 1 item 15 (quantized packs)",
+    "BackendChoice": "ROADMAP.md Queue 1 item 16 (autotune)",
+    "MaskedPack": "ROADMAP.md Queue 1 item 16 (autotune, kernel K7)",
+}
 
 
 def normal_init(gen: torch.Generator, shape, scale=0.02,
@@ -102,7 +107,7 @@ def init_linear(gen, d_in, d_out, dtype=torch.float32, scale=0.02,
     return {"w": normal_init(gen, (d_out, d_in), scale, dtype, device)}
 
 
-def linear(p, x, pack=None):
+def linear(p, x, pack=None, backend=None):
     """Dense or block-sparse projection.
 
     ``pack`` is static pattern metadata from ``serving.export``:
@@ -110,9 +115,14 @@ def linear(p, x, pack=None):
         (V, P, bn, bk) served by the plain plan composition ('plan');
       * a ``PlanChoice`` -- the same layout pinned to a backend through
         ``ops.plan_dispatch`` ('plan_pallas' = kernel K1);
+      * a ``KernelBSR`` -- ``p['w']`` holds packed tile values
+        (nnzt, bn, bk) and the product goes through ``ops.bsr_matmul``'s
+        backends (``backend``; by default kernel K4 on a CUDA tensor);
       * None -- a dense weight, ``x @ w.T``.
+    Every plan and pack route is differentiable.
     """
     if pack is not None:
+        from repro_torch.kernels.bsr_matmul import KernelBSR
         from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
                                                    plan_matmul)
         if isinstance(pack, PlanChoice):
@@ -120,9 +130,16 @@ def linear(p, x, pack=None):
             return plan_dispatch(x, p["w"], pack.plan, backend=pack.backend)
         if isinstance(pack, RowPackPlan):
             return plan_matmul(x, p["w"], pack)
-        raise NotImplementedError(
-            f"pack kind {type(pack).__name__} is not ported yet; it comes "
-            f"with {_ITEM_BSR}")
+        if isinstance(pack, KernelBSR):
+            import dataclasses as _dc
+            from repro_torch.kernels.ops import bsr_matmul
+            return bsr_matmul(x, _dc.replace(pack, data=p["w"]), backend)
+        kind = type(pack).__name__
+        if kind in _ITEM_PACKS:
+            raise NotImplementedError(
+                f"pack kind {kind} is not ported yet; it comes with "
+                f"{_ITEM_PACKS[kind]}")
+        raise TypeError(f"unknown pack kind {kind}")
     return torch.matmul(x, p["w"].t())
 
 

@@ -36,7 +36,8 @@ _QKV = ("wq", "wk", "wv")
 _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
 
-_ITEM_BSR = "ROADMAP.md Queue 1 item 4 (bsr_linear backends)"
+_ITEM_BSR = ("ROADMAP.md Queue 1 item 4 (the 'bsr' serving backend: export "
+             "and codec)")
 _ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
 
 

@@ -1,5 +1,7 @@
-"""Kernels K1 (``csrc/plan_dds.cu``), K2 and K3 (``csrc/flash_decode.cu``)
-on the card against their plain versions.
+"""Kernels K1 (``csrc/plan_dds.cu``), K2 and K3 (``csrc/flash_decode.cu``),
+K4 (``csrc/dds.cu``) and K5 (``csrc/sddmm.cu``) on the card against their
+plain versions, and the gradients of the two kernel-backed ops against the
+plain backends.
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -148,3 +150,149 @@ def test_decode_kernels_raise_on_what_they_do_not_take(hq, hkv, d, dtype,
         paged_flash_decode(q, pages, pages, table,
                            torch.arange(8, device="cuda")[None], 7)
     assert (flash_decode.launches, paged_flash_decode.launches) == before
+
+
+# --------------------------------------------------------------------------
+# K4 / K5 (csrc/dds.cu, csrc/sddmm.cu) against their plain versions
+# --------------------------------------------------------------------------
+
+# fp32: fp32 sums in another order, within 1e-5 of max|ref|; bf16 outputs:
+# one bf16 rounding step (2^-7) with margin
+_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, ref, tol):
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+def _bsr_case(rng, n, k, tile, density, pad, dtype):
+    w = rng.randn(n, k).astype(np.float32)
+    w *= np.kron(rng.rand(n // tile[0], k // tile[1]) < density,
+                 np.ones(tile, np.float32))
+    pk = pack_bsr(w, tile)
+    if pad:
+        pk = pack_bsr(w, tile, nnzt=pk.real_nnzt + pad)
+    return pk, torch.from_numpy(pk.data).to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,tile,pad", [(100, 128, 384, (32, 128), 3),
+                                            (40, 64, 96, (32, 1), 0),
+                                            (384, 768, 768, (128, 128), 2)])
+def test_dds_and_sddmm_kernels_match_plain_on_card(m, n, k, tile, pad,
+                                                   dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(9)
+    pk, data = _bsr_case(rng, n, k, tile, 0.3, pad, dtype)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to("cuda",
+                                                                 dtype)
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to("cuda",
+                                                                  dtype)
+    before = (bm.dds.launches, bm.dds_t.launches, bm.sddmm.launches)
+    y, dx, g = bm.dds(x, pk, data), bm.dds_t(dy, pk, data), \
+        bm.sddmm(dy, x, pk, data)
+    assert (bm.dds.launches, bm.dds_t.launches, bm.sddmm.launches) == \
+        tuple(c + 1 for c in before)
+    _close(y, bm.dds_plain(x, pk, data), _BWD_TOL[dtype])
+    _close(dx, bm.dds_t_plain(dy, pk, data), _BWD_TOL[dtype])
+    _close(g, bm.sddmm_plain(dy, x, pk, data), _BWD_TOL[dtype])
+    assert g.dtype == dtype
+    assert float(g[pk.real_nnzt:].float().abs().sum()) == 0.0
+    # bit for bit on a second run: no atomics
+    assert torch.equal(g, bm.sddmm(dy, x, pk, data))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,n,k,m", [((16, 64), 128, 1024, 20),
+                                        ((128, 128), 2304, 768, 3072)])
+def test_plan_backward_kernels_match_plain_on_card(tile, n, k, m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(10)
+    w = rng.randn(n, k).astype(np.float32)
+    w *= np.kron(rng.rand(n // tile[0], k // tile[1]) < 0.3,
+                 np.ones(tile, np.float32))
+    if tile == (16, 64):     # one hot block row: the plan spills
+        w[:16, :] = rng.randn(16, k)
+    pk = pack_bsr(w, tile)
+    plan = txp.build_plan(pk)
+    data = txp.pack_plan_data(plan, pk.data).cuda()
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda()
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).cuda()
+    ts, s = txp.plan_t_schedule(plan), txp.plan_schedule(plan)
+    _close(bm.plan_dds_t(dy, data, ts, k=k, tile=tile),
+           bm.plan_dds_t_plain(dy, data, ts, k=k, tile=tile), 1e-5)
+    _close(bm.plan_sddmm(dy, x, s, tile=tile),
+           bm.plan_sddmm_plain(dy, x, s, tile=tile), 1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_op_gradients_match_the_plain_backends_on_card():
+    """plan_linear_pallas (K1 / K4 / K5) against plan_linear, and
+    bsr_linear('pallas') (K4 / K4 / K5) against bsr_linear('gather'), on
+    the card: outputs and both gradients, padding exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels.ops import bsr_linear
+    rng = np.random.RandomState(11)
+    w = rng.randn(256, 384).astype(np.float32)
+    w *= np.kron(rng.rand(8, 6) < 0.4, np.ones((32, 64), np.float32))
+    pk = pack_bsr(w, (32, 64), nnzt=None)
+    pk = pack_bsr(w, (32, 64), nnzt=pk.real_nnzt + 3)
+    plan = txp.build_plan(pk)
+    x0 = torch.from_numpy(rng.randn(48, 384).astype(np.float32)).cuda()
+
+    def grads(fn, data):
+        x = x0.clone().requires_grad_(True)
+        d = data.clone().requires_grad_(True)
+        y = fn(x, d)
+        (y ** 2).sum().backward()
+        return y.detach(), x.grad, d.grad
+
+    rp = txp.pack_plan_data(plan, pk.data).cuda()
+    before = (plan_dds.launches, bm.plan_dds_t.launches,
+              bm.plan_sddmm.launches)
+    got = grads(lambda x, d: txp.plan_linear_pallas(x, d, plan), rp)
+    assert (plan_dds.launches, bm.plan_dds_t.launches,
+            bm.plan_sddmm.launches) == tuple(c + 1 for c in before)
+    want = grads(lambda x, d: txp.plan_linear(x, d, plan), rp)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+    assert float(got[2][torch.from_numpy(~plan.slot_mask)].abs().sum()) == 0
+
+    flat = torch.from_numpy(pk.data).cuda()
+    got = grads(lambda x, d: bsr_linear(x, d, pk, "pallas"), flat)
+    want = grads(lambda x, d: bsr_linear(x, d, pk, "gather"), flat)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+    assert float(got[2][pk.real_nnzt:].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_backward_kernels_raise_on_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(12)
+    pk, data = _bsr_case(rng, 64, 128, (32, 64), 0.5, 0, torch.float32)
+    x = torch.zeros((8, 128), device="cuda")
+    dy = torch.zeros((8, 64), device="cuda")
+    before = (bm.dds.launches, bm.dds_t.launches, bm.sddmm.launches)
+    with pytest.raises(ValueError):          # a wrong K
+        bm.dds(torch.zeros((8, 96), device="cuda"), pk, data)
+    with pytest.raises(TypeError):           # fp16
+        bm.dds(x.half(), pk, data)
+    with pytest.raises(ValueError):          # not contiguous
+        bm.dds_t(torch.zeros((64, 8), device="cuda").t(), pk, data)
+    with pytest.raises(TypeError):           # dy and x of two dtypes
+        bm.sddmm(dy.bfloat16(), x, pk, data)
+    with pytest.raises(ValueError):          # tensors on two devices
+        bm.sddmm(dy, x.cpu(), pk, data)
+    assert (bm.dds.launches, bm.dds_t.launches, bm.sddmm.launches) == before

@@ -178,3 +178,31 @@ def test_x_of_another_width_than_the_plan_raises(k):
     with pytest.raises(ValueError):
         plan_dds(x.to("meta"), td.to("meta"), txp.plan_schedule(tpl),
                  n=64, tile=(16, 16))
+
+
+def test_plan_fused_linear_raises_on_inputs_that_require_grad():
+    """The fused-epilogue entry has no backward (as in the reference): on
+    the CPU (its plain route) an input that requires grad raises instead of
+    silently cutting the graph; under no_grad it serves. The differentiable
+    entry is plan_linear_pallas."""
+    rng = np.random.RandomState(9)
+    w = _sparse_weight(rng, 64, 96, (16, 16), 0.5)
+    _, _, tpl, td = _both(w, (16, 16))
+    x = torch.from_numpy(rng.randn(8, 96).astype(np.float32))
+    b = torch.from_numpy(rng.randn(64).astype(np.float32))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        txp.plan_fused_linear(x.clone().requires_grad_(True), td, tpl,
+                              act="gelu")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        txp.plan_fused_linear(x, td.clone().requires_grad_(True), tpl)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        txp.plan_fused_linear(x, td, tpl, bias=b.clone().requires_grad_(True))
+    with torch.no_grad():
+        y = txp.plan_fused_linear(x.clone().requires_grad_(True), td, tpl,
+                                  bias=b, act="gelu")
+    np.testing.assert_allclose(
+        y.numpy(), txp.plan_fused_linear_plain(x, td, tpl, bias=b,
+                                               act="gelu").numpy())
+    xg = x.clone().requires_grad_(True)
+    txp.plan_linear_pallas(xg, td, tpl).sum().backward()
+    assert xg.grad is not None
