@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases kernels,serving,lm_serving,training]
+    python3 chip_smoke.py [--phases kernels,serving,serving_quant,
+                           serving_auto,lm_serving,lm_serving_quant,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -27,7 +28,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      gathered view -- and at the gemma3_4b decode shapes (B=4, Hkv=4, G=2,
      D=256, bf16; a 1280-slot linear cache, its 80-page paged form, a
      1024-slot ring) with kernel, plain, bound and library
-     (scaled_dot_product_attention with the same mask) times;
+     (scaled_dot_product_attention with the same mask) times; then K6
+     (plan_dds_q) against its plain version -- int8 and fp8, 'block' and
+     'row' (32x1) scales, the spilling and a padded plan, every epilogue
+     with bias, bf16 x, all-zero blocks -- at the four BERT-base shapes at
+     M=384 (int8) and gemma3_4b's packed projections at M=4 (bf16 x) with
+     kernel, plain, bound and library (torch.matmul on the dequantized
+     dense weight) times; and K7 (masked_matmul) against its plain version
+     with non-zero values in the masked tiles -- the shapes of
+     tests/test_kernels.py, 32x1 tiles, bf16, M not a multiple of the block
+     -- and at the four BERT-base shapes with times (library: torch.matmul
+     on w * mask);
   3. serving: BERT-base at full width (12 layers, d=768, d_ff=3072, vocab
      30522, seeded random weights) pruned 80% at 128x128 with tied masks,
      fused QKV and cross-layer union, served through backend 'plan_pallas'
@@ -35,6 +46,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (8, 384) batch, logits checked against the dense path on the same
      pruned weights, 12 x 4 K1 launches per forward, then save / reload
      with bit-equal logits;
+  3a. serving_quant: the same BERT-base with pack_quant 'int8', then 'fp8':
+     48 K6 launches a forward and no K1, logits against the fp32-pack
+     servable (tolerance n_layers x quant_stats()['max_rel_err'] x
+     max|logits|; the last position's argmax equal unless the reference's
+     top-2 margin there is a near-tie), quant_stats with compression >= 3,
+     the card's quantized bytes equal to the CPU quantization of the same
+     values, ms per request and batch, save / reload bit-equal;
+  3b. serving_auto: backend 'auto' with pack_quant 'int8', wall-clock mode
+     over a fresh cache: each group's winner and every arm's time, K7
+     launched while the masked arm is measured, the winners served (logits
+     within 1e-3 of dense, or the quant tolerance when packs are
+     quantized), a second prepare answered from the cache for every group;
+     then the negative control -- every pattern pinned to 'masked' through
+     export_params(backend_chooser=...): 48 K7 launches a forward, logits
+     within 1e-3 of dense, ms and projection-weight bytes beside the K1 and
+     dense servables;
   4. lm_serving: gemma3_4b at full width and depth (34 layers, bf16,
      seeded random weights) pruned 80% at 128x128, served by the
      continuous-batching engine (4 slots x 1280 positions, fused windows of
@@ -44,7 +71,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      decode step and tokens/s, a profiler breakdown of one decode window,
      dense vs paged greedy-token agreement, and decode_step logits with
      the kernels against the plain decode_attention composition.
-
+  4a. lm_serving_quant: the same gemma3_4b with pack_quant 'int8' through
+     the dense-layout engine and the same 6 requests: every request done,
+     136 K6 launches per decode step (the unquantized run's K1 count) and
+     no K1, the engine's 'quant' stats, ms per decode step and tokens/s, a
+     profiler breakdown of one window, greedy-token agreement with the
+     bf16-pack run (printed), decode_step logits within 5% of max|logits|
+     of the bf16-pack servable's;
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -82,6 +115,10 @@ DDS_SOURCE = "src/repro_torch/kernels/csrc/dds.cu"
 DDS_REPLACES = "src/repro/kernels/bsr_matmul.py:159"
 SDDMM_SOURCE = "src/repro_torch/kernels/csrc/sddmm.cu"
 SDDMM_REPLACES = "src/repro/kernels/bsr_matmul.py:235"
+QUANT_SOURCE = "src/repro_torch/kernels/csrc/plan_dds_q.cu"
+QUANT_REPLACES = "src/repro/kernels/bsr_matmul.py:450"
+MASKED_SOURCE = "src/repro_torch/kernels/csrc/masked.cu"
+MASKED_REPLACES = "src/repro/kernels/bsr_matmul.py:278"
 DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:150",
                    "paged_flash_decode": "src/repro/kernels/flash_decode.py:214"}
 
@@ -89,6 +126,9 @@ DECODE_REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:150",
 # rate outside the tensor cores -- K1 runs fp32 FMA.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# the dense bf16 tensor-core rate: the least time for a product whose x is
+# bf16 (K6 at decode, int8 values exactly representable in bf16)
+BF16_FLOP_PER_S = 989e12
 
 # Tolerances of K1 against its plain version on the same inputs. Both
 # accumulate in fp32 but sum in another order, so the gap scales with the
@@ -708,6 +748,246 @@ def phase_decode_kernels(seed: int):
 
 
 # --------------------------------------------------------------------------
+# phase 2c: K6 (plan_dds_q) and K7 (masked_matmul) against their plain
+# versions
+# --------------------------------------------------------------------------
+
+# gemma3_4b's packed projections at one decode step (fused QKV, attn wo,
+# ffn wi, ffn wo): (name, N, K)
+GEMMA_SHAPES = (("qkv", 4096, 2560), ("attn_out", 2560, 2048),
+                ("ffn_in", 10240, 2560), ("ffn_out", 2560, 10240))
+# (M, N, K, tile, density) of tests/test_kernels.py's SHAPES[:4]
+MASKED_SHAPES = ((32, 128, 128, (32, 64), 0.4), (64, 256, 128, (64, 128), 0.25),
+                 (100, 128, 384, (32, 128), 0.5),
+                 (16, 512, 256, (128, 128), 0.1))
+
+
+def _quantized_case(w, tile, qdtype, pad_tiles=0):
+    from repro_torch.kernels.exec_plan import (quant_granularity,
+                                               quantize_plan_values)
+    plan, data = _plan_case(w, tile, pad_tiles)
+    gran = quant_granularity(tile)
+    q, s = quantize_plan_values(data, qdtype, gran)
+    return plan, data, q, s, gran
+
+
+def _bound(n_bytes, flops, flop_rate):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
+    return {"bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_quant_kernels(seed: int):
+    """K6 against its plain version on the card: int8 and fp8, 'block' and
+    'row' granularity, the spilling and a padded plan, every epilogue with
+    bias, bf16 x, all-zero blocks; then the four BERT-base projection
+    shapes at M=384 (int8) and gemma3_4b's packed projections at M=4 (bf16
+    x, int8) with kernel, plain, bound and library times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bsr_matmul import plan_dds_q, plan_dds_q_plain
+    from repro_torch.kernels.exec_plan import (dequantize_plan_values,
+                                               plan_schedule,
+                                               quantize_plan_values)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 5)
+
+    def run(plan, q, s, gran, x, bias=None, act=None):
+        kw = dict(n=plan.shape[0], tile=plan.tile, granularity=gran,
+                  bias=bias, act=act)
+        sched = plan_schedule(plan)
+        return (plan_dds_q(x, q, s, sched, **kw),
+                plan_dds_q_plain(x, q, s, sched, **kw))
+
+    print("[kernels] K6 plan_dds_q vs plain, small cases")
+    spill = np.zeros((128, 1024), np.float32)
+    spill[:16, :] = rng.randn(16, 1024)
+    for i in range(1, 8):
+        spill[16 * i: 16 * (i + 1), 64 * i: 64 * (i + 1)] = \
+            0.1 * rng.randn(16, 64)
+    cases = [("random d=0.4 (16,32)", _sparse_weight(rng, 96, 128, (16, 32),
+                                                     0.4), (16, 32), 0, 24),
+             ("padded nnzt +5 (16,32)", _sparse_weight(
+                 rng, 96, 128, (16, 32), 0.4), (16, 32), 5, 24),
+             ("(32,1) tiles, row scales", _sparse_weight(
+                 rng, 64, 64, (32, 1), 0.3), (32, 1), 0, 40),
+             ("spill edge rows (16,64)", spill, (16, 64), 0, 20),
+             ("(16,16) M=130", _sparse_weight(rng, 64, 96, (16, 16), 0.5),
+              (16, 16), 0, 130)]
+    for name, w, tile, pad, m in cases:
+        for qdtype in ("int8", "fp8"):
+            plan, _, q, s, gran = _quantized_case(w, tile, qdtype, pad)
+            check(gran == ("row" if tile == (32, 1) else "block"),
+                  f"{name}: granularity {gran}")
+            if name.startswith("spill"):
+                check(plan.spilled, "spill case did not spill")
+            x = torch.from_numpy(rng.randn(m, w.shape[1]).astype(
+                np.float32)).to(dev)
+            _compare(f"K6 {name} {qdtype}",
+                     *run(plan, q.to(dev), s.to(dev), gran, x), TOL_F32,
+                     "K6")
+    # every epilogue with bias
+    n, k, tile = 64, 96, (16, 16)
+    plan, _, q, s, gran = _quantized_case(
+        _sparse_weight(rng, n, k, tile, 0.5), tile, "int8")
+    q, s = q.to(dev), s.to(dev)
+    x = torch.from_numpy(rng.randn(16, k).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    for act in (None, "relu", "gelu", "silu"):
+        _compare(f"K6 epilogue bias+{act}", *run(plan, q, s, gran, x, b, act),
+                 TOL_F32, "K6")
+    # bf16 activations, both value types
+    n, k, tile = 256, 256, (128, 128)
+    w = _sparse_weight(rng, n, k, tile, 0.5)
+    x = torch.from_numpy(rng.randn(48, k).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    for qdtype in ("int8", "fp8"):
+        plan, _, q, s, gran = _quantized_case(w, tile, qdtype)
+        _compare(f"K6 x bf16 {qdtype} +gelu", *run(
+            plan, q.to(dev), s.to(dev), gran, x, act="gelu"), TOL_BF16, "K6")
+    # all-zero blocks: scale exactly 1.0, and a block row whose tiles are
+    # all zero gives exactly zero
+    n, k, tile = 64, 64, (16, 16)
+    plan, data = _plan_case(_sparse_weight(rng, n, k, tile, 0.6), tile)
+    data[0] = 0.0                      # every tile of block row 0 (vrow 0)
+    for qdtype in ("int8", "fp8"):
+        q, s = quantize_plan_values(data, qdtype, "block")
+        check(bool((s[0] == 1.0).all()), "all-zero blocks: scale not 1.0")
+        x = torch.from_numpy(rng.randn(24, k).astype(np.float32)).to(dev)
+        y, ref = run(plan, q.to(dev), s.to(dev), "block", x)
+        _compare(f"K6 all-zero block row {qdtype}", y, ref, TOL_F32, "K6")
+        check(float(y[:, :tile[0]].abs().max()) == 0.0,
+              "K6: an all-zero block row gave a non-zero output")
+        print(f"  K6 all-zero block row {qdtype}: scale 1.0, output "
+              f"exactly 0: ok")
+
+    def timed(name, m, n, k, tile, density, x_dtype, flop_rate, check_tol):
+        w = _sparse_weight(rng, n, k, tile, density)
+        plan, _, q, s, gran = _quantized_case(w, tile, "int8")
+        q, s = q.to(dev), s.to(dev)
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+            dev, x_dtype)
+        sched = plan_schedule(plan)
+        kw = dict(n=n, tile=tile, granularity=gran)
+        y = plan_dds_q(x, q, s, sched, **kw)
+        err = _compare(f"K6 {name} ({n},{k}) M={m}", y,
+                       plan_dds_q_plain(x, q, s, sched, **kw), check_tol,
+                       "K6")
+        # the library call: one torch.matmul on the dequantized dense
+        # weight (the dequantize step is not timed)
+        deq = dequantize_plan_values(q, s)
+        tiles = deq.reshape(-1, *tile)[torch.from_numpy(
+            sched.tile_seq.astype(np.int64)).to(dev)]
+        wd = torch.zeros((n // tile[0], k // tile[1]) + tile, device=dev)
+        wd[torch.from_numpy(sched.row_ids.astype(np.int64)).to(dev),
+           torch.from_numpy(sched.col_seq.astype(np.int64)).to(dev)] = tiles
+        wd = wd.permute(0, 2, 1, 3).reshape(n, k).to(x_dtype)
+        lib = torch.matmul(x, wd.t())
+        _compare(f"K6 {name} vs torch.matmul", y, lib, check_tol, "K6")
+        nnz = plan.real_nnzt * tile[0] * tile[1]
+        isz = x.element_size()
+        n_bytes = isz * (m * k + m * n) + nnz + 4 * plan.real_nnzt
+        rec = {"shape": name, "m": m, "n": n, "k": k,
+               "tiles": plan.real_nnzt, "x_dtype": str(x_dtype),
+               "max_abs_err": err,
+               "ms": _time_ms(lambda: plan_dds_q(x, q, s, sched, **kw)),
+               "plain_ms": _time_ms(lambda: plan_dds_q_plain(
+                   x, q, s, sched, **kw)),
+               "library_ms": _time_ms(lambda: torch.matmul(x, wd.t())),
+               **_bound(n_bytes, 2 * m * nnz, flop_rate)}
+        print(f"  K6 {name:9s} M={m} kernel_ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+              f"tiles={plan.real_nnzt}")
+        return rec
+
+    print("[kernels] K6 at the BERT-base projection shapes, M=384, 128x128 "
+          "tiles, density 0.2, int8, fp32 x")
+    bert = [timed(name, 384, n, k, (128, 128), 0.2, torch.float32,
+                  FP32_FLOP_PER_S, TOL_F32) for name, n, k in MAIN_SHAPES]
+    print("[kernels] K6 at the gemma3_4b packed projection shapes, M=4, "
+          "128x128 tiles, density 0.2, int8, bf16 x")
+    gemma = [timed(name, 4, n, k, (128, 128), 0.2, torch.bfloat16,
+                   BF16_FLOP_PER_S, TOL_BF16) for name, n, k in GEMMA_SHAPES]
+    return {"bert": bert, "gemma": gemma}
+
+
+def phase_masked_kernels(seed: int):
+    """K7 against its plain version on the card, with non-zero values left
+    in the masked tiles (skipping is what is tested): the shapes of
+    tests/test_kernels.py, (32, 1) tiles, bf16, M not a multiple of the
+    block; then the four BERT-base shapes at M=384, density 0.2, with
+    kernel, plain, bound and library times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bsr_matmul import (masked_matmul,
+                                                masked_matmul_plain)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + 6)
+
+    def case(m, n, k, tile, density, dtype=torch.float32):
+        w = torch.from_numpy(rng.randn(n, k).astype(np.float32)).to(
+            dev, dtype)          # dense: the masked tiles hold values too
+        mask = rng.rand(n // tile[0], k // tile[1]) < density
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+            dev, dtype)
+        return x, w, mask
+
+    print("[kernels] K7 masked_matmul vs plain, masked tiles non-zero")
+    cases = [(m, n, k, tile, d, torch.float32)
+             for m, n, k, tile, d in MASKED_SHAPES]
+    cases += [(40, 64, 64, (32, 1), 0.3, torch.float32),
+              (130, 256, 256, (128, 128), 0.5, torch.bfloat16),
+              (100, 128, 384, (32, 128), 0.5, torch.bfloat16)]
+    for m, n, k, tile, d, dtype in cases:
+        x, w, mask = case(m, n, k, tile, d, dtype)
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        y = masked_matmul(x, w, mask, tile=tile)
+        _compare(f"K7 {m}x({n},{k}) {tile} d={d} {dn}", y,
+                 masked_matmul_plain(x, w, mask, tile=tile),
+                 TOL_F32 if dtype == torch.float32 else TOL_BF16, "K7")
+        full = torch.matmul(x.float(), w.float().t())
+        if not mask.all():
+            check(float((y.float() - full).abs().max()) > 1e-2,
+                  "K7 did not skip the masked tiles")
+
+    print("[kernels] K7 at the BERT-base projection shapes, M=384, 128x128 "
+          "tiles, density 0.2")
+    per_shape = []
+    m, tile = 384, (128, 128)
+    for name, n, k in MAIN_SHAPES:
+        x, w, mask = case(m, n, k, tile, 0.2)
+        mask_dev = torch.from_numpy(mask.astype(np.int32)).to(dev)
+        wm = w * torch.from_numpy(np.kron(mask, np.ones(tile)).astype(
+            np.float32)).to(dev)
+        y = masked_matmul(x, w, mask_dev, tile=tile)
+        err = _compare(f"K7 {name} ({n},{k})", y,
+                       masked_matmul_plain(x, w, mask, tile=tile), TOL_F32,
+                       "K7")
+        _compare(f"K7 {name} vs torch.matmul(w * mask)", y,
+                 torch.matmul(x, wm.t()), TOL_F32, "K7")
+        stored = int(mask.sum())
+        nnz = stored * tile[0] * tile[1]
+        # the least work for the same function: the stored tiles only
+        n_bytes = 4 * (m * k + nnz + m * n) + 4 * mask.size
+        rec = {"shape": name, "m": m, "n": n, "k": k, "tiles": stored,
+               "max_abs_err": err,
+               "ms": _time_ms(lambda: masked_matmul(x, w, mask_dev,
+                                                    tile=tile)),
+               "plain_ms": _time_ms(lambda: masked_matmul_plain(
+                   x, w, mask_dev, tile=tile)),
+               "library_ms": _time_ms(lambda: torch.matmul(x, wm.t())),
+               **_bound(n_bytes, 2 * m * nnz, FP32_FLOP_PER_S)}
+        per_shape.append(rec)
+        print(f"  K7 {name:9s} kernel_ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+              f"tiles={stored}")
+    return per_shape
+
+
+# --------------------------------------------------------------------------
 # phase 3: BERT-base block-sparse serving through K1
 # --------------------------------------------------------------------------
 
@@ -812,6 +1092,305 @@ def phase_serving(seed: int, n_requests: int):
         check(torch.equal(y2, outs[0]), "reloaded logits are not bit-equal")
     print("[serving] save -> load_servable: logits bit-equal")
     return {"plan_dds": launches}
+
+
+# --------------------------------------------------------------------------
+# phases 3a and 3b: BERT-base with quantized packs through K6; backend
+# 'auto' and the masked negative control through K7
+# --------------------------------------------------------------------------
+
+BERT_SPEC = dict(tile=(128, 128), sparsity=0.8, prune="tied", fuse_qkv=True,
+                 cross_layer_union=True)
+
+
+def _bert_setup(seed: int, n_requests: int):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_model
+    dev = torch.device("cuda")
+    cfg = get_config("bert_base")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+          == (12, 768, 3072, 30522), "not BERT-base at full width")
+    params = init_model(seed, cfg, device=dev)
+    rng = np.random.RandomState(seed)
+    reqs = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 384))).to(dev)
+            for _ in range(n_requests)]
+    batch8 = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 384))).to(
+        dev)
+    return cfg, params, reqs, batch8
+
+
+def _serve_times(fn, reqs, batch8):
+    """(median ms per (1, 384) request, median ms per (8, 384) batch over 3),
+    host clock around synchronized calls."""
+    import numpy as np
+    import torch
+
+    def one(toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(toks)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    fn(reqs[0])
+    return (float(np.median([one(t) for t in reqs])),
+            float(np.median([one(batch8) for _ in range(3)])))
+
+
+def _leaf(params, key):
+    _, i, group, name = key.split("/")
+    return params["layers"][int(i)][group][name]
+
+
+def _logit_gap(name, outs, refs, tol):
+    """max |d logits| against the reference run, checked against ``tol``;
+    the argmax at the last position of every sequence must agree unless the
+    reference's top-2 margin there is below 2 * max |d| (a near-tie, which
+    either answer within the tolerance may break)."""
+    import torch
+    err = max(float((y.float() - r.float()).abs().max())
+              for y, r in zip(outs, refs))
+    same = ties = rows = 0
+    for y, r in zip(outs, refs):
+        a, b = y[:, -1].argmax(-1), r[:, -1].argmax(-1)
+        top2 = torch.topk(r[:, -1].float(), 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        rows += a.numel()
+        same += int((a == b).sum())
+        bad = (a != b) & (margin >= 2 * err)
+        ties += int(((a != b) & (margin < 2 * err)).sum())
+        check(not bool(bad.any()), f"{name}: argmax at the last position "
+              f"differs where the reference margin exceeds 2 max|d|")
+    print(f"  {name}: max |d logits| = {err:.4e} (tol {tol:.4e}); argmax at "
+          f"the last position equal in {same} of {rows} rows ({ties} near-"
+          f"ties)")
+    check(err <= tol, f"{name}: logits differ by {err:.4e} > {tol:.4e}")
+    return err
+
+
+def phase_serving_quant(seed: int, n_requests: int):
+    """BERT-base at full width with backend 'plan_pallas' and pack_quant
+    'int8', then 'fp8': every projection through K6, 48 launches a forward
+    and no K1; logits against the fp32-pack (K1) servable on the same
+    pruned weights; quant_stats; the card's quantized bytes against the CPU
+    quantization of the same values; ms per request and batch; save /
+    reload bit-equal."""
+    import torch
+    from repro_torch.kernels import plan_dds, plan_dds_q
+    from repro_torch.kernels.exec_plan import QuantPlan, quantize_plan_values
+    from repro_torch.serving import (ServingSpec, load_servable,
+                                     prepare_servable)
+    dev = torch.device("cuda")
+    cfg, params, reqs, batch8 = _bert_setup(seed, n_requests)
+    fp = prepare_servable(params, cfg, ServingSpec(
+        backend="plan_pallas", **BERT_SPEC), device=dev)
+    refs = [fp.forward(t) for t in reqs + [batch8]]
+    fp_ms = _serve_times(fp.forward, reqs, batch8)
+    print(f"[serving_quant] fp32 packs (K1): {fp_ms[0]:.3f} ms per (1, 384) "
+          f"request, {fp_ms[1]:.3f} ms per (8, 384) batch; pack bytes "
+          f"{fp.pack_bytes()[0]}")
+    per_forward = 4 * cfg.n_layers
+    counts = {"plan_dds_q": 0, "plan_dds": 0}
+    for qdtype in ("int8", "fp8"):
+        spec = ServingSpec(backend="plan_pallas", pack_quant=qdtype,
+                           **BERT_SPEC)
+        sv = prepare_servable(params, cfg, spec, device=dev)
+        qs = sv.quant_stats()
+        print(f"[serving_quant] {qdtype}: quant_stats {json.dumps(qs)}")
+        check(qs["quantized_packs"] == per_forward and qs["qdtype"] == qdtype,
+              f"{qdtype}: {qs['quantized_packs']} quantized packs")
+        check(qs["compression_ratio"] >= 3.0,
+              f"{qdtype}: compression {qs['compression_ratio']:.3f} < 3.0")
+        # the card's quantization against the CPU's, byte for byte
+        for key, pk in sv.packs.items():
+            check(isinstance(pk, QuantPlan) and pk.backend == "plan_pallas",
+                  f"{key}: pack {type(pk).__name__}")
+            q_cpu, s_cpu = quantize_plan_values(
+                _leaf(fp.params, key)["w"].cpu(), qdtype, pk.granularity)
+            got = _leaf(sv.params, key)
+            check(torch.equal(got["w"].cpu().view(torch.uint8),
+                              q_cpu.view(torch.uint8))
+                  and torch.equal(got["scale"].cpu(), s_cpu),
+                  f"{key}: the card's {qdtype} bytes differ from the CPU's")
+        print(f"[serving_quant] {qdtype}: quantized bytes on the card equal "
+              f"the CPU quantization of the same values in all "
+              f"{len(sv.packs)} packs")
+        sv.forward(reqs[0])
+        torch.cuda.synchronize()
+        # --- the counted main-path run: every count set to 0 just before
+        plan_dds_q.launches = 0
+        plan_dds.launches = 0
+        outs = []
+        for toks in reqs + [batch8]:
+            before = plan_dds_q.launches
+            outs.append(sv.forward(toks))
+            check(plan_dds_q.launches - before == per_forward,
+                  f"{qdtype}: K6 launched {plan_dds_q.launches - before} "
+                  f"times in one forward, expected {per_forward}")
+        torch.cuda.synchronize()
+        check(plan_dds.launches == 0, f"{qdtype}: K1 launched "
+              f"{plan_dds.launches} times")
+        counts["plan_dds_q"] += plan_dds_q.launches
+        counts["plan_dds"] += plan_dds.launches
+        print(f"[serving_quant] {qdtype}: K6 launches over {len(outs)} "
+              f"forwards: {plan_dds_q.launches} ({per_forward} per forward), "
+              f"K1 {plan_dds.launches}")
+        for toks, y in zip(reqs + [batch8], outs):
+            check(tuple(y.shape) == (toks.shape[0], 384, cfg.vocab_size)
+                  and bool(torch.isfinite(y).all()),
+                  f"{qdtype}: logits {tuple(y.shape)} or non-finite")
+        # tolerance: every packed weight is within max_rel_err of its pack's
+        # largest value; taking one such relative error of the residual
+        # stream per encoder layer, carried linearly to the logits, bounds
+        # the logits' error by n_layers * max_rel_err * max|logits|
+        scale = max(float(r.abs().max()) for r in refs)
+        tol = cfg.n_layers * qs["max_rel_err"] * scale
+        _logit_gap(f"{qdtype} vs fp32 packs", outs, refs, tol)
+        ms = _serve_times(sv.forward, reqs, batch8)
+        print(f"[serving_quant] {qdtype}: {ms[0]:.3f} ms per (1, 384) "
+              f"request, {ms[1]:.3f} ms per (8, 384) batch; pack bytes "
+              f"{sv.pack_bytes()[0]} (fp32 packs {fp.pack_bytes()[0]})")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"bert_{qdtype}")
+            sv.save(path)
+            again = load_servable(path, device=dev)
+            check(again.spec == spec, "reloaded spec differs")
+            check(torch.equal(again.forward(reqs[0]), outs[0]),
+                  f"{qdtype}: reloaded logits are not bit-equal")
+        print(f"[serving_quant] {qdtype}: save -> load_servable: logits "
+              f"bit-equal")
+        del sv, again
+    return counts
+
+
+def phase_serving_auto(seed: int, n_requests: int):
+    """BERT-base at full width with backend 'auto' and pack_quant 'int8' in
+    wall-clock mode over a fresh cache (every arm measured on the card,
+    K7 included), the winners served, a second prepare answered from the
+    cache; then the negative control: the same pruned weights exported
+    with every pattern pinned to 'masked' (K7, 48 launches a forward),
+    beside the K1 and dense servables."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.pattern_reuse import PatternRegistry
+    from repro_torch.core.pruner import tied_prune
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels import plan_dds, plan_dds_q
+    from repro_torch.models.api import model_forward
+    from repro_torch.serving import ServingSpec, export_params
+    from repro_torch.serving import prepare_servable
+    from repro_torch.serving.servable import Servable, pinned_chooser
+    dev = torch.device("cuda")
+    cfg, params, reqs, batch8 = _bert_setup(seed, n_requests)
+    spec = ServingSpec(backend="auto", pack_quant="int8", **BERT_SPEC)
+    pruned, _ = tied_prune(params, spec.sparsity_config())
+
+    def dense(tokens):
+        with torch.inference_mode():
+            return model_forward(pruned, cfg, {"tokens": tokens})[0]
+    refs = [dense(t) for t in reqs + [batch8]]
+    counters = {"plan_dds": plan_dds, "plan_dds_q": plan_dds_q,
+                "masked_matmul": bm.masked_matmul, "dds": bm.dds}
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+        os.environ.pop("REPRO_AUTOTUNE_STUB", None)
+        # --- the counted main-path run: every count set to 0 just before
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        sv = prepare_servable(params, cfg, spec, device=dev)
+        t_tune = time.perf_counter() - t0
+        auto = sv.stats()["autotune"]
+        print(f"[serving_auto] prepare with measurement {t_tune:.1f} s; "
+              f"mode {auto['mode']}, winners {auto['backends']}, cache "
+              f"misses {auto['cache_misses']}")
+        check(auto["mode"] == "wallclock" and auto["cache_hits"] == 0,
+              f"autotune {auto}")
+        with open(cache) as f:
+            entries = json.load(f)["entries"]
+        for key, rec in sorted(entries.items()):
+            costs = {k: round(v * 1e3, 4) for k, v in rec["costs"].items()}
+            print(f"  {key}: winner {rec['backend']}; ms per arm {costs}")
+        check(len(entries) == len(auto["backends"]), "one entry a group")
+        k7_measured = bm.masked_matmul.launches
+        print(f"[serving_auto] launches while measuring: "
+              f"{ {n: fn.launches for n, fn in counters.items()} }")
+        check(k7_measured > 0, "the masked arm never launched K7")
+        for toks in reqs + [batch8]:
+            sv.forward(toks)
+        torch.cuda.synchronize()
+        paths["serving_auto"] = {n: fn.launches for n, fn in
+                                 counters.items()}
+        outs = [sv.forward(t) for t in reqs + [batch8]]
+        again = prepare_servable(params, cfg, spec, device=dev)
+        auto2 = again.stats()["autotune"]
+        print(f"[serving_auto] second prepare: cache hits "
+              f"{auto2['cache_hits']} of {len(auto2['backends'])} groups")
+        check(auto2["cache_hits"] == len(auto2["backends"])
+              and auto2["backends"] == auto["backends"],
+              "the second prepare did not hit the cache for every group")
+        del again
+    os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+    # a plan-layout winner is quantized too (pack_quant='int8'): the quant
+    # tolerance holds whenever any pack is, 1e-3 otherwise
+    scale = max(float(r.abs().max()) for r in refs)
+    qs = sv.quant_stats()
+    tol = cfg.n_layers * qs["max_rel_err"] * scale if qs else TOL_LOGITS
+    _logit_gap("auto vs dense", outs, refs, tol)
+    auto_ms = _serve_times(sv.forward, reqs, batch8)
+    print(f"[serving_auto] served winners: {auto_ms[0]:.3f} ms per (1, 384) "
+          f"request, {auto_ms[1]:.3f} ms per (8, 384) batch")
+    del sv
+
+    # the negative control: every pattern pinned to the masked arm, as
+    # prepare_servable pins 'plan_pallas'
+    registry = PatternRegistry()
+    sp, packs, stats = export_params(
+        pruned, cfg, tile=spec.tile, fuse_qkv=True, cross_layer_union=True,
+        registry=registry, backend_chooser=pinned_chooser("masked"),
+        device=dev)
+    ctrl = Servable(sp, cfg, dataclasses.replace(
+        spec, prune="none", pack_quant="none"), packs, registry, dev,
+        export_stats=stats)
+    ctrl.forward(reqs[0])
+    torch.cuda.synchronize()
+    per_forward = 4 * cfg.n_layers
+    # --- the counted main-path run: every count set to 0 just before
+    for fn in counters.values():
+        fn.launches = 0
+    outs = []
+    for toks in reqs + [batch8]:
+        before = bm.masked_matmul.launches
+        outs.append(ctrl.forward(toks))
+        check(bm.masked_matmul.launches - before == per_forward,
+              f"K7 launched {bm.masked_matmul.launches - before} times in "
+              f"one forward, expected {per_forward}")
+    torch.cuda.synchronize()
+    paths["negative_control"] = {n: fn.launches for n, fn in
+                                 counters.items()}
+    print(f"[negative_control] launches {paths['negative_control']} "
+          f"({per_forward} K7 per forward)")
+    _logit_gap("masked (K7) vs dense", outs, refs, TOL_LOGITS)
+    k1 = prepare_servable(params, cfg, ServingSpec(
+        backend="plan_pallas", **BERT_SPEC), device=dev)
+    targets = [lp[g][p]["w"] for lp in pruned["layers"]
+               for g, p in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                            ("attn", "wo"), ("ffn", "wi"), ("ffn", "wo"))]
+    dense_bytes = sum(t.numel() * t.element_size() for t in targets)
+    rows = [("masked (K7)", ctrl.forward, ctrl.pack_bytes()[0]),
+            ("BSR (K1)", k1.forward, k1.pack_bytes()[0]),
+            ("dense", dense, dense_bytes)]
+    for name, fn, nbytes in rows:
+        ms = _serve_times(fn, reqs, batch8)
+        print(f"[negative_control] {name:12s} {ms[0]:.3f} ms per (1, 384) "
+              f"request, {ms[1]:.3f} ms per (8, 384) batch, projection "
+              f"weights {nbytes / 2**20:.1f} MiB on the card")
+    return paths
 
 
 # --------------------------------------------------------------------------
@@ -1229,20 +1808,7 @@ def phase_lm_serving(seed: int):
 
     # decode_step with the flash kernels against the plain composition on
     # the same cache (four prefilled slots at ragged positions)
-    cache = servable.init_cache(4, 1280)
-    sub = servable.init_cache(1, 1280)
-    toks, posl = [], []
-    for slot, p in enumerate(prompts[:4]):
-        bucket = min(1280, 1 << (len(p) - 1).bit_length())
-        padded = np.zeros((bucket,), np.int32)
-        padded[:len(p)] = p
-        sub, logits = servable.engine_prefill(
-            sub, torch.from_numpy(padded).to(dev), len(p))
-        servable.engine_write_slot(cache, slot, sub)
-        toks.append(int(torch.argmax(logits[len(p) - 1])))
-        posl.append(len(p))
-    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
-    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    cache, tok, pos = _prefill_slots(servable, prompts[:4])
     with torch.no_grad():
         with decode_kernel_override("flash"):
             before = flash_decode.launches
@@ -1268,13 +1834,169 @@ def phase_lm_serving(seed: int):
           f"{same} of 4 slots")
     check(err <= TOL_FLASH_VS_XLA * scale,
           "decode_step logits with the flash kernels disagree with xla")
-    return counts
+    return counts, servable, results["dense"]
+
+
+def _prefill_slots(servable, prompts):
+    """A 4-slot decode cache with each prompt prefilled into its slot, the
+    greedy next tokens and the slots' positions."""
+    import numpy as np
+    import torch
+    dev = servable.device
+    cache = servable.init_cache(4, 1280)
+    sub = servable.init_cache(1, 1280)
+    toks, posl = [], []
+    for slot, p in enumerate(prompts):
+        bucket = min(1280, 1 << (len(p) - 1).bit_length())
+        padded = np.zeros((bucket,), np.int32)
+        padded[:len(p)] = p
+        sub, logits = servable.engine_prefill(
+            sub, torch.from_numpy(padded).to(dev), len(p))
+        servable.engine_write_slot(cache, slot, sub)
+        toks.append(int(torch.argmax(logits[len(p) - 1])))
+        posl.append(len(p))
+    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    return cache, tok, pos
+
+
+# the int8-pack decode_step logits against the bf16-pack servable's on the
+# same prompts: the bar of the flash-vs-xla check, 5% of max|logits|
+TOL_QUANT_DECODE = 5e-2
+
+
+def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
+    """gemma3_4b at full width and depth with backend 'plan_pallas',
+    pack_quant 'int8' and the flash decode kernels, through the engine of
+    the lm_serving phase in the dense KV layout with the same 6 requests:
+    every request done, K6 launches per decode step equal to the
+    unquantized run's K1 count and no K1, the engine's 'quant' stats, ms per
+    decode step and tokens/s; decode_step logits against the bf16-pack
+    servable, and greedy-token agreement with the unquantized run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import plan_dds, plan_dds_q
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    cfg = _lm_config()
+    n_layers, _, _ = _layer_counts(cfg)
+    spec = ServingSpec(tile=(128, 128), sparsity=0.8, prune="tied",
+                       fuse_qkv=True, backend="plan_pallas",
+                       decode_kernel="flash")
+    params = init_model(seed, cfg, device=dev)
+    if fp is None:
+        fp = prepare_servable(params, cfg, spec, device=dev)
+    t0 = time.perf_counter()
+    sv = prepare_servable(params, cfg, dataclasses.replace(
+        spec, pack_quant="int8"), device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    qs = sv.quant_stats()
+    print(f"[lm_serving_quant] prune + export + int8 quantization "
+          f"{time.perf_counter() - t0:.1f} s; quant_stats {json.dumps(qs)}")
+    def per_pass(packs):
+        return sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+                   for k in packs)
+    k6_per_pass = per_pass(sv.packs)
+    check(k6_per_pass == per_pass(fp.packs), "the int8 servable packs "
+          "other projections than the bf16 one")
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+    eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
+                    kv_layout="dense")
+    eng.submit(prompts[0][:8], max_new_tokens=2)
+    eng.run()
+    eng.stats = type(eng.stats)()
+    torch.cuda.synchronize()
+    # --- the counted main-path run: every count set to 0 just before
+    plan_dds.launches = 0
+    plan_dds_q.launches = 0
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"plan_dds": plan_dds.launches, "plan_dds_q": plan_dds_q.launches,
+           "flash_decode": flash_decode.launches}
+    es = eng.stats
+    for h in handles:
+        check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+              f"request {h.req_id} ended {h.status} with {len(h.tokens)} "
+              f"tokens")
+    want = {"plan_dds": 0, "plan_dds_q": k6_per_pass * (es.steps
+                                                        + es.prefills),
+            "flash_decode": es.steps * n_layers}
+    print(f"[lm_serving_quant] {len(handles)} requests done, "
+          f"{es.tokens_generated} tokens, {es.steps} decode steps, "
+          f"{es.prefills} prefills; launches {got} (expected {want}: "
+          f"{k6_per_pass} K6 per decode step and per prefill)")
+    check(got == want, f"launch counts {got} differ from {want}")
+    sd = eng.stats_dict()
+    check("quant" in sd and sd["quant"]["pack_quant"] == "int8",
+          "stats_dict() has no 'quant' section")
+    decode_tokens = es.tokens_generated - es.prefills
+    print(f"[lm_serving_quant] wall {wall:.3f} s; prefill {es.prefill_s:.3f}"
+          f" s, decode {es.decode_s:.3f} s; {1e3 * es.decode_s / es.steps:.3f}"
+          f" ms per decode step, {decode_tokens / es.decode_s:.1f} decode "
+          f"tokens/s, {es.tokens_generated / wall:.1f} tokens/s end to end")
+    tokens = [list(h.tokens) for h in handles]
+    del eng
+    # one fused window over four live slots, under the profiler
+    prof_eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
+                         kv_layout="dense")
+    for p in prompts[:4]:
+        prof_eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    prof_eng._schedule()
+
+    def window(e=prof_eng):
+        e.servable.decode_many(
+            e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
+            remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
+    window()
+    _profile("int8 decode window (8 steps, 4 slots)", window, top=6)
+    del prof_eng
+    if fp_tokens is None:
+        e32 = fp.engine(max_slots=4, cache_len=1280, sync_every=8,
+                        kv_layout="dense")
+        hs = [e32.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+        e32.run()
+        fp_tokens = [list(h.tokens) for h in hs]
+        del e32
+    agree = sum(a == b for ra, rb in zip(tokens, fp_tokens)
+                for a, b in zip(ra, rb))
+    total = sum(len(r) for r in fp_tokens)
+    print(f"[lm_serving_quant] greedy tokens equal to the bf16-pack run: "
+          f"{agree} of {total} ({agree / total:.3f}; random full-width "
+          f"weights make near-ties, so this is printed, not gated)")
+    outs = []
+    for s_ in (sv, fp):
+        cache, tok, pos = _prefill_slots(s_, prompts[:4])
+        logits, _ = s_.decode_step(cache, tok, pos)
+        outs.append(logits)
+        del cache
+    torch.cuda.synchronize()
+    err = float((outs[0] - outs[1]).abs().max())
+    scale = float(outs[1].abs().max())
+    print(f"[lm_serving_quant] decode_step logits, int8 vs bf16 packs: "
+          f"max|d|={err:.4e}, max|logits|={scale:.4e}, tol "
+          f"{TOL_QUANT_DECODE * scale:.4e}")
+    check(bool(torch.isfinite(outs[0]).all()) and
+          err <= TOL_QUANT_DECODE * scale,
+          "int8-pack decode logits disagree with the bf16 packs")
+    return got
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serving,lm_serving,training")
+                    default="kernels,serving,serving_quant,serving_auto,"
+                            "lm_serving,lm_serving_quant,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1294,14 +2016,27 @@ def main() -> int:
     try:
         card = phase_build()
         per_shape, bwd_shapes, decode_shapes, launches = [], {}, {}, {}
+        quant_shapes, masked_shapes = {}, []
         if "kernels" in phases:
             per_shape = phase_kernels(args.seed)
             bwd_shapes = phase_backward_kernels(args.seed)
             decode_shapes = phase_decode_kernels(args.seed)
+            quant_shapes = phase_quant_kernels(args.seed)
+            masked_shapes = phase_masked_kernels(args.seed)
         if "serving" in phases:
             launches["bert"] = phase_serving(args.seed, args.requests)
+        if "serving_quant" in phases:
+            launches["serving_quant"] = phase_serving_quant(args.seed,
+                                                            args.requests)
+        if "serving_auto" in phases:
+            launches.update(phase_serving_auto(args.seed, args.requests))
+        lm_fp = lm_tokens = None
         if "lm_serving" in phases:
-            launches["lm"] = phase_lm_serving(args.seed)
+            launches["lm"], lm_fp, lm_tokens = phase_lm_serving(args.seed)
+        if "lm_serving_quant" in phases:
+            launches["lm_serving_quant"] = phase_lm_serving_quant(
+                args.seed, lm_fp, lm_tokens)
+        del lm_fp
         if "training" in phases:
             launches["training"] = phase_training(args.seed)
     except PhaseError as e:
@@ -1373,6 +2108,30 @@ def main() -> int:
             "library_ms": rec.get("library_ms"),
             "per_shape": {k: decode_shapes[k] for k in shapes
                           if k in decode_shapes}})
+    # K6 at the four BERT-base projection shapes at M=384 (times summed: one
+    # quantized encoder layer), K7 at the same shapes; the gemma3_4b decode
+    # shapes of K6 ride along in per_shape
+    for name, source, replaces, recs, extra in (
+            ("plan_dds_q", QUANT_SOURCE, QUANT_REPLACES,
+             quant_shapes.get("bert", []), quant_shapes),
+            ("masked_matmul", MASKED_SOURCE, MASKED_REPLACES, masked_shapes,
+             masked_shapes)):
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": total(name),
+            "launches_by_path": {k: c.get(name) for k, c in
+                                 launches.items() if name in c},
+            "max_abs_err": max((r["max_abs_err"] for r in recs),
+                               default=None),
+            "ms": sum(r["ms"] for r in recs) if recs else None,
+            "plain_ms": sum(r["plain_ms"] for r in recs) if recs else None,
+            "bound_ms": sum(r["bound_ms"] for r in recs) if recs else None,
+            "bound_by": (("bytes" if sum(r["bytes_ms"] for r in recs)
+                          >= sum(r["operations_ms"] for r in recs)
+                          else "operations") if recs else None),
+            "library_ms": (sum(r["library_ms"] for r in recs)
+                           if recs else None),
+            "per_shape": extra})
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,9 @@ def _to_tensor(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16 from JAX
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":  # ml_dtypes fp8 (quantized packs)
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -30,9 +33,10 @@ def params_from_numpy(tree, device="cpu"):
 
 def params_to_numpy(tree):
     """Inverse of :func:`params_from_numpy`: tensors -> host numpy arrays.
-    bfloat16 leaves become float32 (numpy has no bfloat16; the widening is
-    exact)."""
+    bfloat16 and float8_e4m3fn leaves become float32 (numpy has neither;
+    the widening is exact)."""
     def one(_, t):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        wide = t.dtype in (torch.bfloat16, torch.float8_e4m3fn)
+        return (t.float() if wide else t).numpy()
     return map_with_path(one, tree)

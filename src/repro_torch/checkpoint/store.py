@@ -10,17 +10,21 @@ reference, a save blocks unless asked not to.
 
 Leaves are numbered in the reference's flatten order -- dicts by **sorted
 key**, tuples in order, ``None`` an empty subtree -- whatever the insertion
-order of the tree (:mod:`repro_torch.core.tree`). bfloat16 leaves are stored
-as the raw 2-byte values (numpy has no bfloat16), which is what numpy writes
-for the reference's bfloat16 arrays too.
+order of the tree (:mod:`repro_torch.core.tree`). bfloat16 and
+float8_e4m3fn leaves are stored as their raw 2- and 1-byte values (numpy has
+neither type) under the header numpy writes for the reference's ml_dtypes
+arrays (``'descr': '<V2'`` and ``'<V1'``), so each member of ``arrays.npz``
+is byte-identical to the reference's; int8 leaves are plain ``int8``.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
 import threading
 import time
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -34,11 +38,18 @@ _NP_DTYPES = {"float32": np.float32, "float16": np.float16,
               "int8": np.int8, "uint8": np.uint8, "bool": np.bool_}
 
 
+#: dtypes numpy lacks, stored as raw bytes: name -> (torch dtype, raw view)
+_RAW_DTYPES = {"bfloat16": (torch.bfloat16, torch.int16, np.int16),
+               "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8, np.uint8)}
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host numpy array (bfloat16 as raw 2-byte values)."""
+    """A tensor as a host numpy array (bfloat16 / float8_e4m3fn as raw
+    2- / 1-byte values)."""
     t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view("V2")
+    for dt, raw, _ in _RAW_DTYPES.values():
+        if t.dtype == dt:
+            return t.view(raw).numpy().view(f"V{t.element_size()}")
     return t.numpy()
 
 
@@ -46,14 +57,40 @@ def from_host(arr: np.ndarray, dtype: str, device=None) -> torch.Tensor:
     """Inverse of :func:`to_host`: ``dtype`` is the recorded dtype name."""
     # np.ascontiguousarray makes a 0-d array 1-d: reshape back
     shape = np.shape(arr)
-    if dtype == "bfloat16":
-        if arr.dtype.itemsize != 2:
-            raise ValueError(f"bfloat16 leaf stored as {arr.dtype}")
-        raw = np.ascontiguousarray(arr).view(np.int16).reshape(shape)
-        return torch.from_numpy(raw).view(torch.bfloat16).to(device)
+    if dtype in _RAW_DTYPES:
+        dt, _, np_raw = _RAW_DTYPES[dtype]
+        if arr.dtype.itemsize != np.dtype(np_raw).itemsize:
+            raise ValueError(f"{dtype} leaf stored as {arr.dtype}")
+        raw = np.ascontiguousarray(arr).view(np_raw).reshape(shape)
+        return torch.from_numpy(raw).view(dt).to(device)
     arr = np.asarray(arr).astype(_NP_DTYPES[dtype], copy=False)
     return torch.from_numpy(np.ascontiguousarray(arr).reshape(shape)).to(
         device)
+
+
+def _npy_bytes(arr: np.ndarray) -> bytes:
+    """One ``.npy`` member as ``np.save`` writes it; a raw-byte leaf gets
+    the ``<V<n>`` descr numpy writes for an ml_dtypes array of that width
+    (numpy itself normalises a void dtype to ``|V<n>``)."""
+    buf = io.BytesIO()
+    np.lib.format.write_array(buf, arr, allow_pickle=False)
+    out = buf.getvalue()
+    if arr.dtype.kind == "V" and arr.dtype.names is None:
+        old = f"'descr': '|V{arr.dtype.itemsize}'".encode()
+        new = f"'descr': '<V{arr.dtype.itemsize}'".encode()
+        head = out[:128].replace(old, new, 1)
+        out = head + out[128:]
+    return out
+
+
+def _savez(path: str, arrays: dict):
+    """``np.savez`` (uncompressed zip of ``<name>.npy`` members) with
+    :func:`_npy_bytes` members."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for name, arr in arrays.items():
+            with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
+                f.write(_npy_bytes(np.asanyarray(arr)))
 
 
 class CheckpointStore:
@@ -81,8 +118,8 @@ class CheckpointStore:
         tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
         final = os.path.join(self.dir, f"step_{step:09d}")
         os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, "arrays.npz"),
-                 **{f"a{i}": a for i, a in enumerate(host)})
+        _savez(os.path.join(tmp, "arrays.npz"),
+               {f"a{i}": a for i, a in enumerate(host)})
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, "n_arrays": len(host),
                        "time": time.time(), **extra}, f)

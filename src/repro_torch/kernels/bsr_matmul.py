@@ -1,5 +1,5 @@
-"""Block-sparse linear layers: the host-side tile pack and kernels K1, K4
-and K5.
+"""Block-sparse linear layers: the host-side tile pack and kernels K1, K4,
+K5, K6 and K7.
 
 Counterpart of ``repro/kernels/bsr_matmul.py``:
 
@@ -18,7 +18,14 @@ Counterpart of ``repro/kernels/bsr_matmul.py``:
     each tile through strides;
   * :func:`sddmm` and :func:`plan_sddmm` (K5) -- the stored tiles' gradient
     ``dW[j] = dY[:, row_j]^T @ X[:, col_j]``, kernel ``csrc/sddmm.cu``
-    (replacing ``_sddmm_kernel``).
+    (replacing ``_sddmm_kernel``);
+  * :func:`plan_dds_q` (K6) -- K1 over int8 / fp8 tile values with fp32
+    scales, each tile's partial product scaled before it joins the
+    accumulator, kernel ``csrc/plan_dds_q.cu`` (replacing
+    ``_plan_dds_q_kernel``);
+  * :func:`masked_matmul` (K7) -- ``X @ W^T`` over a dense weight, skipping
+    the tiles whose mask is 0 (the paper's negative control), kernel
+    ``csrc/masked.cu`` (replacing ``_masked_kernel``).
 
 Every kernel wrapper runs its plain version (the reference's arithmetic in
 torch ops, beside it here) on a CPU tensor, launches its kernel on a CUDA
@@ -306,11 +313,20 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # iw, transposed, x_bf16, w_bf16, stream); K5 sddmm_launch(dy, x, out,
 # row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16, out_bf16,
 # stream)
+# K6 plan_dds_q_launch(x, q, scales, bias, y, seg, col, tile, M, K, N,
+# n_brows, bn, bk, p_max, row_gran, x_bf16, w_fp8, act, stream); K7
+# masked_launch(x, w, mask, y, M, K, N, bn, bk, x_bf16, w_bf16, stream)
 _ENTRY = {
     "dds": ("dds_launch",
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "sddmm": ("sddmm_launch",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "plan_dds_q": ("plan_dds_q_launch",
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p]),
+    "masked": ("masked_launch",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+               + [ctypes.c_void_p]),
 }
 
 
@@ -624,3 +640,184 @@ def plan_sddmm(dy: torch.Tensor, x: torch.Tensor, schedule: TileSequence, *,
 
 sddmm.launches = 0
 plan_sddmm.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: plan-consuming DDS over quantized (int8 / fp8) tile values
+# --------------------------------------------------------------------------
+
+QUANT_VALUE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def _check_plan_dds_q(x, qvalues, scales, schedule: PlanSchedule, n, tile,
+                      granularity, act):
+    m, k = x.shape
+    bn, bk = tile
+    v = qvalues.shape[0] if qvalues.dim() == 4 else -1
+    want_s = (v, schedule.p_max if granularity == "block" else 1)
+    if (qvalues.dim() != 4 or tuple(qvalues.shape[2:]) != (bn, bk)
+            or qvalues.shape[1] != schedule.p_max
+            or n != schedule.n_brows * bn or k != schedule.n_bcols * bk
+            or granularity not in ("block", "row")
+            or tuple(scales.shape) != want_s
+            or (schedule.n_tiles
+                and int(schedule.tile_seq.max()) >= v * schedule.p_max)):
+        raise ValueError(
+            f"plan_dds_q: x {tuple(x.shape)}, qvalues "
+            f"{tuple(qvalues.shape)}, scales {tuple(scales.shape)}, n={n}, "
+            f"tile={tile}, granularity={granularity!r}, plan of "
+            f"{schedule.n_brows}x{schedule.n_bcols} blocks, P="
+            f"{schedule.p_max}")
+    if qvalues.dtype not in QUANT_VALUE_DTYPES:
+        raise TypeError(f"plan_dds_q takes int8 / float8_e4m3fn values, "
+                        f"got {qvalues.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"plan_dds_q takes fp32 scales, got {scales.dtype}")
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+
+
+def plan_dds_q_plain(x: torch.Tensor, qvalues: torch.Tensor,
+                     scales: torch.Tensor, schedule: PlanSchedule, *, n: int,
+                     tile: Tuple[int, int], granularity: str = "block",
+                     bias: Optional[torch.Tensor] = None,
+                     act: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`plan_dds_q`: the schedule walked tile by tile
+    -- tile j's fp32 partial product ``X[:, col_j] @ Q_j^T`` times its scale
+    -- summed in schedule order into its output block row, then the bias
+    and activation in fp32, cast to ``x``'s dtype."""
+    from repro_torch.kernels.ref import segment_sum
+    bn, bk = tile
+    m = x.shape[0]
+    dev = x.device
+    tiles = torch.from_numpy(schedule.tile_seq.astype(np.int64)).to(dev)
+    cols = torch.from_numpy(schedule.col_seq.astype(np.int64)).to(dev)
+    q = qvalues.reshape(-1, bn, bk)[tiles].float()            # (J, bn, bk)
+    s_idx = tiles if granularity == "block" else tiles // schedule.p_max
+    s = scales.reshape(-1)[s_idx].float()                      # (J,)
+    xg = x.reshape(m, -1, bk)[:, cols].float()                 # (M, J, bk)
+    part = torch.einsum("mjk,jnk->jmn", xg, q)                 # (J, M, bn)
+    y = segment_sum(s[:, None, None] * part, schedule.row_ids,
+                    schedule.n_brows)                          # (R, M, bn)
+    y = y.permute(1, 0, 2).reshape(m, n)
+    if bias is not None:
+        y = y + bias.reshape(1, n).float()
+    return act_epilogue(y, act).to(x.dtype)
+
+
+def plan_dds_q(x: torch.Tensor, qvalues: torch.Tensor, scales: torch.Tensor,
+               schedule: PlanSchedule, *, n: int, tile: Tuple[int, int],
+               granularity: str = "block",
+               bias: Optional[torch.Tensor] = None,
+               act: Optional[str] = None) -> torch.Tensor:
+    """Y(M, N) = act(X(M, K) @ dequant(Q)^T + bias) from the quantized
+    (V, P, bn, bk) pack: int8 or float8_e4m3fn ``qvalues`` with fp32
+    ``scales`` (V, P) ('block' granularity) or (V, 1) ('row'), over the
+    plan's :class:`PlanSchedule`. Kernel K6 on CUDA tensors (each launch
+    counts in ``plan_dds_q.launches``), :func:`plan_dds_q_plain` on CPU
+    tensors; x in fp32 or bf16, fp32 accumulation, output in x's dtype.
+    Anything else raises -- nothing falls back."""
+    _check_plan_dds_q(x, qvalues, scales, schedule, n, tile, granularity,
+                      act)
+    dev = x.device
+    for t in (qvalues, scales) + (() if bias is None else (bias,)):
+        if t.device != dev:
+            raise ValueError(f"plan_dds_q: tensors on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return plan_dds_q_plain(x, qvalues, scales, schedule, n=n, tile=tile,
+                                granularity=granularity, bias=bias, act=act)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"plan_dds_q has no kernel for {dev}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"plan_dds_q kernel takes fp32/bf16 x, got {x.dtype}")
+    if not (x.is_contiguous() and qvalues.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError("plan_dds_q kernel needs contiguous inputs")
+    m, k = x.shape
+    bn, bk = tile
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m == 0:
+        return y
+    b = None
+    if bias is not None:
+        b = bias.reshape(n).to(dtype=torch.float32).contiguous()
+    ix = schedule.on(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry("plan_dds_q")(
+        x.data_ptr(), qvalues.data_ptr(), scales.data_ptr(),
+        None if b is None else b.data_ptr(), y.data_ptr(),
+        ix["seg"].data_ptr(), ix["col"].data_ptr(), ix["tile"].data_ptr(),
+        m, k, n, schedule.n_brows, bn, bk, schedule.p_max,
+        int(granularity == "row"), int(x.dtype == torch.bfloat16),
+        int(qvalues.dtype == torch.float8_e4m3fn), ACTS[act], stream)
+    _check_launch("plan_dds_q", err)
+    plan_dds_q.launches += 1
+    return y
+
+
+plan_dds_q.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K7: the masked dense-layout matmul (negative control)
+# --------------------------------------------------------------------------
+
+def _expand_mask(tile_mask: torch.Tensor, tile: Tuple[int, int]):
+    bn, bk = tile
+    return tile_mask.bool().repeat_interleave(bn, 0).repeat_interleave(bk, 1)
+
+
+def masked_matmul_plain(x: torch.Tensor, w_dense: torch.Tensor, tile_mask,
+                        *, tile: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of :func:`masked_matmul`: masked tiles are selected
+    away (they contribute nothing, whatever W holds there), then one fp32
+    product, cast to ``x``'s dtype."""
+    mask = torch.as_tensor(tile_mask, device=w_dense.device)
+    w = torch.where(_expand_mask(mask, tile), w_dense.float(),
+                    w_dense.new_zeros((), dtype=torch.float32))
+    return (x.float() @ w.t()).to(x.dtype)
+
+
+def masked_matmul(x: torch.Tensor, w_dense: torch.Tensor, tile_mask, *,
+                  tile: Tuple[int, int] = (128, 128)) -> torch.Tensor:
+    """Y(M, N) = X(M, K) @ W^T over the dense (N, K) weight, skipping every
+    tile whose entry in ``tile_mask`` (N/bn, K/bk) is 0: the product is
+    skipped there and nothing is read from the tile. Kernel K7 on CUDA
+    tensors (each launch counts in ``masked_matmul.launches``; the mask may
+    be a host array or an int32 / bool tensor on the card),
+    :func:`masked_matmul_plain` on CPU tensors. x and W in fp32 or bf16,
+    fp32 accumulation, output in x's dtype."""
+    bn, bk = tile
+    mshape = tuple(tile_mask.shape)
+    if (x.dim() != 2 or w_dense.dim() != 2 or x.shape[1] != w_dense.shape[1]
+            or w_dense.shape[0] % bn or w_dense.shape[1] % bk
+            or mshape != (w_dense.shape[0] // bn, w_dense.shape[1] // bk)):
+        raise ValueError(f"masked_matmul: x {tuple(x.shape)}, W "
+                         f"{tuple(w_dense.shape)}, tile {tile}, mask "
+                         f"{mshape}")
+    if not _device_route("masked_matmul", x, w_dense):
+        return masked_matmul_plain(x, w_dense, tile_mask, tile=tile)
+    if isinstance(tile_mask, torch.Tensor):
+        if tile_mask.device != x.device:
+            raise ValueError(f"masked_matmul: mask on {tile_mask.device}, x "
+                             f"on {x.device}")
+        mask = tile_mask.to(torch.int32).contiguous()
+    else:
+        mask = torch.from_numpy(np.ascontiguousarray(
+            tile_mask, np.int32)).to(x.device)
+    m, k = x.shape
+    n = w_dense.shape[0]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _entry("masked")(
+        x.data_ptr(), w_dense.data_ptr(), mask.data_ptr(), y.data_ptr(), m, k,
+        n, bn, bk, int(x.dtype == torch.bfloat16),
+        int(w_dense.dtype == torch.bfloat16), stream)
+    _check_launch("masked_matmul", err)
+    masked_matmul.launches += 1
+    return y
+
+
+masked_matmul.launches = 0

@@ -24,7 +24,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_CSRC)))
 
 #: library name -> its CUDA source under csrc/
 SOURCES = {"plan_dds": "plan_dds.cu", "flash_decode": "flash_decode.cu",
-           "dds": "dds.cu", "sddmm": "sddmm.cu"}
+           "dds": "dds.cu", "sddmm": "sddmm.cu", "plan_dds_q": "plan_dds_q.cu",
+           "masked": "masked.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,6 +17,11 @@ Two executions of the same layout:
     plain version, which CPU tensors run, is :func:`plan_fused_linear_plain`:
     :func:`plan_linear` plus the bias/act epilogue.
 
+Quantized packs (:class:`QuantPlan`) store the same layout as int8 or fp8
+values with fp32 scales and run the same two ways: :func:`plan_q_linear`
+(plain, the scale folded into the gathered activations) and
+:func:`plan_q_linear_pallas` (kernel K6, ``bsr_matmul.plan_dds_q``).
+
 The host-side functions (fingerprints, capacity choice, plan and schedule
 construction) are numpy and byte-identical to the reference.
 """
@@ -32,7 +37,8 @@ import torch
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.kernels.bsr_matmul import (KernelBSR, PlanSchedule,
                                             TileSequence, act_epilogue,
-                                            plan_dds, plan_dds_t, plan_sddmm)
+                                            plan_dds, plan_dds_q, plan_dds_t,
+                                            plan_sddmm)
 from repro_torch.kernels.ref import segment_index
 
 # GEMM-efficiency floor for the batched matmul's inner dimension P*bk
@@ -488,3 +494,235 @@ class PlanChoice:
     def __eq__(self, other):
         return (isinstance(other, PlanChoice)
                 and self.fingerprint == other.fingerprint)
+
+
+# --------------------------------------------------------------------------
+# quantized packs: int8/fp8 block values, one fp32 scale per block
+# --------------------------------------------------------------------------
+#
+# One scale per (bn, bk) tile keeps the dequant inside the block matmul: the
+# plain path folds it into the gathered activations (xg * scale before the
+# product -- exactly equivalent), kernel K6 multiplies each tile's partial
+# product by it. Skinny tiles (bn*bk below _QUANT_BLOCK_MIN_ELEMS, e.g. the
+# paper's 32x1 column blocks) fall back to one scale per virtual row.
+
+QUANT_DTYPES = ("int8", "fp8")
+#: per-block scales need bn*bk elements to amortize their 4 bytes; below
+#: this the scale granularity falls back to one per row group (vrow)
+_QUANT_BLOCK_MIN_ELEMS = 128
+_FP8_MAX = 448.0                       # float8_e4m3fn finite max
+
+
+def quant_granularity(tile: Tuple[int, int]) -> str:
+    """'block' (one scale per (bn, bk) tile) for tiles that amortize the
+    fp32 scale; 'row' (one per virtual row group) for skinny tiles."""
+    return "block" if tile[0] * tile[1] >= _QUANT_BLOCK_MIN_ELEMS else "row"
+
+
+def _qparams(qdtype: str):
+    if qdtype == "int8":
+        return 127.0, torch.int8
+    if qdtype == "fp8":
+        return _FP8_MAX, torch.float8_e4m3fn
+    raise ValueError(f"qdtype={qdtype!r} not in {QUANT_DTYPES}")
+
+
+def quantize_plan_values(data_rp, qdtype: str, granularity: str):
+    """Row-grouped values (..., V, P, bn, bk) -> (qvalues, scales), on the
+    values' device.
+
+    Symmetric absmax quantization: ``scales`` is (..., V, P) fp32 for
+    'block' granularity, (..., V, 1) for 'row'. All-zero groups (pruned
+    padding slots) get scale 1.0 so dequant stays exact zero. Every step is
+    an IEEE fp32 operation (division, round half to even, saturating
+    clip), so the bytes equal the reference's."""
+    if not isinstance(data_rp, torch.Tensor):
+        data_rp = torch.from_numpy(np.ascontiguousarray(data_rp))
+    d = data_rp.float()
+    if granularity == "block":
+        amax = d.abs().amax(dim=(-2, -1))                    # (..., V, P)
+    elif granularity == "row":
+        amax = d.abs().amax(dim=(-3, -2, -1))[..., None]
+    else:
+        raise ValueError(f"granularity={granularity!r}")
+    qmax, qt = _qparams(qdtype)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its rounded reciprocal, which is not the reference's IEEE quotient
+    q_max = torch.tensor(qmax, dtype=torch.float32, device=d.device)
+    scales = torch.where(amax > 0, amax / q_max,
+                         torch.ones_like(amax)).float()
+    s = scales[..., None, None]                # broadcast over (bn, bk)
+    if qdtype == "int8":
+        q = torch.clamp(torch.round(d / s), -qmax, qmax).to(qt)
+    else:
+        q = (d / s).to(qt)
+    return q, scales
+
+
+def dequantize_plan_values(qvalues, scales) -> torch.Tensor:
+    """(qvalues, scales) -> fp32 row-grouped values (the export-time
+    round-trip check; serving never calls this -- the dequant stays fused
+    in the matmul)."""
+    return qvalues.float() * scales.float()[..., None, None]
+
+
+def _scale_xg(xg: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    # xg (M, V, P, bk); scales (V, P) or (V, 1) -> broadcast over bk (and
+    # over slots for row granularity)
+    return xg.float() * scales.float()[..., None]
+
+
+def _plan_q_fwd(x, qvalues, scales, plan: RowPackPlan) -> torch.Tensor:
+    m = x.shape[0]
+    xs = _scale_xg(_gather_x(x, plan), scales)              # (M, V, P, bk)
+    y = torch.einsum("mvpk,vpnk->vmn", xs, qvalues.float())  # (V, M, bn)
+    if plan.spilled:
+        y = torch.cat([y, y.new_zeros((1,) + tuple(y.shape[1:]))])
+        y = y[_dev_index(plan, "vrow_segments", _vrow_segments(plan),
+                         x.device)].sum(dim=1)                # (R, M, bn)
+    return y.permute(1, 0, 2).reshape(m, plan.shape[0]).to(x.dtype)
+
+
+class _PlanQLinear(torch.autograd.Function):
+    """``plan_q_linear`` with the reference's ``_plan_q_bwd``: dX with the
+    dequant re-associated onto it, summed over ``col_idx`` in a fixed order;
+    exactly zero gradient for the quantized values and the scales."""
+
+    @staticmethod
+    def forward(ctx, x, qvalues, scales, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(qvalues, scales)
+        ctx.x_meta = (x.shape[0], x.dtype)
+        return _plan_q_fwd(x, qvalues, scales, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        qvalues, scales = ctx.saved_tensors
+        plan = ctx.plan
+        m, x_dtype = ctx.x_meta
+        bn, bk = plan.tile
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dy_v = dy.reshape(m, plan.n_brows, bn).float()
+            if plan.spilled:
+                dy_v = dy_v[:, _dev_index(plan, "row_of_vrow",
+                                          plan.row_of_vrow, dy.device)]
+            dxg = torch.einsum("mvn,vpnk->mvpk", dy_v, qvalues.float())
+            dxg = _scale_xg(dxg, scales)
+            flat = dxg.reshape(m, plan.n_vrows * plan.p_max, bk)
+            flat = torch.cat([flat, flat.new_zeros((m, 1, bk))], dim=1)
+            idx = _dev_index(plan, "dx_segments", _dx_segments(plan),
+                             dy.device)
+            dx = flat[:, idx].sum(dim=2).reshape(m, plan.shape[1]).to(
+                x_dtype)
+        return (dx,
+                torch.zeros_like(qvalues) if ctx.needs_input_grad[1]
+                else None,
+                torch.zeros_like(scales) if ctx.needs_input_grad[2]
+                else None, None)
+
+
+def plan_q_linear(x: torch.Tensor, qvalues: torch.Tensor,
+                  scales: torch.Tensor, plan: RowPackPlan) -> torch.Tensor:
+    """Y(M, N) = X(M, K) @ dequant(Q)^T with the dequant fused: the scale
+    multiplies the gathered activations (``xg[m, v, p, :] * scales[v, p]``,
+    the per-block weight dequant re-associated onto the small operand), so
+    fp32 weight values never exist. Differentiable in ``x``; the quantized
+    values and scales are constants (their gradient is exactly zero)."""
+    return _PlanQLinear.apply(x, qvalues, scales, plan)
+
+
+def plan_q_matmul(x: torch.Tensor, qvalues, scales, plan: RowPackPlan):
+    """Batched-x entry point for the dequant-fused plain plan backend."""
+    lead = tuple(x.shape[:-1])
+    y = plan_q_linear(x.reshape(-1, x.shape[-1]), qvalues, scales, plan)
+    return y.reshape(lead + (plan.shape[0],))
+
+
+def plan_q_linear_pallas(x: torch.Tensor, qvalues: torch.Tensor,
+                         scales: torch.Tensor, plan: RowPackPlan, *,
+                         bias=None, act: str | None = None) -> torch.Tensor:
+    """Dequant-fused plan matmul through kernel K6 (``bsr_matmul.plan_dds_q``)
+    with the same fused bias/act epilogue as :func:`plan_fused_linear`; a CPU
+    ``x`` runs its plain version. Forward-only (the serving path): inputs
+    that require grad raise rather than silently cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, qvalues, scales, bias)):
+        raise RuntimeError("plan_q_linear_pallas is forward-only; use "
+                           "plan_q_linear for a differentiable product")
+    if x.dim() != 2 or x.shape[1] != plan.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} does not fit a plan of shape "
+                         f"{plan.shape}")
+    granularity = "row" if scales.shape[-1] == 1 else "block"
+    return plan_dds_q(x.contiguous(), qvalues, scales, plan_schedule(plan),
+                      n=plan.shape[0], tile=plan.tile,
+                      granularity=granularity, bias=bias, act=act)
+
+
+def plan_q_matmul_pallas(x: torch.Tensor, qvalues, scales,
+                         plan: RowPackPlan):
+    """Batched-x entry point for the dequant-fused kernel backend."""
+    lead = tuple(x.shape[:-1])
+    y = plan_q_linear_pallas(x.reshape(-1, x.shape[-1]), qvalues, scales,
+                             plan)
+    return y.reshape(lead + (plan.shape[0],))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QuantPlan:
+    """A RowPackPlan whose values are stored quantized (int8/fp8 + fp32
+    scales) and served through the dequant-fused plan matmul.
+
+    The params-tree entry for a QuantPlan pack is ``{"w": qvalues,
+    "scale": scales}`` (the spec dtype cast and the byte accounting treat it
+    specially; serving/servable.py). ``backend`` pins the execution path:
+    'plan' = the plain composition (:func:`plan_q_matmul`), 'plan_pallas' =
+    kernel K6 (:func:`plan_q_matmul_pallas`)."""
+
+    plan: RowPackPlan
+    qdtype: str = "int8"               # 'int8' | 'fp8'
+    granularity: str = "block"         # 'block' (V, P) | 'row' (V, 1)
+    backend: str = "plan"              # 'plan' | 'plan_pallas'
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.plan.shape
+
+    @property
+    def tile(self) -> Tuple[int, int]:
+        return self.plan.tile
+
+    @property
+    def density(self) -> float:
+        return self.plan.density
+
+    @property
+    def real_nnzt(self) -> int:
+        return self.plan.real_nnzt
+
+    @property
+    def fingerprint(self) -> bytes:
+        return (b"quant:" + self.qdtype.encode() + b":"
+                + self.granularity.encode() + b":" + self.backend.encode()
+                + b":" + self.plan.fingerprint)
+
+    def __hash__(self):
+        return hash(self.fingerprint)
+
+    def __eq__(self, other):
+        return (isinstance(other, QuantPlan)
+                and self.fingerprint == other.fingerprint)
+
+
+def quantize_for_plan(plan: RowPackPlan, data, qdtype: str, *,
+                      backend: str = "plan"):
+    """Packed tile values (..., nnzt, bn, bk) -> (QuantPlan, params dict):
+    row-group the values (:func:`pack_plan_data`), pick the scale
+    granularity from the tile, quantize where the values live."""
+    data_rp = pack_plan_data(plan, data)
+    granularity = quant_granularity(plan.tile)
+    q, s = quantize_plan_values(data_rp, qdtype, granularity)
+    qp = QuantPlan(plan, qdtype=qdtype, granularity=granularity,
+                   backend=backend)
+    return qp, {"w": q, "scale": s}

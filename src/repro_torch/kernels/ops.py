@@ -24,7 +24,8 @@ masked (``ops.py:147`` of the reference).
 The plan layout has its own dispatch: ``'plan'`` is the plain tensor
 composition (:func:`exec_plan.plan_matmul`), ``'plan_pallas'`` the plan's
 schedule driving kernel K1 (:func:`exec_plan.plan_matmul_pallas`), both
-differentiable.
+differentiable; :func:`plan_q_dispatch` is the same switch over quantized
+packs (``'plan_pallas'`` = kernel K6).
 """
 from __future__ import annotations
 
@@ -160,4 +161,17 @@ def plan_dispatch(x, data_rp, plan, backend: str | None = None):
         return xp.plan_matmul_pallas(x, data_rp, plan)
     if backend == "plan":
         return xp.plan_matmul(x, data_rp, plan)
+    raise ValueError(f"unknown plan backend {backend}")
+
+
+def plan_q_dispatch(x, qvalues, scales, plan, backend: str | None = None):
+    """Quantized-pack matmul behind the same backend switch: 'plan' = the
+    dequant-fused plain composition (:func:`exec_plan.plan_q_matmul`),
+    'plan_pallas' = kernel K6 with the scale multiply in the accumulation
+    (:func:`exec_plan.plan_q_matmul_pallas`)."""
+    backend = backend or default_plan_backend(x)
+    if backend == "plan_pallas":
+        return xp.plan_q_matmul_pallas(x, qvalues, scales, plan)
+    if backend == "plan":
+        return xp.plan_q_matmul(x, qvalues, scales, plan)
     raise ValueError(f"unknown plan backend {backend}")

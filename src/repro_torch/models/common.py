@@ -1,9 +1,8 @@
 """Shared layer primitives: norms, activations, RoPE, linear init/apply,
 gated MLPs and the paged-KV primitives.
 
-Counterpart of ``repro/models/common.py`` (without the tensor-parallel hook,
-the conv history of the recurrent families and the quantized, autotuned and
-masked packs).
+Counterpart of ``repro/models/common.py`` (without the tensor-parallel hook
+and the conv history of the recurrent families).
 Parameters are plain dicts of tensors, laid out as in the reference: a
 linear weight is stored (d_out, d_in) and applied as ``y = x @ w.T`` (the
 BSR layout).
@@ -14,12 +13,6 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-
-_ITEM_PACKS = {
-    "QuantPlan": "ROADMAP.md Queue 1 item 15 (quantized packs)",
-    "BackendChoice": "ROADMAP.md Queue 1 item 16 (autotune)",
-    "MaskedPack": "ROADMAP.md Queue 1 item 16 (autotune, kernel K7)",
-}
 
 
 def normal_init(gen: torch.Generator, shape, scale=0.02,
@@ -115,31 +108,47 @@ def linear(p, x, pack=None, backend=None):
         (V, P, bn, bk) served by the plain plan composition ('plan');
       * a ``PlanChoice`` -- the same layout pinned to a backend through
         ``ops.plan_dispatch`` ('plan_pallas' = kernel K1);
+      * a ``QuantPlan`` -- ``p['w']`` holds int8/fp8 row-grouped values and
+        ``p['scale']`` their fp32 scales; ``ops.plan_q_dispatch`` runs the
+        dequant-fused product ('plan_pallas' = kernel K6);
       * a ``KernelBSR`` -- ``p['w']`` holds packed tile values
         (nnzt, bn, bk) and the product goes through ``ops.bsr_matmul``'s
         backends (``backend``; by default kernel K4 on a CUDA tensor);
+      * an ``autotune.BackendChoice`` -- a KernelBSR pattern pinned to the
+        backend the autotuner measured fastest for it;
+      * an ``autotune.MaskedPack`` -- ``p['w']`` stays a DENSE (N, K) weight
+        and kernel K7 (``masked_matmul``) skips the masked tiles;
       * None -- a dense weight, ``x @ w.T``.
-    Every plan and pack route is differentiable.
+    Every fp plan and pack route is differentiable; the quantized plain
+    route in ``x`` only, K6 and K7 are forward-only.
     """
     if pack is not None:
+        from repro_torch.kernels.autotune import BackendChoice, MaskedPack
         from repro_torch.kernels.bsr_matmul import KernelBSR
-        from repro_torch.kernels.exec_plan import (PlanChoice, RowPackPlan,
-                                                   plan_matmul)
+        from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
+                                                   RowPackPlan, plan_matmul)
+        if isinstance(pack, QuantPlan):
+            from repro_torch.kernels.ops import plan_q_dispatch
+            return plan_q_dispatch(x, p["w"], p["scale"], pack.plan,
+                                   backend=pack.backend)
         if isinstance(pack, PlanChoice):
             from repro_torch.kernels.ops import plan_dispatch
             return plan_dispatch(x, p["w"], pack.plan, backend=pack.backend)
         if isinstance(pack, RowPackPlan):
             return plan_matmul(x, p["w"], pack)
+        if isinstance(pack, MaskedPack):
+            from repro_torch.kernels.bsr_matmul import masked_matmul
+            lead = tuple(x.shape[:-1])
+            y = masked_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
+                              p["w"], pack.mask_on(x.device), tile=pack.tile)
+            return y.reshape(lead + (pack.shape[0],))
+        if isinstance(pack, BackendChoice):
+            backend, pack = pack.backend, pack.pack
         if isinstance(pack, KernelBSR):
             import dataclasses as _dc
             from repro_torch.kernels.ops import bsr_matmul
             return bsr_matmul(x, _dc.replace(pack, data=p["w"]), backend)
-        kind = type(pack).__name__
-        if kind in _ITEM_PACKS:
-            raise NotImplementedError(
-                f"pack kind {kind} is not ported yet; it comes with "
-                f"{_ITEM_PACKS[kind]}")
-        raise TypeError(f"unknown pack kind {kind}")
+        raise TypeError(f"unknown pack kind {type(pack).__name__}")
     return torch.matmul(x, p["w"].t())
 
 

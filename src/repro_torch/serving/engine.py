@@ -998,9 +998,14 @@ class ServingEngine:
                 "page_resumes": self.stats.page_resumes}
 
     def stats_dict(self) -> Dict:
-        """``EngineStats.as_dict()`` plus the ``'kv'`` section."""
+        """``EngineStats.as_dict()`` plus the ``'kv'`` section and, when the
+        servable carries quantized packs, the ``'quant'`` section (pack
+        bytes, compression against fp32, worst quantization error)."""
         d = self.stats.as_dict()
         d["kv"] = self.kv_stats()
+        qs = self.servable.quant_stats()
+        if qs:
+            d["quant"] = qs
         return d
 
     @property

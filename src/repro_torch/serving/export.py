@@ -29,15 +29,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.kernels.bsr_matmul import (KernelBSR, pack_bsr,
                                             pattern_from_mask)
-from repro_torch.kernels.exec_plan import (PlanChoice, pack_plan_data,
-                                           plan_for_pack)
+from repro_torch.kernels.autotune import (BackendChoice, dense_from_pack,
+                                         masked_pack_from)
+from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
+                                           dequantize_plan_values,
+                                           pack_plan_data, plan_for_pack,
+                                           quantize_for_plan)
 
 _QKV = ("wq", "wk", "wv")
 _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
 
-_ITEM_BSR = ("ROADMAP.md Queue 1 item 4 (the 'bsr' serving backend: export "
-             "and codec)")
 _ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
 
 
@@ -82,49 +84,107 @@ def pack_single(w: np.ndarray, tile) -> Tuple[KernelBSR, np.ndarray]:
 
 
 def _realize_backend(pack, data, backend: str,
-                     registry: Optional[PatternRegistry], device):
-    """(pattern, packed values (numpy), backend) -> (static pack stored in
-    ``packs``, row-grouped values on ``device`` for the params tree).
+                     registry: Optional[PatternRegistry], device,
+                     quant: str = "none"):
+    """(pattern, packed values (numpy or tensor), chosen backend) -> (static
+    pack stored in ``packs``, values on ``device`` for the params tree).
+    ``data`` is ``(nnzt, bn, bk)`` or layer-stacked ``(L, nnzt, bn, bk)``.
 
-      * ``plan``        -> RowPackPlan (served by the plain composition);
-      * ``plan_pallas`` -> the same plan wrapped in a PlanChoice pinning
-        every call to kernel K1.
-    """
-    if backend not in ("plan", "plan_pallas"):
-        raise NotImplementedError(
-            f"serving backend {backend!r} comes with {_ITEM_BSR}")
-    plan = plan_for_pack(pack, registry)
+      * ``plan``        -> RowPackPlan + row-grouped values (served by the
+        plain composition);
+      * ``plan_pallas`` -> the same layout in a PlanChoice pinning every call
+        to kernel K1;
+      * ``bsr``         -> the bare KernelBSR pattern, its values kept on the
+        device (``ops.bsr_matmul``'s default backend: K4 on the card);
+      * ``gather`` / ``rowpack`` / ``pallas`` -> the pattern pinned to that
+        ``bsr_linear`` backend (``autotune.BackendChoice``);
+      * ``masked``      -> the densified weight + static tile mask
+        (``autotune.MaskedPack``, kernel K7), per layer when stacked;
+      * ``dense``       -> ``(None, None)``: the caller keeps the original
+        dense weight and stores no pack.
+
+    ``quant != 'none'`` (spec ``pack_quant``) quantizes the plan-layout
+    backends into a QuantPlan with a ``{"w": qvalues, "scale": scales}``
+    entry ('plan_pallas' = kernel K6); ``plan_q8`` / ``plan_pallas_q8`` are
+    the autotune verdict names for the same int8 layouts."""
     if not isinstance(data, torch.Tensor):
         data = torch.from_numpy(np.ascontiguousarray(data))
-    vals = pack_plan_data(plan, data.to(device))
-    return (PlanChoice(plan) if backend == "plan_pallas" else plan), vals
+    data = data.to(device)
+    if backend in ("plan", "plan_q8", "plan_pallas", "plan_pallas_q8"):
+        plan = plan_for_pack(pack, registry)
+        kernel = backend.startswith("plan_pallas")
+        if backend.endswith("_q8") or quant != "none":
+            return quantize_for_plan(plan, data,
+                                     quant if quant != "none" else "int8",
+                                     backend="plan_pallas" if kernel
+                                     else "plan")
+        vals = pack_plan_data(plan, data)
+        return (PlanChoice(plan) if kernel else plan), vals
+    if backend == "bsr":
+        return pack, data
+    if backend == "dense":
+        return None, None
+    if backend == "masked":
+        return masked_pack_from(pack), dense_from_pack(pack, data)
+    if backend in ("gather", "rowpack", "pallas"):
+        return BackendChoice(pack, backend), data
+    raise ValueError(f"unknown serving backend {backend!r}")
+
+
+def _quant_meta(pk, vals, data) -> Optional[Dict]:
+    """Export-time quantization round-trip accounting for a QuantPlan pack:
+    max abs dequant error over the stored tiles, absolute and relative to
+    the pack's value range (surfaced by ``Servable.stats()`` and the
+    engine's ``stats_dict()``)."""
+    if not isinstance(pk, QuantPlan):
+        return None
+    if not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.ascontiguousarray(data))
+    ref = pack_plan_data(pk.plan, data.to(vals["w"].device)).float()
+    deq = dequantize_plan_values(vals["w"], vals["scale"])
+    err = float((deq - ref).abs().max())
+    amax = float(ref.abs().max())
+    return {"qdtype": pk.qdtype, "granularity": pk.granularity,
+            "max_abs_err": err,
+            "rel_err": err / amax if amax > 0 else 0.0}
 
 
 def _serving_pack(w: np.ndarray, tile, use_plans: bool,
-                  registry: Optional[PatternRegistry], device, chooser=None):
-    """(N, K) weight -> (static pattern, values, chooser meta)."""
+                  registry: Optional[PatternRegistry], device, chooser=None,
+                  quant: str = "none"):
+    """(N, K) weight -> (static pattern, values, chooser / quant meta)."""
     pack = pack_bsr(w, tile)
     if chooser is None:
-        if not use_plans:
-            raise NotImplementedError(f"backend 'bsr' comes with {_ITEM_BSR}")
-        pk, vals = _realize_backend(pack, pack.data, "plan", registry,
-                                    device)
-        return pk, vals, None
+        pk, vals = _realize_backend(pack, pack.data,
+                                    "plan" if use_plans else "bsr", registry,
+                                    device, quant)
+        qmeta = _quant_meta(pk, vals, pack.data)
+        return pk, vals, {"quant": qmeta} if qmeta else None
     choice = chooser(pack)
     pk, vals = _realize_backend(pack, pack.data, choice.backend, registry,
-                                device)
+                                device, quant)
     meta = {"backend": choice.backend,
             "cache_hit": choice.cache_hit, "mode": choice.mode}
+    qmeta = _quant_meta(pk, vals, pack.data)
+    if qmeta:
+        meta["quant"] = qmeta
     return pk, vals, meta
 
 
 def _param_entry(vals, dtype) -> Dict:
-    """Params-tree entry for a pack's serving values, in the model dtype."""
+    """Params-tree entry for a pack's serving values. Quantized packs come
+    as a ``{"w", "scale"}`` dict whose leaves keep their own dtypes (int8 /
+    fp8 values, fp32 scales); everything else is ``{"w": values}`` in the
+    model dtype."""
+    if isinstance(vals, dict):
+        return dict(vals)
     return {"w": vals.to(dtype)}
 
 
 def _param_entry_layer(vals, i: int, dtype) -> Dict:
     """Per-layer slice of stacked serving values."""
+    if isinstance(vals, dict):
+        return {k: v[i] for k, v in vals.items()}
     return {"w": vals[i].to(dtype)}
 
 
@@ -147,8 +207,16 @@ def _fused_qkv_weight(ap, tile) -> Optional[np.ndarray]:
     return np.concatenate(ws, axis=0)
 
 
-def _pack_nnzt(pk) -> int:
-    return int(getattr(pk, "plan", pk).real_nnzt)   # PlanChoice wraps a plan
+def _pack_nnzt(pk) -> Optional[int]:
+    """Stored-tile count of any static pack kind (plan / quant / bsr /
+    choice / masked), for the per-scope export stats."""
+    if pk is None:
+        return None
+    inner = getattr(pk, "pack", pk)             # BackendChoice wraps a BSR
+    inner = getattr(inner, "plan", inner)       # PlanChoice wraps a plan
+    if hasattr(inner, "real_nnzt"):
+        return int(inner.real_nnzt)
+    return int(np.sum(inner.tile_mask))
 
 
 def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
@@ -157,11 +225,15 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
                        use_plans: bool = True,
                        registry: Optional[PatternRegistry] = None,
                        stats_out: Optional[Dict] = None,
-                       backend_chooser=None, device=None):
+                       backend_chooser=None, pack_quant: str = "none",
+                       device=None):
     """BSR export for the unrolled BERT encoder. Returns (sparse_params,
-    packs); ``packs`` maps 'layers/<i>/<group>/<name>' to its static plan.
-    ``stats_out`` is filled with the per-group union stats. Values land on
-    ``device`` (default: where the weights are)."""
+    packs); ``packs`` maps 'layers/<i>/<group>/<name>' to its static pack
+    (a plan by default, a bare KernelBSR with ``use_plans=False``, the
+    chooser's verdict with ``backend_chooser``; quantized with
+    ``pack_quant``). ``stats_out`` is filled with the per-group union,
+    autotune and quantization stats. Values land on ``device`` (default:
+    where the weights are)."""
     layers = params["layers"]
     n_layers = len(layers)
     if device is None:
@@ -199,20 +271,31 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
                                         "cache_hit": choice.cache_hit,
                                         "mode": choice.mode}
                 pk, vals = _realize_backend(pack, data, choice.backend,
-                                            registry, device)
+                                            registry, device, pack_quant)
+                qmeta = _quant_meta(pk, vals, data)
+                if qmeta:
+                    union_st["quant"] = qmeta
+                shared = [pk] * n_layers
+            elif use_plans and pack_quant != "none":
+                pk, vals = _realize_backend(pack, data, "plan", registry,
+                                            device, pack_quant)
+                qmeta = _quant_meta(pk, vals, data)
+                if qmeta:
+                    union_st = dict(union_st, quant=qmeta)
                 shared = [pk] * n_layers
             elif use_plans:
                 # one lookup per layer: the registry's hit counters then show
                 # the (L-1)-fold reuse of the single unioned plan
                 shared = [plan_for_pack(pack, registry)
                           for _ in range(n_layers)]
-                vals = pack_plan_data(shared[0], torch.from_numpy(
-                    np.ascontiguousarray(data)).to(device))
+                vals = pack_plan_data(shared[0], data.to(device))
             else:
-                raise NotImplementedError(
-                    f"backend 'bsr' comes with {_ITEM_BSR}")
+                shared = [pack] * n_layers
+                vals = data.to(device)
             if stats_out is not None:
                 stats_out[f"{group}/{name}"] = union_st
+            if shared[0] is None:       # measured dense: weights untouched
+                continue
             for i in range(n_layers):
                 packs[f"layers/{i}/{group}/{name}"] = shared[i]
                 tgt[i][name] = _param_entry_layer(vals, i, dtypes[i])
@@ -220,14 +303,23 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
             for i, lp in enumerate(layers):
                 pk, vals, meta = _serving_pack(getw(lp), tile, use_plans,
                                                registry, device,
-                                               backend_chooser)
+                                               backend_chooser, pack_quant)
                 if stats_out is not None and meta:
-                    stats_out[f"layers/{i}/{group}/{name}"] = {
-                        "union_nnzt": _pack_nnzt(pk), "autotune": meta}
+                    st = {"union_nnzt": _pack_nnzt(pk)}
+                    qmeta = meta.pop("quant", None)
+                    if qmeta:
+                        st["quant"] = qmeta
+                    if meta:
+                        st["autotune"] = meta
+                    stats_out[f"layers/{i}/{group}/{name}"] = st
+                if pk is None:          # measured dense: weight untouched
+                    continue
                 packs[f"layers/{i}/{group}/{name}"] = pk
                 tgt[i][name] = _param_entry(vals, dtypes[i])
 
     if fuse_now:
+        # drop the per-projection weights only where the fused pack was
+        # exported (a 'dense' verdict keeps them)
         for i, ap in enumerate(attn_new):
             if f"layers/{i}/attn/wqkv" in packs:
                 for proj in _QKV:
@@ -261,38 +353,50 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                      fuse_qkv: bool = True, use_plans: bool = True,
                      include_ffn: bool = True,
                      registry: Optional[PatternRegistry] = None,
-                     backend_chooser=None, device=None):
+                     backend_chooser=None, pack_quant: str = "none",
+                     device=None):
     """Replace attention (and pruned FFN) projections of a dense-family LM
     param tree with packed values.
 
     Returns (sparse_params, packs, stats): ``packs`` maps layer scopes
-    ('blocks/<i>/attn/wqkv', 'suffix/<i>/ffn/wo', ...) to static plans.
-    Period-stacked layer groups are union-packed (one plan, per-period
+    ('blocks/<i>/attn/wqkv', 'suffix/<i>/ffn/wo', ...) to static packs.
+    Period-stacked layer groups are union-packed (one pattern, per-period
     values, stacked on the period axis); with ``fuse_qkv`` the q/k/v
     projections share one fused pack per group. With ``include_ffn`` the
     dense-MLP projections are exported too, but only when they are actually
-    block-sparse at the kernel tile. The export walks the tree projection
-    by projection, so at most one projection's temporaries are alive."""
-    if not use_plans and backend_chooser is None:
-        raise NotImplementedError(f"backend 'bsr' comes with {_ITEM_BSR}")
+    block-sparse at the kernel tile. ``backend_chooser`` overrides the
+    representation per pattern (a 'dense' verdict keeps the original
+    weight); ``pack_quant`` quantizes the plan layouts. The export walks the
+    tree projection by projection, so at most one projection's temporaries
+    are alive."""
     if device is None:
         device = params["embed"]["w"].device
     packs: Dict[str, object] = {}
     stats: Dict[str, Dict] = {}
 
     def export_one(w, scope, stacked, dtype):
+        """Pack one weight (single or period-stacked), record its stats and
+        register the pack; None when the pattern serves dense."""
         pack, data, st = pack_stacked(w, tile)
-        if not stacked:
-            st = {"union_nnzt": int(pack.real_nnzt)}
-        backend = "plan"
+        backend = "plan" if use_plans else "bsr"
+        meta = None
         if backend_chooser is not None:
             choice = backend_chooser(pack)
             backend = choice.backend
-            st = dict(st, autotune={"backend": choice.backend,
-                                    "cache_hit": choice.cache_hit,
-                                    "mode": choice.mode})
-        pk, vals = _realize_backend(pack, data, backend, registry, device)
+            meta = {"backend": choice.backend,
+                    "cache_hit": choice.cache_hit, "mode": choice.mode}
+        pk, vals = _realize_backend(pack, data, backend, registry, device,
+                                    pack_quant)
+        if not stacked:
+            st = {"union_nnzt": _pack_nnzt(pk)}
+        if meta:
+            st = dict(st, autotune=meta)
+        qmeta = _quant_meta(pk, vals, data)
+        if qmeta:
+            st = dict(st, quant=qmeta)
         stats[scope] = st
+        if pk is None:
+            return None
         packs[scope] = pk
         return _param_entry(vals, dtype)
 
@@ -305,16 +409,20 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                 _divisible(ap[proj]["w"].shape, tile) for proj in _QKV):
             w_qkv = torch.cat([ap[proj]["w"] for proj in _QKV],
                               dim=1 if stacked else 0)
-            ap["wqkv"] = export_one(w_qkv, f"{scope}/wqkv", stacked,
-                                    ap["wq"]["w"].dtype)
+            fused = export_one(w_qkv, f"{scope}/wqkv", stacked,
+                               ap["wq"]["w"].dtype)
             del w_qkv
-            for proj in _QKV:
-                del ap[proj]
-            projs = ["wo"]
+            if fused is not None:
+                ap["wqkv"] = fused
+                for proj in _QKV:
+                    del ap[proj]
+            projs = ["wo"]          # measured dense: wq/wk/wv stay, unfused
         for proj in projs:
             if proj in ap and _divisible(ap[proj]["w"].shape, tile):
-                ap[proj] = export_one(ap[proj]["w"], f"{scope}/{proj}",
-                                      stacked, ap[proj]["w"].dtype)
+                vals = export_one(ap[proj]["w"], f"{scope}/{proj}", stacked,
+                                  ap[proj]["w"].dtype)
+                if vals is not None:
+                    ap[proj] = vals
         return dict(lp, attn=ap)
 
     def export_ffn(lp, scope, stacked):
@@ -326,7 +434,9 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                 continue
             w = fp[proj]["w"]
             if _divisible(w.shape, tile) and _is_sparse(w, tile):
-                fp[proj] = export_one(w, f"{scope}/{proj}", stacked, w.dtype)
+                vals = export_one(w, f"{scope}/{proj}", stacked, w.dtype)
+                if vals is not None:
+                    fp[proj] = vals
         return dict(lp, ffn=fp)
 
     def export_layer(lp, scope, stacked):
@@ -349,7 +459,8 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
                   fuse_qkv: bool = True, cross_layer_union: bool = True,
                   include_ffn: bool = True, use_plans: bool = True,
                   registry: Optional[PatternRegistry] = None,
-                  backend_chooser=None, device=None):
+                  backend_chooser=None, pack_quant: str = "none",
+                  device=None):
     """Export a model's param tree to serving form. Returns
     ``(sparse_params, packs, stats)``: bert through
     :func:`export_bert_sparse`, the dense LM family through
@@ -360,13 +471,14 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
             params, cfg, tile=tile, include_ffn=include_ffn,
             fuse_qkv=fuse_qkv, cross_layer_union=cross_layer_union,
             use_plans=use_plans, registry=registry, stats_out=stats,
-            backend_chooser=backend_chooser, device=device)
+            backend_chooser=backend_chooser, pack_quant=pack_quant,
+            device=device)
         return sparse_params, packs, stats
     if cfg.family == "dense":
         return export_lm_sparse(params, cfg, tile=tile, fuse_qkv=fuse_qkv,
                                 use_plans=use_plans, include_ffn=include_ffn,
                                 registry=registry,
                                 backend_chooser=backend_chooser,
-                                device=device)
+                                pack_quant=pack_quant, device=device)
     raise NotImplementedError(
         f"export of family {cfg.family!r} comes with {_ITEM_FAMILIES}")

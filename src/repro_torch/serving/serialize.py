@@ -6,9 +6,11 @@ layout, so an artifact written by either package loads in the other:
   * **tree spec** -- a JSON description of a param tree's structure with
     per-leaf dtypes (insertion-ordered; leaf *numbering* on disk follows
     the reference's flatten order, see ``checkpoint/store.py``);
-  * **pack codec** -- static plans flattened into npz arrays + JSON meta,
-    deduplicated by pattern fingerprint so cross-layer sharing survives a
-    round-trip (kinds ``plan`` and ``plan_choice`` in this slice);
+  * **pack codec** -- static patterns flattened into npz arrays + JSON
+    meta, deduplicated by pattern fingerprint so cross-layer sharing
+    survives a round-trip (kinds ``plan``, ``plan_choice``, ``quant_plan``
+    (codec 1), ``masked``, ``choice`` and ``bsr``; ``sharded_plan`` waits
+    for the sharding slice);
   * **config codec** -- ModelConfig to plain dicts and back.
 """
 from __future__ import annotations
@@ -22,11 +24,15 @@ import torch
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.core.sparsity import SparsityConfig
-from repro_torch.kernels.exec_plan import PlanChoice, RowPackPlan
+from repro_torch.kernels.autotune import BackendChoice, MaskedPack
+from repro_torch.kernels.bsr_matmul import KernelBSR
+from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
+                                           RowPackPlan,
+                                           kernel_pattern_fingerprint)
 
 _PLAN_FIELDS = ("col_idx", "slot_mask", "row_of_vrow", "vrow", "slot")
-_ITEM_KINDS = ("ROADMAP.md Queue 1 items 4 (bsr packs), 15 (quantized "
-               "packs) and slice 6 (sharded plans)")
+_BSR_FIELDS = ("row_id", "col_id", "t_perm")
+_ITEM_SHARDED = "ROADMAP.md Queue 1 slice 6 (sharded plans)"
 
 
 class ServableLoadError(RuntimeError):
@@ -59,8 +65,12 @@ class LeafReader:
 
 
 def pattern_key(pack) -> bytes:
-    """Fingerprint of a static pattern (plan or plan choice): the dedupe key
-    here and the uniqueness key of ``Servable.stats()``."""
+    """Fingerprint of a static pattern, uniform across the pack kinds (plan
+    / plan choice / quantized plan / autotuned choice / masked / bsr) --
+    the dedupe key here and the uniqueness key of ``Servable.stats()``;
+    the reference's bytes for every kind."""
+    if isinstance(pack, KernelBSR):
+        return kernel_pattern_fingerprint(pack)
     return pack.fingerprint
 
 
@@ -116,7 +126,9 @@ def _plan_meta(plan: RowPackPlan) -> dict:
 
 def packs_to_arrays(packs: Dict[str, object]) -> Tuple[dict, dict]:
     """-> (npz arrays, JSON meta). Unique patterns stored once (fingerprint
-    dedupe); ``meta['keys']`` fans each layer scope back out to its ref."""
+    dedupe); ``meta['keys']`` fans each layer scope back out to its ref.
+    KernelBSR kinds store structure only: serving reads their values from
+    the params tree."""
     arrays: Dict[str, np.ndarray] = {}
     metas: List[dict] = []
     index_of: Dict[bytes, int] = {}
@@ -128,21 +140,47 @@ def packs_to_arrays(packs: Dict[str, object]) -> Tuple[dict, dict]:
             idx = len(metas)
             index_of[fp] = idx
             arrays[f"p{idx}_fingerprint"] = np.frombuffer(fp, np.uint8)
-            if isinstance(pk, PlanChoice):
+            plan = None
+            if isinstance(pk, QuantPlan):
+                # ``codec: 1`` versions the quant entry itself
                 plan = pk.plan
-                metas.append({"kind": "plan_choice", "backend": pk.backend,
-                              **_plan_meta(plan)})
+                metas.append({"kind": "quant_plan", "codec": 1,
+                              "qdtype": pk.qdtype,
+                              "granularity": pk.granularity,
+                              "backend": pk.backend, **_plan_meta(plan),
+                              "sharded": False})
                 arrays[f"p{idx}_plan_fingerprint"] = np.frombuffer(
                     plan.fingerprint, np.uint8)
             elif isinstance(pk, RowPackPlan):
                 plan = pk
                 metas.append({"kind": "plan", **_plan_meta(plan)})
+            elif isinstance(pk, PlanChoice):
+                plan = pk.plan
+                metas.append({"kind": "plan_choice", "backend": pk.backend,
+                              **_plan_meta(plan)})
+                arrays[f"p{idx}_plan_fingerprint"] = np.frombuffer(
+                    plan.fingerprint, np.uint8)
+            elif isinstance(pk, MaskedPack):
+                metas.append({"kind": "masked", "shape": list(pk.shape),
+                              "tile": list(pk.tile)})
+                arrays[f"p{idx}_tile_mask"] = np.asarray(pk.tile_mask, bool)
             else:
-                raise NotImplementedError(
-                    f"pack kind {type(pk).__name__} comes with "
-                    f"{_ITEM_KINDS}")
-            for f in _PLAN_FIELDS:
-                arrays[f"p{idx}_{f}"] = np.asarray(getattr(plan, f))
+                choice = isinstance(pk, BackendChoice)
+                inner = pk.pack if choice else pk
+                if not isinstance(inner, KernelBSR):
+                    raise TypeError(f"unknown pack kind {type(pk).__name__}")
+                m = {"kind": "bsr", "shape": list(inner.shape),
+                     "tile": list(inner.tile),
+                     "real_nnzt": inner.real_nnzt}
+                if choice:
+                    m = {"kind": "choice", "backend": pk.backend,
+                         **{k: v for k, v in m.items() if k != "kind"}}
+                metas.append(m)
+                for f in _BSR_FIELDS:
+                    arrays[f"p{idx}_{f}"] = np.asarray(getattr(inner, f))
+            if plan is not None:
+                for f in _PLAN_FIELDS:
+                    arrays[f"p{idx}_{f}"] = np.asarray(getattr(plan, f))
         keys.append({"key": key, "ref": idx})
     return arrays, {"patterns": metas, "keys": keys}
 
@@ -158,35 +196,69 @@ def _plan_from(arrays, idx: int, m: dict, fp: bytes) -> RowPackPlan:
         nnzt=int(m["nnzt"]), real_nnzt=int(m["real_nnzt"]), fingerprint=fp)
 
 
+def _bsr_from(arrays, idx: int, m: dict) -> KernelBSR:
+    col_id = np.asarray(arrays[f"p{idx}_col_id"], np.int32)
+    bn, bk = (int(t) for t in m["tile"])
+    return KernelBSR(
+        # a zero-stride placeholder: serve-time values come from the params
+        # tree, never from the pack (models/common.linear)
+        data=np.broadcast_to(np.zeros((), np.float32),
+                             (len(col_id), bn, bk)),
+        row_id=np.asarray(arrays[f"p{idx}_row_id"], np.int32),
+        col_id=col_id,
+        t_perm=np.asarray(arrays[f"p{idx}_t_perm"], np.int32),
+        real_nnzt=int(m["real_nnzt"]), shape=tuple(m["shape"]),
+        tile=(bn, bk))
+
+
 def packs_from_arrays(meta: dict, arrays, registry: PatternRegistry = None
                       ) -> Dict[str, object]:
     """Inverse of :func:`packs_to_arrays`. Plans are rebuilt through the
     registry's fingerprint-keyed cache so the loaded servable shares one
     plan object per unique pattern. The backend string ``'plan_pallas'``
-    that the reference writes maps onto kernel K1."""
+    that the reference writes maps onto kernel K1 (K6 for a quantized
+    plan)."""
     built = []
     for idx, m in enumerate(meta["patterns"]):
+        kind = m["kind"]
         fp = bytes(np.asarray(arrays[f"p{idx}_fingerprint"], np.uint8))
-        if m["kind"] == "plan_choice":
+        if kind == "masked":
+            built.append(MaskedPack(
+                tile_mask=np.asarray(arrays[f"p{idx}_tile_mask"], bool),
+                shape=tuple(m["shape"]), tile=tuple(m["tile"])))
+            continue
+        if kind in ("bsr", "choice"):
+            bsr = _bsr_from(arrays, idx, m)
+            built.append(BackendChoice(bsr, m["backend"])
+                         if kind == "choice" else bsr)
+            continue
+        if kind == "sharded_plan" or m.get("sharded"):
+            raise NotImplementedError(
+                f"pack kind {kind!r} (sharded) comes with {_ITEM_SHARDED}")
+        if kind in ("plan_choice", "quant_plan"):
             plan_fp = bytes(np.asarray(arrays[f"p{idx}_plan_fingerprint"],
                                        np.uint8))
-        elif m["kind"] == "plan":
+        elif kind == "plan":
             plan_fp = fp
         else:
-            raise NotImplementedError(
-                f"pack kind {m['kind']!r} comes with {_ITEM_KINDS}")
+            raise ValueError(f"unknown pack kind {kind!r}")
 
         def build(idx=idx, m=m, plan_fp=plan_fp):
             return _plan_from(arrays, idx, m, plan_fp)
         plan = (registry.cached(("rowpack_plan", plan_fp), build)
                 if registry is not None else build())
-        if m["kind"] == "plan_choice":
-            if m["backend"] != "plan_pallas":
-                raise NotImplementedError(
-                    f"plan backend {m['backend']!r} comes with {_ITEM_KINDS}")
+        if kind == "plan":
+            built.append(plan)
+            continue
+        if m["backend"] not in (("plan", "plan_pallas") if kind ==
+                                "quant_plan" else ("plan_pallas",)):
+            raise ValueError(f"{kind} backend {m['backend']!r} unknown")
+        if kind == "plan_choice":
             built.append(PlanChoice(plan, m["backend"]))
         else:
-            built.append(plan)
+            built.append(QuantPlan(plan, qdtype=m["qdtype"],
+                                   granularity=m["granularity"],
+                                   backend=m["backend"]))
     return {e["key"]: built[e["ref"]] for e in meta["keys"]}
 
 

@@ -1,8 +1,9 @@
 """prepare_servable / Servable / load_servable: the serving facade.
 
 Counterpart of ``repro/serving/servable.py`` for the bert family and the
-dense LM family (backends ``plan``, ``plan_pallas`` and ``dense``). One
-spec-driven entry point owns the pipeline the paper argues must be
+dense LM family (every backend: ``plan``, ``plan_pallas``, ``bsr``,
+``dense`` and the measured ``auto``; quantized packs with ``pack_quant``).
+One spec-driven entry point owns the pipeline the paper argues must be
 co-designed:
 
     prune (core.pruner recipe)            -- algorithm side
@@ -12,7 +13,7 @@ co-designed:
 
 ``save`` / :func:`load_servable` use the reference's artifact layout, so a
 servable saved by the JAX package loads here (and the other way round for
-fp32 artifacts).
+fp32, bf16, int8 and fp8 artifacts).
 
 LM servables decode: :meth:`Servable.decode_step` / :meth:`decode_many`
 and the continuous-batching :meth:`Servable.engine`. Where the reference
@@ -35,7 +36,7 @@ from repro_torch.core.pruner import oneshot_prune, tied_prune
 from repro_torch.core.tree import flatten_with_path, map_with_path, \
     norm_path, path_name
 from repro_torch.device import resolve_device
-from repro_torch.kernels.exec_plan import RowPackPlan
+from repro_torch.kernels.exec_plan import QuantPlan, RowPackPlan
 from repro_torch.kernels.flash_decode import decode_kernel_override
 from repro_torch.models import api as model_api
 from repro_torch.models.sampling import sample_tokens
@@ -50,29 +51,23 @@ from repro_torch.serving.spec import ServingSpec
 #: the single checkpoint slot a Servable occupies in its store directory
 SERVABLE_STEP = 0
 _PACKS_FILE = "packs.npz"
-_SLICE_BACKENDS = ("plan", "plan_pallas", "dense")
 
 
 def _check_spec(spec: ServingSpec):
-    """Raise for spec options outside this slice, naming the ROADMAP.md
-    item that brings each."""
+    """Raise for spec options the port does not serve yet, naming the
+    ROADMAP.md item that brings each."""
     if spec.mesh_shape is not None:
         raise NotImplementedError(
             "mesh_shape comes with ROADMAP.md Queue 1 slice 6 (sharding)")
-    if spec.pack_quant != "none":
-        raise NotImplementedError(
-            "pack_quant comes with ROADMAP.md Queue 1 item 15 (quantized "
-            "packs)")
-    if spec.backend not in _SLICE_BACKENDS:
-        raise NotImplementedError(
-            f"backend {spec.backend!r} comes with ROADMAP.md Queue 1 items "
-            f"4 ('bsr') and 16 ('auto')")
 
 
 def _cast_packed(params, packs, dtype):
     """Cast only the packed projection values to the spec dtype (embeddings,
-    norms, heads keep the model dtype)."""
-    targets = {key + "/w" for key in packs}
+    norms, heads keep the model dtype). Quantized packs are exempt: their
+    int8/fp8 values and fp32 scales are the storage format -- casting
+    either would dequantize silently or lose scale precision."""
+    targets = {key + "/w" for key, pk in packs.items()
+               if not isinstance(pk, QuantPlan)}
 
     def one(path, leaf):
         return leaf.to(dtype) if norm_path(path_name(path)) in targets \
@@ -80,9 +75,20 @@ def _cast_packed(params, packs, dtype):
     return map_with_path(one, params)
 
 
-class _PinnedChoice:
-    """The backend chooser's verdict for a pinned ``plan_pallas`` spec."""
-    backend, cache_hit, mode = "plan_pallas", False, "pinned"
+class PinnedChoice:
+    """A backend chooser's verdict pinned, not measured: ``backend`` for
+    every pack (``prepare_servable`` pins 'plan_pallas' this way)."""
+
+    def __init__(self, backend: str):
+        self.backend, self.cache_hit, self.mode = backend, False, "pinned"
+
+
+def pinned_chooser(backend: str):
+    """A ``backend_chooser`` for ``export_params`` that gives every pattern
+    ``backend``."""
+    def chooser(pack):
+        return PinnedChoice(backend)
+    return chooser
 
 
 class Servable:
@@ -102,6 +108,7 @@ class Servable:
         self.device = torch.device(device)
         self.export_stats = export_stats or {}
         self.stats_at_save = stats_at_save
+        self._decode_kind: Optional[str] = None
 
     # -- serving ----------------------------------------------------------
     def _as_batch(self, batch) -> Dict[str, Any]:
@@ -128,14 +135,28 @@ class Servable:
 
     def decode_kernel_kind(self) -> str:
         """The attention decode kernel every decode call of this servable
-        pins ('xla' | 'flash' | 'auto'): a non-'auto' ``REPRO_DECODE_KERNEL``
-        env value wins, then a non-'auto' ``spec.decode_kernel``; 'auto'
-        leaves the choice to the platform (the flash kernels on the card,
-        the plain composition on the CPU)."""
-        env = os.environ.get("REPRO_DECODE_KERNEL", "").strip()
-        if env and env != "auto":
-            return env
-        return self.spec.decode_kernel
+        pins ('xla' | 'flash'), resolved once: a non-'auto'
+        ``REPRO_DECODE_KERNEL`` env value wins, then a non-'auto'
+        ``spec.decode_kernel``, then -- for 'auto' --
+        :func:`~repro_torch.kernels.autotune.choose_decode_kernel` over this
+        config's decode shape on the servable's device (measured between
+        the plain composition and kernel K2 on the card, persisted like
+        every autotune winner)."""
+        if self._decode_kind is None:
+            env = os.environ.get("REPRO_DECODE_KERNEL", "").strip()
+            if env and env != "auto":
+                self._decode_kind = env
+            elif self.spec.decode_kernel != "auto":
+                self._decode_kind = self.spec.decode_kernel
+            elif not getattr(self.cfg, "n_kv_heads", 0):
+                self._decode_kind = "xla"    # no decode attention to tune
+            else:
+                from repro_torch.kernels.autotune import choose_decode_kernel
+                cfg = self.cfg
+                self._decode_kind = choose_decode_kernel(
+                    b=8, t=512, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                    d=cfg.head_dim, device=self.device).backend
+        return self._decode_kind
 
     def decode_step(self, cache, token, pos):
         """(cache, token (B,1), pos) -> (logits (B,1,V) fp32, cache); the
@@ -232,10 +253,11 @@ class Servable:
     # -- instrumentation --------------------------------------------------
     def stats(self) -> Dict[str, Any]:
         """The co-design scorecard: how sparse, how shared, how padded."""
-        # bare plans only, as the reference counts them (PlanChoice packs
-        # report no padded-FLOP ratio there either)
-        plans = [p for p in self.packs.values()
-                 if isinstance(p, RowPackPlan)]
+        # bare and quantized plans, as the reference counts them (PlanChoice
+        # packs report no padded-FLOP ratio there either)
+        plans = [p.plan if isinstance(p, QuantPlan) else p
+                 for p in self.packs.values()
+                 if isinstance(p, (RowPackPlan, QuantPlan))]
         unique = {pattern_key(p) for p in self.packs.values()}
         union = [s["union_overhead"] for s in self.export_stats.values()
                  if isinstance(s, dict) and "union_overhead" in s]
@@ -268,18 +290,62 @@ class Servable:
                                     if not a.get("cache_hit")),
                 "mode": next(iter(auto.values())).get("mode"),
             }
+        qs = self.quant_stats()
+        if qs:
+            out["quant"] = qs
         if self.stats_at_save is not None:
             out["registry_at_save"] = self.stats_at_save.get("registry")
         return out
 
+    def _leaves(self, names):
+        return [leaf for path, leaf in flatten_with_path(self.params)
+                if norm_path(path_name(path)) in names]
+
     def pack_bytes(self) -> Tuple[int, int]:
         """(total, per-device) bytes of the packed projection values in the
-        params tree (one device: the two are equal)."""
+        params tree (one device: the two are equal). Quantized packs count
+        their scales too."""
         targets = {key + "/w" for key in self.packs}
+        targets |= {key + "/scale" for key, pk in self.packs.items()
+                    if isinstance(pk, QuantPlan)}
         total = sum(leaf.numel() * leaf.element_size()
-                    for path, leaf in flatten_with_path(self.params)
-                    if norm_path(path_name(path)) in targets)
+                    for leaf in self._leaves(targets))
         return total, total
+
+    def quant_stats(self) -> Optional[Dict[str, Any]]:
+        """Quantized-pack accounting: bytes stored (qvalues + scales) against
+        the fp32-equivalent bytes of the same packs, and the worst
+        export-time round-trip error. None when nothing is quantized."""
+        qpacks = {k: p for k, p in self.packs.items()
+                  if isinstance(p, QuantPlan)}
+        if not qpacks:
+            return None
+        w = self._leaves({k + "/w" for k in qpacks})
+        sc = self._leaves({k + "/scale" for k in qpacks})
+        wbytes = sum(t.numel() * t.element_size() for t in w)
+        sbytes = sum(t.numel() * t.element_size() for t in sc)
+        fp32 = sum(t.numel() * 4 for t in w)
+        qbytes = wbytes + sbytes
+        errs = [s["quant"] for s in self.export_stats.values()
+                if isinstance(s, dict) and "quant" in s]
+        out = {
+            "pack_quant": self.spec.pack_quant,
+            "quantized_packs": len(qpacks),
+            "total_packs": len(self.packs),
+            "qdtype": next(iter(qpacks.values())).qdtype,
+            "granularities": sorted({p.granularity
+                                     for p in qpacks.values()}),
+            "quant_bytes_total": qbytes,
+            "quant_bytes_per_device": qbytes,
+            "scale_bytes_total": sbytes,
+            "fp32_equiv_bytes_total": fp32,
+            "fp32_equiv_bytes_per_device": fp32,
+            "compression_ratio": fp32 / qbytes if qbytes else None,
+        }
+        if errs:
+            out["max_abs_err"] = max(e["max_abs_err"] for e in errs)
+            out["max_rel_err"] = max(e["rel_err"] for e in errs)
+        return out
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str) -> str:
@@ -328,15 +394,23 @@ def prepare_servable(params, cfg: ModelConfig, spec: ServingSpec = None, *,
 
     chooser = None
     if spec.backend == "plan_pallas":
-        # pinned, not measured: every pack serves through kernel K1
+        # pinned, not measured: every pack serves through kernel K1 (K6
+        # for quantized packs)
+        chooser = pinned_chooser("plan_pallas")
+    elif spec.backend == "auto":
+        from repro_torch.kernels.autotune import choose_backend
+
         def chooser(pack):
-            return _PinnedChoice()
+            # the q8 arms join the candidate set when pack_quant is set
+            return choose_backend(pack, m=spec.autotune_m,
+                                  quant=spec.pack_quant, device=dev)
 
     sparse_params, packs, stats = export_params(
         pruned, cfg, tile=spec.tile, fuse_qkv=spec.fuse_qkv,
         cross_layer_union=spec.cross_layer_union,
         include_ffn=spec.include_ffn, use_plans=spec.use_plans,
-        registry=registry, backend_chooser=chooser, device=dev)
+        registry=registry, backend_chooser=chooser,
+        pack_quant=spec.pack_quant, device=dev)
     if spec.dtype is not None and packs:
         sparse_params = _cast_packed(sparse_params, packs,
                                      torch_dtype(spec.dtype))

@@ -292,7 +292,7 @@ def test_bsr_linear_matches_jax_with_dead_padding_tiles(backend):
 def test_bsr_matmul_defaults_and_linear_pack_route():
     """The CPU default is 'rowpack'; a KernelBSR pack through
     models.common.linear is the same differentiable product, and a pack
-    kind not ported yet raises naming its ROADMAP item."""
+    kind it does not know raises."""
     from repro_torch.models.common import linear
     rng = np.random.RandomState(7)
     w = _sparse_weight(rng, 64, 128, (32, 64), 0.5)
@@ -309,7 +309,7 @@ def test_bsr_matmul_defaults_and_linear_pack_route():
     with pytest.raises(NotImplementedError):
         tbm.dds(x[0].to("meta"), tpk, torch.from_numpy(tpk.data).to("meta"))
 
-    class QuantPlan:     # stands in for the reference's quantized pack
+    class ShardedPlan:   # a reference pack kind the port does not serve
         pass
-    with pytest.raises(NotImplementedError, match="item 15"):
-        linear({"w": None}, x, QuantPlan())
+    with pytest.raises(TypeError, match="unknown pack kind ShardedPlan"):
+        linear({"w": None}, x, ShardedPlan())

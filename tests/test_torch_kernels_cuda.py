@@ -1,7 +1,7 @@
 """Kernels K1 (``csrc/plan_dds.cu``), K2 and K3 (``csrc/flash_decode.cu``),
-K4 (``csrc/dds.cu``) and K5 (``csrc/sddmm.cu``) on the card against their
-plain versions, and the gradients of the two kernel-backed ops against the
-plain backends.
+K4 (``csrc/dds.cu``), K5 (``csrc/sddmm.cu``), K6 (``csrc/plan_dds_q.cu``)
+and K7 (``csrc/masked.cu``) on the card against their plain versions, and
+the gradients of the two kernel-backed ops against the plain backends.
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -296,3 +296,109 @@ def test_backward_kernels_raise_on_what_they_do_not_take():
     with pytest.raises(ValueError):          # tensors on two devices
         bm.sddmm(dy, x.cpu(), pk, data)
     assert (bm.dds.launches, bm.dds_t.launches, bm.sddmm.launches) == before
+
+
+# --------------------------------------------------------------------------
+# K6 (csrc/plan_dds_q.cu) and K7 (csrc/masked.cu) against their plain
+# versions
+# --------------------------------------------------------------------------
+
+def _quant_case(rng, n, k, tile, density, qdtype):
+    w = rng.randn(n, k).astype(np.float32)
+    w *= np.kron(rng.rand(n // tile[0], k // tile[1]) < density,
+                 np.ones(tile, np.float32))
+    plan = txp.build_plan(pack_bsr(w, tile))
+    data = txp.pack_plan_data(plan, pack_bsr(w, tile).data)
+    gran = txp.quant_granularity(tile)
+    q, s = txp.quantize_plan_values(data, qdtype, gran)
+    return plan, q.cuda(), s.cuda(), gran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+@pytest.mark.parametrize("tile,n,k,m,x_dtype", [
+    ((16, 32), 96, 128, 24, torch.float32),
+    ((32, 1), 64, 64, 40, torch.float32),          # 'row' scales
+    ((128, 128), 768, 768, 130, torch.bfloat16)])
+def test_plan_dds_q_kernel_matches_plain_on_card(qdtype, tile, n, k, m,
+                                                 x_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.bsr_matmul import plan_dds_q, plan_dds_q_plain
+    rng = np.random.RandomState(13)
+    plan, q, s, gran = _quant_case(rng, n, k, tile, 0.3, qdtype)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().to(
+        x_dtype)
+    b = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+    kw = dict(n=n, tile=tile, granularity=gran, bias=b, act="silu")
+    sched = txp.plan_schedule(plan)
+    before = plan_dds_q.launches
+    y = plan_dds_q(x, q, s, sched, **kw)
+    assert plan_dds_q.launches == before + 1 and y.dtype == x_dtype
+    ref = plan_dds_q_plain(x, q, s, sched, **kw)
+    # fp32: sums in another order; bf16: one output rounding step
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,tile", [(100, 128, 384, (32, 128)),
+                                        (40, 64, 64, (32, 1)),
+                                        (130, 256, 256, (128, 128))])
+def test_masked_matmul_kernel_skips_masked_tiles_on_card(m, n, k, tile,
+                                                         dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.bsr_matmul import (masked_matmul,
+                                                masked_matmul_plain)
+    rng = np.random.RandomState(14)
+    # values in every tile, masked ones too: skipping is what is tested
+    w = torch.from_numpy(rng.randn(n, k).astype(np.float32)).cuda().to(dtype)
+    mask = rng.rand(n // tile[0], k // tile[1]) < 0.4
+    mask[0, 0] = False
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().to(dtype)
+    before = masked_matmul.launches
+    y = masked_matmul(x, w, mask, tile=tile)
+    assert masked_matmul.launches == before + 1 and y.dtype == dtype
+    ref = masked_matmul_plain(x, w, mask, tile=tile)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= tol * scale
+    # a device mask gives the same product
+    dev_mask = torch.from_numpy(mask.astype(np.int32)).cuda()
+    assert torch.equal(masked_matmul(x, w, dev_mask, tile=tile), y)
+
+
+@pytest.mark.cuda
+def test_quant_and_masked_kernels_raise_on_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(15)
+    plan, q, s, gran = _quant_case(rng, 64, 128, (16, 32), 0.5, "int8")
+    sched = txp.plan_schedule(plan)
+    kw = dict(n=64, tile=(16, 32), granularity=gran)
+    x = torch.zeros((8, 128), device="cuda")
+    w = torch.zeros((64, 128), device="cuda")
+    mask = np.ones((4, 4), bool)
+    before = (bm.plan_dds_q.launches, bm.masked_matmul.launches)
+    with pytest.raises(ValueError):          # a wrong K
+        bm.plan_dds_q(torch.zeros((8, 96), device="cuda"), q, s, sched, **kw)
+    with pytest.raises(ValueError):          # x on the card, values not
+        bm.plan_dds_q(x, q.cpu(), s.cpu(), sched, **kw)
+    with pytest.raises(TypeError):           # fp32 values are K1's
+        bm.plan_dds_q(x, q.float(), s, sched, **kw)
+    with pytest.raises(ValueError):          # 'row' scales for a block pack
+        bm.plan_dds_q(x, q, s, sched, **dict(kw, granularity="row"))
+    with pytest.raises(RuntimeError):        # K6 is forward-only
+        txp.plan_q_linear_pallas(x.requires_grad_(True), q, s, plan)
+    with pytest.raises(ValueError):          # a wrong K
+        bm.masked_matmul(torch.zeros((8, 96), device="cuda"), w, mask,
+                         tile=(16, 32))
+    with pytest.raises(ValueError):          # x on the card, W not
+        bm.masked_matmul(x.detach(), w.cpu(), mask, tile=(16, 32))
+    with pytest.raises(ValueError):          # a mask of another shape
+        bm.masked_matmul(x.detach(), w, np.ones((2, 4), bool), tile=(16, 32))
+    assert (bm.plan_dds_q.launches, bm.masked_matmul.launches) == before
