@@ -24,11 +24,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (flash_decode) and K3 (paged_flash_decode) against theirs -- ragged
      and scalar pos with inactive slots, shared and per-slot position
      maps, ring windows, T not a multiple of the split count, G = 1 and
-     16, unmapped and poisoned pages, K3 bit-exact against K2 over the
-     gathered view -- and at the gemma3_4b decode shapes (B=4, Hkv=4, G=2,
-     D=256, bf16; a 1280-slot linear cache, its 80-page paged form, a
-     1024-slot ring) with kernel, plain, bound and library
-     (scaled_dot_product_attention with the same mask) times; then K6
+     16, scores that rise from split to split, one 4096-row split at
+     G = 16 (the chunked two-pass path), empty trailing and fully masked
+     middle splits, unmapped and poisoned pages, K3 bit-exact against K2
+     over the gathered view -- and at the gemma3_4b decode shapes (B=4,
+     Hkv=4, G=2, D=256, bf16; a 1280-slot linear cache, its 80-page paged
+     form, a 1024-slot ring) with two calls bitwise equal and kernel,
+     plain, bound and library (scaled_dot_product_attention with the same
+     mask) times, the kernel's and the library's both warm (50 launches on
+     the same caches, which stay in L2) and cold (64 MB written before
+     each launch). Each K2 / K3 call is two launches: a split kernel, one
+     block per (split, KV head, slot) writing the split's fp32 partial
+     (its own max, sum and p.V), then a combine folding the partials in
+     split order; then K6
      (plan_dds_q) against its plain version -- int8 and fp8, 'block' and
      'row' (32x1) scales, the spilling and a padded plan, every epilogue
      with bias, bf16 x, all-zero blocks -- at the four BERT-base shapes at
@@ -181,19 +189,52 @@ def _plan_case(w, tile, pad_tiles=0):
     return plan, pack_plan_data(plan, pk.data)
 
 
-def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+# Cycles of torch.cuda._sleep that keep the card busy while the host queues
+# the timed launches (~10 ms and ~0.5 ms at the H100's clock): the events
+# then time the device, not the host's dispatch of each call.
+HOLD_CYCLES = 20_000_000
+COLD_HOLD_CYCLES = 1_000_000
+# bytes written between launches to push the caches out of the 50 MB L2
+FLUSH_BYTES = 64 << 20
+
+
+def _time_ms(fn, reps: int = 50, warmup: int = 5, hold: bool = False) -> float:
+    """Mean ms of ``reps`` back-to-back launches (CUDA events). With
+    ``hold`` the launches are queued behind a sleep, so the events time the
+    device even where one call takes less device time than its dispatch."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_cold_ms(fn, reps: int = 20) -> float:
+    """Mean ms of one launch with a cold L2: FLUSH_BYTES written before each
+    launch, the queue held, CUDA events around the launch alone."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for i, (start, end) in enumerate(events):
+        flush.fill_(i % 128)
+        torch.cuda._sleep(COLD_HOLD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def _profile(label, fn, top: int = 8):
@@ -553,9 +594,9 @@ def _decode_bound_ms(kvp, pos, window, b, hq, hkv, d, itemsize):
                                        else "operations")
 
 
-def _sdpa_ms(q, k, v, kvp, pos, window):
+def _sdpa_fn(q, k, v, kvp, pos, window):
     """One torch.nn.functional.scaled_dot_product_attention call with the
-    same boolean mask and enable_gqa=True, timed as the yardstick."""
+    same boolean mask and enable_gqa=True: the yardstick."""
     import torch
     import torch.nn.functional as F
     b = q.shape[0]
@@ -566,8 +607,18 @@ def _sdpa_ms(q, k, v, kvp, pos, window):
         ok &= kvp > posv - window
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = ok[:, None, None, :]
-    return _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _decode_times(fn, plain, sdpa, plain_reps=50):
+    """Kernel and SDPA ms warm (50 launches on the same caches, which stay
+    in L2) and cold (L2 flushed before each launch), and the plain ms."""
+    return {"ms": _time_ms(fn, hold=True), "ms_cold": _time_cold_ms(fn),
+            "plain_ms": _time_ms(plain, reps=plain_reps,
+                                 warmup=min(5, plain_reps)),
+            "library_ms": _time_ms(sdpa, hold=True),
+            "library_ms_cold": _time_cold_ms(sdpa)}
 
 
 def phase_decode_kernels(seed: int):
@@ -632,6 +683,50 @@ def phase_decode_kernels(seed: int):
                  flash_decode_plain(q, k, v, kvp, pos, window=32),
                  tol(dtype), "K2")
 
+    print("[kernels] K2 split-parallel edge cases: a max that rises in "
+          "later splits, a long single split, empty trailing splits")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        # scores that grow with t (up to ~8): every combine step rescales
+        b, t, hq, hkv, d = 2, 256, 8, 4, 64
+        q = torch.from_numpy(np.abs(rng.randn(b, 1, hq, d)).astype(
+            np.float32)).to(dev, dtype)
+        ramp = 0.005 * np.arange(t, dtype=np.float32)[None, :, None, None]
+        k = torch.from_numpy(0.1 * rng.randn(b, t, hkv, d).astype(np.float32)
+                             + ramp).to(dev, dtype)
+        v = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32)).to(
+            dev, dtype)
+        kvp = torch.arange(t, dtype=i32, device=dev)
+        pos = torch.tensor([t - 1, 200], dtype=i32, device=dev)
+        for ks in (4, 8):
+            _compare(f"K2 {dn} rising max split={ks}",
+                     flash_decode(q, k, v, kvp, pos, kv_split=ks),
+                     flash_decode_plain(q, k, v, kvp, pos, kv_split=ks),
+                     tol(dtype), "K2")
+        # one split of 4096 rows at G = 16: its scores do not fit shared
+        # memory, so the split goes in chunks in two passes
+        b, t, hq, hkv, d = 2, 4096, 32, 2, 128
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)
+        pos = torch.tensor([t - 1, 2000], dtype=i32, device=dev)
+        _compare(f"K2 {dn} T=4096 G=16 D=128 split=1",
+                 flash_decode(q, k, v, kvp, pos, kv_split=1),
+                 flash_decode_plain(q, k, v, kvp, pos, kv_split=1),
+                 tol(dtype), "K2")
+        # T = 10 over 8 splits of 2: splits 5-7 are empty; slot 1's middle
+        # split is fully masked, slot 2 is inactive
+        b, t, hq, hkv, d = 3, 10, 4, 2, 32
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)[None].repeat(b, 1)
+        kvp[1, 4:6] = -1
+        pos = torch.tensor([9, 9, -1], dtype=i32, device=dev)
+        out = flash_decode(q, k, v, kvp, pos, kv_split=8)
+        _compare(f"K2 {dn} empty and masked splits", out,
+                 flash_decode_plain(q, k, v, kvp, pos, kv_split=8),
+                 tol(dtype), "K2")
+        check(float(out[2].float().abs().max()) == 0.0,
+              "K2: an inactive slot did not give zeros")
+
     print("[kernels] K3 paged_flash_decode vs plain and vs K2, small cases")
     for dtype in (torch.float32, torch.bfloat16):
         dn = "fp32" if dtype == torch.float32 else "bf16"
@@ -674,6 +769,14 @@ def phase_decode_kernels(seed: int):
     b, hkv, g, d = 4, 4, 2, 256
     hq = hkv * g
     dtype = torch.bfloat16
+
+    def repeatable(name, fn, out):
+        again = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{name}: two calls on the same "
+              "inputs differ")
+        print(f"  {name}: two calls bitwise equal: ok")
+
     # global layers: a linear cache of 1280 slots (ragged, all active)
     posl = [1279, 1105, 700, 333]
     t = 1280
@@ -685,13 +788,16 @@ def phase_decode_kernels(seed: int):
     out = flash_decode(q, k, v, kvp, pos)
     err = _compare("K2 global T=1280", out, flash_decode_plain(
         q, k, v, kvp, pos), TOL_DECODE_BF16, "K2")
+    repeatable("K2 global T=1280", lambda: flash_decode(q, k, v, kvp, pos),
+               out)
     bound, by = _decode_bound_ms(kvp.cpu().numpy(), posl, 0, b, hq, hkv, d,
                                  2)
+    sdpa_global = _sdpa_fn(q, k, v, kvp, pos, 0)
     per_shape["global_1280"] = {
         "t": t, "window": 0, "max_abs_err": err,
-        "ms": _time_ms(lambda: flash_decode(q, k, v, kvp, pos)),
-        "plain_ms": _time_ms(lambda: flash_decode_plain(q, k, v, kvp, pos)),
-        "library_ms": _sdpa_ms(q, k, v, kvp, pos, 0),
+        **_decode_times(lambda: flash_decode(q, k, v, kvp, pos),
+                        lambda: flash_decode_plain(q, k, v, kvp, pos),
+                        sdpa_global),
         "bound_ms": bound, "bound_by": by}
     # the same cache paged: 80 pages of 16 positions, pages shuffled
     ps = 16
@@ -712,14 +818,17 @@ def phase_decode_kernels(seed: int):
     check(torch.equal(out3, same), "K3 is not bit-exact against K2 at the "
           "main-path shape")
     print("  K3 bit-exact vs K2 over the gathered view (80 splits): ok")
+    repeatable("K3 global T=1280 (80 pages)",
+               lambda: paged_flash_decode(q, kp, vp, table, kvp, pos), out3)
     per_shape["paged_1280"] = {
         "t": t, "page_size": ps, "max_abs_err": err3,
-        "ms": _time_ms(lambda: paged_flash_decode(q, kp, vp, table, kvp,
-                                                  pos)),
-        "plain_ms": _time_ms(lambda: paged_flash_decode_plain(
-            q, kp, vp, table, kvp, pos), reps=5, warmup=1),
-        "library_ms": per_shape["global_1280"]["library_ms"],
+        **_decode_times(lambda: paged_flash_decode(q, kp, vp, table, kvp,
+                                                   pos),
+                        lambda: paged_flash_decode_plain(
+                            q, kp, vp, table, kvp, pos),
+                        sdpa_global, plain_reps=5),
         "bound_ms": bound, "bound_by": by}
+    glob = (q, k, v, kvp, pos)
     # local layers: a 1024-slot ring, window 1024, positions past the ring
     t, window = 1024, 1024
     posl = [1279, 1105, 700, 333]
@@ -730,19 +839,32 @@ def phase_decode_kernels(seed: int):
     out = flash_decode(q, k, v, kvp, pos, window=window)
     err = _compare("K2 ring T=1024 window=1024", out, flash_decode_plain(
         q, k, v, kvp, pos, window=window), TOL_DECODE_BF16, "K2")
+    repeatable("K2 ring T=1024 window=1024",
+               lambda: flash_decode(q, k, v, kvp, pos, window=window), out)
     bound, by = _decode_bound_ms(kvp_np, posl, window, b, hq, hkv, d, 2)
     per_shape["ring_1024"] = {
         "t": t, "window": window, "max_abs_err": err,
-        "ms": _time_ms(lambda: flash_decode(q, k, v, kvp, pos,
-                                            window=window)),
-        "plain_ms": _time_ms(lambda: flash_decode_plain(
-            q, k, v, kvp, pos, window=window)),
-        "library_ms": _sdpa_ms(q, k, v, kvp, pos, window),
+        **_decode_times(lambda: flash_decode(q, k, v, kvp, pos,
+                                             window=window),
+                        lambda: flash_decode_plain(q, k, v, kvp, pos,
+                                                   window=window),
+                        _sdpa_fn(q, k, v, kvp, pos, window)),
         "bound_ms": bound, "bound_by": by}
+    qg, kg, vg, kvpg, posg = glob
+
+    def ten_each():
+        for _ in range(10):
+            flash_decode(qg, kg, vg, kvpg, posg)
+            paged_flash_decode(qg, kp, vp, table, kvpg, posg)
+            flash_decode(q, k, v, kvp, pos, window=window)
+    # device time of the split and the combine launches apart
+    _profile("K2 global, K3 paged, K2 ring: 10 calls each", ten_each)
     for name, rec in per_shape.items():
-        print(f"  {name:12s} kernel_ms={rec['ms']:.4f} plain_ms="
-              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+        print(f"  {name:12s} kernel_ms={rec['ms']:.4f} (cold "
+              f"{rec['ms_cold']:.4f}) plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']:.4f} (cold "
+              f"{rec['library_ms_cold']:.4f}) bound_ms="
+              f"{rec['bound_ms']:.5f} ({rec['bound_by']}) "
               f"max|d|={rec['max_abs_err']:.3e}")
     return per_shape
 
@@ -1794,7 +1916,7 @@ def phase_lm_serving(seed: int):
                 e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
                 remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
         window()
-        _profile(f"{layout} decode window (8 steps, 4 slots)", window, top=10)
+        _profile(f"{layout} decode window (8 steps, 4 slots)", window, top=14)
         del prof_eng, eng
 
     agree = sum(a == b for ra, rb in zip(results["dense"], results["paged"])
@@ -1959,7 +2081,7 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
             e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
             remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
     window()
-    _profile("int8 decode window (8 steps, 4 slots)", window, top=6)
+    _profile("int8 decode window (8 steps, 4 slots)", window, top=14)
     del prof_eng
     if fp_tokens is None:
         e32 = fp.engine(max_slots=4, cache_len=1280, sync_every=8,
@@ -2103,9 +2225,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": DECODE_SOURCE,
             "replaces": DECODE_REPLACES[name], "launches": total(name),
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
-            "plain_ms": rec.get("plain_ms"),
+            "ms_cold": rec.get("ms_cold"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"),
+            "library_ms_cold": rec.get("library_ms_cold"),
             "per_shape": {k: decode_shapes[k] for k in shapes
                           if k in decode_shapes}})
     # K6 at the four BERT-base projection shapes at M=384 (times summed: one

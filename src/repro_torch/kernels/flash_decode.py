@@ -15,12 +15,17 @@ flash-style online softmax, split by split, instead of materializing the
     kernel, so no dense view is ever gathered; on a CUDA tensor it launches
     the same source's paged kernel, which replaces ``_paged_flash_call``.
 
-Both kernels run one device routine per split, so K3 is bit-exact against
-K2 over the gathered dense view when the split boundaries match. The plain
-versions beside them (:func:`flash_decode_plain`,
-:func:`paged_flash_decode_plain`) follow the kernels split by split and are
-what CPU tensors run; on a CUDA tensor a wrapper launches its kernel or
-raises.
+Each call is two launches: a split kernel, one block per (split, KV head,
+slot), writes each split's fp32 partial (its own max, sum and p.V) into a
+workspace the wrapper allocates, and a combine kernel folds the partials in
+split order. Both kernels run one device routine per split and one combine
+routine, so K3 is bit-exact against K2 over the gathered dense view when the
+split boundaries match. The plain versions beside them
+(:func:`flash_decode_plain`, :func:`paged_flash_decode_plain`) fold the same
+splits in the same order; the kernel takes each split against its own max
+and rescales it in the combine, one more fp32 rounding a split. The plain
+versions are what CPU tensors run; on a CUDA tensor a wrapper launches its
+kernels or raises.
 
 Masking follows ``decode_attention`` exactly: ``kv_positions`` / ``pos_map``
 hold the absolute position stored in each cache slot (-1 = empty) and a
@@ -113,7 +118,9 @@ def _kv_map(kv_positions, b: int, t: int, device) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# plain versions: the kernels' split-by-split arithmetic in tensor code
+# plain versions: the same splits in the same order as the kernels, each
+# folded into the running state (the kernels take each split against its
+# own max and rescale it in the combine)
 # --------------------------------------------------------------------------
 
 def _split_step(state, q32, k, v, kvp, pos, window, scale):
@@ -213,11 +220,12 @@ def _kernel_lib():
         from repro_torch.kernels.build import load_library
         lib = load_library("flash_decode")
         ptr, i = ctypes.c_void_p, ctypes.c_int
+        # tensors (and the workspace's M, l, acc), then ints, then the stream
         lib.flash_decode_launch.argtypes = (
-            [ptr] * 6 + [i] * 10 + [ptr])
+            [ptr] * 9 + [i] * 10 + [ptr])
         lib.flash_decode_launch.restype = i
         lib.paged_flash_decode_launch.argtypes = (
-            [ptr] * 7 + [i] * 9 + [ptr])
+            [ptr] * 10 + [i] * 9 + [ptr])
         lib.paged_flash_decode_launch.restype = i
         _LIB = lib
     return _LIB
@@ -244,6 +252,16 @@ def _check_kernel_inputs(name, q, k, v, hkv, d):
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous caches")
     return g
+
+
+def _workspace(b, hkv, num_split, g, d, device):
+    """The split kernel's fp32 partials, read back by the combine: M and l
+    (B, Hkv, S, G) and acc (B, Hkv, S, G, D), views of one allocation."""
+    n = b * hkv * num_split * g
+    ws = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    return (ws[n * d:n * (d + 1)].view(b, hkv, num_split, g),
+            ws[n * (d + 1):].view(b, hkv, num_split, g),
+            ws[:n * d].view(b, hkv, num_split, g, d))
 
 
 def flash_decode(q, k_cache, v_cache, kv_positions, pos, *, window=0,
@@ -273,10 +291,12 @@ def flash_decode(q, k_cache, v_cache, kv_positions, pos, *, window=0,
         kvp_row_stride = t
     qc = q.contiguous()
     out = torch.empty_like(qc)
+    ws_m, ws_l, ws_acc = _workspace(b, hkv, num_split, g, d, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_lib().flash_decode_launch(
         qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kvp.data_ptr(), posv.data_ptr(), out.data_ptr(),
+        kvp.data_ptr(), posv.data_ptr(), out.data_ptr(), ws_m.data_ptr(),
+        ws_l.data_ptr(), ws_acc.data_ptr(),
         b, t, hkv, g, d, kvp_row_stride, ck, num_split, int(window),
         int(q.dtype == torch.bfloat16), stream)
     if err != 0:
@@ -316,10 +336,12 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos_map, pos, *,
     pm = pos_map.to(device=q.device, dtype=torch.int32).contiguous()
     qc = q.contiguous()
     out = torch.empty_like(qc)
+    ws_m, ws_l, ws_acc = _workspace(b, hkv, npg, g, d, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_lib().paged_flash_decode_launch(
         qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pt.data_ptr(),
-        pm.data_ptr(), posv.data_ptr(), out.data_ptr(),
+        pm.data_ptr(), posv.data_ptr(), out.data_ptr(), ws_m.data_ptr(),
+        ws_l.data_ptr(), ws_acc.data_ptr(),
         b, n_pages, ps, npg, hkv, g, d, int(window),
         int(q.dtype == torch.bfloat16), stream)
     if err != 0:

@@ -212,3 +212,207 @@ def test_default_kv_split_and_kernel_choice(monkeypatch):
     with pytest.raises(ValueError, match="REPRO_DECODE_KERNEL"):
         resolved_decode_kernel("cpu")
     assert "REPRO_DECODE_KERNEL" in os.environ
+
+
+# --------------------------------------------------------------------------
+# CPU oracle of the CUDA kernels' arithmetic: each split's partial taken
+# against the split's own max, the partials combined in split order
+# --------------------------------------------------------------------------
+
+_NEG_INF = -1e30
+
+
+def _oracle_partial(q32, k, v, kvp, pos, window, scale):
+    """A split's partial as the split kernel forms it: (M_s, l_s, acc_s)
+    with M_s the split's own max of the visible scores (NEG_INF when none),
+    p = exp(s - M_s) on visible lanes and 0 elsewhere. q32 (B,H,G,D) fp32;
+    k/v (B,H,C,D); kvp (B,C); pos (B,)."""
+    ok = (kvp >= 0) & (kvp <= pos[:, None])
+    if window > 0:
+        ok = ok & (kvp > pos[:, None] - window)
+    okb = ok[:, None, None, :]
+    s = torch.einsum("bhgd,bhcd->bhgc", q32, k.float()) * scale
+    s = torch.where(okb, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(okb, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    vz = torch.where(ok[:, None, :, None], v.float(), torch.zeros(()))
+    return m, p.sum(dim=-1), torch.einsum("bhgc,bhcd->bhgd", p, vz)
+
+
+def _neutral_partial(b, hkv, g, d):
+    """What an empty split writes: (NEG_INF, 0, 0)."""
+    return (torch.full((b, hkv, g), _NEG_INF), torch.zeros((b, hkv, g)),
+            torch.zeros((b, hkv, g, d)))
+
+
+def _oracle_combine(parts, q):
+    """The combine kernel: a running (m, l, acc) over the partials in split
+    order, m' = max(m, M_s), a = exp(m - m'), c = exp(M_s - m')."""
+    b, _, hq, d = q.shape
+    hkv, g = parts[0][0].shape[1:]
+    m, l, acc = _neutral_partial(b, hkv, g, d)
+    for ms, ls, accs in parts:
+        m2 = torch.maximum(m, ms)
+        a, c = torch.exp(m - m2), torch.exp(ms - m2)
+        l = l * a + ls * c
+        acc = acc * a[..., None] + accs * c[..., None]
+        m = m2
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(q.dtype).reshape(b, 1, hq, d)
+
+
+def _oracle_flash(q, k, v, kvp, pos, *, window=0, kv_split=None):
+    """K2's split and combine kernels in tensor code: every split writes a
+    partial, the empty ones past T their neutral one."""
+    b, _, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    num_split = min(kv_split or default_kv_split(t), t)
+    ck = -(-t // num_split)
+    kvp = torch.as_tensor(kvp).to(torch.int32)
+    kvp = (kvp[None] if kvp.dim() == 1 else kvp).expand(b, t)
+    posv = torch.as_tensor(pos).to(torch.int32).expand(b)
+    q32 = q[:, 0].reshape(b, hkv, g, d).float()
+    parts = []
+    for s in range(num_split):
+        lo, hi = min(s * ck, t), min((s + 1) * ck, t)
+        parts.append(_oracle_partial(
+            q32, k[:, lo:hi].transpose(1, 2), v[:, lo:hi].transpose(1, 2),
+            kvp[:, lo:hi], posv, window, d ** -0.5) if hi > lo
+            else _neutral_partial(b, hkv, g, d))
+    return _oracle_combine(parts, q)
+
+
+def _oracle_paged(q, k_pages, v_pages, page_table, pos_map, pos, *,
+                  window=0):
+    """K3's split and combine kernels in tensor code: one split a page."""
+    b, _, hq, d = q.shape
+    n_pages, ps, hkv, _ = k_pages.shape
+    g = hq // hkv
+    pt = page_table.long().clamp(0, n_pages - 1)
+    posv = torch.as_tensor(pos).to(torch.int32).expand(b)
+    q32 = q[:, 0].reshape(b, hkv, g, d).float()
+    parts = [_oracle_partial(q32, k_pages[pt[:, s]].transpose(1, 2),
+                             v_pages[pt[:, s]].transpose(1, 2),
+                             pos_map[:, s * ps:(s + 1) * ps], posv, window,
+                             d ** -0.5)
+             for s in range(page_table.shape[1])]
+    return _oracle_combine(parts, q)
+
+
+def _oracle_case(rng, case):
+    """(q, k, v, kvp, pos, window, kv_split) of one layout case, fp32."""
+    b, t, hq, hkv, d = 3, 32, 8, 4, 16
+    q = rng.randn(b, 1, hq, d).astype(np.float32)
+    k = rng.randn(b, t, hkv, d).astype(np.float32)
+    v = rng.randn(b, t, hkv, d).astype(np.float32)
+    kvp = np.broadcast_to(np.arange(t, dtype=np.int32)[None], (b, t)).copy()
+    pos = np.array([t - 1, 20, 9], np.int32)
+    window, kv_split = 0, 4
+    if case == "masked_middle_split":       # split 1 of 4 holds no position
+        kvp[:, 8:16] = -1
+    elif case == "inactive_slot":
+        pos[1] = -1
+    elif case == "ring_wrap":               # slot j holds the latest position
+        pos = np.array([70, 40, 33], np.int32)   # <= pos congruent to j
+        j = np.arange(t)
+        src = j[None] + t * ((pos[:, None] - j[None]) // t)
+        kvp = np.where(src >= 0, src, -1).astype(np.int32)
+        window = t
+    elif case == "t_not_a_multiple":        # 3 splits of 11, 11, 10
+        kv_split = 3
+    elif case == "empty_trailing_splits":   # T = 10 over 8 splits of 2
+        t = 10
+        k, v, kvp = k[:, :t], v[:, :t], kvp[:, :t]
+        pos = np.array([9, 4, -1], np.int32)
+        kv_split = 8
+    elif case == "rising_max":              # every split raises the max
+        q = np.abs(q)
+        k = 0.1 * k + 0.05 * np.arange(t, dtype=np.float32)[None, :, None,
+                                                             None]
+        kv_split = 8
+    return (q, np.ascontiguousarray(k), np.ascontiguousarray(v), kvp, pos,
+            window, kv_split)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["masked_middle_split", "inactive_slot",
+                                  "ring_wrap", "t_not_a_multiple",
+                                  "empty_trailing_splits", "rising_max"])
+def test_split_combine_oracle_matches_plain_and_jax(case, dtype):
+    """The kernels' arithmetic (per-split partials against each split's own
+    max, combined in order) agrees with flash_decode_plain and the JAX
+    kernel in interpret mode on the same inputs."""
+    rng = np.random.RandomState(13)
+    q, k, v, kvp, pos, window, kv_split = _oracle_case(rng, case)
+    tol = TOL if dtype == "fp32" else TOL_BF16
+    if dtype == "fp32":
+        tq, tk, tv = _t(q), _t(k), _t(v)
+        jq, jk, jv = q, k, v
+    else:
+        tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    got = _oracle_flash(tq, tk, tv, _t(kvp), _t(pos), window=window,
+                        kv_split=kv_split)
+    assert got.dtype == tq.dtype
+    plain = flash_decode_plain(tq, tk, tv, _t(kvp), _t(pos), window=window,
+                               kv_split=kv_split)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=tol)
+    want = np.asarray(j_flash(jnp.asarray(jq), jnp.asarray(jk),
+                              jnp.asarray(jv), jnp.asarray(kvp),
+                              jnp.asarray(pos), window=window,
+                              kv_split=kv_split).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
+    for row in np.flatnonzero(pos < 0):     # an inactive slot: exact zeros
+        assert float(got[row].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_split_combine_oracle_paged_is_bit_exact_vs_dense(dtype):
+    """One split a page: the paged oracle equals the dense one over the
+    gathered view bit for bit, and agrees with paged_flash_decode_plain and
+    the JAX paged kernel."""
+    rng = np.random.RandomState(14)
+    q, kp, vp, table, pos_map, pos, npg = _paged_case(rng)
+    tol = TOL if dtype == "fp32" else TOL_BF16
+    cast = (lambda a: _t(a)) if dtype == "fp32" else \
+        (lambda a: _t(a).bfloat16())
+    tq, tkp, tvp = cast(q), cast(kp), cast(vp)
+    got = _oracle_paged(tq, tkp, tvp, _t(table), _t(pos_map), _t(pos))
+    dense = _oracle_flash(tq, paged_view(tkp, _t(table), _t(pos_map)),
+                          paged_view(tvp, _t(table), _t(pos_map)),
+                          _t(pos_map), _t(pos), kv_split=npg)
+    assert torch.equal(got, dense)
+    plain = paged_flash_decode_plain(tq, tkp, tvp, _t(table), _t(pos_map),
+                                     _t(pos))
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=tol)
+    jcast = (lambda a: jnp.asarray(a)) if dtype == "fp32" else \
+        (lambda a: jnp.asarray(a, jnp.bfloat16))
+    want = np.asarray(j_paged(jcast(q), jcast(kp), jcast(vp),
+                              jnp.asarray(table), jnp.asarray(pos_map),
+                              jnp.asarray(pos)).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
+
+
+def test_neutral_partial_leaves_the_combine_bitwise_unchanged():
+    """(NEG_INF, 0, 0) folded in at any place changes nothing: exp(NEG_INF -
+    NEG_INF) = 1 before the first visible split, exp(NEG_INF - m) = 0
+    after it, and l_s = acc_s = 0 either way."""
+    rng = np.random.RandomState(15)
+    q, k, v, kvp, pos, _, _ = _oracle_case(rng, "masked_middle_split")
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    q32 = _t(q)[:, 0].reshape(b, hkv, g, d)
+    parts = [_oracle_partial(q32, _t(k)[:, lo:lo + 8].transpose(1, 2),
+                             _t(v)[:, lo:lo + 8].transpose(1, 2),
+                             _t(kvp)[:, lo:lo + 8], _t(pos), 0, d ** -0.5)
+             for lo in range(0, 32, 8)]
+    base = _oracle_combine(parts, _t(q))
+    neutral = _neutral_partial(b, hkv, g, d)
+    for at in range(len(parts) + 1):
+        assert torch.equal(
+            _oracle_combine(parts[:at] + [neutral] + parts[at:], _t(q)),
+            base)

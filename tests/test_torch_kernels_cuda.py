@@ -127,6 +127,114 @@ def test_paged_flash_decode_kernel_bit_exact_vs_dense_on_card(dtype):
         _DECODE_TOL[dtype] * scale
 
 
+def _split_edge_case(rng, case, dtype):
+    """(q, k, v, kvp, pos, kv_split) for the split-parallel edge cases."""
+    if case == "rising_max":       # scores grow with t: every combine rescales
+        b, t, hq, hkv, d = 2, 256, 8, 4, 64
+        q = torch.from_numpy(np.abs(rng.randn(b, 1, hq, d)).astype(
+            np.float32)).to("cuda", dtype)
+        ramp = 0.005 * np.arange(t, dtype=np.float32)[None, :, None, None]
+        k = torch.from_numpy(0.1 * rng.randn(b, t, hkv, d).astype(np.float32)
+                             + ramp).to("cuda", dtype)
+        v = torch.from_numpy(rng.randn(b, t, hkv, d).astype(np.float32)).to(
+            "cuda", dtype)
+        kvp = torch.arange(t, dtype=torch.int32, device="cuda")
+        return q, k, v, kvp, [t - 1, 200], 8
+    if case == "long_single_split":    # G * T scores exceed shared memory
+        b, t, hq, hkv, d = 2, 4096, 32, 2, 128
+        q, k, v = _decode_inputs(rng, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=torch.int32, device="cuda")
+        return q, k, v, kvp, [t - 1, 2000], 1
+    # T = 10 over 8 splits of 2: splits 5-7 empty, slot 1's split 2 masked,
+    # slot 2 inactive
+    b, t, hq, hkv, d = 3, 10, 4, 2, 32
+    q, k, v = _decode_inputs(rng, dtype, b, t, hq, hkv, d)
+    kvp = torch.arange(t, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+    kvp[1, 4:6] = -1
+    return q, k, v, kvp, [9, 9, -1], 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["rising_max", "long_single_split",
+                                  "empty_splits"])
+def test_split_parallel_decode_edge_cases_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    rng = np.random.RandomState(6)
+    q, k, v, kvp, posl, kv_split = _split_edge_case(rng, case, dtype)
+    pos = torch.tensor(posl, dtype=torch.int32, device="cuda")
+    out = flash_decode(q, k, v, kvp, pos, kv_split=kv_split)
+    ref = flash_decode_plain(q, k, v, kvp, pos, kv_split=kv_split)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        _DECODE_TOL[dtype] * scale
+    for row in [i for i, p in enumerate(posl) if p < 0]:
+        assert float(out[row].float().abs().max()) == 0.0
+
+
+def _main_path_paged_case(rng):
+    """gemma3_4b's global decode shape: B=4, Hkv=4, G=2, D=256, bf16, 1280
+    positions in 80 shuffled pages of 16, ragged pos."""
+    b, hkv, g, d, t, ps = 4, 4, 2, 256, 1280, 16
+    npg = t // ps
+    q, k, v = _decode_inputs(rng, torch.bfloat16, b, t, hkv * g, hkv, d)
+    posl = [1279, 1105, 700, 333]
+    kvp = torch.arange(t, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+    kvp = torch.where(kvp <= torch.tensor(posl, device="cuda")[:, None], kvp,
+                      torch.full_like(kvp, -1))
+    table = torch.from_numpy(rng.permutation(b * npg).astype(
+        np.int32)).cuda().reshape(b, npg)
+    kp = torch.empty((b * npg, ps, hkv, d), dtype=torch.bfloat16,
+                     device="cuda")
+    vp = torch.empty_like(kp)
+    kp[table.long()] = k.reshape(b, npg, ps, hkv, d)
+    vp[table.long()] = v.reshape(b, npg, ps, hkv, d)
+    pos = torch.tensor(posl, dtype=torch.int32, device="cuda")
+    return q, k, v, kp, vp, table, kvp, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_kernels_are_bitwise_repeatable_on_card(paged):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    q, k, v, kp, vp, table, kvp, pos = _main_path_paged_case(
+        np.random.RandomState(7))
+    if paged:
+        def run():
+            return paged_flash_decode(q, kp, vp, table, kvp, pos)
+    else:
+        def run():
+            return flash_decode(q, k, v, kvp, pos)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)       # no atomics, a fixed order
+
+
+@pytest.mark.cuda
+def test_paged_kernel_bit_exact_vs_dense_at_the_main_path_shape_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.models.common import paged_view
+    q, _, _, kp, vp, table, kvp, pos = _main_path_paged_case(
+        np.random.RandomState(8))
+    out = paged_flash_decode(q, kp, vp, table, kvp, pos)
+    dense = flash_decode(q, paged_view(kp, table, kvp),
+                         paged_view(vp, table, kvp), kvp, pos,
+                         kv_split=table.shape[1])
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hq,hkv,d,dtype,err", [
     (4, 2, 320, torch.float32, ValueError),       # head dim over 256
