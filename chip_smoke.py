@@ -9,12 +9,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA kernel from src/repro_torch/kernels/csrc (one nvcc a source, all
-     started together) and its time;
+     started together) and its time; any spill byte in a K1 or K6 kernel
+     fails the run;
   2. kernels: kernel K1 (plan_dds) against its plain PyTorch version on the
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
-     tiles, every epilogue with bias, bf16) and the four projection shapes
-     of BERT-base at M=384 with 128x128 tiles, with kernel, plain and
-     library (torch.matmul on the densified weight) times; K4 (dds, dds_t,
+     tiles, every epilogue with bias, bf16) through every instance of
+     csrc/plan_dds_common.cuh that takes each (stream, tc, fp32, general;
+     two calls bitwise equal), then three timed groups of four projection
+     shapes with 128x128 tiles at density 0.2 -- BERT-base at M=384 (fp32),
+     gemma3_4b's packed projections at M=4 (decode) and M=1024 (prefill,
+     bf16) -- each with its instance and kernel and library (torch.matmul
+     on the densified weight) times with the queue held and cold (64 MB
+     written before each launch), plain time and bound; K4 (dds, dds_t,
      plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
      tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
      (padding tiles exactly zero), the spilling plan -- and plan_dds_t /
@@ -37,13 +43,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      block per (split, KV head, slot) writing the split's fp32 partial
      (its own max, sum and p.V), then a combine folding the partials in
      split order; then K6
-     (plan_dds_q) against its plain version -- int8 and fp8, 'block' and
-     'row' (32x1) scales, the spilling and a padded plan, every epilogue
-     with bias, bf16 x, all-zero blocks -- at the four BERT-base shapes at
-     M=384 (int8) and gemma3_4b's packed projections at M=4 (bf16 x) with
-     kernel, plain, bound and library (torch.matmul on the dequantized
-     dense weight) times; and K7 (masked_matmul) against its plain version
-     with non-zero values in the masked tiles -- the shapes of
+     (plan_dds_q) against its plain version through every instance --
+     int8 and fp8, 'block' and 'row' scales, the spilling and a padded
+     plan, every epilogue with bias, bf16 x, all-zero blocks -- and the
+     same three timed groups with int8 values (library: torch.matmul on the
+     dequantized dense weight); and K7 (masked_matmul) against its plain
+     version with non-zero values in the masked tiles -- the shapes of
      tests/test_kernels.py, 32x1 tiles, bf16, M not a multiple of the block
      -- and at the four BERT-base shapes with times (library: torch.matmul
      on w * mask);
@@ -76,9 +81,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      8) in the dense and the paged KV layout: 6 requests (prompts of 37 to
      1100 tokens, 32 new tokens each), every request done, K1 / K2 / K3
      launches per decode step checked against the layer routing, ms per
-     decode step and tokens/s, a profiler breakdown of one decode window,
-     dense vs paged greedy-token agreement, and decode_step logits with
-     the kernels against the plain decode_attention composition.
+     decode step and tokens/s, a profiler breakdown of one decode window
+     with K1's device ms and share of it, dense vs paged greedy-token
+     agreement, and decode_step logits with the kernels against the plain
+     decode_attention composition.
   4a. lm_serving_quant: the same gemma3_4b with pack_quant 'int8' through
      the dense-layout engine and the same 6 requests: every request done,
      136 K6 launches per decode step (the unquantized run's K1 count) and
@@ -109,6 +115,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -117,6 +124,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/plan_dds.cu"
+COMMON_SOURCE = "src/repro_torch/kernels/csrc/plan_dds_common.cuh"
 REPLACES = "src/repro/kernels/bsr_matmul.py:368"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 DDS_SOURCE = "src/repro_torch/kernels/csrc/dds.cu"
@@ -274,6 +282,20 @@ def _profile(label, fn, top: int = 8):
     return rows
 
 
+def _kernel_share(label, rows):
+    """K1's and K6's device ms in profiler rows (their kernels are the
+    instances of csrc/plan_dds_common.cuh under the plain or the quantized
+    value policy) and their share of the window's device busy time."""
+    busy = sum(r[0] for r in rows)
+    for kernel, policy in (("K1", "PlainValues"), ("K6", "QuantValues")):
+        mine = [r for r in rows if "plan_dds_" in r[2] and policy in r[2]]
+        if not mine or not busy:
+            continue
+        ms, n = sum(r[0] for r in mine), sum(r[1] for r in mine)
+        print(f"[profile] {label}: {kernel} {ms:.3f} ms in {n} launches, "
+              f"{ms / busy:.3f} of device busy {busy:.3f} ms")
+
+
 def _compare(name, got, ref, tol_rel, kernel="K1"):
     import torch
     torch.cuda.synchronize()
@@ -306,6 +328,20 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    for name in ("plan_dds", "plan_dds_q"):
+        kernels, spilled, fn = 0, [], None
+        for line in logs[name]["log"].splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if found:
+                kernels += 1
+                if found.group(1) != "0" or found.group(2) != "0":
+                    spilled.append(f"{fn}: {found.group(0)}")
+        check(kernels > 0 and not spilled,
+              f"{name}: ptxas reports spills in {spilled}")
+        print(f"[build] {name}: {kernels} kernels, 0 spill bytes")
     return card
 
 
@@ -313,33 +349,89 @@ def phase_build():
 # phase 2: K1 against its plain version
 # --------------------------------------------------------------------------
 
+def _instances(m, tile, x_dtype, v_dtype):
+    """The K1 / K6 instances that take a call (bsr_matmul.instance_takes),
+    the one plan_instance picks first."""
+    from repro_torch.kernels.bsr_matmul import (PLAN_INSTANCES,
+                                                instance_takes)
+    return [i for i in PLAN_INSTANCES
+            if instance_takes(i, m, tile, x_dtype, v_dtype)]
+
+
+def _kernel_record(kernel, name, m, n, k, tiles, inst, x_dtype, err, fn,
+                   plain, lib, n_bytes, flops, flop_rate):
+    """Kernel and library ms with the queue held (device time, the values
+    warm in L2) and cold (L2 flushed before each launch, as a decode step
+    finds a layer's weights), the plain ms, and the bound."""
+    rec = {"shape": name, "m": m, "n": n, "k": k, "tiles": tiles,
+           "instance": inst, "x_dtype": str(x_dtype), "max_abs_err": err,
+           "ms": _time_ms(fn, hold=True), "ms_cold": _time_cold_ms(fn),
+           "plain_ms": _time_ms(plain, reps=10, warmup=2),
+           "library_ms": _time_ms(lib, hold=True),
+           "library_ms_cold": _time_cold_ms(lib),
+           **_bound(n_bytes, flops, flop_rate)}
+    print(f"  {kernel} {name:9s} M={m} [{inst}] kernel_ms={rec['ms']:.4f} "
+          f"cold={rec['ms_cold']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"library_ms={rec['library_ms']:.4f} "
+          f"cold={rec['library_ms_cold']:.4f} bound_ms="
+          f"{rec['bound_ms']:.5f} ({rec['bound_by']}) tiles={tiles}")
+    return rec
+
+
+def _group_summary(kernel, label, recs):
+    tot = {key: sum(r[key] for r in recs)
+           for key in ("ms", "ms_cold", "library_ms", "library_ms_cold",
+                       "bound_ms", "plain_ms")}
+    print(f"[kernels] {kernel} {label}, four shapes [{recs[0]['instance']}]: "
+          f"kernel {tot['ms']:.4f} ms (cold {tot['ms_cold']:.4f}), library "
+          f"{tot['library_ms']:.4f} ms (cold {tot['library_ms_cold']:.4f}), "
+          f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms; "
+          f"kernel below library: warm {tot['ms'] < tot['library_ms']}, "
+          f"cold {tot['ms_cold'] < tot['library_ms_cold']}")
+
+
 def phase_kernels(seed: int):
+    """K1 against its plain version on the card: the small layout cases
+    through every instance that takes each, then timed shapes -- BERT-base's
+    four projections at M=384 (fp32), gemma3_4b's four packed projections
+    at M=4 (decode) and M=1024 (prefill), bf16."""
     import numpy as np
     import torch
     from repro_torch.kernels import (plan_dds, plan_fused_linear,
-                                     plan_fused_linear_plain, plan_linear,
-                                     plan_matmul_pallas, plan_schedule)
+                                     plan_fused_linear_plain, plan_instance,
+                                     plan_linear, plan_matmul_pallas,
+                                     plan_schedule)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(seed)
 
-    def run(plan, data, x, bias=None, act=None):
-        return (plan_dds(x, data, plan_schedule(plan), n=plan.shape[0],
-                         tile=plan.tile, bias=bias, act=act),
-                plan_fused_linear_plain(x, data, plan, bias=bias, act=act))
+    def run_all(name, plan, data, x, tol, bias=None, act=None):
+        """Every instance that takes the case, against the plain version;
+        two calls of each bitwise equal."""
+        ref = plan_fused_linear_plain(x, data, plan, bias=bias, act=act)
+        for inst in _instances(x.shape[0], plan.tile, x.dtype, data.dtype):
+            kw = dict(n=plan.shape[0], tile=plan.tile, bias=bias, act=act,
+                      instance=inst)
+            y = plan_dds(x, data, plan_schedule(plan), **kw)
+            _compare(f"{name} [{inst}]", y, ref, tol)
+            check(torch.equal(y, plan_dds(x, data, plan_schedule(plan),
+                                          **kw)),
+                  f"K1 [{inst}] {name}: two calls differ")
 
-    print("[kernels] K1 plan_dds vs plain, small cases")
+    print("[kernels] K1 plan_dds vs plain, small cases, every instance that "
+          "takes each (two calls bitwise equal)")
     cases = [("random d=0.4 (16,32)", 96, 128, (16, 32), 0.4, 0, 24),
              ("random d=0.15 (16,32)", 96, 128, (16, 32), 0.15, 0, 24),
              ("padded nnzt +5 (16,32)", 96, 128, (16, 32), 0.4, 5, 24),
              ("(32,1) tiles", 64, 64, (32, 1), 0.3, 0, 40),
-             ("(16,16) M=130", 64, 96, (16, 16), 0.5, 0, 130)]
+             ("(16,16) M=130", 64, 96, (16, 16), 0.5, 0, 130),
+             ("(16,16) M=4", 64, 96, (16, 16), 0.5, 0, 4)]
     for name, n, k, tile, dens, pad, m in cases:
         plan, data = _plan_case(_sparse_weight(rng, n, k, tile, dens), tile,
                                 pad)
         x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
-        _compare(name, *run(plan, data.to(dev), x), TOL_F32)
+        run_all(name, plan, data.to(dev), x, TOL_F32)
 
     # the spilling pattern of test_plan_pallas_spill_schedule_edge_rows
     n, k, tile = 128, 1024, (16, 64)
@@ -350,10 +442,15 @@ def phase_kernels(seed: int):
             0.1 * rng.randn(16, 64)
     plan, data = _plan_case(w, tile)
     check(plan.spilled, "spill case did not spill")
-    x = torch.from_numpy(rng.randn(20, k).astype(np.float32)).to(dev)
-    _compare("spill edge rows (16,64)", *run(plan, data.to(dev), x), TOL_F32)
+    for m in (20, 3):
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+        run_all(f"spill edge rows (16,64) M={m}", plan, data.to(dev), x,
+                TOL_F32)
+        run_all(f"spill edge rows (16,64) M={m} bf16", plan,
+                data.to(dev, torch.bfloat16), x.bfloat16(), TOL_BF16)
 
-    # fused-QKV pack through the batched entry, leading dims preserved
+    # fused-QKV pack through the batched entry, leading dims preserved, then
+    # through every instance
     k, tile = 64, (16, 16)
     w = np.concatenate([_sparse_weight(rng, 48, k, tile, 0.5)
                         for _ in range(3)])
@@ -364,65 +461,75 @@ def phase_kernels(seed: int):
     check(tuple(y.shape) == (2, 5, 144), f"fused QKV shape {tuple(y.shape)}")
     ref = plan_linear(x.reshape(10, k), data, plan).reshape(2, 5, 144)
     _compare("fused QKV (16,16) batched", y, ref, TOL_F32)
+    run_all("fused QKV (16,16)", plan, data, x.reshape(10, k), TOL_F32)
+    run_all("fused QKV (16,16) bf16", plan, data.bfloat16(),
+            x.reshape(10, k).bfloat16(), TOL_BF16)
 
     # every epilogue, with bias
     n, k, tile = 64, 96, (16, 16)
     plan, data = _plan_case(_sparse_weight(rng, n, k, tile, 0.5), tile)
     data = data.to(dev)
-    x = torch.from_numpy(rng.randn(16, k).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-    for act in (None, "relu", "gelu", "silu"):
-        y = plan_fused_linear(x, data, plan, bias=b, act=act)
-        ref = plan_fused_linear_plain(x, data, plan, bias=b, act=act)
-        _compare(f"epilogue bias+{act}", y, ref, TOL_F32)
+    for m in (16, 40):
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+        for act in (None, "relu", "gelu", "silu"):
+            y = plan_fused_linear(x, data, plan, bias=b, act=act)
+            ref = plan_fused_linear_plain(x, data, plan, bias=b, act=act)
+            _compare(f"epilogue bias+{act} M={m}", y, ref, TOL_F32)
+            run_all(f"epilogue bias+{act} M={m}", plan, data, x, TOL_F32,
+                    bias=b, act=act)
 
     # bf16 values (ServingSpec.dtype='bfloat16' casts only the packs), and
     # bf16 activations too
     n, k, tile = 256, 256, (128, 128)
     plan, data = _plan_case(_sparse_weight(rng, n, k, tile, 0.5), tile)
-    x = torch.from_numpy(rng.randn(48, k).astype(np.float32)).to(dev)
     d16 = data.to(dev, torch.bfloat16)
-    _compare("x fp32, values bf16", *run(plan, d16, x), TOL_F32)
-    _compare("x bf16, values bf16", *run(plan, d16, x.bfloat16()), TOL_BF16)
-    _compare("x bf16, values fp32 +gelu", *run(
-        plan, data.to(dev), x.bfloat16(), act="gelu"), TOL_BF16)
-
-    print("[kernels] K1 at the BERT-base projection shapes, M=384, "
-          "128x128 tiles, density 0.2")
-    per_shape = []
-    m, tile = 384, (128, 128)
-    for name, n, k in MAIN_SHAPES:
-        w = _sparse_weight(rng, n, k, tile, 0.2)
-        plan, data = _plan_case(w, tile)
-        data = data.to(dev)
+    for m in (48, 4):
         x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
-        w_dense = torch.from_numpy(w).to(dev)
-        sched = plan_schedule(plan)
-        kw = dict(n=n, tile=tile)
-        y, ref = plan_dds(x, data, sched, **kw), plan_linear(x, data, plan)
-        err = _compare(f"{name} ({n},{k})", y, ref, TOL_F32)
-        lib = torch.matmul(x, w_dense.t())
-        _compare(f"{name} vs torch.matmul", y, lib, TOL_F32)
-        nnz = plan.real_nnzt * tile[0] * tile[1]
-        n_bytes = 4 * (m * k + nnz + m * n)
-        flops = 2 * m * nnz
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-        rec = {
-            "shape": name, "m": m, "n": n, "k": k,
-            "tiles": plan.real_nnzt, "max_abs_err": err,
-            "ms": _time_ms(lambda: plan_dds(x, data, sched, **kw)),
-            "plain_ms": _time_ms(lambda: plan_linear(x, data, plan)),
-            "library_ms": _time_ms(lambda: torch.matmul(x, w_dense.t())),
-            "bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        per_shape.append(rec)
-        print(f"  {name:9s} kernel_ms={rec['ms']:.4f} plain_ms="
-              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
-              f"tiles={plan.real_nnzt}")
-    return per_shape
+        run_all(f"x fp32, values bf16 M={m}", plan, d16, x, TOL_F32)
+        run_all(f"x bf16, values bf16 M={m}", plan, d16, x.bfloat16(),
+                TOL_BF16)
+        run_all(f"x bf16, values fp32 +gelu M={m}", plan, data.to(dev),
+                x.bfloat16(), TOL_BF16, act="gelu")
+
+    groups = {}
+    for label, shapes, m, dtype, flop_rate, tol in (
+            ("bert_m384", MAIN_SHAPES, 384, torch.float32, FP32_FLOP_PER_S,
+             TOL_F32),
+            ("gemma_m4", GEMMA_SHAPES, 4, torch.bfloat16, BF16_FLOP_PER_S,
+             TOL_BF16),
+            ("gemma_m1024", GEMMA_SHAPES, 1024, torch.bfloat16,
+             BF16_FLOP_PER_S, TOL_BF16)):
+        print(f"[kernels] K1 {label}: M={m}, 128x128 tiles, density 0.2, "
+              f"{dtype}")
+        recs = []
+        tile = (128, 128)
+        for name, n, k in shapes:
+            w = _sparse_weight(rng, n, k, tile, 0.2)
+            plan, data = _plan_case(w, tile)
+            data = data.to(dev, dtype)
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+                dev, dtype)
+            w_dense = torch.from_numpy(w).to(dev, dtype)
+            sched = plan_schedule(plan)
+            kw = dict(n=n, tile=tile)
+            inst = plan_instance(m, tile, dtype, dtype)
+            y = plan_dds(x, data, sched, **kw)
+            err = _compare(f"{name} ({n},{k}) M={m} [{inst}]", y,
+                           plan_linear(x, data, plan), tol)
+            _compare(f"{name} vs torch.matmul", y,
+                     torch.matmul(x, w_dense.t()), tol)
+            nnz = plan.real_nnzt * tile[0] * tile[1]
+            isz = x.element_size()
+            recs.append(_kernel_record(
+                "K1", name, m, n, k, plan.real_nnzt, inst, dtype, err,
+                lambda: plan_dds(x, data, sched, **kw),
+                lambda: plan_linear(x, data, plan),
+                lambda: torch.matmul(x, w_dense.t()),
+                isz * (m * k + nnz + m * n), 2 * m * nnz, flop_rate))
+        _group_summary("K1", label, recs)
+        groups[label] = recs
+    return groups
 
 
 # --------------------------------------------------------------------------
@@ -901,28 +1008,39 @@ def _bound(n_bytes, flops, flop_rate):
 
 
 def phase_quant_kernels(seed: int):
-    """K6 against its plain version on the card: int8 and fp8, 'block' and
-    'row' granularity, the spilling and a padded plan, every epilogue with
-    bias, bf16 x, all-zero blocks; then the four BERT-base projection
-    shapes at M=384 (int8) and gemma3_4b's packed projections at M=4 (bf16
-    x, int8) with kernel, plain, bound and library times."""
+    """K6 against its plain version on the card through every instance that
+    takes each case: int8 and fp8, 'block' and 'row' scales, the spilling
+    and a padded plan, every epilogue with bias, bf16 x, all-zero blocks;
+    then timed shapes -- BERT-base's four projections at M=384 (int8, fp32
+    x), gemma3_4b's four packed projections at M=4 and M=1024 (int8, bf16
+    x)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.bsr_matmul import plan_dds_q, plan_dds_q_plain
+    from repro_torch.kernels.bsr_matmul import (plan_dds_q, plan_dds_q_plain,
+                                                plan_instance)
     from repro_torch.kernels.exec_plan import (dequantize_plan_values,
                                                plan_schedule,
                                                quantize_plan_values)
     dev = torch.device("cuda")
     rng = np.random.RandomState(seed + 5)
 
-    def run(plan, q, s, gran, x, bias=None, act=None):
+    def run_all(name, plan, q, s, gran, x, tol, bias=None, act=None):
+        """Every instance that takes the case, against the plain version;
+        two calls of each bitwise equal. Returns the last output."""
         kw = dict(n=plan.shape[0], tile=plan.tile, granularity=gran,
                   bias=bias, act=act)
         sched = plan_schedule(plan)
-        return (plan_dds_q(x, q, s, sched, **kw),
-                plan_dds_q_plain(x, q, s, sched, **kw))
+        ref = plan_dds_q_plain(x, q, s, sched, **kw)
+        for inst in _instances(x.shape[0], plan.tile, x.dtype, q.dtype):
+            y = plan_dds_q(x, q, s, sched, instance=inst, **kw)
+            _compare(f"K6 {name} [{inst}]", y, ref, tol, "K6")
+            check(torch.equal(y, plan_dds_q(x, q, s, sched, instance=inst,
+                                            **kw)),
+                  f"K6 [{inst}] {name}: two calls differ")
+        return y
 
-    print("[kernels] K6 plan_dds_q vs plain, small cases")
+    print("[kernels] K6 plan_dds_q vs plain, small cases, every instance "
+          "that takes each (two calls bitwise equal)")
     spill = np.zeros((128, 1024), np.float32)
     spill[:16, :] = rng.randn(16, 1024)
     for i in range(1, 8):
@@ -935,6 +1053,7 @@ def phase_quant_kernels(seed: int):
              ("(32,1) tiles, row scales", _sparse_weight(
                  rng, 64, 64, (32, 1), 0.3), (32, 1), 0, 40),
              ("spill edge rows (16,64)", spill, (16, 64), 0, 20),
+             ("spill edge rows (16,64) M=3", spill, (16, 64), 0, 3),
              ("(16,16) M=130", _sparse_weight(rng, 64, 96, (16, 16), 0.5),
               (16, 16), 0, 130)]
     for name, w, tile, pad, m in cases:
@@ -946,28 +1065,38 @@ def phase_quant_kernels(seed: int):
                 check(plan.spilled, "spill case did not spill")
             x = torch.from_numpy(rng.randn(m, w.shape[1]).astype(
                 np.float32)).to(dev)
-            _compare(f"K6 {name} {qdtype}",
-                     *run(plan, q.to(dev), s.to(dev), gran, x), TOL_F32,
-                     "K6")
-    # every epilogue with bias
+            run_all(f"{name} {qdtype}", plan, q.to(dev), s.to(dev), gran, x,
+                    TOL_F32)
+    # 'row' scales on tiles the vector instances take (the scale of tile t
+    # is scales[t / P] there too)
     n, k, tile = 64, 96, (16, 16)
+    plan, data = _plan_case(_sparse_weight(rng, n, k, tile, 0.5), tile)
+    for qdtype in ("int8", "fp8"):
+        q, s = quantize_plan_values(data, qdtype, "row")
+        for m in (5, 40):
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+            run_all(f"(16,16) row scales M={m} {qdtype}", plan, q.to(dev),
+                    s.to(dev), "row", x, TOL_F32)
+    # every epilogue with bias
     plan, _, q, s, gran = _quantized_case(
         _sparse_weight(rng, n, k, tile, 0.5), tile, "int8")
     q, s = q.to(dev), s.to(dev)
-    x = torch.from_numpy(rng.randn(16, k).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-    for act in (None, "relu", "gelu", "silu"):
-        _compare(f"K6 epilogue bias+{act}", *run(plan, q, s, gran, x, b, act),
-                 TOL_F32, "K6")
+    for m in (4, 16):
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+        for act in (None, "relu", "gelu", "silu"):
+            run_all(f"epilogue bias+{act} M={m}", plan, q, s, gran, x,
+                    TOL_F32, b, act)
     # bf16 activations, both value types
     n, k, tile = 256, 256, (128, 128)
     w = _sparse_weight(rng, n, k, tile, 0.5)
-    x = torch.from_numpy(rng.randn(48, k).astype(np.float32)).to(
-        dev, torch.bfloat16)
-    for qdtype in ("int8", "fp8"):
-        plan, _, q, s, gran = _quantized_case(w, tile, qdtype)
-        _compare(f"K6 x bf16 {qdtype} +gelu", *run(
-            plan, q.to(dev), s.to(dev), gran, x, act="gelu"), TOL_BF16, "K6")
+    for m in (48, 4):
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        for qdtype in ("int8", "fp8"):
+            plan, _, q, s, gran = _quantized_case(w, tile, qdtype)
+            run_all(f"x bf16 {qdtype} +gelu M={m}", plan, q.to(dev),
+                    s.to(dev), gran, x, TOL_BF16, act="gelu")
     # all-zero blocks: scale exactly 1.0, and a block row whose tiles are
     # all zero gives exactly zero
     n, k, tile = 64, 64, (16, 16)
@@ -976,63 +1105,63 @@ def phase_quant_kernels(seed: int):
     for qdtype in ("int8", "fp8"):
         q, s = quantize_plan_values(data, qdtype, "block")
         check(bool((s[0] == 1.0).all()), "all-zero blocks: scale not 1.0")
-        x = torch.from_numpy(rng.randn(24, k).astype(np.float32)).to(dev)
-        y, ref = run(plan, q.to(dev), s.to(dev), "block", x)
-        _compare(f"K6 all-zero block row {qdtype}", y, ref, TOL_F32, "K6")
-        check(float(y[:, :tile[0]].abs().max()) == 0.0,
-              "K6: an all-zero block row gave a non-zero output")
+        for m in (24, 4):
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+            y = run_all(f"all-zero block row {qdtype} M={m}", plan,
+                        q.to(dev), s.to(dev), "block", x, TOL_F32)
+            check(float(y[:, :tile[0]].abs().max()) == 0.0,
+                  "K6: an all-zero block row gave a non-zero output")
         print(f"  K6 all-zero block row {qdtype}: scale 1.0, output "
               f"exactly 0: ok")
 
-    def timed(name, m, n, k, tile, density, x_dtype, flop_rate, check_tol):
-        w = _sparse_weight(rng, n, k, tile, density)
-        plan, _, q, s, gran = _quantized_case(w, tile, "int8")
-        q, s = q.to(dev), s.to(dev)
-        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
-            dev, x_dtype)
-        sched = plan_schedule(plan)
-        kw = dict(n=n, tile=tile, granularity=gran)
-        y = plan_dds_q(x, q, s, sched, **kw)
-        err = _compare(f"K6 {name} ({n},{k}) M={m}", y,
-                       plan_dds_q_plain(x, q, s, sched, **kw), check_tol,
-                       "K6")
-        # the library call: one torch.matmul on the dequantized dense
-        # weight (the dequantize step is not timed)
-        deq = dequantize_plan_values(q, s)
-        tiles = deq.reshape(-1, *tile)[torch.from_numpy(
-            sched.tile_seq.astype(np.int64)).to(dev)]
-        wd = torch.zeros((n // tile[0], k // tile[1]) + tile, device=dev)
-        wd[torch.from_numpy(sched.row_ids.astype(np.int64)).to(dev),
-           torch.from_numpy(sched.col_seq.astype(np.int64)).to(dev)] = tiles
-        wd = wd.permute(0, 2, 1, 3).reshape(n, k).to(x_dtype)
-        lib = torch.matmul(x, wd.t())
-        _compare(f"K6 {name} vs torch.matmul", y, lib, check_tol, "K6")
-        nnz = plan.real_nnzt * tile[0] * tile[1]
-        isz = x.element_size()
-        n_bytes = isz * (m * k + m * n) + nnz + 4 * plan.real_nnzt
-        rec = {"shape": name, "m": m, "n": n, "k": k,
-               "tiles": plan.real_nnzt, "x_dtype": str(x_dtype),
-               "max_abs_err": err,
-               "ms": _time_ms(lambda: plan_dds_q(x, q, s, sched, **kw)),
-               "plain_ms": _time_ms(lambda: plan_dds_q_plain(
-                   x, q, s, sched, **kw)),
-               "library_ms": _time_ms(lambda: torch.matmul(x, wd.t())),
-               **_bound(n_bytes, 2 * m * nnz, flop_rate)}
-        print(f"  K6 {name:9s} M={m} kernel_ms={rec['ms']:.4f} plain_ms="
-              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
-              f"tiles={plan.real_nnzt}")
-        return rec
-
-    print("[kernels] K6 at the BERT-base projection shapes, M=384, 128x128 "
-          "tiles, density 0.2, int8, fp32 x")
-    bert = [timed(name, 384, n, k, (128, 128), 0.2, torch.float32,
-                  FP32_FLOP_PER_S, TOL_F32) for name, n, k in MAIN_SHAPES]
-    print("[kernels] K6 at the gemma3_4b packed projection shapes, M=4, "
-          "128x128 tiles, density 0.2, int8, bf16 x")
-    gemma = [timed(name, 4, n, k, (128, 128), 0.2, torch.bfloat16,
-                   BF16_FLOP_PER_S, TOL_BF16) for name, n, k in GEMMA_SHAPES]
-    return {"bert": bert, "gemma": gemma}
+    groups = {}
+    for label, shapes, m, x_dtype, flop_rate, tol in (
+            ("bert_m384", MAIN_SHAPES, 384, torch.float32, FP32_FLOP_PER_S,
+             TOL_F32),
+            ("gemma_m4", GEMMA_SHAPES, 4, torch.bfloat16, BF16_FLOP_PER_S,
+             TOL_BF16),
+            ("gemma_m1024", GEMMA_SHAPES, 1024, torch.bfloat16,
+             BF16_FLOP_PER_S, TOL_BF16)):
+        print(f"[kernels] K6 {label}: M={m}, 128x128 tiles, density 0.2, "
+              f"int8, {x_dtype} x")
+        recs = []
+        tile = (128, 128)
+        for name, n, k in shapes:
+            w = _sparse_weight(rng, n, k, tile, 0.2)
+            plan, _, q, s, gran = _quantized_case(w, tile, "int8")
+            q, s = q.to(dev), s.to(dev)
+            x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+                dev, x_dtype)
+            sched = plan_schedule(plan)
+            kw = dict(n=n, tile=tile, granularity=gran)
+            inst = plan_instance(m, tile, x_dtype, q.dtype)
+            y = plan_dds_q(x, q, s, sched, **kw)
+            err = _compare(f"K6 {name} ({n},{k}) M={m} [{inst}]", y,
+                           plan_dds_q_plain(x, q, s, sched, **kw), tol, "K6")
+            # the library call: one torch.matmul on the dequantized dense
+            # weight (the dequantize step is not timed)
+            deq = dequantize_plan_values(q, s)
+            tiles = deq.reshape(-1, *tile)[torch.from_numpy(
+                sched.tile_seq.astype(np.int64)).to(dev)]
+            wd = torch.zeros((n // tile[0], k // tile[1]) + tile, device=dev)
+            wd[torch.from_numpy(sched.row_ids.astype(np.int64)).to(dev),
+               torch.from_numpy(sched.col_seq.astype(np.int64)).to(dev)] = \
+                tiles
+            wd = wd.permute(0, 2, 1, 3).reshape(n, k).to(x_dtype)
+            _compare(f"K6 {name} vs torch.matmul", y,
+                     torch.matmul(x, wd.t()), tol, "K6")
+            nnz = plan.real_nnzt * tile[0] * tile[1]
+            isz = x.element_size()
+            recs.append(_kernel_record(
+                "K6", name, m, n, k, plan.real_nnzt, inst, x_dtype, err,
+                lambda: plan_dds_q(x, q, s, sched, **kw),
+                lambda: plan_dds_q_plain(x, q, s, sched, **kw),
+                lambda: torch.matmul(x, wd.t()),
+                isz * (m * k + m * n) + nnz + 4 * plan.real_nnzt,
+                2 * m * nnz, flop_rate))
+        _group_summary("K6", label, recs)
+        groups[label] = recs
+    return groups
 
 
 def phase_masked_kernels(seed: int):
@@ -1748,9 +1877,9 @@ def phase_training(seed: int):
                 for pk in packs.values())
     print(f"[training] packed products per pass (M={m}): "
           f"{flops / 1e12:.4f} TFLOP")
-    for kname, tag in (("K1", "plan_dds_kernel"), ("K4", "::dds_kernel"),
-                       ("K5", "sddmm_kernel")):
-        dev_ms = sum(r[0] for r in rows if tag in r[2])
+    for kname, tags in (("K1", ("plan_dds_", "PlainValues")),
+                        ("K4", ("::dds_kernel",)), ("K5", ("sddmm_kernel",))):
+        dev_ms = sum(r[0] for r in rows if all(t in r[2] for t in tags))
         if dev_ms > 0:
             print(f"[training] {kname} in the packed step: {dev_ms:.3f} ms "
                   f"device, {flops / (dev_ms * 1e-3) / 1e12:.2f} TFLOP/s "
@@ -1916,7 +2045,8 @@ def phase_lm_serving(seed: int):
                 e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
                 remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
         window()
-        _profile(f"{layout} decode window (8 steps, 4 slots)", window, top=14)
+        label = f"{layout} decode window (8 steps, 4 slots)"
+        _kernel_share(label, _profile(label, window, top=14))
         del prof_eng, eng
 
     agree = sum(a == b for ra, rb in zip(results["dense"], results["paged"])
@@ -2081,7 +2211,8 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
             e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
             remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
     window()
-    _profile("int8 decode window (8 steps, 4 slots)", window, top=14)
+    label = "int8 decode window (8 steps, 4 slots)"
+    _kernel_share(label, _profile(label, window, top=14))
     del prof_eng
     if fp_tokens is None:
         e32 = fp.engine(max_slots=4, cache_len=1280, sync_every=8,
@@ -2114,6 +2245,39 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
     return got
 
 
+def _sum_group(recs):
+    """A group of per-shape records summed (one layer's four projections):
+    the kernel-line keys."""
+    if not recs:
+        return {k: None for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}
+    out = {"max_abs_err": max(r["max_abs_err"] for r in recs)}
+    for key in ("ms", "ms_cold", "plain_ms", "bound_ms", "library_ms",
+                "library_ms_cold"):
+        if all(key in r for r in recs):
+            out[key] = sum(r[key] for r in recs)
+    out["bound_by"] = ("bytes" if sum(r["bytes_ms"] for r in recs)
+                       >= sum(r["operations_ms"] for r in recs)
+                       else "operations")
+    return out
+
+
+def _k1k6_record(name, source, replaces, launches, groups, by_path):
+    """The kernels-line record of K1 or K6: the top-level numbers are one
+    BERT-base layer at M=384 (as before the instances); each timed group
+    (BERT M=384, gemma3_4b M=4 and M=1024) rides along summed, with the
+    instance it ran and its shapes."""
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "shared_source": COMMON_SOURCE, "replaces": replaces,
+        "launches": launches, "launches_by_path": by_path,
+        **_sum_group(groups.get("bert_m384", [])),
+        "instance": {label: recs[0]["instance"]
+                     for label, recs in groups.items() if recs},
+        "groups": {label: _sum_group(recs) for label, recs in groups.items()},
+        "per_shape": groups}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -2137,7 +2301,7 @@ def main() -> int:
 
     try:
         card = phase_build()
-        per_shape, bwd_shapes, decode_shapes, launches = [], {}, {}, {}
+        per_shape, bwd_shapes, decode_shapes, launches = {}, {}, {}, {}
         quant_shapes, masked_shapes = {}, []
         if "kernels" in phases:
             per_shape = phase_kernels(args.seed)
@@ -2169,26 +2333,10 @@ def main() -> int:
         counts = [c[name] for c in launches.values() if name in c]
         return sum(counts) if counts else None
 
-    records = [{
-        "name": "plan_dds", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": total("plan_dds"),
-        # one encoder layer's four projections at M=384 (times summed)
-        "max_abs_err": max((r["max_abs_err"] for r in per_shape),
-                           default=None),
-        "ms": sum(r["ms"] for r in per_shape) if per_shape else None,
-        "plain_ms": (sum(r["plain_ms"] for r in per_shape)
-                     if per_shape else None),
-        "bound_ms": (sum(r["bound_ms"] for r in per_shape)
-                     if per_shape else None),
-        "bound_by": (("bytes" if sum(r["bytes_ms"] for r in per_shape)
-                      >= sum(r["operations_ms"] for r in per_shape)
-                      else "operations") if per_shape else None),
-        "library_ms": (sum(r["library_ms"] for r in per_shape)
-                       if per_shape else None),
-        "launches_by_path": {k: c.get("plan_dds") for k, c in
-                             launches.items()},
-        "per_shape": per_shape,
-    }]
+    records = [_k1k6_record("plan_dds", KERNEL_SOURCE, REPLACES,
+                            total("plan_dds"), per_shape,
+                            {k: c.get("plan_dds") for k, c in
+                             launches.items()})]
     # K4 and K5 at the four BERT-base projection shapes at M=3072 (times
     # summed: one layer's packed backward); launches over every entry point
     for name, kernel, entries, source, replaces in (
@@ -2231,30 +2379,18 @@ def main() -> int:
             "library_ms_cold": rec.get("library_ms_cold"),
             "per_shape": {k: decode_shapes[k] for k in shapes
                           if k in decode_shapes}})
-    # K6 at the four BERT-base projection shapes at M=384 (times summed: one
-    # quantized encoder layer), K7 at the same shapes; the gemma3_4b decode
-    # shapes of K6 ride along in per_shape
-    for name, source, replaces, recs, extra in (
-            ("plan_dds_q", QUANT_SOURCE, QUANT_REPLACES,
-             quant_shapes.get("bert", []), quant_shapes),
-            ("masked_matmul", MASKED_SOURCE, MASKED_REPLACES, masked_shapes,
-             masked_shapes)):
-        records.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": total(name),
-            "launches_by_path": {k: c.get(name) for k, c in
-                                 launches.items() if name in c},
-            "max_abs_err": max((r["max_abs_err"] for r in recs),
-                               default=None),
-            "ms": sum(r["ms"] for r in recs) if recs else None,
-            "plain_ms": sum(r["plain_ms"] for r in recs) if recs else None,
-            "bound_ms": sum(r["bound_ms"] for r in recs) if recs else None,
-            "bound_by": (("bytes" if sum(r["bytes_ms"] for r in recs)
-                          >= sum(r["operations_ms"] for r in recs)
-                          else "operations") if recs else None),
-            "library_ms": (sum(r["library_ms"] for r in recs)
-                           if recs else None),
-            "per_shape": extra})
+    # K6 as K1; K7 at the four BERT-base projection shapes (times summed)
+    records.append(_k1k6_record(
+        "plan_dds_q", QUANT_SOURCE, QUANT_REPLACES, total("plan_dds_q"),
+        quant_shapes, {k: c.get("plan_dds_q") for k, c in launches.items()
+                       if "plan_dds_q" in c}))
+    recs = masked_shapes
+    records.append({
+        "name": "masked_matmul", "route": "cuda", "source": MASKED_SOURCE,
+        "replaces": MASKED_REPLACES, "launches": total("masked_matmul"),
+        "launches_by_path": {k: c.get("masked_matmul") for k, c in
+                             launches.items() if "masked_matmul" in c},
+        **_sum_group(recs), "per_shape": recs})
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
 """Kernels: host packs, execution plans, K1 (block-sparse matmul), K4 / K5
 (its backward: DDS and SDDMM), K6 (K1 over quantized values), K7 (the
 masked dense-layout matmul) and K2 / K3 (split-K decode attention)."""
-from repro_torch.kernels.bsr_matmul import (KernelBSR, PlanSchedule,
-                                            TileSequence, dds, dds_t,
-                                            masked_matmul,
+from repro_torch.kernels.bsr_matmul import (PLAN_INSTANCES, KernelBSR,
+                                            PlanSchedule, TileSequence, dds,
+                                            dds_t, masked_matmul,
                                             masked_matmul_plain, pack_bsr,
                                             plan_dds, plan_dds_q,
                                             plan_dds_q_plain, plan_dds_t,
-                                            plan_sddmm, sddmm)
+                                            plan_instance, plan_sddmm, sddmm)
 from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
                                            RowPackPlan, build_plan,
                                            default_plan_registry,

@@ -9,7 +9,9 @@ Counterpart of ``repro/kernels/bsr_matmul.py``:
     RowPackPlan's row-grouped ``(V, P, bn, bk)`` pack, walking the
     row-sorted tile schedule of ``exec_plan.plan_kernel_sequence``, by
     launching ``csrc/plan_dds.cu`` (which replaces the Pallas
-    ``_plan_dds_kernel``). Its plain version, which CPU tensors run, is
+    ``_plan_dds_kernel``; its body, shared with K6, is
+    ``csrc/plan_dds_common.cuh``, in the instance :func:`plan_instance`
+    picks). Its plain version, which CPU tensors run, is
     ``exec_plan.plan_fused_linear_plain``;
   * :func:`dds`, :func:`dds_t` and :func:`plan_dds_t` (K4) -- ``X @ W^T``
     over a flat KernelBSR and ``dY @ W`` over a KernelBSR or the plan
@@ -200,11 +202,20 @@ class TileSequence:
 
     def on(self, device) -> Dict[str, torch.Tensor]:
         """The kernels' int32 ``seg``, ``row``, ``col`` and ``tile`` on
-        ``device``."""
+        ``device``, and ``head_tile`` / ``head_col`` (n_out, 32): the first
+        32 tiles of each output block's run, 0 past its end, which K1 / K6's
+        stream instance reads without waiting for ``seg``."""
         key = str(device)
         if key not in self._dev:
+            head = self.seg[:-1, None] + np.arange(32)[None]
+            ok = head < self.seg[1:, None]
+            head = np.where(ok, head, 0)
+            pick = (lambda a: np.where(ok, a[head], 0).astype(np.int32)
+                    if self.n_tiles else np.zeros(head.shape, np.int32))
             arrs = {"seg": self.seg, "row": self.row_ids,
-                    "col": self.col_seq, "tile": self.tile_seq}
+                    "col": self.col_seq, "tile": self.tile_seq,
+                    "head_tile": pick(self.tile_seq),
+                    "head_col": pick(self.col_seq)}
             self._dev[key] = {
                 k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for k, a in arrs.items()}
@@ -228,7 +239,9 @@ class PlanSchedule(TileSequence):
         self.slot_seq = np.asarray(slot_seq, np.int64)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# K1 plan_dds_launch(x, w, bias, y, seg, col, tile, head_tile, head_col, M,
+# K, N, n_brows, bn, bk, x_bf16, w_bf16, act, instance, smem, stream)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _LIB = None
 
 
@@ -245,11 +258,89 @@ def _kernel_lib():
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
+# --------------------------------------------------------------------------
+# The instances of K1 and K6 (csrc/plan_dds_common.cuh), in the order the
+# wrapper prefers them: the first that takes a call runs it.
+#   stream  -- M <= 16 (decode): warps stream tile rows, 4 values a lane,
+#              the lanes added by a fixed shuffle tree;
+#   tc      -- bf16 x with bf16 / int8 / fp8 values: bf16 tensor cores
+#              (mma.sync m16n8k16), fp32 accumulation, a cp.async ring;
+#   fp32    -- fp32 FMA through the same ring (fp32 x, or fp32 values);
+#   general -- the scalar kernel: any tile, any alignment.
+# --------------------------------------------------------------------------
+
+PLAN_INSTANCES = ("stream", "tc", "fp32", "general")
+_INSTANCE_CODE = {"general": 0, "stream": 1, "fp32": 2, "tc": 3}
+#: the most rows of X the stream instance takes
+STREAM_MAX_M = 16
+# ring geometry of the fp32 and tc instances: (slab depth, stages, rows of
+# x a stage holds); a stage holds 64 rows of values
+_RING = {"fp32": (16, 4, 64), "tc": (32, 6, 64)}
+
+
+def instance_takes(instance: str, m: int, tile: Tuple[int, int], x_dtype,
+                   v_dtype, aligned: bool = True) -> bool:
+    """Whether K1 / K6 instance ``instance`` takes M=``m`` rows of ``x_dtype``
+    against ``tile``-shaped values of ``v_dtype``. Every instance but
+    'general' reads 16-deep chunks (bk % 16 == 0) in 8-row fragments
+    (bn % 8 == 0) from 16-byte aligned x and values; 'stream' gives each
+    of up to 32 lanes 4 values of a tile row (bk <= 128)."""
+    if instance == "general":
+        return True
+    if instance not in _INSTANCE_CODE:
+        raise ValueError(f"unknown instance {instance!r}")
+    bn, bk = tile
+    if not aligned or bk % 16 or bn % 8:
+        return False
+    vsize = torch.empty((), dtype=v_dtype).element_size()
+    if instance == "stream":
+        return m <= STREAM_MAX_M and bk <= 128
+    if instance == "tc":
+        return x_dtype == torch.bfloat16 and vsize <= 2
+    return True
+
+
+def plan_instance(m: int, tile: Tuple[int, int], x_dtype, v_dtype,
+                  aligned: bool = True) -> str:
+    """The K1 / K6 instance for a call: the first of
+    :data:`PLAN_INSTANCES` that takes it (:func:`instance_takes`). Chosen
+    before the launch, from the shapes, dtypes and alignment alone."""
+    return next(i for i in PLAN_INSTANCES
+                if instance_takes(i, m, tile, x_dtype, v_dtype, aligned))
+
+
+def plan_smem_bytes(instance: str, x_dtype, v_dtype) -> int:
+    """Dynamic shared memory of an instance: the fp32 / tc ring's stages of
+    ``rows`` rows of x and 64 rows of values, each row padded to a 16-byte
+    multiple (``ring_pitch`` in plan_dds_common.cuh); 0 for the others."""
+    if instance not in _RING:
+        return 0
+    depth, stages, rows = _RING[instance]
+
+    def pitch(dtype):
+        row = depth * torch.empty((), dtype=dtype).element_size()
+        return max(row + 16, 48)
+    return stages * (rows * pitch(x_dtype) + 64 * pitch(v_dtype))
+
+
+def _pick_instance(what: str, instance: Optional[str], m: int, tile, x,
+                   values) -> str:
+    aligned = x.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
+    if instance is None:
+        return plan_instance(m, tile, x.dtype, values.dtype, aligned)
+    if not instance_takes(instance, m, tile, x.dtype, values.dtype,
+                          aligned):
+        raise ValueError(f"{what}: instance {instance!r} does not take M={m}, "
+                         f"tile {tuple(tile)}, x {x.dtype}, values "
+                         f"{values.dtype} (16-byte aligned: {aligned})")
+    return instance
+
 
 def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
              *, n: int, tile: Tuple[int, int],
              bias: Optional[torch.Tensor] = None,
-             act: Optional[str] = None) -> torch.Tensor:
+             act: Optional[str] = None,
+             instance: Optional[str] = None) -> torch.Tensor:
     """Y(M, N) = act(X(M, K) @ W^T + bias) from the (V, P, bn, bk) pack,
     through kernel K1 (built on first use); each launch counts in
     ``plan_dds.launches``.
@@ -257,6 +348,8 @@ def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
     ``schedule`` is the plan's :class:`PlanSchedule`. The kernel takes CUDA
     ``x`` and ``data_rp`` in fp32 or bf16, accumulates in fp32 and writes
     ``x``'s dtype; anything it does not take raises -- nothing falls back.
+    ``instance`` pins one of :data:`PLAN_INSTANCES` (it must take the call);
+    by default :func:`plan_instance` picks it.
     """
     m, k = x.shape
     bn, bk = tile
@@ -280,6 +373,7 @@ def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
         raise ValueError("plan_dds kernel needs contiguous x and data_rp")
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
+    inst = _pick_instance("plan_dds", instance, m, tile, x, data_rp)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
@@ -292,11 +386,13 @@ def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
     err = _kernel_lib().plan_dds_launch(
         x.data_ptr(), data_rp.data_ptr(), None if b is None else b.data_ptr(),
         y.data_ptr(), ix["seg"].data_ptr(), ix["col"].data_ptr(),
-        ix["tile"].data_ptr(),
+        ix["tile"].data_ptr(), ix["head_tile"].data_ptr(),
+        ix["head_col"].data_ptr(),
         m, k, n, r, bn, bk, int(x.dtype == torch.bfloat16),
-        int(data_rp.dtype == torch.bfloat16), ACTS[act], stream)
-    if err != 0:
-        raise RuntimeError(f"plan_dds kernel launch failed: CUDA error {err}")
+        int(data_rp.dtype == torch.bfloat16), ACTS[act],
+        _INSTANCE_CODE[inst], plan_smem_bytes(inst, x.dtype, data_rp.dtype),
+        stream)
+    _check_launch("plan_dds", err)
     plan_dds.launches += 1
     return y
 
@@ -313,8 +409,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # iw, transposed, x_bf16, w_bf16, stream); K5 sddmm_launch(dy, x, out,
 # row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16, out_bf16,
 # stream)
-# K6 plan_dds_q_launch(x, q, scales, bias, y, seg, col, tile, M, K, N,
-# n_brows, bn, bk, p_max, row_gran, x_bf16, w_fp8, act, stream); K7
+# K6 plan_dds_q_launch(x, q, scales, bias, y, seg, col, tile, head_tile,
+# head_col, M, K, N, n_brows, bn, bk, p_max, row_gran, x_bf16, w_fp8, act,
+# instance, smem, stream); K7
 # masked_launch(x, w, mask, y, M, K, N, bn, bk, x_bf16, w_bf16, stream)
 _ENTRY = {
     "dds": ("dds_launch",
@@ -322,7 +419,7 @@ _ENTRY = {
     "sddmm": ("sddmm_launch",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "plan_dds_q": ("plan_dds_q_launch",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                   [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p]),
     "masked": ("masked_launch",
                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -709,14 +806,16 @@ def plan_dds_q(x: torch.Tensor, qvalues: torch.Tensor, scales: torch.Tensor,
                schedule: PlanSchedule, *, n: int, tile: Tuple[int, int],
                granularity: str = "block",
                bias: Optional[torch.Tensor] = None,
-               act: Optional[str] = None) -> torch.Tensor:
+               act: Optional[str] = None,
+               instance: Optional[str] = None) -> torch.Tensor:
     """Y(M, N) = act(X(M, K) @ dequant(Q)^T + bias) from the quantized
     (V, P, bn, bk) pack: int8 or float8_e4m3fn ``qvalues`` with fp32
     ``scales`` (V, P) ('block' granularity) or (V, 1) ('row'), over the
     plan's :class:`PlanSchedule`. Kernel K6 on CUDA tensors (each launch
     counts in ``plan_dds_q.launches``), :func:`plan_dds_q_plain` on CPU
     tensors; x in fp32 or bf16, fp32 accumulation, output in x's dtype.
-    Anything else raises -- nothing falls back."""
+    Anything else raises -- nothing falls back. ``instance`` pins one of
+    :data:`PLAN_INSTANCES` on the card, as for :func:`plan_dds`."""
     _check_plan_dds_q(x, qvalues, scales, schedule, n, tile, granularity,
                       act)
     dev = x.device
@@ -735,6 +834,7 @@ def plan_dds_q(x: torch.Tensor, qvalues: torch.Tensor, scales: torch.Tensor,
         raise ValueError("plan_dds_q kernel needs contiguous inputs")
     m, k = x.shape
     bn, bk = tile
+    inst = _pick_instance("plan_dds_q", instance, m, tile, x, qvalues)
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
@@ -747,9 +847,12 @@ def plan_dds_q(x: torch.Tensor, qvalues: torch.Tensor, scales: torch.Tensor,
         x.data_ptr(), qvalues.data_ptr(), scales.data_ptr(),
         None if b is None else b.data_ptr(), y.data_ptr(),
         ix["seg"].data_ptr(), ix["col"].data_ptr(), ix["tile"].data_ptr(),
+        ix["head_tile"].data_ptr(), ix["head_col"].data_ptr(),
         m, k, n, schedule.n_brows, bn, bk, schedule.p_max,
         int(granularity == "row"), int(x.dtype == torch.bfloat16),
-        int(qvalues.dtype == torch.float8_e4m3fn), ACTS[act], stream)
+        int(qvalues.dtype == torch.float8_e4m3fn), ACTS[act],
+        _INSTANCE_CODE[inst], plan_smem_bytes(inst, x.dtype, qvalues.dtype),
+        stream)
     _check_launch("plan_dds_q", err)
     plan_dds_q.launches += 1
     return y

@@ -3,8 +3,9 @@
 Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with ``ctypes``.
 Libraries land in ``<repo>/build/repro_torch/`` (``REPRO_TORCH_BUILD_DIR``
-overrides it), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing here runs at
+overrides it), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once. Nothing here runs at
 import time: the first kernel launch builds what it needs, and
 :func:`build_all` builds every library in parallel (one ``nvcc`` a source).
 """
@@ -54,9 +55,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     src = os.path.join(_CSRC, SOURCES[name])
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 

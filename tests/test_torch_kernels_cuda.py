@@ -1,7 +1,8 @@
 """Kernels K1 (``csrc/plan_dds.cu``), K2 and K3 (``csrc/flash_decode.cu``),
 K4 (``csrc/dds.cu``), K5 (``csrc/sddmm.cu``), K6 (``csrc/plan_dds_q.cu``)
 and K7 (``csrc/masked.cu``) on the card against their plain versions, and
-the gradients of the two kernel-backed ops against the plain backends.
+the gradients of the two kernel-backed ops against the plain backends. K1
+and K6 run through each of their instances (``bsr_matmul.PLAN_INSTANCES``).
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -510,3 +511,222 @@ def test_quant_and_masked_kernels_raise_on_what_they_do_not_take():
     with pytest.raises(ValueError):          # a mask of another shape
         bm.masked_matmul(x.detach(), w, np.ones((2, 4), bool), tile=(16, 32))
     assert (bm.plan_dds_q.launches, bm.masked_matmul.launches) == before
+
+
+# --------------------------------------------------------------------------
+# K1 and K6 through each instance (csrc/plan_dds_common.cuh)
+# --------------------------------------------------------------------------
+
+_K1_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+_K6_PAIRS = [(torch.float32, "int8"), (torch.float32, "fp8"),
+             (torch.bfloat16, "int8"), (torch.bfloat16, "fp8")]
+_QDTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+_INSTANCE_MS = (1, 4, 16, 17, 64, 384)
+
+
+def _instance_layouts(rng):
+    """(name, dense weight, tile) of every tile class: 128x128 and 16x32
+    (the vector instances), the spilling plan (16, 64), a fused QKV pack
+    (16, 16), 8x48 (a depth the tc ring takes in one 32 and one 16 slab),
+    runs of 70 tiles (8x16; the stream instance reads 32 at a time) and
+    32x1 (general only)."""
+    def sparse(n, k, tile, density):
+        w = rng.randn(n, k).astype(np.float32)
+        return w * np.kron(rng.rand(n // tile[0], k // tile[1]) < density,
+                           np.ones(tile, np.float32))
+    spill = np.zeros((128, 1024), np.float32)
+    spill[:16, :] = rng.randn(16, 1024)
+    for i in range(1, 8):
+        spill[16 * i: 16 * (i + 1), 64 * i: 64 * (i + 1)] = \
+            0.1 * rng.randn(16, 64)
+    qkv = np.concatenate([sparse(48, 64, (16, 16), 0.5) for _ in range(3)])
+    return [("128x128", sparse(256, 512, (128, 128), 0.4), (128, 128)),
+            ("16x32", sparse(96, 128, (16, 32), 0.4), (16, 32)),
+            ("spill", spill, (16, 64)), ("fused qkv", qkv, (16, 16)),
+            ("8x48", sparse(64, 96, (8, 48), 0.5), (8, 48)),
+            ("long runs", rng.randn(16, 1120).astype(np.float32), (8, 16)),
+            ("32x1", sparse(64, 64, (32, 1), 0.3), (32, 1))]
+
+
+def _instance_cases(kernel):
+    from repro_torch.kernels import bsr_matmul as bm
+    pairs = _K1_PAIRS if kernel == "K1" else _K6_PAIRS
+    out = []
+    for inst in bm.PLAN_INSTANCES:
+        for m in _INSTANCE_MS:
+            for xd, vd in pairs:
+                v = vd if kernel == "K1" else _QDTYPE[vd]
+                if any(bm.instance_takes(inst, m, t, xd, v)
+                       for t in ((128, 128), (16, 32), (32, 1))):
+                    out.append((inst, m, xd, vd))
+    return out
+
+
+def _rel_err(y, ref):
+    scale = max(1.0, float(ref.float().abs().max()))
+    return float((y.float() - ref.float()).abs().max()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,m,x_dtype,v_dtype", _instance_cases("K1"))
+def test_plan_dds_instances_match_plain_on_card(instance, m, x_dtype,
+                                                v_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(16)
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    ran = 0
+    for name, w, tile in _instance_layouts(rng):
+        if not bm.instance_takes(instance, m, tile, x_dtype, v_dtype):
+            continue
+        n, k = w.shape
+        plan = txp.build_plan(pack_bsr(w, tile))
+        data = txp.pack_plan_data(plan, pack_bsr(w, tile).data).cuda().to(
+            v_dtype)
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().to(
+            x_dtype)
+        b = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+        before = bm.plan_dds.launches
+        y = bm.plan_dds(x, data, txp.plan_schedule(plan), n=n, tile=tile,
+                        bias=b, act="gelu", instance=instance)
+        assert bm.plan_dds.launches == before + 1 and y.dtype == x_dtype
+        ref = txp.plan_fused_linear_plain(x, data, plan, bias=b, act="gelu")
+        assert _rel_err(y, ref) <= tol, (name, _rel_err(y, ref))
+        ran += 1
+    assert ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,m,x_dtype,qdtype", _instance_cases("K6"))
+def test_plan_dds_q_instances_match_plain_on_card(instance, m, x_dtype,
+                                                  qdtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(17)
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    ran = 0
+    for name, w, tile in _instance_layouts(rng):
+        if not bm.instance_takes(instance, m, tile, x_dtype,
+                                 _QDTYPE[qdtype]):
+            continue
+        n, k = w.shape
+        plan = txp.build_plan(pack_bsr(w, tile))
+        data = txp.pack_plan_data(plan, pack_bsr(w, tile).data)
+        data[0] = 0.0             # the first virtual row: all-zero tiles
+        sched = txp.plan_schedule(plan)
+        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().to(
+            x_dtype)
+        b = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+        for gran in ("block", "row"):
+            q, s = txp.quantize_plan_values(data, qdtype, gran)
+            q, s = q.cuda(), s.cuda()
+            kw = dict(n=n, tile=tile, granularity=gran, bias=b, act="silu")
+            before = bm.plan_dds_q.launches
+            y = bm.plan_dds_q(x, q, s, sched, instance=instance, **kw)
+            assert bm.plan_dds_q.launches == before + 1
+            assert y.dtype == x_dtype
+            ref = bm.plan_dds_q_plain(x, q, s, sched, **kw)
+            assert _rel_err(y, ref) <= tol, (name, gran, _rel_err(y, ref))
+            ran += 1
+    assert ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["stream", "tc", "fp32", "general"])
+def test_plan_instances_are_bitwise_repeatable_on_card(instance):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(18)
+    name, w, tile = _instance_layouts(rng)[2]          # the spilling plan
+    n, k = w.shape
+    plan = txp.build_plan(pack_bsr(w, tile))
+    values = txp.pack_plan_data(plan, pack_bsr(w, tile).data)
+    sched = txp.plan_schedule(plan)
+    m = 4 if instance == "stream" else 70
+    xd = torch.bfloat16 if instance == "tc" else torch.float32
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().to(xd)
+    data = values.cuda().to(xd)
+    ys = [bm.plan_dds(x, data, sched, n=n, tile=tile, instance=instance)
+          for _ in range(2)]
+    assert torch.equal(ys[0], ys[1])
+    q, s = txp.quantize_plan_values(values, "int8", "block")
+    q, s = q.cuda(), s.cuda()
+    ys = [bm.plan_dds_q(x, q, s, sched, n=n, tile=tile, instance=instance)
+          for _ in range(2)]
+    assert torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.cuda
+def test_fp32_instance_sums_in_the_general_order_on_card():
+    """Both instances sum each output in schedule order, k ascending, with
+    the per-tile scale fold: their results are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(19)
+    for name, w, tile in _instance_layouts(rng)[:3]:
+        n, k = w.shape
+        plan = txp.build_plan(pack_bsr(w, tile))
+        data = txp.pack_plan_data(plan, pack_bsr(w, tile).data)
+        sched = txp.plan_schedule(plan)
+        x = torch.from_numpy(rng.randn(96, k).astype(np.float32)).cuda()
+        d = data.cuda()
+        assert torch.equal(
+            bm.plan_dds(x, d, sched, n=n, tile=tile, instance="fp32"),
+            bm.plan_dds(x, d, sched, n=n, tile=tile, instance="general"))
+        q, s = txp.quantize_plan_values(data, "fp8", "block")
+        q, s = q.cuda(), s.cuda()
+        assert torch.equal(
+            bm.plan_dds_q(x, q, s, sched, n=n, tile=tile, instance="fp32"),
+            bm.plan_dds_q(x, q, s, sched, n=n, tile=tile,
+                          instance="general"))
+
+
+@pytest.mark.cuda
+def test_plan_launch_refused_for_shared_memory_raises_on_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(20)
+    name, w, tile = _instance_layouts(rng)[0]
+    n, k = w.shape
+    plan = txp.build_plan(pack_bsr(w, tile))
+    data = txp.pack_plan_data(plan, pack_bsr(w, tile).data)
+    sched = txp.plan_schedule(plan)
+    x = torch.from_numpy(rng.randn(64, k).astype(np.float32)).cuda()
+    xb, db = x.bfloat16(), data.cuda().bfloat16()
+    q, s = txp.quantize_plan_values(data, "int8", "block")
+    q, s = q.cuda(), s.cuda()
+    # the tc ring of bf16 values asks for 60 KB: above the 48 KB default,
+    # so the kernel's limit is raised first; this call must work
+    assert bm.plan_smem_bytes("tc", torch.bfloat16, torch.bfloat16) > 49152
+    ok = bm.plan_dds(xb, db, sched, n=n, tile=tile, instance="tc")
+    before = (bm.plan_dds.launches, bm.plan_dds_q.launches)
+    real = bm.plan_smem_bytes
+    # more than the card's 227 KB a block: cudaFuncSetAttribute refuses
+    monkeypatch.setattr(bm, "plan_smem_bytes", lambda *a: 300 * 1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.plan_dds(xb, db, sched, n=n, tile=tile, instance="tc")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.plan_dds_q(x, q, s, sched, n=n, tile=tile, instance="fp32")
+    # less than the ring needs: the entry point refuses before launching
+    monkeypatch.setattr(bm, "plan_smem_bytes", lambda *a: 1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.plan_dds(x, data.cuda(), sched, n=n, tile=tile, instance="fp32")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.plan_dds_q(xb, q, s, sched, n=n, tile=tile, instance="tc")
+    assert (bm.plan_dds.launches, bm.plan_dds_q.launches) == before
+    monkeypatch.setattr(bm, "plan_smem_bytes", real)
+    # an instance that cannot take the call is refused in Python
+    with pytest.raises(ValueError, match="instance"):
+        bm.plan_dds(x[:17].contiguous(), data.cuda(), sched, n=n, tile=tile,
+                    instance="stream")
+    with pytest.raises(ValueError, match="instance"):
+        bm.plan_dds(x, data.cuda(), sched, n=n, tile=tile, instance="tc")
+    # and the card is still sound: the same call gives the same bits
+    assert torch.equal(bm.plan_dds(xb, db, sched, n=n, tile=tile,
+                                   instance="tc"), ok)
