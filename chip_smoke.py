@@ -9,8 +9,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA kernel from src/repro_torch/kernels/csrc (one nvcc a source, all
-     started together) and its time; any spill byte in a K1 or K6 kernel
-     fails the run;
+     started together) and its time; any spill byte in a K1, K5, K6 or K7
+     kernel fails the run;
   2. kernels: kernel K1 (plan_dds) against its plain PyTorch version on the
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
      tiles, every epilogue with bias, bf16) through every instance of
@@ -23,10 +23,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      written before each launch), plain time and bound; K4 (dds, dds_t,
      plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
      tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
-     (padding tiles exactly zero), the spilling plan -- and plan_dds_t /
-     plan_sddmm at the four BERT-base shapes at M=3072 (the training batch)
-     with kernel, plain, bound and library (torch.matmul of dY with the
-     dense weight; of dY^T with X) times; then K2
+     (padding tiles exactly zero), the spilling plan; K5 through each of
+     its instances (ring, general; two calls bitwise equal, the ring with
+     one split bitwise equal to general) -- and plan_dds_t / plan_sddmm at
+     the four BERT-base shapes at M=3072 (the training batch) with K5's
+     instance and split count, kernel and library (torch.matmul of dY with
+     the dense weight; of dY^T with X) times held and cold, K5's general
+     instance's time beside, plain time and bound; then K2
      (flash_decode) and K3 (paged_flash_decode) against theirs -- ragged
      and scalar pos with inactive slots, shared and per-slot position
      maps, ring windows, T not a multiple of the split count, G = 1 and
@@ -48,10 +51,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      plan, every epilogue with bias, bf16 x, all-zero blocks -- and the
      same three timed groups with int8 values (library: torch.matmul on the
      dequantized dense weight); and K7 (masked_matmul) against its plain
-     version with non-zero values in the masked tiles -- the shapes of
-     tests/test_kernels.py, 32x1 tiles, bf16, M not a multiple of the block
-     -- and at the four BERT-base shapes with times (library: torch.matmul
-     on w * mask);
+     version with non-zero values in the masked tiles through each of its
+     instances (ring, general; the ring bitwise equal to general) -- the
+     shapes of tests/test_kernels.py, 32x1 tiles, bf16, M not a multiple of
+     the block, an all-masked tile row -- and at the four BERT-base shapes
+     with its instance and block rows and times as K5's (library:
+     torch.matmul on w * mask);
   3. serving: BERT-base at full width (12 layers, d=768, d_ff=3072, vocab
      30522, seeded random weights) pruned 80% at 128x128 with tied masks,
      fused QKV and cross-layer union, served through backend 'plan_pallas'
@@ -113,6 +118,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -328,7 +334,7 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("plan_dds", "plan_dds_q"):
+    for name in ("plan_dds", "plan_dds_q", "sddmm", "masked"):
         kernels, spilled, fn = 0, [], None
         for line in logs[name]["log"].splitlines():
             if "Function properties for" in line:
@@ -359,10 +365,11 @@ def _instances(m, tile, x_dtype, v_dtype):
 
 
 def _kernel_record(kernel, name, m, n, k, tiles, inst, x_dtype, err, fn,
-                   plain, lib, n_bytes, flops, flop_rate):
+                   plain, lib, n_bytes, flops, flop_rate, general=None):
     """Kernel and library ms with the queue held (device time, the values
     warm in L2) and cold (L2 flushed before each launch, as a decode step
-    finds a layer's weights), the plain ms, and the bound."""
+    finds a layer's weights), the plain ms, the bound, and with ``general``
+    the general instance's ms held as the kernel's."""
     rec = {"shape": name, "m": m, "n": n, "k": k, "tiles": tiles,
            "instance": inst, "x_dtype": str(x_dtype), "max_abs_err": err,
            "ms": _time_ms(fn, hold=True), "ms_cold": _time_cold_ms(fn),
@@ -370,8 +377,13 @@ def _kernel_record(kernel, name, m, n, k, tiles, inst, x_dtype, err, fn,
            "library_ms": _time_ms(lib, hold=True),
            "library_ms_cold": _time_cold_ms(lib),
            **_bound(n_bytes, flops, flop_rate)}
-    print(f"  {kernel} {name:9s} M={m} [{inst}] kernel_ms={rec['ms']:.4f} "
-          f"cold={rec['ms_cold']:.4f} plain_ms={rec['plain_ms']:.4f} "
+    gen = ""
+    if general is not None:
+        rec["general_ms"] = _time_ms(general, hold=True)
+        gen = f"general_ms={rec['general_ms']:.4f} "
+    tag = "" if inst is None else f"[{inst}] "
+    print(f"  {kernel} {name:9s} M={m} {tag}kernel_ms={rec['ms']:.4f} "
+          f"cold={rec['ms_cold']:.4f} {gen}plain_ms={rec['plain_ms']:.4f} "
           f"library_ms={rec['library_ms']:.4f} "
           f"cold={rec['library_ms_cold']:.4f} bound_ms="
           f"{rec['bound_ms']:.5f} ({rec['bound_by']}) tiles={tiles}")
@@ -379,13 +391,16 @@ def _kernel_record(kernel, name, m, n, k, tiles, inst, x_dtype, err, fn,
 
 
 def _group_summary(kernel, label, recs):
-    tot = {key: sum(r[key] for r in recs)
-           for key in ("ms", "ms_cold", "library_ms", "library_ms_cold",
-                       "bound_ms", "plain_ms")}
-    print(f"[kernels] {kernel} {label}, four shapes [{recs[0]['instance']}]: "
-          f"kernel {tot['ms']:.4f} ms (cold {tot['ms_cold']:.4f}), library "
-          f"{tot['library_ms']:.4f} ms (cold {tot['library_ms_cold']:.4f}), "
-          f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms; "
+    tot = _sum_group(recs)
+    insts = sorted({r["instance"] for r in recs if r["instance"]})
+    tag = f" [{', '.join(insts)}]" if insts else ""
+    gen = (f", general instance {tot['general_ms']:.4f} ms"
+           if "general_ms" in tot else "")
+    print(f"[kernels] {kernel} {label}, four shapes{tag}: "
+          f"kernel {tot['ms']:.4f} ms (cold {tot['ms_cold']:.4f}){gen}, "
+          f"library {tot['library_ms']:.4f} ms (cold "
+          f"{tot['library_ms_cold']:.4f}), plain {tot['plain_ms']:.4f} ms, "
+          f"bound {tot['bound_ms']:.5f} ms; "
           f"kernel below library: warm {tot['ms'] < tot['library_ms']}, "
           f"cold {tot['ms_cold'] < tot['library_ms_cold']}")
 
@@ -580,11 +595,10 @@ def phase_backward_kernels(seed: int):
                          bm.dds_plain(x, pk, data), tol(dtype), "K4")
                 _compare(f"K4 dds_t {name}", bm.dds_t(dy, pk, data),
                          bm.dds_t_plain(dy, pk, data), tol(dtype), "K4")
-                g = bm.sddmm(dy, x, pk, data)
-                _compare(f"K5 sddmm {name}", g,
-                         bm.sddmm_plain(dy, x, pk, data), tol(dtype), "K5")
-                check(float(g[pk.real_nnzt:].float().abs().sum()) == 0.0,
-                      "K5 sddmm wrote a non-zero padding tile")
+                _k5_all(f"sddmm {name}", lambda **kw: bm.sddmm(
+                            dy, x, pk, data, **kw),
+                        bm.sddmm_plain(dy, x, pk, data), tol(dtype), m, tile,
+                        dtype, pk.real_nnzt)
 
     print("[kernels] K4 plan_dds_t and K5 plan_sddmm vs plain, plan cases")
     spill = np.zeros((128, 1024), np.float32)
@@ -612,9 +626,10 @@ def phase_backward_kernels(seed: int):
                      bm.plan_dds_t(dy, d, ts, k=k, tile=tile),
                      bm.plan_dds_t_plain(dy, d, ts, k=k, tile=tile),
                      tol(dtype), "K4")
-            _compare(f"K5 plan_sddmm {name} {dn}",
-                     bm.plan_sddmm(dy, x, s, tile=tile),
-                     bm.plan_sddmm_plain(dy, x, s, tile=tile), TOL_F32, "K5")
+            _k5_all(f"plan_sddmm {name} {dn}", lambda **kw: bm.plan_sddmm(
+                        dy, x, s, tile=tile, **kw),
+                    bm.plan_sddmm_plain(dy, x, s, tile=tile), TOL_F32, m,
+                    tile, dtype, s.n_tiles)
 
     print(f"[kernels] K4 plan_dds_t and K5 plan_sddmm at the BERT-base "
           f"projection shapes, M={TRAIN_M}, 128x128 tiles, density 0.2")
@@ -642,20 +657,42 @@ def phase_backward_kernels(seed: int):
             kern = "K4" if kname == "dds" else "K5"
             err = _compare(f"{kern} {name} ({n},{k})", fn(), plain(),
                            TOL_F32, kern)
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-            rec = {"shape": name, "m": m, "n": n, "k": k,
-                   "tiles": plan.real_nnzt, "max_abs_err": err,
-                   "ms": _time_ms(fn), "plain_ms": _time_ms(plain),
-                   "library_ms": _time_ms(lib),
-                   "bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3,
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            per_shape[kname].append(rec)
-            print(f"  {kern} {name:9s} kernel_ms={rec['ms']:.4f} plain_ms="
-                  f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f}"
-                  f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
-                  f"tiles={plan.real_nnzt}")
+            inst = general = None
+            if kname == "sddmm":
+                inst = bm.sddmm_instance(m, tile, x.dtype)
+                if inst == "ring":
+                    inst += f" S={bm.sddmm_splits(m, s.n_tiles, tile)[0]}"
+                general = functools.partial(bm.plan_sddmm, dy, x, s,
+                                            tile=tile, instance="general")
+            per_shape[kname].append(_kernel_record(
+                kern, name, m, n, k, plan.real_nnzt, inst, x.dtype, err, fn,
+                plain, lib, n_bytes, flops, FP32_FLOP_PER_S, general))
+    _group_summary("K4 plan_dds_t", f"M={m}", per_shape["dds"])
+    _group_summary("K5 plan_sddmm", f"M={m}", per_shape["sddmm"])
     return per_shape
+
+
+def _k5_all(name, fn, ref, tol, m, tile, dtype, n_real):
+    """K5 through every instance that takes the call against its plain
+    version: padding tiles exactly zero, two calls bitwise equal, and the
+    ring with one split bitwise equal to the general instance."""
+    import torch
+    from repro_torch.kernels import bsr_matmul as bm
+    out = {}
+    for inst in bm.SDDMM_INSTANCES:
+        if not bm.sddmm_takes(inst, m, tile, dtype):
+            continue
+        g = fn(instance=inst)
+        s = bm.sddmm_splits(m, n_real, tile)[0] if inst == "ring" else 1
+        _compare(f"K5 {name} [{inst} S={s}]", g, ref, tol, "K5")
+        check(float(g[n_real:].float().abs().sum()) == 0.0,
+              f"K5 [{inst}] {name} wrote a non-zero padding tile")
+        check(torch.equal(g, fn(instance=inst)),
+              f"K5 [{inst}] {name}: two calls differ")
+        out[inst] = g
+    if "ring" in out:
+        check(torch.equal(fn(instance="ring", splits=1), out["general"]),
+              f"K5 {name}: the ring with one split differs from general")
 
 
 # --------------------------------------------------------------------------
@@ -1172,36 +1209,52 @@ def phase_masked_kernels(seed: int):
     kernel, plain, bound and library times."""
     import numpy as np
     import torch
-    from repro_torch.kernels.bsr_matmul import (masked_matmul,
-                                                masked_matmul_plain)
+    from repro_torch.kernels.bsr_matmul import (MASKED_INSTANCES,
+                                                masked_block_rows,
+                                                masked_instance,
+                                                masked_matmul,
+                                                masked_matmul_plain,
+                                                masked_takes)
     dev = torch.device("cuda")
     rng = np.random.RandomState(seed + 6)
 
-    def case(m, n, k, tile, density, dtype=torch.float32):
-        w = torch.from_numpy(rng.randn(n, k).astype(np.float32)).to(
+    def case(m, n, k, tile, density, dtype=torch.float32, r=rng):
+        w = torch.from_numpy(r.randn(n, k).astype(np.float32)).to(
             dev, dtype)          # dense: the masked tiles hold values too
-        mask = rng.rand(n // tile[0], k // tile[1]) < density
-        x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+        mask = r.rand(n // tile[0], k // tile[1]) < density
+        x = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(
             dev, dtype)
         return x, w, mask
 
-    print("[kernels] K7 masked_matmul vs plain, masked tiles non-zero")
-    cases = [(m, n, k, tile, d, torch.float32)
+    print("[kernels] K7 masked_matmul vs plain, masked tiles non-zero, "
+          "every instance that takes each (ring bitwise equal to general)")
+    cases = [(m, n, k, tile, d, torch.float32, rng)
              for m, n, k, tile, d in MASKED_SHAPES]
-    cases += [(40, 64, 64, (32, 1), 0.3, torch.float32),
-              (130, 256, 256, (128, 128), 0.5, torch.bfloat16),
-              (100, 128, 384, (32, 128), 0.5, torch.bfloat16)]
-    for m, n, k, tile, d, dtype in cases:
-        x, w, mask = case(m, n, k, tile, d, dtype)
+    cases += [(40, 64, 64, (32, 1), 0.3, torch.float32, rng),
+              (130, 256, 256, (128, 128), 0.5, torch.bfloat16, rng),
+              (100, 128, 384, (32, 128), 0.5, torch.bfloat16, rng),
+              (17, 256, 512, (128, 128), 0.5, torch.float32,
+               np.random.RandomState(seed + 7))]
+    for m, n, k, tile, d, dtype, r in cases:
+        x, w, mask = case(m, n, k, tile, d, dtype, r)
+        mask[0, :] = False                  # an all-masked tile row
         dn = "fp32" if dtype == torch.float32 else "bf16"
-        y = masked_matmul(x, w, mask, tile=tile)
-        _compare(f"K7 {m}x({n},{k}) {tile} d={d} {dn}", y,
-                 masked_matmul_plain(x, w, mask, tile=tile),
-                 TOL_F32 if dtype == torch.float32 else TOL_BF16, "K7")
+        ref = masked_matmul_plain(x, w, mask, tile=tile)
         full = torch.matmul(x.float(), w.float().t())
-        if not mask.all():
+        ys = {}
+        for inst in MASKED_INSTANCES:
+            if not masked_takes(inst, m, tile, dtype, dtype):
+                continue
+            y = ys[inst] = masked_matmul(x, w, mask, tile=tile, instance=inst)
+            _compare(f"K7 {m}x({n},{k}) {tile} d={d} {dn} [{inst}]", y, ref,
+                     TOL_F32 if dtype == torch.float32 else TOL_BF16, "K7")
             check(float((y.float() - full).abs().max()) > 1e-2,
                   "K7 did not skip the masked tiles")
+            check(float(y[:, :tile[0]].abs().max()) == 0.0,
+                  "K7: an all-masked tile row gave a non-zero output")
+        if "ring" in ys:
+            check(torch.equal(ys["ring"], ys["general"]),
+                  f"K7 {m}x({n},{k}) {tile}: ring differs from general")
 
     print("[kernels] K7 at the BERT-base projection shapes, M=384, 128x128 "
           "tiles, density 0.2")
@@ -1222,19 +1275,18 @@ def phase_masked_kernels(seed: int):
         nnz = stored * tile[0] * tile[1]
         # the least work for the same function: the stored tiles only
         n_bytes = 4 * (m * k + nnz + m * n) + 4 * mask.size
-        rec = {"shape": name, "m": m, "n": n, "k": k, "tiles": stored,
-               "max_abs_err": err,
-               "ms": _time_ms(lambda: masked_matmul(x, w, mask_dev,
-                                                    tile=tile)),
-               "plain_ms": _time_ms(lambda: masked_matmul_plain(
-                   x, w, mask_dev, tile=tile)),
-               "library_ms": _time_ms(lambda: torch.matmul(x, wm.t())),
-               **_bound(n_bytes, 2 * m * nnz, FP32_FLOP_PER_S)}
-        per_shape.append(rec)
-        print(f"  K7 {name:9s} kernel_ms={rec['ms']:.4f} plain_ms="
-              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
-              f"tiles={stored}")
+        inst = masked_instance(m, tile, x.dtype, w.dtype)
+        if inst == "ring":
+            inst += f" {masked_block_rows(m, n, tile)} rows"
+        per_shape.append(_kernel_record(
+            "K7", name, m, n, k, stored, inst, x.dtype, err,
+            lambda: masked_matmul(x, w, mask_dev, tile=tile),
+            lambda: masked_matmul_plain(x, w, mask_dev, tile=tile),
+            lambda: torch.matmul(x, wm.t()), n_bytes, 2 * m * nnz,
+            FP32_FLOP_PER_S,
+            lambda: masked_matmul(x, w, mask_dev, tile=tile,
+                                  instance="general")))
+    _group_summary("K7 masked_matmul", f"M={m}", per_shape)
     return per_shape
 
 
@@ -1704,6 +1756,7 @@ def phase_training(seed: int):
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.kernels import bsr_matmul as bm
     from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.exec_plan import plan_schedule
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import TrainConfig, Trainer
     from repro_torch.models.api import model_forward
@@ -1877,8 +1930,17 @@ def phase_training(seed: int):
                 for pk in packs.values())
     print(f"[training] packed products per pass (M={m}): "
           f"{flops / 1e12:.4f} TFLOP")
+    k5 = {}
+    for pk in packs.values():
+        tiles = plan_schedule(pk.plan).n_tiles
+        inst = bm.sddmm_instance(m, pk.plan.tile, torch.float32)
+        splits = (bm.sddmm_splits(m, tiles, pk.plan.tile)[0]
+                  if inst == "ring" else 1)
+        key = f"{pk.plan.shape} [{inst} S={splits}]"
+        k5[key] = k5.get(key, 0) + 1
+    print(f"[training] K5 instance and splits by projection: {k5}")
     for kname, tags in (("K1", ("plan_dds_", "PlainValues")),
-                        ("K4", ("::dds_kernel",)), ("K5", ("sddmm_kernel",))):
+                        ("K4", ("::dds_kernel",)), ("K5", ("sddmm_",))):
         dev_ms = sum(r[0] for r in rows if all(t in r[2] for t in tags))
         if dev_ms > 0:
             print(f"[training] {kname} in the packed step: {dev_ms:.3f} ms "
@@ -2253,13 +2315,19 @@ def _sum_group(recs):
                                   "bound_by", "library_ms")}
     out = {"max_abs_err": max(r["max_abs_err"] for r in recs)}
     for key in ("ms", "ms_cold", "plain_ms", "bound_ms", "library_ms",
-                "library_ms_cold"):
+                "library_ms_cold", "general_ms"):
         if all(key in r for r in recs):
             out[key] = sum(r[key] for r in recs)
     out["bound_by"] = ("bytes" if sum(r["bytes_ms"] for r in recs)
                        >= sum(r["operations_ms"] for r in recs)
                        else "operations")
     return out
+
+
+def _instances_of(recs):
+    """K5's and K7's instance at each timed shape."""
+    inst = {r["shape"]: r["instance"] for r in recs if r["instance"]}
+    return {"instance": inst} if inst else {}
 
 
 def _k1k6_record(name, source, replaces, launches, groups, by_path):
@@ -2352,17 +2420,7 @@ def main() -> int:
             "launches": (sum(c for c in counts if c is not None)
                          if any(c is not None for c in counts) else None),
             "launches_by_entry": dict(zip(entries, counts)),
-            "max_abs_err": max((r["max_abs_err"] for r in recs),
-                               default=None),
-            "ms": sum(r["ms"] for r in recs) if recs else None,
-            "plain_ms": sum(r["plain_ms"] for r in recs) if recs else None,
-            "bound_ms": sum(r["bound_ms"] for r in recs) if recs else None,
-            "bound_by": (("bytes" if sum(r["bytes_ms"] for r in recs)
-                          >= sum(r["operations_ms"] for r in recs)
-                          else "operations") if recs else None),
-            "library_ms": (sum(r["library_ms"] for r in recs)
-                           if recs else None),
-            "per_shape": recs})
+            **_sum_group(recs), **_instances_of(recs), "per_shape": recs})
     # K2 at the ring shape (29 of gemma3_4b's 34 layers), K3 at the paged
     # global shape; every shape's numbers ride along in per_shape
     for name, main_shape, shapes in (
@@ -2390,7 +2448,7 @@ def main() -> int:
         "replaces": MASKED_REPLACES, "launches": total("masked_matmul"),
         "launches_by_path": {k: c.get("masked_matmul") for k, c in
                              launches.items() if "masked_matmul" in c},
-        **_sum_group(recs), "per_shape": recs})
+        **_sum_group(recs), **_instances_of(recs), "per_shape": recs})
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

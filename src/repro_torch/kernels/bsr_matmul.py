@@ -20,14 +20,16 @@ Counterpart of ``repro/kernels/bsr_matmul.py``:
     each tile through strides;
   * :func:`sddmm` and :func:`plan_sddmm` (K5) -- the stored tiles' gradient
     ``dW[j] = dY[:, row_j]^T @ X[:, col_j]``, kernel ``csrc/sddmm.cu``
-    (replacing ``_sddmm_kernel``);
+    (replacing ``_sddmm_kernel``) in the instance :func:`sddmm_instance`
+    picks;
   * :func:`plan_dds_q` (K6) -- K1 over int8 / fp8 tile values with fp32
     scales, each tile's partial product scaled before it joins the
     accumulator, kernel ``csrc/plan_dds_q.cu`` (replacing
     ``_plan_dds_q_kernel``);
   * :func:`masked_matmul` (K7) -- ``X @ W^T`` over a dense weight, skipping
     the tiles whose mask is 0 (the paper's negative control), kernel
-    ``csrc/masked.cu`` (replacing ``_masked_kernel``).
+    ``csrc/masked.cu`` (replacing ``_masked_kernel``) in the instance
+    :func:`masked_instance` picks.
 
 Every kernel wrapper runs its plain version (the reference's arithmetic in
 torch ops, beside it here) on a CPU tensor, launches its kernel on a CUDA
@@ -323,17 +325,26 @@ def plan_smem_bytes(instance: str, x_dtype, v_dtype) -> int:
     return stages * (rows * pitch(x_dtype) + 64 * pitch(v_dtype))
 
 
+def _choose(what: str, instance: Optional[str], instances, takes, args,
+            desc: str) -> str:
+    """The instance that runs a call: by default the first of ``instances``
+    that takes it (``takes(i, *args)``); a pinned ``instance`` that does
+    not take it raises."""
+    if instance is None:
+        return next(i for i in instances if takes(i, *args))
+    if not takes(instance, *args):
+        raise ValueError(f"{what}: instance {instance!r} does not take "
+                         f"{desc}")
+    return instance
+
+
 def _pick_instance(what: str, instance: Optional[str], m: int, tile, x,
                    values) -> str:
     aligned = x.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
-    if instance is None:
-        return plan_instance(m, tile, x.dtype, values.dtype, aligned)
-    if not instance_takes(instance, m, tile, x.dtype, values.dtype,
-                          aligned):
-        raise ValueError(f"{what}: instance {instance!r} does not take M={m}, "
-                         f"tile {tuple(tile)}, x {x.dtype}, values "
-                         f"{values.dtype} (16-byte aligned: {aligned})")
-    return instance
+    return _choose(what, instance, PLAN_INSTANCES, instance_takes,
+                   (m, tile, x.dtype, values.dtype, aligned),
+                   f"M={m}, tile {tuple(tile)}, x {x.dtype}, values "
+                   f"{values.dtype} (16-byte aligned: {aligned})")
 
 
 def plan_dds(x: torch.Tensor, data_rp: torch.Tensor, schedule: PlanSchedule,
@@ -407,22 +418,23 @@ plan_dds.launches = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # K4 dds_launch(x, w, y, seg, in_blk, tile_seq, M, K_in, N_out, n_out, ow,
 # iw, transposed, x_bf16, w_bf16, stream); K5 sddmm_launch(dy, x, out,
-# row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16, out_bf16,
-# stream)
+# part, row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16,
+# out_bf16, instance, splits, chunk, stream)
 # K6 plan_dds_q_launch(x, q, scales, bias, y, seg, col, tile, head_tile,
 # head_col, M, K, N, n_brows, bn, bk, p_max, row_gran, x_bf16, w_fp8, act,
-# instance, smem, stream); K7
-# masked_launch(x, w, mask, y, M, K, N, bn, bk, x_bf16, w_bf16, stream)
+# instance, smem, stream); K7 masked_launch(x, w, mask, y, M, K, N, bn, bk,
+# x_bf16, w_bf16, instance, block_rows, stream)
 _ENTRY = {
     "dds": ("dds_launch",
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "sddmm": ("sddmm_launch",
-              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+              + [ctypes.c_void_p]),
     "plan_dds_q": ("plan_dds_q_launch",
                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p]),
     "masked": ("masked_launch",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                + [ctypes.c_void_p]),
 }
 
@@ -643,9 +655,71 @@ plan_dds_t.launches = 0
 # K5: SDDMM, the stored tiles' gradient (sddmm, plan_sddmm)
 # --------------------------------------------------------------------------
 
-def _sddmm_launch(dy: torch.Tensor, x: torch.Tensor, row_blk, col_blk, *,
-                  tile: Tuple[int, int], n_real: int,
-                  out_dtype: torch.dtype) -> torch.Tensor:
+# The instances of K5 (csrc/sddmm.cu), in the order the wrapper prefers them:
+#   ring    -- fp32 dY and X, bn and bk multiples of 4, 16-byte aligned: M cut
+#              into sddmm_splits chunks, each streamed through a cp.async
+#              ring, the chunks' fp32 partials added in split order;
+#   general -- the scalar kernel over all of M: any tile, bf16, any alignment.
+SDDMM_INSTANCES = ("ring", "general")
+_SDDMM_CODE = {"general": 0, "ring": 1}
+#: the (tile, 64x64 sub-tile, split) blocks the ring's grid aims at: two
+#: waves of the 7 ring blocks each of the H100's 132 SMs holds at once
+SDDMM_TARGET_BLOCKS = 16 * 132
+#: the most chunks M is cut into
+SDDMM_MAX_SPLITS = 8
+#: chunk edges are multiples of the reference's bm where M allows
+SDDMM_SPLIT_ROWS = 128
+
+
+def sddmm_takes(instance: str, m: int, tile: Tuple[int, int], dtype,
+                aligned: bool = True) -> bool:
+    """Whether K5 instance ``instance`` takes M=``m`` rows of dY and X in
+    ``dtype`` against ``tile``: 'ring' copies 16 bytes of fp32 at a time
+    (bn and bk multiples of 4, 16-byte aligned operands)."""
+    if instance == "general":
+        return True
+    if instance not in _SDDMM_CODE:
+        raise ValueError(f"unknown instance {instance!r}")
+    bn, bk = tile
+    return aligned and dtype == torch.float32 and bn % 4 == 0 and bk % 4 == 0
+
+
+def sddmm_instance(m: int, tile: Tuple[int, int], dtype,
+                   aligned: bool = True) -> str:
+    """The K5 instance for a call: the first of :data:`SDDMM_INSTANCES` that
+    takes it (:func:`sddmm_takes`), chosen before the launch."""
+    return next(i for i in SDDMM_INSTANCES
+                if sddmm_takes(i, m, tile, dtype, aligned))
+
+
+def sddmm_splits(m: int, n_tiles: int, tile: Tuple[int, int],
+                 splits: Optional[int] = None) -> Tuple[int, int]:
+    """(S, chunk) of the ring instance: M cut into S chunks of ``chunk``
+    rows (the last may be shorter, none is empty), summed apart and added in
+    split order. S is chosen from the number of 64x64 sub-tile blocks and M
+    alone: enough chunks that the grid reaches :data:`SDDMM_TARGET_BLOCKS`,
+    at most :data:`SDDMM_MAX_SPLITS` and none shorter than
+    :data:`SDDMM_SPLIT_ROWS` rows. ``splits`` asks for S instead; chunk
+    edges are multiples of SDDMM_SPLIT_ROWS where M allows."""
+    bn, bk = tile
+    if splits is None:
+        blocks = n_tiles * (-(-bn // 64)) * (-(-bk // 64))
+        splits = min(SDDMM_MAX_SPLITS, m // SDDMM_SPLIT_ROWS,
+                     -(-SDDMM_TARGET_BLOCKS // max(1, blocks)))
+    if splits < 1:
+        splits = 1
+    if splits == 1 or n_tiles == 0:
+        return 1, m
+    chunk = -(-m // splits)
+    if m >= SDDMM_SPLIT_ROWS * splits:
+        chunk = -(-chunk // SDDMM_SPLIT_ROWS) * SDDMM_SPLIT_ROWS
+    return -(-m // chunk), chunk
+
+
+def _sddmm_launch(what: str, dy: torch.Tensor, x: torch.Tensor, row_blk,
+                  col_blk, *, tile: Tuple[int, int], n_real: int,
+                  out_dtype: torch.dtype, instance: Optional[str],
+                  splits: Optional[int]) -> torch.Tensor:
     """(J, bn, bk) tile gradients for tiles at block (row_blk[j],
     col_blk[j]); tiles j >= n_real are written as zeros."""
     bn, bk = tile
@@ -654,19 +728,33 @@ def _sddmm_launch(dy: torch.Tensor, x: torch.Tensor, row_blk, col_blk, *,
                         f"{dy.dtype} and {x.dtype}")
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"sddmm kernel writes fp32/bf16, not {out_dtype}")
+    m = dy.shape[0]
+    aligned = dy.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    inst = _choose(what, instance, SDDMM_INSTANCES, sddmm_takes,
+                   (m, tile, dy.dtype, aligned),
+                   f"tile {tuple(tile)}, {dy.dtype} (16-byte aligned: "
+                   f"{aligned})")
+    if inst == "general" and splits not in (None, 1):
+        raise ValueError(f"{what}: the general instance sums M in one chunk, "
+                         f"not {splits}")
     j = int(row_blk.shape[0])
     out = torch.empty((j, bn, bk), dtype=out_dtype, device=dy.device)
     if j == 0:
         return out
-    if dy.shape[0] == 0:
+    if m == 0:
         return out.zero_()
+    s, chunk = ((1, m) if inst == "general"
+                else sddmm_splits(m, n_real, tile, splits))
+    part = (torch.empty((s, n_real, bn, bk), dtype=torch.float32,
+                        device=dy.device) if s > 1 else None)
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     err = _entry("sddmm")(
-        dy.data_ptr(), x.data_ptr(), out.data_ptr(), row_blk.data_ptr(),
-        col_blk.data_ptr(), dy.shape[0], dy.shape[1], x.shape[1], bn, bk, j,
-        n_real, int(dy.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), stream)
-    _check_launch("sddmm", err)
+        dy.data_ptr(), x.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), row_blk.data_ptr(),
+        col_blk.data_ptr(), m, dy.shape[1], x.shape[1], bn, bk, j, n_real,
+        int(dy.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _SDDMM_CODE[inst], s, chunk, stream)
+    _check_launch(what, err)
     return out
 
 
@@ -688,16 +776,21 @@ def sddmm_plain(dy: torch.Tensor, x: torch.Tensor, w: KernelBSR,
 
 
 def sddmm(dy: torch.Tensor, x: torch.Tensor, w: KernelBSR,
-          data: Optional[torch.Tensor] = None) -> torch.Tensor:
+          data: Optional[torch.Tensor] = None, *,
+          instance: Optional[str] = None,
+          splits: Optional[int] = None) -> torch.Tensor:
     """Gradient w.r.t. the stored tiles: (nnzt, bn, bk) in the values'
-    dtype, padding tiles exactly zero (they must stay dead). Kernel K5."""
+    dtype, padding tiles exactly zero (they must stay dead). Kernel K5;
+    ``instance`` pins one of :data:`SDDMM_INSTANCES` (it must take the
+    call) and ``splits`` the ring's S (:func:`sddmm_splits`)."""
     data = tile_values(w, dy) if data is None else data
     _check_sddmm("sddmm", dy, x, *w.shape)
     if not _device_route("sddmm", dy, x):
         return sddmm_plain(dy, x, w, data)
     ix = bsr_sequence(w).on(dy.device)
-    g = _sddmm_launch(dy, x, ix["row"], ix["col"], tile=w.tile,
-                      n_real=w.real_nnzt, out_dtype=data.dtype)
+    g = _sddmm_launch("sddmm", dy, x, ix["row"], ix["col"], tile=w.tile,
+                      n_real=w.real_nnzt, out_dtype=data.dtype,
+                      instance=instance, splits=splits)
     sddmm.launches += 1
     return g
 
@@ -717,11 +810,13 @@ def plan_sddmm_plain(dy: torch.Tensor, x: torch.Tensor,
 
 
 def plan_sddmm(dy: torch.Tensor, x: torch.Tensor, schedule: TileSequence, *,
-               tile: Tuple[int, int],
-               out_dtype=torch.float32) -> torch.Tensor:
+               tile: Tuple[int, int], out_dtype=torch.float32,
+               instance: Optional[str] = None,
+               splits: Optional[int] = None) -> torch.Tensor:
     """Per-tile gradient ``dW[j] = dY[:, row_j]^T @ X[:, col_j]`` over the
     schedule order (``exec_plan.plan_schedule``); (J, bn, bk) in
-    ``out_dtype``. Every schedule tile is real. Kernel K5."""
+    ``out_dtype``. Every schedule tile is real. Kernel K5, with
+    ``instance`` and ``splits`` as for :func:`sddmm`."""
     bn, bk = tile
     _check_sddmm("plan_sddmm", dy, x, schedule.n_out * bn,
                  schedule.n_in * bk)
@@ -729,8 +824,9 @@ def plan_sddmm(dy: torch.Tensor, x: torch.Tensor, schedule: TileSequence, *,
         return plan_sddmm_plain(dy, x, schedule, tile=tile,
                                 out_dtype=out_dtype)
     ix = schedule.on(dy.device)
-    g = _sddmm_launch(dy, x, ix["row"], ix["col"], tile=tile,
-                      n_real=schedule.n_tiles, out_dtype=out_dtype)
+    g = _sddmm_launch("plan_sddmm", dy, x, ix["row"], ix["col"], tile=tile,
+                      n_real=schedule.n_tiles, out_dtype=out_dtype,
+                      instance=instance, splits=splits)
     plan_sddmm.launches += 1
     return g
 
@@ -881,15 +977,61 @@ def masked_matmul_plain(x: torch.Tensor, w_dense: torch.Tensor, tile_mask,
     return (x.float() @ w.t()).to(x.dtype)
 
 
+# The instances of K7 (csrc/masked.cu), in the order the wrapper prefers them:
+#   ring    -- fp32 X and W, bk a multiple of 16, 16-byte aligned: the mask
+#              row compacted into a list of unmasked K tiles, then a cp.async
+#              ring over it; blocks of masked_block_rows rows of X;
+#   general -- the scalar kernel: any tile down to (32, 1), bf16, any
+#              alignment.
+# Both sum each output in one fmaf chain over the unmasked k in order.
+MASKED_INSTANCES = ("ring", "general")
+_MASKED_CODE = {"general": 0, "ring": 1}
+#: the ring's blocks take 32 rows of X where 64-row blocks would give the
+#: H100's 132 SMs fewer blocks than this
+MASKED_SMALL_GRID = 4 * 132
+
+
+def masked_takes(instance: str, m: int, tile: Tuple[int, int], x_dtype,
+                 w_dtype, aligned: bool = True) -> bool:
+    """Whether K7 instance ``instance`` takes the call: 'ring' copies
+    16-deep slabs of fp32 rows, 16 bytes at a time (bk % 16 == 0, 16-byte
+    aligned X and W)."""
+    if instance == "general":
+        return True
+    if instance not in _MASKED_CODE:
+        raise ValueError(f"unknown instance {instance!r}")
+    return (aligned and x_dtype == torch.float32
+            and w_dtype == torch.float32 and tile[1] % 16 == 0)
+
+
+def masked_instance(m: int, tile: Tuple[int, int], x_dtype, w_dtype,
+                    aligned: bool = True) -> str:
+    """The K7 instance for a call: the first of :data:`MASKED_INSTANCES`
+    that takes it (:func:`masked_takes`), chosen before the launch."""
+    return next(i for i in MASKED_INSTANCES
+                if masked_takes(i, m, tile, x_dtype, w_dtype, aligned))
+
+
+def masked_block_rows(m: int, n: int, tile: Tuple[int, int]) -> int:
+    """Rows of X a ring block takes, from M and the N tiles alone: 64, or
+    32 where 64-row blocks would number fewer than
+    :data:`MASKED_SMALL_GRID`."""
+    bn = tile[0]
+    blocks = -(-m // 64) * (n // bn) * (-(-bn // 64))
+    return 32 if blocks < MASKED_SMALL_GRID else 64
+
+
 def masked_matmul(x: torch.Tensor, w_dense: torch.Tensor, tile_mask, *,
-                  tile: Tuple[int, int] = (128, 128)) -> torch.Tensor:
+                  tile: Tuple[int, int] = (128, 128),
+                  instance: Optional[str] = None) -> torch.Tensor:
     """Y(M, N) = X(M, K) @ W^T over the dense (N, K) weight, skipping every
     tile whose entry in ``tile_mask`` (N/bn, K/bk) is 0: the product is
     skipped there and nothing is read from the tile. Kernel K7 on CUDA
     tensors (each launch counts in ``masked_matmul.launches``; the mask may
     be a host array or an int32 / bool tensor on the card),
     :func:`masked_matmul_plain` on CPU tensors. x and W in fp32 or bf16,
-    fp32 accumulation, output in x's dtype."""
+    fp32 accumulation, output in x's dtype. ``instance`` pins one of
+    :data:`MASKED_INSTANCES` on the card (it must take the call)."""
     bn, bk = tile
     mshape = tuple(tile_mask.shape)
     if (x.dim() != 2 or w_dense.dim() != 2 or x.shape[1] != w_dense.shape[1]
@@ -910,6 +1052,11 @@ def masked_matmul(x: torch.Tensor, w_dense: torch.Tensor, tile_mask, *,
             tile_mask, np.int32)).to(x.device)
     m, k = x.shape
     n = w_dense.shape[0]
+    aligned = x.data_ptr() % 16 == 0 and w_dense.data_ptr() % 16 == 0
+    inst = _choose("masked_matmul", instance, MASKED_INSTANCES, masked_takes,
+                   (m, tile, x.dtype, w_dense.dtype, aligned),
+                   f"tile {tuple(tile)}, x {x.dtype}, W {w_dense.dtype} "
+                   f"(16-byte aligned: {aligned})")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
@@ -917,7 +1064,8 @@ def masked_matmul(x: torch.Tensor, w_dense: torch.Tensor, tile_mask, *,
     err = _entry("masked")(
         x.data_ptr(), w_dense.data_ptr(), mask.data_ptr(), y.data_ptr(), m, k,
         n, bn, bk, int(x.dtype == torch.bfloat16),
-        int(w_dense.dtype == torch.bfloat16), stream)
+        int(w_dense.dtype == torch.bfloat16), _MASKED_CODE[inst],
+        masked_block_rows(m, n, tile), stream)
     _check_launch("masked_matmul", err)
     masked_matmul.launches += 1
     return y

@@ -2,7 +2,9 @@
 K4 (``csrc/dds.cu``), K5 (``csrc/sddmm.cu``), K6 (``csrc/plan_dds_q.cu``)
 and K7 (``csrc/masked.cu``) on the card against their plain versions, and
 the gradients of the two kernel-backed ops against the plain backends. K1
-and K6 run through each of their instances (``bsr_matmul.PLAN_INSTANCES``).
+and K6 run through each of their instances (``bsr_matmul.PLAN_INSTANCES``),
+K5 and K7 through theirs (``SDDMM_INSTANCES``, ``MASKED_INSTANCES``: the
+ring instances bitwise equal to general, K5's with one split).
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -730,3 +732,211 @@ def test_plan_launch_refused_for_shared_memory_raises_on_card(monkeypatch):
     # and the card is still sound: the same call gives the same bits
     assert torch.equal(bm.plan_dds(xb, db, sched, n=n, tile=tile,
                                    instance="tc"), ok)
+
+
+# --------------------------------------------------------------------------
+# K5 (csrc/sddmm.cu) and K7 (csrc/masked.cu) through each instance
+# --------------------------------------------------------------------------
+
+_K57_MS = (1, 17, 384, 3072)
+_K57_TILES = ((128, 128), (64, 128), (32, 64), (32, 1))
+_K57_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _k57_cases(kernel):
+    from repro_torch.kernels import bsr_matmul as bm
+    out = []
+    for inst in (bm.SDDMM_INSTANCES if kernel == "K5"
+                 else bm.MASKED_INSTANCES):
+        for m in _K57_MS:
+            for dtype in _K57_DTYPES:
+                for tile in _K57_TILES:
+                    takes = (bm.sddmm_takes(inst, m, tile, dtype)
+                             if kernel == "K5" else
+                             bm.masked_takes(inst, m, tile, dtype, dtype))
+                    if takes:
+                        out.append((inst, m, dtype, tile))
+    return out
+
+
+def _k57_weight(rng, tile, density=0.3):
+    """(dense weight, tile mask) of a few tiles in each direction."""
+    bn, bk = tile
+    n, k = bn * max(2, 256 // bn), bk * max(3, 384 // bk)
+    w = rng.randn(n, k).astype(np.float32)
+    mask = rng.rand(n // bn, k // bk) < density
+    mask[0, :] = False            # an all-masked (all-zero) block row
+    return w * np.kron(mask, np.ones(tile, np.float32)), w, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,m,dtype,tile", _k57_cases("K5"))
+def test_sddmm_instances_match_plain_on_card(instance, m, dtype, tile):
+    """sddmm over a padded KernelBSR and plan_sddmm over the plan's
+    schedule, through ``instance`` (the ring with its own split count and
+    with 1 and 3 splits asked for): padding tiles exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(21)
+    wz, _, _ = _k57_weight(rng, tile)
+    pk = pack_bsr(wz, tile)
+    pk = pack_bsr(wz, tile, nnzt=pk.real_nnzt + 2)
+    n, k = wz.shape
+    data = torch.from_numpy(pk.data).to("cuda", dtype)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to("cuda", dtype)
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to("cuda",
+                                                                  dtype)
+    plan = txp.build_plan(pack_bsr(wz, tile))
+    sched = txp.plan_schedule(plan)
+    ref = bm.sddmm_plain(dy, x, pk, data)
+    ref_plan = bm.plan_sddmm_plain(dy, x, sched, tile=tile)
+    for splits in ((None, 1, 3) if instance == "ring" else (None,)):
+        before = (bm.sddmm.launches, bm.plan_sddmm.launches)
+        g = bm.sddmm(dy, x, pk, data, instance=instance, splits=splits)
+        gp = bm.plan_sddmm(dy, x, sched, tile=tile, instance=instance,
+                           splits=splits)
+        assert (bm.sddmm.launches, bm.plan_sddmm.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert g.dtype == dtype and gp.dtype == torch.float32
+        assert _rel_err(g, ref) <= _BWD_TOL[dtype], (splits, _rel_err(g, ref))
+        assert float(g[pk.real_nnzt:].float().abs().sum()) == 0.0
+        # the plan's products are exact in fp32 for bf16 inputs
+        assert _rel_err(gp, ref_plan) <= 1e-5, (splits, _rel_err(gp, ref_plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,m,dtype,tile", _k57_cases("K7"))
+def test_masked_instances_match_plain_on_card(instance, m, dtype, tile):
+    """Values left in the masked tiles; an all-masked tile row gives
+    exact zeros; the ring in both block heights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(22)
+    _, w_np, mask = _k57_weight(rng, tile, 0.4)
+    w = torch.from_numpy(w_np).to("cuda", dtype)
+    x = torch.from_numpy(rng.randn(m, w_np.shape[1]).astype(np.float32)).to(
+        "cuda", dtype)
+    ref = bm.masked_matmul_plain(x, w, mask, tile=tile)
+    for rows in ((64, 32) if instance == "ring" else (None,)):
+        real = bm.masked_block_rows
+        if rows is not None:
+            bm.masked_block_rows = lambda *a, r=rows: r
+        try:
+            before = bm.masked_matmul.launches
+            y = bm.masked_matmul(x, w, mask, tile=tile, instance=instance)
+        finally:
+            bm.masked_block_rows = real
+        assert bm.masked_matmul.launches == before + 1 and y.dtype == dtype
+        assert _rel_err(y, ref) <= _BWD_TOL[dtype], (rows, _rel_err(y, ref))
+        assert float(y[:, :tile[0]].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["ring", "general"])
+def test_sddmm_and_masked_instances_are_bitwise_repeatable_on_card(instance):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(23)
+    wz, w_np, mask = _k57_weight(rng, (128, 128))
+    plan = txp.build_plan(pack_bsr(wz, (128, 128)))
+    sched = txp.plan_schedule(plan)
+    x = torch.from_numpy(rng.randn(3072, wz.shape[1]).astype(
+        np.float32)).cuda()
+    dy = torch.from_numpy(rng.randn(3072, wz.shape[0]).astype(
+        np.float32)).cuda()
+    if instance == "ring":     # few tiles at M=3072: M is split
+        assert bm.sddmm_splits(3072, sched.n_tiles, (128, 128))[0] > 1
+    gs = [bm.plan_sddmm(dy, x, sched, tile=(128, 128), instance=instance)
+          for _ in range(2)]
+    assert torch.equal(gs[0], gs[1])
+    w = torch.from_numpy(w_np).cuda()
+    ys = [bm.masked_matmul(x[:384], w, mask, tile=(128, 128),
+                           instance=instance) for _ in range(2)]
+    assert torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 3072])
+def test_ring_instances_sum_in_the_general_order_on_card(m):
+    """K5's ring with one split and K7's ring (64- and 32-row blocks) sum
+    each output in the general instance's order: bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(24)
+    for tile in ((128, 128), (32, 64)):
+        wz, w_np, mask = _k57_weight(rng, tile)
+        pk = pack_bsr(wz, tile)
+        pk = pack_bsr(wz, tile, nnzt=pk.real_nnzt + 2)
+        data = torch.from_numpy(pk.data).cuda()
+        x = torch.from_numpy(rng.randn(m, wz.shape[1]).astype(
+            np.float32)).cuda()
+        dy = torch.from_numpy(rng.randn(m, wz.shape[0]).astype(
+            np.float32)).cuda()
+        assert torch.equal(
+            bm.sddmm(dy, x, pk, data, instance="ring", splits=1),
+            bm.sddmm(dy, x, pk, data, instance="general"))
+        w = torch.from_numpy(w_np).cuda()
+        general = bm.masked_matmul(x, w, mask, tile=tile, instance="general")
+        real = bm.masked_block_rows
+        try:
+            for rows in (64, 32):
+                bm.masked_block_rows = lambda *a, r=rows: r
+                assert torch.equal(bm.masked_matmul(
+                    x, w, mask, tile=tile, instance="ring"), general)
+        finally:
+            bm.masked_block_rows = real
+
+
+@pytest.mark.cuda
+def test_sddmm_and_masked_instance_that_cannot_run_raises_on_card(
+        monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(25)
+    wz, w_np, mask = _k57_weight(rng, (32, 64))
+    pk = pack_bsr(wz, (32, 64))
+    data = torch.from_numpy(pk.data).cuda()
+    m, (n, k) = 40, wz.shape
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda()
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).cuda()
+    w = torch.from_numpy(w_np).cuda()
+    # an operand 4 bytes off a 16-byte boundary: the wrapper picks general
+    # and refuses a pinned ring
+    buf = torch.empty(m * k + 1, device="cuda")
+    xu = buf[1:].view(m, k)
+    xu.copy_(x)
+    assert bm.sddmm_instance(m, (32, 64), xu.dtype, xu.data_ptr() % 16 == 0) \
+        == "general"
+    _close(bm.sddmm(dy, xu, pk, data), bm.sddmm_plain(dy, x, pk, data), 1e-5)
+    _close(bm.masked_matmul(xu, w, mask, tile=(32, 64)),
+           bm.masked_matmul_plain(x, w, mask, tile=(32, 64)), 1e-5)
+    before = (bm.sddmm.launches, bm.masked_matmul.launches)
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.sddmm(dy, xu, pk, data, instance="ring")
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.sddmm(dy.bfloat16(), x.bfloat16(), pk, data, instance="ring")
+    with pytest.raises(ValueError, match="general"):
+        bm.sddmm(dy, x, pk, data, instance="general", splits=2)
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.masked_matmul(xu, w, mask, tile=(32, 64), instance="ring")
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.masked_matmul(x.bfloat16(), w.bfloat16(), mask, tile=(32, 64),
+                         instance="ring")
+    # past the Python check, the C entry refuses before launching
+    monkeypatch.setattr(bm, "sddmm_takes", lambda *a, **kw: True)
+    monkeypatch.setattr(bm, "masked_takes", lambda *a, **kw: True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.sddmm(dy.bfloat16(), x.bfloat16(), pk, data, instance="ring")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.sddmm(dy, xu, pk, data, instance="ring")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.masked_matmul(x.bfloat16(), w.bfloat16(), mask, tile=(32, 64),
+                         instance="ring")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.masked_matmul(xu, w, mask, tile=(32, 64), instance="ring")
+    assert (bm.sddmm.launches, bm.masked_matmul.launches) == before
