@@ -9,8 +9,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA kernel from src/repro_torch/kernels/csrc (one nvcc a source, all
-     started together) and its time; any spill byte in a K1, K5, K6 or K7
-     kernel fails the run;
+     started together) and its time; any spill byte in a K1, K4, K5, K6 or
+     K7 kernel fails the run;
   2. kernels: kernel K1 (plan_dds) against its plain PyTorch version on the
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
      tiles, every epilogue with bias, bf16) through every instance of
@@ -23,13 +23,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      written before each launch), plain time and bound; K4 (dds, dds_t,
      plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
      tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
-     (padding tiles exactly zero), the spilling plan; K5 through each of
-     its instances (ring, general; two calls bitwise equal, the ring with
-     one split bitwise equal to general) -- and plan_dds_t / plan_sddmm at
-     the four BERT-base shapes at M=3072 (the training batch) with K5's
+     (padding tiles exactly zero), the spilling plan; each through every
+     instance that takes it (K4: ring, general, two calls bitwise equal and
+     the ring bitwise equal to general; K5: ring, general, two calls
+     bitwise equal, the ring with one split bitwise equal to general) --
+     and plan_dds_t / plan_sddmm at the four BERT-base shapes at M=3072
+     (the training batch) with K4's instance and block rows and K5's
      instance and split count, kernel and library (torch.matmul of dY with
-     the dense weight; of dY^T with X) times held and cold, K5's general
-     instance's time beside, plain time and bound; then K2
+     the dense weight; of dY^T with X) times held and cold, each one's
+     general instance's time beside, plain time and bound; then K2
      (flash_decode) and K3 (paged_flash_decode) against theirs -- ragged
      and scalar pos with inactive slots, shared and per-slot position
      maps, ring windows, T not a multiple of the split count, G = 1 and
@@ -104,8 +106,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      handed to serving with prepare_servable (prune='none', fused QKV,
      cross-layer union, backend 'plan_pallas'); then 4 packed fine-tuning
      steps through make_train_step, each with exactly one K1, K4
-     (plan_dds_t) and K5 (plan_sddmm) launch per packed projection; the
-     first step's loss and gradient norm against the plain plan
+     (plan_dds_t) and K5 (plan_sddmm) launch per packed projection (K4's
+     and K5's instance by projection printed); the first step's loss and gradient norm against the plain plan
      composition, every padding slot exactly 0 afterwards, a (1, 384)
      forward of the fine-tuned packs against the dense forward of the
      unpacked weights, ms per step of both kinds and a profiler breakdown
@@ -334,7 +336,7 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("plan_dds", "plan_dds_q", "sddmm", "masked"):
+    for name in ("plan_dds", "dds", "plan_dds_q", "sddmm", "masked"):
         kernels, spilled, fn = 0, [], None
         for line in logs[name]["log"].splitlines():
             if "Function properties for" in line:
@@ -591,10 +593,14 @@ def phase_backward_kernels(seed: int):
                     dev, dtype)
                 dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(
                     dev, dtype)
-                _compare(f"K4 dds {name}", bm.dds(x, pk, data),
-                         bm.dds_plain(x, pk, data), tol(dtype), "K4")
-                _compare(f"K4 dds_t {name}", bm.dds_t(dy, pk, data),
-                         bm.dds_t_plain(dy, pk, data), tol(dtype), "K4")
+                _k4_all(f"dds {name}", lambda **kw: bm.dds(
+                            x, pk, data, **kw),
+                        bm.dds_plain(x, pk, data), tol(dtype), m, tile,
+                        dtype, False)
+                _k4_all(f"dds_t {name}", lambda **kw: bm.dds_t(
+                            dy, pk, data, **kw),
+                        bm.dds_t_plain(dy, pk, data), tol(dtype), m, tile,
+                        dtype, True)
                 _k5_all(f"sddmm {name}", lambda **kw: bm.sddmm(
                             dy, x, pk, data, **kw),
                         bm.sddmm_plain(dy, x, pk, data), tol(dtype), m, tile,
@@ -622,10 +628,10 @@ def phase_backward_kernels(seed: int):
             dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(
                 dev, dtype)
             ts, s = plan_t_schedule(plan), plan_schedule(plan)
-            _compare(f"K4 plan_dds_t {name} {dn}",
-                     bm.plan_dds_t(dy, d, ts, k=k, tile=tile),
-                     bm.plan_dds_t_plain(dy, d, ts, k=k, tile=tile),
-                     tol(dtype), "K4")
+            _k4_all(f"plan_dds_t {name} {dn}", lambda **kw: bm.plan_dds_t(
+                        dy, d, ts, k=k, tile=tile, **kw),
+                    bm.plan_dds_t_plain(dy, d, ts, k=k, tile=tile),
+                    tol(dtype), m, tile, dtype, True)
             _k5_all(f"plan_sddmm {name} {dn}", lambda **kw: bm.plan_sddmm(
                         dy, x, s, tile=tile, **kw),
                     bm.plan_sddmm_plain(dy, x, s, tile=tile), TOL_F32, m,
@@ -657,12 +663,18 @@ def phase_backward_kernels(seed: int):
             kern = "K4" if kname == "dds" else "K5"
             err = _compare(f"{kern} {name} ({n},{k})", fn(), plain(),
                            TOL_F32, kern)
-            inst = general = None
             if kname == "sddmm":
                 inst = bm.sddmm_instance(m, tile, x.dtype)
                 if inst == "ring":
                     inst += f" S={bm.sddmm_splits(m, s.n_tiles, tile)[0]}"
                 general = functools.partial(bm.plan_sddmm, dy, x, s,
+                                            tile=tile, instance="general")
+            else:
+                inst = bm.dds_instance(m, tile, dy.dtype, True)
+                if inst == "ring":
+                    inst += (f" {bm.dds_block_rows(m, ts.n_out, tile[1])} "
+                             f"rows")
+                general = functools.partial(bm.plan_dds_t, dy, data, ts, k=k,
                                             tile=tile, instance="general")
             per_shape[kname].append(_kernel_record(
                 kern, name, m, n, k, plan.real_nnzt, inst, x.dtype, err, fn,
@@ -670,6 +682,26 @@ def phase_backward_kernels(seed: int):
     _group_summary("K4 plan_dds_t", f"M={m}", per_shape["dds"])
     _group_summary("K5 plan_sddmm", f"M={m}", per_shape["sddmm"])
     return per_shape
+
+
+def _k4_all(name, fn, ref, tol, m, tile, dtype, transposed):
+    """K4 through every instance that takes the call against its plain
+    version: two calls bitwise equal, and the ring bitwise equal to the
+    general instance (one fmaf chain an output, in the same order)."""
+    import torch
+    from repro_torch.kernels import bsr_matmul as bm
+    out = {}
+    for inst in bm.DDS_INSTANCES:
+        if not bm.dds_takes(inst, m, tile, dtype, transposed):
+            continue
+        y = fn(instance=inst)
+        _compare(f"K4 {name} [{inst}]", y, ref, tol, "K4")
+        check(torch.equal(y, fn(instance=inst)),
+              f"K4 [{inst}] {name}: two calls differ")
+        out[inst] = y
+    if "ring" in out:
+        check(torch.equal(out["ring"], out["general"]),
+              f"K4 {name}: the ring differs from general")
 
 
 def _k5_all(name, fn, ref, tol, m, tile, dtype, n_real):
@@ -1939,14 +1971,39 @@ def phase_training(seed: int):
         key = f"{pk.plan.shape} [{inst} S={splits}]"
         k5[key] = k5.get(key, 0) + 1
     print(f"[training] K5 instance and splits by projection: {k5}")
-    for kname, tags in (("K1", ("plan_dds_", "PlainValues")),
-                        ("K4", ("::dds_kernel",)), ("K5", ("sddmm_",))):
-        dev_ms = sum(r[0] for r in rows if all(t in r[2] for t in tags))
+    k4 = {}
+    for pk in packs.values():
+        tile = pk.plan.tile
+        inst = bm.dds_instance(m, tile, torch.float32, True)
+        if inst == "ring":
+            n_cols = pk.plan.shape[1] // tile[1]       # dX's output blocks
+            inst += f" {bm.dds_block_rows(m, n_cols, tile[1])} rows"
+        key = f"{pk.plan.shape} [{inst}]"
+        k4[key] = k4.get(key, 0) + 1
+    print(f"[training] K4 instance and block rows by projection: {k4}")
+    # device time by kernel name: K1 is plan_dds_common.cuh's plain-value
+    # instances, K4 csrc/dds.cu's dds_kernel (general) and dds_ring_kernel,
+    # K5 csrc/sddmm.cu's kernels (ring, combine, general)
+    for kname, match in (
+            ("K1", lambda key: "plan_dds_" in key and "PlainValues" in key),
+            ("K4", lambda key: "::dds_kernel" in key
+             or "::dds_ring_kernel" in key),
+            ("K5", lambda key: "sddmm_" in key)):
+        dev_ms = sum(r[0] for r in rows if match(r[2]))
         if dev_ms > 0:
             print(f"[training] {kname} in the packed step: {dev_ms:.3f} ms "
                   f"device, {flops / (dev_ms * 1e-3) / 1e12:.2f} TFLOP/s "
                   f"({flops / (dev_ms * 1e-3) / FP32_FLOP_PER_S:.3f} of the "
                   f"fp32 peak)")
+    if rows:
+        by_inst = {i: sum(r[1] for r in rows if f"::{k}<" in r[2])
+                   for i, k in (("ring", "dds_ring_kernel"),
+                                ("general", "dds_kernel"))}
+        print(f"[training] K4 launches in the profiled packed step by "
+              f"instance: {by_inst}")
+        check(by_inst == {"ring": n_packed, "general": 0},
+              f"K4 in the packed step: {by_inst}, expected {n_packed} "
+              f"ring launches")
     n_params = sum(v.numel() for v in leaves(params))
     print(f"[training] packed params {n_params}; device memory peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -417,16 +417,16 @@ plan_dds.launches = 0
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # K4 dds_launch(x, w, y, seg, in_blk, tile_seq, M, K_in, N_out, n_out, ow,
-# iw, transposed, x_bf16, w_bf16, stream); K5 sddmm_launch(dy, x, out,
-# part, row_blk, col_blk, M, N, K, bn, bk, n_tiles, n_real, a_bf16,
-# out_bf16, instance, splits, chunk, stream)
+# iw, transposed, x_bf16, w_bf16, instance, block_rows, stream); K5
+# sddmm_launch(dy, x, out, part, row_blk, col_blk, M, N, K, bn, bk, n_tiles,
+# n_real, a_bf16, out_bf16, instance, splits, chunk, stream)
 # K6 plan_dds_q_launch(x, q, scales, bias, y, seg, col, tile, head_tile,
 # head_col, M, K, N, n_brows, bn, bk, p_max, row_gran, x_bf16, w_fp8, act,
 # instance, smem, stream); K7 masked_launch(x, w, mask, y, M, K, N, bn, bk,
 # x_bf16, w_bf16, instance, block_rows, stream)
 _ENTRY = {
     "dds": ("dds_launch",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "sddmm": ("sddmm_launch",
               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
               + [ctypes.c_void_p]),
@@ -528,13 +528,74 @@ def bsr_t_sequence(w: KernelBSR) -> TileSequence:
 # K4: DDS over a row-sorted tile sequence (dds, dds_t, plan_dds_t)
 # --------------------------------------------------------------------------
 
-def _dds_launch(x: torch.Tensor, values: torch.Tensor, seq: TileSequence, *,
-                ow: int, iw: int, transposed: bool) -> torch.Tensor:
+# The instances of K4 (csrc/dds.cu), in the order the wrapper prefers them:
+#   ring    -- fp32 X and tile values, 16-byte aligned, a depth iw that is a
+#              multiple of 16 and an output width ow of 4: a cp.async ring
+#              over the run's flattened (tile, slab) sequence; blocks of
+#              dds_block_rows rows of X;
+#   general -- the scalar kernel: any tile down to (32, 1), bf16, any
+#              alignment.
+# Both sum each output in one fmaf chain over the run's tiles in order, k
+# ascending inside each tile, so they agree bit for bit.
+DDS_INSTANCES = ("ring", "general")
+_DDS_CODE = {"general": 0, "ring": 1}
+#: the ring's blocks take 32 rows of X where 64-row blocks would give the
+#: H100's 132 SMs fewer blocks than this (K7's rule)
+DDS_SMALL_GRID = 4 * 132
+
+
+def dds_takes(instance: str, m: int, tile: Tuple[int, int], dtype,
+              transposed: bool, aligned: bool = True) -> bool:
+    """Whether K4 instance ``instance`` takes M=``m`` rows against stored
+    ``tile`` (bn, bk) values, read as they are (``dds``: depth iw = bk,
+    output width ow = bn) or ``transposed`` (``dds_t`` / ``plan_dds_t``:
+    iw = bn, ow = bk), with X and the values in ``dtype`` (bf16 where either
+    is): 'ring' copies 16-deep fp32 slabs 16 bytes at a time (iw % 16 == 0,
+    ow % 4 == 0, 16-byte aligned operands)."""
+    if instance == "general":
+        return True
+    if instance not in _DDS_CODE:
+        raise ValueError(f"unknown instance {instance!r}")
+    ow, iw = (tile[1], tile[0]) if transposed else tuple(tile)
+    return (aligned and dtype == torch.float32 and iw % 16 == 0
+            and ow % 4 == 0)
+
+
+def dds_instance(m: int, tile: Tuple[int, int], dtype, transposed: bool,
+                 aligned: bool = True) -> str:
+    """The K4 instance for a call: the first of :data:`DDS_INSTANCES` that
+    takes it (:func:`dds_takes`), chosen before the launch."""
+    return next(i for i in DDS_INSTANCES
+                if dds_takes(i, m, tile, dtype, transposed, aligned))
+
+
+def dds_block_rows(m: int, n_out: int, ow: int) -> int:
+    """Rows of X a ring block takes (K4 over ``n_out`` output blocks of
+    ``ow`` columns, K7 over N tiles of bn rows), from M and the grid alone:
+    64, or 32 where 64-row blocks would number fewer than
+    :data:`DDS_SMALL_GRID`."""
+    blocks = -(-m // 64) * n_out * (-(-ow // 64))
+    return 32 if blocks < DDS_SMALL_GRID else 64
+
+
+def _dds_launch(what: str, x: torch.Tensor, values: torch.Tensor,
+                seq: TileSequence, *, tile: Tuple[int, int],
+                transposed: bool, instance: Optional[str]) -> torch.Tensor:
     """Y(M, n_out * ow) with output block r = sum over its run of tiles j of
     X[:, in_j * iw : (in_j + 1) * iw] @ T_j^T, T_j the tile (ow, iw) --
-    read as stored (bn=ow, bk=iw) or, ``transposed``, as the transpose of a
-    stored (bn=iw, bk=ow) tile. Checked by the caller."""
+    the stored (bn, bk) ``tile`` as it is (ow=bn, iw=bk) or, ``transposed``,
+    its transpose (ow=bk, iw=bn). Checked by the caller; the instance is
+    chosen (or the pinned one checked) before the launch."""
     m = x.shape[0]
+    ow, iw = (tile[1], tile[0]) if transposed else tuple(tile)
+    aligned = x.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0
+    # operands of two dtypes: one of them is bf16
+    dtype = x.dtype if values.dtype == x.dtype else torch.bfloat16
+    inst = _choose(what, instance, DDS_INSTANCES, dds_takes,
+                   (m, tile, dtype, transposed, aligned),
+                   f"tile {tuple(tile)} (transposed: {transposed}), x "
+                   f"{x.dtype}, values {values.dtype} (16-byte aligned: "
+                   f"{aligned})")
     n_out = seq.n_out * ow
     y = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -545,8 +606,9 @@ def _dds_launch(x: torch.Tensor, values: torch.Tensor, seq: TileSequence, *,
         x.data_ptr(), values.data_ptr(), y.data_ptr(), ix["seg"].data_ptr(),
         ix["col"].data_ptr(), ix["tile"].data_ptr(), m, x.shape[1], n_out,
         seq.n_out, ow, iw, int(transposed), int(x.dtype == torch.bfloat16),
-        int(values.dtype == torch.bfloat16), stream)
-    _check_launch("dds", err)
+        int(values.dtype == torch.bfloat16), _DDS_CODE[inst],
+        dds_block_rows(m, seq.n_out, ow), stream)
+    _check_launch(what, err)
     return y
 
 
@@ -567,9 +629,12 @@ def dds_plain(x: torch.Tensor, w: KernelBSR,
 
 
 def dds(x: torch.Tensor, w: KernelBSR,
-        data: Optional[torch.Tensor] = None) -> torch.Tensor:
+        data: Optional[torch.Tensor] = None, *,
+        instance: Optional[str] = None) -> torch.Tensor:
     """Y(M, N) = X(M, K) @ W^T with tile skipping (kernel K4 over the pack's
-    row-sorted tiles). ``data`` overrides the pack's tile values."""
+    row-sorted tiles). ``data`` overrides the pack's tile values;
+    ``instance`` pins one of :data:`DDS_INSTANCES` on the card (it must take
+    the call), by default :func:`dds_instance` picks it."""
     data = tile_values(w, x) if data is None else data
     if x.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"dds: x {tuple(x.shape)} against W {w.shape}")
@@ -577,8 +642,8 @@ def dds(x: torch.Tensor, w: KernelBSR,
     _check_seq_values("dds", data, seq, w.tile)
     if not _device_route("dds", x, data):
         return dds_plain(x, w, data)
-    y = _dds_launch(x, data, seq, ow=w.tile[0], iw=w.tile[1],
-                    transposed=False)
+    y = _dds_launch("dds", x, data, seq, tile=w.tile, transposed=False,
+                    instance=instance)
     dds.launches += 1
     return y
 
@@ -592,9 +657,11 @@ def dds_t_plain(dy: torch.Tensor, w: KernelBSR,
 
 
 def dds_t(dy: torch.Tensor, w: KernelBSR,
-          data: Optional[torch.Tensor] = None) -> torch.Tensor:
+          data: Optional[torch.Tensor] = None, *,
+          instance: Optional[str] = None) -> torch.Tensor:
     """dX(M, K) = dY(M, N) @ W: kernel K4 on the column-sorted transposed
-    pattern, each tile read as its transpose in place."""
+    pattern, each tile read as its transpose in place; ``instance`` as for
+    :func:`dds`."""
     data = tile_values(w, dy) if data is None else data
     if dy.dim() != 2 or dy.shape[1] != w.shape[0]:
         raise ValueError(f"dds_t: dy {tuple(dy.shape)} against W {w.shape}")
@@ -602,8 +669,8 @@ def dds_t(dy: torch.Tensor, w: KernelBSR,
     _check_seq_values("dds_t", data, seq, w.tile)
     if not _device_route("dds_t", dy, data):
         return dds_t_plain(dy, w, data)
-    dx = _dds_launch(dy, data, seq, ow=w.tile[1], iw=w.tile[0],
-                     transposed=True)
+    dx = _dds_launch("dds_t", dy, data, seq, tile=w.tile, transposed=True,
+                     instance=instance)
     dds_t.launches += 1
     return dx
 
@@ -628,10 +695,12 @@ def plan_dds_t_plain(dy: torch.Tensor, data_rp: torch.Tensor,
 
 def plan_dds_t(dy: torch.Tensor, data_rp: torch.Tensor,
                t_schedule: TileSequence, *, k: int,
-               tile: Tuple[int, int]) -> torch.Tensor:
+               tile: Tuple[int, int],
+               instance: Optional[str] = None) -> torch.Tensor:
     """dX(M, K) = dY(M, N) @ W from the row-grouped (V, P, bn, bk) pack, on
     the transposed schedule (``exec_plan.plan_t_schedule``): kernel K4
-    reads the pack in place, each tile as its transpose."""
+    reads the pack in place, each tile as its transpose; ``instance`` as
+    for :func:`dds`."""
     bn, bk = tile
     if (dy.dim() != 2 or dy.shape[1] != t_schedule.n_in * bn
             or k != t_schedule.n_out * bk or data_rp.dim() != 4):
@@ -641,7 +710,8 @@ def plan_dds_t(dy: torch.Tensor, data_rp: torch.Tensor,
     _check_seq_values("plan_dds_t", values, t_schedule, tile)
     if not _device_route("plan_dds_t", dy, data_rp):
         return plan_dds_t_plain(dy, data_rp, t_schedule, k=k, tile=tile)
-    dx = _dds_launch(dy, values, t_schedule, ow=bk, iw=bn, transposed=True)
+    dx = _dds_launch("plan_dds_t", dy, values, t_schedule, tile=tile,
+                     transposed=True, instance=instance)
     plan_dds_t.launches += 1
     return dx
 
@@ -986,9 +1056,6 @@ def masked_matmul_plain(x: torch.Tensor, w_dense: torch.Tensor, tile_mask,
 # Both sum each output in one fmaf chain over the unmasked k in order.
 MASKED_INSTANCES = ("ring", "general")
 _MASKED_CODE = {"general": 0, "ring": 1}
-#: the ring's blocks take 32 rows of X where 64-row blocks would give the
-#: H100's 132 SMs fewer blocks than this
-MASKED_SMALL_GRID = 4 * 132
 
 
 def masked_takes(instance: str, m: int, tile: Tuple[int, int], x_dtype,
@@ -1013,12 +1080,9 @@ def masked_instance(m: int, tile: Tuple[int, int], x_dtype, w_dtype,
 
 
 def masked_block_rows(m: int, n: int, tile: Tuple[int, int]) -> int:
-    """Rows of X a ring block takes, from M and the N tiles alone: 64, or
-    32 where 64-row blocks would number fewer than
-    :data:`MASKED_SMALL_GRID`."""
-    bn = tile[0]
-    blocks = -(-m // 64) * (n // bn) * (-(-bn // 64))
-    return 32 if blocks < MASKED_SMALL_GRID else 64
+    """Rows of X a ring block takes, from M and the N tiles alone: K4's
+    rule (:func:`dds_block_rows`) over the N/bn output tiles."""
+    return dds_block_rows(m, n // tile[0], tile[0])
 
 
 def masked_matmul(x: torch.Tensor, w_dense: torch.Tensor, tile_mask, *,

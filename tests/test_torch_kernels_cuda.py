@@ -3,8 +3,9 @@ K4 (``csrc/dds.cu``), K5 (``csrc/sddmm.cu``), K6 (``csrc/plan_dds_q.cu``)
 and K7 (``csrc/masked.cu``) on the card against their plain versions, and
 the gradients of the two kernel-backed ops against the plain backends. K1
 and K6 run through each of their instances (``bsr_matmul.PLAN_INSTANCES``),
-K5 and K7 through theirs (``SDDMM_INSTANCES``, ``MASKED_INSTANCES``: the
-ring instances bitwise equal to general, K5's with one split).
+K4, K5 and K7 through theirs (``DDS_INSTANCES``, ``SDDMM_INSTANCES``,
+``MASKED_INSTANCES``: the ring instances bitwise equal to general, K5's
+with one split).
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -940,3 +941,180 @@ def test_sddmm_and_masked_instance_that_cannot_run_raises_on_card(
     with pytest.raises(RuntimeError, match="CUDA error"):
         bm.masked_matmul(xu, w, mask, tile=(32, 64), instance="ring")
     assert (bm.sddmm.launches, bm.masked_matmul.launches) == before
+
+
+# --------------------------------------------------------------------------
+# K4 (csrc/dds.cu) through each instance
+# --------------------------------------------------------------------------
+
+_K4_TILES = ((128, 128), (64, 64), (16, 64), (32, 1), (1, 32))
+
+
+def _k4_cases():
+    """(instance, M, dtype, tile) where the instance takes dds or dds_t."""
+    from repro_torch.kernels import bsr_matmul as bm
+    return [(inst, m, dtype, tile)
+            for inst in bm.DDS_INSTANCES for m in _K57_MS
+            for dtype in _K57_DTYPES for tile in _K4_TILES
+            if any(bm.dds_takes(inst, m, tile, dtype, t)
+                   for t in (False, True))]
+
+
+def _k4_case(rng, tile, m, dtype):
+    """A padded KernelBSR with an all-zero block row, its plan, and X, dY
+    (the plan's pack holds the same tiles as the KernelBSR)."""
+    wz, _, _ = _k57_weight(rng, tile)
+    pk = pack_bsr(wz, tile)
+    pk = pack_bsr(wz, tile, nnzt=pk.real_nnzt + 2)
+    plan = txp.build_plan(pack_bsr(wz, tile))
+    n, k = wz.shape
+    data = torch.from_numpy(pk.data).to("cuda", dtype)
+    rp = txp.pack_plan_data(plan, pack_bsr(wz, tile).data).to("cuda", dtype)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to("cuda", dtype)
+    dy = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to("cuda",
+                                                                  dtype)
+    return pk, data, plan, rp, x, dy
+
+
+def _k4_calls(pk, data, plan, rp, x, dy):
+    """(name, transposed, fn(instance), plain) of K4's three entry points."""
+    from repro_torch.kernels import bsr_matmul as bm
+    ts = txp.plan_t_schedule(plan)
+    k, tile = plan.shape[1], plan.tile
+    return [
+        ("dds", False, lambda i: bm.dds(x, pk, data, instance=i),
+         lambda: bm.dds_plain(x, pk, data)),
+        ("dds_t", True, lambda i: bm.dds_t(dy, pk, data, instance=i),
+         lambda: bm.dds_t_plain(dy, pk, data)),
+        ("plan_dds_t", True,
+         lambda i: bm.plan_dds_t(dy, rp, ts, k=k, tile=tile, instance=i),
+         lambda: bm.plan_dds_t_plain(dy, rp, ts, k=k, tile=tile))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,m,dtype,tile", _k4_cases())
+def test_dds_instances_match_plain_on_card(instance, m, dtype, tile):
+    """dds, dds_t and plan_dds_t through ``instance`` wherever it takes the
+    call (the ring at 64 and 32 rows a block): within the tolerance of the
+    plain version, one launch each, the all-zero block row exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(26)
+    case = _k4_case(rng, tile, m, dtype)
+    ran = 0
+    for name, transposed, fn, plain in _k4_calls(*case):
+        if not bm.dds_takes(instance, m, tile, dtype, transposed):
+            continue
+        ref = plain()
+        for rows in ((64, 32) if instance == "ring" else (None,)):
+            real = bm.dds_block_rows
+            if rows is not None:
+                bm.dds_block_rows = lambda *a, r=rows: r
+            try:
+                counter = getattr(bm, name)
+                before = counter.launches
+                y = fn(instance)
+            finally:
+                bm.dds_block_rows = real
+            assert counter.launches == before + 1 and y.dtype == dtype
+            assert _rel_err(y, ref) <= _BWD_TOL[dtype], (name, rows)
+            if not transposed:
+                assert float(y[:, :tile[0]].float().abs().max()) == 0.0
+        ran += 1
+    assert ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 3072])
+def test_dds_ring_sums_in_the_general_order_on_card(m):
+    """The ring (64- and 32-row blocks) is bitwise equal to general on all
+    three entry points, and each instance is bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(27)
+    for tile in ((128, 128), (64, 64), (16, 64)):
+        case = _k4_case(rng, tile, m, torch.float32)
+        for name, transposed, fn, _ in _k4_calls(*case):
+            assert bm.dds_instance(m, tile, torch.float32,
+                                   transposed) == "ring"
+            general = fn("general")
+            assert torch.equal(general, fn("general")), name
+            real = bm.dds_block_rows
+            try:
+                for rows in (64, 32):
+                    bm.dds_block_rows = lambda *a, r=rows: r
+                    ring = fn("ring")
+                    assert torch.equal(ring, fn("ring")), (name, rows)
+                    assert torch.equal(ring, general), (name, tile, rows)
+            finally:
+                bm.dds_block_rows = real
+            assert torch.equal(fn(None), general)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["ring", "general"])
+def test_dds_empty_run_gives_exact_zeros_on_card(instance):
+    """A transposed schedule with block column 1's tiles taken out: that
+    output block's run is empty and is written as exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(28)
+    tile = (128, 128)
+    w = rng.randn(768, 768).astype(np.float32)
+    w *= np.kron(rng.rand(6, 6) < 0.5, np.ones(tile, np.float32))
+    w[:, 128:256] = rng.randn(768, 128)
+    plan = txp.build_plan(pack_bsr(w, tile))
+    ts = txp.plan_t_schedule(plan)
+    keep = ts.row_ids != 1
+    cut = bm.TileSequence(ts.row_ids[keep], ts.col_seq[keep],
+                          ts.tile_seq[keep], n_out=ts.n_out, n_in=ts.n_in)
+    assert cut.seg[1] == cut.seg[2]
+    rp = txp.pack_plan_data(plan, pack_bsr(w, tile).data).cuda()
+    dy = torch.from_numpy(rng.randn(3072, 768).astype(np.float32)).cuda()
+    dx = bm.plan_dds_t(dy, rp, cut, k=768, tile=tile, instance=instance)
+    torch.cuda.synchronize()
+    assert float(dx[:, 128:256].abs().max()) == 0.0
+    assert float(dx.abs().max()) > 0.0
+    _close(dx, bm.plan_dds_t_plain(dy, rp, cut, k=768, tile=tile), 1e-5)
+
+
+@pytest.mark.cuda
+def test_dds_ring_that_cannot_run_raises_on_card(monkeypatch):
+    """A pinned ring on a call it cannot take raises in the wrapper (bf16,
+    a (32, 1) tile, an operand off 16 bytes) and, past that check, at the C
+    entry; the default picks general for those and runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(29)
+    pk, data, plan, rp, x, dy = _k4_case(rng, (32, 64), 40, torch.float32)
+    m, k = x.shape
+    buf = torch.empty(m * k + 1, device="cuda")
+    xu = buf[1:].view(m, k)
+    xu.copy_(x)
+    pk1, data1, _, _, x1, dy1 = _k4_case(rng, (32, 1), 40, torch.float32)
+    _close(bm.dds(xu, pk, data), bm.dds_plain(x, pk, data), 1e-5)
+    _close(bm.dds_t(dy1, pk1, data1), bm.dds_t_plain(dy1, pk1, data1), 1e-5)
+    before = (bm.dds.launches, bm.dds_t.launches, bm.plan_dds_t.launches)
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.dds(xu, pk, data, instance="ring")
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.dds(x.bfloat16(), pk, data.bfloat16(), instance="ring")
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.dds_t(dy1, pk1, data1, instance="ring")
+    with pytest.raises(ValueError, match="instance 'ring'"):
+        bm.plan_dds_t(dy.bfloat16(), rp.bfloat16(), txp.plan_t_schedule(plan),
+                      k=k, tile=(32, 64), instance="ring")
+    # past the Python check, the C entry refuses before launching
+    monkeypatch.setattr(bm, "dds_takes", lambda *a, **kw: True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.dds(xu, pk, data, instance="ring")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.dds(x.bfloat16(), pk, data.bfloat16(), instance="ring")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bm.dds_t(dy1, pk1, data1, instance="ring")
+    assert (bm.dds.launches, bm.dds_t.launches,
+            bm.plan_dds_t.launches) == before
