@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
-                           serving_auto,lm_serving,lm_serving_quant,training]
+                           serving_auto,lm_serving,lm_serving_quant,
+                           lm_serving_sched,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -99,6 +100,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
      profiler breakdown of one window, greedy-token agreement with the
      bf16-pack run (printed), decode_step logits within 5% of max|logits|
      of the bf16-pack servable's;
+  4b. lm_serving_sched: the same gemma3_4b (bf16 packs) through the rest of
+     the engine. Chunked prefill (SchedSpec(max_chunk=256, token_budget=
+     2048, decode_priority=True)) beside one-shot admission, dense and
+     paged KV, on lm_serving's prompts with the 1100-token one submitted
+     after two windows: every request done, K1 / K2 / K3 launches equal to
+     the layer routing (136 K1 a decode step, a one-shot prefill and a
+     chunk; each chunk of the direct chunked prefill checked on its own),
+     greedy-token agreement printed, a differing first token failing only
+     where the one-shot top-2 margin is at least twice the prefill logits'
+     gap, decode_step logits after chunked prefill within 5% of max|logits|
+     of the one-shot caches', ms per decode step, tokens/s, K1's instance
+     by chunk M and the longest gap between decode windows while the long
+     prompt prefilled (chunked and one-shot), a profiler breakdown of one
+     chunked window; SLO (fast_fail, max_queue_delay_s=1.0): a request past
+     its deadline and one whose projection misses it fail with DEADLINE, a
+     burst sized to twice the backlog bound is shed lowest priority first
+     (OVERLOAD), everything else done; sampling (temperature 0.8, top_k 64,
+     seed 1234): two runs bitwise equal, keys of 4 slots x 64 positions on
+     the card equal to the CPU's; int8 KV (kv_cache_quant, one-shot): no
+     K2 / K3, 136 K1 a step, decode_step logits within 5% of max|logits|
+     of the bf16-KV cache's, KV bytes of both; chaos: the 3rd prefill chunk
+     raises, exactly its request fails (prefill_error) and the others are
+     done, stats_dict()['watchdog'] present with 0 stalls of a 30 s
+     watchdog.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -2179,7 +2204,7 @@ def phase_lm_serving(seed: int):
 
     # decode_step with the flash kernels against the plain composition on
     # the same cache (four prefilled slots at ragged positions)
-    cache, tok, pos = _prefill_slots(servable, prompts[:4])
+    cache, tok, pos, _ = _prefill_slots(servable, prompts[:4])
     with torch.no_grad():
         with decode_kernel_override("flash"):
             before = flash_decode.launches
@@ -2209,14 +2234,15 @@ def phase_lm_serving(seed: int):
 
 
 def _prefill_slots(servable, prompts):
-    """A 4-slot decode cache with each prompt prefilled into its slot, the
-    greedy next tokens and the slots' positions."""
+    """A 4-slot decode cache with each prompt prefilled into its slot
+    (one-shot, as the engine admits), the greedy next tokens, the slots'
+    positions and each prompt's last-position logits row."""
     import numpy as np
     import torch
     dev = servable.device
     cache = servable.init_cache(4, 1280)
     sub = servable.init_cache(1, 1280)
-    toks, posl = [], []
+    toks, posl, rows = [], [], []
     for slot, p in enumerate(prompts):
         bucket = min(1280, 1 << (len(p) - 1).bit_length())
         padded = np.zeros((bucket,), np.int32)
@@ -2224,11 +2250,12 @@ def _prefill_slots(servable, prompts):
         sub, logits = servable.engine_prefill(
             sub, torch.from_numpy(padded).to(dev), len(p))
         servable.engine_write_slot(cache, slot, sub)
-        toks.append(int(torch.argmax(logits[len(p) - 1])))
+        rows.append(logits[len(p) - 1].float())
+        toks.append(int(torch.argmax(rows[-1])))
         posl.append(len(p))
     tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
     pos = torch.tensor(posl, dtype=torch.int32, device=dev)
-    return cache, tok, pos
+    return cache, tok, pos, rows
 
 
 # the int8-pack decode_step logits against the bf16-pack servable's on the
@@ -2348,7 +2375,7 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
           f"weights make near-ties, so this is printed, not gated)")
     outs = []
     for s_ in (sv, fp):
-        cache, tok, pos = _prefill_slots(s_, prompts[:4])
+        cache, tok, pos, _ = _prefill_slots(s_, prompts[:4])
         logits, _ = s_.decode_step(cache, tok, pos)
         outs.append(logits)
         del cache
@@ -2362,6 +2389,448 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
           err <= TOL_QUANT_DECODE * scale,
           "int8-pack decode logits disagree with the bf16 packs")
     return got
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the rest of the engine (SLO scheduling with chunked prefill,
+# sampling, int8 KV, chaos and the watchdog) on gemma3_4b
+# --------------------------------------------------------------------------
+
+# chunked prefill as a deployment turns it on: 256-token chunks, a budget of
+# 2048 prefill tokens a window, decode tokens reserved first
+SCHED_CHUNK = 256
+SCHED_BUDGET = 2048
+# index of the 1100-token prompt in LM_PROMPTS, submitted after two windows
+LONG = 3
+# the int8-KV decode_step logits against the bf16-KV cache's; and the
+# chunked-prefill caches' against the one-shot caches': the bar of the
+# flash-vs-xla check, 5% of max|logits|
+TOL_KV_DECODE = 5e-2
+SAMPLING = dict(temperature=0.8, top_k=64, seed=1234)
+
+
+def _chunk_prefill_slots(servable, prompts, k1_per_pass):
+    """The caches of ``_prefill_slots`` written chunk by chunk as the
+    engine's scheduler does (``_chunk_len`` tokens from position 0, each
+    chunk bucketed) through ``suffix_prefill``; every chunk is checked to
+    launch one K1 per packed projection and no K2 / K3. Returns (cache,
+    last-position logits rows, the chunk Ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    dev = servable.device
+    cache = servable.init_cache(4, 1280)
+    rows, ms = [], []
+    for slot, p in enumerate(prompts):
+        for start in range(0, len(p), SCHED_CHUNK):
+            c = min(SCHED_CHUNK, len(p) - start)
+            bucket = max(8, 1 << (c - 1).bit_length())
+            toks = np.zeros((bucket,), np.int32)
+            toks[:c] = p[start:start + c]
+            before = (plan_dds.launches, flash_decode.launches,
+                      paged_flash_decode.launches)
+            cache, logits = servable.suffix_prefill(
+                cache, torch.from_numpy(toks).to(dev), slot, start, c)
+            got = (plan_dds.launches - before[0],
+                   flash_decode.launches - before[1],
+                   paged_flash_decode.launches - before[2])
+            check(got == (k1_per_pass, 0, 0), f"a chunk of {c} tokens "
+                  f"launched K1/K2/K3 {got}, not ({k1_per_pass}, 0, 0)")
+            ms.append(bucket)
+        rows.append(logits[c - 1].float())
+    return cache, rows, ms
+
+
+def _drive_staggered(eng, prompts, n_new):
+    """``lm_serving``'s traffic with the long prompt held back: every other
+    prompt at once, the long one after two decode windows. Returns the
+    handles (in LM_PROMPTS order) and the longest host-clock gap between two
+    decode windows while the long prompt waited for its first token."""
+    import torch
+    first = [p for i, p in enumerate(prompts) if i != LONG]
+    hs = [eng.submit(p, max_new_tokens=n_new) for p in first]
+    ends = []
+
+    def step():
+        w = eng.stats.windows
+        more = eng.step()
+        if eng.stats.windows > w:
+            torch.cuda.synchronize()
+            ends.append(time.monotonic())
+        return more
+    while eng.stats.windows < 2 and step():
+        pass
+    t_sub = time.monotonic()
+    long_h = eng.submit(prompts[LONG], max_new_tokens=n_new)
+    while step():
+        pass
+    t_first = long_h.first_token_at
+    gaps = [b - a for a, b in zip(ends, ends[1:])
+            if b > t_sub and a < t_first]
+    hs.insert(LONG, long_h)
+    return hs, max(gaps) if gaps else float("nan")
+
+
+def _margin_check(name, one_rows, chunk_rows):
+    """First tokens of one-shot against chunked prefill logits: printed; a
+    differing argmax fails only where the one-shot top-2 margin is at least
+    twice the two rows' max |difference| (elsewhere the rows are a near
+    tie)."""
+    import torch
+    for i, (a, b) in enumerate(zip(one_rows, chunk_rows)):
+        d = float((a - b).abs().max())
+        top2 = torch.topk(a, 2).values
+        margin = float(top2[0] - top2[1])
+        same = int(a.argmax()) == int(b.argmax())
+        print(f"[lm_serving_sched] {name} prompt {i}: first token "
+              f"{'equal' if same else 'differs'}, max|d logits| {d:.4e}, "
+              f"one-shot top-2 margin {margin:.4e}")
+        check(same or margin < 2 * d, f"{name} prompt {i}: the chunked "
+              f"prefill's first token differs where the one-shot margin "
+              f"{margin:.4e} is >= 2 x {d:.4e}")
+
+
+def phase_lm_serving_sched(seed: int, card: str, servable=None):
+    """gemma3_4b at full width and depth (bf16 packs, the lm_serving
+    servable) through the rest of the engine: chunked prefill in the dense
+    and the paged layout, SLO fast-fail and overload shedding, temperature
+    / top-k sampling, the int8 KV cache, and the chaos sites with the
+    watchdog."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.bsr_matmul import plan_instance
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.models import prng
+    from repro_torch.models.sampling import sample_tokens, slot_keys
+    from repro_torch.models.api import init_model
+    from repro_torch.runtime.chaos import SITE_PREFILL_CHUNK, ChaosInjector
+    from repro_torch.serving import (EngineRequest, FailureReason, SchedSpec,
+                                     Servable, ServingSpec, prepare_servable)
+    cfg = _lm_config()
+    n_layers, n_global, n_local = _layer_counts(cfg)
+    if servable is None:
+        params = init_model(seed, cfg, device="cuda")
+        servable = prepare_servable(params, cfg, ServingSpec(
+            tile=(128, 128), sparsity=0.8, prune="tied", fuse_qkv=True,
+            backend="plan_pallas", decode_kernel="flash"), device="cuda")
+        del params
+    k1 = sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+             for k in servable.packs)
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+    n_oneshot = sum(1 for p in prompts if len(p) <= SCHED_CHUNK)
+    sched = SchedSpec(max_chunk=SCHED_CHUNK, token_budget=SCHED_BUDGET,
+                      decode_priority=True)
+    print(f"[lm_serving_sched] card: {card}; {sched}; prompts {LM_PROMPTS}, "
+          f"the {LM_PROMPTS[LONG]}-token one after two windows")
+    counts = {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0}
+
+    def zero():
+        plan_dds.launches = 0
+        flash_decode.launches = 0
+        paged_flash_decode.launches = 0
+
+    def read():
+        got = {"plan_dds": plan_dds.launches,
+               "flash_decode": flash_decode.launches,
+               "paged_flash_decode": paged_flash_decode.launches}
+        for key, v in got.items():
+            counts[key] += v
+        return got
+
+    # --- 1. chunked prefill beside one-shot, dense and paged layouts
+    tokens = {}
+    for layout in ("dense", "paged"):
+        runs = {}
+        for kind in ("one-shot", "chunked"):
+            eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                                  kv_layout=layout,
+                                  sched=sched if kind == "chunked" else None)
+            check(eng.kv_layout == layout and eng._chunking ==
+                  (kind == "chunked"), f"{layout} {kind}: engine set up "
+                  f"as {eng.kv_layout}, chunking {eng._chunking}")
+            eng.submit(prompts[0][:8], max_new_tokens=2)      # warm-up
+            eng.run()
+            eng.stats = type(eng.stats)()
+            torch.cuda.synchronize()
+            zero()              # the counted run: counts 0 just before
+            t0 = time.perf_counter()
+            hs, gap = _drive_staggered(eng, prompts, LM_NEW_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read() if kind == "chunked" else None
+            es = eng.stats
+            for h in hs:
+                check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+                      f"{layout} {kind}: request {h.req_id} ended "
+                      f"{h.status} ({h.failure}) with {len(h.tokens)} tokens")
+            runs[kind] = [list(h.tokens) for h in hs]
+            decode_tokens = es.tokens_generated - es.prefills
+            print(f"[lm_serving_sched] {layout} {kind}: {len(hs)} requests "
+                  f"done, {es.steps} decode steps in {es.windows} windows, "
+                  f"{es.prefills} prefills, {es.prefill_chunks} chunks; "
+                  f"{1e3 * es.decode_s / es.steps:.3f} ms per decode step, "
+                  f"{decode_tokens / es.decode_s:.1f} decode tokens/s, "
+                  f"wall {wall:.3f} s; longest gap between decode windows "
+                  f"while the long prompt prefilled {1e3 * gap:.3f} ms "
+                  f"(host clock; {card})")
+            if kind == "chunked":
+                want = {"plan_dds": k1 * (es.steps + n_oneshot
+                                          + es.prefill_chunks),
+                        "flash_decode": es.steps * (
+                            n_layers if layout == "dense" else n_local),
+                        "paged_flash_decode": es.steps * (
+                            0 if layout == "dense" else n_global)}
+                print(f"[lm_serving_sched] {layout} chunked: launches {got} "
+                      f"(expected {want}: {k1} K1 a decode step, a one-shot "
+                      f"prefill and a chunk)")
+                check(got == want, f"{layout} chunked: launch counts {got} "
+                      f"differ from the layer routing {want}")
+                check(es.prefill_chunks > len(prompts) - n_oneshot,
+                      f"{layout}: {es.prefill_chunks} chunks is no "
+                      f"multi-chunk prefill")
+            if layout == "dense" and kind == "one-shot":
+                bf16_kv_bytes = eng.kv_stats()["kv_bytes_total"]
+            del eng
+        agree = sum(a == b for ra, rb in zip(runs["one-shot"],
+                                             runs["chunked"])
+                    for a, b in zip(ra, rb))
+        print(f"[lm_serving_sched] {layout}: greedy tokens chunked vs "
+              f"one-shot {agree} of {len(prompts) * LM_NEW_TOKENS} equal")
+        tokens[layout] = runs["chunked"]
+    chunk_ms = sorted({max(8, 1 << (min(SCHED_CHUNK, len(p) - s) - 1)
+                           .bit_length())
+                       for p in prompts if len(p) > SCHED_CHUNK
+                       for s in range(0, len(p), SCHED_CHUNK)})
+    print(f"[lm_serving_sched] K1 instance by chunk M: "
+          f"{ {m: plan_instance(m, (128, 128), torch.bfloat16, torch.bfloat16) for m in chunk_ms} }")
+
+    # prefill logits and decode_step logits: one-shot against chunked
+    for lo in (0, 4):
+        group = prompts[lo:lo + 4]
+        cache1, tok, pos, rows1 = _prefill_slots(servable, group)
+        cache2, rows2, _ = _chunk_prefill_slots(servable, group, k1)
+        _margin_check(f"prompts {lo}..{lo + len(group) - 1}", rows1, rows2)
+        if lo:
+            continue
+        y1, _ = servable.decode_step(cache1, tok, pos)
+        y2, _ = servable.decode_step(cache2, tok, pos)
+        torch.cuda.synchronize()
+        err = float((y1 - y2).abs().max())
+        scale = float(y1.abs().max())
+        print(f"[lm_serving_sched] decode_step logits after chunked vs "
+              f"one-shot prefill (prompts {LM_PROMPTS[:4]}): max|d|="
+              f"{err:.4e}, max|logits|={scale:.4e}, tol "
+              f"{TOL_KV_DECODE * scale:.4e}")
+        check(bool(torch.isfinite(y2).all()) and
+              err <= TOL_KV_DECODE * scale, "decode_step logits after a "
+              "chunked prefill disagree with the one-shot caches'")
+        del cache1, cache2
+
+    # one chunked window under the profiler: three slots decoding, the long
+    # prompt admitted and prefilled chunk by chunk in the same step
+    prof = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                           sched=sched)
+    for i in (0, 1, 5):
+        prof.submit(prompts[i], max_new_tokens=LM_NEW_TOKENS)
+    prof.step()
+    prof.submit(prompts[LONG], max_new_tokens=LM_NEW_TOKENS)
+    label = (f"chunked window ({LM_PROMPTS[LONG]}-token prompt in "
+             f"{SCHED_CHUNK}-token chunks, then 8 decode steps of 4 slots)")
+    _kernel_share(label, _profile(label, prof.step, top=14))
+    print(f"[lm_serving_sched] (profile on {card})")
+    del prof
+
+    # --- 2. SLO: deadline fast-fail and overload shedding. The bound on
+    # the queue delay is one request's service time as this card measures
+    # it (a warm-up engine's rates), so four queued requests fit and a
+    # burst of ten does not
+    probe = EngineRequest(req_id=-1, prompt=np.zeros(37, np.int32),
+                          max_new_tokens=LM_NEW_TOKENS)
+    eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8)
+    eng.submit(prompts[0], max_new_tokens=LM_NEW_TOKENS)
+    eng.run()
+    slo = SchedSpec(fast_fail=True,
+                    max_queue_delay_s=round(eng._service_estimate_s(probe),
+                                            3))
+    eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                          sched=slo)
+    warm = eng.submit(prompts[0], max_new_tokens=LM_NEW_TOKENS)
+    eng.run()
+    check(warm.status == "done", "SLO warm-up request not done")
+    expired = eng.submit(prompts[0], max_new_tokens=8, deadline_s=-1.0)
+    projected = eng.submit(prompts[5], max_new_tokens=LM_NEW_TOKENS,
+                           deadline_s=1e-3)
+    for h in (expired, projected):
+        check(h.status == "failed" and h.failure.code ==
+              FailureReason.DEADLINE, f"request {h.req_id} past its "
+              f"deadline ended {h.status} ({h.failure})")
+    # the four slots held, one admission a window, by requests of a
+    # priority above the burst's (so the burst preempts none)
+    blockers = []
+    for p in (prompts[0], prompts[5], prompts[0], prompts[5]):
+        blockers.append(eng.submit(p, max_new_tokens=2 * LM_NEW_TOKENS,
+                                   priority=2))
+        eng.step()
+    check(all(h.status == "active" for h in blockers),
+          f"blockers not active: {[(h.status, h.failure) for h in blockers]}")
+    est = eng._service_estimate_s(probe)
+    burst = [eng.submit(prompts[5], max_new_tokens=LM_NEW_TOKENS,
+                        priority=i % 2) for i in range(10)]
+    eng.run()
+    shed = [h for h in burst if h.status == "shed"]
+    kept = [h for h in burst if h.status != "shed"]
+    print(f"[lm_serving_sched] SLO: estimated service {est:.3f} s a request "
+          f"(measured rates, {card}); a burst of {len(burst)} beyond "
+          f"max_queue_delay_s={slo.max_queue_delay_s}: {len(shed)} shed "
+          f"(priorities {[h.priority for h in shed]}), {len(kept)} served "
+          f"(priorities {[h.priority for h in kept]}); deadline misses "
+          f"{eng.stats.deadline_misses}")
+    check(shed and all(h.failure.code == FailureReason.OVERLOAD
+                       for h in shed), "the burst was not shed (OVERLOAD)")
+    check(max(h.priority for h in shed) <= min(h.priority for h in kept),
+          "shedding did not take the lowest priority first")
+    for h in [warm] + blockers + kept:
+        check(h.status == "done", f"SLO request {h.req_id} ended "
+              f"{h.status} ({h.failure})")
+    eng.verify_invariants()
+    del eng
+
+    # --- 3. sampling: temperature 0.8, top-k 64, seed 1234, dense
+    runs = []
+    for _ in range(2):
+        eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                              **SAMPLING)
+        eng.submit(prompts[0][:8], max_new_tokens=2)          # warm-up
+        eng.run()
+        eng.stats = type(eng.stats)()
+        zero()
+        hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+        eng.run()
+        read()
+        for h in hs:
+            check(h.status == "done", f"sampled request {h.req_id} ended "
+                  f"{h.status} ({h.failure})")
+        runs.append([list(h.tokens) for h in hs])
+        es = eng.stats
+        del eng
+    same = sum(a == b for ra, rb in zip(runs[0], tokens["dense"])
+               for a, b in zip(ra, rb))
+    print(f"[lm_serving_sched] sampling {SAMPLING}: two runs bitwise equal "
+          f"{runs[0] == runs[1]}; {same} of {len(prompts) * LM_NEW_TOKENS} "
+          f"tokens equal to the greedy run (random full-width weights: "
+          f"top-2 logit margins of ~20, so T=0.8 rarely leaves the argmax); "
+          f"{1e3 * es.decode_s / es.steps:.3f} ms per decode step ({card})")
+    check(runs[0] == runs[1], "two sampled runs gave different tokens")
+    key_d = prng.PRNGKey(SAMPLING["seed"], device="cuda")
+    key_h = prng.PRNGKey(SAMPLING["seed"])
+    pos = torch.arange(-1, 255, dtype=torch.int64).reshape(4, 64)
+    keys_d = torch.stack([slot_keys(key_d, pos[:, j].cuda())
+                          for j in range(64)]).cpu()
+    keys_h = torch.stack([slot_keys(key_h, pos[:, j]) for j in range(64)])
+    check(torch.equal(keys_d, keys_h), "threefry keys on the card differ "
+          "from the CPU's")
+    # the sampler itself on the card against the CPU, on logits flat enough
+    # that it draws: 64 rows of gemma3_4b's vocabulary at unit scale
+    logits = torch.from_numpy(np.random.RandomState(seed + 5).randn(
+        64, cfg.vocab_size).astype(np.float32))
+    row_pos = torch.arange(64, dtype=torch.int32) * 17 - 1
+    drawn = {}
+    for top_k in (0, SAMPLING["top_k"]):
+        kw = dict(temperature=SAMPLING["temperature"], top_k=top_k)
+        got = sample_tokens(logits.cuda(), key_d, row_pos.cuda(), **kw).cpu()
+        want = sample_tokens(logits, key_h, row_pos, **kw)
+        check(torch.equal(got, want), f"sampled tokens (top_k={top_k}) on "
+              f"the card differ from the CPU's")
+        drawn[top_k] = int((got != logits.argmax(-1)).sum())
+    print(f"[lm_serving_sched] sampling keys of 4 slots x 64 positions: "
+          f"card == CPU bitwise; sample_tokens on 64 unit-scale rows: card "
+          f"== CPU, {drawn} rows (by top_k) away from the argmax")
+
+    # --- 4. int8 KV: dense layout, one-shot
+    cfg8 = dataclasses.replace(cfg, kv_cache_quant=True)
+    sv8 = Servable(servable.params, cfg8, servable.spec, servable.packs,
+                   servable.registry, servable.device)
+    eng = sv8.engine(max_slots=4, cache_len=1280, sync_every=8)
+    eng.submit(prompts[0][:8], max_new_tokens=2)
+    eng.run()
+    eng.stats = type(eng.stats)()
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read()
+    es = eng.stats
+    for h in hs:
+        check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+              f"int8 KV: request {h.req_id} ended {h.status} ({h.failure})")
+    want = {"plan_dds": k1 * (es.steps + es.prefills), "flash_decode": 0,
+            "paged_flash_decode": 0}
+    int8_bytes = eng.kv_stats()["kv_bytes_total"]
+    decode_tokens = es.tokens_generated - es.prefills
+    print(f"[lm_serving_sched] int8 KV: {len(hs)} requests done, "
+          f"{es.steps} decode steps, launches {got} (expected {want}); "
+          f"KV cache bytes {int8_bytes} int8 vs {bf16_kv_bytes} bf16 "
+          f"({int8_bytes / bf16_kv_bytes:.3f}); "
+          f"{1e3 * es.decode_s / es.steps:.3f} ms per decode step, "
+          f"{decode_tokens / es.decode_s:.1f} decode tokens/s, wall "
+          f"{wall:.3f} s ({card})")
+    check(got == want, f"int8 KV: launch counts {got} differ from {want}")
+    int8_tokens = [list(h.tokens) for h in hs]
+    del eng
+    outs = []
+    for s_ in (sv8, servable):
+        cache, tok, pos, _ = _prefill_slots(s_, prompts[:4])
+        logits, _ = s_.decode_step(cache, tok, pos)
+        outs.append(logits)
+        del cache
+    torch.cuda.synchronize()
+    err = float((outs[0] - outs[1]).abs().max())
+    scale = float(outs[1].abs().max())
+    agree = sum(a == b for ra, rb in zip(int8_tokens, tokens["dense"])
+                for a, b in zip(ra, rb))
+    print(f"[lm_serving_sched] decode_step logits, int8 vs bf16 KV: "
+          f"max|d|={err:.4e}, max|logits|={scale:.4e}, tol "
+          f"{TOL_KV_DECODE * scale:.4e}; greedy tokens equal to the bf16-KV "
+          f"chunked run {agree} of {len(prompts) * LM_NEW_TOKENS}")
+    check(bool(torch.isfinite(outs[0]).all()) and
+          err <= TOL_KV_DECODE * scale,
+          "int8-KV decode logits disagree with the bf16 KV cache's")
+
+    # --- 5. chaos and the watchdog: the 3rd prefill chunk raises
+    chaos = ChaosInjector()
+    chaos.inject(SITE_PREFILL_CHUNK, at=3, exc=RuntimeError("injected "
+                                                           "chunk fault"))
+    eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                          sched=sched, chaos=chaos, watchdog_timeout_s=30.0)
+    try:
+        hs = [eng.submit(prompts[i], max_new_tokens=LM_NEW_TOKENS)
+              for i in (2, 1, 0)]       # 700 (3 chunks), 300, 37 tokens
+        eng.run()
+        wd = eng.stats_dict().get("watchdog")
+    finally:
+        eng.close()
+    print(f"[lm_serving_sched] chaos: {[(h.status, str(h.failure)) for h in hs]}"
+          f"; {chaos.count(SITE_PREFILL_CHUNK)} chunk hits; watchdog {wd}")
+    check(hs[0].status == "failed" and hs[0].failure.code ==
+          FailureReason.PREFILL_ERROR and "injected chunk fault" in
+          hs[0].failure.message, "the request of the 3rd chunk did not "
+          "fail with its reason")
+    check(all(h.status == "done" for h in hs[1:]), "a request the fault "
+          "did not target failed")
+    check(wd is not None and wd["stalls"] == 0,
+          f"stats_dict()['watchdog'] is {wd}, not present with 0 stalls")
+    eng.verify_invariants()
+    return counts
 
 
 def _sum_group(recs):
@@ -2407,7 +2876,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serving,serving_quant,serving_auto,"
-                            "lm_serving,lm_serving_quant,training")
+                            "lm_serving,lm_serving_quant,lm_serving_sched,"
+                            "training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2447,6 +2917,9 @@ def main() -> int:
         if "lm_serving_quant" in phases:
             launches["lm_serving_quant"] = phase_lm_serving_quant(
                 args.seed, lm_fp, lm_tokens)
+        if "lm_serving_sched" in phases:
+            launches["lm_serving_sched"] = phase_lm_serving_sched(
+                args.seed, card, lm_fp)
         del lm_fp
         if "training" in phases:
             launches["training"] = phase_training(args.seed)

@@ -86,7 +86,7 @@ _ENV_STUB = "REPRO_AUTOTUNE_STUB"
 #: shard fields) read as empty and are rewritten at this version
 CACHE_VERSION = 2
 
-_ITEM_SHARD = "ROADMAP.md Queue 1 slice 6 (sharding)"
+_ITEM_SHARD = "ROADMAP.md Queue 1 item 6 (sharding)"
 
 
 def stub_mode() -> bool:

@@ -307,8 +307,10 @@ def plan_instance(m: int, tile: Tuple[int, int], x_dtype, v_dtype,
     """The K1 / K6 instance for a call: the first of
     :data:`PLAN_INSTANCES` that takes it (:func:`instance_takes`). Chosen
     before the launch, from the shapes, dtypes and alignment alone."""
-    return next(i for i in PLAN_INSTANCES
-                if instance_takes(i, m, tile, x_dtype, v_dtype, aligned))
+    return _choose("plan_dds", None, PLAN_INSTANCES, instance_takes,
+                   (m, tile, x_dtype, v_dtype, aligned),
+                   f"M={m}, tile {tuple(tile)}, x {x_dtype}, values "
+                   f"{v_dtype} (16-byte aligned: {aligned})")
 
 
 def plan_smem_bytes(instance: str, x_dtype, v_dtype) -> int:
@@ -329,9 +331,14 @@ def _choose(what: str, instance: Optional[str], instances, takes, args,
             desc: str) -> str:
     """The instance that runs a call: by default the first of ``instances``
     that takes it (``takes(i, *args)``); a pinned ``instance`` that does
-    not take it raises."""
+    not take it raises, and so does a call no instance takes (nothing is
+    padded to fit one)."""
     if instance is None:
-        return next(i for i in instances if takes(i, *args))
+        inst = next((i for i in instances if takes(i, *args)), None)
+        if inst is None:
+            raise ValueError(f"{what}: no instance of {tuple(instances)} "
+                             f"takes {desc}")
+        return inst
     if not takes(instance, *args):
         raise ValueError(f"{what}: instance {instance!r} does not take "
                          f"{desc}")

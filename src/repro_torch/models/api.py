@@ -6,7 +6,7 @@ both families. Decode caches are preallocated and updated **in place**
 (where the reference returns updated copies and its engine donates the old
 buffers): every function below that takes a cache writes into it and
 returns the same tree. The other families come with ROADMAP.md Queue 1
-slice 5; audio (enc-dec) decoding with it too.
+item 4; audio (enc-dec) decoding with it too.
 """
 from __future__ import annotations
 
@@ -16,10 +16,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import bert as bert_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import prng
 from repro_torch.models.attention import as_slot_positions
 from repro_torch.models.sampling import sample_tokens
 
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
 _FAMILIES = ("bert", "dense")
 
 
@@ -87,10 +88,13 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
 def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
                 packs=None, remaining=None, eos_id=None, key=None,
                 temperature: float = 0.0, top_k: int = 0):
-    """``n_steps`` decode steps with greedy sampling, per-slot EOS / token
-    budget handling and position bookkeeping all on the device: a Python
-    loop that never reads a device value, so the host syncs once per window
-    (when the caller reads the results).
+    """``n_steps`` decode steps with sampling, per-slot EOS / token budget
+    handling and position bookkeeping all on the device: a Python loop that
+    never reads a device value, so the host syncs once per window (when the
+    caller reads the results). ``key`` / ``temperature`` / ``top_k``
+    configure sampling (``models/sampling.py``; temperature 0 = greedy);
+    the key is folded by (slot, position), so fused and per-step decoding
+    sample alike. ``key`` None is ``PRNGKey(0)``, as in the reference.
 
     token (B, 1) int; pos scalar or (B,) (pos < 0 = inactive, a no-op row);
     ``remaining`` optional (B,) token budget (a slot that spends it
@@ -117,6 +121,8 @@ def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
         eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
     else:
         eos = torch.as_tensor(eos_id, device=dev).to(torch.int32).expand(b)
+    if key is None:
+        key = prng.PRNGKey(0, device=dev)
     bad = torch.zeros((b,), dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -158,8 +164,9 @@ def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None,
 def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
                    length=None, packs=None):
     """Prefill only the suffix of a prompt whose first ``start`` tokens are
-    already resident in slot ``slot`` of the batched paged engine cache
-    (the prefix-cache hit path; see lm.prefill_suffix)."""
+    already resident in slot ``slot`` of the batched engine cache: the
+    paged prefix-cache hit path and the chunked prefill of the SLO
+    scheduler, dense or paged, share this entry point (lm.prefill_suffix)."""
     _lm_only(cfg)
     return lm_mod.prefill_suffix(params, cache, cfg, tokens, slot, start,
                                  length, packs=packs)

@@ -11,10 +11,14 @@ returns an updated copy of the cache (and its serving engine donates the
 old buffers to the compiled step), every cached branch here writes the new
 K/V rows and positions into the given tensors and returns the same dict.
 
-Not ported here: the int8 KV cache (``kv_cache_quant``), cross-attention
-(``kv_override``, the audio family), the dense chunk-prefill branch of the
-SLO scheduler and the flash-attention backward; each raises, naming the
-ROADMAP.md item that brings it.
+With ``cfg.kv_cache_quant`` the dense slot caches hold int8 K/V with one
+bf16 scale per (slot, position, head); decode then dequantizes the whole
+cache and runs the plain ``decode_attention`` composition, as the reference
+does (K2/K3 take bf16 / fp32 caches only).
+
+Not ported here: cross-attention (``kv_override``, the audio family) and the
+flash-attention backward; each raises, naming the ROADMAP.md item that
+brings it.
 """
 from __future__ import annotations
 
@@ -28,9 +32,7 @@ from repro_torch.models.common import (apply_rope, init_linear, linear,
 
 NEG_INF = -1e30
 
-_ITEM_INT8 = "ROADMAP.md Queue 1 item 11 (the int8 KV cache)"
-_ITEM_SCHED = "ROADMAP.md Queue 1 item 11 (SchedSpec chunked prefill)"
-_ITEM_AUDIO = "ROADMAP.md Queue 1 slice 5 (the audio family)"
+_ITEM_AUDIO = "ROADMAP.md Queue 1 item 4 (the audio family)"
 
 
 def as_slot_positions(pos, batch, device=None):
@@ -298,13 +300,16 @@ def init_cache_attn(cfg, batch, cache_len, window=0, dtype=None, paged=None,
     the pooled layout: K/V live in (n_pages, page_size, Hkv, D) page pools
     addressed through a per-slot ``page_table`` (batch, T // page_size)
     (-1 = unmapped); ``pos_map`` keeps its dense (batch, T) form. Ring
-    caches (window > 0) stay slot-dense."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError(f"kv_cache_quant comes with {_ITEM_INT8}")
+    caches (window > 0) stay slot-dense. With ``cfg.kv_cache_quant`` K/V
+    are int8 with bf16 scales ``k_scale`` / ``v_scale`` (batch, T, Hkv)."""
     t = min(cache_len, window) if window > 0 else cache_len
     dtype = dtype or cfg.tdtype
     i32 = torch.int32
     if paged is not None and window == 0:
+        if cfg.kv_cache_quant:
+            raise NotImplementedError(
+                "kv_layout='paged' does not compose with kv_cache_quant yet"
+                " (int8 page pools + per-page scales are future work)")
         npg = paged.table_width(cache_len)
         pshape = (paged.n_pages, paged.page_size, cfg.n_kv_heads,
                   cfg.head_dim)
@@ -315,26 +320,105 @@ def init_cache_attn(cfg, batch, cache_len, window=0, dtype=None, paged=None,
                 "pos_map": torch.full((batch, t), -1, dtype=i32,
                                       device=device)}
     shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device),
+                "pos_map": torch.full((batch, t), -1, dtype=i32,
+                                      device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos_map": torch.full((batch, t), -1, dtype=i32, device=device)}
 
 
+def _quantize_kv(x):
+    """(B, S, H, D) -> int8 values + per-(B, S, H) bf16 scales: symmetric
+    absmax over D, each step the reference's IEEE fp32 operation (division
+    by a tensor, round half to even, clip), the scale rounded to bf16 only
+    after the values are quantized."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its rounded reciprocal, which is not the reference's IEEE quotient
+    q_max = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(amax, 1e-6) / q_max
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
 def _write_prefill_kv(cache, k, v, length):
     """One-pass prompt prefill, in place: replace the slot cache's contents
-    with the K/V of positions 0..length-1 (k/v: (B, S>=length, Hkv, D)).
-    Ring caches keep the window-latest positions; every other slot becomes
-    empty (zeros, position -1), so a reused cache keeps nothing of its
-    previous prompt."""
+    with the K/V of positions 0..length-1 (k/v: (B, S>=length, Hkv, D)),
+    quantized first for an int8 cache. Ring caches keep the window-latest
+    positions; every other slot becomes empty (zeros, position -1), so a
+    reused cache keeps nothing of its previous prompt."""
     b, s = k.shape[0], k.shape[1]
     t = cache["k"].shape[1]
     src, slot_pos = prefill_slot_sources(t, length, s, device=k.device)
-    keep = (slot_pos >= 0).reshape(1, t, 1, 1)
-    zero = torch.zeros((), dtype=cache["k"].dtype, device=k.device)
-    cache["k"].copy_(torch.where(keep, k[:, src].to(zero.dtype), zero))
-    cache["v"].copy_(torch.where(keep, v[:, src].to(zero.dtype), zero))
+    if "k_scale" in cache:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        vals = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        vals = {"k": k, "v": v}
+    for name, x in vals.items():
+        buf = cache[name]
+        keep = (slot_pos >= 0).reshape((1, t) + (1,) * (buf.dim() - 2))
+        zero = torch.zeros((), dtype=buf.dtype, device=k.device)
+        buf.copy_(torch.where(keep, x[:, src].to(buf.dtype), zero))
     cache["pos_map"].copy_(slot_pos[None].expand(b, t))
     return cache
+
+
+def _suffix_prefill_dense(q, k, v, cache, *, window, length, slot, start):
+    """Dense chunk prefill: one slot's next prompt slice (q/k/v of S
+    positions from ``start``, the first ``length`` real) against the
+    batched slot cache. Attention runs before the cache write, over the
+    slot's ring content concatenated with the fresh chunk K/V: writing
+    first would let the chunk's tail overwrite ring slots (slot = pos % T)
+    that its earlier queries still attend. Then the chunk is written
+    latest-wins: ``prefill_slot_sources``' plan shifted to absolute
+    positions start..start+length-1; ring slots whose latest congruent
+    position predates the chunk keep their content. Returns the attention
+    output (1, S, Hq, D); the cache is written in place."""
+    if q.shape[0] != 1:
+        raise ValueError("a chunk prefill takes one slot's tokens")
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "chunked prefill does not compose with kv_cache_quant: the "
+            "one-shot path attends unquantized chunk K/V, so a chunked run "
+            "could not be token-exact against it")
+    s, dev = q.shape[1], q.device
+    t = cache["k"].shape[1]
+    ck_row, cv_row = cache["k"][slot], cache["v"][slot]          # (T,H,D)
+    pm_row = cache["pos_map"][slot]                              # (T,)
+    pos_i = start + torch.arange(s, device=dev, dtype=torch.int32)
+    validw = torch.arange(s, device=dev) < length
+    k_eff = torch.cat([ck_row[None], k.to(ck_row.dtype)], dim=1)  # (1,T+S,..)
+    v_eff = torch.cat([cv_row[None], v.to(cv_row.dtype)], dim=1)
+    kvpos = torch.cat([pm_row, torch.where(validw, pos_i,
+                                           torch.full_like(pos_i, -1))])
+    qpos = pos_i[None, :, None]                                  # (1,S,1)
+    ok = (kvpos[None, None, :] >= 0) & (kvpos[None, None, :] <= qpos)
+    if window > 0:
+        ok = ok & ((qpos - kvpos[None, None, :]) < window)
+    out = masked_attention(q, k_eff, v_eff, ok)
+    j = torch.arange(t, device=dev, dtype=torch.int64)
+    last = start + length - 1
+    src_abs = j + t * torch.div(last - j, t, rounding_mode="floor")
+    okw = (src_abs >= start) & (src_abs <= last)
+    src_rel = (src_abs - start).clamp(0, s - 1)
+    keep = okw.reshape(t, 1, 1)
+    ck_row.copy_(torch.where(keep, k[0][src_rel].to(ck_row.dtype), ck_row))
+    cv_row.copy_(torch.where(keep, v[0][src_rel].to(cv_row.dtype), cv_row))
+    pm_row.copy_(torch.where(okw, src_abs.to(pm_row.dtype), pm_row))
+    return out
 
 
 def _suffix_prefill_paged(p, q, k, v, cache, packs, *, length, page_slot,
@@ -383,7 +467,10 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
     off its pools and, with ``page_slot``/``page_start`` and S > 1, runs
     the shared-prefix suffix prefill. Whole-cache prefill on a paged layout
     is not defined: the engine prefills a dense batch-1 sub-cache and
-    page-writes it (``lm.write_slot_paged``).
+    page-writes it (``lm.write_slot_paged``). A dense cache with
+    ``page_slot``/``page_start`` and S > 1 is the same contract on slot
+    storage, the chunk prefill of the SLO scheduler
+    (``_suffix_prefill_dense``; not for int8 caches).
 
     When the sparse export fused the q/k/v projections (``packs['wqkv']``),
     one block-sparse matmul produces all three and the output is split at
@@ -416,24 +503,23 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                        rotary_fraction=cfg.rotary_fraction)
 
     paged = cache is not None and "k_pages" in cache
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError(f"kv_cache_quant comes with {_ITEM_INT8}")
     if cache is not None and s > 1 and page_slot is not None:
-        if not paged:
-            raise NotImplementedError(
-                f"dense chunked prefill comes with {_ITEM_SCHED}")
-        out = _suffix_prefill_paged(
-            p, q, k, v, cache, packs, page_slot=page_slot,
-            page_start=page_start,
-            length=s if prefill_len is None else prefill_len)
-        return out, cache
-    if paged and s > 1:
+        length = s if prefill_len is None else int(prefill_len)
+        if paged:
+            out = _suffix_prefill_paged(
+                p, q, k, v, cache, packs, page_slot=page_slot,
+                page_start=page_start, length=length)
+            return out, cache
+        out = _suffix_prefill_dense(q, k, v, cache, window=window,
+                                    length=length, slot=int(page_slot),
+                                    start=int(page_start))
+    elif paged and s > 1:
         raise NotImplementedError(
             "whole-cache prompt prefill is undefined for a paged KV layout; "
             "prefill a dense batch-1 sub-cache and insert it with "
             "write_slot_paged, or pass page_slot/page_start for a "
             "shared-prefix suffix prefill")
-    if cache is None or s > 1:
+    elif cache is None or s > 1:
         if not causal:
             out = full_attention(q, k, v, causal=False) if s <= 2048 else \
                 flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
@@ -477,11 +563,28 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
             t = ck.shape[1]
             slot = posv.long().clamp_min(0) % t              # ring slots
             _masked_row_write(pm, rows, slot, posv.clamp_min(0), active)
-            _masked_row_write(ck, rows, slot, k[:, 0], active)
-            _masked_row_write(cv, rows, slot, v[:, 0], active)
-            if kind == "flash":
-                out = flash_decode(q, ck, cv, pm, posv, window=window)
+            if "k_scale" in cache:
+                # int8 cache: quantize the new rows, then attend over the
+                # dequantized cache with the plain composition (K2/K3 take
+                # bf16 / fp32 caches only, as in the reference)
+                (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+                _masked_row_write(ck, rows, slot, kq[:, 0], active)
+                _masked_row_write(cv, rows, slot, vq[:, 0], active)
+                _masked_row_write(cache["k_scale"], rows, slot, ks[:, 0],
+                                  active)
+                _masked_row_write(cache["v_scale"], rows, slot, vs[:, 0],
+                                  active)
+                out = decode_attention(
+                    q, _dequantize_kv(ck, cache["k_scale"], q.dtype),
+                    _dequantize_kv(cv, cache["v_scale"], q.dtype), pm, posv,
+                    window=window)
             else:
-                out = decode_attention(q, ck, cv, pm, posv, window=window)
+                _masked_row_write(ck, rows, slot, k[:, 0], active)
+                _masked_row_write(cv, rows, slot, v[:, 0], active)
+                if kind == "flash":
+                    out = flash_decode(q, ck, cv, pm, posv, window=window)
+                else:
+                    out = decode_attention(q, ck, cv, pm, posv,
+                                           window=window)
     out = linear(p["wo"], _merge_heads(out), packs and packs.get("wo"))
     return out, cache

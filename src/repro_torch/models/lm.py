@@ -20,7 +20,7 @@ bf16 model one fp32 copy of the (tied) head is made on first use and kept
 as long as the head tensor lives (``_head_f32``).
 
 The MoE, MLA, SSM, RG-LRU and VLM layers raise, naming ROADMAP.md Queue 1
-slice 5.
+item 4.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal_init,
                                        paged_bulk_write)
 
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other model families)"
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other model families)"
 
 
 def _check_kind(kind: LayerKind):
@@ -394,7 +394,8 @@ def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
                    length=None, *, packs=None):
     """Prefill only the suffix ``tokens`` (1, S) of a prompt whose first
     ``start`` tokens are already resident in slot ``slot`` of the batched
-    paged cache (a prefix-cache hit): each layer writes the suffix K/V at
+    cache -- a paged prefix-cache hit, or the next chunk of a chunked
+    prefill (dense rings or pages): each layer writes the suffix K/V at
     positions start..start+length-1 and attends over resident prefix +
     suffix. Sample the next token from ``logits[0, length - 1]``."""
     b, s = tokens.shape

@@ -1,10 +1,10 @@
 """Shared fault-injection registry + watchdog for runtime robustness tests.
 
 A copy of ``repro/runtime/chaos.py`` (framework-free), so the port needs no
-JAX. The port's train driver uses :class:`FaultInjector`; the serving
-engine's and the servable loader's hook points listed below are the
-reference's and are not wired into the port yet (ROADMAP.md Queue 1 item
-11).
+JAX. The port's training loop uses :class:`FaultInjector` and its serving
+engine (``repro_torch/serving/engine.py``) fires the ``engine.*`` hook
+points listed below; the servable loader's ``servable.load_packs`` site is
+not fired by the port's loader.
 
 Production traffic brings failure modes the happy-path benches never see:
 prefill blow-ups, NaN-poisoned numerics, allocation failures, stragglers,

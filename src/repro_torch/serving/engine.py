@@ -21,6 +21,15 @@ module adds the request-level machinery on top:
     callbacks, recycle finished slots and admit queued requests.
     ``sync_every=1`` (or ``collect_logits=True``) keeps the
     one-decode-per-step loop;
+  * **SLO-aware scheduling** (``sched=SchedSpec(...)``) -- chunked prefill
+    splits long prompts into ``max_chunk``-sized slices run through the
+    suffix-prefill path between decode windows (a partially prefilled
+    request holds its slot as a pos -1 no-op row), a per-window
+    ``token_budget`` with a ``decode_priority`` reserve keeps a long prompt
+    from head-of-line blocking the running decodes, and overload
+    degradation fast-fails deadlines the measured prefill/decode rates
+    already rule out and sheds the newest low-priority queued traffic once
+    the estimated queue delay exceeds ``max_queue_delay_s``;
   * **request lifecycle** -- every submitted request ends in exactly one
     terminal status (``done`` / ``failed`` / ``cancelled`` / ``shed``) with
     a structured :class:`FailureReason` off the success path: rejection at
@@ -29,7 +38,11 @@ module adds the request-level machinery on top:
     tokens, or -- paged, every layer global -- by re-attaching its retained
     pages), **non-finite quarantine** of a poisoned slot, and recovery from
     a failed decode window (its requests fail, the cache is rebuilt, the
-    engine keeps serving);
+    engine keeps serving); an optional **watchdog**
+    (``watchdog_timeout_s``) detects stuck windows and chunks from a
+    background thread, and **chaos hooks** (``chaos=runtime.chaos.
+    ChaosInjector()``) fire at alloc / prefill / chunk / page-alloc /
+    window / sync / arrival so every fault path is testable;
   * **KV layouts** -- ``'dense'`` slot caches or ``'paged'`` page pools for
     the global layers with a host-side refcounting allocator
     (``serving/paging.py``) and radix prefix sharing
@@ -44,9 +57,13 @@ batch-1 prefill cache is allocated once per engine too: a prefill rewrites
 every one of its tensors, so nothing of the previous prompt survives into
 the next.
 
+Sampling is configured per engine (``temperature`` / ``top_k`` / ``seed``):
+each token's key is JAX's threefry key folded by (slot, position)
+(``models/sampling.py``), so the port samples the reference's tokens, and
+fused and per-step decoding sample alike.
+
 Not ported here (each raises at construction, naming its ROADMAP.md item):
-the SLO scheduler (``sched``), chaos injection, the watchdog, meshes, the
-audio family and sampling at ``temperature > 0``.
+meshes and the audio family.
 """
 from __future__ import annotations
 
@@ -61,12 +78,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves
+from repro_torch.models import prng
 from repro_torch.models.common import PagedLayout
 from repro_torch.models.sampling import sample_token_row
+from repro_torch.runtime import chaos as chaos_mod
 from repro_torch.serving.paging import PagePool, PagePoolExhausted, \
     pages_needed
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.spec import KV_LAYOUTS, OVERFLOW_POLICIES
+from repro_torch.serving.spec import KV_LAYOUTS, OVERFLOW_POLICIES, SchedSpec
 
 __all__ = ["EngineRequest", "EngineStats", "FailureReason", "ServingEngine",
            "TERMINAL_STATES"]
@@ -75,8 +94,6 @@ log = logging.getLogger("repro_torch.serving")
 
 #: the exactly-once terminal accounting: every submit() ends in ONE of these
 TERMINAL_STATES = frozenset({"done", "failed", "cancelled", "shed"})
-
-_ITEM_ENGINE = "ROADMAP.md Queue 1 item 11"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +105,7 @@ class FailureReason:
 
     REJECTED = "rejected"                # invalid at submission
     QUEUE_FULL = "queue_full"            # shed by backpressure policy
+    OVERLOAD = "overload_shed"           # SLO shedding (SchedSpec knobs)
     DEADLINE = "deadline"                # deadline_s expired (sync point)
     CANCELLED = "cancelled"              # engine.cancel(handle)
     PREFILL_ERROR = "prefill_error"      # admission/prefill raised
@@ -123,6 +141,10 @@ class EngineRequest:
     cancel_requested: bool = False
     n_preempted: int = 0
     admit_seq: int = -1                     # monotonic admission counter
+    # chunked prefill: prompt tokens already resident in the slot vs the
+    # full prefill length; pos == target (or target == 0) = decodable
+    prefill_pos: int = 0
+    prefill_target: int = 0
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
@@ -151,12 +173,14 @@ class EngineStats:
     rejected: int = 0               # failed at submission (subset of failed)
     preemptions: int = 0
     deadline_misses: int = 0
+    watchdog_stalls: int = 0
     # tokens run through a prefill forward (full or suffix), prompt tokens
     # served from shared prefix pages instead, and preemption resumes that
     # re-attached retained pages with no prefill
     prefilled_tokens: int = 0
     prefix_hit_tokens: int = 0
     page_resumes: int = 0
+    prefill_chunks: int = 0         # chunk dispatches (SLO scheduler)
     bucket_hits: Dict[int, int] = dataclasses.field(
         default_factory=lambda: collections.defaultdict(int))
     # host-clock seconds of the serving loop: prompt prefill (compute +
@@ -179,9 +203,11 @@ class EngineStats:
                 "shed": self.shed, "rejected": self.rejected,
                 "preemptions": self.preemptions,
                 "deadline_misses": self.deadline_misses,
+                "watchdog_stalls": self.watchdog_stalls,
                 "prefilled_tokens": self.prefilled_tokens,
                 "prefix_hit_tokens": self.prefix_hit_tokens,
                 "page_resumes": self.page_resumes,
+                "prefill_chunks": self.prefill_chunks,
                 "mean_occupancy": round(self.mean_occupancy, 3),
                 "prefill_buckets": dict(self.bucket_hits),
                 "prefill_s": round(self.prefill_s, 4),
@@ -198,9 +224,15 @@ class ServingEngine:
     between host syncs (``collect_logits`` forces K = 1). ``max_queue`` +
     ``overflow`` bound the admission queue. ``kv_layout`` (kwarg >
     ``REPRO_KV_LAYOUT`` env > spec) picks dense slot caches or page pools
-    (``kv_pool_pages`` shrinks the pool to create pressure). ``seed`` and
-    ``top_k`` are the reference's sampling knobs; greedy decoding (the only
-    one ported) uses neither.
+    (``kv_pool_pages`` shrinks the pool to create pressure).
+    ``temperature`` / ``top_k`` / ``seed`` configure sampling (0 = greedy).
+
+    ``watchdog_timeout_s`` arms a stuck-window detector (``on_stall(label,
+    elapsed)`` optional; ``stats_dict()['watchdog']`` reports it, with the
+    last stall's snapshot of queue / active / chunk state); ``chaos``
+    attaches a :class:`~repro_torch.runtime.chaos.ChaosInjector` whose
+    engine sites this engine fires; ``sched`` (kwarg > ``spec.sched``)
+    enables the SLO scheduler (module docstring).
     """
 
     def __init__(self, servable, max_slots: int = 8, cache_len: int = 256,
@@ -209,29 +241,21 @@ class ServingEngine:
                  top_k: int = 0, seed: int = 0,
                  max_queue: Optional[int] = None, overflow: str = "reject",
                  watchdog_timeout_s: Optional[float] = None,
-                 on_stall=None, chaos=None,
+                 on_stall: Optional[Callable[[str, float], None]] = None,
+                 chaos: Optional["chaos_mod.ChaosInjector"] = None,
                  kv_layout: Optional[str] = None,
-                 kv_pool_pages: Optional[int] = None, sched=None):
+                 kv_pool_pages: Optional[int] = None,
+                 sched: Optional[SchedSpec] = None):
         cfg = servable.cfg
         if cfg.family == "bert":
             raise ValueError("encoder-only arch has no decode step")
-        blockers = [
-            (cfg.family == "audio", "family 'audio'",
-             "ROADMAP.md Queue 1 slice 5"),
-            ((sched if sched is not None else servable.spec.sched)
-             is not None, "sched (SchedSpec chunked prefill and SLO "
-             "scheduling)", _ITEM_ENGINE),
-            (chaos is not None, "chaos injection", _ITEM_ENGINE),
-            (watchdog_timeout_s is not None or on_stall is not None,
-             "the watchdog", _ITEM_ENGINE),
-            (servable.spec.mesh_shape is not None, "a mesh",
-             "ROADMAP.md Queue 1 slice 6"),
-            (float(temperature) > 0.0, f"temperature={temperature}",
-             _ITEM_ENGINE),
-        ]
-        for blocked, what, item in blockers:
-            if blocked:
-                raise NotImplementedError(f"{what} comes with {item}")
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "family 'audio' comes with ROADMAP.md Queue 1 item 4 (the "
+                "audio family)")
+        if servable.spec.mesh_shape is not None:
+            raise NotImplementedError(
+                "a mesh comes with ROADMAP.md Queue 1 item 6 (sharding)")
         if overflow not in OVERFLOW_POLICIES:
             raise ValueError(
                 f"overflow={overflow!r} not in {OVERFLOW_POLICIES}")
@@ -249,9 +273,14 @@ class ServingEngine:
         self.sync_every = 1 if collect_logits else max(1, int(sync_every))
         self.temperature = float(temperature)
         self.top_k = int(top_k)
+        self._key = prng.PRNGKey(int(seed), device=self.device)
         self.stats = EngineStats()
         self.max_queue = None if max_queue is None else int(max_queue)
         self.overflow = overflow
+        self._chaos = chaos
+        self._watchdog = None
+        self._user_on_stall = on_stall
+        self._watchdog_snapshot: Optional[Dict] = None
 
         # the batch-1 prefill cache, rewritten entirely by every prefill
         self._sub = servable.init_cache(1, self.cache_len)
@@ -265,10 +294,16 @@ class ServingEngine:
         kinds = list(prefix_k) + (list(pattern_k) if n_per > 0 else []) \
             + list(suffix_k)
         pageable = [k for k in kinds if k.mixer == "attn" and k.window == 0]
-        if layout == "paged" and not pageable:
-            log.info("kv_layout='paged' unavailable for this config (no "
-                     "global attention layers to page); serving dense")
-            layout = "dense"
+        if layout == "paged":
+            blocker = None
+            if cfg.kv_cache_quant:
+                blocker = "kv_cache_quant (int8 page pools are future work)"
+            elif not pageable:
+                blocker = "no global attention layers to page"
+            if blocker is not None:
+                log.info("kv_layout='paged' unavailable for this config "
+                         "(%s); serving dense", blocker)
+                layout = "dense"
         self.kv_layout = layout
         self._pool = None
         self._prefix_cache = None
@@ -294,6 +329,34 @@ class ServingEngine:
             self._can_share = self._can_retain = all(
                 k.mixer == "attn" and k.window == 0 for k in kinds)
 
+        # -- SLO scheduling: kwarg > spec -----------------------------------
+        # sched arms deadline fast-fail and overload shedding regardless;
+        # chunked prefill (max_chunk > 0) needs the exact chunk path, which
+        # int8 KV lacks -- such configs admit one-shot with the other knobs
+        # still live
+        self.sched = sched if sched is not None else servable.spec.sched
+        self._chunking = False
+        if self.sched is not None and self.sched.max_chunk > 0:
+            if cfg.kv_cache_quant:
+                log.info("chunked prefill unavailable for this config "
+                         "(kv_cache_quant: int8 KV has no exact chunk "
+                         "path); scheduling runs without it")
+            else:
+                self._chunking = True
+        # chunk lengths are quantized: every dispatched chunk is exactly
+        # _chunk_len tokens or the prompt tail, never a budget-truncated
+        # remainder, so max_chunk is clamped to the window budget and a
+        # chunk that no longer fits waits for the next window
+        self._chunk_len = 0
+        if self._chunking:
+            self._chunk_len = self.sched.max_chunk
+            if self.sched.token_budget > 0:
+                self._chunk_len = min(self._chunk_len,
+                                      self.sched.token_budget)
+        #: req_ids whose fresh full-prompt pages publish to the prefix
+        #: cache once their (chunked) prefill completes
+        self._pending_publish: set = set()
+
         self.cache = self._build_cache()
         self._kv_bytes_total = sum(x.numel() * x.element_size()
                                    for x in leaves(self.cache))
@@ -315,6 +378,12 @@ class ServingEngine:
         self._done: List[EngineRequest] = []
         self._next_id = 0
         self._admit_counter = 0
+        if watchdog_timeout_s is not None:
+            # started last, so a constructor that raises leaves no thread;
+            # the engine interposes on the stall callback to snapshot its
+            # queue / active / chunk state for stats_dict()['watchdog']
+            self._watchdog = chaos_mod.Watchdog(watchdog_timeout_s,
+                                                on_stall=self._on_stall)
 
     @staticmethod
     def _layer_caches(cache):
@@ -341,7 +410,10 @@ class ServingEngine:
         engine runs, ``.status`` reaches exactly one terminal state).
         Invalid requests are rejected at submission with a structured
         reason instead of failing late; submit() never raises for
-        request-level problems."""
+        request-level problems. ``deadline_s`` is a relative wall-clock
+        budget enforced at window-sync points (and, with a ``SchedSpec``
+        and ``fast_fail``, failed at submission when the engine's measured
+        rates already rule it out)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         req = EngineRequest(req_id=self._next_id, prompt=prompt,
                             max_new_tokens=int(max_new_tokens), eos_id=eos_id,
@@ -369,10 +441,32 @@ class ServingEngine:
             self._finalize(req, "failed",
                            FailureReason(FailureReason.REJECTED, reject))
             return req
-        if req.deadline_at is not None and time.monotonic() > req.deadline_at:
-            self._finalize(req, "failed", FailureReason(
-                FailureReason.DEADLINE, "deadline expired at submission"))
-            return req
+        if req.deadline_at is not None:
+            now = time.monotonic()
+            if now > req.deadline_at:
+                self._finalize(req, "failed", FailureReason(
+                    FailureReason.DEADLINE, "deadline expired at submission"))
+                return req
+            if self.sched is not None and self.sched.fast_fail:
+                est = self._service_estimate_s(req)
+                if est is not None and now + est > req.deadline_at:
+                    self._finalize(req, "failed", FailureReason(
+                        FailureReason.DEADLINE,
+                        f"projected completion in {est:.3f}s exceeds the "
+                        f"deadline (measured prefill/decode rates)"))
+                    return req
+
+        if self._chaos is not None:
+            # open-loop ingest chaos: an action may re-entrantly submit a
+            # burst through this engine; an exception sheds only this
+            # submission with a structured reason
+            try:
+                self._fire(chaos_mod.SITE_ARRIVAL_BURST, request=req)
+            except Exception as e:  # noqa: BLE001 -- shed, keep serving
+                self._finalize(req, "shed", FailureReason(
+                    FailureReason.OVERLOAD,
+                    f"shed at ingest: {type(e).__name__}: {e}"))
+                return req
 
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             if self.overflow == "block":
@@ -392,6 +486,7 @@ class ServingEngine:
                         f"{self.overflow!r}"))
                     return req
         self._queue.append(req)
+        self._shed_overload()
         return req
 
     def cancel(self, req: EngineRequest) -> bool:
@@ -407,6 +502,82 @@ class ServingEngine:
             self._finalize(req, "cancelled", FailureReason(
                 FailureReason.CANCELLED, "cancelled while queued"))
         return True
+
+    # -- SLO estimation + overload degradation ----------------------------
+    def _service_estimate_s(self, req: EngineRequest) -> Optional[float]:
+        """Projected seconds to finish ``req`` from the engine's measured
+        prefill / decode rates (the EngineStats host-clock buckets); None
+        until both rates have samples, so a cold engine neither fast-fails
+        nor sheds."""
+        st = self.stats
+        if (st.prefill_s <= 0 or st.prefilled_tokens <= 0
+                or st.decode_s <= 0 or st.steps <= 0):
+            return None
+        pre_tokens = req.prompt.size + req.n_generated - req.prefill_pos
+        pre = pre_tokens / (st.prefilled_tokens / st.prefill_s)
+        dec = (req.max_new_tokens - req.n_generated) \
+            / (st.steps / st.decode_s)
+        return max(pre, 0.0) + max(dec, 0.0)
+
+    def _shed_overload(self) -> None:
+        """Overload degradation (``sched.max_queue_delay_s > 0``): while the
+        estimated time to drain the queue exceeds the bound, shed queued
+        requests -- lowest priority first, newest first within a class --
+        with the OVERLOAD reason."""
+        if (self.sched is None or self.sched.max_queue_delay_s <= 0
+                or not self._queue):
+            return
+        ests: Dict[int, float] = {}
+        for r in self._queue:
+            est = self._service_estimate_s(r)
+            if est is None:         # rates not measured yet: never shed
+                return
+            ests[r.req_id] = est
+        bound = self.sched.max_queue_delay_s
+        slots = max(1, self.max_slots)
+        backlog = sum(ests.values()) / slots
+        while backlog > bound and self._queue:
+            victim = min(self._queue,
+                         key=lambda r: (r.priority, -r.submitted_at))
+            self._queue.remove(victim)
+            backlog -= ests[victim.req_id] / slots
+            self._finalize(victim, "shed", FailureReason(
+                FailureReason.OVERLOAD,
+                f"estimated queue delay exceeds "
+                f"max_queue_delay_s={bound}"))
+
+    def _on_stall(self, label: str, elapsed: float) -> None:
+        """Watchdog callback (daemon thread): snapshot queue / active /
+        chunk state for ``stats_dict()['watchdog']`` -- best-effort shallow
+        reads, since the serving thread keeps mutating -- then forward to
+        the user's ``on_stall``."""
+        try:
+            now = time.monotonic()
+
+            def row(r):
+                return {"req_id": r.req_id, "status": r.status,
+                        "pos": int(r.pos),
+                        "prefill_pos": int(r.prefill_pos),
+                        "prefill_target": int(r.prefill_target),
+                        "n_generated": r.n_generated,
+                        "age_s": round(now - r.submitted_at, 4)}
+
+            self._watchdog_snapshot = {
+                "site": label, "elapsed_s": round(elapsed, 4),
+                "n_queued": len(self._queue),
+                "n_active": len(self._active),
+                "queued": [row(r) for r in list(self._queue)[:8]],
+                "active": [row(r) for r in list(self._active.values())[:8]]}
+        except Exception:  # noqa: BLE001 -- racing the serving thread
+            self._watchdog_snapshot = {"site": label,
+                                       "elapsed_s": round(elapsed, 4)}
+        if self._user_on_stall is not None:
+            self._user_on_stall(label, elapsed)
+
+    def _fire(self, site: str, **ctx) -> None:
+        """Fire chaos site ``site`` when an injector is attached."""
+        if self._chaos is not None:
+            self._chaos.fire(site, engine=self, **ctx)
 
     # -- prefill ----------------------------------------------------------
     def _bucket(self, length: int) -> int:
@@ -457,20 +628,16 @@ class ServingEngine:
         t0 = time.perf_counter()
         slot = None
         try:
+            self._fire(chaos_mod.SITE_ALLOC, request=req)
             slot = self._free.pop(0)
             seq = self._seq(req)
             length = int(seq.size)
+            self._fire(chaos_mod.SITE_PREFILL, request=req)
             bucket, row = self._prefill_sub(seq)
             self.cache = self.servable.engine_write_slot(self.cache, slot,
                                                          self._sub)
         except Exception as e:  # noqa: BLE001 -- isolate to this request
-            self._restore_slot(slot)
-            self.stats.prefill_s += time.perf_counter() - t0
-            log.warning("admission of request %d failed (%s: %s)",
-                        req.req_id, type(e).__name__, e)
-            self._finalize(req, "failed", FailureReason(
-                FailureReason.PREFILL_ERROR, f"{type(e).__name__}: {e}"))
-            return True
+            return self._admission_failed(req, slot, [], t0, e)
         self.stats.prefilled_tokens += length
         return self._after_prefill(req, slot, length, bucket, row, t0)
 
@@ -491,12 +658,56 @@ class ServingEngine:
                 f"non-finite prefill logits at position {length - 1}"))
             return True
         self._activate(req, slot, length, pages)
-        tok = sample_token_row(row, None, slot, length - 1,
+        tok = sample_token_row(row, self._key, slot, length - 1,
                                temperature=self.temperature,
                                top_k=self.top_k)
         self.stats.prefill_s += time.perf_counter() - t0
         self._emit(req, int(tok), row)
         return True
+
+    def _admission_failed(self, req: EngineRequest, slot: Optional[int],
+                          held: List[int], t0: float, err: Exception) -> bool:
+        """Undo an admission that raised -- release the pages it held,
+        return its slot -- and settle the request (the ``_admit``
+        contract): page-pool exhaustion parks it at the queue front while
+        active requests can still free pages (False); any other error, or
+        exhaustion with nothing to drain, fails only this request
+        (True)."""
+        if held:
+            self._pool.release(held)
+        self._restore_slot(slot)
+        self.stats.prefill_s += time.perf_counter() - t0
+        if isinstance(err, PagePoolExhausted):
+            if self._active:
+                req.status = "queued"
+                self._queue.appendleft(req)
+                log.info("parking request %d on page pressure (%s)",
+                         req.req_id, err)
+                return False
+            self._finalize(req, "failed", FailureReason(
+                FailureReason.KV_PAGES,
+                f"{err} with no active requests to drain"))
+            return True
+        log.warning("admission of request %d failed (%s: %s)",
+                    req.req_id, type(err).__name__, err)
+        self._finalize(req, "failed", FailureReason(
+            FailureReason.PREFILL_ERROR, f"{type(err).__name__}: {err}"))
+        return True
+
+    def _resume_retained(self, req: EngineRequest, slot: int, saved: tuple,
+                         t0: float) -> None:
+        """Preempt-resume by page retention: re-attach the victim's pages
+        and positions to ``slot``; it decodes on with no prefill."""
+        pages, resume_len = saved
+        self.cache = self.servable.engine_restore_paged(
+            self.cache, slot, self._page_row(pages), resume_len)
+        self._activate(req, slot, resume_len, pages)
+        req.prefill_pos = req.prefill_target = 0
+        self._tokens[slot, 0] = req.tokens[-1]
+        self._pos[slot] = resume_len
+        self._remaining[slot] = req.max_new_tokens - req.n_generated
+        self.stats.page_resumes += 1
+        self.stats.prefill_s += time.perf_counter() - t0
 
     def _page_row(self, pages: List[int]) -> np.ndarray:
         """A slot's page-table row: ``pages`` padded with -1 (unmapped)."""
@@ -508,9 +719,29 @@ class ServingEngine:
         """Claim ``n`` fresh pages, evicting LRU prefix-cache references
         when the free list runs short. Raises PagePoolExhausted when
         eviction cannot cover the request."""
+        self._fire(chaos_mod.SITE_PAGE_ALLOC, want=n)
         while self._pool.free_count < n and self._prefix_cache.evict(1):
             pass
         return self._pool.alloc(n)
+
+    def _claim_pages(self, req: EngineRequest, seq: np.ndarray,
+                     held: List[int]):
+        """The page reservation of a paged admission: the longest cached
+        prefix of ``seq`` as shared pages (capped at ``len(seq) - 1`` so a
+        fully cached prompt still prefills >= 1 token), then fresh pages up
+        to ceil((len + max_new) / page_size). Every page it takes a
+        reference on is appended to ``held`` as it is taken, so a failure
+        midway releases exactly those. Returns (pages, start): the page
+        row and the first position to prefill."""
+        need = pages_needed(min(seq.size + req.max_new_tokens,
+                                self.cache_len), self.kv_page_size)
+        shared: List[int] = []
+        if self._can_share and not req.tokens:
+            shared = self._prefix_cache.match(seq, limit=int(seq.size) - 1)
+            held.extend(shared)
+        fresh = self._reserve_pages(need - len(shared))
+        held.extend(fresh)
+        return shared + fresh, len(shared) * self.kv_page_size
 
     def _admit_paged(self, req: EngineRequest) -> bool:
         """Paged admission: reserve ceil((len + max_new) / page_size) pages
@@ -524,38 +755,19 @@ class ServingEngine:
         slot = None
         held: List[int] = []            # pages owned by THIS admission
         try:
+            self._fire(chaos_mod.SITE_ALLOC, request=req)
             slot = self._free.pop(0)
             saved = self._saved_pages.pop(req.req_id, None)
             if saved is not None:
-                pages, resume_len = saved
-                held = pages
-                self.cache = self.servable.engine_restore_paged(
-                    self.cache, slot, self._page_row(pages), resume_len)
-                self._activate(req, slot, resume_len, pages)
-                self._tokens[slot, 0] = req.tokens[-1]
-                self._pos[slot] = resume_len
-                self._remaining[slot] = \
-                    req.max_new_tokens - req.n_generated
-                self.stats.page_resumes += 1
-                self.stats.prefill_s += time.perf_counter() - t0
+                held = saved[0]
+                self._resume_retained(req, slot, saved, t0)
                 return True
 
             seq = self._seq(req)
             length = int(seq.size)
-            need = pages_needed(
-                min(length + req.max_new_tokens, self.cache_len),
-                self.kv_page_size)
-            shared: List[int] = []
-            if self._can_share and not req.tokens:
-                # cap the match at length-1 so a fully cached prompt still
-                # prefills >= 1 suffix token
-                shared = self._prefix_cache.match(seq, limit=length - 1)
-                held = held + shared
-            start = len(shared) * self.kv_page_size
-            fresh = self._reserve_pages(need - len(shared))
-            held = held + fresh
-            pages = shared + fresh
+            pages, start = self._claim_pages(req, seq, held)
 
+            self._fire(chaos_mod.SITE_PREFILL, request=req)
             if start > 0:
                 # prefix hit: attach the pages, then prefill only the suffix
                 # against the resident shared prefix (its write positions
@@ -582,33 +794,149 @@ class ServingEngine:
                     # is mutable)
                     self._prefix_cache.insert(
                         seq, pages[:length // self.kv_page_size])
-        except PagePoolExhausted as e:
-            if held:
-                self._pool.release(held)
-            self._restore_slot(slot)
-            self.stats.prefill_s += time.perf_counter() - t0
-            if self._active:
-                req.status = "queued"
-                self._queue.appendleft(req)
-                log.info("parking request %d on page pressure (%s)",
-                         req.req_id, e)
-                return False
-            self._finalize(req, "failed", FailureReason(
-                FailureReason.KV_PAGES,
-                f"{e} with no active requests to drain"))
-            return True
         except Exception as e:  # noqa: BLE001 -- isolate to this request
-            if held:
-                self._pool.release(held)
-            self._restore_slot(slot)
-            self.stats.prefill_s += time.perf_counter() - t0
-            log.warning("admission of request %d failed (%s: %s)",
+            return self._admission_failed(req, slot, held, t0, e)
+        return self._after_prefill(req, slot, length, bucket, row, t0,
+                                   pages=pages, held=held)
+
+    # -- chunked prefill (the SLO scheduler) ------------------------------
+    def _begin_chunked(self, req: EngineRequest) -> bool:
+        """Claim a slot (and, paged, the request's full page reservation +
+        prefix match) without running prefill compute -- chunk dispatch is
+        metered by the token budget (``_prefill_chunk``). The request
+        becomes active with ``_pos[slot]`` still -1: it holds its slot
+        across windows as a device no-op row until the final chunk samples
+        its first token. Returns False when paged backpressure parked it at
+        the queue front (the ``_admit`` contract)."""
+        t0 = time.perf_counter()
+        slot = None
+        held: List[int] = []
+        try:
+            self._fire(chaos_mod.SITE_ALLOC, request=req)
+            slot = self._free.pop(0)
+            saved = self._saved_pages.pop(req.req_id, None) \
+                if self.kv_layout == "paged" else None
+            if saved is not None:
+                held = saved[0]
+                self._resume_retained(req, slot, saved, t0)
+                return True
+
+            seq = self._seq(req)
+            length = int(seq.size)
+            start = 0
+            pages = None
+            if self.kv_layout == "paged":
+                pages, start = self._claim_pages(req, seq, held)
+                # install the page table up front: every chunk scatters
+                # through it, and the pos map starts at the shared prefix
+                self.cache = self.servable.engine_restore_paged(
+                    self.cache, slot, self._page_row(pages), start)
+                if start > 0:
+                    self.stats.prefix_hit_tokens += start
+                elif self._can_share and not req.tokens:
+                    self._pending_publish.add(req.req_id)
+        except Exception as e:  # noqa: BLE001 -- isolate to this request
+            return self._admission_failed(req, slot, held, t0, e)
+
+        self._activate(req, slot, length, pages)
+        req.prefill_pos = start
+        req.prefill_target = length
+        self.stats.prefill_s += time.perf_counter() - t0
+        return True
+
+    def _prefill_chunk(self, req: EngineRequest, budget: int) -> int:
+        """Run prefill chunks for an admitted, partially prefilled request
+        until its prompt is resident or ``budget`` tokens are spent; returns
+        the tokens dispatched. Chunks are ``_chunk_len`` tokens or the
+        prompt tail, bucketed like one-shot prefills. The final chunk
+        samples the first token (the request decodes next window). A
+        failure fails only this request. The watchdog is armed before the
+        ``engine.prefill_chunk`` site fires, so a straggling chunk trips its
+        'prefill-chunk' label; an injected fault still comes before the
+        chunk writes the cache."""
+        if budget <= 0 or req.prefill_pos >= req.prefill_target:
+            return 0
+        seq = self._seq(req)
+        used = 0
+        t0 = time.perf_counter()
+        try:
+            while req.prefill_pos < req.prefill_target:
+                start = req.prefill_pos
+                c = min(self._chunk_len, req.prefill_target - start)
+                if c > budget - used:
+                    break               # whole-chunk budget gating: defer
+                bucket = self._bucket(c)
+                toks = np.zeros((bucket,), np.int32)
+                toks[:c] = seq[start:start + c]
+                if self._watchdog is not None:
+                    self._watchdog.arm("prefill-chunk")
+                try:
+                    self._fire(chaos_mod.SITE_PREFILL_CHUNK, request=req,
+                               start=start, size=c)
+                    self.cache, logits = self.servable.suffix_prefill(
+                        self.cache, self._dev(toks), req.slot, start, c)
+                finally:
+                    if self._watchdog is not None:
+                        self._watchdog.disarm()
+                        self.stats.watchdog_stalls = \
+                            len(self._watchdog.stalls)
+                req.prefill_pos += c
+                used += c
+                self.stats.prefilled_tokens += c
+                self.stats.prefill_chunks += 1
+                self.stats.bucket_hits[bucket] += 1
+            if req.prefill_pos < req.prefill_target:
+                return used                 # budget spent mid-prompt
+            row = logits[c - 1].float().cpu().numpy()
+        except Exception as e:  # noqa: BLE001 -- isolate to this request
+            log.warning("chunked prefill of request %d failed (%s: %s)",
                         req.req_id, type(e).__name__, e)
             self._finalize(req, "failed", FailureReason(
                 FailureReason.PREFILL_ERROR, f"{type(e).__name__}: {e}"))
-            return True
-        return self._after_prefill(req, slot, length, bucket, row, t0,
-                                   pages=pages, held=held)
+            return used
+        finally:
+            self.stats.prefill_s += time.perf_counter() - t0
+
+        self.stats.prefills += 1
+        if not np.all(np.isfinite(row)):
+            self._finalize(req, "failed", FailureReason(
+                FailureReason.NONFINITE_LOGITS,
+                f"non-finite prefill logits at position "
+                f"{req.prefill_target - 1}"))
+            return used
+        if req.req_id in self._pending_publish:
+            self._pending_publish.discard(req.req_id)
+            pages = self._slot_pages.get(req.slot, [])
+            self._prefix_cache.insert(
+                seq, pages[:req.prefill_target // self.kv_page_size])
+        tok = sample_token_row(row, self._key, req.slot,
+                               req.prefill_target - 1,
+                               temperature=self.temperature,
+                               top_k=self.top_k)
+        self._emit(req, int(tok), row)
+        return used
+
+    def _admit_budgeted(self, req: EngineRequest, budget: int):
+        """Admission for the chunked scheduler: prompts that fit in one
+        chunk take the one-shot path (a slot write, the paged prefix match,
+        no full-cache chunk attention); longer ones go through
+        ``_admit_chunked``. Returns ``(consumed, tokens_used)``."""
+        need = req.prompt.size + req.n_generated
+        if need <= self._chunk_len:
+            return self._admit(req), need
+        return self._admit_chunked(req, budget)
+
+    def _admit_chunked(self, req: EngineRequest, budget: int):
+        """Claim slot + pages, then spend up to ``budget`` prefill tokens.
+        Returns ``(consumed, tokens_used)``; ``consumed`` False = paged
+        backpressure parked the request."""
+        if not self._begin_chunked(req):
+            return False, 0
+        if req.status != "active":          # begin failed terminally
+            return True, 0
+        if req.prefill_pos >= req.prefill_target:   # page-retention resume
+            return True, 0
+        return True, self._prefill_chunk(req, budget)
 
     def _restore_slot(self, slot: Optional[int]) -> None:
         """Return a popped-but-unoccupied slot to the free list."""
@@ -672,6 +1000,7 @@ class ServingEngine:
             saved = self._saved_pages.pop(req.req_id, None)
             if saved is not None:
                 self._pool.release(saved[0])
+        self._pending_publish.discard(req.req_id)
         req.status = status
         req.failure = reason
         req.done = status == "done"
@@ -698,29 +1027,48 @@ class ServingEngine:
         keep = (self.kv_layout == "paged" and self._can_retain
                 and req.n_generated > 0)
         self._release_slot(req, keep_pages=keep)
+        # a half-prefilled victim restarts its prefill from scratch on
+        # re-admission: its slot state is gone (and it kept no pages)
+        self._pending_publish.discard(req.req_id)
+        req.prefill_pos = req.prefill_target = 0
         req.status = "queued"
         req.n_preempted += 1
         self.stats.preemptions += 1
         self._queue.appendleft(req)
 
     def _sweep_control(self) -> None:
-        """The window-sync control sweep: apply pending cancellations and
-        expire deadlines of queued and active requests."""
+        """The window-sync control sweep: apply pending cancellations,
+        expire deadlines of queued and active requests, fast-fail queued
+        requests whose projected completion rules their deadline out
+        (``sched.fast_fail``, measured rates only) and shed overload."""
         now = time.monotonic()
 
         def expired(r):
             return r.deadline_at is not None and now > r.deadline_at
 
+        fast = self.sched is not None and self.sched.fast_fail
+
+        def doomed(r):
+            if not fast or r.deadline_at is None:
+                return False
+            est = self._service_estimate_s(r)
+            return est is not None and now + est > r.deadline_at
+
         for req in [r for r in self._queue
-                    if r.cancel_requested or expired(r)]:
+                    if r.cancel_requested or expired(r) or doomed(r)]:
             self._queue.remove(req)
             if req.cancel_requested:
                 self._finalize(req, "cancelled", FailureReason(
                     FailureReason.CANCELLED, "cancelled while queued"))
-            else:
+            elif expired(req):
                 self._finalize(req, "failed", FailureReason(
                     FailureReason.DEADLINE,
                     "deadline expired before admission"))
+            else:
+                self._finalize(req, "failed", FailureReason(
+                    FailureReason.DEADLINE,
+                    "projected completion exceeds deadline while queued "
+                    "(fast-fail before consuming a prefill slot)"))
         for req in [r for r in self._active.values()
                     if r.cancel_requested or expired(r)]:
             if req.cancel_requested:
@@ -732,6 +1080,7 @@ class ServingEngine:
                     FailureReason.DEADLINE,
                     f"deadline expired after {req.n_generated}/"
                     f"{req.max_new_tokens} tokens"))
+        self._shed_overload()
 
     def _pop_next(self) -> EngineRequest:
         """Highest-priority queued request, FIFO within a priority class."""
@@ -745,7 +1094,11 @@ class ServingEngine:
     def _schedule(self) -> None:
         """Admissions + priority preemption (a window-sync point action).
         A False from ``_admit`` means paged backpressure parked the request
-        -- stop admitting until the next sync point."""
+        -- stop admitting until the next sync point. Chunk-scheduling
+        engines route through ``_schedule_chunked``."""
+        if self._chunking:
+            self._schedule_chunked()
+            return
         while self._free and self._queue:
             if not self._admit(self._pop_next()):
                 return
@@ -761,25 +1114,91 @@ class ServingEngine:
             if not self._admit(self._pop_next()):
                 return
 
+    def _schedule_chunked(self) -> None:
+        """The token-budget scheduler: each window-sync point spends at most
+        ``sched.token_budget`` prefill tokens in ``_chunk_len`` chunks, so
+        one long prompt cannot head-of-line block the running decodes.
+        ``decode_priority`` reserves ``n_decoding * sync_every`` of the
+        budget for the decode window that follows; with nothing decoding
+        the budget is at least 1 so prefill always progresses. Order:
+        priority preemption, then admissions (at most half the budget while
+        a resident prefill is pending, so residents are not starved), then
+        resident prefills, oldest admission first."""
+        sched = self.sched
+        budget = sched.token_budget if sched.token_budget > 0 else (1 << 30)
+        n_dec = sum(1 for s in self._active if self._pos[s] >= 0)
+        if sched.decode_priority:
+            budget -= n_dec * self.sync_every
+        if n_dec == 0:
+            budget = max(budget, 1)
+
+        # 1. priority preemption first: a high-priority arrival must not
+        # wait out a low-priority resident's chunked prefill; it claims its
+        # slot even at budget 0 (its chunks then run in later windows)
+        while self._queue and not self._free and self._active:
+            best_p = max(r.priority for r in self._queue)
+            victim = min(self._active.values(),
+                         key=lambda r: (r.priority, -r.admit_seq))
+            if best_p <= victim.priority:
+                break
+            self._preempt(victim)
+            consumed, used = self._admit_budgeted(self._pop_next(), budget)
+            budget -= used
+            if not consumed:
+                return
+
+        # 2. admissions before resident continuations (a short arrival
+        # starts and finishes its prefill from the same budget), capped at
+        # half the budget while a continuation is pending
+        pending = any(r.prefill_pos < r.prefill_target
+                      for r in self._active.values())
+        adm_budget = budget // 2 if pending else budget
+        while adm_budget > 0 and self._free and self._queue:
+            consumed, used = self._admit_budgeted(self._pop_next(),
+                                                  adm_budget)
+            adm_budget -= used
+            budget -= used
+            if not consumed:
+                return
+
+        # 3. continue partially prefilled residents, oldest admission first
+        for req in sorted((r for r in self._active.values()
+                           if r.prefill_pos < r.prefill_target),
+                          key=lambda r: r.admit_seq):
+            if budget <= 0:
+                break
+            budget -= self._prefill_chunk(req, budget)
+
     # -- stepping ---------------------------------------------------------
     def step(self) -> bool:
-        """One window-sync cycle: control sweep, schedule (admit + preempt),
-        then ONE batched decode window (up to ``sync_every`` fused steps).
-        Returns True while there is (or may be) work left."""
+        """One window-sync cycle: control sweep (cancel / deadline /
+        overload), schedule (chunk continuation + admit + preempt), then ONE
+        batched decode window (up to ``sync_every`` fused steps) over the
+        decoding slots -- a mid-prefill request holds its slot as a device
+        no-op row (pos -1). Returns True while there is (or may be) work
+        left."""
         self._sweep_control()
         self._schedule()
         decoding = sorted(s for s in self._active if self._pos[s] >= 0)
         if not decoding:
             return bool(self._active or self._queue)
+        if self._watchdog is not None:
+            self._watchdog.arm("decode-window")
         try:
+            self._fire(chaos_mod.SITE_WINDOW)
             k = min(self.sync_every,
                     max(int(self._remaining[s]) for s in decoding))
             if k <= 1:
                 self._step_single(decoding)
             else:
                 self._step_fused(k, decoding)
+            self._fire(chaos_mod.SITE_SYNC)
         except Exception as e:  # noqa: BLE001 -- keep the engine serving
             self._recover_window_failure(e)
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.disarm()
+                self.stats.watchdog_stalls = len(self._watchdog.stalls)
         return bool(self._active or self._queue)
 
     def _recover_window_failure(self, err: Exception) -> None:
@@ -818,7 +1237,7 @@ class ServingEngine:
         self.stats.occupancy_sum += len(decoding)
         next_tok, ok, logits, self.cache = self.servable.engine_decode(
             self.cache, self._dev(self._tokens), self._dev(self._pos),
-            temperature=self.temperature, top_k=self.top_k)
+            key=self._key, temperature=self.temperature, top_k=self.top_k)
         toks = next_tok.cpu().numpy()
         ok_h = ok.cpu().numpy()
         rows = logits[:, 0, :].float().cpu().numpy() \
@@ -849,8 +1268,8 @@ class ServingEngine:
         toks, valid, state = self.servable.decode_many(
             self.cache, self._dev(self._tokens), self._dev(self._pos), k,
             remaining=self._dev(self._remaining),
-            eos_id=self._dev(self._eos), temperature=self.temperature,
-            top_k=self.top_k)
+            eos_id=self._dev(self._eos), key=self._key,
+            temperature=self.temperature, top_k=self.top_k)
         self.cache = state["cache"]
         toks_h = toks.cpu().numpy()             # (K, B) int32
         valid_h = valid.cpu().numpy()           # (K, B) bool
@@ -899,7 +1318,10 @@ class ServingEngine:
         return sorted(done, key=lambda r: r.req_id)
 
     def close(self) -> None:
-        """Nothing to stop (no watchdog thread in this engine)."""
+        """Stop the watchdog thread (idempotent; engines without one are
+        no-ops)."""
+        if self._watchdog is not None:
+            self._watchdog.close()
 
     # -- test hooks -------------------------------------------------------
     def corrupt_slot(self, slot: int) -> None:
@@ -943,7 +1365,8 @@ class ServingEngine:
             assert req.slot == slot and req.status == "active", (
                 f"slot {slot} holds request {req.req_id} with "
                 f"slot={req.slot} status={req.status}")
-            assert self._pos[slot] >= 0 or req.n_generated > 0, (
+            assert (self._pos[slot] >= 0 or req.n_generated > 0
+                    or 0 <= req.prefill_pos < req.prefill_target), (
                 f"active slot {slot} has no progress")
         for slot in self._free:
             assert self._pos[slot] == -1, (
@@ -998,14 +1421,22 @@ class ServingEngine:
                 "page_resumes": self.stats.page_resumes}
 
     def stats_dict(self) -> Dict:
-        """``EngineStats.as_dict()`` plus the ``'kv'`` section and, when the
-        servable carries quantized packs, the ``'quant'`` section (pack
-        bytes, compression against fp32, worst quantization error)."""
+        """``EngineStats.as_dict()`` plus the ``'kv'`` section; the
+        ``'quant'`` section when the servable carries quantized packs (pack
+        bytes, compression against fp32, worst quantization error); and,
+        with a watchdog, the ``'watchdog'`` section: its timeout and stall
+        count, merged with the snapshot of queue / active / chunk state the
+        last stall took (the reference adds the section only after a
+        stall)."""
         d = self.stats.as_dict()
         d["kv"] = self.kv_stats()
         qs = self.servable.quant_stats()
         if qs:
             d["quant"] = qs
+        if self._watchdog is not None:
+            d["watchdog"] = {"timeout_s": self._watchdog.timeout_s,
+                             "stalls": len(self._watchdog.stalls),
+                             **(self._watchdog_snapshot or {})}
         return d
 
     @property

@@ -40,7 +40,7 @@ _QKV = ("wq", "wk", "wv")
 _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
 
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 slice 5 (the other families)"
+_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
 
 
 def _tile_masks(w: torch.Tensor, tile) -> torch.Tensor:

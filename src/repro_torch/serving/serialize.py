@@ -32,7 +32,7 @@ from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
 
 _PLAN_FIELDS = ("col_idx", "slot_mask", "row_of_vrow", "vrow", "slot")
 _BSR_FIELDS = ("row_id", "col_id", "t_perm")
-_ITEM_SHARDED = "ROADMAP.md Queue 1 slice 6 (sharded plans)"
+_ITEM_SHARDED = "ROADMAP.md Queue 1 item 6 (sharded plans)"
 
 
 class ServableLoadError(RuntimeError):

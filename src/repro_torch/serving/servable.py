@@ -58,7 +58,7 @@ def _check_spec(spec: ServingSpec):
     ROADMAP.md item that brings each."""
     if spec.mesh_shape is not None:
         raise NotImplementedError(
-            "mesh_shape comes with ROADMAP.md Queue 1 slice 6 (sharding)")
+            "mesh_shape comes with ROADMAP.md Queue 1 item 6 (sharding)")
 
 
 def _cast_packed(params, packs, dtype):
@@ -171,10 +171,11 @@ class Servable:
     def decode_many(self, cache, token, pos, n_steps, *, remaining=None,
                     eos_id=None, key=None, temperature: float = 0.0,
                     top_k: int = 0):
-        """K fused decode steps (``models.api.decode_many``): greedy
-        sampling and per-slot EOS / budget masking on the device, one host
-        sync when the caller reads the results. Returns ``(tokens (K, B),
-        valid (K, B), state)``; the cache is updated in place."""
+        """K fused decode steps (``models.api.decode_many``): sampling
+        (greedy, or ``temperature`` / ``top_k`` with the threefry ``key``,
+        ``models/prng.py``) and per-slot EOS / budget masking on the device,
+        one host sync when the caller reads the results. Returns ``(tokens
+        (K, B), valid (K, B), state)``; the cache is updated in place."""
         with torch.no_grad(), decode_kernel_override(
                 self.decode_kernel_kind()):
             return model_api.decode_many(
@@ -196,16 +197,17 @@ class Servable:
         return torch.as_tensor(x, device=self.device)
 
     # -- the engine's functions (cache updated in place) ------------------
-    def engine_decode(self, cache, token, pos, *, temperature: float = 0.0,
-                      top_k: int = 0):
-        """One batched decode step with on-device sampling: returns
-        ``(sampled (B,) int32, ok (B,) bool, logits (B,1,V), cache)``; ``ok``
-        False marks a slot whose logits row went non-finite."""
+    def engine_decode(self, cache, token, pos, *, key=None,
+                      temperature: float = 0.0, top_k: int = 0):
+        """One batched decode step with on-device sampling (``key``: a
+        threefry key, folded by slot and position): returns ``(sampled (B,)
+        int32, ok (B,) bool, logits (B,1,V), cache)``; ``ok`` False marks a
+        slot whose logits row went non-finite."""
         pos = self._tensor(pos)
         logits, cache = self.decode_step(cache, token, pos)
         rows = logits[:, 0, :]
         ok = torch.isfinite(rows).all(dim=-1)
-        nxt = sample_tokens(rows, None, pos, temperature=temperature,
+        nxt = sample_tokens(rows, key, pos, temperature=temperature,
                             top_k=top_k)
         return nxt, ok, logits, cache
 
@@ -220,9 +222,10 @@ class Servable:
         return cache1, logits[0]
 
     def suffix_prefill(self, cache, tokens, slot, start, length):
-        """Prefill only the uncached suffix (tokens (S,)) of slot ``slot``'s
-        prompt against its resident shared prefix. Returns ``(cache, logits
-        (S, V))``."""
+        """Prefill tokens (S,) of slot ``slot``'s prompt from position
+        ``start`` against what the slot already holds: the uncached suffix
+        after a shared prefix (paged), or the next chunk of a chunked
+        prefill (dense or paged). Returns ``(cache, logits (S, V))``."""
         with torch.no_grad():
             logits, cache = model_api.prefill_suffix(
                 self.params, cache, self.cfg, self._tensor(tokens)[None],

@@ -129,7 +129,7 @@ def test_cache_key_separates_pattern_m_mode_quant_and_dtype(tmp_path):
 
 def test_sharded_choice_raises_naming_its_slice():
     _, pk = _packs(n=128, k=128)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         choose_backend(pk, m=32, stub=True, shard=(4, "out"), device=CPU)
     # a single shard is the unsharded problem
     assert choose_backend(pk, m=32, stub=True, shard=(1, "out"),

@@ -5,7 +5,9 @@ the gradients of the two kernel-backed ops against the plain backends. K1
 and K6 run through each of their instances (``bsr_matmul.PLAN_INSTANCES``),
 K4, K5 and K7 through theirs (``DDS_INSTANCES``, ``SDDMM_INSTANCES``,
 ``MASKED_INSTANCES``: the ring instances bitwise equal to general, K5's
-with one split).
+with one split). Also what the engine needs to hold on the card: threefry
+keys and bits and the int8 KV quantizer equal to the CPU's, K1 at the M of
+chunked prefill.
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -1118,3 +1120,77 @@ def test_dds_ring_that_cannot_run_raises_on_card(monkeypatch):
         bm.dds_t(dy1, pk1, data1, instance="ring")
     assert (bm.dds.launches, bm.dds_t.launches,
             bm.plan_dds_t.launches) == before
+
+
+# --------------------------------------------------------------------------
+# the rest of the engine: threefry keys, the int8 KV quantizer and K1 at the
+# chunk prefill's M on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_threefry_keys_and_uniform_bits_on_card_equal_the_cpu():
+    """Keys for 4 slots x 64 positions and the random bits and uniform
+    draws of gemma3_4b's vocabulary: the integer hash is bitwise the same
+    on the card as on the CPU (the CPU's equal JAX's:
+    tests/test_torch_sampling.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.models import prng
+    from repro_torch.models.sampling import slot_keys
+    pos = torch.arange(-1, 255, dtype=torch.int64).reshape(4, 64)
+    dev_key, host_key = prng.PRNGKey(1234, device="cuda"), prng.PRNGKey(1234)
+    for col in range(64):
+        assert torch.equal(slot_keys(dev_key, pos[:, col].cuda()).cpu(),
+                           slot_keys(host_key, pos[:, col]))
+    keys = slot_keys(dev_key, pos[:, 5].cuda())
+    bits = prng.random_bits(keys, (262144,))
+    assert torch.equal(bits.cpu(), prng.random_bits(keys.cpu(), (262144,)))
+    tiny = float(np.finfo(np.float32).tiny)
+    u = prng.uniform(keys, (262144,), tiny)
+    uc = prng.uniform(keys.cpu(), (262144,), tiny)
+    assert torch.equal(u.cpu().view(torch.int32), uc.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_card_equals_the_cpu(dtype):
+    """int8 values and bf16 scales bitwise equal to the CPU's (which equal
+    the reference's: tests/test_torch_kv_quant.py): the quantizer divides
+    by a tensor, never by a Python scalar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.models.attention import _quantize_kv
+    rng = np.random.RandomState(31)
+    x = rng.randn(4, 300, 4, 256) * np.exp(rng.uniform(-6, 6, (4, 300, 4, 1)))
+    x[0, 7] = 0.0
+    xc = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    qg, sg = _quantize_kv(xc.cuda())
+    qc, sc = _quantize_kv(xc)
+    assert torch.equal(qg.cpu(), qc)
+    assert torch.equal(sg.cpu().view(torch.int16), sc.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 17, 37, 256])
+def test_plan_dds_at_chunk_prefill_m_matches_plain_on_card(m):
+    """K1 at the row counts chunked prefill gives it (a tail of any length,
+    a bucket of 256), bf16 x and values on a 128x128 pack at density 0.2,
+    through the instance ``plan_instance`` picks (printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(37)
+    n, k, tile = 1024, 2560, (128, 128)
+    w = rng.randn(n, k).astype(np.float32)
+    w *= np.kron(rng.rand(n // 128, k // 128) < 0.2, np.ones(tile, np.float32))
+    pk = pack_bsr(w, tile)
+    plan = txp.build_plan(pk)
+    data = txp.pack_plan_data(plan, pk.data).cuda().bfloat16()
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().bfloat16()
+    inst = bm.plan_instance(m, tile, x.dtype, data.dtype)
+    print(f"K1 at M={m}: instance {inst}")
+    before = bm.plan_dds.launches
+    y = bm.plan_dds(x, data, txp.plan_schedule(plan), n=n, tile=tile)
+    assert bm.plan_dds.launches == before + 1 and y.shape == (m, n)
+    ref = txp.plan_fused_linear_plain(x, data, plan)
+    assert _rel_err(y, ref) <= 2e-2, _rel_err(y, ref)
