@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
-                           lm_serving_sched,training]
+                           lm_serving_sched,lm_families,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -21,7 +21,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      gemma3_4b's packed projections at M=4 (decode) and M=1024 (prefill,
      bf16) -- each with its instance and kernel and library (torch.matmul
      on the densified weight) times with the queue held and cold (64 MB
-     written before each launch), plain time and bound; K4 (dds, dds_t,
+     written before each launch), plain time and bound, then the same for
+     the lm_families models' packed attention projections (pixtral_12b's
+     fused QKV 6144x5120 and wo 5120x4096, qwen3_moe's 9216x4096 and
+     4096x8192, deepseek_v2_lite's MLA wq 3072x2048 and wo 2048x2048) at
+     M=4 and M=1024, bf16; K4 (dds, dds_t,
      plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
      tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
      (padding tiles exactly zero), the spilling plan; each through every
@@ -45,7 +49,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      plain, bound and library (scaled_dot_product_attention with the same
      mask) times, the kernel's and the library's both warm (50 launches on
      the same caches, which stay in L2) and cold (64 MB written before
-     each launch). Each K2 / K3 call is two launches: a split kernel, one
+     each launch), and at head_dim 128 (B=4, a 1280-slot linear cache and
+     its 80 pages; Hkv=8, G=4 as pixtral_12b, Hkv=4, G=16 as qwen3_moe)
+     with the same checks and times. Each K2 / K3 call is two launches: a
+     split kernel, one
      block per (split, KV head, slot) writing the split's fp32 partial
      (its own max, sum and p.V), then a combine folding the partials in
      split order; then K6
@@ -124,6 +131,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      raises, exactly its request fails (prefill_error) and the others are
      done, stats_dict()['watchdog'] present with 0 stalls of a 30 s
      watchdog.
+  4c. lm_families: pixtral_12b (vlm; 40 layers), deepseek_v2_lite_16b
+     (MLA + MoE; 27 layers) and qwen3_moe_235b_a22b (MoE; full width, 4 of
+     94 layers: the whole model does not fit 80 GB) one after the other,
+     each freed before the next (peak memory printed): seeded bf16 weights
+     on the card, pruned 80% at 128x128 with tied masks and served through
+     K1 (and K2 / K3 on the GQA attention layers; MLA decodes with the
+     plain absorbed composition, no kernel). pixtral: model_forward on
+     (1, 512) tokens with 256 seeded patch embeddings, logits with K1
+     within 5% of max|logits| of the plain plan composition. Each: the
+     engine dense and paged (deepseek: paged latent pools) with
+     lm_serving's 6 requests, every request done, K1 / K2 / K3 launches
+     equal to the layer routing; decode_step logits with the kernels
+     against the plain composition within 5% of max|logits|, and for MoE
+     the tokens whose top-k expert set differs between the two (a
+     difference fails unless the router's k-th vs (k+1)-th logit margin is
+     below twice the router logits' max|delta|); for MoE the chunked-
+     prefill gate (SchedSpec(max_chunk=256) logs its blocker and admits
+     one-shot); a profiled decode window with the routed-expert bytes
+     floor beside its device time.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -138,7 +164,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      unpacked weights, ms per step of both kinds and a profiler breakdown
      of one packed step.
 
-The line before the last is the kernels JSON record; the last line is
+Each phase prints its seconds ("[phase] ..."). The line before the last is
+the kernels JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -199,6 +226,13 @@ TOL_DECODE_BF16 = 2e-2
 
 MAIN_SHAPES = (("qkv", 2304, 768), ("attn_out", 768, 768),
                ("ffn_in", 3072, 768), ("ffn_out", 768, 3072))
+# the lm_families models' packed attention projections, (name, N, K):
+# pixtral_12b's fused QKV and wo, qwen3_moe's (64 query / 4 KV heads of
+# 128), deepseek_v2_lite's MLA wq and wo (their FFNs are MoE or unpruned)
+FAMILY_SHAPES = (("pixtral", (("wqkv", 6144, 5120), ("wo", 5120, 4096))),
+                 ("qwen3_moe", (("wqkv", 9216, 4096), ("wo", 4096, 8192))),
+                 ("deepseek_v2_lite", (("wq", 3072, 2048),
+                                       ("wo", 2048, 2048))))
 
 
 class PhaseError(RuntimeError):
@@ -423,7 +457,7 @@ def _group_summary(kernel, label, recs):
     tag = f" [{', '.join(insts)}]" if insts else ""
     gen = (f", general instance {tot['general_ms']:.4f} ms"
            if "general_ms" in tot else "")
-    print(f"[kernels] {kernel} {label}, four shapes{tag}: "
+    print(f"[kernels] {kernel} {label}, {len(recs)} shapes{tag}: "
           f"kernel {tot['ms']:.4f} ms (cold {tot['ms_cold']:.4f}){gen}, "
           f"library {tot['library_ms']:.4f} ms (cold "
           f"{tot['library_ms_cold']:.4f}), plain {tot['plain_ms']:.4f} ms, "
@@ -436,7 +470,8 @@ def phase_kernels(seed: int):
     """K1 against its plain version on the card: the small layout cases
     through every instance that takes each, then timed shapes -- BERT-base's
     four projections at M=384 (fp32), gemma3_4b's four packed projections
-    at M=4 (decode) and M=1024 (prefill), bf16."""
+    and the lm_families models' two each at M=4 (decode) and M=1024
+    (prefill), bf16."""
     import numpy as np
     import torch
     from repro_torch.kernels import (plan_dds, plan_fused_linear,
@@ -535,13 +570,15 @@ def phase_kernels(seed: int):
                 x.bfloat16(), TOL_BF16, act="gelu")
 
     groups = {}
-    for label, shapes, m, dtype, flop_rate, tol in (
-            ("bert_m384", MAIN_SHAPES, 384, torch.float32, FP32_FLOP_PER_S,
-             TOL_F32),
-            ("gemma_m4", GEMMA_SHAPES, 4, torch.bfloat16, BF16_FLOP_PER_S,
-             TOL_BF16),
-            ("gemma_m1024", GEMMA_SHAPES, 1024, torch.bfloat16,
-             BF16_FLOP_PER_S, TOL_BF16)):
+    timed = [("bert_m384", MAIN_SHAPES, 384, torch.float32, FP32_FLOP_PER_S,
+              TOL_F32),
+             ("gemma_m4", GEMMA_SHAPES, 4, torch.bfloat16, BF16_FLOP_PER_S,
+              TOL_BF16),
+             ("gemma_m1024", GEMMA_SHAPES, 1024, torch.bfloat16,
+              BF16_FLOP_PER_S, TOL_BF16)]
+    timed += [(f"{model}_m{m}", shapes, m, torch.bfloat16, BF16_FLOP_PER_S,
+               TOL_BF16) for model, shapes in FAMILY_SHAPES for m in (4, 1024)]
+    for label, shapes, m, dtype, flop_rate, tol in timed:
         print(f"[kernels] K1 {label}: M={m}, 128x128 tiles, density 0.2, "
               f"{dtype}")
         recs = []
@@ -822,6 +859,82 @@ def _decode_times(fn, plain, sdpa, plain_reps=50):
             "library_ms_cold": _time_cold_ms(sdpa)}
 
 
+# the lm_families models' decode attention: (label, Hkv, G), D = 128
+DECODE_FAMILY_SHAPES = (("pixtral_g4", 8, 4), ("qwen3_g16", 4, 16))
+
+
+def _decode_family_shapes(rng, dev, per_shape):
+    """K2 on a 1280-slot linear bf16 cache and K3 on its 80 shuffled pages
+    at B = 4 ragged positions, D = 128, with pixtral_12b's (Hkv, G) = (8, 4)
+    and qwen3_moe's (4, 16) -- for G = 16 a split of more than 512 rows
+    takes the two-pass path (G * rows > 8192) -- against the plain versions,
+    K3 bit-exact against K2, two calls bitwise equal, with times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain,
+                                                  paged_flash_decode,
+                                                  paged_flash_decode_plain)
+    from repro_torch.models.common import paged_view
+    i32, dtype = torch.int32, torch.bfloat16
+    b, t, d, ps = 4, 1280, 128, 16
+    posl = [1279, 1105, 700, 333]
+    for label, hkv, g in DECODE_FAMILY_SHAPES:
+        hq = hkv * g
+        q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
+        kvp = torch.arange(t, dtype=i32, device=dev)[None].expand(b, t)
+        kvp = torch.where(kvp <= torch.tensor(posl, device=dev)[:, None], kvp,
+                          torch.full_like(kvp, -1)).contiguous()
+        pos = torch.tensor(posl, dtype=i32, device=dev)
+        out = flash_decode(q, k, v, kvp, pos)
+        err = _compare(f"K2 {label} T=1280 D=128", out, flash_decode_plain(
+            q, k, v, kvp, pos), TOL_DECODE_BF16, "K2")
+        torch.cuda.synchronize()
+        check(torch.equal(out, flash_decode(q, k, v, kvp, pos)),
+              f"K2 {label}: two calls differ")
+        bound, by = _decode_bound_ms(kvp.cpu().numpy(), posl, 0, b, hq, hkv,
+                                     d, 2)
+        sdpa = _sdpa_fn(q, k, v, kvp, pos, 0)
+        per_shape[f"{label}_1280"] = {
+            "t": t, "hkv": hkv, "g": g, "d": d, "max_abs_err": err,
+            **_decode_times(lambda: flash_decode(q, k, v, kvp, pos),
+                            lambda: flash_decode_plain(q, k, v, kvp, pos),
+                            sdpa),
+            "bound_ms": bound, "bound_by": by}
+        npg = t // ps
+        perm = torch.from_numpy(rng.permutation(b * npg).astype(
+            np.int32)).to(dev)
+        table = perm.reshape(b, npg).contiguous()
+        kp = torch.empty((b * npg, ps, hkv, d), dtype=dtype, device=dev)
+        vp = torch.empty_like(kp)
+        kp[table.long()] = k.reshape(b, npg, ps, hkv, d)
+        vp[table.long()] = v.reshape(b, npg, ps, hkv, d)
+        out3 = paged_flash_decode(q, kp, vp, table, kvp, pos)
+        err3 = _compare(f"K3 {label} T=1280 (80 pages)", out3,
+                        paged_flash_decode_plain(q, kp, vp, table, kvp, pos),
+                        TOL_DECODE_BF16, "K3")
+        same = flash_decode(q, paged_view(kp, table, kvp),
+                            paged_view(vp, table, kvp), kvp, pos,
+                            kv_split=npg)
+        torch.cuda.synchronize()
+        check(torch.equal(out3, same), f"K3 {label} is not bit-exact "
+              "against K2 over the gathered view")
+        check(torch.equal(out3, paged_flash_decode(q, kp, vp, table, kvp,
+                                                   pos)),
+              f"K3 {label}: two calls differ")
+        per_shape[f"{label}_paged_1280"] = {
+            "t": t, "page_size": ps, "hkv": hkv, "g": g, "d": d,
+            "max_abs_err": err3,
+            **_decode_times(lambda: paged_flash_decode(q, kp, vp, table, kvp,
+                                                       pos),
+                            lambda: paged_flash_decode_plain(
+                                q, kp, vp, table, kvp, pos),
+                            sdpa, plain_reps=5),
+            "bound_ms": bound, "bound_by": by}
+        print(f"  K2/K3 {label}: Hq={hq}, Hkv={hkv}, G={g}, D={d}; K3 "
+              f"bit-exact vs K2, both repeatable: ok")
+
+
 def phase_decode_kernels(seed: int):
     """K2 and K3 against their plain versions on the card: the small
     layout cases, then the gemma3_4b decode shapes with times."""
@@ -1051,6 +1164,7 @@ def phase_decode_kernels(seed: int):
                                                    window=window),
                         _sdpa_fn(q, k, v, kvp, pos, window)),
         "bound_ms": bound, "bound_by": by}
+    _decode_family_shapes(rng, dev, per_shape)
     qg, kg, vg, kvpg, posg = glob
 
     def ten_each():
@@ -2833,6 +2947,406 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 4c: lm_families -- the vlm, MoE and MLA families through the engine
+# --------------------------------------------------------------------------
+
+# (model, depth cut or None, the reason printed); one after the other
+LM_FAMILIES = (("pixtral_12b", None, "full width and depth"),
+               ("deepseek_v2_lite_16b", None, "full width and depth"),
+               ("qwen3_moe_235b_a22b", 4,
+                "full width, 4 of 94 layers: the whole model (~470 GB "
+                "bf16) does not fit the card's 80 GB"))
+VLM_TOKENS = 512
+# a chunked-prefill request of the MoE gate check: one-shot, as logged
+GATE_PROMPTS = (300, 37)
+
+
+def _family_config(name, n_layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    want = {"pixtral_12b": (40, 5120, 32, 8, 128, 131072),
+            "deepseek_v2_lite_16b": (27, 2048, 16, 16, 128, 102400),
+            "qwen3_moe_235b_a22b": (94, 4096, 64, 4, 128, 151936)}[name]
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.vocab_size) == want,
+          f"{name} is not the published configuration")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def _plain_packs(packs):
+    """The same packs pinned to the plain plan composition (no kernel)."""
+    from repro_torch.kernels.exec_plan import PlanChoice
+    return {k: PlanChoice(v.plan, "plan") if isinstance(v, PlanChoice)
+            else v for k, v in packs.items()}
+
+
+class _RouterLog:
+    """Records every MoE routing call's router logits, top-k indices and
+    whole routing (``models.moe.route`` wrapped while a pass runs). With
+    ``replay`` (another pass's log) each call returns that pass's routing
+    in its place, so the two passes route every token alike."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.moe, self.calls, self.routes = moe, [], []
+        self._route = moe.route
+        self._replay = replay
+
+    def __enter__(self):
+        import torch
+
+        def route(router, x2, cfg):
+            out = self._route(router, x2, cfg)
+            logits = torch.matmul(x2.float(), router)
+            self.calls.append((logits, out[2]))
+            self.routes.append(out)
+            if self._replay is not None:
+                return self._replay.routes[len(self.calls) - 1]
+            return out
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+
+
+def _routing_flips(name, kern, plain, k):
+    """Tokens whose top-k expert set differs between the kernel and the plain
+    pass, layer by layer; a flip fails only where the plain pass's k-th vs
+    (k+1)-th router logit margin is at least twice the layer's max |delta|
+    of the router logits (elsewhere a near-tie)."""
+    import torch
+    check(len(kern.calls) == len(plain.calls) > 0,
+          f"{name}: routing calls {len(kern.calls)} vs {len(plain.calls)}")
+    flips = worst = 0
+    for (la, ia), (lb, ib) in zip(kern.calls, plain.calls):
+        d = float((la - lb).abs().max())
+        sa, _ = torch.sort(ia, dim=-1)
+        sb, _ = torch.sort(ib, dim=-1)
+        diff = (sa != sb).any(dim=-1)
+        if bool(diff.any()):
+            top = torch.sort(lb, dim=-1, descending=True).values
+            margin = (top[:, k - 1] - top[:, k])[diff]
+            flips += int(diff.sum())
+            worst = max(worst, float(margin.max()))
+            check(float(margin.max()) < 2 * d, f"{name}: a token's top-{k} "
+                  f"experts differ where the router margin "
+                  f"{float(margin.max()):.4e} is >= 2 x {d:.4e}")
+    n = sum(int(i.shape[0]) for _, i in kern.calls)
+    print(f"[lm_families] {name}: top-{k} expert sets differ for {flips} of "
+          f"{n} routed tokens (kernels vs plain), all at near-ties "
+          f"(largest margin {worst:.4e})")
+    return flips
+
+
+def phase_lm_families(seed: int, card: str):
+    """pixtral_12b (vlm), deepseek_v2_lite_16b (MLA + MoE) and
+    qwen3_moe_235b_a22b (MoE; 4 of 94 layers) at full width, bf16, one after
+    the other: seeded weights on the card, pruned 80% at 128x128 and served
+    through K1 (and K2 / K3 for the attention layers); the vlm forward with
+    patch embeddings; the engine dense and paged with exact launch counts;
+    decode_step logits kernels vs the plain composition (MoE routing flips
+    only at near-ties); the MoE chunked-prefill gate; a profiled decode
+    window beside the expert-bytes floor; peak memory."""
+    import gc
+    import logging
+
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import flatten_with_path, leaves, path_name
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (decode_kernel_override,
+                                                  flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.models import api as model_api
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import SchedSpec, ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    spec = ServingSpec(tile=(128, 128), sparsity=0.8, prune="tied",
+                       fuse_qkv=True, backend="plan_pallas",
+                       decode_kernel="flash")
+    counts = {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    by_model = {}
+
+    def zero():
+        plan_dds.launches = 0
+        flash_decode.launches = 0
+        paged_flash_decode.launches = 0
+
+    def read():
+        return {"plan_dds": plan_dds.launches,
+                "flash_decode": flash_decode.launches,
+                "paged_flash_decode": paged_flash_decode.launches}
+
+    for name, depth, why in LM_FAMILIES:
+        t_model = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = _family_config(name, depth)
+        kinds = list(cfg.layer_plan()[0]) + list(cfg.layer_plan()[1]) * \
+            cfg.layer_plan()[2] + list(cfg.layer_plan()[3])
+        n_attn = sum(1 for k in kinds if k.mixer == "attn")
+        n_moe = sum(1 for k in kinds if k.ffn == "moe")
+        print(f"[lm_families] {name} ({cfg.family}): {len(kinds)} layers "
+              f"({why}); {n_attn} GQA attention ({cfg.n_heads} query / "
+              f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}), "
+              f"{len(kinds) - n_attn} MLA, {n_moe} MoE FFN ({cfg.n_experts} "
+              f"experts top-{cfg.top_k}, {cfg.n_shared_experts} shared); "
+              f"d={cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; card "
+              f"{card}")
+        t0 = time.perf_counter()
+        params = init_model(seed, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in leaves(params))
+        servable = prepare_servable(params, cfg, spec, device=dev)
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        plain = _plain_packs(servable.packs)
+        expert_bytes = sum(
+            x.numel() * x.element_size()
+            for path, x in ((path_name(p), x) for p, x in
+                            flatten_with_path(servable.params))
+            if "/ffn/" in path and path.rsplit("/", 1)[-1] in ("wi", "wg",
+                                                                "wo"))
+        k1 = sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+                 for k in servable.packs)
+        print(f"[lm_families] {name}: {n_params / 1e9:.3f} B parameters, "
+              f"init {t_init:.1f} s, prune + export "
+              f"{time.perf_counter() - t0 - t_init:.1f} s; "
+              f"{len(servable.packs)} packed projection groups "
+              f"({sorted({k.split('/', 2)[2] for k in servable.packs})}), "
+              f"{k1} K1 launches a decode step and a prefill; routed-expert "
+              f"weights {expert_bytes / 1e9:.3f} GB; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        rng = np.random.RandomState(seed + 7)
+        rec = {"layers": len(kinds), "params": n_params, "k1_per_pass": k1}
+
+        if cfg.family == "vlm":
+            toks = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (1, VLM_TOKENS)).astype(np.int32)).to(dev)
+            mm = torch.from_numpy((0.02 * rng.randn(
+                1, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+                    dev, cfg.tdtype)
+            batch = {"tokens": toks, "mm_embeds": mm}
+            with torch.inference_mode():
+                zero()
+                y_k, _ = model_api.model_forward(servable.params, cfg, batch,
+                                                 packs=servable.packs)
+                torch.cuda.synchronize()
+                got = read()
+                y_p, _ = model_api.model_forward(servable.params, cfg, batch,
+                                                 packs=plain)
+                y_t, _ = model_api.model_forward(
+                    servable.params, cfg, {"tokens": toks},
+                    packs=servable.packs)
+            torch.cuda.synchronize()
+            for key, v in got.items():
+                counts[key] += v
+            check(got == {"plan_dds": k1, "flash_decode": 0,
+                          "paged_flash_decode": 0},
+                  f"{name}: forward launches {got}, want {k1} K1")
+            err = float((y_k - y_p).abs().max())
+            scale = float(y_p.abs().max())
+            moved = float((y_k[0, 0] - y_t[0, 0]).abs().max())
+            print(f"[lm_families] {name}: model_forward (1, {VLM_TOKENS}) "
+                  f"with {cfg.n_patches} patch embeddings: {got['plan_dds']}"
+                  f" K1 launches, logits kernels vs plain max|d|={err:.4e}, "
+                  f"max|logits|={scale:.4e}, tol "
+                  f"{TOL_FLASH_VS_XLA * scale:.4e}; the patches move "
+                  f"position 0 by {moved:.4e}")
+            check(bool(torch.isfinite(y_k).all()), f"{name}: non-finite")
+            check(err <= TOL_FLASH_VS_XLA * scale,
+                  f"{name}: forward logits with K1 disagree with plain")
+            check(moved > 0, f"{name}: mm_embeds did not reach the logits")
+            rec["forward"] = {"max_abs_err": err, "max_logits": scale}
+            del y_k, y_p, y_t
+
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in LM_PROMPTS]
+        for layout in ("dense", "paged"):
+            eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                                  kv_layout=layout)
+            check(eng.kv_layout == layout, f"{name}: fell back from {layout}")
+            eng.submit(prompts[0][:8], max_new_tokens=2)
+            eng.run()
+            eng.stats = type(eng.stats)()
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+                       for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read()
+            for key, v in got.items():
+                counts[key] += v
+            es = eng.stats
+            for h in handles:
+                check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+                      f"{name} {layout}: request {h.req_id} {h.status} "
+                      f"({h.failure}), {len(h.tokens)} tokens")
+            steps = es.steps
+            want = {"plan_dds": k1 * (steps + es.prefills),
+                    "flash_decode": steps * n_attn if layout == "dense"
+                    else 0,
+                    "paged_flash_decode": steps * n_attn if layout == "paged"
+                    else 0}
+            print(f"[lm_families] {name} {layout}: {len(handles)} requests "
+                  f"done, {es.tokens_generated} tokens, {steps} decode steps "
+                  f"in {es.windows} windows, {es.prefills} prefills (buckets "
+                  f"{dict(es.bucket_hits)}); launches {got} (expected {want})")
+            check(got == want, f"{name} {layout}: launch counts {got} differ "
+                  f"from the layer routing {want}")
+            ms = 1e3 * es.decode_s / steps
+            print(f"[lm_families] {name} {layout}: wall {wall:.3f} s; "
+                  f"prefill {es.prefill_s:.3f} s, decode {es.decode_s:.3f} s"
+                  f"; {ms:.3f} ms per decode step, "
+                  f"{(es.tokens_generated - es.prefills) / es.decode_s:.1f} "
+                  f"decode tokens/s (host clock); kv {eng.kv_stats()}")
+            rec[layout] = {"steps": steps, "ms_per_step": ms, "wall_s": wall,
+                           "launches": got}
+            del eng, handles
+
+        # one fused window over four live slots, under the profiler
+        prof_eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
+                                   kv_layout="dense")
+        for p in prompts[:4]:
+            prof_eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+        prof_eng._schedule()
+        check(sum(1 for s in range(4) if prof_eng._pos[s] >= 0) == 4,
+              f"{name}: profiler setup lacks 4 live slots")
+
+        def window(e=prof_eng):
+            e.servable.decode_many(
+                e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
+                remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
+        window()
+        label = f"{name} decode window (8 steps, 4 slots)"
+        rows = _profile(label, window, top=12)
+        _kernel_share(label, rows)
+        busy = sum(r[0] for r in rows)
+        floor = expert_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[lm_families] {name}: device busy {busy / 8:.3f} ms a decode"
+              f" step" + (f"; routed-expert bytes floor {floor:.3f} ms a step"
+                          f" ({expert_bytes / 1e9:.3f} GB at 3.35 TB/s: "
+                          f"capacity 1 fills every expert's slot, so each "
+                          f"step reads them all)" if n_moe else ""))
+        rec["window"] = {"busy_ms": busy, "busy_ms_per_step": busy / 8,
+                         "expert_floor_ms": floor}
+        del prof_eng, window
+
+        # decode_step with the kernels against the plain composition on the
+        # same cache (four prefilled slots at ragged positions; each pass
+        # rewrites the same rows before it attends)
+        cache, tok, pos, _ = _prefill_slots(servable, prompts[:4])
+
+        def step(packs, kernel, log):
+            with torch.no_grad(), log, decode_kernel_override(kernel):
+                zero()
+                y, _ = model_api.decode_step(servable.params, cache, cfg,
+                                             tok, pos, packs=packs)
+                torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all()),
+                  f"{name}: non-finite decode logits")
+            return y, read()
+        rk, rp = _RouterLog(), _RouterLog()
+        y_k, got = step(servable.packs, "flash", rk)
+        check(got == {"plan_dds": k1, "flash_decode": n_attn,
+                      "paged_flash_decode": 0},
+              f"{name}: decode_step launches {got}")
+        y_p, got = step(plain, "xla", rp)
+        check(got == {"plan_dds": 0, "flash_decode": 0,
+                      "paged_flash_decode": 0},
+              f"{name}: the plain decode_step launched a kernel {got}")
+        err = float((y_k - y_p).abs().max())
+        scale = float(y_p.abs().max())
+        same = int((y_k.argmax(-1) == y_p.argmax(-1)).sum())
+        print(f"[lm_families] {name}: decode_step logits, kernels (K1"
+              f"{', K2' if n_attn else ''}) vs plain on the same cache: "
+              f"max|d|={err:.4e}, max|logits|={scale:.4e}, tol "
+              f"{TOL_FLASH_VS_XLA * scale:.4e}; greedy tokens equal in "
+              f"{same} of 4 slots")
+        rec["decode_step"] = {"max_abs_err": err, "max_logits": scale}
+        flips = 0
+        if n_moe:
+            flips = _routing_flips(name, rk, rp, cfg.top_k)
+            # a routing flip at a near-tie moves whole expert outputs (and,
+            # at capacity 1, which tokens are dropped): hold the kernels'
+            # arithmetic with the plain pass routed as the kernel pass was
+            y_r, _ = step(plain, "xla", _RouterLog(replay=rk))
+            err_r = float((y_k - y_r).abs().max())
+            scale_r = float(y_r.abs().max())
+            print(f"[lm_families] {name}: decode_step logits with the plain "
+                  f"pass routed as the kernel pass: max|d|={err_r:.4e}, "
+                  f"max|logits|={scale_r:.4e}, tol "
+                  f"{TOL_FLASH_VS_XLA * scale_r:.4e}")
+            check(err_r <= TOL_FLASH_VS_XLA * scale_r,
+                  f"{name}: decode_step logits with the kernels disagree "
+                  f"under the same routing")
+            rec["decode_step"].update(routing_flips=flips,
+                                      max_abs_err_same_routing=err_r,
+                                      max_logits_same_routing=scale_r)
+            del y_r
+        # without a routing flip the two passes must agree as they are
+        check(flips > 0 or err <= TOL_FLASH_VS_XLA * scale,
+              f"{name}: decode_step logits with the kernels disagree")
+        del cache, y_k, y_p, rk, rp
+
+        if n_moe:
+            # chunked prefill: the engine logs its blocker, admits one-shot
+            records = []
+
+            class _Keep(logging.Handler):
+                def emit(self, r):
+                    records.append(r.getMessage())
+            logger = logging.getLogger("repro_torch.serving")
+            handler, level = _Keep(), logger.level
+            logger.addHandler(handler)
+            logger.setLevel(logging.INFO)
+            try:
+                eng = servable.engine(max_slots=4, cache_len=1280,
+                                      sync_every=8,
+                                      sched=SchedSpec(max_chunk=256))
+            finally:
+                logger.removeHandler(handler)
+                logger.setLevel(level)
+            hs = [eng.submit(p[:n], max_new_tokens=4)
+                  for p, n in zip(prompts, GATE_PROMPTS)]
+            eng.run()
+            blocker = [m for m in records if "MoE ffn" in m]
+            print(f"[lm_families] {name}: SchedSpec(max_chunk=256): "
+                  f"chunking {eng._chunking}, {eng.stats.prefill_chunks} "
+                  f"chunks, {eng.stats.prefills} one-shot prefills, "
+                  f"statuses {[h.status for h in hs]}; logged: {blocker}")
+            check(not eng._chunking and eng.stats.prefill_chunks == 0
+                  and all(h.status == "done" for h in hs) and blocker,
+                  f"{name}: the MoE chunked-prefill gate did not fall back")
+            del eng, hs
+
+        del servable, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        rec["peak_gib"] = peak / 2**30
+        rec["seconds"] = time.perf_counter() - t_model
+        print(f"[lm_families] {name}: peak device memory {peak / 2**30:.2f} "
+              f"GiB (torch.cuda.max_memory_allocated), {rec['seconds']:.1f} "
+              f"s; freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"still allocated")
+        by_model[name] = rec
+    print(f"[lm_families] summary {json.dumps(by_model)}")
+    return counts
+
+
 def _sum_group(recs):
     """A group of per-shape records summed (one layer's four projections):
     the kernel-line keys."""
@@ -2877,7 +3391,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
-                            "training")
+                            "lm_families,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2894,8 +3408,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
 
+    t_run = time.perf_counter()
+    marks = [("build", t_run)]
+
+    def done(name):
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - marks[-1][1]:.1f} s (run "
+              f"{now - t_run:.1f} s)")
+        marks.append((name, now))
+
     try:
         card = phase_build()
+        done("build")
         per_shape, bwd_shapes, decode_shapes, launches = {}, {}, {}, {}
         quant_shapes, masked_shapes = {}, []
         if "kernels" in phases:
@@ -2904,25 +3428,39 @@ def main() -> int:
             decode_shapes = phase_decode_kernels(args.seed)
             quant_shapes = phase_quant_kernels(args.seed)
             masked_shapes = phase_masked_kernels(args.seed)
+            done("kernels")
         if "serving" in phases:
             launches["bert"] = phase_serving(args.seed, args.requests)
+            done("serving")
         if "serving_quant" in phases:
             launches["serving_quant"] = phase_serving_quant(args.seed,
                                                             args.requests)
+            done("serving_quant")
         if "serving_auto" in phases:
             launches.update(phase_serving_auto(args.seed, args.requests))
+            done("serving_auto")
         lm_fp = lm_tokens = None
         if "lm_serving" in phases:
             launches["lm"], lm_fp, lm_tokens = phase_lm_serving(args.seed)
+            done("lm_serving")
         if "lm_serving_quant" in phases:
             launches["lm_serving_quant"] = phase_lm_serving_quant(
                 args.seed, lm_fp, lm_tokens)
+            done("lm_serving_quant")
         if "lm_serving_sched" in phases:
             launches["lm_serving_sched"] = phase_lm_serving_sched(
                 args.seed, card, lm_fp)
+            done("lm_serving_sched")
         del lm_fp
+        if "lm_families" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_families"] = phase_lm_families(args.seed, card)
+            done("lm_families")
         if "training" in phases:
             launches["training"] = phase_training(args.seed)
+            done("training")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2954,8 +3492,13 @@ def main() -> int:
     # K2 at the ring shape (29 of gemma3_4b's 34 layers), K3 at the paged
     # global shape; every shape's numbers ride along in per_shape
     for name, main_shape, shapes in (
-            ("flash_decode", "ring_1024", ("ring_1024", "global_1280")),
-            ("paged_flash_decode", "paged_1280", ("paged_1280",))):
+            ("flash_decode", "ring_1024",
+             ("ring_1024", "global_1280") + tuple(
+                 f"{label}_1280" for label, _, _ in DECODE_FAMILY_SHAPES)),
+            ("paged_flash_decode", "paged_1280",
+             ("paged_1280",) + tuple(
+                 f"{label}_paged_1280"
+                 for label, _, _ in DECODE_FAMILY_SHAPES))):
         rec = decode_shapes.get(main_shape, {})
         records.append({
             "name": name, "route": "cuda", "source": DECODE_SOURCE,
@@ -2966,7 +3509,9 @@ def main() -> int:
             "library_ms": rec.get("library_ms"),
             "library_ms_cold": rec.get("library_ms_cold"),
             "per_shape": {k: decode_shapes[k] for k in shapes
-                          if k in decode_shapes}})
+                          if k in decode_shapes},
+            "launches_by_path": {k: c.get(name) for k, c in launches.items()
+                                 if name in c}})
     # K6 as K1; K7 at the four BERT-base projection shapes (times summed)
     records.append(_k1k6_record(
         "plan_dds_q", QUANT_SOURCE, QUANT_REPLACES, total("plan_dds_q"),

@@ -1,12 +1,12 @@
-"""Family-dispatching model API: the ``bert`` family and the LM half for the
-``dense`` family.
+"""Family-dispatching model API: the ``bert`` family and the LM families
+``dense``, ``vlm`` and ``moe`` (MLA layers in any of them).
 
-Counterpart of ``repro/models/api.py``. Batch keys: ``tokens`` (B, S) for
-both families. Decode caches are preallocated and updated **in place**
-(where the reference returns updated copies and its engine donates the old
-buffers): every function below that takes a cache writes into it and
-returns the same tree. The other families come with ROADMAP.md Queue 1
-item 4; audio (enc-dec) decoding with it too.
+Counterpart of ``repro/models/api.py``. Batch keys: ``tokens`` (B, S), and
+for ``vlm`` also ``mm_embeds`` (B, P, d) patch embeddings. Decode caches
+are preallocated and updated **in place** (where the reference returns
+updated copies and its engine donates the old buffers): every function
+below that takes a cache writes into it and returns the same tree. The
+ssm, hybrid and audio families come with ROADMAP.md Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.models.attention import as_slot_positions
 from repro_torch.models.sampling import sample_tokens
 
 _ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
-_FAMILIES = ("bert", "dense")
+_FAMILIES = ("bert", "dense", "vlm", "moe")
 
 
 def _ported(cfg: ModelConfig):
@@ -58,6 +58,9 @@ def model_forward(params, cfg: ModelConfig, batch, packs=None):
         logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
+    if cfg.family == "vlm":
+        return lm_mod.forward(params, cfg, batch["tokens"],
+                              mm_embeds=batch.get("mm_embeds"), packs=packs)
     return lm_mod.forward(params, cfg, batch["tokens"], packs=packs)
 
 
@@ -69,7 +72,8 @@ def init_cache(params, cfg: ModelConfig, batch_size, cache_len, frames=None,
                paged=None):
     """A zeroed decode cache on the params' device. ``paged``
     (``models.common.PagedLayout`` or None): page-pool storage for the
-    global attention layers (``serving/paging.py`` hands out page ids)."""
+    global attention and MLA layers (``serving/paging.py`` hands out page
+    ids)."""
     _lm_only(cfg)
     if frames is not None:
         raise NotImplementedError(f"encoder frames come with {_ITEM_FAMILIES}")

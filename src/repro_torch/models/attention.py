@@ -17,8 +17,8 @@ cache and runs the plain ``decode_attention`` composition, as the reference
 does (K2/K3 take bf16 / fp32 caches only).
 
 Not ported here: cross-attention (``kv_override``, the audio family) and the
-flash-attention backward; each raises, naming the ROADMAP.md item that
-brings it.
+flash-attention backward (``flash_attention`` on inputs that require grad,
+with grad mode on); each raises, naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.models.common import (apply_rope, init_linear, linear,
 NEG_INF = -1e30
 
 _ITEM_AUDIO = "ROADMAP.md Queue 1 item 4 (the audio family)"
+_ITEM_LM_TRAINING = "ROADMAP.md Queue 1 item 5 (LM training)"
 
 
 def as_slot_positions(pos, batch, device=None):
@@ -129,7 +130,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     """Chunked online-softmax attention, forward only: O(Cq*Ckv) scores live
     at a time. The reference's forward (``_flash_fwd_impl``) as a plain
     composition: per (query chunk, KV chunk) tile, masked scores, the
-    running max, probabilities stored in q's dtype, fp32 sums."""
+    running max, probabilities stored in q's dtype, fp32 sums.
+
+    Raises on inputs that require grad with grad mode on: autograd through
+    the chunks would save every chunk's probabilities (O(S^2)), which the
+    reference's custom VJP avoids by saving the output and the logsumexp."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"the flash-attention backward comes with {_ITEM_LM_TRAINING}")
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -1,13 +1,16 @@
-"""Decoder-only LM of the dense family (global and windowed attention layers,
-dense MLPs): forward, one-pass prefill into a KV cache, suffix prefill,
-batched decode over request slots, and the slot lifecycle.
+"""Decoder-only LM: forward, one-pass prefill into a KV cache, suffix prefill,
+batched decode over request slots, and the slot lifecycle. Layers mix
+global / windowed attention or MLA (``models/mla.py``) with a dense MLP, a
+MoE FFN (``models/moe.py``) or none; the vlm family's patch embeddings
+replace the first positions of ``forward``'s embedded tokens.
 
-Counterpart of the dense-family part of ``repro/models/lm.py``. Layer stacks
-follow the config's ``layer_plan()``: an unrolled prefix, ``n_periods``
-repetitions of the (possibly heterogeneous) ``pattern`` -- stored stacked,
-period axis first, as the reference's ``lax.scan`` carries them, so a JAX
-tree bridges over as it is -- and an unrolled suffix. Here the periods run
-as a Python loop over views of the stacked leaves.
+Counterpart of ``repro/models/lm.py`` for the dense, vlm and moe families
+and MLA layers. Layer stacks follow the config's ``layer_plan()``: an
+unrolled prefix, ``n_periods`` repetitions of the (possibly heterogeneous)
+``pattern`` -- stored stacked, period axis first, as the reference's
+``lax.scan`` carries them, so a JAX tree bridges over as it is -- and an
+unrolled suffix. Here the periods run as a Python loop over views of the
+stacked leaves.
 
 Caches are preallocated and written **in place**: the reference returns an
 updated copy of the cache from every step and its serving engine donates
@@ -19,8 +22,8 @@ output gives them: the head is applied as an fp32 matrix product, and for a
 bf16 model one fp32 copy of the (tied) head is made on first use and kept
 as long as the head tensor lives (``_head_f32``).
 
-The MoE, MLA, SSM, RG-LRU and VLM layers raise, naming ROADMAP.md Queue 1
-item 4.
+The SSM and RG-LRU layers (the ssm and hybrid families) raise, naming
+ROADMAP.md Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal_init,
                                        paged_bulk_write)
@@ -39,8 +44,8 @@ _ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other model families)"
 
 
 def _check_kind(kind: LayerKind):
-    if kind.mixer not in ("attn", "local") or kind.ffn not in ("dense",
-                                                               "none"):
+    if kind.mixer not in ("attn", "local", "mla") or kind.ffn not in (
+            "dense", "moe", "none"):
         raise NotImplementedError(
             f"layer kind {kind} (mixer {kind.mixer!r}, ffn {kind.ffn!r}) "
             f"comes with {_ITEM_FAMILIES}")
@@ -66,11 +71,17 @@ def _tree_stack(parts):
 def _init_layer(gen, cfg: ModelConfig, kind: LayerKind, device):
     _check_kind(kind)
     dt = cfg.tdtype
-    p = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device),
-         "attn": attn.init_attention(gen, cfg, device)}
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device)}
+    if kind.mixer == "mla":
+        p["attn"] = mla_mod.init_mla(gen, cfg, device)
+    else:
+        p["attn"] = attn.init_attention(gen, cfg, device)
     if kind.ffn == "dense":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device)
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+    elif kind.ffn == "moe":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device)
+        p["ffn"] = moe_mod.init_moe(gen, cfg, device)
     return p
 
 
@@ -139,26 +150,40 @@ def _layers(params, cfg: ModelConfig, cache=None):
 def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
                  pos=None, packs=None, prefill_len=None, page_slot=None,
                  page_start=None):
+    """One layer -> (h, the MoE aux loss or None)."""
     _check_kind(kind)
     hn = apply_norm(p["norm1"], h, cfg.norm)
-    out, _ = attn.apply_attention(
-        p["attn"], hn, cfg, positions=positions, window=kind.window,
-        cache=cache["mix"] if cache else None, pos=pos,
-        packs=_layer_packs(packs, "attn"), prefill_len=prefill_len,
-        page_slot=page_slot, page_start=page_start)
+    mix_packs = _layer_packs(packs, "attn") or _layer_packs(packs, "mixer")
+    kw = dict(positions=positions, cache=cache["mix"] if cache else None,
+              pos=pos, packs=mix_packs, prefill_len=prefill_len,
+              page_slot=page_slot, page_start=page_start)
+    if kind.mixer == "mla":
+        out, _ = mla_mod.apply_mla(p["attn"], hn, cfg, **kw)
+    else:
+        out, _ = attn.apply_attention(p["attn"], hn, cfg, window=kind.window,
+                                      **kw)
     h = h + out
+    aux = None
     if kind.ffn != "none" and "ffn" in p:
         hn = apply_norm(p["norm2"], h, cfg.norm)
-        h = h + apply_mlp(p["ffn"], hn, cfg.act,
-                          packs=_layer_packs(packs, "ffn"))
-    return h
+        if kind.ffn == "moe":
+            out, aux = moe_mod.apply_moe(p["ffn"], hn, cfg)
+        else:
+            out = apply_mlp(p["ffn"], hn, cfg.act,
+                            packs=_layer_packs(packs, "ffn"))
+        h = h + out
+    return h, aux
 
 
 def _run_layers(params, cfg, h, cache=None, packs=None, **kw):
+    """Every layer in order -> (h, the layers' MoE aux losses summed, fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, lp, lc, scope in _layers(params, cfg, cache):
-        h = _apply_layer(lp, h, cfg, kind, cache=lc,
-                         packs=_layer_packs(packs, scope), **kw)
-    return h
+        h, a = _apply_layer(lp, h, cfg, kind, cache=lc,
+                            packs=_layer_packs(packs, scope), **kw)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -202,14 +227,19 @@ def _logits(params, cfg: ModelConfig, h):
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, tokens, *, packs=None):
-    """tokens (B, S) -> (logits (B, S, V) fp32, aux loss 0)."""
+def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
+    """tokens (B, S) -> (logits (B, S, V) fp32, the MoE aux loss summed over
+    the layers; 0 without MoE). ``mm_embeds`` (B, P, d), the vlm family's
+    patch embeddings, replace the first P positions after the embedding
+    scale."""
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
+    if mm_embeds is not None:
+        n_p = mm_embeds.shape[1]
+        h = torch.cat([mm_embeds.to(h.dtype), h[:, n_p:]], dim=1)
     positions = torch.arange(s, device=h.device)[None, :]
-    h = _run_layers(params, cfg, h, packs=packs, positions=positions)
-    return (_logits(params, cfg, h),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    h, aux = _run_layers(params, cfg, h, packs=packs, positions=positions)
+    return _logits(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +249,12 @@ def forward(params, cfg: ModelConfig, tokens, *, packs=None):
 def _init_layer_cache(cfg, kind: LayerKind, batch, cache_len, paged, lead,
                       device):
     _check_kind(kind)
-    one = attn.init_cache_attn(cfg, batch, cache_len, kind.window,
-                               paged=paged, device=device)
+    if kind.mixer == "mla":
+        one = mla_mod.init_cache_mla(cfg, batch, cache_len, paged=paged,
+                                     device=device)
+    else:
+        one = attn.init_cache_attn(cfg, batch, cache_len, kind.window,
+                                   paged=paged, device=device)
     if lead:
         # real storage per period (written in place), not a broadcast view
         one = {k: x[None].repeat((lead[0],) + (1,) * x.dim())
@@ -231,7 +265,8 @@ def _init_layer_cache(cfg, kind: LayerKind, batch, cache_len, paged, lead,
 def init_cache(cfg: ModelConfig, batch, cache_len, paged=None, device=None):
     """Zeroed decode cache for ``batch`` request slots. ``paged`` (a
     ``models.common.PagedLayout``) moves every global (window 0) attention
-    layer onto page pools; ring caches stay slot-dense."""
+    layer and every MLA layer onto page pools; ring caches stay
+    slot-dense."""
     prefix, pattern, n_periods, suffix = cfg.layer_plan()
     return {
         "prefix": tuple(_init_layer_cache(cfg, k, batch, cache_len, paged,
@@ -302,7 +337,8 @@ def read_slot(cache, slot):
 
 
 # pool leaf -> the dense batch-1 sub-cache leaf that feeds it
-_POOL_SRC = {"k_pages": "k", "v_pages": "v"}
+_POOL_SRC = {"k_pages": "k", "v_pages": "v",
+             "c_kv_pages": "c_kv", "k_rope_pages": "k_rope"}
 
 
 def write_slot_paged(cache, slot, sub, page_row):
@@ -369,8 +405,8 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, *, packs=None):
     h = _embed(params, cfg, token)
     pos = attn.as_slot_positions(pos, b, h.device)
     positions = pos.clamp_min(0)[:, None]              # (B, 1), rope-safe
-    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
-                    pos=pos)
+    h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                       pos=pos)
     return _logits(params, cfg, h), cache
 
 
@@ -385,8 +421,8 @@ def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None, *,
     length = s if length is None else int(length)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=h.device)[None, :]
-    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
-                    prefill_len=length)
+    h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                       prefill_len=length)
     return _logits(params, cfg, h), cache
 
 
@@ -402,7 +438,7 @@ def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
     length = s if length is None else int(length)
     h = _embed(params, cfg, tokens)
     positions = int(start) + torch.arange(s, device=h.device)[None, :]
-    h = _run_layers(params, cfg, h, cache, packs, positions=positions,
-                    prefill_len=length, page_slot=int(slot),
-                    page_start=int(start))
+    h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
+                       prefill_len=length, page_slot=int(slot),
+                       page_start=int(start))
     return _logits(params, cfg, h), cache

@@ -293,13 +293,14 @@ class ServingEngine:
         prefix_k, pattern_k, n_per, suffix_k = cfg.layer_plan()
         kinds = list(prefix_k) + (list(pattern_k) if n_per > 0 else []) \
             + list(suffix_k)
-        pageable = [k for k in kinds if k.mixer == "attn" and k.window == 0]
+        pageable = [k for k in kinds
+                    if k.mixer in ("attn", "mla") and k.window == 0]
         if layout == "paged":
             blocker = None
             if cfg.kv_cache_quant:
                 blocker = "kv_cache_quant (int8 page pools are future work)"
             elif not pageable:
-                blocker = "no global attention layers to page"
+                blocker = "no linear attention/MLA layers to page"
             if blocker is not None:
                 log.info("kv_layout='paged' unavailable for this config "
                          "(%s); serving dense", blocker)
@@ -324,10 +325,13 @@ class ServingEngine:
             self._layout = PagedLayout(page_size=ps, n_pages=n_pages)
             self._pool = PagePool(n_pages, ps)
             self._prefix_cache = PrefixCache(self._pool, ps)
-            # prefix sharing and page retention need every layer's state in
-            # pages (pure global attention)
-            self._can_share = self._can_retain = all(
-                k.mixer == "attn" and k.window == 0 for k in kinds)
+            # prefix sharing needs the masked suffix-prefill path (pure
+            # global attention); preempt-resume page retention also admits
+            # MLA (restore is layout-only, no recompute)
+            self._can_share = all(k.mixer == "attn" and k.window == 0
+                                  for k in kinds)
+            self._can_retain = all(k.mixer in ("attn", "mla")
+                                   and k.window == 0 for k in kinds)
 
         # -- SLO scheduling: kwarg > spec -----------------------------------
         # sched arms deadline fast-fail and overload shedding regardless;
@@ -337,10 +341,14 @@ class ServingEngine:
         self.sched = sched if sched is not None else servable.spec.sched
         self._chunking = False
         if self.sched is not None and self.sched.max_chunk > 0:
+            blocker = None
             if cfg.kv_cache_quant:
+                blocker = "kv_cache_quant: int8 KV has no exact chunk path"
+            elif any(k.ffn == "moe" for k in kinds):
+                blocker = "MoE ffn (expert routing is batch-global)"
+            if blocker is not None:
                 log.info("chunked prefill unavailable for this config "
-                         "(kv_cache_quant: int8 KV has no exact chunk "
-                         "path); scheduling runs without it")
+                         "(%s); scheduling runs without it", blocker)
             else:
                 self._chunking = True
         # chunk lengths are quantized: every dispatched chunk is exactly

@@ -1,7 +1,9 @@
-"""BSR export for the BERT encoder and the dense-family LMs (the TVM
-relay-conversion analogue).
+"""BSR export for the BERT encoder and the LMs (the TVM relay-conversion
+analogue).
 
-Counterpart of ``repro/serving/export.py`` (bert and lm passes). Training
+Counterpart of ``repro/serving/export.py`` (bert and lm passes; the lm pass
+serves the dense, vlm and moe families: MoE expert weights are raw (E, d, f)
+arrays and stay unpacked, an MLA layer packs ``wq`` and ``wo``). Training
 keeps dense weights; serving packs the pruned projections into tile-granular
 BSR patterns (byte-identical to the reference) and lowers each pattern to a
 :class:`~repro_torch.kernels.exec_plan.RowPackPlan`, storing the tile values
@@ -41,6 +43,8 @@ _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
 
 _ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
+# the reference's LM_FAMILIES that the port serves so far
+LM_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _tile_masks(w: torch.Tensor, tile) -> torch.Tensor:
@@ -355,8 +359,8 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                      registry: Optional[PatternRegistry] = None,
                      backend_chooser=None, pack_quant: str = "none",
                      device=None):
-    """Replace attention (and pruned FFN) projections of a dense-family LM
-    param tree with packed values.
+    """Replace attention (and pruned dense-MLP) projections of an LM param
+    tree with packed values.
 
     Returns (sparse_params, packs, stats): ``packs`` maps layer scopes
     ('blocks/<i>/attn/wqkv', 'suffix/<i>/ffn/wo', ...) to static packs.
@@ -463,7 +467,7 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
                   device=None):
     """Export a model's param tree to serving form. Returns
     ``(sparse_params, packs, stats)``: bert through
-    :func:`export_bert_sparse`, the dense LM family through
+    :func:`export_bert_sparse`, the LM families (``LM_FAMILIES``) through
     :func:`export_lm_sparse` (its stacked groups always union-pack)."""
     if cfg.family == "bert":
         stats: Dict[str, Dict] = {}
@@ -474,7 +478,7 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
             backend_chooser=backend_chooser, pack_quant=pack_quant,
             device=device)
         return sparse_params, packs, stats
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         return export_lm_sparse(params, cfg, tile=tile, fuse_qkv=fuse_qkv,
                                 use_plans=use_plans, include_ffn=include_ffn,
                                 registry=registry,

@@ -356,3 +356,6 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
             bad += [(path, m) for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert len(files) > 30 and not bad, bad
+    models = os.path.join(REPO, "src", "repro_torch", "models")
+    assert {os.path.join(models, n) for n in ("moe.py", "mla.py")} <= set(
+        files)

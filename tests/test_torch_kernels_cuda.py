@@ -7,7 +7,9 @@ K4, K5 and K7 through theirs (``DDS_INSTANCES``, ``SDDMM_INSTANCES``,
 ``MASKED_INSTANCES``: the ring instances bitwise equal to general, K5's
 with one split). Also what the engine needs to hold on the card: threefry
 keys and bits and the int8 KV quantizer equal to the CPU's, K1 at the M of
-chunked prefill.
+chunked prefill; and the vlm / MoE / MLA families' shapes: K1 at pixtral_12b's,
+qwen3_moe's and deepseek_v2_lite's packed attention projections at M = 4
+and 1024, K2 / K3 at head_dim 128 with G = 4 and 16.
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -1194,3 +1196,103 @@ def test_plan_dds_at_chunk_prefill_m_matches_plain_on_card(m):
     assert bm.plan_dds.launches == before + 1 and y.shape == (m, n)
     ref = txp.plan_fused_linear_plain(x, data, plan)
     assert _rel_err(y, ref) <= 2e-2, _rel_err(y, ref)
+
+
+# --------------------------------------------------------------------------
+# the vlm, MoE and MLA families' shapes: K1 at their packed projections,
+# K2 / K3 at head_dim 128 with 4 and 16 query heads a KV head
+# --------------------------------------------------------------------------
+
+# (model, projection, N, K): pixtral_12b's fused QKV and wo, qwen3_moe's
+# (64 query / 4 KV heads of 128), deepseek_v2_lite's MLA wq and wo
+_FAMILY_SHAPES = (("pixtral_12b", "wqkv", 6144, 5120),
+                  ("pixtral_12b", "wo", 5120, 4096),
+                  ("qwen3_moe", "wqkv", 9216, 4096),
+                  ("qwen3_moe", "wo", 4096, 8192),
+                  ("deepseek_v2_lite", "wq", 3072, 2048),
+                  ("deepseek_v2_lite", "wo", 2048, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 1024], ids=["stream_m4", "tc_m1024"])
+@pytest.mark.parametrize("model,proj,n,k", _FAMILY_SHAPES)
+def test_plan_dds_at_the_family_projection_shapes_on_card(model, proj, n, k,
+                                                          m):
+    """K1 on a 128x128 pack at density 0.2, bf16 x and values, at a decode
+    step's M = 4 slots (the ``stream`` instance) and a prefill's M = 1024
+    (``tc``), against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import bsr_matmul as bm
+    rng = np.random.RandomState(n + k)
+    tile = (128, 128)
+    w = rng.randn(n, k).astype(np.float32)
+    w *= np.kron(rng.rand(n // 128, k // 128) < 0.2, np.ones(tile, np.float32))
+    pk = pack_bsr(w, tile)
+    plan = txp.build_plan(pk)
+    data = txp.pack_plan_data(plan, pk.data).cuda().bfloat16()
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().bfloat16()
+    inst = bm.plan_instance(m, tile, x.dtype, data.dtype)
+    assert inst == ("stream" if m == 4 else "tc")
+    before = bm.plan_dds.launches
+    y = bm.plan_dds(x, data, txp.plan_schedule(plan), n=n, tile=tile)
+    assert bm.plan_dds.launches == before + 1 and y.shape == (m, n)
+    ref = txp.plan_fused_linear_plain(x, data, plan)
+    assert _rel_err(y, ref) <= 2e-2, _rel_err(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["K2", "K3"])
+@pytest.mark.parametrize("hkv,g", [(8, 4), (4, 16)],
+                         ids=["pixtral_g4", "qwen3_g16"])
+def test_decode_kernels_at_head_dim_128_on_card(hkv, g, paged):
+    """K2 on a 1280-slot linear bf16 cache and K3 on its 80 pages of 16, at
+    B = 4 ragged positions with an inactive slot, D = 128 and G = 4
+    (pixtral_12b) or 16 (qwen3_moe, the G * rows > 8192 chunked path for
+    long splits), against the plain versions; K3 bit-exact against K2 over
+    the gathered view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain,
+                                                  paged_flash_decode,
+                                                  paged_flash_decode_plain)
+    from repro_torch.models.common import paged_view
+    rng = np.random.RandomState(128 + g)
+    b, t, d, ps = 4, 1280, 128, 16
+    dtype = torch.bfloat16
+    q, k, v = _decode_inputs(rng, dtype, b, t, hkv * g, hkv, d)
+    posl = [1279, -1, 700, 333]
+    kvp = torch.arange(t, dtype=torch.int32, device="cuda")[None].repeat(
+        b, 1)
+    lim = torch.tensor([max(p, 0) for p in posl], device="cuda")[:, None]
+    kvp = torch.where(kvp <= lim, kvp, torch.full_like(kvp, -1))
+    kvp[1] = -1
+    pos = torch.tensor(posl, dtype=torch.int32, device="cuda")
+    if not paged:
+        before = flash_decode.launches
+        out = flash_decode(q, k, v, kvp, pos)
+        assert flash_decode.launches == before + 1
+        ref = flash_decode_plain(q, k, v, kvp, pos)
+    else:
+        npg = t // ps
+        perm = torch.from_numpy(rng.permutation(b * npg).astype(
+            np.int32)).cuda()
+        table = perm.reshape(b, npg).contiguous()
+        kp = torch.empty((b * npg, ps, hkv, d), dtype=dtype, device="cuda")
+        vp = torch.empty_like(kp)
+        kp[table.long()] = k.reshape(b, npg, ps, hkv, d)
+        vp[table.long()] = v.reshape(b, npg, ps, hkv, d)
+        before = paged_flash_decode.launches
+        out = paged_flash_decode(q, kp, vp, table, kvp, pos)
+        assert paged_flash_decode.launches == before + 1
+        ref = paged_flash_decode_plain(q, kp, vp, table, kvp, pos)
+        dense = flash_decode(q, paged_view(kp, table, kvp),
+                             paged_view(vp, table, kvp), kvp, pos,
+                             kv_split=npg)
+        assert torch.equal(out, dense)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        _DECODE_TOL[dtype] * scale
+    assert float(out[1].float().abs().max()) == 0.0      # inactive slot

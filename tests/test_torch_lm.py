@@ -1,7 +1,7 @@
 """The port's dense-family LM (``models/lm.py`` through ``models/api.py``)
-against the JAX reference on the gemma3_4b, deepseek_7b and chatglm3_6b
-smoke configs (fp32), on JAX-initialised weights bridged as numpy:
-``forward``, ``prefill_cache`` and ``decode_step`` logits at ragged
+against the JAX reference on the gemma3_4b, deepseek_7b, chatglm3_6b and
+internlm2_20b smoke configs (fp32), on JAX-initialised weights bridged as
+numpy: ``forward``, ``prefill_cache`` and ``decode_step`` logits at ragged
 positions with inactive rows (both decode kernels, dense and paged caches),
 ``decode_many``, the paged primitives' drop semantics, the slot ops, the
 LM export and the greedy sampler."""
@@ -37,7 +37,7 @@ from repro_torch.serving.serialize import pattern_key  # noqa: E402
 
 # fp32 logits of the two packages: same math, sums in another order
 TOL = 1e-4
-ARCHS = ("gemma3_4b", "deepseek_7b", "chatglm3_6b")
+ARCHS = ("gemma3_4b", "deepseek_7b", "chatglm3_6b", "internlm2_20b")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
