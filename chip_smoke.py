@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
-                           lm_serving_sched,lm_families,training]
+                           lm_serving_sched,lm_families,lm_recurrent,
+                           training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -24,7 +25,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      written before each launch), plain time and bound, then the same for
      the lm_families models' packed attention projections (pixtral_12b's
      fused QKV 6144x5120 and wo 5120x4096, qwen3_moe's 9216x4096 and
-     4096x8192, deepseek_v2_lite's MLA wq 3072x2048 and wo 2048x2048) at
+     4096x8192, deepseek_v2_lite's MLA wq 3072x2048 and wo 2048x2048) and
+     the lm_recurrent model's (recurrentgemma_9b's fused QKV 4608x4096,
+     attention wo 4096x4096, FFN wi 12288x4096 and wo 4096x12288) at
      M=4 and M=1024, bf16; K4 (dds, dds_t,
      plan_dds_t) and K5 (sddmm, plan_sddmm) against theirs -- the shapes of
      tests/test_kernels.py and 32x1 tiles, fp32 and bf16, padded nnzt
@@ -51,8 +54,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the same caches, which stay in L2) and cold (64 MB written before
      each launch), and at head_dim 128 (B=4, a 1280-slot linear cache and
      its 80 pages; Hkv=8, G=4 as pixtral_12b, Hkv=4, G=16 as qwen3_moe)
-     with the same checks and times. Each K2 / K3 call is two launches: a
-     split kernel, one
+     with the same checks and times, and K2 alone at recurrentgemma_9b's
+     local layers (Hkv=1, G=16, D=256, 1280 slots, window 2048) and
+     whisper_base's decoder (Hkv=8, G=1, D=64, 448 slots). Each K2 / K3
+     call is two launches: a split kernel, one
      block per (split, KV head, slot) writing the split's fp32 partial
      (its own max, sum and p.V), then a combine folding the partials in
      split order; then K6
@@ -150,6 +155,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
      prefill gate (SchedSpec(max_chunk=256) logs its blocker and admits
      one-shot); a profiled decode window with the routed-expert bytes
      floor beside its device time.
+  4d. lm_recurrent: mamba2_780m (ssm; 48 layers), recurrentgemma_9b
+     (hybrid: 26 RG-LRU + 12 MQA local-attention layers) and whisper_base
+     (audio enc-dec, 6 + 6 layers, 1500 frames) at full width and depth,
+     bf16, one after the other with the lm_families spec: mamba2 has no
+     packs and no attention (no kernel on its path), recurrentgemma serves
+     its FFNs and local-attention projections through K1 (100 a decode
+     step and a prefill; its RG-LRU projections stay dense, as in the
+     reference) and its rings through K2 (12 a step), whisper serves dense
+     with K2 on its decoder self-attention (6 a step, prefill steps
+     included). mamba2 / recurrentgemma: lm_serving's 6 requests with
+     kv_layout='paged' asked (the "no linear attention/MLA layers to page"
+     blocker logged, served dense), one-shot and with SchedSpec(max_chunk=
+     256), every request done, launches equal to the routing, chunked vs
+     one-shot tokens (a differing first token only at a near-tie) and
+     decode_step logits after both within 5%, a 300-token prompt through
+     the one-pass prefill against token-by-token decode prefill within 5%
+     of max|logits| (mamba2 also on an fp32 copy, 64 tokens, within 1e-3),
+     recurrentgemma's decode_step logits kernels vs plain within 5%.
+     whisper: 4 requests of 1500 seeded frames, the 4-token
+     start-of-transcript prompt, 64 new tokens, cache_len 448, every
+     request done, launches equal to the routing; paged and chunked asked
+     (both audio blockers logged, dense one-shot served); decode_step
+     logits K2 vs plain at ragged positions and the teacher-forced forward
+     against per-step decode within 5%. Each: a profiled decode window,
+     peak memory.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -229,10 +259,16 @@ MAIN_SHAPES = (("qkv", 2304, 768), ("attn_out", 768, 768),
 # the lm_families models' packed attention projections, (name, N, K):
 # pixtral_12b's fused QKV and wo, qwen3_moe's (64 query / 4 KV heads of
 # 128), deepseek_v2_lite's MLA wq and wo (their FFNs are MoE or unpruned)
+# -- and the lm_recurrent model's: recurrentgemma_9b's local layers' fused
+# QKV (16 query / 1 KV head of 256) and wo, its geglu FFN's wi and wo
 FAMILY_SHAPES = (("pixtral", (("wqkv", 6144, 5120), ("wo", 5120, 4096))),
                  ("qwen3_moe", (("wqkv", 9216, 4096), ("wo", 4096, 8192))),
                  ("deepseek_v2_lite", (("wq", 3072, 2048),
-                                       ("wo", 2048, 2048))))
+                                       ("wo", 2048, 2048))),
+                 ("recurrentgemma", (("wqkv", 4608, 4096),
+                                     ("attn_wo", 4096, 4096),
+                                     ("ffn_wi", 12288, 4096),
+                                     ("ffn_wo", 4096, 12288))))
 
 
 class PhaseError(RuntimeError):
@@ -859,16 +895,25 @@ def _decode_times(fn, plain, sdpa, plain_reps=50):
             "library_ms_cold": _time_cold_ms(sdpa)}
 
 
-# the lm_families models' decode attention: (label, Hkv, G), D = 128
-DECODE_FAMILY_SHAPES = (("pixtral_g4", 8, 4), ("qwen3_g16", 4, 16))
+# the lm_families and lm_recurrent models' decode attention, B = 4 ragged
+# slots on a linear bf16 cache: (label, Hkv, G, D, T, window, with K3 on
+# its pages of 16). pixtral_12b and qwen3_moe at D = 128 (their global
+# layers page); recurrentgemma_9b's MQA local layers (window 2048, a ring
+# of min(1280, 2048) = 1280 slots) and whisper_base's decoder (a 448-slot
+# linear cache), neither of which pages
+DECODE_FAMILY_SHAPES = (("pixtral_g4", 8, 4, 128, 1280, 0, True),
+                        ("qwen3_g16", 4, 16, 128, 1280, 0, True),
+                        ("recurrentgemma_g16_d256", 1, 16, 256, 1280, 2048,
+                         False),
+                        ("whisper_g1_d64", 8, 1, 64, 448, 0, False))
 
 
 def _decode_family_shapes(rng, dev, per_shape):
-    """K2 on a 1280-slot linear bf16 cache and K3 on its 80 shuffled pages
-    at B = 4 ragged positions, D = 128, with pixtral_12b's (Hkv, G) = (8, 4)
-    and qwen3_moe's (4, 16) -- for G = 16 a split of more than 512 rows
-    takes the two-pass path (G * rows > 8192) -- against the plain versions,
-    K3 bit-exact against K2, two calls bitwise equal, with times."""
+    """K2 at each DECODE_FAMILY_SHAPES entry, B = 4 ragged positions, and K3
+    on the paged ones' shuffled pages -- for G = 16 a split of more than
+    512 rows takes the two-pass path (G * rows > 8192) -- against the plain
+    versions, K3 bit-exact against K2, two calls bitwise equal, with
+    times."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -877,30 +922,39 @@ def _decode_family_shapes(rng, dev, per_shape):
                                                   paged_flash_decode_plain)
     from repro_torch.models.common import paged_view
     i32, dtype = torch.int32, torch.bfloat16
-    b, t, d, ps = 4, 1280, 128, 16
-    posl = [1279, 1105, 700, 333]
-    for label, hkv, g in DECODE_FAMILY_SHAPES:
+    b, ps = 4, 16
+    for label, hkv, g, d, t, window, paged in DECODE_FAMILY_SHAPES:
+        posl = ([1279, 1105, 700, 333] if t == 1280
+                else [t - 1, (t * 7) // 8, t // 2, t // 4])
         hq = hkv * g
         q, k, v = _decode_inputs(rng, dev, dtype, b, t, hq, hkv, d)
         kvp = torch.arange(t, dtype=i32, device=dev)[None].expand(b, t)
         kvp = torch.where(kvp <= torch.tensor(posl, device=dev)[:, None], kvp,
                           torch.full_like(kvp, -1)).contiguous()
         pos = torch.tensor(posl, dtype=i32, device=dev)
-        out = flash_decode(q, k, v, kvp, pos)
-        err = _compare(f"K2 {label} T=1280 D=128", out, flash_decode_plain(
-            q, k, v, kvp, pos), TOL_DECODE_BF16, "K2")
+        out = flash_decode(q, k, v, kvp, pos, window=window)
+        err = _compare(f"K2 {label} T={t} D={d}", out, flash_decode_plain(
+            q, k, v, kvp, pos, window=window), TOL_DECODE_BF16, "K2")
         torch.cuda.synchronize()
-        check(torch.equal(out, flash_decode(q, k, v, kvp, pos)),
+        check(torch.equal(out, flash_decode(q, k, v, kvp, pos,
+                                            window=window)),
               f"K2 {label}: two calls differ")
-        bound, by = _decode_bound_ms(kvp.cpu().numpy(), posl, 0, b, hq, hkv,
-                                     d, 2)
-        sdpa = _sdpa_fn(q, k, v, kvp, pos, 0)
-        per_shape[f"{label}_1280"] = {
-            "t": t, "hkv": hkv, "g": g, "d": d, "max_abs_err": err,
-            **_decode_times(lambda: flash_decode(q, k, v, kvp, pos),
-                            lambda: flash_decode_plain(q, k, v, kvp, pos),
+        bound, by = _decode_bound_ms(kvp.cpu().numpy(), posl, window, b, hq,
+                                     hkv, d, 2)
+        sdpa = _sdpa_fn(q, k, v, kvp, pos, window)
+        per_shape[f"{label}_{t}"] = {
+            "t": t, "hkv": hkv, "g": g, "d": d, "window": window,
+            "max_abs_err": err,
+            **_decode_times(lambda: flash_decode(q, k, v, kvp, pos,
+                                                 window=window),
+                            lambda: flash_decode_plain(q, k, v, kvp, pos,
+                                                       window=window),
                             sdpa),
             "bound_ms": bound, "bound_by": by}
+        if not paged:
+            print(f"  K2 {label}: Hq={hq}, Hkv={hkv}, G={g}, D={d}, T={t}; "
+                  f"repeatable: ok")
+            continue
         npg = t // ps
         perm = torch.from_numpy(rng.permutation(b * npg).astype(
             np.int32)).to(dev)
@@ -922,7 +976,7 @@ def _decode_family_shapes(rng, dev, per_shape):
         check(torch.equal(out3, paged_flash_decode(q, kp, vp, table, kvp,
                                                    pos)),
               f"K3 {label}: two calls differ")
-        per_shape[f"{label}_paged_1280"] = {
+        per_shape[f"{label}_paged_{t}"] = {
             "t": t, "page_size": ps, "hkv": hkv, "g": g, "d": d,
             "max_abs_err": err3,
             **_decode_times(lambda: paged_flash_decode(q, kp, vp, table, kvp,
@@ -3043,6 +3097,37 @@ def _routing_flips(name, kern, plain, k):
     return flips
 
 
+def _clone_cache(tree):
+    """A copy of a decode cache (nested dicts / tuples of tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone_cache(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_cache(v) for v in tree)
+    return tree.clone()
+
+
+class _LogKeep:
+    """The engine logger's messages while the block runs."""
+
+    def __enter__(self):
+        import logging
+        self.messages = []
+        keep = self.messages
+
+        class _Keep(logging.Handler):
+            def emit(self, r):
+                keep.append(r.getMessage())
+        self.logger = logging.getLogger("repro_torch.serving")
+        self.handler, self.level = _Keep(), self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
 def phase_lm_families(seed: int, card: str):
     """pixtral_12b (vlm), deepseek_v2_lite_16b (MLA + MoE) and
     qwen3_moe_235b_a22b (MoE; 4 of 94 layers) at full width, bf16, one after
@@ -3053,7 +3138,6 @@ def phase_lm_families(seed: int, card: str):
     only at near-ties); the MoE chunked-prefill gate; a profiled decode
     window beside the expert-bytes floor; peak memory."""
     import gc
-    import logging
 
     import numpy as np
     import torch
@@ -3303,26 +3387,14 @@ def phase_lm_families(seed: int, card: str):
 
         if n_moe:
             # chunked prefill: the engine logs its blocker, admits one-shot
-            records = []
-
-            class _Keep(logging.Handler):
-                def emit(self, r):
-                    records.append(r.getMessage())
-            logger = logging.getLogger("repro_torch.serving")
-            handler, level = _Keep(), logger.level
-            logger.addHandler(handler)
-            logger.setLevel(logging.INFO)
-            try:
+            with _LogKeep() as logs:
                 eng = servable.engine(max_slots=4, cache_len=1280,
                                       sync_every=8,
                                       sched=SchedSpec(max_chunk=256))
-            finally:
-                logger.removeHandler(handler)
-                logger.setLevel(level)
             hs = [eng.submit(p[:n], max_new_tokens=4)
                   for p, n in zip(prompts, GATE_PROMPTS)]
             eng.run()
-            blocker = [m for m in records if "MoE ffn" in m]
+            blocker = [m for m in logs.messages if "MoE ffn" in m]
             print(f"[lm_families] {name}: SchedSpec(max_chunk=256): "
                   f"chunking {eng._chunking}, {eng.stats.prefill_chunks} "
                   f"chunks, {eng.stats.prefills} one-shot prefills, "
@@ -3344,6 +3416,523 @@ def phase_lm_families(seed: int, card: str):
               f"still allocated")
         by_model[name] = rec
     print(f"[lm_families] summary {json.dumps(by_model)}")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4d: lm_recurrent -- the ssm, hybrid and audio families
+# --------------------------------------------------------------------------
+
+RECURRENT_MODELS = ("mamba2_780m", "recurrentgemma_9b", "whisper_base")
+# a prompt prefilled both ways: one pass, and token by token through decode
+PREFILL_PATHS_TOKENS = 300
+# one-pass prefill logits at the last prompt position against token-by-token
+# decode prefill of the same prompt, and the next decode step from each
+# cache: the SSD / RG-LRU chunked algorithms against their recurrences in
+# bf16 (the one-pass path's matmuls take M = bucket rows, the decode path's
+# M = 1, so every layer's bf16 activations round apart and 38-48 residual
+# layers carry it to the logits). Bar: 5% of max|logits|, as the kernels
+# against the plain composition.
+TOL_PREFILL_PATHS = 5e-2
+# mamba2_780m's bf16 gap on random weights is ~4.5% (its logits are small:
+# max ~3), so the same check also runs on an fp32 copy of the model, where
+# the two paths differ only by fp32 sums in another order: 64 tokens, bar
+# 1e-3 of max|logits| (fp32 matmuls at another M, 48 layers)
+PREFILL_PATHS_FP32 = {"mamba2_780m": 64}
+TOL_PREFILL_PATHS_FP32 = 1e-3
+# whisper_base: 4 requests, each with 1500 seeded frame embeddings (the conv
+# frontend is a stub in both packages), the 4-token start-of-transcript
+# prompt (<|startoftranscript|><|en|><|transcribe|><|notimestamps|>), 64 new
+# tokens, Whisper's 448-token text context as cache_len
+AUDIO_PROMPT = (50258, 50259, 50359, 50363)
+AUDIO_REQUESTS = 4
+AUDIO_NEW_TOKENS = 64
+AUDIO_CACHE_LEN = 448
+
+
+def _recurrent_config(name):
+    """The published widths, checked."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    got, want = {
+        "mamba2_780m": ((cfg.n_layers, cfg.d_model, cfg.ssm_state,
+                         cfg.ssm_expand, cfg.ssm_head_dim, cfg.vocab_size),
+                        (48, 1536, 128, 2, 64, 50280)),
+        "recurrentgemma_9b": ((cfg.n_layers, cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+                               cfg.rnn_width, cfg.vocab_size),
+                              (38, 4096, 16, 1, 256, 12288, 4096, 256000)),
+        "whisper_base": ((cfg.n_enc_layers, cfg.n_layers, cfg.d_model,
+                          cfg.n_heads, cfg.head_dim, cfg.vocab_size,
+                          cfg.n_audio_ctx),
+                         (6, 6, 512, 8, 64, 51865, 1500))}[name]
+    check(got == want, f"{name} is not the published configuration: {got}")
+    return cfg
+
+
+def _prefill_paths(name, servable, p, tol):
+    """One-pass prefill of prompt ``p`` against token-by-token decode
+    prefill: the last position's logits and the next decode step from each
+    cache, within ``tol`` of max|logits|."""
+    import numpy as np
+    import torch
+    bucket = 1 << (len(p) - 1).bit_length()
+    padded = np.zeros((bucket,), np.int32)
+    padded[:len(p)] = p
+    sub = servable.init_cache(1, 1280)
+    sub, logits = servable.engine_prefill(
+        sub, torch.from_numpy(padded).to(servable.device), len(p))
+    row_one = logits[len(p) - 1].float()
+    seq = servable.init_cache(1, 1280)
+    t0 = time.perf_counter()
+    for t, tk in enumerate(p):
+        y, seq = servable.decode_step(seq, [[tk]], t)
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    row_seq = y[0, 0].float()
+    nxt = int(row_seq.argmax())
+    ya, _ = servable.decode_step(sub, [[nxt]], len(p))
+    yb, _ = servable.decode_step(seq, [[nxt]], len(p))
+    torch.cuda.synchronize()
+    err = float((row_one - row_seq).abs().max())
+    scale = float(row_seq.abs().max())
+    err2 = float((ya - yb).abs().max())
+    scale2 = float(yb.abs().max())
+    top2 = torch.topk(row_seq, 2).values
+    print(f"[lm_recurrent] {name} ({servable.cfg.dtype}): {len(p)}-token "
+          f"prompt, one-pass prefill (bucket {bucket}) vs token by token "
+          f"({t_seq:.2f} s): last-position logits max|d|={err:.4e}, "
+          f"max|logits|={scale:.4e}, tol {tol * scale:.4e}, argmax "
+          f"{'equal' if int(row_one.argmax()) == nxt else 'differs'} "
+          f"(top-2 margin {float(top2[0] - top2[1]):.4e}); the next decode "
+          f"step from both caches max|d|={err2:.4e} of {scale2:.4e}")
+    check(bool(torch.isfinite(row_one).all()) and err <= tol * scale and
+          err2 <= tol * scale2, f"{name} ({servable.cfg.dtype}): the one-"
+          f"pass prefill disagrees with token-by-token prefill")
+    return {"tokens": len(p), "max_abs_err": err, "max_logits": scale,
+            "next_step_max_abs_err": err2, "next_step_max_logits": scale2}
+
+
+def _recurrent_lm(name, cfg, servable, rng, zero, read, counts, rec):
+    """mamba2_780m / recurrentgemma_9b through the engine: paged asked and
+    refused, chunked prefill beside one-shot, one-pass against token-by-
+    token prefill, decode_step logits kernels vs plain."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import decode_kernel_override
+    from repro_torch.models import api as model_api
+    from repro_torch.serving import SchedSpec
+    prefix, pattern, n_per, suffix = cfg.layer_plan()
+    kinds = list(prefix) + list(pattern) * n_per + list(suffix)
+    n_attn = sum(1 for k in kinds if k.mixer in ("attn", "local"))
+    k1 = rec["k1_per_pass"]
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+    n_oneshot = sum(1 for p in prompts if len(p) <= SCHED_CHUNK)
+    runs = {}
+    for kind in ("one-shot", "chunked"):
+        with _LogKeep() as logs:
+            eng = servable.engine(
+                max_slots=4, cache_len=1280, sync_every=8, kv_layout="paged",
+                sched=SchedSpec(max_chunk=SCHED_CHUNK)
+                if kind == "chunked" else None)
+        blocker = [m for m in logs.messages
+                   if "no linear attention/MLA layers to page" in m]
+        check(eng.kv_layout == "dense" and blocker and eng._chunking ==
+              (kind == "chunked"), f"{name} {kind}: kv_layout "
+              f"{eng.kv_layout}, chunking {eng._chunking}, logged "
+              f"{logs.messages}")
+        eng.submit(prompts[0][:8], max_new_tokens=2)          # warm-up
+        eng.run()
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        for key, v in got.items():
+            counts[key] += v
+        es = eng.stats
+        for h in hs:
+            check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+                  f"{name} {kind}: request {h.req_id} {h.status} "
+                  f"({h.failure}), {len(h.tokens)} tokens")
+        passes = es.steps + (es.prefills if kind == "one-shot"
+                             else n_oneshot + es.prefill_chunks)
+        want = {"plan_dds": k1 * passes, "flash_decode": n_attn * es.steps,
+                "paged_flash_decode": 0}
+        print(f"[lm_recurrent] {name} {kind} (paged asked, logged "
+              f"{blocker[0]!r}): {len(hs)} requests done, "
+              f"{es.tokens_generated} tokens, {es.steps} decode steps in "
+              f"{es.windows} windows, {es.prefills} prefills, "
+              f"{es.prefill_chunks} chunks; launches {got} (expected {want})")
+        check(got == want, f"{name} {kind}: launch counts {got} differ from "
+              f"the layer routing {want}")
+        if kind == "chunked":
+            check(es.prefill_chunks > len(prompts) - n_oneshot,
+                  f"{name}: {es.prefill_chunks} chunks is no multi-chunk "
+                  f"prefill")
+        ms = 1e3 * es.decode_s / es.steps
+        print(f"[lm_recurrent] {name} {kind}: wall {wall:.3f} s; prefill "
+              f"{es.prefill_s:.3f} s, decode {es.decode_s:.3f} s; {ms:.3f} "
+              f"ms per decode step, "
+              f"{(es.tokens_generated - es.prefills) / es.decode_s:.1f} "
+              f"decode tokens/s (host clock); kv {eng.kv_stats()}")
+        rec[kind] = {"steps": es.steps, "ms_per_step": ms, "wall_s": wall,
+                     "launches": got}
+        runs[kind] = [list(h.tokens) for h in hs]
+        del eng, hs
+    agree = sum(a == b for ra, rb in zip(runs["one-shot"], runs["chunked"])
+                for a, b in zip(ra, rb))
+    print(f"[lm_recurrent] {name}: greedy tokens chunked vs one-shot {agree} "
+          f"of {len(prompts) * LM_NEW_TOKENS} equal")
+    rec["chunked_tokens_equal"] = agree
+    # first tokens: one-shot against chunk-by-chunk prefill of the same
+    # prompts (a differing argmax only at a near-tie), then a decode step
+    # from both caches
+    cache1, tok, pos, rows1 = _prefill_slots(servable, prompts[:4])
+    cache2, rows2, _ = _chunk_prefill_slots(servable, prompts[:4], k1)
+    _margin_check(name, rows1, rows2)
+    y1, _ = servable.decode_step(cache1, tok, pos)
+    y2, _ = servable.decode_step(cache2, tok, pos)
+    torch.cuda.synchronize()
+    err, scale = float((y1 - y2).abs().max()), float(y1.abs().max())
+    print(f"[lm_recurrent] {name}: decode_step logits after chunked vs "
+          f"one-shot prefill: max|d|={err:.4e}, max|logits|={scale:.4e}, "
+          f"tol {TOL_KV_DECODE * scale:.4e}")
+    check(bool(torch.isfinite(y2).all()) and err <= TOL_KV_DECODE * scale,
+          f"{name}: decode_step logits after a chunked prefill disagree "
+          f"with the one-shot caches'")
+    rec["chunked_decode_step"] = {"max_abs_err": err, "max_logits": scale}
+    del cache2, y1, y2
+
+    rec["prefill_paths"] = _prefill_paths(
+        name, servable, prompts[1][:PREFILL_PATHS_TOKENS], TOL_PREFILL_PATHS)
+
+    # decode_step with the kernels against the plain composition, each
+    # from its own copy of the same cache (a step advances the recurrent
+    # state in place)
+    if k1 or n_attn:
+        plain = _plain_packs(servable.packs)
+
+        def step(packs, kernel):
+            c = _clone_cache(cache1)
+            with torch.no_grad(), decode_kernel_override(kernel):
+                zero()
+                y, _ = model_api.decode_step(servable.params, c, cfg,
+                                             tok, pos, packs=packs)
+                torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all()),
+                  f"{name}: non-finite decode logits")
+            return y, read()
+        y_k, got = step(servable.packs, "flash")
+        check(got == {"plan_dds": k1, "flash_decode": n_attn,
+                      "paged_flash_decode": 0},
+              f"{name}: decode_step launches {got}")
+        y_p, got = step(plain, "xla")
+        check(got == {"plan_dds": 0, "flash_decode": 0,
+                      "paged_flash_decode": 0},
+              f"{name}: the plain decode_step launched a kernel {got}")
+        err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+        same = int((y_k.argmax(-1) == y_p.argmax(-1)).sum())
+        print(f"[lm_recurrent] {name}: decode_step logits, kernels (K1, K2) "
+              f"vs plain on the same cache: max|d|={err:.4e}, max|logits|="
+              f"{scale:.4e}, tol {TOL_FLASH_VS_XLA * scale:.4e}; greedy "
+              f"tokens equal in {same} of 4 slots")
+        check(err <= TOL_FLASH_VS_XLA * scale,
+              f"{name}: decode_step logits with the kernels disagree")
+        rec["decode_step"] = {"max_abs_err": err, "max_logits": scale}
+        del plain, y_k, y_p
+    else:
+        print(f"[lm_recurrent] {name}: no K1 / K2 on this path (no packs, no "
+              f"attention): decode runs the plain composition")
+    del cache1
+
+    # one fused window over four live slots, under the profiler
+    prof_eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8)
+    for p in prompts[:4]:
+        prof_eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    prof_eng._schedule()
+    check(sum(1 for s in range(4) if prof_eng._pos[s] >= 0) == 4,
+          f"{name}: profiler setup lacks 4 live slots")
+    return prof_eng
+
+
+def _recurrent_audio(name, cfg, servable, rng, zero, read, counts, rec):
+    """whisper_base through the engine (frames per request, prompts
+    prefilled through the decode path), its paged / chunked blockers,
+    decode_step logits K2 vs plain, teacher-forced forward vs per-step
+    decode."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import decode_kernel_override
+    from repro_torch.models import api as model_api
+    from repro_torch.serving import SchedSpec
+    n_dec = cfg.n_layers
+    frames = [(rng.randn(cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+              for _ in range(AUDIO_REQUESTS)]
+    prompt = list(AUDIO_PROMPT)
+    eng = servable.engine(max_slots=4, cache_len=AUDIO_CACHE_LEN,
+                          sync_every=8)
+    eng.submit(prompt, max_new_tokens=2, frames=frames[0])       # warm-up
+    eng.run()
+    eng.stats = type(eng.stats)()
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    hs = [eng.submit(prompt, max_new_tokens=AUDIO_NEW_TOKENS, frames=f)
+          for f in frames]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read()
+    for key, v in got.items():
+        counts[key] += v
+    es = eng.stats
+    for h in hs:
+        check(h.status == "done" and len(h.tokens) == AUDIO_NEW_TOKENS,
+              f"{name}: request {h.req_id} {h.status} ({h.failure}), "
+              f"{len(h.tokens)} tokens")
+    prefill_steps = sum(b * n for b, n in es.bucket_hits.items())
+    want = {"plan_dds": 0, "flash_decode": n_dec * (es.steps + prefill_steps),
+            "paged_flash_decode": 0}
+    print(f"[lm_recurrent] {name}: {len(hs)} requests of {cfg.n_audio_ctx} "
+          f"frames done, {es.tokens_generated} tokens, {es.steps} decode "
+          f"steps in {es.windows} windows, {es.prefills} prefills through "
+          f"the decode path ({prefill_steps} steps, buckets "
+          f"{dict(es.bucket_hits)}); launches {got} (expected {want}: "
+          f"{n_dec} K2 a step, padding steps included; cross-attention is "
+          f"the plain composition)")
+    check(got == want, f"{name}: launch counts {got} differ from the "
+          f"layer routing {want}")
+    ms = 1e3 * es.decode_s / es.steps
+    print(f"[lm_recurrent] {name}: wall {wall:.3f} s; prefill "
+          f"{es.prefill_s:.3f} s (encoder + prompt), decode "
+          f"{es.decode_s:.3f} s; {ms:.3f} ms per decode step (host clock)")
+    rec["dense"] = {"steps": es.steps, "ms_per_step": ms, "wall_s": wall,
+                    "prefill_s": es.prefill_s, "launches": got}
+    tokens0 = list(hs[0].tokens)
+    del eng, hs
+
+    # paged and chunked asked: both blockers logged, dense one-shot served
+    with _LogKeep() as logs:
+        eng = servable.engine(max_slots=4, cache_len=AUDIO_CACHE_LEN,
+                              sync_every=8, kv_layout="paged",
+                              sched=SchedSpec(max_chunk=SCHED_CHUNK))
+    hs = [eng.submit(prompt, max_new_tokens=4, frames=f) for f in frames[:2]]
+    eng.run()
+    want_logs = ("family 'audio' (cross-attn caches are per-request)",
+                 "family 'audio' prefills through the decode path")
+    seen = [w for w in want_logs if any(w in m for m in logs.messages)]
+    print(f"[lm_recurrent] {name}: paged + SchedSpec(max_chunk="
+          f"{SCHED_CHUNK}) asked: kv_layout {eng.kv_layout}, chunking "
+          f"{eng._chunking}, {eng.stats.prefill_chunks} chunks, statuses "
+          f"{[h.status for h in hs]}; logged {seen}")
+    check(eng.kv_layout == "dense" and not eng._chunking and
+          eng.stats.prefill_chunks == 0 and len(seen) == 2 and
+          all(h.status == "done" for h in hs),
+          f"{name}: the audio paged / chunked blockers did not fall back")
+    del eng, hs
+
+    # decode_step logits, K2 vs the plain composition, on one cache of four
+    # slots at ragged positions
+    dev = servable.device
+    lens = [4, 20, 37, 9]
+    cache = servable.init_cache(4, AUDIO_CACHE_LEN, frames=np.stack(frames))
+    toks = rng.randint(0, cfg.vocab_size, (4, max(lens))).astype(np.int32)
+    for t in range(max(lens)):
+        p = torch.tensor([t if t < n else -1 for n in lens],
+                         dtype=torch.int32, device=dev)
+        servable.decode_step(cache, toks[:, t:t + 1], p)
+    tok = torch.from_numpy(toks[:, :1]).to(dev)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def step(kernel):
+        c = _clone_cache(cache)
+        with torch.no_grad(), decode_kernel_override(kernel):
+            zero()
+            y, _ = model_api.decode_step(servable.params, c, cfg, tok, pos)
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"{name}: non-finite logits")
+        return y, read()
+    y_k, got = step("flash")
+    check(got == {"plan_dds": 0, "flash_decode": n_dec,
+                  "paged_flash_decode": 0},
+          f"{name}: decode_step launches {got}")
+    y_p, got = step("xla")
+    check(got == {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0},
+          f"{name}: the plain decode_step launched a kernel {got}")
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    print(f"[lm_recurrent] {name}: decode_step logits at positions {lens}, "
+          f"K2 vs plain on the same cache: max|d|={err:.4e}, max|logits|="
+          f"{scale:.4e}, tol {TOL_FLASH_VS_XLA * scale:.4e}")
+    check(err <= TOL_FLASH_VS_XLA * scale,
+          f"{name}: decode_step logits with K2 disagree")
+    rec["decode_step"] = {"max_abs_err": err, "max_logits": scale}
+    del cache, y_k, y_p
+
+    # teacher-forced forward against per-step decode logits: request 0's
+    # prompt and generated tokens
+    seq_toks = prompt + tokens0[:-1]
+    fwd = servable.forward({"tokens": np.asarray([seq_toks], np.int32),
+                            "frames": frames[0][None]})[0]
+    cache1 = servable.init_cache(1, AUDIO_CACHE_LEN, frames=frames[0][None])
+    rows = []
+    for t, tk in enumerate(seq_toks):
+        y, cache1 = servable.decode_step(cache1, [[tk]], t)
+        rows.append(y[0, 0])
+    dec = torch.stack(rows)
+    torch.cuda.synchronize()
+    err, scale = float((fwd - dec).abs().max()), float(dec.abs().max())
+    same = int((fwd.argmax(-1) == dec.argmax(-1)).sum())
+    gen_same = sum(int(a) == b for a, b in zip(
+        fwd[len(prompt) - 1:].argmax(-1).tolist(), tokens0))
+    print(f"[lm_recurrent] {name}: teacher-forced forward vs per-step decode "
+          f"over {len(seq_toks)} positions: max|d|={err:.4e}, max|logits|="
+          f"{scale:.4e}, tol {TOL_PREFILL_PATHS * scale:.4e}; argmax equal "
+          f"at {same} positions, the forward's greedy tokens equal the "
+          f"engine's at {gen_same} of {len(tokens0)}")
+    check(bool(torch.isfinite(fwd).all()) and
+          err <= TOL_PREFILL_PATHS * scale,
+          f"{name}: the teacher-forced forward disagrees with decode")
+    rec["forward_vs_decode"] = {"max_abs_err": err, "max_logits": scale}
+    del cache1, fwd, dec
+
+    prof_eng = servable.engine(max_slots=4, cache_len=AUDIO_CACHE_LEN,
+                               sync_every=8)
+    for f in frames:
+        prof_eng.submit(prompt, max_new_tokens=AUDIO_NEW_TOKENS, frames=f)
+    prof_eng._schedule()
+    check(sum(1 for s in range(4) if prof_eng._pos[s] >= 0) == 4,
+          f"{name}: profiler setup lacks 4 live slots")
+    return prof_eng
+
+
+def phase_lm_recurrent(seed: int, card: str):
+    """mamba2_780m (ssm), recurrentgemma_9b (hybrid: RG-LRU + MQA local
+    attention) and whisper_base (audio enc-dec) at full width and depth,
+    bf16, one after the other, each freed before the next: seeded weights on
+    the card, the lm_families spec (pruned 80% at 128x128, tied masks, K1
+    for every pack, K2 for decode attention). mamba2 has no packs and no
+    attention (no kernel on its path); recurrentgemma packs its FFNs and
+    local-attention projections (its RG-LRU projections stay dense, as in
+    the reference); whisper exports nothing and serves dense (K2 on its
+    decoder self-attention). Each: the engine with every request done and
+    launches equal to the routing; the paged (and for whisper chunked)
+    blockers logged; decode_step logits kernels vs plain; for the recurrent
+    two chunked prefill beside one-shot and one-pass against token-by-token
+    prefill; for whisper the teacher-forced forward against per-step
+    decode; a profiled decode window; peak memory. mamba2's one-pass vs
+    token-by-token check also runs on an fp32 copy of the model."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    spec = ServingSpec(tile=(128, 128), sparsity=0.8, prune="tied",
+                       fuse_qkv=True, backend="plan_pallas",
+                       decode_kernel="flash")
+    counts = {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    by_model = {}
+
+    def zero():
+        plan_dds.launches = 0
+        flash_decode.launches = 0
+        paged_flash_decode.launches = 0
+
+    def read():
+        return {"plan_dds": plan_dds.launches,
+                "flash_decode": flash_decode.launches,
+                "paged_flash_decode": paged_flash_decode.launches}
+
+    for name in RECURRENT_MODELS:
+        t_model = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = _recurrent_config(name)
+        prefix, pattern, n_per, suffix = cfg.layer_plan()
+        kinds = list(prefix) + list(pattern) * n_per + list(suffix)
+        mixers = {m: sum(1 for k in kinds if k.mixer == m)
+                  for m in sorted({k.mixer for k in kinds})}
+        enc = (f"{cfg.n_enc_layers} encoder + "
+               if cfg.family == "audio" else "")
+        print(f"[lm_recurrent] {name} ({cfg.family}): {enc}{len(kinds)} "
+              f"layers {mixers}, full width and depth; d={cfg.d_model}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}; card {card}")
+        t0 = time.perf_counter()
+        params = init_model(seed, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in leaves(params))
+        servable = prepare_servable(params, cfg, spec, device=dev)
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        k1 = sum(n_per if k.startswith("blocks/") else 1
+                 for k in servable.packs)
+        weight_bytes = sum(x.numel() * x.element_size()
+                           for x in leaves(servable.params))
+        print(f"[lm_recurrent] {name}: {n_params / 1e9:.3f} B parameters, "
+              f"init {t_init:.1f} s, prune + export "
+              f"{time.perf_counter() - t0 - t_init:.1f} s; "
+              f"{len(servable.packs)} packed projection groups "
+              f"({sorted({k.split('/', 2)[2] for k in servable.packs})}), "
+              f"{k1} K1 launches a decode step and a prefill; served weights "
+              f"{weight_bytes / 1e9:.3f} GB; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        rng = np.random.RandomState(seed + 11)
+        rec = {"layers": len(kinds), "params": n_params, "k1_per_pass": k1,
+               "weight_bytes": weight_bytes}
+        drive = _recurrent_audio if cfg.family == "audio" else _recurrent_lm
+        prof_eng = drive(name, cfg, servable, rng, zero, read, counts, rec)
+
+        def window(e=prof_eng):
+            e.servable.decode_many(
+                e.cache, e._dev(e._tokens), e._dev(e._pos), 8,
+                remaining=e._dev(e._remaining), eos_id=e._dev(e._eos))
+        window()
+        label = f"{name} decode window (8 steps, 4 slots)"
+        rows = _profile(label, window, top=12)
+        _kernel_share(label, rows)
+        busy = sum(r[0] for r in rows)
+        print(f"[lm_recurrent] {name}: device busy {busy / 8:.3f} ms a "
+              f"decode step")
+        rec["window"] = {"busy_ms": busy, "busy_ms_per_step": busy / 8}
+        del prof_eng, window, servable
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name in PREFILL_PATHS_FP32:
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            params = init_model(seed, f32, device=dev)
+            servable = prepare_servable(params, f32, spec, device=dev)
+            del params
+            p = np.random.RandomState(seed + 12).randint(
+                0, cfg.vocab_size, PREFILL_PATHS_FP32[name]).tolist()
+            rec["prefill_paths_fp32"] = _prefill_paths(
+                name, servable, p, TOL_PREFILL_PATHS_FP32)
+            del servable
+            gc.collect()
+            torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        rec["peak_gib"] = peak / 2**30
+        rec["seconds"] = time.perf_counter() - t_model
+        print(f"[lm_recurrent] {name}: peak device memory {peak / 2**30:.2f} "
+              f"GiB (torch.cuda.max_memory_allocated), {rec['seconds']:.1f} "
+              f"s; freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"still allocated")
+        by_model[name] = rec
+    print(f"[lm_recurrent] summary {json.dumps(by_model)}")
     return counts
 
 
@@ -3391,7 +3980,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
-                            "lm_families,training")
+                            "lm_families,lm_recurrent,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3458,6 +4047,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_families"] = phase_lm_families(args.seed, card)
             done("lm_families")
+        if "lm_recurrent" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_recurrent"] = phase_lm_recurrent(args.seed, card)
+            done("lm_recurrent")
         if "training" in phases:
             launches["training"] = phase_training(args.seed)
             done("training")
@@ -3494,11 +4089,11 @@ def main() -> int:
     for name, main_shape, shapes in (
             ("flash_decode", "ring_1024",
              ("ring_1024", "global_1280") + tuple(
-                 f"{label}_1280" for label, _, _ in DECODE_FAMILY_SHAPES)),
+                 f"{c[0]}_{c[4]}" for c in DECODE_FAMILY_SHAPES)),
             ("paged_flash_decode", "paged_1280",
              ("paged_1280",) + tuple(
-                 f"{label}_paged_1280"
-                 for label, _, _ in DECODE_FAMILY_SHAPES))):
+                 f"{c[0]}_paged_{c[4]}" for c in DECODE_FAMILY_SHAPES
+                 if c[6]))):
         rec = decode_shapes.get(main_shape, {})
         records.append({
             "name": name, "route": "cuda", "source": DECODE_SOURCE,

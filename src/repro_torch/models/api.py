@@ -1,12 +1,14 @@
-"""Family-dispatching model API: the ``bert`` family and the LM families
-``dense``, ``vlm`` and ``moe`` (MLA layers in any of them).
+"""Family-dispatching model API: the ``bert`` family, the LM families
+``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid`` (``models/lm.py``; MLA
+layers in any of them) and the enc-dec ``audio`` family
+(``models/encdec.py``).
 
-Counterpart of ``repro/models/api.py``. Batch keys: ``tokens`` (B, S), and
-for ``vlm`` also ``mm_embeds`` (B, P, d) patch embeddings. Decode caches
-are preallocated and updated **in place** (where the reference returns
-updated copies and its engine donates the old buffers): every function
-below that takes a cache writes into it and returns the same tree. The
-ssm, hybrid and audio families come with ROADMAP.md Queue 1 item 4.
+Counterpart of ``repro/models/api.py``. Batch keys: ``tokens`` (B, S); for
+``vlm`` also ``mm_embeds`` (B, P, d) patch embeddings; for ``audio`` also
+``frames`` (B, T_audio, d) encoder frame embeddings. Decode caches are
+preallocated and updated **in place** (where the reference returns updated
+copies and its engine donates the old buffers): every function below that
+takes a cache writes into it and returns the same tree.
 """
 from __future__ import annotations
 
@@ -15,32 +17,38 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import bert as bert_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import prng
 from repro_torch.models.attention import as_slot_positions
 from repro_torch.models.sampling import sample_tokens
 
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
-_FAMILIES = ("bert", "dense", "vlm", "moe")
+_FAMILIES = ("bert", "dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
-def _ported(cfg: ModelConfig):
+def _known(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with "
-            f"{_ITEM_FAMILIES}")
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def _lm_only(cfg: ModelConfig):
-    _ported(cfg)
+def _decoder(cfg: ModelConfig):
+    _known(cfg)
     if cfg.family == "bert":
         raise ValueError("encoder-only arch has no decode step")
+
+
+def _lm_only(cfg: ModelConfig, what: str):
+    """The one-pass prefill and paged slot entry points: lm layouts only
+    (audio prefills through its decode path and has no paged cache)."""
+    _known(cfg)
+    if cfg.family in ("audio", "bert"):
+        raise ValueError(f"no {what} for family {cfg.family!r}")
 
 
 def init_model(seed, cfg: ModelConfig, device=None):
     """Seeded random weights on ``device`` (the CUDA card by default).
     ``seed`` is an int or a ``torch.Generator`` on that device."""
-    _ported(cfg)
+    _known(cfg)
     dev = resolve_device(device)
     gen = seed
     if not isinstance(gen, torch.Generator):
@@ -48,16 +56,22 @@ def init_model(seed, cfg: ModelConfig, device=None):
         gen.manual_seed(int(seed))
     if cfg.family == "bert":
         return bert_mod.init_bert(gen, cfg, device=dev)
+    if cfg.family == "audio":
+        return encdec_mod.init_encdec(gen, cfg, device=dev)
     return lm_mod.init_lm(gen, cfg, device=dev)
 
 
 def model_forward(params, cfg: ModelConfig, batch, packs=None):
-    """-> (logits fp32, aux)."""
-    _ported(cfg)
+    """-> (logits fp32, aux). The audio family takes no packs (the
+    reference's enc-dec forward has no packs route)."""
+    _known(cfg)
     if cfg.family == "bert":
         logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
+    if cfg.family == "audio":
+        return encdec_mod.forward(params, cfg, batch["frames"],
+                                  batch["tokens"])
     if cfg.family == "vlm":
         return lm_mod.forward(params, cfg, batch["tokens"],
                               mm_embeds=batch.get("mm_embeds"), packs=packs)
@@ -72,11 +86,15 @@ def init_cache(params, cfg: ModelConfig, batch_size, cache_len, frames=None,
                paged=None):
     """A zeroed decode cache on the params' device. ``paged``
     (``models.common.PagedLayout`` or None): page-pool storage for the
-    global attention and MLA layers (``serving/paging.py`` hands out page
-    ids)."""
-    _lm_only(cfg)
-    if frames is not None:
-        raise NotImplementedError(f"encoder frames come with {_ITEM_FAMILIES}")
+    global attention and MLA layers (lm families only; ``serving/paging.py``
+    hands out page ids). The audio family runs its encoder over ``frames``
+    (B, T_audio, d) here and caches each decoder layer's cross K/V; its
+    batch is the frames' batch."""
+    _decoder(cfg)
+    if cfg.family == "audio":
+        if paged is not None:
+            raise ValueError("paged KV is not supported for family 'audio'")
+        return encdec_mod.init_cache(params, cfg, frames, cache_len)
     return lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
                              device=_device_of(params))
 
@@ -85,7 +103,9 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
     """``pos``: scalar or int32 (B,) ragged per-slot positions; rows with
     pos < 0 are inactive slots whose cache state is left untouched. Returns
     (logits (B, 1, V) fp32, cache) with the cache written in place."""
-    _lm_only(cfg)
+    _decoder(cfg)
+    if cfg.family == "audio":
+        return encdec_mod.decode_step(params, cache, cfg, token, pos)
     return lm_mod.decode_step(params, cache, cfg, token, pos, packs=packs)
 
 
@@ -111,7 +131,7 @@ def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
     Returns ``(tokens (K, B) int32, valid (K, B) bool, state)`` with state
     ``{'token', 'pos', 'remaining', 'failed', 'cache'}``.
     """
-    _lm_only(cfg)
+    _decoder(cfg)
     dev = _device_of(params)
     b = token.shape[0]
     tok = torch.as_tensor(token, device=dev).to(torch.int32)
@@ -159,8 +179,9 @@ def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None,
                   packs=None):
     """One-pass prompt prefill into a decode cache: forward-path compute for
     tokens (B, S), in-place cache rewrite for positions 0..length-1. Returns
-    (logits (B, S, V) fp32, cache)."""
-    _lm_only(cfg)
+    (logits (B, S, V) fp32, cache). Audio prefills through its decode path
+    instead (its decoder prompts are a few tokens)."""
+    _lm_only(cfg, "one-pass prefill")
     return lm_mod.prefill_cache(params, cache, cfg, tokens, length,
                                 packs=packs)
 
@@ -171,7 +192,7 @@ def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
     already resident in slot ``slot`` of the batched engine cache: the
     paged prefix-cache hit path and the chunked prefill of the SLO
     scheduler, dense or paged, share this entry point (lm.prefill_suffix)."""
-    _lm_only(cfg)
+    _lm_only(cfg, "one-pass prefill")
     return lm_mod.prefill_suffix(params, cache, cfg, tokens, slot, start,
                                  length, packs=packs)
 
@@ -180,10 +201,15 @@ def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
 # slot lifecycle: the batch dimension of a decode cache is request slots
 # ---------------------------------------------------------------------------
 
+def _slot_mod(cfg: ModelConfig):
+    _decoder(cfg)
+    return encdec_mod if cfg.family == "audio" else lm_mod
+
+
 def reset_slot(cache, cfg: ModelConfig, slot):
-    """Empty one request slot in place (KV zeros, pos_map -1)."""
-    _lm_only(cfg)
-    return lm_mod.reset_slot(cache, slot)
+    """Empty one request slot in place (KV and recurrent state zeros,
+    pos_map -1; the audio family's cross K/V zeros too)."""
+    return _slot_mod(cfg).reset_slot(cache, slot)
 
 
 def alloc_slot(cache, cfg: ModelConfig, slot):
@@ -198,23 +224,21 @@ def free_slot(cache, cfg: ModelConfig, slot):
 
 def write_slot(cache, cfg: ModelConfig, slot, sub):
     """Copy a batch-1 cache (e.g. a prefill result) into ``slot``."""
-    _lm_only(cfg)
-    return lm_mod.write_slot(cache, slot, sub)
+    return _slot_mod(cfg).write_slot(cache, slot, sub)
 
 
 def read_slot(cache, cfg: ModelConfig, slot):
     """``slot`` as a new batch-1 cache (write_slot's inverse; a copy)."""
-    _lm_only(cfg)
-    return lm_mod.read_slot(cache, slot)
+    return _slot_mod(cfg).read_slot(cache, slot)
 
 
 def write_slot_paged(cache, cfg: ModelConfig, slot, sub, page_row):
     """Insert a dense batch-1 prefill result into paged slot ``slot``."""
-    _lm_only(cfg)
+    _lm_only(cfg, "paged slots")
     return lm_mod.write_slot_paged(cache, slot, sub, page_row)
 
 
 def restore_slot_paged(cache, cfg: ModelConfig, slot, page_row, resume_len):
     """Re-attach retained pages to ``slot`` (see lm.restore_slot_paged)."""
-    _lm_only(cfg)
+    _lm_only(cfg, "paged slots")
     return lm_mod.restore_slot_paged(cache, slot, page_row, resume_len)

@@ -16,9 +16,14 @@ bf16 scale per (slot, position, head); decode then dequantizes the whole
 cache and runs the plain ``decode_attention`` composition, as the reference
 does (K2/K3 take bf16 / fp32 caches only).
 
-Not ported here: cross-attention (``kv_override``, the audio family) and the
-flash-attention backward (``flash_attention`` on inputs that require grad,
-with grad mode on); each raises, naming the ROADMAP.md item that brings it.
+Cross-attention (``kv_override``, the audio family's decoder) takes the
+encoder K/V as they are: no K projection, no q/k norm on them, no RoPE; its
+decode step is the plain ``decode_attention`` over every encoder position,
+never K2, as in the reference.
+
+Not ported here: the flash-attention backward (``flash_attention`` on inputs
+that require grad, with grad mode on); it raises, naming the ROADMAP.md
+item that brings it.
 """
 from __future__ import annotations
 
@@ -32,7 +37,6 @@ from repro_torch.models.common import (apply_rope, init_linear, linear,
 
 NEG_INF = -1e30
 
-_ITEM_AUDIO = "ROADMAP.md Queue 1 item 4 (the audio family)"
 _ITEM_LM_TRAINING = "ROADMAP.md Queue 1 item 5 (LM training)"
 
 
@@ -482,13 +486,19 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
 
     When the sparse export fused the q/k/v projections (``packs['wqkv']``),
     one block-sparse matmul produces all three and the output is split at
-    the (Hq*D, Hkv*D, Hkv*D) boundaries."""
-    if kv_override is not None:
-        raise NotImplementedError(f"cross-attention comes with {_ITEM_AUDIO}")
+    the (Hq*D, Hkv*D, Hkv*D) boundaries.
+
+    ``kv_override`` (k, v) (B, T, Hkv, D) is cross-attention over encoder
+    K/V: only q is projected (and normalized), nothing is rotated; without
+    a cache it attends every position (``causal=False``), with a cache
+    (the audio decoder passes ``{}``) and S == 1 it is the plain decode
+    composition over all T positions and writes nothing."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     fused = packs.get("wqkv") if packs else None
     if fused is not None:
+        if kv_override is not None:
+            raise ValueError("a fused QKV pack is self-attention only")
         qkv = linear(p["wqkv"], x, fused)
         dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
         q = _split_heads(qkv[..., :dq], cfg.n_heads, hd)
@@ -497,21 +507,33 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
     else:
         q = _split_heads(linear(p["wq"], x, packs and packs.get("wq")),
                          cfg.n_heads, hd)
-        k = _split_heads(linear(p["wk"], x, packs and packs.get("wk")),
-                         cfg.n_kv_heads, hd)
-        v = _split_heads(linear(p["wv"], x, packs and packs.get("wv")),
-                         cfg.n_kv_heads, hd)
+        if kv_override is None:
+            k = _split_heads(linear(p["wk"], x, packs and packs.get("wk")),
+                             cfg.n_kv_heads, hd)
+            v = _split_heads(linear(p["wv"], x, packs and packs.get("wv")),
+                             cfg.n_kv_heads, hd)
+        else:
+            k, v = kv_override
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["scale"])
-        k = rms_norm(k, p["k_norm"]["scale"])
-    if cfg.rotary_fraction > 0 and positions is not None:
+        if kv_override is None:
+            k = rms_norm(k, p["k_norm"]["scale"])
+    if cfg.rotary_fraction > 0 and positions is not None \
+            and kv_override is None:
         q = apply_rope(q, positions, theta=cfg.rope_theta,
                        rotary_fraction=cfg.rotary_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        rotary_fraction=cfg.rotary_fraction)
 
     paged = cache is not None and "k_pages" in cache
-    if cache is not None and s > 1 and page_slot is not None:
+    if kv_override is not None and cache is not None:
+        if s != 1:
+            raise ValueError("cross-attention with a cache is a decode step")
+        # every encoder position is visible; the plain composition, not K2
+        t = k.shape[1]
+        out = decode_attention(q, k, v, torch.arange(t, device=x.device),
+                               t - 1)
+    elif cache is not None and s > 1 and page_slot is not None:
         length = s if prefill_len is None else int(prefill_len)
         if paged:
             out = _suffix_prefill_paged(

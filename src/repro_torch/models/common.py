@@ -1,8 +1,8 @@
 """Shared layer primitives: norms, activations, RoPE, linear init/apply,
 gated MLPs and the paged-KV primitives.
 
-Counterpart of ``repro/models/common.py`` (without the tensor-parallel hook
-and the conv history of the recurrent families).
+Counterpart of ``repro/models/common.py`` (without the tensor-parallel
+hook).
 Parameters are plain dicts of tensors, laid out as in the reference: a
 linear weight is stored (d_out, d_in) and applied as ``y = x @ w.T`` (the
 BSR layout).
@@ -63,6 +63,14 @@ def gelu(x):
 
 def act_fn(name):
     return {"gelu": gelu, "silu": F.silu, "relu": F.relu}[name]
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) +
+    log1p(exp(-|x|)), NaN passed through. (``F.softplus`` returns x itself
+    above its threshold and rounds otherwise.)"""
+    out = x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
 
 
 # -- RoPE ---------------------------------------------------------------------
@@ -150,6 +158,24 @@ def linear(p, x, pack=None, backend=None):
             return bsr_matmul(x, _dc.replace(pack, data=p["w"]), backend)
         raise TypeError(f"unknown pack kind {type(pack).__name__}")
     return torch.matmul(x, p["w"].t())
+
+
+def prefill_conv_history(x, valid, length, width, dtype):
+    """Conv-cache state after a one-pass prompt prefill: the last ``width``
+    pre-conv inputs of the real prompt. ``x``: (B, S, C) bucket-padded
+    inputs, ``valid``: (1, S, 1) real-token mask, ``length`` the prompt
+    length. Masking then left-padding ``width`` zeros makes prompts shorter
+    than the conv window zero-fill exactly like a fresh decode cache.
+    Shared by the SSM and RG-LRU prefill paths."""
+    b = x.shape[0]
+    zeros = torch.zeros((b, width) + tuple(x.shape[2:]), dtype=x.dtype,
+                        device=x.device)
+    masked = torch.where(valid, x, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+    padded = torch.cat([zeros, masked], dim=1)
+    # the reference's dynamic slice clamps its start into range
+    start = min(max(int(length), 0), padded.shape[1] - width)
+    return padded[:, start:start + width].to(dtype)
 
 
 def init_mlp(gen, d_model, d_ff, act="gelu", dtype=torch.float32,

@@ -1,0 +1,207 @@
+"""Encoder-decoder transformer backbone (the whisper-base shape).
+
+Counterpart of ``repro/models/encdec.py``. The audio conv frontend is a
+stub in both packages: the caller feeds precomputed frame embeddings
+(B, n_audio_ctx, d_model). Encoder layers are bidirectional; decoder layers
+are causal self-attention then cross-attention over the encoder output.
+
+Decode caches: per decoder layer a self-attention KV cache plus the cross
+K/V computed once from the encoder output. Every leaf is layer-stacked,
+slot at axis 1: ``{'self': {'k', 'v': (L, B, T, Hkv, D), 'pos_map':
+(L, B, T)}, 'cross_k', 'cross_v': (L, B, T_audio, Hkv, D)}``. Caches are
+written in place (the reference returns updated copies); the slot ops
+reset, copy and read every leaf, the cross K/V included.
+
+The reference wraps the training forward's decoder body in
+``jax.checkpoint``, a training-memory device; the port's forward serves and
+needs none.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm, linear, normal_init)
+from repro_torch.models.lm import _head_f32, _index, _tree_stack
+
+
+def _init_enc_layer(gen, cfg, device):
+    dt = cfg.tdtype
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "attn": attn.init_attention(gen, cfg, device),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)}
+
+
+def _init_dec_layer(gen, cfg, device):
+    dt = cfg.tdtype
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "attn": attn.init_attention(gen, cfg, device),
+            "norm_x": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "xattn": attn.init_attention(gen, cfg, device),
+            "norm2": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)}
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """Seeded random weights in the reference's tree layout, the encoder
+    and decoder layers stacked on a leading layer axis."""
+    dt = cfg.tdtype
+    return {
+        "enc_pos": normal_init(gen, (cfg.n_audio_ctx, cfg.d_model), 0.02, dt,
+                               device),
+        "enc_layers": _tree_stack([_init_enc_layer(gen, cfg, device)
+                                   for _ in range(max(cfg.n_enc_layers,
+                                                      1))]),
+        "enc_norm": init_norm(cfg.d_model, cfg.norm, dt, device),
+        "embed": {"w": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02,
+                                   dt, device)},
+        "dec_layers": _tree_stack([_init_dec_layer(gen, cfg, device)
+                                   for _ in range(max(cfg.n_layers, 1))]),
+        "dec_norm": init_norm(cfg.d_model, cfg.norm, dt, device),
+    }
+
+
+def _n_layers(stacked) -> int:
+    while isinstance(stacked, dict):
+        stacked = next(iter(stacked.values()))
+    return stacked.shape[0]
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """frames: (B, T_audio, d) stub embeddings -> encoder output."""
+    h = frames.to(cfg.tdtype) + params["enc_pos"][None]
+    positions = torch.arange(h.shape[1], device=h.device)[None]
+    layers = params["enc_layers"]
+    for i in range(_n_layers(layers)):
+        lp = _index(layers, i)
+        hn = apply_norm(lp["norm1"], h, cfg.norm)
+        out, _ = attn.apply_attention(lp["attn"], hn, cfg,
+                                      positions=positions, causal=False)
+        h = h + out
+        hn = apply_norm(lp["norm2"], h, cfg.norm)
+        h = h + apply_mlp(lp["ffn"], hn, cfg.act)
+    return apply_norm(params["enc_norm"], h, cfg.norm)
+
+
+def _cross_kv(lp, cfg, enc_out):
+    b, t, _ = enc_out.shape
+    k = linear(lp["xattn"]["wk"], enc_out).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    v = linear(lp["xattn"]["wv"], enc_out).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+    return k, v
+
+
+def _dec_layer(lp, h, cfg, *, positions, enc_out=None, cross_kv=None,
+               cache=None, pos=None):
+    hn = apply_norm(lp["norm1"], h, cfg.norm)
+    out, _ = attn.apply_attention(lp["attn"], hn, cfg, positions=positions,
+                                  cache=cache, pos=pos)
+    h = h + out
+    hn = apply_norm(lp["norm_x"], h, cfg.norm)
+    kv = cross_kv if cross_kv is not None else _cross_kv(lp, cfg, enc_out)
+    out, _ = attn.apply_attention(
+        lp["xattn"], hn, cfg, positions=positions, kv_override=kv,
+        causal=False, cache={} if cache is not None else None, pos=pos)
+    h = h + out
+    hn = apply_norm(lp["norm2"], h, cfg.norm)
+    return h + apply_mlp(lp["ffn"], hn, cfg.act)
+
+
+def _logits(params, cfg, h):
+    """Decoder norm, then fp32 logits over the tied embedding (one fp32
+    copy of a bf16 embedding, as ``lm._head_f32`` keeps it)."""
+    h = apply_norm(params["dec_norm"], h, cfg.norm)
+    return torch.matmul(h.float(), _head_f32(params["embed"]["w"]).t())
+
+
+def forward(params, cfg: ModelConfig, frames, tokens):
+    """(frames, decoder tokens (B, S)) -> (logits (B, S, V) fp32, aux 0)."""
+    enc_out = encode(params, cfg, frames)
+    s = tokens.shape[1]
+    h = params["embed"]["w"][tokens.long()]
+    positions = torch.arange(s, device=h.device)[None]
+    layers = params["dec_layers"]
+    for i in range(_n_layers(layers)):
+        h = _dec_layer(_index(layers, i), h, cfg, positions=positions,
+                       enc_out=enc_out)
+    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
+                                                device=h.device)
+
+
+def init_cache(params, cfg: ModelConfig, frames, cache_len):
+    """Run the encoder once over ``frames`` (B, T_audio, d); return zeroed
+    per-layer self caches (real storage per layer) and the cross K/V."""
+    enc_out = encode(params, cfg, frames)
+    b = frames.shape[0]
+    layers = params["dec_layers"]
+    n_dec = _n_layers(layers)
+    one = attn.init_cache_attn(cfg, b, cache_len, device=enc_out.device)
+    stacked_self = {k: x[None].repeat((n_dec,) + (1,) * x.dim())
+                    for k, x in one.items()}
+    cross = [_cross_kv(_index(layers, i), cfg, enc_out)
+             for i in range(n_dec)]
+    return {"self": stacked_self,
+            "cross_k": torch.stack([k for k, _ in cross]),
+            "cross_v": torch.stack([v for _, v in cross])}
+
+
+def decode_step(params, cache, cfg: ModelConfig, token, pos):
+    """token (B, 1) at ``pos`` (scalar or ragged (B,); rows with pos < 0 are
+    inactive and leave their cache untouched) -> (logits (B, 1, V) fp32,
+    cache), the self-attention K/V rows written in place."""
+    b = token.shape[0]
+    h = params["embed"]["w"][token.long()]
+    pos = attn.as_slot_positions(pos, b, h.device)
+    positions = pos.clamp_min(0)[:, None]
+    layers = params["dec_layers"]
+    for i in range(_n_layers(layers)):
+        self_c = {k: x[i] for k, x in cache["self"].items()}
+        h = _dec_layer(_index(layers, i), h, cfg, positions=positions,
+                       cross_kv=(cache["cross_k"][i], cache["cross_v"][i]),
+                       cache=self_c, pos=pos)
+    return _logits(params, cfg, h), cache
+
+
+# ---------------------------------------------------------------------------
+# slot lifecycle: every cache leaf is layer-stacked, the slot dim at axis 1
+# ---------------------------------------------------------------------------
+
+def cache_leaves(cache):
+    """(leaf name, tensor) for every cache leaf."""
+    for name, x in cache["self"].items():
+        yield name, x
+    yield "cross_k", cache["cross_k"]
+    yield "cross_v", cache["cross_v"]
+
+
+def reset_slot(cache, slot):
+    """Empty request slot ``slot`` in place: the self KV (``pos_map`` -1)
+    AND the slot's cross K/V, so a recycled slot cannot leak its previous
+    request's audio context."""
+    slot = int(slot)
+    for name, x in cache_leaves(cache):
+        x[:, slot].fill_(attn.slot_reset_value(name))
+    return cache
+
+
+def write_slot(cache, slot, sub):
+    """Copy a batch-1 cache (``init_cache`` over one request's frames, then
+    its prompt) into slot ``slot``: the self cache and the request's cross
+    K/V, in place."""
+    slot = int(slot)
+    for (_, x), (_, y) in zip(cache_leaves(cache), cache_leaves(sub)):
+        x[:, slot].copy_(y[:, 0])
+    return cache
+
+
+def read_slot(cache, slot):
+    """Slot ``slot`` as a new batch-1 cache (a copy)."""
+    slot = int(slot)
+    return {"self": {k: x[:, slot:slot + 1].clone()
+                     for k, x in cache["self"].items()},
+            "cross_k": cache["cross_k"][:, slot:slot + 1].clone(),
+            "cross_v": cache["cross_v"][:, slot:slot + 1].clone()}

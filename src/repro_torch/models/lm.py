@@ -1,11 +1,12 @@
-"""Decoder-only LM: forward, one-pass prefill into a KV cache, suffix prefill,
-batched decode over request slots, and the slot lifecycle. Layers mix
-global / windowed attention or MLA (``models/mla.py``) with a dense MLP, a
-MoE FFN (``models/moe.py``) or none; the vlm family's patch embeddings
-replace the first positions of ``forward``'s embedded tokens.
+"""Decoder-only LM: forward, one-pass prefill into a decode cache, suffix
+prefill, batched decode over request slots, and the slot lifecycle. Layers
+mix global / windowed attention, MLA (``models/mla.py``), a Mamba-2 SSD
+mixer (``models/ssm.py``) or an RG-LRU block (``models/rglru.py``) with a
+dense MLP, a MoE FFN (``models/moe.py``) or none; the vlm family's patch
+embeddings replace the first positions of ``forward``'s embedded tokens.
 
-Counterpart of ``repro/models/lm.py`` for the dense, vlm and moe families
-and MLA layers. Layer stacks follow the config's ``layer_plan()``: an
+Counterpart of ``repro/models/lm.py`` (the dense, vlm, moe, ssm and hybrid
+families). Layer stacks follow the config's ``layer_plan()``: an
 unrolled prefix, ``n_periods`` repetitions of the (possibly heterogeneous)
 ``pattern`` -- stored stacked, period axis first, as the reference's
 ``lax.scan`` carries them, so a JAX tree bridges over as it is -- and an
@@ -22,8 +23,10 @@ output gives them: the head is applied as an fp32 matrix product, and for a
 bf16 model one fp32 copy of the (tied) head is made on first use and kept
 as long as the head tensor lives (``_head_f32``).
 
-The SSM and RG-LRU layers (the ssm and hybrid families) raise, naming
-ROADMAP.md Queue 1 item 4.
+The recurrent mixers' caches (``state`` / ``h`` and the ``conv`` history)
+are slot-dense like the attention rings: one-pass and chunk prefills carry
+the state as the reference's do, and the slot ops reset, copy and read them
+with the KV leaves.
 """
 from __future__ import annotations
 
@@ -36,20 +39,11 @@ from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal_init,
                                        paged_bulk_write)
-
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other model families)"
-
-
-def _check_kind(kind: LayerKind):
-    if kind.mixer not in ("attn", "local", "mla") or kind.ffn not in (
-            "dense", "moe", "none"):
-        raise NotImplementedError(
-            f"layer kind {kind} (mixer {kind.mixer!r}, ffn {kind.ffn!r}) "
-            f"comes with {_ITEM_FAMILIES}")
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -69,13 +63,18 @@ def _tree_stack(parts):
 
 
 def _init_layer(gen, cfg: ModelConfig, kind: LayerKind, device):
-    _check_kind(kind)
     dt = cfg.tdtype
     p = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, device)}
-    if kind.mixer == "mla":
-        p["attn"] = mla_mod.init_mla(gen, cfg, device)
-    else:
+    if kind.mixer in ("attn", "local"):
         p["attn"] = attn.init_attention(gen, cfg, device)
+    elif kind.mixer == "mla":
+        p["attn"] = mla_mod.init_mla(gen, cfg, device)
+    elif kind.mixer == "ssm":
+        p["mixer"] = ssm_mod.init_ssm(gen, cfg, device)
+    elif kind.mixer == "rglru":
+        p["mixer"] = rglru_mod.init_rglru(gen, cfg, device)
+    else:
+        raise ValueError(kind.mixer)
     if kind.ffn == "dense":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device)
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
@@ -151,17 +150,23 @@ def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
                  pos=None, packs=None, prefill_len=None, page_slot=None,
                  page_start=None):
     """One layer -> (h, the MoE aux loss or None)."""
-    _check_kind(kind)
     hn = apply_norm(p["norm1"], h, cfg.norm)
     mix_packs = _layer_packs(packs, "attn") or _layer_packs(packs, "mixer")
-    kw = dict(positions=positions, cache=cache["mix"] if cache else None,
-              pos=pos, packs=mix_packs, prefill_len=prefill_len,
-              page_slot=page_slot, page_start=page_start)
-    if kind.mixer == "mla":
-        out, _ = mla_mod.apply_mla(p["attn"], hn, cfg, **kw)
-    else:
+    kw = dict(cache=cache["mix"] if cache else None, pos=pos,
+              packs=mix_packs, prefill_len=prefill_len, page_slot=page_slot)
+    if kind.mixer in ("attn", "local"):
         out, _ = attn.apply_attention(p["attn"], hn, cfg, window=kind.window,
-                                      **kw)
+                                      positions=positions,
+                                      page_start=page_start, **kw)
+    elif kind.mixer == "mla":
+        out, _ = mla_mod.apply_mla(p["attn"], hn, cfg, positions=positions,
+                                   page_start=page_start, **kw)
+    elif kind.mixer == "ssm":
+        out, _ = ssm_mod.apply_ssm(p["mixer"], hn, cfg, **kw)
+    elif kind.mixer == "rglru":
+        out, _ = rglru_mod.apply_rglru(p["mixer"], hn, cfg, **kw)
+    else:
+        raise ValueError(kind.mixer)
     h = h + out
     aux = None
     if kind.ffn != "none" and "ffn" in p:
@@ -248,13 +253,18 @@ def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
 
 def _init_layer_cache(cfg, kind: LayerKind, batch, cache_len, paged, lead,
                       device):
-    _check_kind(kind)
-    if kind.mixer == "mla":
-        one = mla_mod.init_cache_mla(cfg, batch, cache_len, paged=paged,
-                                     device=device)
-    else:
+    if kind.mixer in ("attn", "local"):
         one = attn.init_cache_attn(cfg, batch, cache_len, kind.window,
                                    paged=paged, device=device)
+    elif kind.mixer == "mla":
+        one = mla_mod.init_cache_mla(cfg, batch, cache_len, paged=paged,
+                                     device=device)
+    elif kind.mixer == "ssm":
+        one = ssm_mod.init_cache_ssm(cfg, batch, device=device)
+    elif kind.mixer == "rglru":
+        one = rglru_mod.init_cache_rglru(cfg, batch, device=device)
+    else:
+        raise ValueError(kind.mixer)
     if lead:
         # real storage per period (written in place), not a broadcast view
         one = {k: x[None].repeat((lead[0],) + (1,) * x.dim())
@@ -265,8 +275,8 @@ def _init_layer_cache(cfg, kind: LayerKind, batch, cache_len, paged, lead,
 def init_cache(cfg: ModelConfig, batch, cache_len, paged=None, device=None):
     """Zeroed decode cache for ``batch`` request slots. ``paged`` (a
     ``models.common.PagedLayout``) moves every global (window 0) attention
-    layer and every MLA layer onto page pools; ring caches stay
-    slot-dense."""
+    layer and every MLA layer onto page pools; ring caches and the SSM /
+    RG-LRU state stay slot-dense (O(window) or O(1) a slot)."""
     prefix, pattern, n_periods, suffix = cfg.layer_plan()
     return {
         "prefix": tuple(_init_layer_cache(cfg, k, batch, cache_len, paged,
@@ -301,9 +311,10 @@ def _slot(x, axis, slot):
 
 
 def reset_slot(cache, slot):
-    """Empty request slot ``slot`` in place: KV zeros, ``pos_map`` and
-    ``page_table`` -1, so a recycled slot cannot leak its previous request
-    (stale page content becomes unreachable)."""
+    """Empty request slot ``slot`` in place: KV, SSM / RG-LRU state and
+    conv history zeros, ``pos_map`` and ``page_table`` -1, so a recycled
+    slot cannot leak its previous request (stale page content becomes
+    unreachable)."""
     slot = int(slot)
     for c, axis in _sections(cache):
         for name, x in c["mix"].items():

@@ -48,22 +48,28 @@ module adds the request-level machinery on top:
     (``serving/paging.py``) and radix prefix sharing
     (``serving/prefix_cache.py``);
   * **slot lifecycle** -- any retirement zeroes the slot, so a recycled
-    slot cannot leak its previous request.
+    slot cannot leak its previous request;
+  * **the audio family** (enc-dec) -- a request carries its encoder
+    ``frames``; admission encodes them into a batch-1 cache (the cross K/V)
+    and prefills its decoder prompt through the decode path; paged KV and
+    chunked prefill log their blockers and serve dense / one-shot, as the
+    reference does. The recurrent families (ssm, hybrid) have no layer to
+    page and serve dense likewise.
 
 The engine cache is preallocated once and updated **in place** by every
 prefill insert, decode window and slot op (the reference rebuilds it
 functionally and donates the old buffers to each compiled call). The
 batch-1 prefill cache is allocated once per engine too: a prefill rewrites
 every one of its tensors, so nothing of the previous prompt survives into
-the next.
+the next (an audio request gets its own, encoded from its frames).
 
 Sampling is configured per engine (``temperature`` / ``top_k`` / ``seed``):
 each token's key is JAX's threefry key folded by (slot, position)
 (``models/sampling.py``), so the port samples the reference's tokens, and
 fused and per-step decoding sample alike.
 
-Not ported here (each raises at construction, naming its ROADMAP.md item):
-meshes and the audio family.
+Not ported here (it raises at construction, naming its ROADMAP.md item):
+meshes.
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ import torch
 from repro_torch.core.tree import leaves
 from repro_torch.models import prng
 from repro_torch.models.common import PagedLayout
+from repro_torch.models.encdec import cache_leaves
 from repro_torch.models.sampling import sample_token_row
 from repro_torch.runtime import chaos as chaos_mod
 from repro_torch.serving.paging import PagePool, PagePoolExhausted, \
@@ -125,6 +132,7 @@ class EngineRequest:
     prompt: np.ndarray                      # (L,) int32
     max_new_tokens: int
     eos_id: Optional[int] = None
+    frames: Optional[np.ndarray] = None     # audio family: encoder input
     on_token: Optional[Callable[[int, int], None]] = None
     on_done: Optional[Callable[[int, List[int]], None]] = None
     priority: int = 0                       # higher preempts lower
@@ -249,10 +257,6 @@ class ServingEngine:
         cfg = servable.cfg
         if cfg.family == "bert":
             raise ValueError("encoder-only arch has no decode step")
-        if cfg.family == "audio":
-            raise NotImplementedError(
-                "family 'audio' comes with ROADMAP.md Queue 1 item 4 (the "
-                "audio family)")
         if servable.spec.mesh_shape is not None:
             raise NotImplementedError(
                 "a mesh comes with ROADMAP.md Queue 1 item 6 (sharding)")
@@ -283,7 +287,10 @@ class ServingEngine:
         self._watchdog_snapshot: Optional[Dict] = None
 
         # the batch-1 prefill cache, rewritten entirely by every prefill
-        self._sub = servable.init_cache(1, self.cache_len)
+        # (audio builds one per request from its frames at admission)
+        self._audio = cfg.family == "audio"
+        self._sub = None if self._audio else servable.init_cache(
+            1, self.cache_len)
 
         # -- KV layout resolution: kwarg > REPRO_KV_LAYOUT env > spec ------
         layout = kv_layout or os.environ.get("REPRO_KV_LAYOUT") \
@@ -297,7 +304,9 @@ class ServingEngine:
                     if k.mixer in ("attn", "mla") and k.window == 0]
         if layout == "paged":
             blocker = None
-            if cfg.kv_cache_quant:
+            if self._audio:
+                blocker = "family 'audio' (cross-attn caches are per-request)"
+            elif cfg.kv_cache_quant:
                 blocker = "kv_cache_quant (int8 page pools are future work)"
             elif not pageable:
                 blocker = "no linear attention/MLA layers to page"
@@ -342,7 +351,9 @@ class ServingEngine:
         self._chunking = False
         if self.sched is not None and self.sched.max_chunk > 0:
             blocker = None
-            if cfg.kv_cache_quant:
+            if self._audio:
+                blocker = "family 'audio' prefills through the decode path"
+            elif cfg.kv_cache_quant:
                 blocker = "kv_cache_quant: int8 KV has no exact chunk path"
             elif any(k.ffn == "moe" for k in kinds):
                 blocker = "MoE ffn (expert routing is batch-global)"
@@ -400,7 +411,15 @@ class ServingEngine:
 
     def _build_cache(self):
         """A fresh all-slots-free engine cache (constructor AND the recovery
-        path after a failed decode window)."""
+        path after a failed decode window). Audio: a structure-only cache
+        of zero frames; each request's cross K/V arrive with its
+        admission."""
+        if self._audio:
+            cfg = self.cfg
+            return self.servable.init_cache(
+                self.max_slots, self.cache_len, frames=torch.zeros(
+                    (self.max_slots, cfg.n_audio_ctx, cfg.d_model),
+                    dtype=cfg.tdtype, device=self.device))
         return self.servable.init_cache(self.max_slots, self.cache_len,
                                         paged=self._layout)
 
@@ -409,7 +428,7 @@ class ServingEngine:
 
     # -- submission -------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16, *,
-               eos_id: Optional[int] = None, priority: int = 0,
+               eos_id: Optional[int] = None, frames=None, priority: int = 0,
                deadline_s: Optional[float] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
                on_done: Optional[Callable[[int, List[int]], None]] = None
@@ -421,11 +440,12 @@ class ServingEngine:
         request-level problems. ``deadline_s`` is a relative wall-clock
         budget enforced at window-sync points (and, with a ``SchedSpec``
         and ``fast_fail``, failed at submission when the engine's measured
-        rates already rule it out)."""
+        rates already rule it out). ``frames`` (T_audio, d) or
+        (1, T_audio, d): an audio request's encoder input."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         req = EngineRequest(req_id=self._next_id, prompt=prompt,
                             max_new_tokens=int(max_new_tokens), eos_id=eos_id,
-                            on_token=on_token, on_done=on_done,
+                            frames=frames, on_token=on_token, on_done=on_done,
                             priority=int(priority))
         req.submitted_at = time.monotonic()
         self._next_id += 1
@@ -444,6 +464,8 @@ class ServingEngine:
                       f"({self.cache_len})")
         elif prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             reject = (f"prompt token ids outside [0, {self.cfg.vocab_size})")
+        elif self._audio and frames is None:
+            reject = "audio requests need encoder frames"
         if reject is not None:
             self.stats.rejected += 1
             self._finalize(req, "failed",
@@ -641,6 +663,11 @@ class ServingEngine:
             seq = self._seq(req)
             length = int(seq.size)
             self._fire(chaos_mod.SITE_PREFILL, request=req)
+            if self._audio:
+                frames = torch.as_tensor(req.frames, device=self.device)
+                self._sub = self.servable.init_cache(
+                    1, self.cache_len,
+                    frames=frames[None] if frames.dim() == 2 else frames)
             bucket, row = self._prefill_sub(seq)
             self.cache = self.servable.engine_write_slot(self.cache, slot,
                                                          self._sub)
@@ -1351,6 +1378,11 @@ class ServingEngine:
                             x[:, rows] = float("nan")
                         else:
                             x[rows] = float("nan")
+            return
+        if self._audio:                 # every leaf: slot at axis 1
+            for _, x in cache_leaves(self.cache):
+                if x.is_floating_point():
+                    x[:, slot].fill_(float("nan"))
             return
         sections = [(c, False) for c in self.cache["prefix"]] \
             + [(c, True) for c in self.cache["blocks"]] \

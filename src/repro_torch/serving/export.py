@@ -2,8 +2,11 @@
 analogue).
 
 Counterpart of ``repro/serving/export.py`` (bert and lm passes; the lm pass
-serves the dense, vlm and moe families: MoE expert weights are raw (E, d, f)
-arrays and stay unpacked, an MLA layer packs ``wq`` and ``wo``). Training
+serves the dense, vlm, moe, ssm and hybrid families and packs only the
+``attn`` and ``ffn`` subtrees: MoE expert weights are raw (E, d, f) arrays
+and stay unpacked, an MLA layer packs ``wq`` and ``wo``, the SSM and RG-LRU
+mixers' projections stay dense matmuls; the audio family exports nothing
+and serves dense). Training
 keeps dense weights; serving packs the pruned projections into tile-granular
 BSR patterns (byte-identical to the reference) and lowers each pattern to a
 :class:`~repro_torch.kernels.exec_plan.RowPackPlan`, storing the tile values
@@ -42,9 +45,8 @@ _QKV = ("wq", "wk", "wv")
 _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
 
-_ITEM_FAMILIES = "ROADMAP.md Queue 1 item 4 (the other families)"
-# the reference's LM_FAMILIES that the port serves so far
-LM_FAMILIES = ("dense", "moe", "vlm")
+# families whose param tree follows the lm.py prefix/blocks/suffix layout
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _tile_masks(w: torch.Tensor, tile) -> torch.Tensor:
@@ -468,7 +470,9 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
     """Export a model's param tree to serving form. Returns
     ``(sparse_params, packs, stats)``: bert through
     :func:`export_bert_sparse`, the LM families (``LM_FAMILIES``) through
-    :func:`export_lm_sparse` (its stacked groups always union-pack)."""
+    :func:`export_lm_sparse` (its stacked groups always union-pack); audio
+    is returned as it is with no packs (the enc-dec forward has no packs
+    route) and ``stats`` records why."""
     if cfg.family == "bert":
         stats: Dict[str, Dict] = {}
         sparse_params, packs = export_bert_sparse(
@@ -484,5 +488,8 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
                                 registry=registry,
                                 backend_chooser=backend_chooser,
                                 pack_quant=pack_quant, device=device)
-    raise NotImplementedError(
-        f"export of family {cfg.family!r} comes with {_ITEM_FAMILIES}")
+    if cfg.family == "audio":
+        return params, {}, {"__unsupported__": {
+            "family": cfg.family,
+            "reason": "enc-dec forward has no packs route; serving dense"}}
+    raise ValueError(f"unknown model family {cfg.family!r}")

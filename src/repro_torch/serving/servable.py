@@ -1,8 +1,10 @@
 """prepare_servable / Servable / load_servable: the serving facade.
 
-Counterpart of ``repro/serving/servable.py`` for the bert family and the
-dense LM family (every backend: ``plan``, ``plan_pallas``, ``bsr``,
-``dense`` and the measured ``auto``; quantized packs with ``pack_quant``).
+Counterpart of ``repro/serving/servable.py`` for the bert family, the LM
+families (dense, vlm, moe, ssm, hybrid) and the audio family (every
+backend: ``plan``, ``plan_pallas``, ``bsr``, ``dense`` and the measured
+``auto``; quantized packs with ``pack_quant``; audio exports no packs and
+serves dense).
 One spec-driven entry point owns the pipeline the paper argues must be
 co-designed:
 
@@ -129,9 +131,15 @@ class Servable:
     def init_cache(self, batch_size: int, cache_len: int, frames=None,
                    paged=None):
         """A zeroed decode cache for ``batch_size`` slots on the servable's
-        device (``paged``: a ``models.common.PagedLayout``)."""
-        return model_api.init_cache(self.params, self.cfg, batch_size,
-                                    cache_len, frames=frames, paged=paged)
+        device (``paged``: a ``models.common.PagedLayout``). The audio
+        family encodes ``frames`` (B, T_audio, d) into the cache's cross
+        K/V; its batch is the frames'."""
+        if frames is not None:
+            frames = self._tensor(frames)
+        with torch.no_grad():
+            return model_api.init_cache(self.params, self.cfg, batch_size,
+                                        cache_len, frames=frames,
+                                        paged=paged)
 
     def decode_kernel_kind(self) -> str:
         """The attention decode kernel every decode call of this servable
@@ -212,13 +220,28 @@ class Servable:
         return nxt, ok, logits, cache
 
     def engine_prefill(self, cache1, tokens, length):
-        """One-pass prompt prefill of a bucket-padded prompt (tokens
-        (bucket,)) into the batch-1 cache ``cache1``, which it rewrites
-        entirely. Returns ``(cache1, logits (bucket, V))``."""
+        """Prompt prefill of a bucket-padded prompt (tokens (bucket,)) into
+        the batch-1 cache ``cache1``. Returns ``(cache1, logits (bucket,
+        V))``. The LM families run the one-pass forward prefill, which
+        rewrites the whole cache. The audio family steps its decode path
+        over the bucket (its decoder prompts are a few tokens), padding
+        steps at pos -1 so they write nothing, as the reference's prefill
+        scan does; ``cache1`` is then the request's fresh cache
+        (``init_cache`` over its frames)."""
+        toks = self._tensor(tokens)
+        if self.cfg.family == "audio":
+            rows = []
+            for t in range(toks.shape[0]):
+                p = t if t < int(length) else -1
+                logits, cache1 = self.decode_step(
+                    cache1, toks[t:t + 1, None],
+                    torch.tensor([p], dtype=torch.int32, device=self.device))
+                rows.append(logits[0, 0])
+            return cache1, torch.stack(rows)
         with torch.no_grad():
             logits, cache1 = model_api.prefill_cache(
-                self.params, cache1, self.cfg, self._tensor(tokens)[None],
-                int(length), packs=self.packs)
+                self.params, cache1, self.cfg, toks[None], int(length),
+                packs=self.packs)
         return cache1, logits[0]
 
     def suffix_prefill(self, cache, tokens, slot, start, length):

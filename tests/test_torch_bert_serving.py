@@ -230,10 +230,16 @@ def test_options_outside_the_slice_raise(bert, kw, item):
 
 
 def test_other_families_raise():
-    # the dense LM family (deepseek_7b, ...) is ported; the SSM family not
+    """The SSM family raised here until it was ported (ROADMAP.md Queue 1
+    item 4); now init_model draws the reference's tree layout for it."""
+    from repro_torch.core.tree import flatten_with_path, path_name
     cfg = get_config("mamba2_780m", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_model(0, cfg, device="cpu")
+    own = init_model(0, cfg, device="cpu")
+    ref = j_init(jax.random.PRNGKey(0), jax_config("mamba2_780m", smoke=True))
+    layout = {path_name(p): tuple(x.shape) for p, x in flatten_with_path(own)}
+    want = {path_name(p): tuple(np.shape(x)) for p, x in
+            flatten_with_path(jax.tree.map(np.asarray, ref))}
+    assert layout == want and "blocks/[0]/mixer/A_log" in layout
 
 
 def test_seeded_init_is_deterministic():

@@ -5,7 +5,8 @@ prefix-sharing hit and preempt-resume (re-prefill and page retention) on
 deepseek_7b; EOS mid-window; a servable saved by JAX serving in the port.
 Plus the engine's own lifecycle contracts: rejections, queue policies,
 cancel, deadlines, non-finite quarantine, window-failure recovery, the
-options that still raise, and serving with JAX blocked.
+options that still raise (and the audio engine that no longer does), and
+serving with JAX blocked.
 
 The smoke weights are JAX's init with the attention and FFN weights scaled
 by 20: at the init scale (0.02) a smoke model just repeats its input token,
@@ -265,10 +266,18 @@ def test_window_failure_fails_actives_and_engine_keeps_serving(monkeypatch):
 
 
 def _audio_engine():
-    from repro_torch.serving.engine import ServingEngine
-    fake = types.SimpleNamespace(cfg=get_config("whisper_base", smoke=True),
-                                 spec=ServingSpec())
-    return ServingEngine(fake, max_slots=2, cache_len=32)
+    """The audio family builds an engine now: a whisper request (frames +
+    a 3-token prompt) is served with the JAX engine's tokens."""
+    js, ts = _servables("whisper_base")
+    frames = np.random.RandomState(2).randn(
+        ts.cfg.n_audio_ctx, ts.cfg.d_model).astype(np.float32)
+    got = []
+    for sv in (js, ts):
+        eng = sv.engine(max_slots=2, cache_len=32)
+        h = eng.submit([1, 2, 3], max_new_tokens=4, frames=frames)
+        eng.run()
+        got.append((h.status, list(h.tokens)))
+    assert got[0] == got[1] and got[1][0] == "done"
 
 
 def _mesh_engine():
@@ -289,15 +298,20 @@ def _paged_int8_cache():
 
 
 @pytest.mark.parametrize("build,message", [
-    (_audio_engine, "family 'audio' comes with ROADMAP.md Queue 1 item 4"),
+    (_audio_engine, None),
     (_mesh_engine, "a mesh comes with ROADMAP.md Queue 1 item 6"),
     (_paged_int8_cache, "kv_layout='paged' does not compose with "
                         "kv_cache_quant"),
 ], ids=["audio", "mesh", "paged_int8"])
 def test_unported_engine_options_raise(build, message):
-    """What still raises: the audio family and a mesh at engine
-    construction, and paged int8 KV where the reference's model layer
-    raises too (its engine then serves dense, as the port's does)."""
+    """What still raises: a mesh at engine construction, and paged int8 KV
+    where the reference's model layer raises too (its engine then serves
+    dense, as the port's does). The audio family raised here until it was
+    ported (ROADMAP.md Queue 1 item 4); its case now serves a request as
+    the JAX engine does (``message`` None)."""
+    if message is None:
+        build()
+        return
     with pytest.raises(NotImplementedError, match=re.escape(message)):
         build()
 

@@ -15,9 +15,9 @@ the pixtral_12b, qwen3_moe_235b_a22b and deepseek_v2_lite_16b smoke configs
   == per-step, ``test_chunked_prefill.py``'s MLA chunked == one-shot
   (dense and paged) and its MoE gate, ``test_paged_kv.py``'s MLA paged ==
   dense;
-* the families that still raise (ssm, hybrid, audio), naming ROADMAP.md
-  Queue 1 item 4, and a bf16 MoE + MLA tree crossing the bridge leaf for
-  leaf.
+* the calls that raised before the ssm, hybrid and audio families were
+  ported (ROADMAP.md Queue 1 item 4) now build what the reference builds,
+  and a bf16 MoE + MLA tree crosses the bridge leaf for leaf.
 
 The engine cases scale the smoke attention / FFN weights by 20, as
 ``test_torch_engine.py`` does: at the init scale a smoke model repeats its
@@ -405,27 +405,51 @@ def test_mla_paged_engine_is_bitexact_against_dense():
 
 
 # --------------------------------------------------------------------------
-# what still raises, and the bridge
+# what raised before Queue 1 item 4, and the bridge
 # --------------------------------------------------------------------------
 
+def _layout(tree):
+    return {path_name(p): (tuple(x.shape), str(x.dtype).split(".")[-1])
+            for p, x in flatten_with_path(tree)}
+
+
 def _raise_api():
-    tapi.init_model(0, get_config("mamba2_780m", smoke=True), device="cpu")
+    """init_model for the ssm family draws the reference's tree layout."""
+    cfg = get_config("mamba2_780m", smoke=True)
+    own = tapi.init_model(0, cfg, device="cpu")
+    jp = jax.tree.map(np.asarray, j_init(
+        jax.random.PRNGKey(0), jax_config("mamba2_780m", smoke=True)))
+    assert _layout(own) == _layout(jp)
 
 
 def _raise_check_kind():
-    tlm._check_kind(LayerKind("rglru", "dense"))
+    """An rglru layer kind builds the reference's layer layout."""
+    from repro.models import lm as jlm
+    cfg = get_config("recurrentgemma_9b", smoke=True)
+    jcfg = jax_config("recurrentgemma_9b", smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    own = tlm._init_layer(gen, cfg, LayerKind("rglru", "dense"), "cpu")
+    ref = jax.tree.map(np.asarray, jlm._init_layer(
+        jax.random.PRNGKey(0), jcfg, JKind("rglru", "dense")))
+    assert _layout(own) == _layout(ref)
 
 
 def _raise_export():
-    export_params({}, get_config("whisper_base", smoke=True), tile=(16, 16))
+    """The audio family exports nothing, with the reference's reason."""
+    jcfg = jax_config("whisper_base", smoke=True)
+    want = j_export({}, jcfg, tile=(16, 16))
+    got = export_params({}, get_config("whisper_base", smoke=True),
+                        tile=(16, 16))
+    assert got == want and got[2]["__unsupported__"]["family"] == "audio"
 
 
 @pytest.mark.parametrize("build", [_raise_api, _raise_check_kind,
                                    _raise_export],
                          ids=["api_ssm", "lm_rglru", "export_audio"])
 def test_unported_families_raise_item_4(build):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build()
+    """These calls raised, naming Queue 1 item 4, until the ssm, hybrid and
+    audio families were ported; now each builds what the reference does."""
+    build()
 
 
 def test_bf16_moe_and_mla_tree_crosses_the_bridge():

@@ -9,7 +9,10 @@ with one split). Also what the engine needs to hold on the card: threefry
 keys and bits and the int8 KV quantizer equal to the CPU's, K1 at the M of
 chunked prefill; and the vlm / MoE / MLA families' shapes: K1 at pixtral_12b's,
 qwen3_moe's and deepseek_v2_lite's packed attention projections at M = 4
-and 1024, K2 / K3 at head_dim 128 with G = 4 and 16.
+and 1024, K2 / K3 at head_dim 128 with G = 4 and 16; the hybrid and audio
+families' shapes: K1 at recurrentgemma_9b's packed FFN and local-attention
+projections at M = 4 and 1024, K2 at its MQA ring (Hkv 1, G 16, D 256)
+and at whisper_base's decoder cache (Hkv 8, G 1, D 64).
 
 Imports only the port, so it runs where JAX is not installed:
 
@@ -1223,6 +1226,10 @@ def test_plan_dds_at_the_family_projection_shapes_on_card(model, proj, n, k,
     (``tc``), against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _k1_at_shape(n, k, m)
+
+
+def _k1_at_shape(n, k, m):
     from repro_torch.kernels import bsr_matmul as bm
     rng = np.random.RandomState(n + k)
     tile = (128, 128)
@@ -1296,3 +1303,75 @@ def test_decode_kernels_at_head_dim_128_on_card(hkv, g, paged):
     assert float((out.float() - ref.float()).abs().max()) <= \
         _DECODE_TOL[dtype] * scale
     assert float(out[1].float().abs().max()) == 0.0      # inactive slot
+
+
+# --------------------------------------------------------------------------
+# the hybrid and audio families' shapes: K1 at recurrentgemma_9b's packed
+# projections, K2 at its MQA ring and at whisper_base's decoder cache
+# --------------------------------------------------------------------------
+
+# recurrentgemma_9b (16 query heads / 1 KV head of 256, d 4096, geglu
+# d_ff 12288): the local layers' fused QKV and wo, the FFN's wi and wo
+_RECURRENTGEMMA_SHAPES = (("wqkv", 4608, 4096), ("attn_wo", 4096, 4096),
+                          ("ffn_wi", 12288, 4096), ("ffn_wo", 4096, 12288))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 1024], ids=["stream_m4", "tc_m1024"])
+@pytest.mark.parametrize("proj,n,k", _RECURRENTGEMMA_SHAPES)
+def test_plan_dds_at_recurrentgemma_shapes_on_card(proj, n, k, m):
+    """K1 on a 128x128 pack at density 0.2, bf16, at a decode step's M = 4
+    (``stream``) and a prefill's M = 1024 (``tc``), against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _k1_at_shape(n, k, m)
+
+
+def _ring_map(t, pos):
+    """Slot j of a T-slot ring after writing 0..pos: the latest position
+    congruent to j (-1 where none)."""
+    j = np.arange(t)
+    src = j + t * ((pos - j) // t)
+    return np.where((src >= 0) & (src <= pos), src, -1).astype(np.int32)
+
+
+# (label, Hkv, G, D, T, window, ring positions; -1 = an inactive slot):
+# recurrentgemma_9b's local layers keep a ring of min(cache_len, 2048) =
+# 1280 slots (slot 0 wrapped past the ring), whisper_base's decoder a
+# linear 448-position cache
+_DECODE_FAMILY_CASES = (
+    ("recurrentgemma_g16_d256", 1, 16, 256, 1280, 2048,
+     [2500, -1, 1279, 333]),
+    ("whisper_g1_d64", 8, 1, 64, 448, 0, [447, 100, -1, 5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,hkv,g,d,t,window,posl", _DECODE_FAMILY_CASES,
+                         ids=[c[0] for c in _DECODE_FAMILY_CASES])
+def test_flash_decode_at_the_hybrid_and_audio_shapes_on_card(
+        label, hkv, g, d, t, window, posl):
+    """K2 at B = 4 against its plain version (a wrapped ring, an inactive
+    slot that gives zeros), and bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    rng = np.random.RandomState(d + g)
+    dtype = torch.bfloat16
+    b = len(posl)
+    q, k, v = _decode_inputs(rng, dtype, b, t, hkv * g, hkv, d)
+    kvp = torch.from_numpy(np.stack([_ring_map(t, p) for p in posl])).cuda()
+    pos = torch.tensor(posl, dtype=torch.int32, device="cuda")
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, kvp, pos, window=window)
+    assert flash_decode.launches == before + 1
+    ref = flash_decode_plain(q, k, v, kvp, pos, window=window)
+    again = flash_decode(q, k, v, kvp, pos, window=window)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        _DECODE_TOL[dtype] * scale
+    assert torch.equal(out, again)
+    inactive = posl.index(-1)
+    assert float(out[inactive].float().abs().max()) == 0.0

@@ -305,7 +305,9 @@ def test_lm_export_matches_jax(model):
 
 def test_greedy_sampling_and_unported_options():
     """Greedy sampling takes the first index on ties; what still raises:
-    paged int8 KV (the reference raises too) and the other families."""
+    paged int8 KV (the reference raises too). mamba2 raised here until the
+    ssm family was ported (ROADMAP.md Queue 1 item 4); its init now gives
+    the reference's decode cache layout."""
     logits = torch.tensor([[0.1, 0.9, 0.9], [2.0, -1.0, 0.5]])
     assert sample_tokens(logits).tolist() == [1, 0]   # ties: first index
     assert sample_token_row(np.array([0.0, 3.0, 3.0])) == 1
@@ -315,9 +317,15 @@ def test_greedy_sampling_and_unported_options():
     with pytest.raises(NotImplementedError, match="kv_cache_quant"):
         init_cache_attn(replace(cfg, kv_cache_quant=True), 1, 8,
                         paged=PagedLayout(page_size=4, n_pages=4))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tapi.init_model(0, get_config("mamba2_780m", smoke=True),
-                        device="cpu")
+    mcfg = get_config("mamba2_780m", smoke=True)
+    jmcfg = jax_config("mamba2_780m", smoke=True)
+    own = tapi.init_model(0, mcfg, device="cpu")
+    got = _np(tapi.init_cache(own, mcfg, 2, 16))
+    want = _np(japi.init_cache(j_init(jax.random.PRNGKey(0), jmcfg), jmcfg,
+                               2, 16))
+    assert {k: v.shape for k, v in got.items()} == {
+        k: v.shape for k, v in want.items()}
+    assert all(not v.any() for v in got.values())
 
 
 def test_bf16_scale_embedding_rounds_like_jax():
