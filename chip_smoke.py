@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
-                           training]
+                           lm_training,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -180,6 +180,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
      logits K2 vs plain at ragged positions and the teacher-forced forward
      against per-step decode within 5%. Each: a profiled decode window,
      peak memory.
+  4e. lm_training: LM training. a. flash_attention's backward (the
+     reference's FA2-schedule custom VJP, a plain composition) at gemma3_4b's
+     global-layer shape (B 1, S 4096, Hq 8, Hkv 4, D 256, chunks 1024,
+     causal): dq, dk, dv against autograd through full_attention (fp32
+     within 1e-4, bf16 within 2e-2 of max|g|), fwd+bwd ms beside
+     full_attention's and SDPA's (a yardstick the port never calls);
+     b. gemma3_4b at full width and depth (34 layers, bf16 params, fp32
+     AdamW state, the group-lasso prox at 16x16) through
+     make_train_step(donate=True) at B 1, S 4096 (train_4k's length, its
+     batch cut to 1): a warm-up and 3 timed steps (CUDA events), finite
+     losses, every leaf moved, in place, peak memory below the card's,
+     tokens/s, 6 N tokens over the bf16 peak as a reading, a profiled step
+     (device busy and idle share); c. at full width, 6 layers (one
+     5 local : 1 global period), S 2048: gradients with per-period remat
+     against plain autograd, bitwise, and the donated update (the embedding in chunks) against a
+     functional unchunked one on the same gradients, bitwise; d. the
+     Trainer on that model: gradual pruning to 0.7 at 16x16 from step 2 to
+     6, the prox, a fault at step 5 (exactly 1 restart from the step-4
+     checkpoint), every targeted leaf within 0.02 of 0.7, checkpoint
+     host-copy, write and restore times; e. the trained model through
+     prepare_servable(prune='none', 16x16 tiles, plan_pallas) and the
+     engine: 4 greedy requests done, K1 and K2 launches equal to the
+     routing, decode_step logits kernels vs plain within 5%; f. 2 packed
+     fine-tuning steps: K1 launches = the forward's plus the remat
+     recompute of the period's packs, one K4 and one K5 a packed
+     projection (bf16, their general instances, printed), padding slots'
+     gradients and values exactly 0, the cross-entropy within 1e-2 of the
+     dense forward's on the unpacked weights, and inside a gradient pass
+     at M 2048 every K1 output, K4 dX and K5 tile gradient on the step's
+     own X and dY within 2^-7 of max|ref| of fp32 products with the dense
+     weight (dW gathered at the stored tiles); g. one
+     train step of deepseek_7b, chatglm3_6b, internlm2_20b, qwen3_moe,
+     deepseek_v2_lite, mamba2_780m, recurrentgemma_9b, pixtral_12b (patch
+     embeddings) and whisper_base (frames) at smoke size on the card
+     against the CPU (loss and grad norm within 1e-4 relative).
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -1937,35 +1972,47 @@ PACKED_STEPS = 4
 TOL_PACKED_STEP = 1e-4
 
 
-def _unpacked_dense(params, packs, cfg):
-    """The dense weights the packed values stand for: every packed
-    projection scattered back to (N, K), a fused QKV split into wq/wk/wv."""
+def _plan_blocks(plan, dev):
+    """The (block row, block column) of each real tile of a plan, in
+    ``unpack_plan_data``'s order."""
     import numpy as np
     import torch
+    rows = plan.row_of_vrow[plan.vrow].astype(np.int64)
+    cols = plan.col_idx[plan.vrow, plan.slot].astype(np.int64)
+    return torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)
+
+
+def _plan_dense(plan, vals):
+    """The dense (N, K) weight one packed projection's values stand for."""
     from repro_torch.kernels.exec_plan import unpack_plan_data
-    layers = [{g: dict(v) for g, v in lp.items()} for lp in params["layers"]]
+    (n, k), (bn, bk) = plan.shape, plan.tile
+    blocks = vals.new_zeros((n // bn, k // bk, bn, bk))
+    blocks[_plan_blocks(plan, vals.device)] = unpack_plan_data(plan, vals)
+    return blocks.permute(0, 2, 1, 3).reshape(n, k)
+
+
+def _unpacked_dense(params, packs, cfg):
+    """The dense weights the packed values stand for: every packed
+    projection scattered back to (N, K) -- per period for an LM's stacked
+    ``blocks`` -- and a fused QKV split into wq/wk/wv."""
+    import torch
+    section = "layers" if "layers" in params else "blocks"
+    layers = [{g: dict(v) for g, v in lp.items()} for lp in params[section]]
     for key, pk in packs.items():
         _, i, group, name = key.split("/")
-        plan = pk.plan
         vals = layers[int(i)][group][name]["w"]
-        tiles = unpack_plan_data(plan, vals)
-        rows = plan.row_of_vrow[plan.vrow].astype(np.int64)
-        cols = plan.col_idx[plan.vrow, plan.slot].astype(np.int64)
-        (n, k), (bn, bk) = plan.shape, plan.tile
-        blocks = tiles.new_zeros((n // bn, k // bk, bn, bk))
-        blocks[torch.from_numpy(rows).to(vals.device),
-               torch.from_numpy(cols).to(vals.device)] = tiles
-        w = blocks.permute(0, 2, 1, 3).reshape(n, k)
+        w = (_plan_dense(pk.plan, vals) if section == "layers" else
+             torch.stack([_plan_dense(pk.plan, v) for v in vals]))
         if name == "wqkv":
             del layers[int(i)][group][name]
             dq, dkv = cfg.q_dim, cfg.kv_dim
             for proj, (a, b) in (("wq", (0, dq)), ("wk", (dq, dq + dkv)),
                                  ("wv", (dq + dkv, dq + 2 * dkv))):
-                layers[int(i)][group][proj] = {"w": w[a:b]}
+                layers[int(i)][group][proj] = {"w": w[..., a:b, :]}
         else:
             layers[int(i)][group][name] = {"w": w}
     out = dict(params)
-    out["layers"] = tuple(layers)
+    out[section] = tuple(layers)
     return out
 
 
@@ -3936,6 +3983,650 @@ def phase_lm_recurrent(seed: int, card: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 4e: LM training -- the flash-attention backward at gemma3_4b's
+# global-layer shape, one gemma3_4b step at full width and depth, remat and
+# donation, the Trainer loop, the hand-off to serving (K1, K2) and packed
+# fine-tuning (K1, K4, K5); every other LM family's step on the card
+# against the CPU
+# --------------------------------------------------------------------------
+
+LMT_SEQ = 4096          # train_4k's sequence length; its batch cut to 1
+LMT_TIMED_STEPS = 3
+LMT_LAYERS = 6          # checks c-f: one 5 local : 1 global period
+LMT_SHORT_SEQ = 2048    # ... at S 2048: flash (S > 1024) and local (S > 1024)
+LMT_REQUESTS = (37, 300, 700, 1100)
+LMT_PACKED_STEPS = 2
+# flash dq / dk / dv against autograd through full_attention on the same
+# inputs, in units of each gradient's max|g|: fp32 sums in another order
+# (1e-4); bf16 probabilities and ds tiles rounded to bf16 in the flash
+# backward where autograd's softmax backward keeps fp32 (2e-2)
+TOL_FLASH_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
+# the packed fine-tuning step's cross-entropy against the dense forward of
+# the unpacked (masked) weights: bf16 through 6 layers, K1 summing tiles in
+# another order than a dense matmul (relative)
+TOL_PACKED_DENSE = 1e-2
+# K1's output, K4's dX and K5's tile gradients inside a packed step at
+# M = 2048, against fp32 products of the same bf16 X, dY and tiles, in
+# units of the reference's max|.|: each kernel accumulates in fp32 and
+# rounds its output to bf16 once, at most bf16's unit roundoff 2^-8 of an
+# element (the plain versions on the CPU: 3.1e-3 to 3.6e-3); twice that
+TOL_PACKED_KERNEL = 2 * 2.0 ** -8
+# each smoke family's train-step loss and grad norm, card vs CPU, fp32
+# (relative): fp32 sums in another order through 2-8 layers
+TOL_FAMILY_STEP = 1e-4
+TRAIN_FAMILIES = ("deepseek_7b", "chatglm3_6b", "internlm2_20b",
+                  "qwen3_moe_235b_a22b", "deepseek_v2_lite_16b",
+                  "mamba2_780m", "recurrentgemma_9b", "pixtral_12b",
+                  "whisper_base")
+
+
+def _lmt_flash(dev):
+    """a. _Flash's dq, dk, dv at gemma3_4b's global-layer shape against
+    autograd through full_attention, fp32 and bf16; fwd+bwd ms beside
+    SDPA's (the yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.attention import flash_attention, full_attention
+    b, s, hq, hkv, d = 1, LMT_SEQ, 8, 4, 256
+    gen = torch.Generator(device=dev).manual_seed(40)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, do = (torch.randn((b, s, hq, d), generator=gen,
+                             device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+
+        def grads(fn, x=(q, k, v), dy=do):
+            x = [t.detach().requires_grad_(True) for t in x]
+            return torch.autograd.grad(fn(*x), x, dy)
+
+        def flash(a, b_, c):
+            return flash_attention(a, b_, c, causal=True, q_chunk=1024,
+                                   kv_chunk=1024)
+
+        def full(a, b_, c):
+            return full_attention(a, b_, c, causal=True)
+        got, ref = grads(flash), grads(full)
+        errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            scale = float(r.float().abs().max())
+            errs[gname] = float((g.float() - r.float()).abs().max()) / scale
+            check(bool(torch.isfinite(g).all())
+                  and errs[gname] <= TOL_FLASH_GRAD[name],
+                  f"flash {gname} ({name}) differs from autograd through "
+                  f"full_attention by {errs[gname]:.3e} of max|g|")
+        del got, ref
+        # SDPA on (B, H, S, D) with K/V repeated to the query heads
+        qs, dos = q.transpose(1, 2), do.transpose(1, 2)
+        ks, vs = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        times = {
+            "flash_ms": _time_ms(lambda: grads(flash), reps=5, warmup=1),
+            "full_ms": _time_ms(lambda: grads(full), reps=5, warmup=1),
+            "sdpa_ms": _time_ms(lambda: grads(
+                lambda a, b_, c: F.scaled_dot_product_attention(
+                    a, b_, c, is_causal=True), (qs, ks, vs), dos),
+                reps=5, warmup=1)}
+        print(f"[lm_training] a. flash backward {name} (B {b}, S {s}, Hq "
+              f"{hq}, Hkv {hkv}, D {d}, chunks 1024, causal) vs autograd "
+              f"through full_attention: max|d|/max|g| "
+              f"{ {k_: f'{e:.3e}' for k_, e in errs.items()} } (tol "
+              f"{TOL_FLASH_GRAD[name]}); fwd+bwd ms (CUDA events, 5 "
+              f"calls): flash {times['flash_ms']:.3f}, full_attention "
+              f"{times['full_ms']:.3f}, SDPA (yardstick only) "
+              f"{times['sdpa_ms']:.3f}")
+        rec[name] = {"rel_err": errs, **times}
+        del q, k, v, do, qs, ks, vs, dos
+    return rec
+
+
+def _lmt_full_depth(seed, dev, card):
+    """b. One gemma3_4b step at full width and depth (34 layers, bf16
+    params, fp32 AdamW state, the prox on) through make_train_step(donate=
+    True) at B 1, S 4096: a warm-up step, LMT_TIMED_STEPS timed steps and
+    one profiled step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import init_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    sp = SparsityConfig(block_shape=(16, 16), sparsity=0.7, lambda_reg=1e-4)
+    cfg = dataclasses.replace(_lm_config(), sparsity=sp)
+    opt = AdamWConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, device=dev)
+    state = init_opt_state(params, opt)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    pipe = DataPipeline(DataConfig(seq_len=LMT_SEQ, global_batch=1,
+                                   vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(LMT_TIMED_STEPS + 2)]
+    pipe.close()
+    step = make_train_step(cfg, opt, donate=True)
+    snap = [p.reshape(-1)[:1 << 16].clone() for p in leaves(params)]
+    ptrs = [p.data_ptr() for p in leaves(params)]
+    print(f"[lm_training] b. {cfg.arch}: {n_params / 1e9:.3f} B parameters "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied head), bf16 params + fp32 AdamW state, "
+          f"prox {sp.block_shape} lambda {sp.lambda_reg}; init {t_init:.1f} "
+          f"s; B 1, S {LMT_SEQ}; card {card}")
+    losses, ms = [], []
+    for i, batch in enumerate(batches[:-1]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        if i:                                    # step 0 is the warm-up
+            ms.append(start.elapsed_time(end))
+    check(all(np.isfinite(losses)), f"full-depth loss {losses}")
+    check([p.data_ptr() for p in leaves(params)] == ptrs,
+          "the donated step did not update the params in place")
+    moved = [int((p.reshape(-1)[:1 << 16] != s).sum())
+             for p, s in zip(leaves(params), snap)]
+    check(all(n > 0 for n in moved), f"{moved.count(0)} parameter leaves "
+          f"did not move in {len(losses)} steps")
+    rows = _profile(f"{cfg.arch} full-depth train step (B 1, S {LMT_SEQ})",
+                    lambda: step(params, state, batches[-1]), top=12)
+    busy = sum(r[0] for r in rows)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    step_ms = float(np.median(ms))
+    tokens = LMT_SEQ
+    share = 6 * n_params * tokens / (step_ms * 1e-3 * BF16_FLOP_PER_S)
+    print(f"[lm_training] b. losses by step {[round(x, 4) for x in losses]};"
+          f" elements moved in the first 65536 of each leaf: min "
+          f"{min(moved)}, median {int(np.median(moved))}, of "
+          f"{len(moved)} leaves (bf16 params, lr warm-up 3e-6 a step: only "
+          f"elements near 0 change in bf16)")
+    print(f"[lm_training] b. ms a step (CUDA events, {len(ms)} steps): "
+          f"median {step_ms:.1f}, min {min(ms):.1f}, max {max(ms):.1f}; "
+          f"{tokens / (step_ms * 1e-3):.1f} tokens/s; 6 N tokens / (step "
+          f"s x 989 TFLOP/s) = {share:.4f} (a reading, not a limit); peak "
+          f"device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) of {total / 2**30:.2f} GiB")
+    check(peak < total, "peak memory above the card's")
+    rec = {"n_params": n_params, "seq": LMT_SEQ, "losses": losses,
+           "ms": ms, "ms_median": step_ms, "tokens_per_s":
+           tokens / (step_ms * 1e-3), "flop_share": share,
+           "peak_gib": peak / 2**30, "busy_ms": busy}
+    del params, state, batches, step, snap
+    return rec
+
+
+def _lmt_remat_donation(seed, dev):
+    """c. At full width, 6 layers, S 2048: gradients with remat against
+    without; a donated update (chunked embedding) against a functional one
+    with every leaf unchunked, on the same gradients: bitwise."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.core.tree import flatten_with_path, leaves, path_name
+    from repro_torch.core.tree import unflatten
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.steps import make_loss_fn, value_and_grad
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.api import init_model
+    from repro_torch.optim import adamw
+    sp = SparsityConfig(block_shape=(16, 16), sparsity=0.7, lambda_reg=1e-4)
+    cfg = dataclasses.replace(_lm_config(), n_layers=LMT_LAYERS, sparsity=sp)
+    params = init_model(seed + 1, cfg, device=dev)
+    pipe = DataPipeline(DataConfig(seq_len=LMT_SHORT_SEQ, global_batch=1,
+                                   vocab_size=cfg.vocab_size))
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in pipe.batch_at(0).items()}
+    pipe.close()
+    loss_fn = make_loss_fn(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    l1, _, g1 = value_and_grad(loss_fn, params, batch)
+    peak_remat = torch.cuda.max_memory_allocated()
+    remat = lm_mod.checkpoint      # swapped for a plain call: no remat
+    lm_mod.checkpoint = lambda fn, *a, use_reentrant, **kw: fn(*a, **kw)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        l0, _, g0 = value_and_grad(loss_fn, params, batch)
+        peak_plain = torch.cuda.max_memory_allocated()
+    finally:
+        lm_mod.checkpoint = remat
+    # the recompute runs the same operations on the same inputs, so the
+    # gradients must be bitwise those of plain autograd
+    check(torch.equal(l1, l0), f"remat loss {float(l1)!r} vs plain "
+          f"{float(l0)!r}")
+    for (path, a), b in zip(flatten_with_path(g1), leaves(g0)):
+        check(torch.equal(a, b), f"remat gradient {path_name(path)} is not "
+              f"bitwise the plain one")
+    print(f"[lm_training] c. {LMT_LAYERS} layers, S {LMT_SHORT_SEQ}: loss "
+          f"remat {float(l1):.6f} / plain {float(l0):.6f}; gradients with "
+          f"remat vs without bitwise equal ({len(leaves(g0))} leaves); peak "
+          f"memory of the value_and_grad {peak_remat / 2**30:.2f} GiB with "
+          f"remat, {peak_plain / 2**30:.2f} GiB without")
+    del g0
+    opt = adamw.AdamWConfig()
+    biggest = max(p.numel() for p in leaves(params))
+    chunk = adamw.CHUNK_ELEMS
+    adamw.CHUNK_ELEMS = biggest          # the functional update: unchunked
+    try:
+        pf, of, mf = adamw.adamw_update(g1, adamw.init_opt_state(params, opt),
+                                        params, opt, sp)
+    finally:
+        adamw.CHUNK_ELEMS = chunk
+    pd = unflatten(params, [p.clone() for p in leaves(params)])
+    od = adamw.init_opt_state(pd, opt)
+    ptrs = [x.data_ptr() for x in leaves(pd) + leaves(od)]
+    pd2, od2, md = adamw.adamw_update(g1, od, pd, opt, sp, donate=True)
+    check(pd2 is pd and od2 is od
+          and [x.data_ptr() for x in leaves(pd) + leaves(od)] == ptrs,
+          "the donated update did not write into the given tensors")
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(pf) + leaves(of), leaves(pd) + leaves(od)))
+    check(same and torch.equal(mf["grad_norm"], md["grad_norm"]),
+          "the donated update differs from the functional one")
+    print(f"[lm_training] c. donated update (embedding {biggest} elements in "
+          f"chunks of {chunk}) vs functional unchunked update on the same "
+          f"gradients: params, m, v and step bitwise equal; same data_ptrs")
+    rec = {"remat_bitwise": True,
+           "peak_remat_gib": peak_remat / 2**30,
+           "peak_plain_gib": peak_plain / 2**30}
+    del params, g1, pf, of, pd, od, pd2, od2
+    return rec
+
+
+def _lmt_trainer(seed, dev):
+    """d. launch/train.Trainer at full width, 6 layers, S 2048, B 1:
+    gradual pruning to 0.7 at 16x16 from step 2 to 6, the prox, a fault at
+    step 5 recovered from the step-4 checkpoint."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.pruner import sparsity_report
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import (FaultInjector,
+                                                     FaultToleranceConfig)
+    sp = SparsityConfig(block_shape=(16, 16), sparsity=0.7, lambda_reg=1e-4,
+                        start_step=2, end_step=6)
+    cfg = dataclasses.replace(_lm_config(), n_layers=LMT_LAYERS, sparsity=sp)
+    times = {"save": [], "restore": [], "wait": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(n_steps=8, ckpt_dir=tmp, seed=seed, log_every=1,
+                           opt=AdamWConfig(), prune=True,
+                           ft=FaultToleranceConfig(checkpoint_every=4))
+        inj = FaultInjector(fail_at_steps=(5,))
+        tr = Trainer(cfg, tcfg, device=dev, data_cfg=DataConfig(
+            seq_len=LMT_SHORT_SEQ, global_batch=1,
+            vocab_size=cfg.vocab_size), fault_injector=inj)
+        save, restore, wait = tr.save_state, tr.restore_state, tr.store.wait
+        host_bytes = []
+
+        def timed(kind, fn):
+            def run(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                times[kind].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        def counted_save(store, step, state):
+            host_bytes.append(sum(x.numel() * x.element_size()
+                                  for x in leaves(state)))
+            return save(store, step, state)
+        tr.save_state = timed("save", counted_save)
+        tr.restore_state = timed("restore", restore)
+        tr.store.wait = timed("wait", wait)
+        t0 = time.perf_counter()
+        state, hist = tr.fit(resume=False)
+        wall = time.perf_counter() - t0
+        restarts = tr.supervisor.restarts
+    check(restarts == 1, f"Supervisor.restarts = {restarts}, expected 1")
+    check(inj.fired == {5}, f"injected faults fired at {inj.fired}")
+    check(int(state["opt"]["step"]) == 8,
+          f"optimizer step {int(state['opt']['step'])}")
+    losses = [loss for _, loss in hist]
+    check(all(np.isfinite(losses)), f"Trainer loss {losses}")
+    report = sparsity_report(state["params"], sp)
+    low, high = min(report.values()), max(report.values())
+    print(f"[lm_training] d. Trainer: {len(hist)} steps run for 8 (fault at "
+          f"step 5, {restarts} restart from the step-4 checkpoint), wall "
+          f"{wall:.1f} s; loss by step "
+          f"{[(s, round(x, 4)) for s, x in hist]}")
+    print(f"[lm_training] d. checkpoints: {len(times['save'])} saves of "
+          f"{host_bytes[0] / 1e9:.2f} GB each, host copy in the call "
+          f"{[round(x, 2) for x in times['save']]} s, background writes "
+          f"drained in {[round(x, 2) for x in times['wait']]} s, restore "
+          f"{[round(x, 2) for x in times['restore']]} s")
+    print(f"[lm_training] d. block sparsity of the {len(report)} targeted "
+          f"leaves after step 7: min {low:.4f}, max {high:.4f} (target "
+          f"{sp.sparsity} +- 0.02)")
+    prefix, pattern, _, suffix = cfg.layer_plan()
+    n_leaves = 4 * (len(prefix) + len(pattern) + len(suffix))
+    check(len(report) == n_leaves and abs(low - 0.7) <= 0.02
+          and abs(high - 0.7) <= 0.02, f"block sparsity {report}")
+    rec = {"losses": hist, "restarts": restarts, "wall_s": wall,
+           "ckpt_gb": host_bytes[0] / 1e9, **times}
+    return state["params"], cfg, rec
+
+
+class _PackedKernelCheck:
+    """While a pass runs, holds every K1 output (the forward and the remat
+    recompute), K4 dX and K5 tile gradient of the packed projections
+    (``exec_plan._PlanLinearPallas``) -- on the step's own X and dY --
+    against fp32 products of the same X, dY and the dense weight the tiles
+    stand for: Y = X Wᵀ, dX = dY W, and dW = dYᵀ X gathered at the stored
+    tiles. Keeps each kernel's worst error in units of the reference's
+    max|.| and its number of calls."""
+
+    def __init__(self):
+        from repro_torch.kernels import exec_plan
+        self.ep = exec_plan
+        self.worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+        self.calls = dict.fromkeys(self.worst, 0)
+
+    def _hold(self, name, got, ref):
+        err = (got.float() - ref).abs().max() / ref.abs().max()
+        self.worst[name] = max(self.worst[name], float(err))
+        self.calls[name] += 1
+
+    def __enter__(self):
+        cls = self.ep._PlanLinearPallas
+        self._fwd, self._bwd = (cls.__dict__[k] for k in ("forward",
+                                                          "backward"))
+
+        def forward(ctx, x, data_rp, plan):
+            y = self._fwd.__func__(ctx, x, data_rp, plan)
+            w = _plan_dense(plan, data_rp).float()
+            self._hold("K1", y, x.float() @ w.T)
+            ctx.held = x, data_rp     # saved_tensors unpack once under remat
+            return y
+
+        def backward(ctx, dy):
+            dx, ddata, none = self._bwd.__func__(ctx, dy)
+            (x, data_rp), plan, dy32 = ctx.held, ctx.plan, dy.float()
+            self._hold("K4", dx, dy32 @ _plan_dense(plan, data_rp).float())
+            (n, k), (bn, bk) = plan.shape, plan.tile
+            dw = (dy32.T @ x.float()).reshape(n // bn, bn, k // bk, bk)
+            self._hold("K5", self.ep.unpack_plan_data(plan, ddata),
+                       dw.permute(0, 2, 1, 3)[_plan_blocks(plan, dy.device)])
+            return dx, ddata, none
+        cls.forward, cls.backward = staticmethod(forward), staticmethod(
+            backward)
+        return self
+
+    def __exit__(self, *exc):
+        cls = self.ep._PlanLinearPallas
+        cls.forward, cls.backward = self._fwd, self._bwd
+
+
+def _lmt_serve_and_finetune(params, cfg, seed, dev, counters):
+    """e. the trained model to prepare_servable(prune='none', plan_pallas,
+    16x16 tiles) and ServingEngine (K1, K2); f. 2 packed fine-tuning steps
+    (K1 forward and again in the remat recompute, K4 dX, K5 dW). Returns
+    the main path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels.flash_decode import decode_kernel_override
+    from repro_torch.launch.steps import (make_loss_fn, make_train_step,
+                                          value_and_grad)
+    from repro_torch.models import api as model_api
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.serving import ServingSpec, prepare_servable
+    n_layers, n_global, n_local = _layer_counts(cfg)
+    spec = ServingSpec(tile=(16, 16), prune="none", backend="plan_pallas")
+    t0 = time.perf_counter()
+    servable = prepare_servable(params, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    packs = servable.packs
+    n_per = cfg.layer_plan()[2]
+    k1_pass = sum(n_per if k.startswith("blocks/") else 1 for k in packs)
+    st = servable.stats()
+    print(f"[lm_training] e. hand-off: prepare_servable(prune='none', "
+          f"plan_pallas, tile 16x16) {time.perf_counter() - t0:.1f} s; "
+          f"{len(packs)} packed projections "
+          f"({sorted({k.split('/', 2)[2] for k in packs})}), density "
+          f"{st['density']:.3f}; {k1_pass} K1 launches a forward pass")
+    rng = np.random.RandomState(seed + 21)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in LMT_REQUESTS]
+    totals = dict.fromkeys(counters, 0)
+    eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8)
+    eng.submit(prompts[0][:8], max_new_tokens=2)       # warm-up
+    eng.run()
+    eng.stats = type(eng.stats)()
+    torch.cuda.synchronize()
+    # --- the counted main-path run: every count set to 0 just before
+    for fn in counters.values():
+        fn.launches = 0
+    handles = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    got = {n: fn.launches for n, fn in counters.items()}
+    for n, c in got.items():
+        totals[n] += c
+    es = eng.stats
+    for h in handles:
+        check(h.status == "done", f"request {h.req_id} ended {h.status} "
+              f"({h.failure})")
+    want = dict.fromkeys(counters, 0)
+    want.update(plan_dds=k1_pass * (es.steps + es.prefills),
+                flash_decode=es.steps * n_layers)
+    print(f"[lm_training] e. engine: {len(handles)} greedy requests done, "
+          f"{es.tokens_generated} tokens, {es.steps} decode steps, "
+          f"{es.prefills} prefills; launches {got} (expected {want}); "
+          f"{1e3 * es.decode_s / es.steps:.3f} ms a decode step (host "
+          f"clock)")
+    check(got == want, "hand-off engine launches differ from the routing")
+    del eng, handles
+    cache, tok, pos, _ = _prefill_slots(servable, prompts)
+    with torch.no_grad():
+        with decode_kernel_override("flash"):
+            y_k, _ = model_api.decode_step(servable.params, _clone_cache(
+                cache), cfg, tok, pos, packs=packs)
+        with decode_kernel_override("xla"):
+            y_p, _ = model_api.decode_step(servable.params, cache, cfg, tok,
+                                           pos, packs=_plain_packs(packs))
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    print(f"[lm_training] e. decode_step logits, kernels (K1 + K2) vs the "
+          f"plain composition: max|d| {err:.4e}, max|logits| {scale:.4e}, "
+          f"tol {TOL_FLASH_VS_XLA * scale:.4e}")
+    check(bool(torch.isfinite(y_k).all()) and err <= TOL_FLASH_VS_XLA * scale,
+          "hand-off decode_step logits disagree with the plain composition")
+    del cache, y_k, y_p
+
+    # f. packed fine-tuning (the prox has nothing to act on in packed
+    # values, so the step runs without the sparsity config)
+    fcfg = dataclasses.replace(cfg, sparsity=None)
+    opt = AdamWConfig()
+    sparams, ostate = servable.params, init_opt_state(servable.params, opt)
+    pipe = DataPipeline(DataConfig(seq_len=LMT_SHORT_SEQ, global_batch=1,
+                                   vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in pipe.batch_at(100 + i).items()}
+               for i in range(LMT_PACKED_STEPS)]
+    pipe.close()
+    m = batches[0]["tokens"].numel()
+    with torch.no_grad():
+        dense = _unpacked_dense(sparams, packs, cfg)
+        ce_dense = float(make_loss_fn(fcfg)(dense, batches[0])[1]["ce"])
+        del dense
+    step = make_train_step(fcfg, opt, packs=packs)
+    k1_remat = sum(n_per for k in packs if k.startswith("blocks/"))
+    want = dict.fromkeys(counters, 0)
+    want.update(plan_dds=k1_pass + k1_remat, plan_dds_t=k1_pass,
+                plan_sddmm=k1_pass)
+    p_, o_, first = sparams, ostate, None
+    for i, batch in enumerate(batches):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_, o_, met = step(p_, o_, batch)
+        loss = float(met["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {n: fn.launches for n, fn in counters.items()}
+        for n, c in got.items():
+            totals[n] += c
+        first = first or met
+        print(f"[lm_training] f. packed step {i}: loss {loss:.6f}, "
+              f"grad_norm {float(met['grad_norm']):.6f}, {ms:.1f} ms (host "
+              f"clock), launches {got} (expected {want}: K1 forward + the "
+              f"remat recompute of the period's packs, one K4 and one K5 a "
+              f"packed projection)")
+        check(np.isfinite(loss), f"packed step {i}: loss {loss}")
+        check(got == want, f"packed step {i}: launches differ from the "
+              f"routing")
+    rel = abs(float(first["ce"]) - ce_dense) / abs(ce_dense)
+    print(f"[lm_training] f. first packed step's cross-entropy "
+          f"{float(first['ce']):.6f} vs the dense forward of the unpacked "
+          f"weights {ce_dense:.6f}: rel {rel:.3e} (tol {TOL_PACKED_DENSE}; "
+          f"a weak check: the attention of a random model falls below "
+          f"bf16's resolution of the residual stream)")
+    check(rel <= TOL_PACKED_DENSE, "packed loss disagrees with the dense one")
+    # the kernels held inside the step at the main path's shape (M = m, bf16,
+    # 16x16 tiles): a gradient pass over the first batch
+    with _PackedKernelCheck() as held:
+        _, _, grads = value_and_grad(make_loss_fn(fcfg, packs), sparams,
+                                     batches[0])
+    print(f"[lm_training] f. inside a packed step at M {m}, each kernel's "
+          f"output vs fp32 products of the same bf16 X, dY and tiles "
+          f"(dW gathered at the stored tiles): worst "
+          f"{ {k: f'{e:.3e}' for k, e in held.worst.items()} } of the "
+          f"reference's max|.| (tol {TOL_PACKED_KERNEL:.3e}) over "
+          f"{held.calls} calls")
+    check(held.calls == {"K1": k1_pass + k1_remat, "K4": k1_pass,
+                         "K5": k1_pass}, "the held kernel calls differ "
+          "from the routing")
+    check(all(e <= TOL_PACKED_KERNEL for e in held.worst.values()),
+          "a packed kernel disagrees with the fp32 dense product")
+    dead = 0
+    for key, pk in packs.items():
+        _, i, group, name = key.split("/")
+        mask = torch.from_numpy(~pk.plan.slot_mask).to(dev)
+        for tree in (grads, p_):
+            pad = tree["blocks"][int(i)][group][name]["w"][:, mask]
+            check(bool((pad == 0).all()), f"{key}: a padding slot's "
+                  f"gradient or value is not 0")
+        dead += int(mask.sum()) * n_per
+    tile = next(iter(packs.values())).plan.tile
+    print(f"[lm_training] f. padding slots: {dead} of the packed values' "
+          f"slots, gradients exactly 0 and values still 0 after "
+          f"{LMT_PACKED_STEPS} steps; bf16 M {m} tile {tile}: K4 instance "
+          f"{bm.dds_instance(m, tile, torch.bfloat16, True)}, K5 instance "
+          f"{bm.sddmm_instance(m, tile, torch.bfloat16)}")
+    del servable, sparams, ostate, p_, o_, grads, step
+    return totals, {"kernel_worst": held.worst, "kernel_calls": held.calls}
+
+
+def _lmt_families(seed, dev):
+    """g. One train step of every other LM family at its smoke size (fp32)
+    on the card against the same step on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import map_with_path
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import init_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch, smoke=True)
+        check(cfg.dtype == "float32", f"{arch} smoke is {cfg.dtype}")
+        rng = np.random.RandomState(seed + 31)
+        b = {"tokens": rng.randint(0, cfg.vocab_size, (2, 32)),
+             "labels": rng.randint(0, cfg.vocab_size, (2, 32))}
+        if cfg.family == "audio":
+            b["frames"] = rng.randn(2, cfg.n_audio_ctx, cfg.d_model)
+        if cfg.family == "vlm":
+            b["mm_embeds"] = rng.randn(2, cfg.n_patches, cfg.d_model)
+        step = make_train_step(cfg, opt)
+        res = {}
+        for where in ("cpu", "cuda"):
+            p = init_model(seed, cfg, device="cpu")
+            p = map_with_path(lambda _, x: x.to(where), p)
+            batch = {k: torch.from_numpy(v).to(
+                where, torch.int64 if v.dtype.kind == "i" else torch.float32)
+                for k, v in b.items()}
+            _, _, met = step(p, init_opt_state(p, opt), batch)
+            res[where] = (float(met["loss"]), float(met["grad_norm"]))
+        rel = [abs(a - c) / abs(c) for a, c in zip(res["cuda"], res["cpu"])]
+        print(f"[lm_training] g. {arch} ({cfg.family}) smoke step: loss "
+              f"card {res['cuda'][0]:.7f} / cpu {res['cpu'][0]:.7f}, "
+              f"grad_norm card {res['cuda'][1]:.7f} / cpu "
+              f"{res['cpu'][1]:.7f}; rel {rel[0]:.2e}, {rel[1]:.2e} (tol "
+              f"{TOL_FAMILY_STEP})")
+        check(all(np.isfinite(res["cuda"])) and max(rel) <= TOL_FAMILY_STEP,
+              f"{arch}: the card's step differs from the CPU's")
+        out[arch] = {"card": res["cuda"], "cpu": res["cpu"], "rel": rel}
+    return out
+
+
+def phase_lm_training(seed: int, card: str):
+    """LM training on the card: a. the flash-attention backward; b. one
+    gemma3_4b step at full width and depth; c. remat and donation; d. the
+    Trainer loop; e. the hand-off to K1 / K2 serving; f. packed fine-tuning
+    through K1, K4 and K5; g. every other LM family's step against the
+    CPU. The main path's launches (e, f) are returned."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"plan_dds": plan_dds, "flash_decode": flash_decode,
+                "paged_flash_decode": paged_flash_decode, "dds": bm.dds,
+                "dds_t": bm.dds_t, "plan_dds_t": bm.plan_dds_t,
+                "sddmm": bm.sddmm, "plan_sddmm": bm.plan_sddmm}
+    rec, marks = {}, [time.perf_counter()]
+
+    def part(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"[lm_training] {name}: {marks[-1] - marks[-2]:.1f} s")
+
+    rec["flash"] = _lmt_flash(dev)
+    part("a")
+    rec["full_depth"] = _lmt_full_depth(seed, dev, card)
+    part("b")
+    rec["remat"] = _lmt_remat_donation(seed, dev)
+    part("c")
+    params, cfg, rec["trainer"] = _lmt_trainer(seed, dev)
+    part("d")
+    launches, rec["packed"] = _lmt_serve_and_finetune(params, cfg, seed, dev,
+                                                      counters)
+    del params
+    part("e, f")
+    rec["families"] = _lmt_families(seed, dev)
+    part("g")
+    print(f"[lm_training] summary {json.dumps(rec, default=str)}")
+    return launches
+
+
 def _sum_group(recs):
     """A group of per-shape records summed (one layer's four projections):
     the kernel-line keys."""
@@ -3980,7 +4671,8 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
-                            "lm_families,lm_recurrent,training")
+                            "lm_families,lm_recurrent,lm_training,"
+                            "training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -4053,6 +4745,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_recurrent"] = phase_lm_recurrent(args.seed, card)
             done("lm_recurrent")
+        if "lm_training" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_training"] = phase_lm_training(args.seed, card)
+            done("lm_training")
         if "training" in phases:
             launches["training"] = phase_training(args.seed)
             done("training")
@@ -4083,6 +4781,9 @@ def main() -> int:
             "launches": (sum(c for c in counts if c is not None)
                          if any(c is not None for c in counts) else None),
             "launches_by_entry": dict(zip(entries, counts)),
+            "launches_by_path": {
+                k: sum(c.get(e, 0) for e in entries)
+                for k, c in launches.items() if any(e in c for e in entries)},
             **_sum_group(recs), **_instances_of(recs), "per_shape": recs})
     # K2 at the ring shape (29 of gemma3_4b's 34 layers), K3 at the paged
     # global shape; every shape's numbers ride along in per_shape

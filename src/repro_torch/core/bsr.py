@@ -1,8 +1,7 @@
 """Block Sparse Row (BSR) matrices, SciPy layout (``data / indices /
 indptr``).
 
-Counterpart of ``repro/core/bsr.py`` as far as the plain compositions of
-``kernels/ref.py`` need it. ``data`` is a tensor; ``indices`` and ``indptr``
+Counterpart of ``repro/core/bsr.py``. ``data`` is a tensor; ``indices`` and ``indptr``
 are host numpy arrays -- the pattern is static metadata, as everywhere in
 the port, so the compositions build their index tensors once per pattern.
 
@@ -70,6 +69,14 @@ def _block_view(dense: np.ndarray, bh: int, bw: int) -> np.ndarray:
     return dense.reshape(r // bh, bh, c // bw, bw).transpose(0, 2, 1, 3)
 
 
+def block_mask(dense, block_shape: Tuple[int, int]) -> np.ndarray:
+    """(n_brows, n_bcols) bool mask of the blocks holding any nonzero."""
+    if isinstance(dense, torch.Tensor):
+        dense = dense.detach().float().cpu().numpy()
+    blocks = _block_view(np.asarray(dense), *block_shape)
+    return np.any(blocks != 0, axis=(2, 3))
+
+
 def dense_to_bsr(dense, block_shape: Tuple[int, int], nnzb: int | None = None,
                  dtype=None, device=None) -> BSR:
     """Convert a dense (numpy or tensor) matrix to BSR on the host, padding
@@ -81,7 +88,7 @@ def dense_to_bsr(dense, block_shape: Tuple[int, int], nnzb: int | None = None,
     dense = np.asarray(dense)
     bh, bw = block_shape
     blocks = _block_view(dense, bh, bw)
-    rows, cols = np.nonzero(np.any(blocks != 0, axis=(2, 3)))
+    rows, cols = np.nonzero(block_mask(dense, block_shape))
     real = len(rows)
     if nnzb is None:
         nnzb = max(real, 1)
@@ -113,3 +120,25 @@ def bsr_to_dense(m: BSR) -> torch.Tensor:
                       m.data, accumulate=True)
     return (blocks.reshape(m.n_brows, m.n_bcols, bh, bw)
             .permute(0, 2, 1, 3).reshape(m.shape))
+
+
+def bsr_from_mask(dense, mask: np.ndarray, block_shape: Tuple[int, int],
+                  nnzb: int | None = None, device=None) -> BSR:
+    """BSR of ``dense`` keeping only the blocks where ``mask``
+    (n_brows, n_bcols) is set."""
+    if isinstance(dense, torch.Tensor):
+        device = dense.device if device is None else device
+        dense = dense.detach().float().cpu().numpy()
+    dense = np.asarray(dense)
+    keep = np.kron(np.asarray(mask), np.ones(block_shape, dtype=bool))
+    return dense_to_bsr(np.where(keep, dense, 0), block_shape, nnzb=nnzb,
+                        device=device)
+
+
+def pattern_fingerprint(m: BSR) -> bytes:
+    """Hashable fingerprint of the sparsity *structure* (not the values):
+    shape, block shape and block count, then indptr and indices -- the
+    reference's bytes, so a pattern keys the same task in either package."""
+    header = np.array([*m.shape, *m.block_shape, m.nnzb], dtype=np.int64)
+    return (header.tobytes() + np.asarray(m.indptr, np.int32).tobytes()
+            + np.asarray(m.indices, np.int32).tobytes())

@@ -84,3 +84,22 @@ def actual_sparsity(w: torch.Tensor,
     """Fraction of all-zero blocks in ``w`` (fp32 0-d tensor)."""
     norms = block_norms(w, block_shape, ord=1)
     return (norms == 0).float().mean()
+
+
+def prune_to_sparsity(w: torch.Tensor, block_shape: Tuple[int, int],
+                      sparsity: float, ord: int = 2):
+    """One-shot block-magnitude pruning. Returns (pruned_w, block_mask)."""
+    mask = topk_block_mask(w, block_shape, sparsity, ord)
+    return apply_block_mask(w, mask, block_shape), mask
+
+
+def pad_to_blocks(w: torch.Tensor,
+                  block_shape: Tuple[int, int]) -> torch.Tensor:
+    """Zero-pad both dims of a 2-D weight up to multiples of the block
+    shape (odd vocab sizes etc.); the weight itself when they divide."""
+    bh, bw = block_shape
+    r, c = w.shape
+    pr, pc = (-r) % bh, (-c) % bw
+    if pr == 0 and pc == 0:
+        return w
+    return torch.nn.functional.pad(w, (0, pc, 0, pr))

@@ -175,3 +175,10 @@ def plan_q_dispatch(x, qvalues, scales, plan, backend: str | None = None):
     if backend == "plan":
         return xp.plan_q_matmul(x, qvalues, scales, plan)
     raise ValueError(f"unknown plan backend {backend}")
+
+
+def sparsify_weight(w_dense, tile=(128, 128), nnzt: int | None = None
+                    ) -> KernelBSR:
+    """Host-side packing step (offline, like TVM's relay BSR conversion):
+    a dense weight (tensor or numpy) into a tile-granular KernelBSR."""
+    return bk.pack_bsr(w_dense, tile, nnzt)

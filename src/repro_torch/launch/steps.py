@@ -59,10 +59,12 @@ def value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    grad_accum: int = 1, packs=None):
+                    grad_accum: int = 1, packs=None, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``grad_accum`` splits the batch into that many microbatches
-    and averages their fp32 gradients."""
+    and averages their fp32 gradients. ``donate=True`` updates the given
+    params and optimizer state in place and returns them (``adamw_update``'s
+    ``donate``): the caller must not expect the old values after the step."""
     loss_fn = make_loss_fn(cfg, packs)
 
     def train_step(params, opt_state, batch):
@@ -82,7 +84,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = lsum / grad_accum
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
         new_params, new_opt, om = adamw_update(grads, opt_state, params,
-                                               opt_cfg, cfg.sparsity)
+                                               opt_cfg, cfg.sparsity,
+                                               donate=donate)
         return new_params, new_opt, {"loss": loss, **metrics, **om}
 
     return train_step

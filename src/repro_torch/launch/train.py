@@ -6,7 +6,8 @@ checkpoints -> Supervisor restart loop -> straggler monitor. Where the
 reference takes a mesh, this driver takes ``device`` (None = the CUDA
 card); sharding comes with ROADMAP.md Queue 1 item 6. The loop logic --
 ``_one_step``, masks updated and applied after each step, ``fit`` with
-resume -- follows the reference.
+resume -- follows the reference, as does the donated step. Nothing in it
+is BERT's: an LM trains from the same ``tokens`` / ``labels`` batches.
 """
 from __future__ import annotations
 
@@ -61,7 +62,11 @@ class Trainer:
         self.store = CheckpointStore(tcfg.ckpt_dir, keep=3)
         self.injector = fault_injector
         self.monitor = StragglerMonitor(self.data_cfg.n_hosts, tcfg.ft)
-        self.step_fn = make_train_step(cfg, tcfg.opt, tcfg.grad_accum)
+        # donated, as the reference jits its step with donate_argnums=(0, 1):
+        # the update writes into the state's tensors (a checkpoint copies
+        # them to the host inside save(), so none can be torn)
+        self.step_fn = make_train_step(cfg, tcfg.opt, tcfg.grad_accum,
+                                       donate=True)
 
     # -- state management --------------------------------------------------
     def init_state(self):

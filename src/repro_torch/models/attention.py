@@ -21,9 +21,13 @@ encoder K/V as they are: no K projection, no q/k norm on them, no RoPE; its
 decode step is the plain ``decode_attention`` over every encoder position,
 never K2, as in the reference.
 
-Not ported here: the flash-attention backward (``flash_attention`` on inputs
-that require grad, with grad mode on); it raises, naming the ROADMAP.md
-item that brings it.
+``flash_attention`` carries the reference's FA2-schedule backward
+(``_Flash``, as ``_flash_vjp_fwd`` / ``_flash_vjp_bwd``): the forward saves
+only the output and the per-row logsumexp, the backward recomputes each
+tile. Tiles whose every (query, key) pair is masked are skipped in both
+directions: they add exact zeros. With ``softcap > 0`` it raises under grad
+(the reference's backward ignores the softcap, so its gradient would be
+wrong; ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -36,8 +40,6 @@ from repro_torch.models.common import (apply_rope, init_linear, linear,
                                        paged_row_write, paged_view, rms_norm)
 
 NEG_INF = -1e30
-
-_ITEM_LM_TRAINING = "ROADMAP.md Queue 1 item 5 (LM training)"
 
 
 def as_slot_positions(pos, batch, device=None):
@@ -129,62 +131,168 @@ def full_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.reshape(b, s, hq, d)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                    q_chunk=1024, kv_chunk=1024, softcap=0.0):
-    """Chunked online-softmax attention, forward only: O(Cq*Ckv) scores live
-    at a time. The reference's forward (``_flash_fwd_impl``) as a plain
-    composition: per (query chunk, KV chunk) tile, masked scores, the
-    running max, probabilities stored in q's dtype, fp32 sums.
+def _chunks(n, c):
+    """[lo, hi) bounds of the chunks of size ``c`` covering 0..n-1 (the
+    last one ragged: no padding, so no padded row or column is computed)."""
+    return [(lo, min(lo + c, n)) for lo in range(0, n, c)]
 
-    Raises on inputs that require grad with grad mode on: autograd through
-    the chunks would save every chunk's probabilities (O(S^2)), which the
-    reference's custom VJP avoids by saving the output and the logsumexp."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"the flash-attention backward comes with {_ITEM_LM_TRAINING}")
+
+def _tile_live(q_lo, q_hi, k_lo, k_hi, causal, window, q_offset):
+    """False when every (query, key) pair of the tile is masked."""
+    if causal and k_lo > q_offset + q_hi - 1:
+        return False
+    if window > 0 and q_offset + q_lo - (k_hi - 1) >= window:
+        return False
+    return True
+
+
+def _tile_ok(q_lo, q_hi, k_lo, k_hi, causal, window, q_offset, device):
+    qpos = q_offset + torch.arange(q_lo, q_hi, device=device)[:, None]
+    kpos = torch.arange(k_lo, k_hi, device=device)[None, :]
+    ok = torch.ones((q_hi - q_lo, k_hi - k_lo), dtype=torch.bool,
+                    device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & ((qpos - kpos) < window)
+    return ok
+
+
+def _heads_major(x, hkv=None):
+    """(B, S, H, D) -> fp32 (B, Hkv, G, S, D) for queries (H = Hkv * G,
+    ``hkv`` given), fp32 (B, H, S, D) for keys and values."""
+    b, s, h, d = x.shape
+    if hkv is None:
+        return x.permute(0, 2, 1, 3).float()
+    return x.reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4).float()
+
+
+def _flash_fwd(q, k, v, causal, window, q_offset, q_chunk, kv_chunk,
+               softcap):
+    """The reference's ``_flash_fwd_impl``: per (query chunk, KV chunk)
+    tile, masked fp32 scores, the running max, probabilities stored in q's
+    dtype, fp32 sums. Returns (out (B, S, Hq, D) in q's dtype, lse
+    (B, Hkv, G, S) fp32)."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    cq, ck = min(q_chunk, s), min(kv_chunk, t)
-    nq, nk = -(-s // cq), -(-t // ck)
     scale = d ** -0.5
-    qg = q.reshape(b, s, hkv, g, d)
-    outs = []
-    for qi in range(nq):
-        qblk = qg[:, qi * cq:(qi + 1) * cq].permute(0, 2, 3, 1, 4).float()
-        n_q = qblk.shape[3]
-        qpos = q_offset + qi * cq + torch.arange(n_q, device=q.device)
-        m = torch.full((b, hkv, g, n_q), NEG_INF, dtype=torch.float32,
-                       device=q.device)
+    dev = q.device
+    qf, kf, vf = _heads_major(q, hkv), _heads_major(k), _heads_major(v)
+    outs, lses = [], []
+    for q_lo, q_hi in _chunks(s, q_chunk):
+        qblk = qf[:, :, :, q_lo:q_hi]
+        m = torch.full((b, hkv, g, q_hi - q_lo), NEG_INF, dtype=torch.float32,
+                       device=dev)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, hkv, g, n_q, d), dtype=torch.float32,
-                          device=q.device)
-        for ki in range(nk):
-            kblk = k[:, ki * ck:(ki + 1) * ck].permute(0, 2, 1, 3)
-            vblk = v[:, ki * ck:(ki + 1) * ck].permute(0, 2, 1, 3)
-            kpos = ki * ck + torch.arange(kblk.shape[2], device=q.device)
+        acc = torch.zeros((b, hkv, g, q_hi - q_lo, d), dtype=torch.float32,
+                          device=dev)
+        for k_lo, k_hi in _chunks(t, kv_chunk):
+            if not _tile_live(q_lo, q_hi, k_lo, k_hi, causal, window,
+                              q_offset):
+                continue
             s_ = torch.einsum("bhgqd,bhkd->bhgqk", qblk,
-                              kblk.float()) * scale
+                              kf[:, :, k_lo:k_hi]) * scale
             if softcap > 0:
                 s_ = torch.tanh(s_ / softcap) * softcap
-            ok = torch.ones((n_q, kpos.shape[0]), dtype=torch.bool,
-                            device=q.device)
-            if causal:
-                ok = ok & (kpos[None, :] <= qpos[:, None])
-            if window > 0:
-                ok = ok & ((qpos[:, None] - kpos[None, :]) < window)
+            ok = _tile_ok(q_lo, q_hi, k_lo, k_hi, causal, window, q_offset,
+                          dev)
             m_new = torch.maximum(m, torch.where(
                 ok, s_, _neg_inf_like(s_)).amax(dim=-1))
             p = torch.where(ok, torch.exp(s_ - m_new[..., None]),
-                            torch.zeros((), device=q.device)).to(q.dtype)
+                            torch.zeros((), device=dev)).to(q.dtype)
             corr = torch.exp(m - m_new)
             l = l * corr + p.float().sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.float(), vblk.float())
+                "bhgqk,bhkd->bhgqd", p.float(), vf[:, :, k_lo:k_hi])
             m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, n_q, hq, d))
-    return torch.cat(outs, dim=1).to(q.dtype)
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(
+            b, q_hi - q_lo, hq, d))
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_offset, q_chunk,
+               kv_chunk):
+    """The reference's ``_flash_vjp_bwd`` (the FA2 schedule): KV chunks
+    outer, query chunks inner; p = exp(s - lse) and ds = p (dp - delta)
+    scale stored in q's dtype, fp32 accumulators, dq summed over the KV
+    chunks in ascending order. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    dev = q.device
+    qf, kf, vf = _heads_major(q, hkv), _heads_major(k), _heads_major(v)
+    dof = _heads_major(dout.to(q.dtype), hkv)
+    delta = (dof * _heads_major(out.to(q.dtype), hkv)).sum(dim=-1)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    for k_lo, k_hi in _chunks(t, kv_chunk):
+        kblk, vblk = kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi]
+        dk_j = torch.zeros_like(kblk)
+        dv_j = torch.zeros_like(vblk)
+        for q_lo, q_hi in _chunks(s, q_chunk):
+            if not _tile_live(q_lo, q_hi, k_lo, k_hi, causal, window,
+                              q_offset):
+                continue
+            qblk, doq = qf[:, :, :, q_lo:q_hi], dof[:, :, :, q_lo:q_hi]
+            s_ = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kblk) * scale
+            ok = _tile_ok(q_lo, q_hi, k_lo, k_hi, causal, window, q_offset,
+                          dev)
+            p = torch.where(ok, torch.exp(s_ - lse[..., q_lo:q_hi, None]),
+                            torch.zeros((), device=dev)).to(q.dtype).float()
+            dv_j += torch.einsum("bhgqk,bhgqd->bhkd", p, doq)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", doq, vblk)
+            ds = (p * (dp - delta[..., q_lo:q_hi, None]) * scale).to(
+                q.dtype).float()
+            dk_j += torch.einsum("bhgqk,bhgqd->bhkd", ds, qblk)
+            dq[:, :, :, q_lo:q_hi] += torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                                   kblk)
+        dk[:, :, k_lo:k_hi] = dk_j
+        dv[:, :, k_lo:k_hi] = dv_j
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: saves (q, k, v,
+    out, lse), O(S * D), never a probability tile."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_offset, q_chunk,
+                              kv_chunk, 0.0)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    q_chunk=1024, kv_chunk=1024, softcap=0.0):
+    """Chunked online-softmax attention: O(Cq*Ckv) scores live at a time,
+    and under autograd O(S*D) residuals (the output and the logsumexp; the
+    backward recomputes each tile). q: (B,S,Hq,D), k/v: (B,T,Hkv,D).
+
+    Raises with ``softcap > 0`` on inputs that require grad with grad mode
+    on: the reference's backward ignores the softcap."""
+    if softcap > 0:
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention has no backward with softcap > 0: the "
+                "reference's backward ignores the softcap (ROADMAP.md "
+                "Queue 3)")
+        return _flash_fwd(q, k, v, causal, window, q_offset, q_chunk,
+                          kv_chunk, softcap)[0]
+    return _Flash.apply(q, k, v, causal, window, q_offset, q_chunk, kv_chunk)
 
 
 def local_attention(q, k, v, *, window, q_offset=0):

@@ -12,19 +12,21 @@ slot at axis 1: ``{'self': {'k', 'v': (L, B, T, Hkv, D), 'pos_map':
 written in place (the reference returns updated copies); the slot ops
 reset, copy and read every leaf, the cross K/V included.
 
-The reference wraps the training forward's decoder body in
-``jax.checkpoint``, a training-memory device; the port's forward serves and
-needs none.
+When autograd records the training forward, each decoder layer runs under
+``torch.utils.checkpoint``, as the reference wraps its decoder body in
+``jax.checkpoint``; the encoder does not, as in the reference.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, linear, normal_init)
-from repro_torch.models.lm import _head_f32, _index, _tree_stack
+from repro_torch.models.lm import (_head_f32, _index, _tree_stack,
+                                   remat_active)
 
 
 def _init_enc_layer(gen, cfg, device):
@@ -125,9 +127,15 @@ def forward(params, cfg: ModelConfig, frames, tokens):
     h = params["embed"]["w"][tokens.long()]
     positions = torch.arange(s, device=h.device)[None]
     layers = params["dec_layers"]
+    remat = remat_active(params)
     for i in range(_n_layers(layers)):
-        h = _dec_layer(_index(layers, i), h, cfg, positions=positions,
-                       enc_out=enc_out)
+        if remat:
+            h = checkpoint(_dec_layer, _index(layers, i), h, cfg,
+                           positions=positions, enc_out=enc_out,
+                           use_reentrant=False)
+        else:
+            h = _dec_layer(_index(layers, i), h, cfg, positions=positions,
+                           enc_out=enc_out)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
 

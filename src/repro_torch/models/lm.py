@@ -11,7 +11,9 @@ unrolled prefix, ``n_periods`` repetitions of the (possibly heterogeneous)
 ``pattern`` -- stored stacked, period axis first, as the reference's
 ``lax.scan`` carries them, so a JAX tree bridges over as it is -- and an
 unrolled suffix. Here the periods run as a Python loop over views of the
-stacked leaves.
+stacked leaves; when autograd records ``forward``, each period runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over the
+scan body), so the backward holds one activation per period boundary.
 
 Caches are preallocated and written **in place**: the reference returns an
 updated copy of the cache from every step and its serving engine donates
@@ -21,7 +23,7 @@ and the slot ops write into the cache's tensors and return the same tree.
 Logits are fp32, as the reference's einsum with fp32 accumulation and
 output gives them: the head is applied as an fp32 matrix product, and for a
 bf16 model one fp32 copy of the (tied) head is made on first use and kept
-as long as the head tensor lives (``_head_f32``).
+as long as the head tensor lives (``_head_f32``; never under autograd).
 
 The recurrent mixers' caches (``state`` / ``h`` and the ``conv`` history)
 are slot-dense like the attention rings: one-pass and chunk prefills carry
@@ -34,8 +36,10 @@ import weakref
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerKind, ModelConfig
+from repro_torch.core.tree import leaves
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -129,21 +133,21 @@ def _layer_packs(packs, scope):
     return sel or None
 
 
-def _layers(params, cfg: ModelConfig, cache=None):
-    """(kind, layer params, layer cache or None, pack scope) in execution
-    order: prefix, then period by period the pattern, then suffix."""
+def _layer_groups(params, cfg: ModelConfig, cache=None):
+    """(is a period, [(kind, layer params, layer cache or None, pack
+    scope)]) in execution order: the prefix, then each period of the
+    pattern, then the suffix."""
     prefix, pattern, n_periods, suffix = cfg.layer_plan()
-    for i, kind in enumerate(prefix):
-        yield (kind, params["prefix"][i],
-               cache["prefix"][i] if cache else None, f"prefix/{i}")
+    yield False, [(kind, params["prefix"][i],
+                   cache["prefix"][i] if cache else None, f"prefix/{i}")
+                  for i, kind in enumerate(prefix)]
     for per in range(n_periods):
-        for i, kind in enumerate(pattern):
-            yield (kind, _index(params["blocks"][i], per),
-                   _index(cache["blocks"][i], per) if cache else None,
-                   f"blocks/{i}")
-    for i, kind in enumerate(suffix):
-        yield (kind, params["suffix"][i],
-               cache["suffix"][i] if cache else None, f"suffix/{i}")
+        yield True, [(kind, _index(params["blocks"][i], per),
+                      _index(cache["blocks"][i], per) if cache else None,
+                      f"blocks/{i}") for i, kind in enumerate(pattern)]
+    yield False, [(kind, params["suffix"][i],
+                   cache["suffix"][i] if cache else None, f"suffix/{i}")
+                  for i, kind in enumerate(suffix)]
 
 
 def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
@@ -180,14 +184,32 @@ def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
     return h, aux
 
 
-def _run_layers(params, cfg, h, cache=None, packs=None, **kw):
-    """Every layer in order -> (h, the layers' MoE aux losses summed, fp32)."""
+def remat_active(params) -> bool:
+    """True when ``forward`` runs each period under
+    ``torch.utils.checkpoint`` -- the reference's ``jax.checkpoint`` over
+    its scanned periods: grad mode on and some parameter requiring grad."""
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in leaves(params))
+
+
+def _run_layers(params, cfg, h, cache=None, packs=None, remat=False, **kw):
+    """Every layer in order -> (h, the layers' MoE aux losses summed, fp32).
+    With ``remat`` each period keeps only its input for the backward and
+    runs its forward again there; the prefix and suffix do not."""
+    def run(h, aux, group):
+        for kind, lp, lc, scope in group:
+            h, a = _apply_layer(lp, h, cfg, kind, cache=lc,
+                                packs=_layer_packs(packs, scope), **kw)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for kind, lp, lc, scope in _layers(params, cfg, cache):
-        h, a = _apply_layer(lp, h, cfg, kind, cache=lc,
-                            packs=_layer_packs(packs, scope), **kw)
-        if a is not None:
-            aux = aux + a
+    for is_period, group in _layer_groups(params, cfg, cache):
+        if remat and is_period:
+            h, aux = checkpoint(run, h, aux, group, use_reentrant=False)
+        else:
+            h, aux = run(h, aux, group)
     return h, aux
 
 
@@ -207,9 +229,14 @@ _HEAD_F32: Dict[int, tuple] = {}
 def _head_f32(head: torch.Tensor) -> torch.Tensor:
     """The head as fp32: the tensor itself when it is fp32, else one fp32
     copy made on first use, dropped when the head tensor dies and remade if
-    it is written in place."""
+    it is written in place. Under autograd (grad mode on, the head requiring
+    grad) a fresh copy each call, cached nowhere: a cached copy would keep
+    its graph -- and through it the head -- alive, and one cached while
+    grad was off would cut the head's gradient."""
     if head.dtype == torch.float32:
         return head
+    if torch.is_grad_enabled() and head.requires_grad:
+        return head.float()
     key = id(head)
     hit = _HEAD_F32.get(key)
     if hit is not None and hit[0]() is head and hit[1] == head._version:
@@ -243,7 +270,8 @@ def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
         n_p = mm_embeds.shape[1]
         h = torch.cat([mm_embeds.to(h.dtype), h[:, n_p:]], dim=1)
     positions = torch.arange(s, device=h.device)[None, :]
-    h, aux = _run_layers(params, cfg, h, packs=packs, positions=positions)
+    h, aux = _run_layers(params, cfg, h, packs=packs,
+                         remat=remat_active(params), positions=positions)
     return _logits(params, cfg, h), aux
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/optim/adamw.py``. The optimizer state is a plain tree
 ``{m, v, step}`` parallel to the params, checkpointed like them; the update
-is functional (new tensors, as the reference returns new arrays). The
+is functional (new tensors, as the reference returns new arrays) unless
+asked to donate: then it writes into the given tensors, as the reference
+Trainer's ``donate_argnums`` lets XLA do. The
 schedule and the bias corrections are computed in fp32 tensors on the
 params' device, as the reference computes them in fp32 under ``jit``, so no
 step reads a value back to the host. The proximal step (blockwise soft
@@ -68,12 +70,41 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
+#: leaves above this many elements are updated in chunks along axis 0, so
+#: the update's fp32 temporaries stay near a chunk's size (a 2**28-element
+#: chunk: 1 GiB a temporary) -- gemma3_4b's 671 M-element embedding would
+#: otherwise take ~13 GB of them
+CHUNK_ELEMS = 1 << 28
+
+
+def _chunks(p, prox_rows: int) -> list:
+    """The pieces of a leaf the update takes one at a time: the whole leaf
+    up to CHUNK_ELEMS elements, else slices of axis 0 with as many rows as
+    fit, a multiple of ``prox_rows`` (the prox's block height on a 2-D
+    weight; 1 elsewhere) and at least one block row, so the prox sees whole
+    blocks."""
+    if p.numel() <= CHUNK_ELEMS:
+        return [Ellipsis]
+    rows = max(1, CHUNK_ELEMS // (p.numel() // p.shape[0]))
+    rows = max(prox_rows, rows // prox_rows * prox_rows)
+    return [slice(lo, lo + rows) for lo in range(0, p.shape[0], rows)]
+
+
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig,
-                 sparsity: Optional[SparsityConfig] = None):
+                 sparsity: Optional[SparsityConfig] = None,
+                 donate: bool = False):
     """One AdamW step (+ the group-lasso prox on targeted 2-D / 3-D weights
     when ``sparsity.lambda_reg > 0``). Returns (new_params, new_state,
-    metrics) with metrics ``grad_norm`` and ``lr`` as 0-d tensors."""
+    metrics) with metrics ``grad_norm`` and ``lr`` as 0-d tensors.
+
+    ``donate=True`` writes the new params, ``m``, ``v`` and ``step`` into
+    the given tensors (the counterpart of the reference Trainer's
+    ``donate_argnums``) and returns the same trees; the numbers are those of
+    ``donate=False`` bit for bit. Either way a leaf above CHUNK_ELEMS
+    elements is updated chunk by chunk along axis 0 (the update is
+    elementwise, or blockwise for the prox over whole block rows, and the
+    global norm is taken first, so the chunks change no number)."""
     step = state["step"]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
@@ -88,30 +119,48 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     prox = (sparsity is not None and sparsity.lambda_reg > 0)
     thresh = lr * sparsity.lambda_reg if prox else None
 
-    g_leaves = leaves(grads)
-    m_leaves, v_leaves = leaves(state["m"]), leaves(state["v"])
-    new_p, new_m, new_v = [], [], []
-    for i, (path, p) in enumerate(flatten_with_path(params)):
-        g = g_leaves[i].float() * scale
-        mm = (b1 * m_leaves[i].float() + (1 - b1) * g).to(cfg.tdtype)
-        vv = (b2 * v_leaves[i].float() + (1 - b2) * g * g).to(cfg.tdtype)
+    def update(p, g, m, v, blocks):
+        g = g.float() * scale
+        mm = (b1 * m.float() + (1 - b1) * g).to(cfg.tdtype)
+        vv = (b2 * v.float() + (1 - b2) * g * g).to(cfg.tdtype)
         mhat = mm.float() / c1
         vhat = vv.float() / c2
         p32 = p.float()
         newp = p32 - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                            + cfg.weight_decay * p32)
+        if blocks is not None:
+            if newp.ndim == 3:     # layer-stacked
+                newp = torch.stack([group_prox(layer, blocks, thresh)
+                                    for layer in newp])
+            else:
+                newp = group_prox(newp, blocks, thresh)
+        return newp.to(p.dtype), mm, vv
+
+    g_leaves = leaves(grads)
+    m_leaves, v_leaves = leaves(state["m"]), leaves(state["v"])
+    new_p, new_m, new_v = [], [], []
+    for i, (path, p) in enumerate(flatten_with_path(params)):
+        blocks = None
         if (prox and sparsity.applies_to(path_name(path))
-                and newp.ndim in (2, 3)):
+                and p.ndim in (2, 3)):
             bh, bw = sparsity.block_shape
-            if newp.shape[-2] % bh == 0 and newp.shape[-1] % bw == 0:
-                if newp.ndim == 3:     # layer-stacked
-                    newp = torch.stack([group_prox(layer, (bh, bw), thresh)
-                                        for layer in newp])
-                else:
-                    newp = group_prox(newp, (bh, bw), thresh)
-        new_p.append(newp.to(p.dtype))
-        new_m.append(mm)
-        new_v.append(vv)
+            if p.shape[-2] % bh == 0 and p.shape[-1] % bw == 0:
+                blocks = (bh, bw)
+        g, m, v = g_leaves[i], m_leaves[i], v_leaves[i]
+        out = (p, m, v) if donate else (
+            torch.empty_like(p),
+            torch.empty(m.shape, dtype=cfg.tdtype, device=m.device),
+            torch.empty(v.shape, dtype=cfg.tdtype, device=v.device))
+        for sl in _chunks(p, blocks[0] if blocks and p.ndim == 2 else 1):
+            for dst, x in zip(out, update(p[sl], g[sl], m[sl], v[sl],
+                                          blocks)):
+                dst[sl].copy_(x)
+        new_p.append(out[0])
+        new_m.append(out[1])
+        new_v.append(out[2])
+    if donate:
+        step.add_(1)
+        return params, state, {"grad_norm": gnorm, "lr": lr}
     new_state = {"m": unflatten(state["m"], new_m),
                  "v": unflatten(state["v"], new_v), "step": step + 1}
     return (unflatten(params, new_p), new_state,

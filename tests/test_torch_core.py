@@ -257,3 +257,160 @@ def test_checkpoint_leaf_order_matches_jax(tmp_path):
         assert sorted(a.files) == sorted(b.files)
         for name in a.files:
             _assert_same(a[name], b[name], name)
+
+
+# --------------------------------------------------------------------------
+# the small core helpers (ROADMAP.md Queue 1 item 1), byte for byte
+# --------------------------------------------------------------------------
+
+def _helper_prune_to_sparsity(rng):
+    from repro.core.sparsity import prune_to_sparsity as jf
+    from repro_torch.core.sparsity import prune_to_sparsity as tf
+    w = rng.randn(64, 96).astype(np.float32)
+    jw, jm = jf(jnp.asarray(w), (16, 8), 0.6)
+    tw, tm = tf(torch.from_numpy(w), (16, 8), 0.6)
+    return [(np.asarray(jw), tw.numpy()), (np.asarray(jm), tm.numpy())]
+
+
+def _helper_pad_to_blocks(rng):
+    from repro.core.sparsity import pad_to_blocks as jf
+    from repro_torch.core.sparsity import pad_to_blocks as tf
+    out = []
+    for shape in ((50, 30), (64, 32), (64, 30)):
+        w = rng.randn(*shape).astype(np.float32)
+        out.append((np.asarray(jf(jnp.asarray(w), (16, 16))),
+                    tf(torch.from_numpy(w), (16, 16)).numpy()))
+    return out
+
+
+def _helper_block_mask(rng):
+    from repro.core.bsr import block_mask as jf
+    from repro_torch.core.bsr import block_mask as tf
+    w = _sparse_weight(rng, 64, 96, (16, 8), 0.4)
+    return [(jf(w, (16, 8)), tf(w, (16, 8))),
+            (jf(w, (16, 8)), tf(torch.from_numpy(w), (16, 8)))]
+
+
+def _bsr_pair(rng, nnzb=None):
+    from repro.core.bsr import bsr_from_mask as jf
+    from repro_torch.core.bsr import bsr_from_mask as tf
+    w = rng.randn(64, 96).astype(np.float32)
+    mask = rng.rand(4, 12) < 0.4
+    return jf(w, mask, (16, 8), nnzb), tf(torch.from_numpy(w), mask, (16, 8),
+                                          nnzb)
+
+
+def _helper_bsr_from_mask(rng):
+    out = []
+    for nnzb in (None, 30):
+        j, t = _bsr_pair(rng, nnzb)
+        assert (j.shape, j.block_shape) == (t.shape, t.block_shape)
+        out += [(np.asarray(j.data), t.data.numpy()),
+                (np.asarray(j.indices), t.indices),
+                (np.asarray(j.indptr), t.indptr)]
+    return out
+
+
+def _helper_pattern_fingerprint(rng):
+    from repro.core.bsr import pattern_fingerprint as jf
+    from repro_torch.core.bsr import pattern_fingerprint as tf
+    j, t = _bsr_pair(rng, 32)
+    return [(np.frombuffer(jf(j), np.uint8), np.frombuffer(tf(t), np.uint8))]
+
+
+def _helper_registry_peek_specialize(rng):
+    from repro.core.bsr import bsr_to_dense as j_dense
+    from repro.core.pattern_reuse import PatternRegistry as JReg
+    from repro_torch.core.bsr import bsr_to_dense as t_dense
+    (j, t), x = _bsr_pair(rng), rng.randn(64, 96).astype(np.float32)
+    jr, tr = JReg(), PatternRegistry()
+    out = []
+    for reg, m, to in ((jr, j, jnp.asarray), (tr, t, torch.from_numpy)):
+        dense = j_dense if reg is jr else t_dense
+        fn = reg.specialize(lambda b, y, dense=dense: dense(b) * y, m)
+        assert reg.specialize(lambda b, y: y, m) is not fn   # another fn
+        assert reg.peek(next(iter(reg._cache)))
+        assert not reg.peek(("absent",))
+        out.append(np.asarray(fn(m.data, to(x))))
+        assert (reg.stats.hits, reg.stats.misses) == (0, 2)
+    return [tuple(out)]
+
+
+def _helper_pattern_similarity(rng):
+    from repro.core.bsr import BSR as JBSR
+    from repro.core.pattern_reuse import pattern_similarity as jf
+    from repro_torch.core.bsr import BSR as TBSR
+    from repro_torch.core.pattern_reuse import pattern_similarity as tf
+    (ja, ta), (jb, tb) = _bsr_pair(rng, 32), _bsr_pair(rng, 32)
+    jz = JBSR(jnp.zeros_like(jb.data), jb.indices, jb.indptr, jb.shape,
+              jb.block_shape)
+    tz = TBSR(torch.zeros_like(tb.data), tb.indices, tb.indptr, tb.shape,
+              tb.block_shape)
+    pairs = ((ja, jb, ta, tb), (ja, ja, ta, ta), (ja, jz, ta, tz),
+             (jz, jz, tz, tz))
+    return [(np.array([jf(a, b) for a, b, _, _ in pairs], np.float64),
+             np.array([tf(a, b) for _, _, a, b in pairs], np.float64))]
+
+
+def _helper_count_unique_intrablock_patterns(rng):
+    from repro.core.pattern_reuse import count_unique_intrablock_patterns as jf
+    from repro_torch.core.pattern_reuse import \
+        count_unique_intrablock_patterns as tf
+    w = rng.randn(64, 96).astype(np.float32) * (rng.rand(64, 96) < 0.5)
+    return [(np.array([jf(jnp.asarray(w), blk) for blk in
+                       ((1, 8), (4, 4), (16, 8))]),
+             np.array([tf(torch.from_numpy(w), blk) for blk in
+                       ((1, 8), (4, 4), (16, 8))]))]
+
+
+def _helper_sparsify_weight(rng):
+    from repro.kernels.ops import sparsify_weight as jf
+    from repro_torch.kernels.ops import sparsify_weight as tf
+    w = _sparse_weight(rng, 64, 96, (16, 32), 0.3)
+    out = []
+    for nnzt in (None, 12):
+        j, t = jf(jnp.asarray(w), (16, 32), nnzt), tf(torch.from_numpy(w),
+                                                      (16, 32), nnzt)
+        assert (j.real_nnzt, j.shape, j.tile) == (t.real_nnzt, t.shape,
+                                                  t.tile)
+        out += [(np.asarray(getattr(j, f)), np.asarray(getattr(t, f)))
+                for f in ("data", "row_id", "col_id", "t_perm")]
+    return out
+
+
+def _helper_bench_io(rng, tmp=None):
+    import json
+    import tempfile
+    from repro.runtime import bench_io as jb
+    from repro_torch.runtime import bench_io as tb
+    assert tb.default_bench_path().endswith("BENCH_torch.json")
+    assert tb.repo_root() == jb.repo_root()
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for mod in (jb, tb):
+            path = f"{d}/{mod.__name__.split('.')[0]}.json"
+            mod.update_bench_json("a", {"x": [1, 2.5]}, path)
+            mod.update_bench_json("b", {"y": "z"}, path)
+            mod.update_bench_json("a", {"x": [3]}, path)
+            data = json.load(open(path))
+            data["meta"].pop("updated")
+            out.append(np.frombuffer(json.dumps(data, sort_keys=True)
+                                     .encode(), np.uint8))
+    return [tuple(out)]
+
+
+_HELPERS = {name[len("_helper_"):]: fn for name, fn in globals().items()
+            if name.startswith("_helper_")}
+
+
+@pytest.mark.parametrize("helper", sorted(_HELPERS))
+def test_core_helper_matches_jax_byte_for_byte(helper):
+    """prune_to_sparsity, pad_to_blocks, block_mask, bsr_from_mask,
+    pattern_fingerprint, PatternRegistry.peek / .specialize,
+    pattern_similarity, count_unique_intrablock_patterns, sparsify_weight
+    and bench_io: every output's bytes (dtype and shape included) equal
+    the JAX function's on the same input."""
+    for want, got in _HELPERS[helper](np.random.RandomState(11)):
+        want, got = np.asarray(want), np.asarray(got)
+        assert want.dtype == got.dtype and want.shape == got.shape, helper
+        assert want.tobytes() == got.tobytes(), helper

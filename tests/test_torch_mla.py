@@ -5,8 +5,8 @@ path without a cache (full attention, and chunked flash attention past
 chunk / suffix prefill on dense and paged latents, the absorbed decode at
 ragged positions with an inactive row (dense and paged), the paged slot
 ops on latent pools, and a whole-cache prefill on a paged layout raising.
-Plus the flash-attention guard: inputs that require grad raise, naming
-ROADMAP.md Queue 1 item 5, and without grad the output is the reference's.
+Plus flash attention without grad against the reference's output (its
+gradients are held in tests/test_torch_lm_train.py).
 
 The model-level cases run the reference's MLA test config (an MLA mixer
 with a dense FFN, ``tests/test_engine.py``'s ``_mla_dense_cfg``) and the
@@ -269,15 +269,6 @@ def test_slot_ops_on_latent_pools_match_jax(model):
 
 def _qkv(rng):
     return [rng.randn(1, 40, h, 16).astype(np.float32) for h in (4, 2, 2)]
-
-
-def test_flash_attention_with_grad_raises_naming_item_5():
-    q, k, v = (_t(a) for a in _qkv(np.random.RandomState(6)))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        flash_attention(q, k, v, causal=True, q_chunk=16, kv_chunk=16)
-    with torch.no_grad():                   # grad mode off: it runs
-        flash_attention(q, k, v, causal=True, q_chunk=16, kv_chunk=16)
 
 
 @pytest.mark.parametrize("causal", [True, False])

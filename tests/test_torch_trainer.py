@@ -1,10 +1,12 @@
-"""The port's training loop (``launch/train.Trainer``, on the CPU) at the BERT
-smoke config. These mirror tests/test_train.py:40-175, which the reference
-cannot pass on this JAX version (ROADMAP.md Queue 3: a ShardingTypeError
-under its Explicit-axis mesh), so the loop's logic is held against a loop of
-the JAX step and pruner functions called directly: the same weights (the
-reference's, carried across), the same batches, a fault injected and
-recovered in the port's run only.
+"""The port's training loop (``launch/train.Trainer``, on the CPU, its step
+donated) at the BERT smoke config and at the deepseek_7b smoke config, the
+LM of tests/test_train.py:41-196 and examples/train_lm_sparse.py. These
+mirror tests/test_train.py, which the reference cannot pass on this JAX
+version (ROADMAP.md Queue 3: a ShardingTypeError under its Explicit-axis
+mesh), so the loop's logic is held against a loop of the JAX step and
+pruner functions called directly: the same weights (the reference's,
+carried across), the same batches, a fault injected and recovered in the
+port's run only.
 """
 import dataclasses
 
@@ -41,6 +43,7 @@ from repro_torch.runtime.fault_tolerance import (FaultInjector,  # noqa: E402
 
 TARGETS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo")
 OPT = dict(peak_lr=5e-3, warmup_steps=2, total_steps=50, weight_decay=0.0)
+ARCHS = ("bert_base", "deepseek_7b")
 
 
 @pytest.fixture(autouse=True)
@@ -53,9 +56,19 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _cfg(sp=None):
-    cfg = get_config("bert_base", smoke=True)
+def _cfg(arch, sp=None):
+    cfg = get_config(arch, smoke=True)
     return cfg if sp is None else dataclasses.replace(cfg, sparsity=sp)
+
+
+def _targeted(params):
+    """(name, 2-D weight) of every targeted projection, layer by layer
+    (BERT's per-layer dicts, an LM's period-stacked leaves)."""
+    for path, w in flatten_with_path(params):
+        name = path_name(path)
+        if any(t in name for t in TARGETS):
+            for i, layer in enumerate(w if w.ndim == 3 else [w]):
+                yield f"{name}[{i}]", layer
 
 
 def _tcfg(tmp, **kw):
@@ -76,16 +89,18 @@ def _fit(cfg, tmp, inj=None, **kw):
     return tr, state, hist
 
 
-def test_loss_decreases(tmp_path):
-    _, _, hist = _fit(_cfg(), tmp_path, n_steps=20)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_decreases(tmp_path, arch):
+    _, _, hist = _fit(_cfg(arch), tmp_path, n_steps=20)
     first = np.mean([loss for _, loss in hist[:3]])
     last = np.mean([loss for _, loss in hist[-3:]])
     assert last < first, hist
 
 
-def test_failure_recovery_resumes_from_checkpoint(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_failure_recovery_resumes_from_checkpoint(tmp_path, arch):
     inj = FaultInjector(fail_at_steps=(6, 9))
-    tr, state, hist = _fit(_cfg(), tmp_path, inj)
+    tr, state, hist = _fit(_cfg(arch), tmp_path, inj)
     assert inj.fired == {6, 9}
     assert tr.supervisor.restarts == 2
     assert int(state["opt"]["step"]) == 12    # completed despite failures
@@ -94,14 +109,15 @@ def test_failure_recovery_resumes_from_checkpoint(tmp_path):
                                     10, 11]
 
 
-def test_restart_reproduces_uninterrupted_run_bit_for_bit(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_restart_reproduces_uninterrupted_run_bit_for_bit(tmp_path, arch):
     """Deterministic data + restore-on-failure => the same final state as a
     clean run, bit for bit on the CPU (params, optimizer state, masks)."""
     sp = SparsityConfig(block_shape=(16, 16), sparsity=0.5, targets=TARGETS,
                         lambda_reg=1e-3, start_step=0, end_step=8)
-    _, s1, h1 = _fit(_cfg(sp), tmp_path / "a", prune=True)
+    _, s1, h1 = _fit(_cfg(arch, sp), tmp_path / "a", prune=True)
     inj = FaultInjector(fail_at_steps=(7,))
-    tr, s2, h2 = _fit(_cfg(sp), tmp_path / "b", inj, prune=True)
+    tr, s2, h2 = _fit(_cfg(arch, sp), tmp_path / "b", inj, prune=True)
     assert tr.supervisor.restarts == 1
     assert dict(h1) == dict(h2)
     a, b = flatten_with_path(s1), flatten_with_path(s2)
@@ -110,23 +126,26 @@ def test_restart_reproduces_uninterrupted_run_bit_for_bit(tmp_path):
         assert x.dtype == y.dtype and torch.equal(x, y), path_name(p)
 
 
-def test_gradual_pruning_during_training(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gradual_pruning_during_training(tmp_path, arch):
     sp = SparsityConfig(block_shape=(8, 8), sparsity=0.75, targets=TARGETS,
                         start_step=0, end_step=8)
-    _, state, _ = _fit(_cfg(sp), tmp_path, prune=True)
-    for i in range(2):
-        for proj in ("wq", "wk", "wv", "wo"):
-            w = state["params"]["layers"][i]["attn"][proj]["w"]
-            assert float(actual_sparsity(w, (8, 8))) >= 0.75
+    _, state, _ = _fit(_cfg(arch, sp), tmp_path, prune=True)
+    ws = list(_targeted(state["params"]))
+    assert len(ws) == 8        # 4 projections in each of 2 layers
+    for name, w in ws:
+        assert float(actual_sparsity(w, (8, 8))) >= 0.75, name
 
 
-def test_group_lasso_prox_induces_sparsity_without_pruning(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_group_lasso_prox_induces_sparsity_without_pruning(tmp_path, arch):
     """Paper Eq. 1 mechanism: the group-lasso prox ALONE (no magnitude
     pruning) drives whole blocks to exact zero during training."""
     sp = SparsityConfig(block_shape=(8, 8), sparsity=0.0, lambda_reg=3.0,
                         targets=TARGETS)
-    _, state, _ = _fit(_cfg(sp), tmp_path, n_steps=40)
-    w = state["params"]["layers"][0]["attn"]["wq"]["w"]
+    _, state, _ = _fit(_cfg(arch, sp), tmp_path, n_steps=40)
+    w = dict(_targeted(state["params"]))
+    w = next(v for k, v in w.items() if "wq" in k)       # the first wq
     got = float(actual_sparsity(w, (8, 8)))
     assert got > 0.10, f"prox produced no block sparsity ({got})"
 
@@ -140,7 +159,8 @@ def test_straggler_monitor_rebalances():
     assert mb.sum() == 16 and mb[3] == 3
 
 
-def test_trainer_loop_matches_a_loop_of_the_jax_functions(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_trainer_loop_matches_a_loop_of_the_jax_functions(tmp_path, arch):
     """From the reference's initial weights: the port's Trainer (with a
     fault at step 5, replayed from the step-4 checkpoint) against the JAX
     train step + update_masks + apply_masks called step by step. Per-step
@@ -155,8 +175,7 @@ def test_trainer_loop_matches_a_loop_of_the_jax_functions(tmp_path):
     tsp = SparsityConfig(**dataclasses.asdict(jsp))
     opt = dict(peak_lr=1e-3, warmup_steps=2, total_steps=20,
                weight_decay=0.01)
-    jcfg = dataclasses.replace(jax_config("bert_base", smoke=True),
-                               sparsity=jsp)
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True), sparsity=jsp)
     jc = jopt.AdamWConfig(**opt)
     jp = j_init(jax.random.PRNGKey(1), jcfg)
 
@@ -174,7 +193,7 @@ def test_trainer_loop_matches_a_loop_of_the_jax_functions(tmp_path):
         j_losses.append(float(m["loss"]))
     pipe.close()
 
-    cfg = _cfg(tsp)
+    cfg = _cfg(arch, tsp)
     tr = Trainer(cfg, _tcfg(tmp_path, n_steps=n_steps, opt=opt, prune=True),
                  "cpu", _dcfg(cfg),
                  fault_injector=FaultInjector(fail_at_steps=(5,)))
@@ -190,7 +209,10 @@ def test_trainer_loop_matches_a_loop_of_the_jax_functions(tmp_path):
         jax.tree.map(np.asarray, masks))}
     tm = {path_name(p): m.numpy() for p, m in flatten_with_path(
         state["masks"])}
-    assert sorted(jm) == sorted(tm) and len(tm) == 8
+    # one mask a targeted leaf: BERT's 2 x 4 per-layer weights, the LM's
+    # 4 period-stacked ones
+    assert sorted(jm) == sorted(tm) and len(tm) == (8 if arch == "bert_base"
+                                                    else 4)
     for name in jm:
         np.testing.assert_array_equal(tm[name], jm[name], err_msg=name)
     want = [np.asarray(x) for x in jax.tree.leaves(params)]
