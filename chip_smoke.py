@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
-                           lm_training,training]
+                           lm_training,lm_tp,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -215,6 +215,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
      deepseek_v2_lite, mamba2_780m, recurrentgemma_9b, pixtral_12b (patch
      embeddings) and whisper_base (frames) at smoke size on the card
      against the CPU (loss and grad norm within 1e-4 relative).
+  4f. lm_tp: mesh-first serving, one process per mesh position, all on
+     the one card and joined by gloo (the ranks share the card, so their
+     step times say nothing of tensor-parallel speed). gemma3_4b at full
+     width and depth, lm_serving's spec with tied pruning done once,
+     exported three ways with place=False -- tp (1, 4) backend 'plan',
+     dp (4, 1) 'plan_pallas' (K1), tp+dp (2, 2) 'plan' -- and handed to
+     the ranks through CUDA IPC (place_servable: each rank keeps its shard
+     of every sharded leaf); each run against the same export served on
+     one device: lm_serving's 6 requests (tp also with paged KV), every
+     request done on every rank, K1 / K2 / K3 launches per rank equal to
+     the layer routing (K2 on one local KV head, G 2, D 256 under tp), the
+     ranks' tokens equal to each other and to the single-device run except
+     at near-ties (a differing token fails unless the single-device top-2
+     margin there is below twice the decode logits' max |difference|),
+     decode_step logits on 4 prefilled slots within 5% of max|logits|,
+     per-rank pack bytes <= 1/model of the total where every pack shards,
+     each cache leaf's local shape spec_for_cache's shard and never
+     changed; printed: per-rank peak memory, ms per decode step by the host
+     clock, collectives and their bytes per run and per decode step.
+     BERT-base (backend 'plan') saved by one process, loaded by every rank
+     of (1, 4) and (1, 2) (memory-mapped shards): the serving traffic,
+     logits within 1e-3 of one device. Then what gloo takes on CUDA tensors
+     (all_reduce / broadcast / all_gather by dtype: a reading), and K2 / K3
+     at a rank's decode shapes beside SDPA and the bound.
+  lm_tp_cards (not in the default list; a four-card machine): gemma3_4b
+     over tp (1, 4) with one card a rank and NCCL, each rank building its
+     shard from the seed; lm_serving's traffic; launches a rank equal to
+     the routing, the ranks' tokens equal, tokens equal to the same export
+     on one card except at near-ties, decode_step logits within 5%; ms a
+     decode step on four cards and on one (host clock).
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -237,6 +267,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import json
 import os
@@ -935,15 +966,20 @@ def _decode_times(fn, plain, sdpa, plain_reps=50):
 # its pages of 16). pixtral_12b and qwen3_moe at D = 128 (their global
 # layers page); recurrentgemma_9b's MQA local layers (window 2048, a ring
 # of min(1280, 2048) = 1280 slots) and whisper_base's decoder (a 448-slot
-# linear cache), neither of which pages
+# linear cache), neither of which pages; gemma3_4b's decode on one rank of
+# a 4-wide model axis (lm_tp: 1 local KV head of 4, G 2, D 256), its global
+# layers on 1280 slots (and their pages) and its local rings of 1024
 DECODE_FAMILY_SHAPES = (("pixtral_g4", 8, 4, 128, 1280, 0, True),
                         ("qwen3_g16", 4, 16, 128, 1280, 0, True),
                         ("recurrentgemma_g16_d256", 1, 16, 256, 1280, 2048,
                          False),
-                        ("whisper_g1_d64", 8, 1, 64, 448, 0, False))
+                        ("whisper_g1_d64", 8, 1, 64, 448, 0, False),
+                        ("gemma3_tp4_g2_d256", 1, 2, 256, 1280, 0, True),
+                        ("gemma3_tp4_ring_g2_d256", 1, 2, 256, 1024, 1024,
+                         False))
 
 
-def _decode_family_shapes(rng, dev, per_shape):
+def _decode_family_shapes(rng, dev, per_shape, labels=None):
     """K2 at each DECODE_FAMILY_SHAPES entry, B = 4 ragged positions, and K3
     on the paged ones' shuffled pages -- for G = 16 a split of more than
     512 rows takes the two-pass path (G * rows > 8192) -- against the plain
@@ -959,6 +995,8 @@ def _decode_family_shapes(rng, dev, per_shape):
     i32, dtype = torch.int32, torch.bfloat16
     b, ps = 4, 16
     for label, hkv, g, d, t, window, paged in DECODE_FAMILY_SHAPES:
+        if labels is not None and label not in labels:
+            continue
         posl = ([1279, 1105, 700, 333] if t == 1280
                 else [t - 1, (t * 7) // 8, t // 2, t // 4])
         hq = hkv * g
@@ -4627,6 +4665,758 @@ def phase_lm_training(seed: int, card: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 4f: lm_tp -- mesh serving over ranks that share the card (gloo)
+# --------------------------------------------------------------------------
+
+#: (partition, mesh shape, backend, KV layouts) of gemma3_4b's mesh runs
+LM_TP_PARTITIONS = (("tp", (1, 4), "plan", ("dense", "paged")),
+                    ("dp", (4, 1), "plan_pallas", ("dense",)),
+                    ("tp+dp", (2, 2), "plan", ("dense",)))
+BERT_TP_MESHES = ((1, 4), (1, 2))
+#: seconds one rank may spend on one job (and the collectives' timeout)
+LM_TP_JOB_S = 600
+LM_TP_KERNELS = ("plan_dds", "flash_decode", "paged_flash_decode")
+
+
+def _rank_shapes(cache):
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.launch.sharding import leaf_name
+    return {leaf_name(p): tuple(x.shape) for p, x in flatten_with_path(cache)}
+
+
+def _launch_counts():
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    return {"plan_dds": plan_dds.launches,
+            "flash_decode": flash_decode.launches,
+            "paged_flash_decode": paged_flash_decode.launches}
+
+
+def _zero_launches():
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    plan_dds.launches = 0
+    flash_decode.launches = 0
+    paged_flash_decode.launches = 0
+
+
+def _tp_decode_logits(sv, prompts):
+    """decode_step logits (4, V) fp32 of a 4-slot cache holding each prompt
+    (one-shot prefill, as the engine admits), the greedy next tokens at the
+    prompts' ends -- the same calls on one device and on a mesh."""
+    import numpy as np
+    import torch
+    dev = sv.device
+    cache, sub = sv.init_cache(4, 1280), sv.init_cache(1, 1280)
+    toks, posl = [], []
+    for slot, p in enumerate(prompts):
+        bucket = min(1280, 1 << (len(p) - 1).bit_length())
+        padded = np.zeros((bucket,), np.int32)
+        padded[:len(p)] = p
+        sub, row = sv.prefill_row(sub, torch.from_numpy(padded).to(dev),
+                                  len(p))
+        sv.engine_write_slot(cache, slot, sub, batch=4)
+        toks.append(int(torch.argmax(row)))
+        posl.append(len(p))
+    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    if sv.mesh is not None:
+        sv.mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = sv.decode_step(cache, tok, pos)
+    torch.cuda.synchronize()
+    return logits[:, 0].float(), (time.perf_counter() - t0) * 1e3
+
+
+def _rank_lm_job(job):
+    """A rank's gemma3_4b run: place its shard of the whole export the
+    parent shares (CUDA IPC), then for each KV layout a warm-up request and
+    the counted engine run over the lm_serving traffic, then decode_step
+    logits on 4 prefilled slots."""
+    import gc
+    import torch
+    from repro_torch.core.pattern_reuse import PatternRegistry
+    from repro_torch.launch.sharding import shard_shape, spec_for_cache
+    from repro_torch.models import lm
+    from repro_torch.serving import Servable, place_servable
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, spec, packs, stats = job.pop("servable")
+    t0 = time.perf_counter()
+    sv = place_servable(Servable(params, cfg, spec, packs, PatternRegistry(),
+                                 dev, export_stats=stats))
+    del params, packs
+    torch.cuda.synchronize()
+    mesh = sv.mesh
+    out = {"coord": mesh.coordinate, "place_s": time.perf_counter() - t0,
+           "sharding": sv.stats()["sharding"], "runs": {}}
+    say = _rank_say(mesh.rank, job["name"])
+    say(f"placed in {out['place_s']:.1f} s")
+    prompts = job["prompts"]
+    for i, layout in enumerate(job["layouts"]):
+        eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
+                        kv_layout=layout)
+        if i == 0:
+            eng.submit(prompts[0][:8], max_new_tokens=2)     # warm-up
+            eng.run()
+            say(f"{layout}: warm-up done")
+        eng.stats = type(eng.stats)()
+        whole = lm.init_cache(cfg, 4, 1280, paged=eng._layout, device="meta")
+        want = {n: shard_shape(sh, spec_for_cache(n, sh, mesh), mesh)
+                for n, sh in _rank_shapes(whole).items()}
+        before = _rank_shapes(eng.cache)
+        torch.cuda.synchronize()
+        # --- the counted main-path run: every count set to 0 just before
+        mesh.reset_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=job["n_new"]) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _launch_counts()
+        es = eng.stats
+        say(f"{layout}: counted run {wall:.1f} s (prefill "
+            f"{es.prefill_s:.1f} s, decode {es.decode_s:.1f} s)")
+        k_leaf = next(n for n in before if n.endswith("mix/k_pages")
+                      or n.endswith("mix/k"))
+        out["runs"][layout] = {
+            "layout": eng.kv_layout, "launches": got,
+            "tokens": [list(h.tokens) for h in hs],
+            "status": [f"{h.status} {h.failure or ''}".strip() for h in hs],
+            "steps": es.steps, "prefills": es.prefills,
+            "windows": es.windows, "decode_s": es.decode_s,
+            "prefill_s": es.prefill_s, "wall_s": wall,
+            "collectives": copy.deepcopy(mesh.stats),
+            "cache_follows_spec": before == want,
+            "cache_kept_shapes": _rank_shapes(eng.cache) == before,
+            "k_leaf": (k_leaf, before[k_leaf])}
+        del eng
+    logits, ms = _tp_decode_logits(sv, job["prompts"][:4])
+    out["step_collectives"] = copy.deepcopy(mesh.stats)
+    out["decode_step_ms"] = ms
+    out["decode_sum"] = float(logits.double().sum())
+    if mesh.rank == 0:
+        out["decode_logits"] = logits.cpu().numpy()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del sv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_say(rank, name):
+    """Rank 0's progress lines (flushed: the parent waits on the ranks)."""
+    t0 = time.perf_counter()
+
+    def say(msg):
+        if rank == 0:
+            print(f"[lm_tp] rank 0, {name}: {msg} (+{time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+    return say
+
+
+def _rank_collectives(job):
+    """ms per all_reduce and all_gather over the world's gloo group, for
+    CUDA and for CPU tensors of three sizes: the cost every mesh step pays
+    (a reading)."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for n in (1024, 262144, 22 * 2**20):
+            x = torch.ones(n, dtype=torch.float32, device=dev)
+            reps = 50 if n <= 262144 else 5
+            dist.all_reduce(x)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dist.all_reduce(x)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[f"all_reduce {dev} {4 * n} B"] = \
+                (time.perf_counter() - t0) * 1e3 / reps
+            parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, x)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dist.all_gather(parts, x)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[f"all_gather {dev} {4 * n} B a rank"] = \
+                (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def _rank_bert_job(job):
+    """A rank's BERT-base run: load its shard of the saved export (memory
+    mapped), the serving traffic against the single-device logits the
+    parent shares (CUDA IPC)."""
+    import gc
+    import torch
+    from repro_torch.serving import load_servable
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sv = load_servable(job["path"], device=dev)
+    out = {"load_s": time.perf_counter() - t0,
+           "sharding": sv.stats()["sharding"], "errs": [], "scales": [],
+           "sums": [], "ms": []}
+    sv.forward(job["reqs"][0])                           # warm-up
+    for toks, ref in zip(job["reqs"], job["refs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = sv.forward(toks)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["errs"].append(float((y - ref).abs().max()))
+        out["scales"].append(float(ref.abs().max()))
+        out["sums"].append(float(y.double().sum()))
+        out["finite"] = bool(torch.isfinite(y).all())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del sv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_gloo_probe(job):
+    """What gloo takes on CUDA tensors: each collective on a group of its
+    own with a 20 s timeout, its outcome recorded (a reading, not a
+    check)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    g = dist.new_group(list(range(dist.get_world_size())),
+                       timeout=datetime.timedelta(seconds=20))
+    n = dist.get_world_size()
+
+    def t(dtype):
+        return torch.ones(8, dtype=dtype, device="cuda")
+    probes = (
+        ("all_reduce float32", lambda: dist.all_reduce(t(torch.float32),
+                                                       group=g)),
+        ("all_reduce int32", lambda: dist.all_reduce(t(torch.int32),
+                                                     group=g)),
+        ("all_reduce int64", lambda: dist.all_reduce(t(torch.int64),
+                                                     group=g)),
+        ("broadcast float32", lambda: dist.broadcast(t(torch.float32), 0,
+                                                     group=g)),
+        ("all_reduce bfloat16", lambda: dist.all_reduce(t(torch.bfloat16),
+                                                        group=g)),
+        ("all_gather float32", lambda: dist.all_gather(
+            [t(torch.float32) for _ in range(n)], t(torch.float32),
+            group=g)),
+        ("all_gather_into_tensor float32",
+         lambda: dist.all_gather_into_tensor(
+             torch.empty(8 * n, device="cuda"), t(torch.float32), group=g)))
+    res = {}
+    for name, fn in probes:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except Exception as e:  # noqa: BLE001 -- the reading itself
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return res
+
+
+def _rank_cards_job(job):
+    """A rank on a card of its own (NCCL): gemma3_4b from the seed, pruned,
+    this rank's shard of the tp (1, 4) export; lm_serving's traffic; rank
+    0 also serves the same export whole on its card, the reference."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core.pruner import tied_prune
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    cfg = _lm_config()
+    spec = ServingSpec(**job["spec"])
+    params = init_model(job["seed"], cfg, device=dev)
+    pruned, _ = tied_prune(params, spec.sparsity_config())
+    del params
+    spec = dataclasses.replace(spec, prune="none", mesh_shape=(1, 4),
+                               partition="tp")
+    torch.cuda.reset_peak_memory_stats()
+    sv = prepare_servable(pruned, cfg, spec, device=dev)
+    mesh = sv.mesh
+    say = _rank_say(mesh.rank, job["name"])
+    prompts = job["prompts"]
+
+    def serve(s):
+        eng = s.engine(max_slots=4, cache_len=1280, sync_every=8)
+        eng.submit(prompts[0][:8], max_new_tokens=2)         # warm-up
+        eng.run()
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        if s.mesh is not None:
+            s.mesh.reset_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=job["n_new"]) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        es = eng.stats
+        return {"tokens": [list(h.tokens) for h in hs],
+                "status": [h.status for h in hs],
+                "launches": _launch_counts(), "steps": es.steps,
+                "prefills": es.prefills, "decode_s": es.decode_s,
+                "prefill_s": es.prefill_s,
+                "wall_s": time.perf_counter() - t0}
+
+    out = {"mesh": serve(sv), "coord": mesh.coordinate,
+           "collectives": copy.deepcopy(mesh.stats)}
+    say("mesh run done")
+    logits, out["decode_step_ms"] = _tp_decode_logits(sv, prompts[:4])
+    out["step_collectives"] = copy.deepcopy(mesh.stats)
+    out["decode_sum"] = float(logits.double().sum())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del sv
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        one = prepare_servable(pruned, cfg, spec, device=dev, place=False)
+        out["one"] = serve(one)
+        ref, _ = _tp_decode_logits(one, prompts[:4])
+        out["gap"] = float((logits - ref).abs().max())
+        out["scale"] = float(ref.abs().max())
+        out["margins"] = []
+        for r, i in _first_differences(out["one"]["tokens"],
+                                       out["mesh"]["tokens"]):
+            seq = list(prompts[r]) + out["one"]["tokens"][r][:i]
+            row = one.forward(np.asarray(seq, np.int32)[None])[0, -1]
+            top2 = torch.topk(row.float(), 2).values
+            out["margins"].append((r, i, float(top2[0] - top2[1])))
+        del one
+        say("single-card run done")
+    return out
+
+
+_RANK_JOBS = {"lm": _rank_lm_job, "bert": _rank_bert_job,
+              "probe": _rank_gloo_probe, "collectives": _rank_collectives,
+              "cards": _rank_cards_job}
+
+
+def phase_lm_tp_cards(seed: int, card: str):
+    """gemma3_4b over tp (1, 4) with one card a rank (NCCL), against the
+    same export on one card: the mesh path across real cards (run it on a
+    four-card machine: ``--phases lm_tp_cards``)."""
+    import numpy as np
+    import torch
+    n = torch.cuda.device_count()
+    check(n >= 4, f"lm_tp_cards needs four cards, this machine has {n}")
+    cfg = _lm_config()
+    n_layers = _layer_counts(cfg)[0]
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, k).tolist() for k in LM_PROMPTS]
+    spec = dict(tile=(128, 128), sparsity=0.8, prune="tied", fuse_qkv=True,
+                decode_kernel="flash", backend="plan")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(4, tmp, "nccl")
+        try:
+            res = ranks.run({"name": "cards", "kind": "cards", "seed": seed,
+                             "spec": spec, "prompts": prompts,
+                             "n_new": LM_NEW_TOKENS})
+        finally:
+            ranks.close()
+    counts = {k: 0 for k in LM_TP_KERNELS}
+    one = res[0]["one"]
+    for r in res:
+        run = r["mesh"]
+        check(all(s == "done" for s in run["status"]),
+              f"rank {r['coord']}: {run['status']}")
+        want = {"plan_dds": 0, "flash_decode": run["steps"] * n_layers,
+                "paged_flash_decode": 0}
+        check(run["launches"] == want, f"rank {r['coord']}: launches "
+              f"{run['launches']} differ from the routing {want}")
+        check(run["tokens"] == res[0]["mesh"]["tokens"],
+              "the ranks' tokens differ")
+        check(r["decode_sum"] == res[0]["decode_sum"],
+              "the ranks' decode logits differ")
+        for k in LM_TP_KERNELS:
+            counts[k] += run["launches"][k]
+    run = res[0]["mesh"]
+    agree = sum(a == b for x, y in zip(one["tokens"], run["tokens"])
+                for a, b in zip(x, y))
+    gap, scale = res[0]["gap"], res[0]["scale"]
+    coll = res[0]["collectives"]
+    sc = res[0]["step_collectives"]
+    print(f"[lm_tp_cards] {card} x {n}: tp (1, 4) over NCCL, one card a "
+          f"rank: {len(run['tokens'])} requests done, {run['steps']} decode "
+          f"steps, launches a rank {run['launches']} (= the routing); "
+          f"greedy tokens equal to one card's: {agree} of "
+          f"{sum(len(x) for x in one['tokens'])}")
+    print(f"[lm_tp_cards] host clock: {1e3 * run['decode_s'] / run['steps']:.2f}"
+          f" ms a decode step on 4 cards, {1e3 * one['decode_s'] / one['steps']:.2f}"
+          f" on one (the same export whole, plain 'plan' composition); "
+          f"prefill {run['prefill_s']:.2f} s vs {one['prefill_s']:.2f} s; "
+          f"collectives in the run "
+          f"{sum(v['calls'] for v in coll.values())} "
+          f"({sum(v['bytes'] for v in coll.values()) / 2**20:.1f} MiB, "
+          f"{sum(v['s'] for v in coll.values()):.2f} s); one decode step "
+          f"{res[0]['decode_step_ms']:.2f} ms, "
+          f"{sum(v['calls'] for v in sc.values())} collectives; peak memory "
+          f"a rank {[round(r['peak_gib'], 2) for r in res]} GiB")
+    print(f"[lm_tp_cards] decode_step logits vs one card max|d| {gap:.4e}, "
+          f"max|logits| {scale:.4e} (tol {TOL_FLASH_VS_XLA * scale:.4e}); "
+          f"near-tie margins at differing tokens {res[0]['margins']}")
+    check(gap <= TOL_FLASH_VS_XLA * scale, "mesh logits disagree")
+    for r, i, margin in res[0]["margins"]:
+        check(margin < 2 * gap, f"request {r} token {i} differs where the "
+              f"top-2 margin {margin:.4e} is >= 2 x {gap:.4e}")
+    return counts
+
+
+def _lm_tp_rank(rank, world, init, inq, outq, backend):
+    """One rank of a mesh: join the process group -- gloo with every rank
+    on card 0, or NCCL with rank r on card r -- then run each job the
+    parent sends until it sends None."""
+    sys.path.insert(0, SRC)
+    import traceback
+    import torch
+    # one host thread a rank: the ranks' work is on the card, and spare
+    # intra-op threads spinning on the host's cores starve gloo's
+    torch.set_num_threads(1)
+    try:
+        from repro_torch.launch.mesh import (destroy_distributed,
+                                             init_distributed)
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        init_distributed(backend, init, rank, world, timeout_s=LM_TP_JOB_S)
+        while True:
+            job = inq.get()
+            if job is None:
+                break
+            outq.put((rank, job["name"], _RANK_JOBS[job["kind"]](job)))
+        destroy_distributed()
+    except BaseException:   # noqa: BLE001 -- reported to the parent
+        outq.put((rank, "error", traceback.format_exc()))
+
+
+class _Ranks:
+    """``world`` rank processes (spawned) and their job queues; every job is
+    sent to every rank and the phase waits for all of their answers."""
+
+    def __init__(self, world, tmp, backend="gloo"):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        init = "file://" + os.path.join(tmp, f"init_{world}")
+        self.outq = ctx.Queue()
+        self.inqs = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=_lm_tp_rank,
+                                  args=(r, world, init, self.inqs[r],
+                                        self.outq, backend), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, job, timeout=LM_TP_JOB_S):
+        import queue
+        for q in self.inqs:
+            q.put(dict(job))
+        res = {}
+        deadline = time.perf_counter() + timeout
+        while len(res) < len(self.procs):
+            try:
+                rank, name, out = self.outq.get(timeout=5.0)
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(self.procs)
+                        if not p.is_alive()]
+                if dead:
+                    raise PhaseError(f"lm_tp: job {job['name']}: ranks "
+                                     f"exited (rank, code) {dead}")
+                if time.perf_counter() > deadline:
+                    raise PhaseError(
+                        f"lm_tp: job {job['name']} got no answer from ranks "
+                        f"{sorted(set(range(len(self.procs))) - set(res))} "
+                        f"in {timeout} s")
+                continue
+            if name == "error":
+                raise PhaseError(f"lm_tp: rank {rank} failed:\n{out}")
+            res[rank] = out
+        return [res[r] for r in range(len(self.procs))]
+
+    def close(self):
+        for q in self.inqs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+def _first_differences(ref, got):
+    """[(request, index)] of each request's first differing token."""
+    out = []
+    for r, (a, b) in enumerate(zip(ref, got)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            out.append((r, i))
+    return out
+
+
+def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap):
+    """A token that differs from the single-device run passes only where
+    the single-device top-2 logit margin at that position is below twice
+    the decode logits' max |difference| (a near tie)."""
+    import numpy as np
+    import torch
+    for r, i in diffs:
+        seq = list(prompts[r]) + list(ref_tokens[r][:i])
+        logits = ref_sv.forward(np.asarray(seq, np.int32)[None])[0, -1]
+        top2 = torch.topk(logits.float(), 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"[lm_tp] {label}: request {r} first differs at token {i}: "
+              f"single-device top-2 margin {margin:.4e}, decode logits "
+              f"max|d| {gap:.4e}")
+        check(margin < 2 * gap, f"{label}: request {r} token {i} differs "
+              f"where the top-2 margin {margin:.4e} is >= 2 x {gap:.4e}")
+
+
+def phase_lm_tp(seed: int, card: str, n_requests: int):
+    """gemma3_4b at full width and depth over tp (1, 4) dense and paged KV,
+    dp (4, 1) through kernel K1 and tp+dp (2, 2), one process per mesh
+    position on the one card (gloo), against the same export served on
+    one device; BERT-base over (1, 4) and (1, 2) from saved exports; what
+    gloo takes on CUDA tensors; K2 at a rank's decode shape."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import tied_prune
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    cfg = _lm_config()
+    n_layers, n_global, n_local = _layer_counts(cfg)
+    print(f"[lm_tp] {cfg.arch}: {n_layers} layers ({n_local} local, "
+          f"{n_global} global), {cfg.n_heads} query / {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}; {card}; ranks share the card through "
+          f"gloo, so their step times say nothing of tensor-parallel speed")
+    base = dict(tile=(128, 128), sparsity=0.8, fuse_qkv=True,
+                decode_kernel="flash")
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, device=dev)
+    pruned, _ = tied_prune(params, ServingSpec(**base).sparsity_config())
+    del params
+    whole = {}
+    for part, shape, backend, _ in LM_TP_PARTITIONS:
+        whole[part] = prepare_servable(
+            pruned, cfg, ServingSpec(**base, prune="none", backend=backend,
+                                     mesh_shape=shape, partition=part),
+            device=dev, place=False)
+    del pruned
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"[lm_tp] init + prune + three sharded exports (place=False) "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # every packed projection of a layer is one K1 launch a pass (dp)
+    k1_per_pass = sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+                      for k in next(iter(whole.values())).packs)
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+
+    # the single-device runs: the same exports on this one process
+    t0 = time.perf_counter()
+    refs, ref_logits = {}, {}
+    for part, _, _, layouts in LM_TP_PARTITIONS:
+        for layout in layouts:
+            eng = whole[part].engine(max_slots=4, cache_len=1280,
+                                     sync_every=8, kv_layout=layout)
+            hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+                  for p in prompts]
+            eng.run()
+            check(all(h.status == "done" for h in hs),
+                  f"{part} {layout}: a single-device request failed")
+            refs[(part, layout)] = [list(h.tokens) for h in hs]
+            del eng
+        ref_logits[part], _ = _tp_decode_logits(whole[part], prompts[:4])
+    print(f"[lm_tp] single-device runs of the same exports "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # BERT-base exports, saved for the ranks to load
+    bcfg = get_config("bert_base")
+    bspec = dict(tile=(128, 128), sparsity=0.8, prune="tied", fuse_qkv=True,
+                 cross_layer_union=True, backend="plan")
+    brng = np.random.RandomState(seed)
+    breqs = [torch.from_numpy(brng.randint(0, bcfg.vocab_size, (1, 384))).to(
+        dev) for _ in range(n_requests)]
+    breqs.append(torch.from_numpy(brng.randint(0, bcfg.vocab_size,
+                                               (8, 384))).to(dev))
+    bparams = init_model(seed, bcfg, device=dev)
+    counts = {k: 0 for k in LM_TP_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        bert_jobs = {}
+        for shape in BERT_TP_MESHES:
+            bsv = prepare_servable(bparams, bcfg, ServingSpec(
+                **bspec, mesh_shape=shape), device=dev, place=False)
+            path = os.path.join(tmp, f"bert_{shape[0]}x{shape[1]}")
+            bsv.save(path)
+            bert_jobs[shape] = {"name": f"bert {shape}", "kind": "bert",
+                                "path": path, "reqs": breqs,
+                                "refs": [bsv.forward(x) for x in breqs]}
+            del bsv
+        del bparams
+
+        ranks = _Ranks(4, tmp)
+        try:
+            coll = ranks.run({"name": "collectives", "kind": "collectives"})
+            print(f"[lm_tp] ms per gloo collective over 4 ranks sharing "
+                  f"the card (rank 0): "
+                  f"{ {k: round(v, 3) for k, v in coll[0].items()} }")
+            for part, shape, backend, layouts in LM_TP_PARTITIONS:
+                sv = whole[part]
+                res = ranks.run({"name": part, "kind": "lm",
+                                 "servable": (sv.params, sv.cfg, sv.spec,
+                                              sv.packs, sv.export_stats),
+                                 "layouts": layouts, "prompts": prompts,
+                                 "n_new": LM_NEW_TOKENS})
+                _lm_tp_report(part, shape, layouts, res, refs, ref_logits,
+                              whole[part], prompts, k1_per_pass, n_layers,
+                              n_global, n_local, counts)
+            res = ranks.run(bert_jobs[(1, 4)])
+            _bert_tp_report((1, 4), res)
+        finally:
+            ranks.close()
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = _Ranks(2, tmp)
+        try:
+            _bert_tp_report((1, 2), ranks.run(bert_jobs[(1, 2)]))
+            probe = ranks.run({"name": "probe", "kind": "probe"}, timeout=200)
+            print(f"[lm_tp] gloo on CUDA tensors (2 ranks): {probe[0]}")
+        finally:
+            ranks.close()
+
+    per = {}
+    _decode_family_shapes(np.random.RandomState(seed), dev, per,
+                          labels=("gemma3_tp4_g2_d256",
+                                  "gemma3_tp4_ring_g2_d256"))
+    for k, r in per.items():
+        print(f"[lm_tp] K2/K3 at a rank's shape {k}: {r['ms']:.4f} ms "
+              f"(cold {r['ms_cold']:.4f}), SDPA {r['library_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return counts
+
+
+def _lm_tp_report(part, shape, layouts, res, refs, ref_logits, ref_sv,
+                  prompts, k1_per_pass, n_layers, n_global, n_local,
+                  counts):
+    """The checks and readings of one gemma3_4b partition."""
+    import numpy as np
+    import torch
+    d, m = shape
+    st = res[0]["sharding"]
+    print(f"[lm_tp] {part} {shape}: {st['sharded_packs']} sharded / "
+          f"{st['replicated_packs']} replicated packs, pack bytes per rank "
+          f"{st['pack_bytes_per_device']} of {st['pack_bytes_total']}; "
+          f"placement {max(r['place_s'] for r in res):.1f} s")
+    if st["replicated_packs"] == 0:
+        check(st["pack_bytes_per_device"] * m <= st["pack_bytes_total"],
+              f"{part}: a rank holds more than 1/{m} of the pack bytes")
+    for layout in layouts:
+        ref = refs[(part, layout)]
+        for r in res:
+            run = r["runs"][layout]
+            check(run["layout"] == layout, f"{part}: engine fell back from "
+                  f"{layout}")
+            check(all(s == "done" for s in run["status"]),
+                  f"{part} {layout} rank {r['coord']}: {run['status']}")
+            check(all(len(t) == LM_NEW_TOKENS for t in run["tokens"]),
+                  f"{part} {layout}: a request is short of tokens")
+            steps, pre = run["steps"], run["prefills"]
+            kernel = part == "dp"
+            want = {"plan_dds": k1_per_pass * (steps + pre) if kernel else 0,
+                    "flash_decode": steps * (n_layers if layout == "dense"
+                                             else n_local),
+                    "paged_flash_decode": steps * (0 if layout == "dense"
+                                                   else n_global)}
+            check(run["launches"] == want, f"{part} {layout} rank "
+                  f"{r['coord']}: launches {run['launches']} differ from "
+                  f"the layer routing {want}")
+            check(run["cache_follows_spec"] and run["cache_kept_shapes"],
+                  f"{part} {layout} rank {r['coord']}: a cache leaf does "
+                  f"not follow spec_for_cache or changed shape")
+            check(run["tokens"] == res[0]["runs"][layout]["tokens"],
+                  f"{part} {layout}: the ranks' tokens differ")
+            for k in LM_TP_KERNELS:
+                counts[k] += run["launches"][k]
+        run = res[0]["runs"][layout]
+        got = run["tokens"]
+        agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+        coll = run["collectives"]
+        calls = sum(v["calls"] for v in coll.values())
+        nbytes = sum(v["bytes"] for v in coll.values())
+        secs = sum(v["s"] for v in coll.values())
+        print(f"[lm_tp] {part} {layout}: {len(got)} requests done on every "
+              f"rank, {run['steps']} decode steps in {run['windows']} "
+              f"windows, {run['prefills']} prefills; launches per rank "
+              f"{run['launches']} (= the routing); greedy tokens equal to "
+              f"the single-device run: {agree} of "
+              f"{sum(len(x) for x in ref)}; local KV leaf "
+              f"{run['k_leaf'][0]} {run['k_leaf'][1]}")
+        print(f"[lm_tp] {part} {layout}: host clock (ranks share the card: "
+              f"no tensor-parallel speed) {1e3 * run['decode_s'] / run['steps']:.2f}"
+              f" ms per decode step, prefill {run['prefill_s']:.2f} s, wall "
+              f"{run['wall_s']:.2f} s; collectives in the run {calls} "
+              f"({nbytes / 2**20:.1f} MiB, {secs:.2f} s of the host clock) "
+              f"{coll}")
+        logits = torch.from_numpy(res[0]["decode_logits"]).to(
+            ref_logits[part].device)
+        gap = float((logits - ref_logits[part]).abs().max())
+        _near_tie_check(f"{part} {layout}", ref_sv, prompts, ref,
+                        _first_differences(ref, got), gap)
+    logits = torch.from_numpy(res[0]["decode_logits"]).to(
+        ref_logits[part].device)
+    gap = float((logits - ref_logits[part]).abs().max())
+    scale = float(ref_logits[part].abs().max())
+    sc = res[0]["step_collectives"]
+    print(f"[lm_tp] {part}: decode_step logits on 4 prefilled slots vs one "
+          f"device max|d| {gap:.4e}, max|logits| {scale:.4e} (tol "
+          f"{TOL_FLASH_VS_XLA * scale:.4e}); one decode step "
+          f"{res[0]['decode_step_ms']:.2f} ms host clock, "
+          f"{sum(v['calls'] for v in sc.values())} collectives, "
+          f"{sum(v['bytes'] for v in sc.values())} bytes; peak memory per "
+          f"rank {[round(r['peak_gib'], 2) for r in res]} GiB")
+    check(len({r["decode_sum"] for r in res}) == 1,
+          f"{part}: the ranks' decode logits differ")
+    check(bool(np.isfinite(res[0]["decode_logits"]).all()),
+          f"{part}: non-finite decode logits")
+    check(gap <= TOL_FLASH_VS_XLA * scale,
+          f"{part}: mesh decode logits disagree with one device")
+
+
+def _bert_tp_report(shape, res):
+    st = res[0]["sharding"]
+    worst = max(max(r["errs"]) for r in res)
+    print(f"[lm_tp] bert {shape}: {st['sharded_packs']} sharded / "
+          f"{st['replicated_packs']} replicated packs, pack bytes per rank "
+          f"{st['pack_bytes_per_device']} of {st['pack_bytes_total']}, "
+          f"load {max(r['load_s'] for r in res):.1f} s; logits vs one "
+          f"device max|d| {worst:.3e} (tol {TOL_LOGITS}); ms per (1, 384) "
+          f"request {[round(x, 2) for x in res[0]['ms'][:-1]]}, (8, 384) "
+          f"{res[0]['ms'][-1]:.2f} (host clock, shared card); peak memory "
+          f"per rank {[round(r['peak_gib'], 2) for r in res]} GiB")
+    check(all(r["finite"] for r in res), f"bert {shape}: non-finite logits")
+    check(worst <= TOL_LOGITS, f"bert {shape}: mesh logits disagree")
+    check(all(r["sums"] == res[0]["sums"] for r in res),
+          f"bert {shape}: the ranks' logits differ")
+
+
 def _sum_group(recs):
     """A group of per-shape records summed (one layer's four projections):
     the kernel-line keys."""
@@ -4671,7 +5461,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
-                            "lm_families,lm_recurrent,lm_training,"
+                            "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -4751,6 +5541,15 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_training"] = phase_lm_training(args.seed, card)
             done("lm_training")
+        if "lm_tp" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp"] = phase_lm_tp(args.seed, card, args.requests)
+            done("lm_tp")
+        if "lm_tp_cards" in phases:
+            launches["lm_tp_cards"] = phase_lm_tp_cards(args.seed, card)
+            done("lm_tp_cards")
         if "training" in phases:
             launches["training"] = phase_training(args.seed)
             done("training")

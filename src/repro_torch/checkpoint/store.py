@@ -30,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.tree import flatten_with_path
 from repro_torch.core.tree import leaves as tree_leaves
 from repro_torch.core.tree import unflatten
 
@@ -93,6 +94,36 @@ def _savez(path: str, arrays: dict):
                 f.write(_npy_bytes(np.asanyarray(arr)))
 
 
+def npz_mmap(path: str) -> dict:
+    """The members of an uncompressed ``.npz`` as read-only memory maps
+    (name without ``.npy`` -> array), read lazily by whoever slices them."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: member {info.filename} is "
+                                 f"compressed; it cannot be mapped")
+            f.seek(info.header_offset)
+            head = f.read(30)
+            start = (info.header_offset + 30
+                     + int.from_bytes(head[26:28], "little")
+                     + int.from_bytes(head[28:30], "little"))
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if not int(np.prod(shape)):
+                out[name] = np.zeros(shape, dtype)
+                continue
+            out[name] = np.memmap(path, dtype=dtype, mode="r",
+                                  offset=f.tell(), shape=shape,
+                                  order="F" if fortran else "C")
+    return out
+
+
 class CheckpointStore:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -151,17 +182,27 @@ class CheckpointStore:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, select=None) -> Any:
         """Restore step ``step`` (default: the latest) into the structure of
         ``like``, whose leaves are dtype names
-        (``serving.serialize.build_like``), onto ``device``."""
+        (``serving.serialize.build_like``), onto ``device``. ``select(path,
+        array) -> array`` picks the part of each leaf to load (e.g. a
+        rank's shard): the arrays are then memory-mapped, so only that
+        part is read."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:09d}", "arrays.npz")
-        with np.load(path) as data:
-            new = [from_host(data[f"a{i}"], dtype, device)
-                   for i, dtype in enumerate(tree_leaves(like))]
+        if select is None:
+            with np.load(path) as data:
+                new = [from_host(data[f"a{i}"], dtype, device)
+                       for i, dtype in enumerate(tree_leaves(like))]
+            return unflatten(like, new)
+        members = npz_mmap(path)
+        # np.array: the selected part read into memory of its own
+        new = [from_host(np.array(select(p, members[f"a{i}"])), dtype,
+                         device)
+               for i, (p, dtype) in enumerate(flatten_with_path(like))]
         return unflatten(like, new)
 
     def meta(self, step: int) -> dict:

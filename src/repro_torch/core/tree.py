@@ -60,6 +60,13 @@ def map_with_path(fn: Callable[[Tuple, Any], Any], tree, path: Tuple = ()):
     return fn(path, tree)
 
 
+def at_path(tree, path: Tuple):
+    """The subtree (or leaf) of ``tree`` at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def unflatten(like, new_leaves) -> Any:
     """Rebuild ``like``'s structure with ``new_leaves`` in flatten order."""
     index = {path: i for i, (path, _) in enumerate(flatten_with_path(like))}

@@ -86,8 +86,6 @@ _ENV_STUB = "REPRO_AUTOTUNE_STUB"
 #: shard fields) read as empty and are rewritten at this version
 CACHE_VERSION = 2
 
-_ITEM_SHARD = "ROADMAP.md Queue 1 item 6 (sharding)"
-
 
 def stub_mode() -> bool:
     return os.environ.get(_ENV_STUB, "").strip() not in ("", "0", "false")
@@ -226,6 +224,30 @@ def dense_from_pack(pack: KernelBSR, data=None):
     w = np.zeros((n // bn, bn, k // bk, bk), data.dtype)
     w[rows, :, cols, :] = data[: pack.real_nnzt]
     return w.reshape(n, k)
+
+
+def shard_subpack(pack: KernelBSR, n_shards: int, axis: str) -> KernelBSR:
+    """The measurement proxy for a tensor-parallel shard: the sub-pattern
+    of the MOST occupied shard (the per-rank straggler that sets the
+    layer's critical path), as its own KernelBSR over the per-rank
+    sub-shape. ``axis='out'`` slices output block rows, ``'in'`` input
+    block cols (``serving/export.shard_axis_for``)."""
+    from repro_torch.kernels.bsr_matmul import pack_bsr
+    rows = np.asarray(pack.row_id[: pack.real_nnzt], np.int64)
+    cols = np.asarray(pack.col_id[: pack.real_nnzt], np.int64)
+    per = (pack.n_brows if axis == "out" else pack.n_bcols) // n_shards
+    shard_of = (rows if axis == "out" else cols) // per
+    s = int(np.bincount(shard_of, minlength=n_shards).argmax())
+    data = pack.data
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().float().numpy()
+    w = dense_from_pack(pack, np.asarray(data))
+    bn, bk = pack.tile
+    if axis == "out":
+        sub = w[s * per * bn: (s + 1) * per * bn, :]
+    else:
+        sub = w[:, s * per * bk: (s + 1) * per * bk]
+    return pack_bsr(sub, pack.tile)
 
 
 # --------------------------------------------------------------------------
@@ -492,11 +514,13 @@ def choose_backend(pack: KernelBSR, m: int = 256, *,
     by default). Consults the on-disk winner cache first; on a miss it
     measures (or, in stub mode, ranks by the proxy) and persists the
     winner. ``quant`` ('none' | 'int8' | 'fp8') adds the q8 arms to the
-    default set and is always part of the key, with the value dtype."""
-    if shard is not None and int(shard[0]) > 1:
-        raise NotImplementedError(
-            f"sharded autotuning (shard={tuple(shard)}) comes with "
-            f"{_ITEM_SHARD}")
+    default set and is always part of the key, with the value dtype.
+
+    ``shard = (n_shards, axis)`` tags the key with the tensor-parallel
+    partitioning and the per-shard sub-problem shape, and the measurement
+    runs on the per-shard sub-problem (:func:`shard_subpack`, the most
+    occupied shard); an indivisible pattern serves replicated, so it is
+    keyed and measured unsharded."""
     dev = resolve_device(device)
     stub = stub_mode() if stub is None else bool(stub)
     cache = cache if cache is not None else default_cache()
@@ -507,23 +531,34 @@ def choose_backend(pack: KernelBSR, m: int = 256, *,
         if not stub and timer is None and not _has_kernels(dev):
             candidates = [c for c in candidates if c not in INTERPRET_ONLY]
     mode = "stub" if stub else "wallclock"
+    shard_tag = ""
+    measure_pack = pack
+    if shard is not None and int(shard[0]) > 1:
+        n_shards, axis = int(shard[0]), shard[1]
+        if xp.shard_divisible(pack, n_shards, axis):
+            n, k = pack.shape
+            sn = n // n_shards if axis == "out" else n
+            sk = k // n_shards if axis == "in" else k
+            shard_tag = f":s{axis}{n_shards}x{sn}x{sk}"
+            measure_pack = shard_subpack(pack, n_shards, axis)
     key = (f"{pattern_digest(pack)}:m{int(m)}:{device_kind(dev)}"
-           f":d{device_count(dev)}:{mode}"
+           f":d{device_count(dev)}{shard_tag}:{mode}"
            f":q{quant}:w{_dtype_name(pack.data)}:c{_cand_tag(candidates)}")
     rec = cache.get(key)
     if rec is not None and rec.get("backend") in candidates:
         return Choice(rec["backend"], dict(rec.get("costs", {})), True,
                       mode, key)
     if stub:
-        costs = stub_costs(pack, m, candidates, device=dev)
+        costs = stub_costs(measure_pack, m, candidates, device=dev)
         scores = costs
     else:
-        costs, scores = measure(pack, m, candidates, reps=reps, timer=timer,
-                                device=dev)
+        costs, scores = measure(measure_pack, m, candidates, reps=reps,
+                                timer=timer, device=dev)
     backend = min(scores, key=scores.get)
     cache.put(key, {"backend": backend, "costs": costs, "mode": mode,
                     "m": int(m), "device": device_kind(dev),
-                    "devices": device_count(dev), "shard": None,
+                    "devices": device_count(dev),
+                    "shard": shard_tag.lstrip(":") or None,
                     "quant": quant,
                     "created": time.strftime("%Y-%m-%dT%H:%M:%S")})
     return Choice(backend, costs, False, mode, key)

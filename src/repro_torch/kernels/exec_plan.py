@@ -22,6 +22,10 @@ values with fp32 scales and run the same two ways: :func:`plan_q_linear`
 (plain, the scale folded into the gathered activations) and
 :func:`plan_q_linear_pallas` (kernel K6, ``bsr_matmul.plan_dds_q``).
 
+Tensor-parallel serving partitions a plan's vrows into equal shards
+(:class:`ShardedPlan`, :func:`build_sharded_plan`); a rank runs its shard
+as a plan of its own (:func:`local_plan`) through the plain composition.
+
 The host-side functions (fingerprints, capacity choice, plan and schedule
 construction) are numpy and byte-identical to the reference.
 """
@@ -175,6 +179,261 @@ def plan_for_pack(pack: KernelBSR,
     reg = registry if registry is not None else _PLAN_REGISTRY
     fp = kernel_pattern_fingerprint(pack)
     return reg.cached(("rowpack_plan", fp), lambda: build_plan(pack))
+
+
+# --------------------------------------------------------------------------
+# sharded plans (tensor-parallel serving: launch/sharding.py conventions)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPlan(RowPackPlan):
+    """A RowPackPlan whose virtual-row axis is partitioned into ``n_shards``
+    contiguous, equal-size groups -- one per rank of a tensor-parallel
+    "model" mesh axis.
+
+    ``shard_axis`` selects the layout:
+
+      * ``'out'`` (column-parallel: wq/wk/wv/wqkv/wi/wg): shard ``s`` owns
+        output block rows ``[s*R/S, (s+1)*R/S)`` and its vrows reference
+        only those rows;
+      * ``'in'`` (row-parallel: wo): shard ``s`` owns input block columns
+        ``[s*C/S, (s+1)*C/S)`` and its vrows map to *global* output rows,
+        so summing the shards' segment sums is the per-layer reduction.
+
+    The whole plan is also a valid single-device plan (``spilled`` is
+    forced True: the segment sum reassembles the shards). ``shard_
+    fingerprints`` key each shard's sub-pattern (registry, autotune).
+    ``mesh`` (a ``launch.mesh.ProcessMesh``, never serialized, not part of
+    the fingerprint) is attached by ``prepare_servable`` / ``load_servable``:
+    with it, ``models.common.linear`` runs this rank's shard
+    (:func:`local_plan`) and the collective that makes the output whole.
+    """
+
+    n_shards: int = 1
+    shard_axis: str = "out"            # 'out' = column-parallel, 'in' = row
+    shard_fingerprints: Tuple[bytes, ...] = ()
+    mesh: Optional[object] = None
+
+    @property
+    def spilled(self) -> bool:
+        return True
+
+    @property
+    def vrows_per_shard(self) -> int:
+        return self.n_vrows // max(1, self.n_shards)
+
+    def with_mesh(self, mesh) -> "ShardedPlan":
+        return dataclasses.replace(self, mesh=mesh)
+
+    def __hash__(self):
+        return hash(self.fingerprint)
+
+    def __eq__(self, other):
+        return (isinstance(other, ShardedPlan)
+                and self.fingerprint == other.fingerprint)
+
+
+def shard_divisible(pack: KernelBSR, n_shards: int, shard_axis: str) -> bool:
+    """True when this pack partitions into ``n_shards`` equal groups along
+    ``shard_axis`` ('out' = output block rows, 'in' = input block cols) --
+    the divisibility rule ``launch/sharding.spec_for_param`` applies to
+    dense weights (indivisible dims replicate)."""
+    dim = pack.n_brows if shard_axis == "out" else pack.n_bcols
+    return n_shards >= 1 and dim % n_shards == 0 and dim >= n_shards
+
+
+def _shard_layout(rows: np.ndarray, cols: np.ndarray, p: int):
+    """Compressed row-grouped layout for ONE shard's tiles (pack order):
+    only rows present get vrows. Returns ``(col_idx (v, p), slot_mask,
+    row_of_vrow (v,), vrow, slot)``."""
+    if rows.size == 0:
+        return (np.zeros((0, p), np.int32), np.zeros((0, p), bool),
+                np.zeros((0,), np.int64), np.zeros((0,), np.int64),
+                np.zeros((0,), np.int64))
+    uniq, inv = np.unique(rows, return_inverse=True)
+    counts = np.bincount(inv, minlength=len(uniq))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    order = np.argsort(inv, kind="stable")
+    rank = np.empty(rows.shape[0], np.int64)
+    rank[order] = np.arange(rows.shape[0]) - starts[inv[order]]
+    n_spill = np.ceil(np.maximum(counts - p, 0) / p).astype(np.int64)
+    spill_base = len(uniq) + np.concatenate([[0], np.cumsum(n_spill)[:-1]])
+    v = int(len(uniq) + n_spill.sum())
+    chunk = rank // p
+    vrow = np.where(chunk == 0, inv, spill_base[inv] + chunk - 1)
+    slot = rank % p
+    col_idx = np.zeros((v, p), np.int32)
+    col_idx[vrow, slot] = cols
+    slot_mask = np.zeros((v, p), bool)
+    slot_mask[vrow, slot] = True
+    row_of_vrow = np.empty((v,), np.int64)
+    row_of_vrow[: len(uniq)] = uniq
+    for rr in np.nonzero(n_spill)[0]:
+        row_of_vrow[spill_base[rr]: spill_base[rr] + n_spill[rr]] = uniq[rr]
+    return col_idx, slot_mask, row_of_vrow, vrow, slot
+
+
+def shard_pattern_fingerprint(pack: KernelBSR, n_shards: int,
+                              shard_axis: str, shard: int) -> bytes:
+    """Fingerprint of ONE shard's sub-pattern (local coordinates) -- the
+    per-shard registry and autotune key."""
+    rows = np.asarray(pack.row_id[: pack.real_nnzt], np.int64)
+    cols = np.asarray(pack.col_id[: pack.real_nnzt], np.int64)
+    if shard_axis == "out":
+        per = pack.n_brows // n_shards
+        sel = (rows // per) == shard
+        lrows, lcols = rows[sel] % per, cols[sel]
+        shape = (pack.shape[0] // n_shards, pack.shape[1])
+    else:
+        per = pack.n_bcols // n_shards
+        sel = (cols // per) == shard
+        lrows, lcols = rows[sel], cols[sel] % per
+        shape = (pack.shape[0], pack.shape[1] // n_shards)
+    header = np.array([*shape, *pack.tile, int(shard_axis == "in")], np.int64)
+    return (b"shard:" + header.tobytes()
+            + lrows.astype(np.int32).tobytes()
+            + lcols.astype(np.int32).tobytes())
+
+
+def build_sharded_plan(pack: KernelBSR, n_shards: int,
+                       shard_axis: str = "out", *,
+                       registry: Optional[PatternRegistry] = None,
+                       shard_stats: Optional[dict] = None) -> ShardedPlan:
+    """Partition ``pack`` into ``n_shards`` equal vrow groups (see
+    :class:`ShardedPlan`). Every shard shares one slot capacity P and is
+    padded to the largest shard's vrow count, so the vrow axis divides
+    exactly by ``n_shards``. ``registry`` caches each shard's layout under
+    its sub-pattern fingerprint (in shard-local coordinates, re-offset at
+    assembly); ``shard_stats`` collects per-shard hit / miss counts."""
+    if not shard_divisible(pack, n_shards, shard_axis):
+        raise ValueError(
+            f"pattern {pack.shape} @ tile {pack.tile} not divisible into "
+            f"{n_shards} shards along {shard_axis!r}")
+    rows = np.asarray(pack.row_id[: pack.real_nnzt], np.int64)
+    cols = np.asarray(pack.col_id[: pack.real_nnzt], np.int64)
+    bn, bk = pack.tile
+    if shard_axis == "out":
+        per = pack.n_brows // n_shards
+        shard_of = rows // per
+    else:
+        per = pack.n_bcols // n_shards
+        shard_of = cols // per
+    p = 1
+    for s in range(n_shards):
+        srows = rows[shard_of == s]
+        if srows.size:
+            counts = np.bincount(np.unique(srows, return_inverse=True)[1])
+            p = max(p, _choose_capacity(counts, bk))
+
+    layouts, fps = [], []
+    for s in range(n_shards):
+        idx = np.nonzero(shard_of == s)[0]
+        fp = shard_pattern_fingerprint(pack, n_shards, shard_axis, s)
+        fps.append(fp)
+        lrows = rows[idx] - s * per if shard_axis == "out" else rows[idx]
+        lcols = cols[idx] - s * per if shard_axis == "in" else cols[idx]
+
+        def build(lrows=lrows, lcols=lcols):
+            return _shard_layout(lrows, lcols, p)
+        if registry is not None:
+            key = ("plan_shard", shard_axis, p, fp)
+            if shard_stats is not None:
+                st = shard_stats.setdefault(s, {"hits": 0, "misses": 0})
+                st["hits" if registry.peek(key) else "misses"] += 1
+            layouts.append((idx, registry.cached(key, build)))
+        else:
+            layouts.append((idx, build()))
+
+    v_max = max(1, max(lay[1][0].shape[0] for lay in layouts))
+    col_idx = np.zeros((n_shards * v_max, p), np.int32)
+    slot_mask = np.zeros((n_shards * v_max, p), bool)
+    row_of_vrow = np.zeros((n_shards * v_max,), np.int64)
+    vrow = np.zeros((pack.real_nnzt,), np.int64)
+    slot = np.zeros((pack.real_nnzt,), np.int64)
+    for s, (idx, (ci, sm, rov, vr, sl)) in enumerate(layouts):
+        v = ci.shape[0]
+        lo = s * v_max
+        # globalize; padding vrows (>= v) keep the shard's base row / col
+        # and multiply zero values
+        if shard_axis == "out":
+            col_idx[lo: lo + v] = ci
+            row_of_vrow[lo: lo + v_max] = s * per
+            row_of_vrow[lo: lo + v] = rov + s * per
+        else:
+            col_idx[lo: lo + v_max] = s * per
+            col_idx[lo: lo + v] = ci + s * per
+            row_of_vrow[lo: lo + v] = rov
+        slot_mask[lo: lo + v] = sm
+        vrow[idx] = lo + vr
+        slot[idx] = sl
+    header = np.array([n_shards, int(shard_axis == "in")], np.int64)
+    fingerprint = (b"sharded:" + header.tobytes()
+                   + kernel_pattern_fingerprint(pack))
+    return ShardedPlan(
+        col_idx=col_idx, slot_mask=slot_mask,
+        row_of_vrow=row_of_vrow.astype(np.int32),
+        vrow=vrow.astype(np.int32), slot=slot.astype(np.int32),
+        shape=pack.shape, tile=pack.tile, nnzt=pack.nnzt,
+        real_nnzt=pack.real_nnzt, fingerprint=fingerprint,
+        n_shards=n_shards, shard_axis=shard_axis,
+        shard_fingerprints=tuple(fps))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LocalPlan(RowPackPlan):
+    """Shard ``shard`` of a :class:`ShardedPlan` as a plan of its own over
+    the rank's values: the vrows ``[s*V/S, (s+1)*V/S)`` with 'out' rows
+    made local (shape ``(N/S, K)``) or 'in' columns made local (shape
+    ``(N, K/S)``). A shard holds vrows only for the rows it has tiles in,
+    so block rows can be missing: the ordered segment sum gives them exact
+    zeros (``spilled`` is always True). It runs through the plain 'plan'
+    composition only -- kernel K1's schedule needs every output block row
+    covered, and :func:`plan_kernel_sequence` refuses a plan that is not."""
+
+    shard: int = 0
+
+    @property
+    def spilled(self) -> bool:
+        return True
+
+    def __hash__(self):
+        return hash(self.fingerprint)
+
+    def __eq__(self, other):
+        return (isinstance(other, LocalPlan)
+                and self.fingerprint == other.fingerprint)
+
+
+@functools.lru_cache(maxsize=None)
+def local_plan(plan: ShardedPlan, shard: int) -> LocalPlan:
+    """The rank-local view of shard ``shard`` of ``plan`` (cached)."""
+    s, n = int(shard), plan.n_shards
+    v = plan.vrows_per_shard
+    lo, hi = s * v, (s + 1) * v
+    bn, bk = plan.tile
+    vrow = np.asarray(plan.vrow, np.int64)
+    mine = (vrow >= lo) & (vrow < hi)
+    col_idx = np.asarray(plan.col_idx[lo:hi], np.int64)
+    row_of_vrow = np.asarray(plan.row_of_vrow[lo:hi], np.int64)
+    if plan.shard_axis == "out":
+        per = plan.n_brows // n
+        row_of_vrow = row_of_vrow - s * per
+        shape = (plan.shape[0] // n, plan.shape[1])
+    else:
+        per = plan.n_bcols // n
+        col_idx = col_idx - s * per
+        shape = (plan.shape[0], plan.shape[1] // n)
+    header = np.array([s], np.int64)
+    return LocalPlan(
+        col_idx=col_idx.astype(np.int32),
+        slot_mask=np.asarray(plan.slot_mask[lo:hi], bool),
+        row_of_vrow=row_of_vrow.astype(np.int32),
+        vrow=(vrow[mine] - lo).astype(np.int32),
+        slot=np.asarray(plan.slot, np.int32)[mine],
+        shape=shape, tile=(bn, bk), nnzt=int(mine.sum()),
+        real_nnzt=int(mine.sum()),
+        fingerprint=b"local:" + header.tobytes() + plan.fingerprint,
+        shard=s)
 
 
 # --------------------------------------------------------------------------
@@ -572,7 +831,7 @@ def _scale_xg(xg: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return xg.float() * scales.float()[..., None]
 
 
-def _plan_q_fwd(x, qvalues, scales, plan: RowPackPlan) -> torch.Tensor:
+def _plan_q_fwd_f32(x, qvalues, scales, plan: RowPackPlan) -> torch.Tensor:
     m = x.shape[0]
     xs = _scale_xg(_gather_x(x, plan), scales)              # (M, V, P, bk)
     y = torch.einsum("mvpk,vpnk->vmn", xs, qvalues.float())  # (V, M, bn)
@@ -580,7 +839,11 @@ def _plan_q_fwd(x, qvalues, scales, plan: RowPackPlan) -> torch.Tensor:
         y = torch.cat([y, y.new_zeros((1,) + tuple(y.shape[1:]))])
         y = y[_dev_index(plan, "vrow_segments", _vrow_segments(plan),
                          x.device)].sum(dim=1)                # (R, M, bn)
-    return y.permute(1, 0, 2).reshape(m, plan.shape[0]).to(x.dtype)
+    return y.permute(1, 0, 2).reshape(m, plan.shape[0])
+
+
+def _plan_q_fwd(x, qvalues, scales, plan: RowPackPlan) -> torch.Tensor:
+    return _plan_q_fwd_f32(x, qvalues, scales, plan).to(x.dtype)
 
 
 class _PlanQLinear(torch.autograd.Function):

@@ -1,1 +1,2 @@
-"""Launch: step builders and the training driver."""
+"""Launch: meshes and sharding rules, step builders and the training
+driver."""

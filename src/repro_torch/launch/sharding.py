@@ -1,0 +1,248 @@
+"""Divisibility-aware sharding rules: DP + FSDP + TP + EP (+ SP).
+
+Counterpart of ``repro/launch/sharding.py``, rule for rule. A spec is a
+tuple with one entry per dimension: an axis name, a tuple of axis names
+(the dimension splits over their product, first axis outermost), or None
+(replicated) -- what ``jax.sharding.PartitionSpec`` holds. Where the
+reference wraps a spec in a ``NamedSharding``, the ``*_shardings``
+functions here return the spec tree itself.
+
+Conventions (single pod mesh ("data","model"); multi-pod prepends "pod"
+which folds into DP):
+  * column-parallel 2-D weights (out, in): out -> "model", in -> "data" (FSDP)
+  * row-parallel    2-D weights (wo/out*): out -> "data",  in -> "model"
+  * expert 3-D weights (E, a, b):          E   -> "model" (EP), a -> "data"
+  * embeddings (V, d): V -> "model", d -> "data"
+  * 1-D (norm scales, biases, gates): replicated
+  * a dim is sharded over an axis only when divisible, else replicated --
+    this is what lets kv_heads=1 (MQA) or tiny projections coexist with a
+    16-wide model axis.
+
+Caches/batches shard batch over DP and heads/state over "model".
+Stacked (period) leaves get leading None specs automatically.
+
+:func:`local_shard` cuts a whole tensor to one rank's shard from a spec
+and the rank's coordinate; :func:`shard_shape` is that shard's shape.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core.tree import map_with_path, norm_path, path_name
+from repro_torch.launch.mesh import dp_axes
+
+_ROW_PARALLEL = ("wo", "out", "out_proj")
+# router: small, replicated keeps top-k local. MLA latent down/up
+# projections (w_dkv/w_uk/w_uv/w_krope): rank-sized, consumed via per-head
+# reshapes in the absorbed decode path -- sharding them buys little.
+_REPLICATE = ("router", "w_dkv", "w_uk", "w_uv", "w_krope")
+
+
+def _sizes(mesh):
+    return dict(mesh.shape)
+
+
+def _div(shape, dim, ax, sizes):
+    return ax is not None and shape[dim] % sizes.get(ax, 1) == 0 and \
+        shape[dim] >= sizes.get(ax, 1)
+
+
+def leaf_name(path) -> str:
+    """A tree path as the reference's ``_leaf_name`` renders it:
+    'blocks/0/attn/wqkv/w'."""
+    return norm_path(path_name(path))
+
+
+def spec_for_param(name: str, shape, mesh, mode: str = "train") -> tuple:
+    """mode="train": TP + FSDP (weights gathered per layer; optimizer state
+    must fit). mode="inference": TP-only -- no data-axis weight sharding, so
+    prefill/decode never pay per-layer weight all-gathers; experts use 2-D
+    (E x f) sharding so 100B+ MoE weights still fit."""
+    sizes = _sizes(mesh)
+    toks = name.split("/")
+    short = toks[-2] if toks[-1] == "w" and len(toks) >= 2 else toks[-1]
+    ndim = len(shape)
+
+    if any(t in short for t in _REPLICATE):
+        return (None,) * ndim
+
+    # expert weights: trailing 3 dims (E, a, b)
+    if ndim >= 3 and short in ("wi", "wg", "wo") and "ffn" in name:
+        lead = ndim - 3
+        e_ax = "model" if _div(shape, lead, "model", sizes) else None
+        if mode == "inference":
+            # 2-D EP x TP: the f dim over data (wi/wg: dim 2; wo: dim 1)
+            if short == "wo":
+                f_ax = "data" if _div(shape, lead + 1, "data", sizes) else None
+                return (None,) * lead + (e_ax, f_ax, None)
+            f_ax = "data" if _div(shape, lead + 2, "data", sizes) else None
+            return (None,) * lead + (e_ax, None, f_ax)
+        a_ax = "data" if _div(shape, lead + 1, "data", sizes) else None
+        return (None,) * lead + (e_ax, a_ax, None)
+
+    if ndim == 1 or np.prod(shape) < 4096:
+        return (None,) * ndim
+
+    # generic 2-D (possibly stacked): trailing (out, in)
+    lead = ndim - 2
+    row = any(short.startswith(t) or short == t for t in _ROW_PARALLEL)
+    fsdp = "data" if mode == "train" else None
+    if row:
+        out_ax = fsdp if _div(shape, lead, "data", sizes) else None
+        in_ax = "model" if _div(shape, lead + 1, "model", sizes) else None
+    else:
+        out_ax = "model" if _div(shape, lead, "model", sizes) else None
+        in_ax = fsdp if _div(shape, lead + 1, "data", sizes) else None
+    return (None,) * lead + (out_ax, in_ax)
+
+
+def param_shardings(shape_tree: Any, mesh, mode: str = "train"):
+    """The spec of every leaf of a tree of tensors (or anything with a
+    ``shape``)."""
+    return map_with_path(lambda path, leaf: spec_for_param(
+        leaf_name(path), tuple(leaf.shape), mesh, mode), shape_tree)
+
+
+def opt_shardings(opt_shape_tree: Any, mesh):
+    """m/v mirror the params rules; scalars replicated."""
+    return param_shardings(opt_shape_tree, mesh)
+
+
+# model-axis candidate dim per cache leaf kind, relative to the unstacked
+# layout (never the head_dim / time dims)
+_CACHE_MODEL_DIM = {
+    "k": 2, "v": 2,          # (B, T, Hkv, D) -> kv heads
+    "k_scale": 2, "v_scale": 2,  # int8-cache scales (B, T, Hkv)
+    "c_kv": 2, "k_rope": None,   # MLA latent (B, T, r) -> rank
+    "state": 1,              # SSD (B, H, P, N) -> heads
+    "conv": 2,               # (B, W, C) -> channels
+    "h": 1,                  # RG-LRU (B, W) -> width
+    "cross_k": 3, "cross_v": 3,  # stacked (L, B, T, Hkv, D) handled by lead
+}
+
+#: paged-KV pool leaves: axis 0 (+lead) is PHYSICAL PAGES -- one shared id
+#: space across the pool, never sharded (and never the dp batch dim); only
+#: the kv-head / latent-rank dim goes over "model". page_table / pos_map
+#: stay replicated int32 bookkeeping.
+_PAGE_POOL_MODEL_DIM = {
+    "k_pages": 2, "v_pages": 2,      # (N, ps, Hkv, D) -> kv heads
+    "c_kv_pages": 2,                 # (N, ps, r) -> latent rank
+    "k_rope_pages": None,            # (N, ps, dr) shared rope key
+}
+
+
+def spec_for_cache(name: str, shape, mesh) -> tuple:
+    sizes = _sizes(mesh)
+    dp = dp_axes(mesh)
+    dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    ndim = len(shape)
+    toks = name.split("/")
+    short = toks[-1]
+    if ndim <= 1:
+        return (None,) * ndim
+    # caches carry a leading stack dim when period-stacked: detect 'blocks'
+    lead = 1 if ("blocks" in toks or short.startswith("cross")
+                 or "self" in toks) else 0
+    if short.startswith("cross"):
+        lead = 1
+    if short == "page_table":
+        return (None,) * ndim
+    if short.endswith("_pages"):
+        spec = [None] * ndim
+        mdim = _PAGE_POOL_MODEL_DIM.get(short)
+        if mdim is not None:
+            d = mdim + lead
+            if d < ndim and _div(shape, d, "model", sizes):
+                spec[d] = "model"
+        return tuple(spec)
+    spec = [None] * ndim
+    bdim = lead
+    if bdim < ndim and shape[bdim] % dp_size == 0 and shape[bdim] >= dp_size:
+        spec[bdim] = dp if len(dp) > 1 else (dp[0] if dp else None)
+    mdim = _CACHE_MODEL_DIM.get(short)
+    if mdim is not None:
+        d = mdim + (lead if not short.startswith("cross") else 0)
+        if d < ndim and d > bdim and _div(shape, d, "model", sizes):
+            spec[d] = "model"
+    return tuple(spec)
+
+
+def cache_shardings(cache_shape_tree: Any, mesh):
+    return map_with_path(lambda path, leaf: spec_for_cache(
+        leaf_name(path), tuple(leaf.shape), mesh), cache_shape_tree)
+
+
+def batch_shardings(batch_shape_tree: Any, mesh):
+    sizes = _sizes(mesh)
+    dp = dp_axes(mesh)
+    dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        if len(shape) >= 1 and shape[0] % dp_size == 0 and \
+                shape[0] >= dp_size:
+            spec[0] = dp if len(dp) > 1 else (dp[0] if dp else None)
+        elif len(shape) >= 2 and shape[0] == 1 and \
+                shape[1] % dp_size == 0:
+            spec[1] = dp if len(dp) > 1 else (dp[0] if dp else None)  # SP
+        return tuple(spec)
+    return map_with_path(one, batch_shape_tree)
+
+
+def replicated(mesh=None) -> tuple:
+    """The replicated spec (``P()``)."""
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# a rank's shard
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def shard_index(entry, mesh, coord) -> tuple:
+    """(index, count) of this rank's block along a dim whose spec entry is
+    ``entry``: the row-major index over the entry's axes at ``coord`` (a
+    dict axis -> index) and the product of their sizes."""
+    sizes = _sizes(mesh)
+    idx, count = 0, 1
+    for a in _axes(entry):
+        idx = idx * sizes[a] + int(coord.get(a, 0))
+        count *= sizes[a]
+    return idx, count
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` tensor under ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        _, count = shard_index(entry, mesh, {})
+        out[d] //= count
+    return tuple(out)
+
+
+def local_shard(x, spec, mesh, coord):
+    """This rank's shard of the whole tensor (or numpy array) ``x`` under
+    ``spec``: along every sharded dim, the block at the rank's index
+    (``coord``: a dict axis -> index, e.g. ``{'data': 0, 'model': 2}``).
+    A view where slicing allows; a dim that does not divide raises."""
+    for d, entry in enumerate(spec):
+        idx, count = shard_index(entry, mesh, coord)
+        if count == 1:
+            continue
+        n = x.shape[d]
+        if n % count:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
+                             f"into {count} shards ({entry})")
+        w = n // count
+        sl = [slice(None)] * x.ndim
+        sl[d] = slice(idx * w, (idx + 1) * w)
+        x = x[tuple(sl)]
+    return x

@@ -1,6 +1,7 @@
-"""Step builders: the train step (CE + aux + reported group-l1, AdamW, prox).
+"""Step builders: the train step (CE + aux + reported group-l1, AdamW, prox)
+and the serving steps (prefill, decode).
 
-Counterpart of the training half of ``repro/launch/steps.py``. A step is a
+Counterpart of ``repro/launch/steps.py``. A train step is a
 plain function of ``(params, opt_state, batch)`` returning new params, a new
 optimizer state and metrics (0-d tensors on the params' device); gradients
 come from ``torch.autograd.grad`` over the param leaves, the counterpart of
@@ -15,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regularizer import tree_group_penalty
 from repro_torch.core.tree import leaves, unflatten
+from repro_torch.models.api import decode_step as model_decode_step
 from repro_torch.models.api import model_forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
@@ -90,3 +92,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     return train_step
 
+
+
+def make_prefill_step(cfg: ModelConfig, packs=None):
+    """``prefill_step(params, batch) -> (B,)`` greedy next token after the
+    last position of ``batch['tokens']``."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _ = model_forward(params, cfg, batch, packs=packs)
+        return torch.argmax(logits[:, -1], dim=-1)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, packs=None):
+    """``serve_step(params, cache, token (B, 1), pos) -> (next token (B, 1)
+    int32, cache)``: one greedy decode step, the cache written in place."""
+    def serve_step(params, cache, token, pos):
+        with torch.no_grad():
+            logits, cache = model_decode_step(params, cache, cfg, token, pos,
+                                              packs=packs)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return nxt[:, None], cache
+    return serve_step

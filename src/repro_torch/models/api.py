@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import at_path, map_with_path
 from repro_torch.device import resolve_device
 from repro_torch.models import bert as bert_mod
 from repro_torch.models import encdec as encdec_mod
@@ -83,20 +84,56 @@ def _device_of(params):
 
 
 def init_cache(params, cfg: ModelConfig, batch_size, cache_len, frames=None,
-               paged=None):
+               paged=None, mesh=None):
     """A zeroed decode cache on the params' device. ``paged``
     (``models.common.PagedLayout`` or None): page-pool storage for the
     global attention and MLA layers (lm families only; ``serving/paging.py``
     hands out page ids). The audio family runs its encoder over ``frames``
     (B, T_audio, d) here and caches each decoder layer's cross K/V; its
-    batch is the frames' batch."""
+    batch is the frames' batch. With ``mesh`` (a ``launch.mesh.
+    ProcessMesh``; lm families) only this rank's shard of every leaf is
+    allocated (:func:`cache_shardings`): request slots over "data", KV
+    heads over "model"."""
     _decoder(cfg)
     if cfg.family == "audio":
         if paged is not None:
             raise ValueError("paged KV is not supported for family 'audio'")
         return encdec_mod.init_cache(params, cfg, frames, cache_len)
-    return lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
-                             device=_device_of(params))
+    if mesh is None:
+        return lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
+                                 device=_device_of(params))
+    from repro_torch.launch.sharding import shard_shape
+    from repro_torch.models.attention import slot_reset_value
+    whole = lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
+                              device="meta")
+    specs = cache_shardings(whole, mesh)
+    dev = _device_of(params)
+    return map_with_path(lambda path, x: torch.full(
+        shard_shape(x.shape, at_path(specs, path), mesh),
+        slot_reset_value(path[-1]), dtype=x.dtype, device=dev), whole)
+
+
+def cache_shardings(cache, mesh):
+    """The spec of every leaf of a decode cache on ``mesh``: request slots
+    (the batch dim) over "data", KV heads / recurrent state over "model"
+    -- ``launch/sharding.spec_for_cache``'s divisibility-aware rules.
+    ``cache`` is whole (its shapes are the global ones)."""
+    from repro_torch.launch.sharding import cache_shardings as _shardings
+    return _shardings(cache, mesh)
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh):
+    """This rank's shard of a whole decode cache on ``mesh`` (``mesh``: a
+    ``launch.mesh.ProcessMesh``), each leaf copied into storage of its own:
+    the slot lifecycle ops then write shard-local, in place, and never
+    change a leaf's shape."""
+    _decoder(cfg)
+    from repro_torch.launch.sharding import local_shard
+    specs = cache_shardings(cache, mesh)
+    coord = {a: mesh.coord(a) for a in mesh.axis_names}
+    return map_with_path(lambda path, x: local_shard(
+        x, at_path(specs, path), mesh, coord).clone(
+        memory_format=torch.contiguous_format), cache)
 
 
 def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
@@ -111,7 +148,8 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
 
 def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
                 packs=None, remaining=None, eos_id=None, key=None,
-                temperature: float = 0.0, top_k: int = 0):
+                temperature: float = 0.0, top_k: int = 0,
+                slot_offset: int = 0):
     """``n_steps`` decode steps with sampling, per-slot EOS / token budget
     handling and position bookkeeping all on the device: a Python loop that
     never reads a device value, so the host syncs once per window (when the
@@ -129,7 +167,8 @@ def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
     are untouched.
 
     Returns ``(tokens (K, B) int32, valid (K, B) bool, state)`` with state
-    ``{'token', 'pos', 'remaining', 'failed', 'cache'}``.
+    ``{'token', 'pos', 'remaining', 'failed', 'cache'}``. Row ``i`` samples
+    as slot ``slot_offset + i`` (a data-parallel rank's slot range).
     """
     _decoder(cfg)
     dev = _device_of(params)
@@ -157,7 +196,7 @@ def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
         rows = logits[:, 0, :]
         finite = torch.isfinite(rows).all(dim=-1)
         nxt = sample_tokens(rows, key, pos, temperature=temperature,
-                            top_k=top_k)
+                            top_k=top_k, slot_offset=slot_offset)
         active = pos >= 0
         poisoned = active & ~finite
         emit = active & finite
@@ -176,25 +215,26 @@ def decode_many(params, cache, cfg: ModelConfig, token, pos, n_steps, *,
 
 
 def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None,
-                  packs=None):
+                  packs=None, last_only: bool = False):
     """One-pass prompt prefill into a decode cache: forward-path compute for
     tokens (B, S), in-place cache rewrite for positions 0..length-1. Returns
     (logits (B, S, V) fp32, cache). Audio prefills through its decode path
-    instead (its decoder prompts are a few tokens)."""
+    instead (its decoder prompts are a few tokens). ``last_only``: the
+    logits of position ``length - 1`` alone, (B, 1, V)."""
     _lm_only(cfg, "one-pass prefill")
     return lm_mod.prefill_cache(params, cache, cfg, tokens, length,
-                                packs=packs)
+                                packs=packs, last_only=last_only)
 
 
 def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
-                   length=None, packs=None):
+                   length=None, packs=None, last_only: bool = False):
     """Prefill only the suffix of a prompt whose first ``start`` tokens are
     already resident in slot ``slot`` of the batched engine cache: the
     paged prefix-cache hit path and the chunked prefill of the SLO
     scheduler, dense or paged, share this entry point (lm.prefill_suffix)."""
     _lm_only(cfg, "one-pass prefill")
     return lm_mod.prefill_suffix(params, cache, cfg, tokens, slot, start,
-                                 length, packs=packs)
+                                 length, packs=packs, last_only=last_only)
 
 
 # ---------------------------------------------------------------------------

@@ -541,12 +541,13 @@ def _suffix_prefill_dense(q, k, v, cache, *, window, length, slot, start):
     return out
 
 
-def _suffix_prefill_paged(p, q, k, v, cache, packs, *, length, page_slot,
+def _suffix_prefill_paged(q, k, v, cache, *, length, page_slot,
                           page_start):
     """Paged suffix prefill: one slot's new prompt tokens at absolute
     positions page_start.. are written into its installed pages (valid
     rows only) and attend over the page view, whose low pages hold a shared
-    prefix that was never re-prefilled."""
+    prefix that was never re-prefilled. Returns the attention output
+    (1, S, Hq, D)."""
     b, s = q.shape[0], q.shape[1]
     if b != 1:
         raise ValueError("a paged suffix prefill takes one slot's tokens")
@@ -568,8 +569,7 @@ def _suffix_prefill_paged(p, q, k, v, cache, packs, *, length, page_slot,
     v_view = paged_view(vp, pt_row[None], pm_row[None])
     qpos = pos_i[None, :, None]                                  # (1,S,1)
     ok = (pm_row[None, None, :] >= 0) & (pm_row[None, None, :] <= qpos)
-    out = masked_attention(q, k_view, v_view, ok)
-    return linear(p["wo"], _merge_heads(out), packs and packs.get("wo"))
+    return masked_attention(q, k_view, v_view, ok)
 
 
 def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
@@ -595,6 +595,11 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
     When the sparse export fused the q/k/v projections (``packs['wqkv']``),
     one block-sparse matmul produces all three and the output is split at
     the (Hq*D, Hkv*D, Hkv*D) boundaries.
+
+    On a mesh whose cache shards the KV heads (``packs['heads']``, a
+    ``common.HeadShard``), the projections come out whole on every rank,
+    attention (and every cache write) runs over this rank's KV heads and
+    their query heads, and the output is gathered before ``wo``.
 
     ``kv_override`` (k, v) (B, T, Hkv, D) is cross-attention over encoder
     K/V: only q is projected (and normalized), nothing is rotated; without
@@ -622,6 +627,9 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                              cfg.n_kv_heads, hd)
         else:
             k, v = kv_override
+    heads = packs.get("heads") if packs else None
+    if heads is not None:           # a mesh: this rank's KV heads only
+        q, k, v = heads.local(q, k, v)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["scale"])
         if kv_override is None:
@@ -645,12 +653,12 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
         length = s if prefill_len is None else int(prefill_len)
         if paged:
             out = _suffix_prefill_paged(
-                p, q, k, v, cache, packs, page_slot=page_slot,
-                page_start=page_start, length=length)
-            return out, cache
-        out = _suffix_prefill_dense(q, k, v, cache, window=window,
-                                    length=length, slot=int(page_slot),
-                                    start=int(page_start))
+                q, k, v, cache, page_slot=page_slot, page_start=page_start,
+                length=length)
+        else:
+            out = _suffix_prefill_dense(q, k, v, cache, window=window,
+                                        length=length, slot=int(page_slot),
+                                        start=int(page_start))
     elif paged and s > 1:
         raise NotImplementedError(
             "whole-cache prompt prefill is undefined for a paged KV layout; "
@@ -724,5 +732,7 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                 else:
                     out = decode_attention(q, ck, cv, pm, posv,
                                            window=window)
+    if heads is not None:
+        out = heads.gather(out)
     out = linear(p["wo"], _merge_heads(out), packs and packs.get("wo"))
     return out, cache

@@ -4,7 +4,9 @@ Counterpart of ``repro/models/bert.py``: post-LN transformer, learned
 positional embeddings, GELU FFN, tied MLM decoder, no biases. Layers are
 unrolled so each layer can carry its own block-sparse pattern. ``packs``
 routes the projections through the block-sparse layouts exported by
-``serving.export``; ``packs=None`` is the dense baseline.
+``serving.export``; ``packs=None`` is the dense baseline. A mesh servable's
+packs also mark the dense leaves it shards (``common.DenseShard`` under
+'embed', 'pos', 'mlm_dense' and the projections' keys).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_mlp, apply_norm, gelu, init_mlp,
+from repro_torch.models.common import (apply_mlp, apply_norm, embed_lookup,
+                                       gelu, head_logits, init_mlp,
                                        init_norm, linear, normal_init)
 
 MAX_POSITIONS = 512
@@ -46,7 +49,10 @@ def init_bert(gen: torch.Generator, cfg: ModelConfig, device=None):
 def forward(params, cfg: ModelConfig, tokens, *, packs=None):
     """tokens (B, S) int -> MLM logits (B, S, V) fp32."""
     b, s = tokens.shape
-    h = params["embed"]["w"][tokens] + params["pos"][None, :s]
+    top = packs or {}
+    pos = torch.arange(s, device=tokens.device)
+    h = embed_lookup(params["embed"]["w"], tokens, top.get("embed")) \
+        + embed_lookup(params["pos"], pos, top.get("pos"))[None]
     h = apply_norm(params["embed_norm"], h, "ln")
     for i, lp in enumerate(params["layers"]):
         lpacks = _sel(packs, f"layers/{i}")
@@ -55,10 +61,10 @@ def forward(params, cfg: ModelConfig, tokens, *, packs=None):
         h = apply_norm(lp["norm1"], h + out, "ln")           # post-LN
         out = apply_mlp(lp["ffn"], h, "gelu", packs=_sel(lpacks, "ffn"))
         h = apply_norm(lp["norm2"], h + out, "ln")
-    t = gelu(linear(params["mlm_dense"], h))
+    t = gelu(linear(params["mlm_dense"], h, top.get("mlm_dense")))
     t = apply_norm(params["mlm_norm"], t, "ln")
     # a plain product outside any kernel, as the reference leaves it to XLA
-    return torch.matmul(t.float(), params["embed"]["w"].float().t())
+    return head_logits(t, params["embed"]["w"].float(), top.get("embed"))
 
 
 def _sel(packs, scope):

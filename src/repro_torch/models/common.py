@@ -1,11 +1,19 @@
 """Shared layer primitives: norms, activations, RoPE, linear init/apply,
 gated MLPs and the paged-KV primitives.
 
-Counterpart of ``repro/models/common.py`` (without the tensor-parallel
-hook).
-Parameters are plain dicts of tensors, laid out as in the reference: a
-linear weight is stored (d_out, d_in) and applied as ``y = x @ w.T`` (the
-BSR layout).
+Counterpart of ``repro/models/common.py``. Parameters are plain dicts of
+tensors, laid out as in the reference: a linear weight is stored (d_out,
+d_in) and applied as ``y = x @ w.T`` (the BSR layout).
+
+Tensor parallelism (a mesh servable, ``serving/servable.py``) is explicit
+SPMD here where the reference leaves it to GSPMD: a rank holds its shard of
+each sharded projection and :func:`linear` makes the output whole on every
+rank -- a column-parallel ('out') shard computes its rows' block and
+all-gathers it along features, a row-parallel ('in') shard multiplies its
+block columns of the whole ``x`` into an fp32 partial of every output and
+all-reduces it (the reference's one psum a layer), then casts to ``x``'s
+dtype (:func:`tp_constrain`). Replicated leaves compute the whole output
+and take no collective.
 """
 from __future__ import annotations
 
@@ -108,6 +116,86 @@ def init_linear(gen, d_in, d_out, dtype=torch.float32, scale=0.02,
     return {"w": normal_init(gen, (d_out, d_in), scale, dtype, device)}
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseShard:
+    """A dense weight that ``launch/sharding.spec_for_param`` shards over
+    the "model" axis of ``mesh`` (a ``launch.mesh.ProcessMesh``): ``axis``
+    'out' (its output rows) or 'in' (its input columns). Mesh servables
+    pass it to :func:`linear` in place of a pack; ``'embed'`` / ``'head'``
+    shards of a (V, d) table mark vocabulary rows (:func:`embed_lookup`,
+    :func:`head_logits`)."""
+
+    axis: str
+    mesh: object
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """Attention over this rank's KV heads (the cache's head dim is
+    sharded over "model"): :meth:`local` slices q / k / v to them,
+    :meth:`gather` makes the attention output whole again."""
+
+    mesh: object
+    n_kv_heads: int
+
+    def _range(self, n_heads):
+        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
+        w = n_heads // n
+        return s * w, (s + 1) * w
+
+    def local(self, q, k, v):
+        """(B, S, H, D) q / k / v -> their local heads (q's G query heads
+        per KV head follow their KV head)."""
+        g = q.shape[2] // k.shape[2]
+        lo, hi = self._range(self.n_kv_heads)
+        return q[:, :, lo * g:hi * g], k[:, :, lo:hi], v[:, :, lo:hi]
+
+    def gather(self, out):
+        return self.mesh.all_gather(out, "model", dim=2)
+
+
+def tp_constrain(y, pack, dtype=None):
+    """The port's counterpart of the reference's sharding hook for a
+    sharded projection's rank-local output ``y``: column-parallel
+    (``shard_axis`` / ``axis`` 'out') all-gathers the feature blocks,
+    row-parallel ('in') all-reduces the fp32 partials -- the layer's one
+    psum -- and casts the sum to ``dtype``."""
+    axis = getattr(pack, "shard_axis", None) or pack.axis
+    if axis == "out":
+        return pack.mesh.all_gather(y, "model", dim=-1)
+    return pack.mesh.all_reduce(y, "model").to(dtype or y.dtype)
+
+
+def _in_block(x, k_local, mesh):
+    """This rank's block of input features for a row-parallel shard."""
+    s = mesh.coord("model")
+    return x[..., s * k_local:(s + 1) * k_local]
+
+
+def _sharded_plan_linear(p, x, sharded, qpack=None):
+    """A ShardedPlan (or a QuantPlan over one) on a mesh: this rank's shard
+    through the plain 'plan' composition, then :func:`tp_constrain`."""
+    from repro_torch.kernels import exec_plan as xp
+    if qpack is not None and qpack.backend != "plan":
+        raise ValueError(
+            f"a sharded quantized pack serves through backend 'plan' only, "
+            f"not {qpack.backend!r} (kernel K6 needs every output row)")
+    lp = xp.local_plan(sharded, sharded.mesh.coord("model"))
+    lead = tuple(x.shape[:-1])
+    if sharded.shard_axis == "in":
+        x = _in_block(x, lp.shape[1], sharded.mesh)
+    x2 = x.reshape(-1, x.shape[-1])
+    if sharded.shard_axis == "in":
+        y = (xp._plan_q_fwd_f32(x2, p["w"], p["scale"], lp) if qpack
+             else xp._plan_fwd_f32(x2, p["w"], lp))
+    elif qpack is not None:
+        y = xp.plan_q_linear(x2, p["w"], p["scale"], lp)
+    else:
+        y = xp.plan_linear(x2, p["w"], lp)
+    y = y.reshape(lead + (lp.shape[0],))
+    return tp_constrain(y, sharded, x.dtype)
+
+
 def linear(p, x, pack=None, backend=None):
     """Dense or block-sparse projection.
 
@@ -126,6 +214,12 @@ def linear(p, x, pack=None, backend=None):
         backend the autotuner measured fastest for it;
       * an ``autotune.MaskedPack`` -- ``p['w']`` stays a DENSE (N, K) weight
         and kernel K7 (``masked_matmul``) skips the masked tiles;
+      * a ``ShardedPlan`` with a mesh attached (a mesh servable) -- this
+        rank's vrows of the plan (``exec_plan.local_plan``) and the
+        collective that makes the output whole (:func:`tp_constrain`); a
+        ``QuantPlan`` over one likewise ('plan' backend only);
+      * a :class:`DenseShard` -- this rank's rows or columns of a dense
+        weight, then the same collective;
       * None -- a dense weight, ``x @ w.T``.
     Every fp plan and pack route is differentiable; the quantized plain
     route in ``x`` only, K6 and K7 are forward-only.
@@ -134,7 +228,19 @@ def linear(p, x, pack=None, backend=None):
         from repro_torch.kernels.autotune import BackendChoice, MaskedPack
         from repro_torch.kernels.bsr_matmul import KernelBSR
         from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
-                                                   RowPackPlan, plan_matmul)
+                                                   RowPackPlan, ShardedPlan,
+                                                   plan_matmul)
+        if isinstance(pack, DenseShard):
+            w = p["w"]
+            if pack.axis == "in":
+                xl = _in_block(x, w.shape[1], pack.mesh)
+                y = torch.matmul(xl.float(), w.float().t())
+                return tp_constrain(y, pack, x.dtype)
+            return tp_constrain(torch.matmul(x, w.t()), pack)
+        inner = pack.plan if isinstance(pack, QuantPlan) else pack
+        if isinstance(inner, ShardedPlan) and inner.mesh is not None:
+            return _sharded_plan_linear(
+                p, x, inner, pack if isinstance(pack, QuantPlan) else None)
         if isinstance(pack, QuantPlan):
             from repro_torch.kernels.ops import plan_q_dispatch
             return plan_q_dispatch(x, p["w"], p["scale"], pack.plan,
@@ -187,6 +293,29 @@ def init_mlp(gen, d_model, d_ff, act="gelu", dtype=torch.float32,
         p["wg"] = init_linear(gen, d_model, d_ff, dtype, device=device)
     p["wo"] = init_linear(gen, d_ff, d_model, dtype, device=device)
     return p
+
+
+def embed_lookup(w, tokens, shard=None):
+    """Rows ``tokens`` of the table ``w``. With a :class:`DenseShard`, ``w``
+    is this rank's block of vocabulary rows: tokens outside it read zeros
+    and an all-reduce over "model" assembles the rows (exact: one value
+    plus zeros)."""
+    if shard is None:
+        return w[tokens.long()]
+    mesh = shard.mesh
+    v = w.shape[0]
+    t = tokens.long() - mesh.coord("model") * v
+    ok = ((t >= 0) & (t < v))[..., None]
+    h = torch.where(ok, w[t.clamp(0, v - 1)],
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    return mesh.all_reduce(h, "model")
+
+
+def head_logits(h, head_f32, shard=None):
+    """fp32 logits ``h @ head.T``; with a :class:`DenseShard` the head is
+    this rank's vocabulary rows and the logits blocks are all-gathered."""
+    y = torch.matmul(h.float(), head_f32.t())
+    return y if shard is None else shard.mesh.all_gather(y, "model", dim=-1)
 
 
 def apply_mlp(p, x, act="gelu", packs=None):

@@ -45,7 +45,8 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (apply_mlp, apply_norm, init_mlp,
+from repro_torch.models.common import (apply_mlp, apply_norm,
+                                       embed_lookup, head_logits, init_mlp,
                                        init_norm, normal_init,
                                        paged_bulk_write)
 
@@ -213,8 +214,9 @@ def _run_layers(params, cfg, h, cache=None, packs=None, remat=False, **kw):
     return h, aux
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    h = params["embed"]["w"][tokens.long()]
+def _embed(params, cfg: ModelConfig, tokens, packs=None):
+    h = embed_lookup(params["embed"]["w"], tokens,
+                     packs.get("embed") if packs else None)
     if cfg.scale_embedding:
         # the reference multiplies by sqrt(d) rounded to the model dtype;
         # the factor is rounded on the host, so no copy to the device
@@ -247,12 +249,12 @@ def _head_f32(head: torch.Tensor) -> torch.Tensor:
     return f32
 
 
-def _logits(params, cfg: ModelConfig, h):
+def _logits(params, cfg: ModelConfig, h, packs=None):
     """Final norm, then fp32 logits (B, S, V) over the (tied) head."""
     h = apply_norm(params["final_norm"], h, cfg.norm)
-    head = params["embed"]["w"] if cfg.tie_embeddings \
-        else params["lm_head"]["w"]
-    return torch.matmul(h.float(), _head_f32(head).t())
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return head_logits(h, _head_f32(params[name]["w"]),
+                       packs.get(name) if packs else None)
 
 
 # ---------------------------------------------------------------------------
@@ -265,14 +267,14 @@ def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
     patch embeddings, replace the first P positions after the embedding
     scale."""
     b, s = tokens.shape
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, packs)
     if mm_embeds is not None:
         n_p = mm_embeds.shape[1]
         h = torch.cat([mm_embeds.to(h.dtype), h[:, n_p:]], dim=1)
     positions = torch.arange(s, device=h.device)[None, :]
     h, aux = _run_layers(params, cfg, h, packs=packs,
                          remat=remat_active(params), positions=positions)
-    return _logits(params, cfg, h), aux
+    return _logits(params, cfg, h, packs), aux
 
 
 # ---------------------------------------------------------------------------
@@ -441,43 +443,54 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, *, packs=None):
     rows with pos < 0 are inactive, their cache untouched) -> (logits
     (B, 1, V) fp32, cache), the new K/V rows written in place."""
     b = token.shape[0]
-    h = _embed(params, cfg, token)
+    h = _embed(params, cfg, token, packs)
     pos = attn.as_slot_positions(pos, b, h.device)
     positions = pos.clamp_min(0)[:, None]              # (B, 1), rope-safe
     h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
                        pos=pos)
-    return _logits(params, cfg, h), cache
+    return _logits(params, cfg, h, packs), cache
+
+
+def _logits_rows(params, cfg, h, packs, last_only, length):
+    """The logits of every position, or (``last_only``) of position
+    ``length - 1`` alone, (B, 1, V): a mesh servable's prefill gathers the
+    vocabulary blocks of that row only."""
+    if last_only:
+        h = h[:, length - 1:length]
+    return _logits(params, cfg, h, packs)
 
 
 def prefill_cache(params, cache, cfg: ModelConfig, tokens, length=None, *,
-                  packs=None):
+                  packs=None, last_only: bool = False):
     """One-pass prompt prefill: ``tokens`` (B, S) from position 0 run
     through the forward attention paths while every layer rewrites its
     cache with positions 0..length-1 (``length`` <= S; the tail is bucket
     padding and leaves no trace). Returns (logits (B, S, V) fp32, cache);
-    sample the next token from ``logits[:, length - 1]``."""
+    sample the next token from ``logits[:, length - 1]`` (with
+    ``last_only``, the logits are that row alone, (B, 1, V))."""
     b, s = tokens.shape
     length = s if length is None else int(length)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, packs)
     positions = torch.arange(s, device=h.device)[None, :]
     h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
                        prefill_len=length)
-    return _logits(params, cfg, h), cache
+    return _logits_rows(params, cfg, h, packs, last_only, length), cache
 
 
 def prefill_suffix(params, cache, cfg: ModelConfig, tokens, slot, start,
-                   length=None, *, packs=None):
+                   length=None, *, packs=None, last_only: bool = False):
     """Prefill only the suffix ``tokens`` (1, S) of a prompt whose first
     ``start`` tokens are already resident in slot ``slot`` of the batched
     cache -- a paged prefix-cache hit, or the next chunk of a chunked
     prefill (dense rings or pages): each layer writes the suffix K/V at
     positions start..start+length-1 and attends over resident prefix +
-    suffix. Sample the next token from ``logits[0, length - 1]``."""
+    suffix. Sample the next token from ``logits[0, length - 1]`` (with
+    ``last_only``, the logits are that row alone)."""
     b, s = tokens.shape
     length = s if length is None else int(length)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, packs)
     positions = int(start) + torch.arange(s, device=h.device)[None, :]
     h, _ = _run_layers(params, cfg, h, cache, packs, positions=positions,
                        prefill_len=length, page_slot=int(slot),
                        page_start=int(start))
-    return _logits(params, cfg, h), cache
+    return _logits_rows(params, cfg, h, packs, last_only, length), cache

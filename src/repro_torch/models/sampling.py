@@ -24,11 +24,14 @@ from repro_torch.models import prng
 __all__ = ["sample_tokens", "sample_token_row", "slot_keys"]
 
 
-def slot_keys(key: torch.Tensor, pos) -> torch.Tensor:
+def slot_keys(key: torch.Tensor, pos, slot_offset: int = 0) -> torch.Tensor:
     """Per-row sampling keys ``(B, 2)`` for a batch of slots:
-    ``fold_in(fold_in(key, row), max(pos, 0))``."""
+    ``fold_in(fold_in(key, slot), max(pos, 0))`` with ``slot = row +
+    slot_offset`` (a data-parallel rank's rows are slots from its
+    offset on)."""
     pos = torch.as_tensor(pos, device=key.device).to(torch.int64)
-    rows = torch.arange(pos.shape[0], dtype=torch.int64, device=key.device)
+    rows = int(slot_offset) + torch.arange(pos.shape[0], dtype=torch.int64,
+                                           device=key.device)
     return prng.fold_in(prng.fold_in(key, rows), pos.clamp_min(0))
 
 
@@ -49,7 +52,7 @@ def _sample(rows: torch.Tensor, keys: torch.Tensor, temperature: float,
 
 
 def sample_tokens(logits, key=None, pos=None, *, temperature: float = 0.0,
-                  top_k: int = 0):
+                  top_k: int = 0, slot_offset: int = 0):
     """``logits (B, V)`` -> sampled token ids ``(B,)`` int32, on the logits'
     device.
 
@@ -58,10 +61,11 @@ def sample_tokens(logits, key=None, pos=None, *, temperature: float = 0.0,
     categorically, optionally restricted to the ``top_k`` largest entries
     of each row. ``key`` is a ``(2,)`` threefry key (``prng.PRNGKey``) and
     ``pos`` the per-slot positions the samples follow; inactive rows
-    (pos < 0) still produce a (meaningless) token -- callers mask them."""
+    (pos < 0) still produce a (meaningless) token -- callers mask them.
+    Row ``i`` is slot ``slot_offset + i``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    keys = slot_keys(key.to(logits.device), pos)
+    keys = slot_keys(key.to(logits.device), pos, slot_offset)
     return _sample(logits, keys, temperature, top_k).to(torch.int32)
 
 

@@ -68,8 +68,16 @@ each token's key is JAX's threefry key folded by (slot, position)
 (``models/sampling.py``), so the port samples the reference's tokens, and
 fused and per-step decoding sample alike.
 
-Not ported here (it raises at construction, naming its ROADMAP.md item):
-meshes.
+**Meshes** (a servable prepared or loaded with ``spec.mesh_shape``): every
+rank of the mesh builds the same engine and submits the same requests, and
+every rank runs the same host schedule -- admission, buckets, windows and
+slot recycling. The cache is this rank's shard (slots over "data", KV heads
+over "model"); a rank decodes its own slots and the window's tokens are
+all-gathered at the sync, prefill logits rows are agreed over "data", so
+the schedulers never diverge. Clock-driven control (deadlines, SLO
+fast-fail and overload shedding) would diverge across ranks and is refused
+on a mesh of more than one rank; paged KV on a "data" axis logs its
+blocker and serves dense (the page ids are one shared space).
 """
 from __future__ import annotations
 
@@ -257,9 +265,14 @@ class ServingEngine:
         cfg = servable.cfg
         if cfg.family == "bert":
             raise ValueError("encoder-only arch has no decode step")
-        if servable.spec.mesh_shape is not None:
-            raise NotImplementedError(
-                "a mesh comes with ROADMAP.md Queue 1 item 6 (sharding)")
+        self._mesh = servable.mesh
+        if self._mesh is not None and self._mesh.size > 1:
+            sched_ = sched if sched is not None else servable.spec.sched
+            if sched_ is not None and (sched_.fast_fail
+                                       or sched_.max_queue_delay_s > 0):
+                raise ValueError(
+                    "fast_fail / max_queue_delay_s read each rank's clock; "
+                    "on a mesh the ranks' schedules would diverge")
         if overflow not in OVERFLOW_POLICIES:
             raise ValueError(
                 f"overflow={overflow!r} not in {OVERFLOW_POLICIES}")
@@ -310,6 +323,8 @@ class ServingEngine:
                 blocker = "kv_cache_quant (int8 page pools are future work)"
             elif not pageable:
                 blocker = "no linear attention/MLA layers to page"
+            elif servable.spec.data_shards > 1:
+                blocker = "data-parallel mesh (page ids are a shared space)"
             if blocker is not None:
                 log.info("kv_layout='paged' unavailable for this config "
                          "(%s); serving dense", blocker)
@@ -453,7 +468,11 @@ class ServingEngine:
             req.deadline_at = req.submitted_at + float(deadline_s)
 
         reject = None
-        if prompt.size == 0:
+        if deadline_s is not None and self._mesh is not None \
+                and self._mesh.size > 1:
+            reject = ("deadline_s reads each rank's clock; on a mesh the "
+                      "ranks' schedules would diverge")
+        elif prompt.size == 0:
             reject = "empty prompt"
         elif max_new_tokens < 1:
             reject = ("max_new_tokens must be >= 1 (the prefill already "
@@ -628,10 +647,9 @@ class ServingEngine:
         bucket = self._bucket(length)
         toks = np.zeros((bucket,), np.int32)
         toks[:length] = seq
-        self._sub, logits = self.servable.engine_prefill(
+        self._sub, row = self.servable.prefill_row(
             self._sub, self._dev(toks), length)
-        row = logits[length - 1].float().cpu().numpy()  # once per admission
-        return bucket, row
+        return bucket, row.float().cpu().numpy()    # once per admission
 
     def _admit(self, req: EngineRequest) -> bool:
         """Admit ``req`` into a free slot. Returns True when the request was
@@ -669,8 +687,8 @@ class ServingEngine:
                     1, self.cache_len,
                     frames=frames[None] if frames.dim() == 2 else frames)
             bucket, row = self._prefill_sub(seq)
-            self.cache = self.servable.engine_write_slot(self.cache, slot,
-                                                         self._sub)
+            self.cache = self.servable.engine_write_slot(
+                self.cache, slot, self._sub, batch=self.max_slots)
         except Exception as e:  # noqa: BLE001 -- isolate to this request
             return self._admission_failed(req, slot, [], t0, e)
         self.stats.prefilled_tokens += length
@@ -685,7 +703,8 @@ class ServingEngine:
         if not np.all(np.isfinite(row)):
             if held:
                 self._pool.release(held)
-            self.cache = self.servable.engine_free_slot(self.cache, slot)
+            self.cache = self.servable.engine_free_slot(
+                self.cache, slot, batch=self.max_slots)
             self._restore_slot(slot)
             self.stats.prefill_s += time.perf_counter() - t0
             self._finalize(req, "failed", FailureReason(
@@ -814,9 +833,10 @@ class ServingEngine:
                 toks[:slen] = suffix
                 self.cache = self.servable.engine_restore_paged(
                     self.cache, slot, self._page_row(pages), start)
-                self.cache, logits = self.servable.suffix_prefill(
-                    self.cache, self._dev(toks), slot, start, slen)
-                row = logits[slen - 1].float().cpu().numpy()
+                self.cache, row = self.servable.suffix_prefill_row(
+                    self.cache, self._dev(toks), slot, start, slen,
+                    self.max_slots)
+                row = row.float().cpu().numpy()
                 self.stats.prefix_hit_tokens += start
                 self.stats.prefilled_tokens += slen
             else:
@@ -908,8 +928,9 @@ class ServingEngine:
                 try:
                     self._fire(chaos_mod.SITE_PREFILL_CHUNK, request=req,
                                start=start, size=c)
-                    self.cache, logits = self.servable.suffix_prefill(
-                        self.cache, self._dev(toks), req.slot, start, c)
+                    self.cache, row = self.servable.suffix_prefill_row(
+                        self.cache, self._dev(toks), req.slot, start, c,
+                        self.max_slots)
                 finally:
                     if self._watchdog is not None:
                         self._watchdog.disarm()
@@ -922,7 +943,7 @@ class ServingEngine:
                 self.stats.bucket_hits[bucket] += 1
             if req.prefill_pos < req.prefill_target:
                 return used                 # budget spent mid-prompt
-            row = logits[c - 1].float().cpu().numpy()
+            row = row.float().cpu().numpy()
         except Exception as e:  # noqa: BLE001 -- isolate to this request
             log.warning("chunked prefill of request %d failed (%s: %s)",
                         req.req_id, type(e).__name__, e)
@@ -1015,7 +1036,8 @@ class ServingEngine:
                 self._saved_pages[req.req_id] = (pages, req.pos)
             elif pages:
                 self._pool.release(pages)
-        self.cache = self.servable.engine_free_slot(self.cache, slot)
+        self.cache = self.servable.engine_free_slot(self.cache, slot,
+                                                    batch=self.max_slots)
         self._pos[slot] = -1
         self._tokens[slot, 0] = 0
         self._remaining[slot] = 0
@@ -1384,6 +1406,10 @@ class ServingEngine:
                 if x.is_floating_point():
                     x[:, slot].fill_(float("nan"))
             return
+        if self._mesh is not None:      # this rank's shard of the slots
+            slot = self.servable.local_slot(slot, self.max_slots)
+            if slot is None:
+                return
         sections = [(c, False) for c in self.cache["prefix"]] \
             + [(c, True) for c in self.cache["blocks"]] \
             + [(c, False) for c in self.cache["suffix"]]

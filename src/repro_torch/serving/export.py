@@ -37,13 +37,24 @@ from repro_torch.kernels.bsr_matmul import (KernelBSR, pack_bsr,
 from repro_torch.kernels.autotune import (BackendChoice, dense_from_pack,
                                          masked_pack_from)
 from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
+                                           build_sharded_plan,
                                            dequantize_plan_values,
                                            pack_plan_data, plan_for_pack,
-                                           quantize_for_plan)
+                                           quantize_for_plan,
+                                           shard_divisible)
 
 _QKV = ("wq", "wk", "wv")
 _ATTN_PROJS = ("wq", "wk", "wv", "wo")
 _FFN_PROJS = ("wi", "wg", "wo")
+
+
+def shard_axis_for(proj: str) -> str:
+    """Tensor-parallel axis per projection, mirroring the dense rules of
+    ``launch/sharding.spec_for_param``: ``wo`` (attention out-proj and MLP
+    down-proj) is row-parallel -- sharded by input block cols, partials
+    summed -- everything else (wq/wk/wv/wqkv/wi/wg) is column-parallel,
+    sharded by output block rows."""
+    return "in" if proj == "wo" else "out"
 
 # families whose param tree follows the lm.py prefix/blocks/suffix layout
 LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -91,15 +102,20 @@ def pack_single(w: np.ndarray, tile) -> Tuple[KernelBSR, np.ndarray]:
 
 def _realize_backend(pack, data, backend: str,
                      registry: Optional[PatternRegistry], device,
-                     quant: str = "none"):
+                     quant: str = "none", shard=None, shard_stats=None):
     """(pattern, packed values (numpy or tensor), chosen backend) -> (static
     pack stored in ``packs``, values on ``device`` for the params tree).
     ``data`` is ``(nnzt, bn, bk)`` or layer-stacked ``(L, nnzt, bn, bk)``.
 
       * ``plan``        -> RowPackPlan + row-grouped values (served by the
-        plain composition);
+        plain composition); with ``shard = (n_shards, axis)`` and a
+        divisible pattern, a :class:`~repro_torch.kernels.exec_plan.
+        ShardedPlan` whose vrow axis shards over the mesh "model" axis
+        (indivisible patterns keep the replicated plan, the
+        ``spec_for_param`` divisibility rule);
       * ``plan_pallas`` -> the same layout in a PlanChoice pinning every call
-        to kernel K1;
+        to kernel K1 (no sharded form: a sharded plan serves through the
+        plain composition);
       * ``bsr``         -> the bare KernelBSR pattern, its values kept on the
         device (``ops.bsr_matmul``'s default backend: K4 on the card);
       * ``gather`` / ``rowpack`` / ``pallas`` -> the pattern pinned to that
@@ -117,8 +133,17 @@ def _realize_backend(pack, data, backend: str,
         data = torch.from_numpy(np.ascontiguousarray(data))
     data = data.to(device)
     if backend in ("plan", "plan_q8", "plan_pallas", "plan_pallas_q8"):
-        plan = plan_for_pack(pack, registry)
         kernel = backend.startswith("plan_pallas")
+        if not kernel and shard is not None and shard[0] > 1 \
+                and shard_divisible(pack, shard[0], shard[1]):
+            # built (not combined-cached) per call so identical layers
+            # still count per-shard registry hits; plans stay shared
+            # downstream through fingerprint hash / eq
+            plan = build_sharded_plan(pack, shard[0], shard[1],
+                                      registry=registry,
+                                      shard_stats=shard_stats)
+        else:
+            plan = plan_for_pack(pack, registry)
         if backend.endswith("_q8") or quant != "none":
             return quantize_for_plan(plan, data,
                                      quant if quant != "none" else "int8",
@@ -135,6 +160,21 @@ def _realize_backend(pack, data, backend: str,
     if backend in ("gather", "rowpack", "pallas"):
         return BackendChoice(pack, backend), data
     raise ValueError(f"unknown serving backend {backend!r}")
+
+
+def _effective_shard(pack, shard):
+    """The shard config this pack actually serves under: None unless a mesh
+    is asked for and the pattern divides (keeps the autotune key and
+    candidate set honest for replicated packs)."""
+    if shard is not None and shard[0] > 1 and shard_divisible(pack, *shard):
+        return shard
+    return None
+
+
+def _choose(chooser, pack, shard):
+    """Call a backend chooser, passing ``shard=`` only when this pack
+    really shards (single-argument choosers keep working unsharded)."""
+    return chooser(pack) if shard is None else chooser(pack, shard=shard)
 
 
 def _quant_meta(pk, vals, data) -> Optional[Dict]:
@@ -157,18 +197,19 @@ def _quant_meta(pk, vals, data) -> Optional[Dict]:
 
 def _serving_pack(w: np.ndarray, tile, use_plans: bool,
                   registry: Optional[PatternRegistry], device, chooser=None,
-                  quant: str = "none"):
+                  quant: str = "none", shard=None, shard_stats=None):
     """(N, K) weight -> (static pattern, values, chooser / quant meta)."""
     pack = pack_bsr(w, tile)
+    shard = _effective_shard(pack, shard)
     if chooser is None:
         pk, vals = _realize_backend(pack, pack.data,
                                     "plan" if use_plans else "bsr", registry,
-                                    device, quant)
+                                    device, quant, shard, shard_stats)
         qmeta = _quant_meta(pk, vals, pack.data)
         return pk, vals, {"quant": qmeta} if qmeta else None
-    choice = chooser(pack)
+    choice = _choose(chooser, pack, shard)
     pk, vals = _realize_backend(pack, pack.data, choice.backend, registry,
-                                device, quant)
+                                device, quant, shard, shard_stats)
     meta = {"backend": choice.backend,
             "cache_hit": choice.cache_hit, "mode": choice.mode}
     qmeta = _quant_meta(pk, vals, pack.data)
@@ -232,19 +273,21 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
                        registry: Optional[PatternRegistry] = None,
                        stats_out: Optional[Dict] = None,
                        backend_chooser=None, pack_quant: str = "none",
-                       device=None):
+                       device=None, n_shards: int = 1):
     """BSR export for the unrolled BERT encoder. Returns (sparse_params,
     packs); ``packs`` maps 'layers/<i>/<group>/<name>' to its static pack
     (a plan by default, a bare KernelBSR with ``use_plans=False``, the
     chooser's verdict with ``backend_chooser``; quantized with
-    ``pack_quant``). ``stats_out`` is filled with the per-group union,
-    autotune and quantization stats. Values land on ``device`` (default:
-    where the weights are)."""
+    ``pack_quant``; tensor-parallel ShardedPlans with ``n_shards > 1``).
+    ``stats_out`` is filled with the per-group union, autotune and
+    quantization stats (and ``'__sharding__'``). Values land on ``device``
+    (default: where the weights are)."""
     layers = params["layers"]
     n_layers = len(layers)
     if device is None:
         device = layers[0]["attn"]["wo"]["w"].device
     packs: Dict[str, object] = {}
+    shard_stats: Dict[int, Dict] = {}
     attn_new = [dict(lp["attn"]) for lp in layers]
     ffn_new = [dict(lp["ffn"]) for lp in layers]
 
@@ -267,33 +310,44 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
     for group, name, getw, src in specs:
         tgt = attn_new if group == "attn" else ffn_new
         dtypes = [lp[group][src]["w"].dtype for lp in layers]
+        shard = (n_shards, shard_axis_for(name)) if n_shards > 1 else None
         if cross_layer_union:
             stacked = np.stack([getw(lp) for lp in layers])
             pack, data, union_st = pack_stacked(stacked, tile)
+            shard_eff = _effective_shard(pack, shard)
             if backend_chooser is not None:
-                choice = backend_chooser(pack)
+                choice = _choose(backend_chooser, pack, shard_eff)
                 union_st = dict(union_st)
                 union_st["autotune"] = {"backend": choice.backend,
                                         "cache_hit": choice.cache_hit,
                                         "mode": choice.mode}
                 pk, vals = _realize_backend(pack, data, choice.backend,
-                                            registry, device, pack_quant)
+                                            registry, device, pack_quant,
+                                            shard_eff, shard_stats)
                 qmeta = _quant_meta(pk, vals, data)
                 if qmeta:
                     union_st["quant"] = qmeta
                 shared = [pk] * n_layers
             elif use_plans and pack_quant != "none":
                 pk, vals = _realize_backend(pack, data, "plan", registry,
-                                            device, pack_quant)
+                                            device, pack_quant, shard_eff,
+                                            shard_stats)
                 qmeta = _quant_meta(pk, vals, data)
                 if qmeta:
                     union_st = dict(union_st, quant=qmeta)
                 shared = [pk] * n_layers
             elif use_plans:
-                # one lookup per layer: the registry's hit counters then show
-                # the (L-1)-fold reuse of the single unioned plan
-                shared = [plan_for_pack(pack, registry)
-                          for _ in range(n_layers)]
+                # one lookup per layer: the registry's hit counters (global
+                # and per shard) then show the (L-1)-fold reuse of the
+                # single unioned plan
+                if shard_eff is not None:
+                    shared = [build_sharded_plan(pack, *shard_eff,
+                                                 registry=registry,
+                                                 shard_stats=shard_stats)
+                              for _ in range(n_layers)]
+                else:
+                    shared = [plan_for_pack(pack, registry)
+                              for _ in range(n_layers)]
                 vals = pack_plan_data(shared[0], data.to(device))
             else:
                 shared = [pack] * n_layers
@@ -309,7 +363,8 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
             for i, lp in enumerate(layers):
                 pk, vals, meta = _serving_pack(getw(lp), tile, use_plans,
                                                registry, device,
-                                               backend_chooser, pack_quant)
+                                               backend_chooser, pack_quant,
+                                               shard, shard_stats)
                 if stats_out is not None and meta:
                     st = {"union_nnzt": _pack_nnzt(pk)}
                     qmeta = meta.pop("quant", None)
@@ -338,6 +393,9 @@ def export_bert_sparse(params, cfg: ModelConfig, tile=(64, 64),
         if include_ffn:
             nlp["ffn"] = ffn_new[i]
         new_layers.append(nlp)
+    if n_shards > 1 and stats_out is not None:
+        stats_out["__sharding__"] = {"n_shards": n_shards,
+                                     "per_shard": shard_stats}
     new = dict(params)
     new["layers"] = tuple(new_layers)
     return new, packs
@@ -360,7 +418,7 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                      include_ffn: bool = True,
                      registry: Optional[PatternRegistry] = None,
                      backend_chooser=None, pack_quant: str = "none",
-                     device=None):
+                     device=None, n_shards: int = 1):
     """Replace attention (and pruned dense-MLP) projections of an LM param
     tree with packed values.
 
@@ -372,27 +430,34 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
     dense-MLP projections are exported too, but only when they are actually
     block-sparse at the kernel tile. ``backend_chooser`` overrides the
     representation per pattern (a 'dense' verdict keeps the original
-    weight); ``pack_quant`` quantizes the plan layouts. The export walks the
-    tree projection by projection, so at most one projection's temporaries
-    are alive."""
+    weight); ``pack_quant`` quantizes the plan layouts. ``n_shards > 1``
+    (the mesh "model" axis size) exports every plan pack in tensor-parallel
+    sharded form (:func:`shard_axis_for` per projection; indivisible
+    patterns stay replicated) and records the per-shard registry counts
+    under ``stats['__sharding__']``. The export walks the tree projection
+    by projection, so at most one projection's temporaries are alive."""
     if device is None:
         device = params["embed"]["w"].device
     packs: Dict[str, object] = {}
     stats: Dict[str, Dict] = {}
+    shard_stats: Dict[int, Dict] = {}
 
     def export_one(w, scope, stacked, dtype):
         """Pack one weight (single or period-stacked), record its stats and
         register the pack; None when the pattern serves dense."""
         pack, data, st = pack_stacked(w, tile)
+        proj = scope.rsplit("/", 1)[1]
+        shard = _effective_shard(
+            pack, (n_shards, shard_axis_for(proj)) if n_shards > 1 else None)
         backend = "plan" if use_plans else "bsr"
         meta = None
         if backend_chooser is not None:
-            choice = backend_chooser(pack)
+            choice = _choose(backend_chooser, pack, shard)
             backend = choice.backend
             meta = {"backend": choice.backend,
                     "cache_hit": choice.cache_hit, "mode": choice.mode}
         pk, vals = _realize_backend(pack, data, backend, registry, device,
-                                    pack_quant)
+                                    pack_quant, shard, shard_stats)
         if not stacked:
             st = {"union_nnzt": _pack_nnzt(pk)}
         if meta:
@@ -458,6 +523,9 @@ def export_lm_sparse(params, cfg: ModelConfig, tile=(128, 128), *,
                           for i, lp in enumerate(params["blocks"]))
     new["suffix"] = tuple(export_layer(lp, f"suffix/{i}", False)
                           for i, lp in enumerate(params["suffix"]))
+    if n_shards > 1:
+        stats["__sharding__"] = {"n_shards": n_shards,
+                                 "per_shard": shard_stats}
     return new, packs, stats
 
 
@@ -466,13 +534,14 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
                   include_ffn: bool = True, use_plans: bool = True,
                   registry: Optional[PatternRegistry] = None,
                   backend_chooser=None, pack_quant: str = "none",
-                  device=None):
+                  device=None, n_shards: int = 1):
     """Export a model's param tree to serving form. Returns
     ``(sparse_params, packs, stats)``: bert through
     :func:`export_bert_sparse`, the LM families (``LM_FAMILIES``) through
     :func:`export_lm_sparse` (its stacked groups always union-pack); audio
     is returned as it is with no packs (the enc-dec forward has no packs
-    route) and ``stats`` records why."""
+    route) and ``stats`` records why. ``n_shards`` (the mesh "model" axis
+    size) selects tensor-parallel sharded export."""
     if cfg.family == "bert":
         stats: Dict[str, Dict] = {}
         sparse_params, packs = export_bert_sparse(
@@ -480,14 +549,15 @@ def export_params(params, cfg: ModelConfig, tile=(128, 128), *,
             fuse_qkv=fuse_qkv, cross_layer_union=cross_layer_union,
             use_plans=use_plans, registry=registry, stats_out=stats,
             backend_chooser=backend_chooser, pack_quant=pack_quant,
-            device=device)
+            device=device, n_shards=n_shards)
         return sparse_params, packs, stats
     if cfg.family in LM_FAMILIES:
         return export_lm_sparse(params, cfg, tile=tile, fuse_qkv=fuse_qkv,
                                 use_plans=use_plans, include_ffn=include_ffn,
                                 registry=registry,
                                 backend_chooser=backend_chooser,
-                                pack_quant=pack_quant, device=device)
+                                pack_quant=pack_quant, device=device,
+                                n_shards=n_shards)
     if cfg.family == "audio":
         return params, {}, {"__unsupported__": {
             "family": cfg.family,

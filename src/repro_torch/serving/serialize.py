@@ -8,9 +8,9 @@ layout, so an artifact written by either package loads in the other:
     the reference's flatten order, see ``checkpoint/store.py``);
   * **pack codec** -- static patterns flattened into npz arrays + JSON
     meta, deduplicated by pattern fingerprint so cross-layer sharing
-    survives a round-trip (kinds ``plan``, ``plan_choice``, ``quant_plan``
-    (codec 1), ``masked``, ``choice`` and ``bsr``; ``sharded_plan`` waits
-    for the sharding slice);
+    survives a round-trip (kinds ``plan``, ``sharded_plan``,
+    ``plan_choice``, ``quant_plan`` (codec 1, over a plain or a sharded
+    plan), ``masked``, ``choice`` and ``bsr``);
   * **config codec** -- ModelConfig to plain dicts and back.
 """
 from __future__ import annotations
@@ -27,12 +27,11 @@ from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.kernels.autotune import BackendChoice, MaskedPack
 from repro_torch.kernels.bsr_matmul import KernelBSR
 from repro_torch.kernels.exec_plan import (PlanChoice, QuantPlan,
-                                           RowPackPlan,
+                                           RowPackPlan, ShardedPlan,
                                            kernel_pattern_fingerprint)
 
 _PLAN_FIELDS = ("col_idx", "slot_mask", "row_of_vrow", "vrow", "slot")
 _BSR_FIELDS = ("row_id", "col_id", "t_perm")
-_ITEM_SHARDED = "ROADMAP.md Queue 1 item 6 (sharded plans)"
 
 
 class ServableLoadError(RuntimeError):
@@ -124,6 +123,17 @@ def _plan_meta(plan: RowPackPlan) -> dict:
             "nnzt": plan.nnzt, "real_nnzt": plan.real_nnzt}
 
 
+def _shard_arrays(arrays: dict, idx: int, plan: ShardedPlan) -> dict:
+    """A sharded plan's layout meta; its per-shard sub-pattern
+    fingerprints go into ``arrays`` (the mesh itself is never stored:
+    ``load_servable`` attaches the process's own)."""
+    sfps = list(plan.shard_fingerprints)
+    arrays[f"p{idx}_shard_fp_lens"] = np.array([len(f) for f in sfps],
+                                               np.int64)
+    arrays[f"p{idx}_shard_fps"] = np.frombuffer(b"".join(sfps), np.uint8)
+    return {"n_shards": plan.n_shards, "shard_axis": plan.shard_axis}
+
+
 def packs_to_arrays(packs: Dict[str, object]) -> Tuple[dict, dict]:
     """-> (npz arrays, JSON meta). Unique patterns stored once (fingerprint
     dedupe); ``meta['keys']`` fans each layer scope back out to its ref.
@@ -144,13 +154,19 @@ def packs_to_arrays(packs: Dict[str, object]) -> Tuple[dict, dict]:
             if isinstance(pk, QuantPlan):
                 # ``codec: 1`` versions the quant entry itself
                 plan = pk.plan
-                metas.append({"kind": "quant_plan", "codec": 1,
-                              "qdtype": pk.qdtype,
-                              "granularity": pk.granularity,
-                              "backend": pk.backend, **_plan_meta(plan),
-                              "sharded": False})
+                sharded = isinstance(plan, ShardedPlan)
+                m = {"kind": "quant_plan", "codec": 1, "qdtype": pk.qdtype,
+                     "granularity": pk.granularity, "backend": pk.backend,
+                     **_plan_meta(plan), "sharded": sharded}
+                if sharded:
+                    m.update(_shard_arrays(arrays, idx, plan))
+                metas.append(m)
                 arrays[f"p{idx}_plan_fingerprint"] = np.frombuffer(
                     plan.fingerprint, np.uint8)
+            elif isinstance(pk, ShardedPlan):
+                plan = pk
+                metas.append({"kind": "sharded_plan", **_plan_meta(plan),
+                              **_shard_arrays(arrays, idx, plan)})
             elif isinstance(pk, RowPackPlan):
                 plan = pk
                 metas.append({"kind": "plan", **_plan_meta(plan)})
@@ -186,7 +202,7 @@ def packs_to_arrays(packs: Dict[str, object]) -> Tuple[dict, dict]:
 
 
 def _plan_from(arrays, idx: int, m: dict, fp: bytes) -> RowPackPlan:
-    return RowPackPlan(
+    fields = dict(
         col_idx=np.asarray(arrays[f"p{idx}_col_idx"], np.int32),
         slot_mask=np.asarray(arrays[f"p{idx}_slot_mask"], bool),
         row_of_vrow=np.asarray(arrays[f"p{idx}_row_of_vrow"], np.int32),
@@ -194,6 +210,16 @@ def _plan_from(arrays, idx: int, m: dict, fp: bytes) -> RowPackPlan:
         slot=np.asarray(arrays[f"p{idx}_slot"], np.int32),
         shape=tuple(m["shape"]), tile=tuple(m["tile"]),
         nnzt=int(m["nnzt"]), real_nnzt=int(m["real_nnzt"]), fingerprint=fp)
+    if m["kind"] != "sharded_plan" and not m.get("sharded"):
+        return RowPackPlan(**fields)
+    lens = np.asarray(arrays[f"p{idx}_shard_fp_lens"], np.int64)
+    blob = bytes(np.asarray(arrays[f"p{idx}_shard_fps"], np.uint8))
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return ShardedPlan(**fields, n_shards=int(m["n_shards"]),
+                       shard_axis=m["shard_axis"],
+                       shard_fingerprints=tuple(
+                           blob[offs[i]: offs[i + 1]]
+                           for i in range(len(lens))))
 
 
 def _bsr_from(arrays, idx: int, m: dict) -> KernelBSR:
@@ -232,22 +258,22 @@ def packs_from_arrays(meta: dict, arrays, registry: PatternRegistry = None
             built.append(BackendChoice(bsr, m["backend"])
                          if kind == "choice" else bsr)
             continue
-        if kind == "sharded_plan" or m.get("sharded"):
-            raise NotImplementedError(
-                f"pack kind {kind!r} (sharded) comes with {_ITEM_SHARDED}")
         if kind in ("plan_choice", "quant_plan"):
             plan_fp = bytes(np.asarray(arrays[f"p{idx}_plan_fingerprint"],
                                        np.uint8))
-        elif kind == "plan":
+        elif kind in ("plan", "sharded_plan"):
             plan_fp = fp
         else:
             raise ValueError(f"unknown pack kind {kind!r}")
 
         def build(idx=idx, m=m, plan_fp=plan_fp):
             return _plan_from(arrays, idx, m, plan_fp)
-        plan = (registry.cached(("rowpack_plan", plan_fp), build)
+        sharded = kind == "sharded_plan" or m.get("sharded")
+        cache_key = ("sharded_plan_codec" if sharded else "rowpack_plan",
+                     plan_fp)
+        plan = (registry.cached(cache_key, build)
                 if registry is not None else build())
-        if kind == "plan":
+        if kind in ("plan", "sharded_plan"):
             built.append(plan)
             continue
         if m["backend"] not in (("plan", "plan_pallas") if kind ==

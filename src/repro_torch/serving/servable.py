@@ -22,6 +22,22 @@ and the continuous-batching :meth:`Servable.engine`. Where the reference
 jits each engine function once per servable (with the cache donated), the
 port runs them as plain methods (``engine_decode``, ``engine_prefill``,
 ...) that update the preallocated cache in place.
+
+**Meshes** (``spec.mesh_shape = (data, model)``; the dense LM family and
+bert). Where the reference places params and caches with NamedSharding and
+lets GSPMD partition the program, the port runs explicit SPMD: one process
+per mesh position (``torch.distributed`` up with ``data * model`` ranks,
+``launch.mesh.init_distributed``), each calling :func:`prepare_servable` or
+:func:`load_servable` and then serving the same requests. A rank holds its
+shard of every leaf (``serving_param_shardings``: ShardedPlan values split
+on the vrow axis over "model", dense leaves by
+``launch/sharding.spec_for_param`` in inference mode, the rest replicated)
+and of every cache (slots over "data", KV heads over "model"); every
+sharded projection's output is made whole on every rank
+(``models.common.linear``). Under "data" a rank decodes its own slots and
+the emitted tokens are all-gathered, so every rank's engine runs the same
+schedule; prefills of the batch-1 sub-cache run replicated over "data",
+as the reference's replicated sub-cache does.
 """
 from __future__ import annotations
 
@@ -35,12 +51,15 @@ from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.core.pruner import oneshot_prune, tied_prune
-from repro_torch.core.tree import flatten_with_path, map_with_path, \
-    norm_path, path_name
+from repro_torch.core.tree import at_path, flatten_with_path, \
+    map_with_path, norm_path, path_name
 from repro_torch.device import resolve_device
-from repro_torch.kernels.exec_plan import QuantPlan, RowPackPlan
+from repro_torch.kernels.exec_plan import QuantPlan, RowPackPlan, ShardedPlan
 from repro_torch.kernels.flash_decode import decode_kernel_override
+from repro_torch.launch.sharding import (local_shard, shard_index,
+                                          spec_for_param)
 from repro_torch.models import api as model_api
+from repro_torch.models.common import DenseShard, HeadShard
 from repro_torch.models.sampling import sample_tokens
 from repro_torch.serving.export import export_params
 from repro_torch.serving.serialize import (LeafReader, ServableLoadError,
@@ -55,12 +74,160 @@ SERVABLE_STEP = 0
 _PACKS_FILE = "packs.npz"
 
 
-def _check_spec(spec: ServingSpec):
+#: families a mesh serves (the rest come with ROADMAP.md Queue 1 item 7)
+MESH_FAMILIES = ("dense", "bert")
+
+
+def _check_spec(spec: ServingSpec, cfg: ModelConfig):
     """Raise for spec options the port does not serve yet, naming the
     ROADMAP.md item that brings each."""
-    if spec.mesh_shape is not None:
+    if spec.mesh_shape is None:
+        return
+    kinds = list(cfg.layer_plan()[0]) + list(cfg.layer_plan()[1]) \
+        + list(cfg.layer_plan()[3]) if cfg.family != "bert" else []
+    if cfg.family not in MESH_FAMILIES or any(
+            k.mixer not in ("attn", "local") or k.ffn not in ("dense", "none")
+            for k in kinds):
         raise NotImplementedError(
-            "mesh_shape comes with ROADMAP.md Queue 1 item 6 (sharding)")
+            f"mesh_shape for family {cfg.family!r} ({cfg.arch}) comes with "
+            f"ROADMAP.md Queue 1 item 7 (the vlm, MoE, MLA, ssm, hybrid and "
+            f"audio families on a mesh); the port's mesh serves the dense "
+            f"attention LMs and bert")
+
+
+# --------------------------------------------------------------------------
+# mesh placement (spec.mesh_shape: the tensor/data-parallel serving path)
+# --------------------------------------------------------------------------
+
+def make_serving_mesh(spec):
+    """The ``("data", "model")`` process mesh a spec asks for, over the
+    initialised process group (``launch.mesh.init_process_mesh``); raises
+    an actionable error unless the group is up with ``data * model``
+    ranks."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_mesh
+    d, m = (int(v) for v in spec.mesh_shape)
+    have = (dist.get_world_size() if dist.is_available()
+            and dist.is_initialized() else 0)
+    if have != d * m:
+        raise ValueError(
+            f"spec.mesh_shape={tuple(spec.mesh_shape)} needs torch.distributed"
+            f" up with {d * m} ranks (one process per mesh position) but "
+            f"{'no process group is initialised' if not have else f'the process group has {have}'};"
+            f" start {d * m} processes and call repro_torch.launch.mesh."
+            f"init_distributed(backend, init_method, rank, world_size) in "
+            f"each before prepare_servable / load_servable (or pass "
+            f"place=False to prepare the sharded export on one process, "
+            f"e.g. to save it)")
+    return init_process_mesh((d, m), ("data", "model"))
+
+
+def attach_mesh(packs, mesh):
+    """Attach ``mesh`` to every ShardedPlan pack (the static metadata
+    ``models.common.linear`` reads to run this rank's shard), including
+    ShardedPlans wrapped in a QuantPlan. Identical patterns keep sharing
+    one pack object."""
+    import dataclasses
+    out, seen = {}, {}
+    for key, pk in packs.items():
+        inner = pk.plan if isinstance(pk, QuantPlan) else pk
+        if isinstance(inner, ShardedPlan) and inner.mesh is not mesh:
+            if id(pk) not in seen:
+                seen[id(pk)] = (dataclasses.replace(
+                    pk, plan=inner.with_mesh(mesh))
+                    if isinstance(pk, QuantPlan) else pk.with_mesh(mesh))
+            pk = seen[id(pk)]
+        out[key] = pk
+    return out
+
+
+def serving_param_shardings(params, packs, mesh):
+    """The spec tree (``launch/sharding.py`` tuples) of a serving param
+    tree: ShardedPlan-packed values ``(..., V, P, bn, bk)`` and their
+    scales ``(..., V, P|1)`` shard the vrow axis over "model"; other packed
+    values replicate (their pattern did not divide); every dense leaf
+    follows ``spec_for_param`` in inference mode (TP only) on its row or
+    column dim -- an entry the explicit-SPMD linear does not consume (the
+    period axis of a period-stacked dense FFN, which the rule's expert
+    branch matches; "data") replicates its dim. ``params`` holds whole
+    leaves (or anything with their ``shape``)."""
+    packed = _packed_names(packs)
+    return map_with_path(lambda path, leaf: _leaf_spec(
+        norm_path(path_name(path)), tuple(leaf.shape), packed, mesh), params)
+
+
+def _packed_names(packs) -> Dict[str, object]:
+    """Param-leaf name -> its pack, for every packed value / scale leaf."""
+    packed = {}
+    for key, pk in packs.items():
+        packed[key + "/w"] = pk
+        if isinstance(pk, QuantPlan):
+            packed[key + "/scale"] = pk
+    return packed
+
+
+def _leaf_spec(name: str, shape, packed, mesh) -> tuple:
+    shape = tuple(shape)
+    pk = packed.get(name)
+    inner = pk.plan if isinstance(pk, QuantPlan) else pk
+    if isinstance(inner, ShardedPlan):
+        spec = [None] * len(shape)
+        spec[len(shape) - (2 if name.endswith("/scale") else 4)] = "model"
+        return tuple(spec)
+    if pk is not None:
+        return (None,) * len(shape)
+    # the mesh linear consumes "model" on a weight's rows or columns; any
+    # other entry (the period axis of a period-stacked dense FFN, which the
+    # expert rule matches, or "data") leaves that dim replicated
+    spec = spec_for_param(name, shape, mesh, mode="inference")
+    return tuple(e if e == "model" and d >= len(spec) - 2 else None
+                 for d, e in enumerate(spec))
+
+
+def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
+    """The packs a mesh servable runs with: ``packs`` (mesh attached) plus
+    a ``DenseShard`` for every dense leaf sharded over "model" (under its
+    projection's key, or 'embed' / 'lm_head' / 'pos') and a ``HeadShard``
+    for every attention layer whose KV heads divide the "model" axis."""
+    out = dict(packs)
+    m = mesh.shape["model"]
+    if m == 1:
+        return out
+    for path, _ in flatten_with_path(params):
+        spec = at_path(specs, path)
+        name = norm_path(path_name(path))
+        if "model" not in spec or name.rsplit("/", 1)[0] in packs:
+            continue
+        key = name[:-2] if name.endswith("/w") else name
+        out[key] = DenseShard("out" if spec[-2] == "model" else "in", mesh)
+    hkv = cfg.n_kv_heads
+    if hkv % m == 0 and hkv >= m:
+        heads = HeadShard(mesh, hkv)
+        if cfg.family == "bert":
+            scopes = [f"layers/{i}" for i in range(cfg.n_layers)]
+        else:
+            prefix, pattern, n_per, suffix = cfg.layer_plan()
+            scopes = ([f"prefix/{i}" for i in range(len(prefix))]
+                      + [f"blocks/{i}" for i in range(len(pattern))
+                         if n_per > 0]
+                      + [f"suffix/{i}" for i in range(len(suffix))])
+        for scope in scopes:
+            out[f"{scope}/attn/heads"] = heads
+    return out
+
+
+def _local_params(params, specs, mesh):
+    """This rank's shard of every leaf of whole ``params`` (a copy in
+    storage of its own where the leaf is cut)."""
+    coord = {a: mesh.coord(a) for a in mesh.axis_names}
+
+    def one(path, leaf):
+        spec = at_path(specs, path)
+        if all(e is None for e in spec):
+            return leaf
+        return local_shard(leaf, spec, mesh, coord).clone(
+            memory_format=torch.contiguous_format)
+    return map_with_path(one, params)
 
 
 def _cast_packed(params, packs, dtype):
@@ -101,7 +268,8 @@ class Servable:
     def __init__(self, params, cfg: ModelConfig, spec: ServingSpec,
                  packs: Dict[str, object], registry: PatternRegistry,
                  device, export_stats: Optional[Dict] = None,
-                 stats_at_save: Optional[Dict] = None):
+                 stats_at_save: Optional[Dict] = None, mesh=None,
+                 param_specs=None):
         self.params = params
         self.cfg = cfg
         self.spec = spec
@@ -110,6 +278,12 @@ class Servable:
         self.device = torch.device(device)
         self.export_stats = export_stats or {}
         self.stats_at_save = stats_at_save
+        #: the ``launch.mesh.ProcessMesh`` this rank serves on (None: one
+        #: device) and the spec of every leaf of ``params`` on it
+        self.mesh = mesh
+        self.param_specs = param_specs
+        self._run_packs = packs if mesh is None else _exec_packs(
+            packs, params, param_specs, cfg, mesh)
         self._decode_kind: Optional[str] = None
 
     # -- serving ----------------------------------------------------------
@@ -120,12 +294,44 @@ class Servable:
                 for k, v in batch.items()}
 
     def forward(self, batch):
-        """batch dict (``{'tokens': (B, S)}``) or raw tokens -> logits fp32."""
+        """batch dict (``{'tokens': (B, S)}``) or raw tokens -> logits fp32
+        (on a mesh: the whole batch on every rank, replicated over
+        "data")."""
         with torch.inference_mode():
             logits, _aux = model_api.model_forward(
                 self.params, self.cfg, self._as_batch(batch),
-                packs=self.packs)
+                packs=self._run_packs)
         return logits
+
+    # -- mesh slots ---------------------------------------------------------
+    def slot_range(self, batch: int) -> Tuple[int, int]:
+        """The slots ``[lo, hi)`` of a ``batch``-slot cache this rank holds
+        (all of them off a mesh, or when ``batch`` does not divide over
+        "data": the cache's batch dim then replicates)."""
+        if self.mesh is None:
+            return 0, batch
+        d = self.mesh.shape["data"]
+        if d == 1 or batch % d or batch < d:
+            return 0, batch
+        w = batch // d
+        c = self.mesh.coord("data")
+        return c * w, (c + 1) * w
+
+    def local_slot(self, slot: int, batch: int) -> Optional[int]:
+        """``slot``'s index in this rank's shard of a ``batch``-slot cache,
+        None when another rank holds it."""
+        lo, hi = self.slot_range(batch)
+        return int(slot) - lo if lo <= int(slot) < hi else None
+
+    def _rows(self, x, batch, lo, hi):
+        x = self._tensor(x)
+        return x if x.dim() == 0 or (lo, hi) == (0, batch) else x[lo:hi]
+
+    def _gather_rows(self, x, batch, dim=0):
+        lo, hi = self.slot_range(batch)
+        if (lo, hi) == (0, batch):
+            return x
+        return self.mesh.all_gather(x, "data", dim=dim)
 
     # -- decoding (LM families) -------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int, frames=None,
@@ -133,13 +339,14 @@ class Servable:
         """A zeroed decode cache for ``batch_size`` slots on the servable's
         device (``paged``: a ``models.common.PagedLayout``). The audio
         family encodes ``frames`` (B, T_audio, d) into the cache's cross
-        K/V; its batch is the frames'."""
+        K/V; its batch is the frames'. On a mesh, this rank's shard of it
+        (``models.api.cache_shardings``)."""
         if frames is not None:
             frames = self._tensor(frames)
         with torch.no_grad():
             return model_api.init_cache(self.params, self.cfg, batch_size,
                                         cache_len, frames=frames,
-                                        paged=paged)
+                                        paged=paged, mesh=self.mesh)
 
     def decode_kernel_kind(self) -> str:
         """The attention decode kernel every decode call of this servable
@@ -161,20 +368,34 @@ class Servable:
             else:
                 from repro_torch.kernels.autotune import choose_decode_kernel
                 cfg = self.cfg
-                self._decode_kind = choose_decode_kernel(
+                kind = choose_decode_kernel(
                     b=8, t=512, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
                     d=cfg.head_dim, device=self.device).backend
+                if self.mesh is not None:
+                    # one kernel on every rank: rank 0's measurement
+                    kind = ("xla", "flash")[self._agree(
+                        ("xla", "flash").index(kind))]
+                self._decode_kind = kind
         return self._decode_kind
+
+    def _agree(self, value: int) -> int:
+        return _agree_on(self.mesh, value, self.device)
 
     def decode_step(self, cache, token, pos):
         """(cache, token (B,1), pos) -> (logits (B,1,V) fp32, cache); the
         new K/V rows are written into ``cache`` in place. ``pos`` is a
-        scalar or a ragged int32 (B,) vector (-1 = inactive row)."""
+        scalar or a ragged int32 (B,) vector (-1 = inactive row). On a mesh
+        whose "data" axis shards the slots, ``cache`` is this rank's shard,
+        ``token`` / ``pos`` are every slot's, and the logits come back
+        whole."""
+        b = int(torch.as_tensor(token).shape[0])
+        lo, hi = self.slot_range(b)
         with torch.no_grad(), decode_kernel_override(
                 self.decode_kernel_kind()):
-            return model_api.decode_step(
-                self.params, cache, self.cfg, self._tensor(token),
-                self._tensor(pos), packs=self.packs)
+            logits, cache = model_api.decode_step(
+                self.params, cache, self.cfg, self._rows(token, b, lo, hi),
+                self._rows(pos, b, lo, hi), packs=self._run_packs)
+        return self._gather_rows(logits, b), cache
 
     def decode_many(self, cache, token, pos, n_steps, *, remaining=None,
                     eos_id=None, key=None, temperature: float = 0.0,
@@ -183,16 +404,29 @@ class Servable:
         (greedy, or ``temperature`` / ``top_k`` with the threefry ``key``,
         ``models/prng.py``) and per-slot EOS / budget masking on the device,
         one host sync when the caller reads the results. Returns ``(tokens
-        (K, B), valid (K, B), state)``; the cache is updated in place."""
+        (K, B), valid (K, B), state)``; the cache is updated in place. On a
+        mesh whose "data" axis shards the slots, this rank decodes its own
+        slots and every output but the cache is all-gathered over "data"
+        once a window."""
+        b = int(torch.as_tensor(token).shape[0])
+        lo, hi = self.slot_range(b)
+
+        def rows(x):
+            return None if x is None else self._rows(x, b, lo, hi)
         with torch.no_grad(), decode_kernel_override(
                 self.decode_kernel_kind()):
-            return model_api.decode_many(
-                self.params, cache, self.cfg, self._tensor(token),
-                self._tensor(pos), int(n_steps), packs=self.packs,
-                remaining=None if remaining is None
-                else self._tensor(remaining),
-                eos_id=None if eos_id is None else self._tensor(eos_id),
-                key=key, temperature=temperature, top_k=top_k)
+            toks, valid, state = model_api.decode_many(
+                self.params, cache, self.cfg, rows(token), rows(pos),
+                int(n_steps), packs=self._run_packs,
+                remaining=rows(remaining), eos_id=rows(eos_id), key=key,
+                temperature=temperature, top_k=top_k, slot_offset=lo)
+        if (lo, hi) != (0, b):
+            toks = self._gather_rows(toks, b, dim=1)
+            valid = self._gather_rows(valid, b, dim=1)
+            state = dict(state, **{k: self._gather_rows(state[k], b)
+                                   for k in ("token", "pos", "remaining",
+                                             "failed")})
+        return toks, valid, state
 
     def engine(self, max_slots: int = 8, cache_len: int = 256, **kw):
         """A continuous-batching :class:`~repro_torch.serving.engine.
@@ -241,7 +475,7 @@ class Servable:
         with torch.no_grad():
             logits, cache1 = model_api.prefill_cache(
                 self.params, cache1, self.cfg, toks[None], int(length),
-                packs=self.packs)
+                packs=self._run_packs)
         return cache1, logits[0]
 
     def suffix_prefill(self, cache, tokens, slot, start, length):
@@ -252,16 +486,72 @@ class Servable:
         with torch.no_grad():
             logits, cache = model_api.prefill_suffix(
                 self.params, cache, self.cfg, self._tensor(tokens)[None],
-                int(slot), int(start), int(length), packs=self.packs)
+                int(slot), int(start), int(length), packs=self._run_packs)
         return cache, logits[0]
 
-    def engine_write_slot(self, cache, slot, sub):
-        """Copy the batch-1 prefill cache ``sub`` into ``slot``, in place."""
-        return model_api.write_slot(cache, self.cfg, slot, sub)
+    def prefill_row(self, cache1, tokens, length):
+        """:meth:`engine_prefill` returning only the logits row the engine
+        samples from, position ``length - 1`` (V,) fp32. On a mesh the
+        prefill computes that row's logits alone and every rank takes the
+        row of "data" index 0 (the batch-1 sub-cache prefill runs
+        replicated over "data")."""
+        if self.mesh is None or self.cfg.family == "audio":
+            cache1, logits = self.engine_prefill(cache1, tokens, length)
+            return cache1, logits[int(length) - 1]
+        with torch.no_grad():
+            logits, cache1 = model_api.prefill_cache(
+                self.params, cache1, self.cfg, self._tensor(tokens)[None],
+                int(length), packs=self._run_packs, last_only=True)
+        return cache1, self.mesh.broadcast(logits[0, 0], "data", 0)
 
-    def engine_free_slot(self, cache, slot):
-        """Empty ``slot`` in place (recycle hygiene)."""
-        return model_api.free_slot(cache, self.cfg, slot)
+    def suffix_prefill_row(self, cache, tokens, slot, start, length,
+                           batch: int):
+        """:meth:`suffix_prefill` returning only the logits row of position
+        ``length - 1`` of the chunk. ``batch`` is the engine's slot count:
+        on a mesh whose "data" axis shards the slots, the rank holding
+        ``slot`` prefills it and sends the row to the others."""
+        local = self.local_slot(slot, batch)
+        if self.mesh is None:
+            cache, logits = self.suffix_prefill(cache, tokens, slot, start,
+                                                length)
+            return cache, logits[int(length) - 1]
+        row = torch.zeros((self.cfg.vocab_size,), dtype=torch.float32,
+                          device=self.device)
+        if local is not None:
+            with torch.no_grad():
+                logits, cache = model_api.prefill_suffix(
+                    self.params, cache, self.cfg,
+                    self._tensor(tokens)[None], local, int(start),
+                    int(length), packs=self._run_packs, last_only=True)
+            row = logits[0, 0]
+        owner = (int(slot) // (batch // self.mesh.shape["data"])
+                 if self.slot_range(batch) != (0, batch) else 0)
+        return cache, self.mesh.broadcast(row, "data", owner)
+
+    def engine_write_slot(self, cache, slot, sub, batch=None):
+        """Copy the batch-1 prefill cache ``sub`` into ``slot``, in place.
+        On a mesh whose "data" axis shards the slots (``batch``: the
+        engine's slot count), only the rank holding ``slot`` writes."""
+        local = self._engine_slot(slot, batch)
+        if local is None:
+            return cache
+        return model_api.write_slot(cache, self.cfg, local, sub)
+
+    def engine_free_slot(self, cache, slot, batch=None):
+        """Empty ``slot`` in place (recycle hygiene; ``batch`` as in
+        :meth:`engine_write_slot`)."""
+        local = self._engine_slot(slot, batch)
+        if local is None:
+            return cache
+        return model_api.free_slot(cache, self.cfg, local)
+
+    def _engine_slot(self, slot, batch):
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return int(slot)
+        if batch is None:
+            raise ValueError("a slot op on a data-sharded mesh needs the "
+                             "engine's slot count (batch=)")
+        return self.local_slot(slot, batch)
 
     def engine_write_paged(self, cache, slot, sub, page_row):
         """Write ``sub`` into the pages of ``page_row`` and map them to
@@ -319,24 +609,67 @@ class Servable:
         qs = self.quant_stats()
         if qs:
             out["quant"] = qs
+        if self.mesh is not None or self.spec.mesh_shape is not None:
+            out["sharding"] = self._sharding_stats()
         if self.stats_at_save is not None:
             out["registry_at_save"] = self.stats_at_save.get("registry")
         return out
 
     def _leaves(self, names):
-        return [leaf for path, leaf in flatten_with_path(self.params)
-                if norm_path(path_name(path)) in names]
+        """[(numel of the whole leaf, numel on this device, element size)]
+        of the named leaves: a mesh servable holds its shard of each."""
+        out = []
+        for path, leaf in flatten_with_path(self.params):
+            if norm_path(path_name(path)) not in names:
+                continue
+            n = leaf.numel()
+            whole = n
+            if self.mesh is not None:
+                for entry in at_path(self.param_specs, path):
+                    whole *= shard_index(entry, self.mesh, {})[1]
+            out.append((whole, n, leaf.element_size()))
+        return out
 
     def pack_bytes(self) -> Tuple[int, int]:
         """(total, per-device) bytes of the packed projection values in the
-        params tree (one device: the two are equal). Quantized packs count
-        their scales too."""
+        params tree (equal off a mesh; a servable prepared with
+        ``place=False`` counts fully on its one device). Quantized packs
+        count their scales too."""
         targets = {key + "/w" for key in self.packs}
         targets |= {key + "/scale" for key, pk in self.packs.items()
                     if isinstance(pk, QuantPlan)}
-        total = sum(leaf.numel() * leaf.element_size()
-                    for leaf in self._leaves(targets))
-        return total, total
+        leaves = self._leaves(targets)
+        return (sum(w * e for w, _, e in leaves),
+                sum(n * e for _, n, e in leaves))
+
+    def _sharding_stats(self) -> Dict[str, Any]:
+        """Per-shard accounting of the mesh path: how the pack bytes split
+        across devices, which packs sharded, and the per-shard registry
+        hit / miss counts collected at export."""
+        total, per_dev = self.pack_bytes()
+        sharded = {k: (p.plan if isinstance(p, QuantPlan) else p)
+                   for k, p in self.packs.items()
+                   if isinstance(p.plan if isinstance(p, QuantPlan) else p,
+                                 ShardedPlan)}
+        shard_meta = self.export_stats.get("__sharding__") or {}
+        out = {
+            "mesh_shape": (list(self.spec.mesh_shape)
+                           if self.spec.mesh_shape else None),
+            "partition": self.spec.partition,
+            "n_shards": self.spec.model_shards,
+            "sharded_packs": len(sharded),
+            "replicated_packs": len(self.packs) - len(sharded),
+            "pack_bytes_total": total,
+            "pack_bytes_per_device": per_dev,
+            "per_shard_registry": {
+                str(s): dict(v)
+                for s, v in (shard_meta.get("per_shard") or {}).items()},
+            "axes": {k: p.shard_axis for k, p in sharded.items()},
+        }
+        if sharded:
+            out["unique_sharded_patterns"] = len(
+                {p.fingerprint for p in sharded.values()})
+        return out
 
     def quant_stats(self) -> Optional[Dict[str, Any]]:
         """Quantized-pack accounting: bytes stored (qvalues + scales) against
@@ -348,10 +681,12 @@ class Servable:
             return None
         w = self._leaves({k + "/w" for k in qpacks})
         sc = self._leaves({k + "/scale" for k in qpacks})
-        wbytes = sum(t.numel() * t.element_size() for t in w)
-        sbytes = sum(t.numel() * t.element_size() for t in sc)
-        fp32 = sum(t.numel() * 4 for t in w)
+        wbytes = sum(n * e for n, _, e in w)
+        sbytes = sum(n * e for n, _, e in sc)
+        fp32 = sum(n * 4 for n, _, _ in w)
         qbytes = wbytes + sbytes
+        qdev = sum(n * e for _, n, e in w) + sum(n * e for _, n, e in sc)
+        fp32_dev = sum(n * 4 for _, n, _ in w)
         errs = [s["quant"] for s in self.export_stats.values()
                 if isinstance(s, dict) and "quant" in s]
         out = {
@@ -362,10 +697,10 @@ class Servable:
             "granularities": sorted({p.granularity
                                      for p in qpacks.values()}),
             "quant_bytes_total": qbytes,
-            "quant_bytes_per_device": qbytes,
+            "quant_bytes_per_device": qdev,
             "scale_bytes_total": sbytes,
             "fp32_equiv_bytes_total": fp32,
-            "fp32_equiv_bytes_per_device": fp32,
+            "fp32_equiv_bytes_per_device": fp32_dev,
             "compression_ratio": fp32 / qbytes if qbytes else None,
         }
         if errs:
@@ -374,36 +709,69 @@ class Servable:
         return out
 
     # -- persistence ------------------------------------------------------
+    def whole_params(self):
+        """The whole param tree: ``params`` itself off a mesh; on one, every
+        leaf all-gathered over "model" along its sharded dims (collective:
+        every rank of the mesh calls it)."""
+        if self.mesh is None:
+            return self.params
+
+        def one(path, leaf):
+            for d, entry in enumerate(at_path(self.param_specs, path)):
+                if entry is not None:
+                    leaf = self.mesh.all_gather(leaf, entry, dim=d)
+            return leaf
+        return map_with_path(one, self.params)
+
     def save(self, path: str) -> str:
         """Persist params + static patterns + spec/config under ``path``
-        in the reference's artifact layout."""
-        store = CheckpointStore(path, keep=1)
-        arrays, pack_meta = packs_to_arrays(self.packs)
-        meta = {
-            "spec": self.spec.to_dict(),
-            "cfg": config_to_dict(self.cfg),
-            "tree": tree_spec(self.params),
-            "packs": pack_meta,
-            "export_stats": self.export_stats,
-            "stats": self.stats(),
-        }
-        store.save(SERVABLE_STEP, self.params, extra={"servable": meta})
-        step_dir = os.path.join(path, f"step_{SERVABLE_STEP:09d}")
-        np.savez(os.path.join(step_dir, _PACKS_FILE), **arrays)
+        in the reference's artifact layout. On a mesh this is collective
+        (:meth:`whole_params`) and the rank at mesh coordinate (0, 0)
+        writes; the others wait until the artifact is on disk."""
+        params = self.whole_params()
+        writer = self.mesh is None or not any(self.mesh.coordinate)
+        if writer:
+            store = CheckpointStore(path, keep=1)
+            arrays, pack_meta = packs_to_arrays(self.packs)
+            meta = {
+                "spec": self.spec.to_dict(),
+                "cfg": config_to_dict(self.cfg),
+                "tree": tree_spec(params),
+                "packs": pack_meta,
+                "export_stats": self.export_stats,
+                "stats": self.stats(),
+            }
+            store.save(SERVABLE_STEP, params, extra={"servable": meta})
+            step_dir = os.path.join(path, f"step_{SERVABLE_STEP:09d}")
+            np.savez(os.path.join(step_dir, _PACKS_FILE), **arrays)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
         return path
 
 
 def prepare_servable(params, cfg: ModelConfig, spec: ServingSpec = None, *,
                      registry: Optional[PatternRegistry] = None,
-                     device=None) -> Servable:
+                     device=None, place: bool = True) -> Servable:
     """Run the prune -> export -> plan -> cache pipeline.
 
     ``params`` are dense weights (already-pruned with ``spec.prune='none'``);
     the servable's weights land on ``device`` (the CUDA card by default).
-    The original tree is not modified."""
+    The original tree is not modified.
+
+    With ``spec.mesh_shape`` every rank of the mesh calls this with the
+    same arguments (:func:`make_serving_mesh` says how to start them); the
+    export is sharded (``export_params(n_shards=model)``), each rank keeps
+    its shard of the params (:func:`serving_param_shardings`), and a
+    measured ``backend='auto'`` takes rank 0's verdict on every rank.
+    ``place=False`` exports the sharded form whole on this one process and
+    attaches no mesh -- a valid single-device servable, e.g. to
+    :meth:`Servable.save` once for the ranks to :func:`load_servable`."""
     spec = spec or ServingSpec()
-    _check_spec(spec)
+    _check_spec(spec, cfg)
     dev = resolve_device(device)
+    mesh = (make_serving_mesh(spec)
+            if spec.mesh_shape is not None and place else None)
     registry = registry if registry is not None else PatternRegistry()
     params = map_with_path(lambda _, leaf: leaf.to(dev), params)
 
@@ -415,8 +783,7 @@ def prepare_servable(params, cfg: ModelConfig, spec: ServingSpec = None, *,
         pruned = params
 
     if spec.backend == "dense":     # negative control: no BSR support
-        return Servable(pruned, cfg, spec, {}, registry, dev,
-                        export_stats={})
+        return _placed(pruned, cfg, spec, {}, registry, dev, {}, mesh)
 
     chooser = None
     if spec.backend == "plan_pallas":
@@ -424,24 +791,78 @@ def prepare_servable(params, cfg: ModelConfig, spec: ServingSpec = None, *,
         # for quantized packs)
         chooser = pinned_chooser("plan_pallas")
     elif spec.backend == "auto":
-        from repro_torch.kernels.autotune import choose_backend
+        import dataclasses
+        from repro_torch.kernels.autotune import (CANDIDATES,
+                                                  QUANT_CANDIDATES,
+                                                  choose_backend)
+        names = CANDIDATES + QUANT_CANDIDATES
 
-        def chooser(pack):
-            # the q8 arms join the candidate set when pack_quant is set
-            return choose_backend(pack, m=spec.autotune_m,
-                                  quant=spec.pack_quant, device=dev)
+        def chooser(pack, shard=None):
+            # a sharded pack has two layouts with a mesh story (the sharded
+            # plan and the sharded dense weight, plus the quantized plan
+            # when pack_quant asks for it)
+            cands = None
+            if shard and shard[0] > 1:
+                cands = ("dense", "plan") + (
+                    ("plan_q8",) if spec.pack_quant != "none" else ())
+            choice = choose_backend(pack, m=spec.autotune_m,
+                                    candidates=cands, shard=shard,
+                                    quant=spec.pack_quant, device=dev)
+            if mesh is not None:
+                agreed = names[_agree_on(mesh, names.index(choice.backend),
+                                         dev)]
+                choice = dataclasses.replace(choice, backend=agreed)
+            return choice
 
     sparse_params, packs, stats = export_params(
         pruned, cfg, tile=spec.tile, fuse_qkv=spec.fuse_qkv,
         cross_layer_union=spec.cross_layer_union,
         include_ffn=spec.include_ffn, use_plans=spec.use_plans,
         registry=registry, backend_chooser=chooser,
-        pack_quant=spec.pack_quant, device=dev)
+        pack_quant=spec.pack_quant, device=dev,
+        n_shards=spec.model_shards)
     if spec.dtype is not None and packs:
         sparse_params = _cast_packed(sparse_params, packs,
                                      torch_dtype(spec.dtype))
-    return Servable(sparse_params, cfg, spec, packs, registry, dev,
-                    export_stats=stats)
+    return _placed(sparse_params, cfg, spec, packs, registry, dev, stats,
+                   mesh)
+
+
+def place_servable(servable: Servable) -> Servable:
+    """This rank's servable of a whole one prepared with ``place=False``
+    (its spec carries the ``mesh_shape``): the same packs, this rank's
+    shard of every leaf, the mesh attached -- e.g. when one process
+    prepares the export and hands it to the ranks. Collective like
+    :func:`prepare_servable`."""
+    if servable.mesh is not None or servable.spec.mesh_shape is None:
+        raise ValueError("place_servable takes a servable prepared with a "
+                         "mesh_shape and place=False")
+    return _placed(servable.params, servable.cfg, servable.spec,
+                   servable.packs, servable.registry, servable.device,
+                   servable.export_stats, make_serving_mesh(servable.spec),
+                   servable.stats_at_save)
+
+
+def _agree_on(mesh, value: int, device) -> int:
+    """The integer ``value`` of the mesh's rank 0, on every rank."""
+    t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    for axis in mesh.axis_names:
+        t = mesh.broadcast(t, axis, 0)
+    return int(t[0])
+
+
+def _placed(params, cfg, spec, packs, registry, dev, stats, mesh,
+            stats_at_save=None) -> Servable:
+    """A Servable over whole ``params``: off a mesh as they are; on one,
+    this rank's shard of every leaf with the mesh attached to the packs."""
+    specs = None
+    if mesh is not None:
+        packs = attach_mesh(packs, mesh)
+        specs = serving_param_shardings(params, packs, mesh)
+        params = _local_params(params, specs, mesh)
+    return Servable(params, cfg, spec, packs, registry, dev,
+                    export_stats=stats, stats_at_save=stats_at_save,
+                    mesh=mesh, param_specs=specs)
 
 
 def load_servable(path: str, *, registry: Optional[PatternRegistry] = None,
@@ -449,6 +870,10 @@ def load_servable(path: str, *, registry: Optional[PatternRegistry] = None,
     """Restore a saved Servable -- written by this package or by the JAX
     package's ``Servable.save`` -- onto ``device`` (the CUDA card by
     default). No pruning, packing or plan construction re-runs.
+
+    With a ``mesh_shape`` in the saved spec every rank of the mesh calls
+    this (:func:`make_serving_mesh`); each reads only its shard of every
+    leaf from the archive (memory-mapped) and attaches its mesh.
 
     A truncated / corrupt / incomplete artifact raises
     :class:`~repro_torch.serving.serialize.ServableLoadError` naming the
@@ -463,9 +888,8 @@ def load_servable(path: str, *, registry: Optional[PatternRegistry] = None,
             f"({type(e).__name__}: {e})") from e
     cfg = config_from_dict(meta["cfg"])
     spec = ServingSpec.from_dict(meta["spec"])
-    _check_spec(spec)
-    params = store.restore(build_like(meta["tree"]), step=SERVABLE_STEP,
-                           device=dev)
+    _check_spec(spec, cfg)
+    mesh = make_serving_mesh(spec) if spec.mesh_shape is not None else None
     step_dir = os.path.join(path, f"step_{SERVABLE_STEP:09d}")
     registry = registry if registry is not None else PatternRegistry()
     packs_path = os.path.join(step_dir, _PACKS_FILE)
@@ -478,6 +902,24 @@ def load_servable(path: str, *, registry: Optional[PatternRegistry] = None,
     with npz:
         packs = packs_from_arrays(meta["packs"], LeafReader(npz, packs_path),
                                   registry)
+    like = build_like(meta["tree"])
+    if mesh is None:
+        params = store.restore(like, step=SERVABLE_STEP, device=dev)
+        return Servable(params, cfg, spec, packs, registry, dev,
+                        export_stats=meta.get("export_stats"),
+                        stats_at_save=meta.get("stats"))
+    packs = attach_mesh(packs, mesh)
+    packed = _packed_names(packs)
+    coord = {a: mesh.coord(a) for a in mesh.axis_names}
+    specs = {}
+
+    def select(p, arr):
+        spec_ = _leaf_spec(norm_path(path_name(p)), arr.shape, packed, mesh)
+        specs[p] = spec_
+        return local_shard(arr, spec_, mesh, coord)
+    params = store.restore(like, step=SERVABLE_STEP, device=dev,
+                           select=select)
     return Servable(params, cfg, spec, packs, registry, dev,
                     export_stats=meta.get("export_stats"),
-                    stats_at_save=meta.get("stats"))
+                    stats_at_save=meta.get("stats"), mesh=mesh,
+                    param_specs=map_with_path(lambda p, _: specs[p], params))

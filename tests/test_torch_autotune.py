@@ -128,12 +128,15 @@ def test_cache_key_separates_pattern_m_mode_quant_and_dtype(tmp_path):
 
 
 def test_sharded_choice_raises_naming_its_slice():
+    """Sharded autotuning raised here (naming ROADMAP.md Queue 1 item 6)
+    until the sharding slice: a sharded choice is now keyed with the shard
+    layout and sub-shape, as the reference keys it."""
     _, pk = _packs(n=128, k=128)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        choose_backend(pk, m=32, stub=True, shard=(4, "out"), device=CPU)
+    ch = choose_backend(pk, m=32, stub=True, shard=(4, "out"), device=CPU)
+    assert ":d1:sout4x32x128:stub:" in ch.key and not ch.cache_hit
     # a single shard is the unsharded problem
-    assert choose_backend(pk, m=32, stub=True, shard=(1, "out"),
-                          device=CPU).backend
+    one = choose_backend(pk, m=32, stub=True, shard=(1, "out"), device=CPU)
+    assert one.backend and ":s" not in one.key.split(":stub:")[0]
 
 
 def test_cache_v1_file_invalidates_without_crash(tmp_path):

@@ -215,17 +215,20 @@ def test_entry_points_need_a_card_unless_told_cpu(bert, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh_shape=(1, 2), backend="plan"), "item 6"),
-    (dict(mesh_shape=(1, 2), pack_quant="int8", backend="plan"), "item 6"),
-    (dict(mesh_shape=(2, 1), partition="dp", backend="dense"), "item 6"),
-    (dict(mesh_shape=(1, 2), backend="auto"), "item 6"),
+    (dict(mesh_shape=(1, 2), backend="plan"), "needs torch.distributed"),
+    (dict(mesh_shape=(1, 2), pack_quant="int8", backend="plan"),
+     "needs torch.distributed"),
+    (dict(mesh_shape=(2, 1), partition="dp", backend="dense"),
+     "needs torch.distributed"),
+    (dict(mesh_shape=(1, 2), backend="auto"), "needs torch.distributed"),
 ])
 def test_options_outside_the_slice_raise(bert, kw, item):
-    # pack_quant and the 'bsr' / 'auto' backends are served since the
-    # quantized-pack slice; what is left outside is the mesh (item 6)
+    # a mesh is served since the sharding slice (ROADMAP.md Queue 1 item
+    # 6), one process per mesh position: without the process group up
+    # with data * model ranks, prepare_servable says how to start them
     jcfg, cfg, jp, tp, toks = bert
     spec = ServingSpec(**dict(_spec_kw("plan", True, True), **kw))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         prepare_servable(tp, cfg, spec, device="cpu")
 
 

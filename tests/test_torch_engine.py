@@ -282,10 +282,13 @@ def _audio_engine():
 
 def _mesh_engine():
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import SchedSpec
     _, ts = _servables("gemma3_4b")
     fake = types.SimpleNamespace(cfg=ts.cfg,
-                                 spec=ServingSpec(mesh_shape=(1, 2)))
-    return ServingEngine(fake, max_slots=2, cache_len=32)
+                                 spec=ServingSpec(mesh_shape=(1, 2)),
+                                 mesh=types.SimpleNamespace(size=2))
+    return ServingEngine(fake, max_slots=2, cache_len=32,
+                         sched=SchedSpec(fast_fail=True))
 
 
 def _paged_int8_cache():
@@ -297,22 +300,25 @@ def _paged_int8_cache():
                            2, 32, paged=PagedLayout(page_size=16, n_pages=4))
 
 
-@pytest.mark.parametrize("build,message", [
-    (_audio_engine, None),
-    (_mesh_engine, "a mesh comes with ROADMAP.md Queue 1 item 6"),
-    (_paged_int8_cache, "kv_layout='paged' does not compose with "
-                        "kv_cache_quant"),
+@pytest.mark.parametrize("build,error,message", [
+    (_audio_engine, None, None),
+    (_mesh_engine, ValueError, "fast_fail / max_queue_delay_s read each "
+                               "rank's clock"),
+    (_paged_int8_cache, NotImplementedError,
+     "kv_layout='paged' does not compose with kv_cache_quant"),
 ], ids=["audio", "mesh", "paged_int8"])
-def test_unported_engine_options_raise(build, message):
-    """What still raises: a mesh at engine construction, and paged int8 KV
-    where the reference's model layer raises too (its engine then serves
-    dense, as the port's does). The audio family raised here until it was
-    ported (ROADMAP.md Queue 1 item 4); its case now serves a request as
-    the JAX engine does (``message`` None)."""
-    if message is None:
+def test_unported_engine_options_raise(build, error, message):
+    """What still raises: clock-driven SLO control on a mesh engine of more
+    than one rank (the ranks' clocks would split their schedules; a mesh
+    engine itself is served since ROADMAP.md Queue 1 item 6), and paged
+    int8 KV where the reference's model layer raises too (its engine then
+    serves dense, as the port's does). The audio family raised here until
+    it was ported (ROADMAP.md Queue 1 item 4); its case now serves a
+    request as the JAX engine does (``error`` None)."""
+    if error is None:
         build()
         return
-    with pytest.raises(NotImplementedError, match=re.escape(message)):
+    with pytest.raises(error, match=re.escape(message)):
         build()
 
 
