@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
-                           lm_training,lm_tp,training]
+                           lm_training,lm_tp,lm_tp_families,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -221,9 +221,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      width and depth, lm_serving's spec with tied pruning done once,
      exported three ways with place=False -- tp (1, 4) backend 'plan',
      dp (4, 1) 'plan_pallas' (K1), tp+dp (2, 2) 'plan' -- and handed to
-     the ranks through CUDA IPC (place_servable: each rank keeps its shard
-     of every sharded leaf); each run against the same export served on
-     one device: lm_serving's 6 requests (tp also with paged KV), every
+     the ranks through CUDA IPC (place_servable: each rank keeps views of
+     its shards); each run against the same export served on one device:
+     lm_serving's first 4 requests with 8 new tokens each (cut from 6 x 32
+     to make room for lm_tp_families; tp also with paged KV), every
      request done on every rank, K1 / K2 / K3 launches per rank equal to
      the layer routing (K2 on one local KV head, G 2, D 256 under tp), the
      ranks' tokens equal to each other and to the single-device run except
@@ -239,6 +240,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      logits within 1e-3 of one device. Then what gloo takes on CUDA tensors
      (all_reduce / broadcast / all_gather by dtype: a reading), and K2 / K3
      at a rank's decode shapes beside SDPA and the bound.
+  4g. lm_tp_families: the vlm, MoE and MLA families over meshes of four
+     processes sharing the card (gloo), one family after the other at
+     lm_families' widths and depths (pixtral_12b 40 layers,
+     deepseek_v2_lite_16b 27, qwen3_moe_235b_a22b 4 of 94), each pruned
+     once and exported per partition with place=False, handed to the
+     ranks through CUDA IPC: pixtral tp (1, 4) 'plan' with the vlm
+     forward ((1, 300) tokens, 256 patch embeddings handed to every rank)
+     against one device; qwen3_moe tp (1, 4) dense and paged (K2 / K3 on
+     a rank's KV head, G 16); deepseek tp (1, 4) dense and paged latents,
+     dp (4, 1) 'plan_pallas' (K1 on a rank's slot; its MoE layers gather
+     the step's rows over "data" and route the whole batch) and tp+dp
+     (2, 2). Each run: 3 requests (37, 300, 150 prompt tokens) x 8 new
+     tokens, every request done on every rank, launches a rank equal to
+     the routing, tokens equal to one device's except at near-ties,
+     decode_step logits on 4 prefilled slots within 5% of max|logits|
+     (where MoE router flips at near-ties moved them past the bar, one
+     device replaying the mesh's routing must meet it), cache leaves
+     spec_for_cache's shards, routed experts E/m and c_kv r/m a rank,
+     expert bytes a rank <= 1/4 of the total at tp; every router flip
+     between the mesh and one device only at a near-tie, printed with its
+     margin; printed: peak memory a rank, ms a decode step (host clock),
+     collectives a run and a decode step.
   lm_tp_cards (not in the default list; a four-card machine): gemma3_4b
      over tp (1, 4) with one card a rank and NCCL, each rank building its
      shard from the seed; lm_serving's traffic; launches a rank equal to
@@ -3126,8 +3149,9 @@ def _plain_packs(packs):
 class _RouterLog:
     """Records every MoE routing call's router logits, top-k indices and
     whole routing (``models.moe.route`` wrapped while a pass runs). With
-    ``replay`` (another pass's log) each call returns that pass's routing
-    in its place, so the two passes route every token alike."""
+    ``replay`` (another pass's log, possibly from another process) each
+    call returns that pass's routing in its place, so the two passes route
+    every token alike."""
 
     def __init__(self, replay=None):
         from repro_torch.models import moe
@@ -3144,7 +3168,8 @@ class _RouterLog:
             self.calls.append((logits, out[2]))
             self.routes.append(out)
             if self._replay is not None:
-                return self._replay.routes[len(self.calls) - 1]
+                return tuple(r.to(x2.device) for r in
+                             self._replay.routes[len(self.calls) - 1])
             return out
         self.moe.route = route
         return self
@@ -3152,17 +3177,29 @@ class _RouterLog:
     def __exit__(self, *exc):
         self.moe.route = self._route
 
+    def to_host(self):
+        """This log's calls and routes with every tensor on the host, to
+        send to another process (``_routing_flips`` reads it, ``replay``
+        takes it)."""
+        import types
+        return types.SimpleNamespace(
+            calls=[(a.cpu(), b.cpu()) for a, b in self.calls],
+            routes=[tuple(r.cpu() for r in out) for out in self.routes])
 
-def _routing_flips(name, kern, plain, k):
-    """Tokens whose top-k expert set differs between the kernel and the plain
-    pass, layer by layer; a flip fails only where the plain pass's k-th vs
-    (k+1)-th router logit margin is at least twice the layer's max |delta|
-    of the router logits (elsewhere a near-tie)."""
+
+def _routing_flips(name, kern, plain, k, what="kernels vs plain"):
+    """Tokens whose top-k expert set differs between two passes (the kernel
+    and the plain pass; a mesh and one device), layer by layer; a flip
+    fails only where the second pass's k-th vs (k+1)-th router logit margin
+    is at least twice the layer's max |delta| of the router logits
+    (elsewhere a near-tie). ``name`` starts the printed line. Returns the
+    flips' margins."""
     import torch
     check(len(kern.calls) == len(plain.calls) > 0,
           f"{name}: routing calls {len(kern.calls)} vs {len(plain.calls)}")
-    flips = worst = 0
+    margins = []
     for (la, ia), (lb, ib) in zip(kern.calls, plain.calls):
+        la, ia = la.to(lb.device), ia.to(ib.device)
         d = float((la - lb).abs().max())
         sa, _ = torch.sort(ia, dim=-1)
         sb, _ = torch.sort(ib, dim=-1)
@@ -3170,16 +3207,15 @@ def _routing_flips(name, kern, plain, k):
         if bool(diff.any()):
             top = torch.sort(lb, dim=-1, descending=True).values
             margin = (top[:, k - 1] - top[:, k])[diff]
-            flips += int(diff.sum())
-            worst = max(worst, float(margin.max()))
+            margins += [float(x) for x in margin]
             check(float(margin.max()) < 2 * d, f"{name}: a token's top-{k} "
                   f"experts differ where the router margin "
                   f"{float(margin.max()):.4e} is >= 2 x {d:.4e}")
     n = sum(int(i.shape[0]) for _, i in kern.calls)
-    print(f"[lm_families] {name}: top-{k} expert sets differ for {flips} of "
-          f"{n} routed tokens (kernels vs plain), all at near-ties "
-          f"(largest margin {worst:.4e})")
-    return flips
+    print(f"{name}: top-{k} expert sets differ for {len(margins)} of {n} "
+          f"routed tokens ({what}), all at near-ties (largest margin "
+          f"{max(margins, default=0.0):.4e})")
+    return margins
 
 
 def _clone_cache(tree):
@@ -3447,7 +3483,8 @@ def phase_lm_families(seed: int, card: str):
         rec["decode_step"] = {"max_abs_err": err, "max_logits": scale}
         flips = 0
         if n_moe:
-            flips = _routing_flips(name, rk, rp, cfg.top_k)
+            flips = len(_routing_flips(f"[lm_families] {name}", rk, rp,
+                                       cfg.top_k))
             # a routing flip at a near-tie moves whole expert outputs (and,
             # at capacity 1, which tokens are dropped): hold the kernels'
             # arithmetic with the plain pass routed as the kernel pass was
@@ -4674,6 +4711,10 @@ LM_TP_PARTITIONS = (("tp", (1, 4), "plan", ("dense", "paged")),
                     ("dp", (4, 1), "plan_pallas", ("dense",)),
                     ("tp+dp", (2, 2), "plan", ("dense",)))
 BERT_TP_MESHES = ((1, 4), (1, 2))
+#: gemma3_4b's mesh traffic: lm_serving's first four prompts (the four
+#: slots of the decode_step logits), 8 new tokens each
+LM_TP_PROMPTS = LM_PROMPTS[:4]
+LM_TP_NEW_TOKENS = 8
 #: seconds one rank may spend on one job (and the collectives' timeout)
 LM_TP_JOB_S = 600
 LM_TP_KERNELS = ("plan_dds", "flash_decode", "paged_flash_decode")
@@ -4733,10 +4774,14 @@ def _tp_decode_logits(sv, prompts):
 
 
 def _rank_lm_job(job):
-    """A rank's gemma3_4b run: place its shard of the whole export the
-    parent shares (CUDA IPC), then for each KV layout a warm-up request and
-    the counted engine run over the lm_serving traffic, then decode_step
-    logits on 4 prefilled slots."""
+    """A rank's LM run: place its shard of the whole export the parent
+    shares (CUDA IPC; the shards stay views of the parent's leaves), then
+    for each KV layout a warm-up request and the counted engine run over
+    the job's traffic, then decode_step logits on 4 prefilled slots. A
+    family job also runs the vlm forward against the
+    parent's logits (``job['vlm']``), logs every MoE routing call of the
+    logits step (rank 0 returns it) and reports its expert and latent
+    shards."""
     import gc
     import torch
     from repro_torch.core.pattern_reuse import PatternRegistry
@@ -4753,9 +4798,18 @@ def _rank_lm_job(job):
     torch.cuda.synchronize()
     mesh = sv.mesh
     out = {"coord": mesh.coordinate, "place_s": time.perf_counter() - t0,
-           "sharding": sv.stats()["sharding"], "runs": {}}
-    say = _rank_say(mesh.rank, job["name"])
+           "sharding": sv.stats()["sharding"], "runs": {},
+           "shards": _rank_family_shards(sv)}
+    say = _rank_say(mesh.rank, job["name"], job.get("phase", "lm_tp"))
     say(f"placed in {out['place_s']:.1f} s")
+    if "vlm" in job:
+        toks, mm, ref = job.pop("vlm")
+        y = sv.forward({"tokens": toks, "mm_embeds": mm})
+        torch.cuda.synchronize()
+        out["vlm"] = {"err": float((y - ref).abs().max()),
+                      "scale": float(ref.abs().max()),
+                      "finite": bool(torch.isfinite(y).all())}
+        del y, ref
     prompts = job["prompts"]
     for i, layout in enumerate(job["layouts"]):
         eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
@@ -4774,16 +4828,18 @@ def _rank_lm_job(job):
         mesh.reset_stats()
         _zero_launches()
         t0 = time.perf_counter()
-        hs = [eng.submit(p, max_new_tokens=job["n_new"]) for p in prompts]
-        eng.run()
-        torch.cuda.synchronize()
+        with _RouterLog() as run_log:
+            hs = [eng.submit(p, max_new_tokens=job["n_new"])
+                  for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = _launch_counts()
         es = eng.stats
         say(f"{layout}: counted run {wall:.1f} s (prefill "
             f"{es.prefill_s:.1f} s, decode {es.decode_s:.1f} s)")
-        k_leaf = next(n for n in before if n.endswith("mix/k_pages")
-                      or n.endswith("mix/k"))
+        k_leaf = next(n for n in before if n.endswith(
+            ("mix/k_pages", "mix/k", "mix/c_kv_pages", "mix/c_kv")))
         out["runs"][layout] = {
             "layout": eng.kv_layout, "launches": got,
             "tokens": [list(h.tokens) for h in hs],
@@ -4794,29 +4850,52 @@ def _rank_lm_job(job):
             "collectives": copy.deepcopy(mesh.stats),
             "cache_follows_spec": before == want,
             "cache_kept_shapes": _rank_shapes(eng.cache) == before,
-            "k_leaf": (k_leaf, before[k_leaf])}
-        del eng
-    logits, ms = _tp_decode_logits(sv, job["prompts"][:4])
+            "k_leaf": (k_leaf, before[k_leaf]),
+            "routing": (run_log.to_host() if mesh.rank == 0
+                        and run_log.calls else None)}
+        del eng, run_log
+    with _RouterLog() as log:
+        logits, ms = _tp_decode_logits(
+            sv, job.get("logit_prompts", job["prompts"])[:4])
     out["step_collectives"] = copy.deepcopy(mesh.stats)
     out["decode_step_ms"] = ms
     out["decode_sum"] = float(logits.double().sum())
     if mesh.rank == 0:
         out["decode_logits"] = logits.cpu().numpy()
+        if log.calls:
+            out["routing"] = log.to_host()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del sv, logits
+    del sv, logits, log
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _rank_say(rank, name):
+def _rank_family_shards(sv):
+    """This rank's routed-expert and latent-cache shards: every routed
+    expert leaf's local shape and bytes (a view counts its own elements),
+    and the local ``c_kv`` width of a one-slot cache."""
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.launch.sharding import leaf_name
+    from repro_torch.serving.servable import _routed_expert
+    experts = {leaf_name(p): (tuple(x.shape), x.numel() * x.element_size())
+               for p, x in flatten_with_path(sv.params)
+               if _routed_expert(leaf_name(p), x.dim())}
+    latent = None
+    if sv.cfg.kv_lora_rank:
+        cache = _rank_shapes(sv.init_cache(1, 16))
+        latent = {n: sh for n, sh in cache.items() if n.endswith("c_kv")}
+    return {"experts": experts, "latent": latent}
+
+
+def _rank_say(rank, name, phase="lm_tp"):
     """Rank 0's progress lines (flushed: the parent waits on the ranks)."""
     t0 = time.perf_counter()
 
     def say(msg):
         if rank == 0:
-            print(f"[lm_tp] rank 0, {name}: {msg} (+{time.perf_counter() - t0:.1f} s)",
-                  flush=True)
+            print(f"[{phase}] rank 0, {name}: {msg} "
+                  f"(+{time.perf_counter() - t0:.1f} s)", flush=True)
     return say
 
 
@@ -5176,7 +5255,7 @@ def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap):
         logits = ref_sv.forward(np.asarray(seq, np.int32)[None])[0, -1]
         top2 = torch.topk(logits.float(), 2).values
         margin = float(top2[0] - top2[1])
-        print(f"[lm_tp] {label}: request {r} first differs at token {i}: "
+        print(f"{label}: request {r} first differs at token {i}: "
               f"single-device top-2 margin {margin:.4e}, decode logits "
               f"max|d| {gap:.4e}")
         check(margin < 2 * gap, f"{label}: request {r} token {i} differs "
@@ -5226,7 +5305,13 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
     k1_per_pass = sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
                       for k in next(iter(whole.values())).packs)
     rng = np.random.RandomState(seed + 2)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in LM_PROMPTS]
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in LM_TP_PROMPTS]
+    print(f"[lm_tp] traffic cut to {len(LM_TP_PROMPTS)} requests of "
+          f"{LM_TP_PROMPTS} prompt tokens x {LM_TP_NEW_TOKENS} new tokens "
+          f"(lm_serving's {len(LM_PROMPTS)} x {LM_NEW_TOKENS}) to fit "
+          f"lm_tp_families in the run's time limit: gloo costs 3-7 ms a "
+          f"collective")
 
     # the single-device runs: the same exports on this one process
     t0 = time.perf_counter()
@@ -5235,7 +5320,7 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
         for layout in layouts:
             eng = whole[part].engine(max_slots=4, cache_len=1280,
                                      sync_every=8, kv_layout=layout)
-            hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS)
+            hs = [eng.submit(p, max_new_tokens=LM_TP_NEW_TOKENS)
                   for p in prompts]
             eng.run()
             check(all(h.status == "done" for h in hs),
@@ -5282,7 +5367,7 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
                                  "servable": (sv.params, sv.cfg, sv.spec,
                                               sv.packs, sv.export_stats),
                                  "layouts": layouts, "prompts": prompts,
-                                 "n_new": LM_NEW_TOKENS})
+                                 "n_new": LM_TP_NEW_TOKENS})
                 _lm_tp_report(part, shape, layouts, res, refs, ref_logits,
                               whole[part], prompts, k1_per_pass, n_layers,
                               n_global, n_local, counts)
@@ -5336,7 +5421,7 @@ def _lm_tp_report(part, shape, layouts, res, refs, ref_logits, ref_sv,
                   f"{layout}")
             check(all(s == "done" for s in run["status"]),
                   f"{part} {layout} rank {r['coord']}: {run['status']}")
-            check(all(len(t) == LM_NEW_TOKENS for t in run["tokens"]),
+            check(all(len(t) == LM_TP_NEW_TOKENS for t in run["tokens"]),
                   f"{part} {layout}: a request is short of tokens")
             steps, pre = run["steps"], run["prefills"]
             kernel = part == "dp"
@@ -5378,7 +5463,7 @@ def _lm_tp_report(part, shape, layouts, res, refs, ref_logits, ref_sv,
         logits = torch.from_numpy(res[0]["decode_logits"]).to(
             ref_logits[part].device)
         gap = float((logits - ref_logits[part]).abs().max())
-        _near_tie_check(f"{part} {layout}", ref_sv, prompts, ref,
+        _near_tie_check(f"[lm_tp] {part} {layout}", ref_sv, prompts, ref,
                         _first_differences(ref, got), gap)
     logits = torch.from_numpy(res[0]["decode_logits"]).to(
         ref_logits[part].device)
@@ -5415,6 +5500,359 @@ def _bert_tp_report(shape, res):
     check(worst <= TOL_LOGITS, f"bert {shape}: mesh logits disagree")
     check(all(r["sums"] == res[0]["sums"] for r in res),
           f"bert {shape}: the ranks' logits differ")
+
+
+# --------------------------------------------------------------------------
+# phase 4g: lm_tp_families -- the vlm, MoE and MLA families on a mesh
+# --------------------------------------------------------------------------
+
+#: (model, depth cut or None, why, [(partition, mesh shape, backend, KV
+#: layouts)]), one after the other
+LM_TP_FAMILIES = (
+    ("pixtral_12b", None, "full width and depth",
+     (("tp", (1, 4), "plan", ("dense",)),)),
+    ("deepseek_v2_lite_16b", None, "full width and depth",
+     (("tp", (1, 4), "plan", ("dense", "paged")),
+      ("dp", (4, 1), "plan_pallas", ("dense",)),
+      ("tp+dp", (2, 2), "plan", ("dense",)))),
+    ("qwen3_moe_235b_a22b", 4,
+     "full width, 4 of 94 layers (as lm_families: the whole model, ~470 "
+     "GB bf16, does not fit the card's 80 GB)",
+     (("tp", (1, 4), "plan", ("dense", "paged")),)))
+#: the traffic of every family's mesh runs (gloo costs 3-7 ms a
+#: collective): 3 requests into 4 slots, 8 new tokens each
+LM_TP_FAMILY_PROMPTS = (37, 300, 150)
+LM_TP_FAMILY_NEW = 8
+#: the vlm forward on the mesh: (1, 300) tokens, 256 patch embeddings
+LM_TP_VLM_TOKENS = 300
+
+
+def phase_lm_tp_families(seed: int, card: str):
+    """pixtral_12b (vlm, 40 layers), deepseek_v2_lite_16b (MLA + MoE, 27
+    layers) and qwen3_moe_235b_a22b (MoE, full width, 4 of 94 layers) over
+    meshes of four processes sharing the card (gloo): each pruned once,
+    exported per partition with ``place=False`` and handed to the ranks
+    (CUDA IPC; ``place_servable`` keeps views of its shards), against the
+    same export served on one device: pixtral tp (1, 4) with its vlm forward;
+    qwen3_moe tp (1, 4) dense and paged (K2 / K3 on a rank's KV head);
+    deepseek tp (1, 4) dense and paged latents, dp (4, 1) through K1 and
+    tp+dp (2, 2). Checks: every request done; launches a rank = the
+    routing; tokens = one device's except at near-ties; decode_step logits
+    within 5% of max|logits|; cache, expert and latent shards; a rank's
+    expert bytes; MoE routing flips only at near-ties."""
+    import gc
+    import torch
+    dev = torch.device("cuda")
+    base = dict(tile=(128, 128), sparsity=0.8, fuse_qkv=True,
+                decode_kernel="flash")
+    print(f"[lm_tp_families] {card}; 4 ranks share the card through gloo, "
+          f"so their step times say nothing of tensor-parallel speed; "
+          f"traffic a family: {len(LM_TP_FAMILY_PROMPTS)} requests of "
+          f"{LM_TP_FAMILY_PROMPTS} prompt tokens x {LM_TP_FAMILY_NEW} new "
+          f"tokens into 4 slots")
+    counts = {k: 0 for k in LM_TP_KERNELS}
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(4, tmp)
+        try:
+            for name, depth, why, parts in LM_TP_FAMILIES:
+                t_model = time.perf_counter()
+                summary[name] = _lm_tp_family(name, depth, why, parts, seed,
+                                              dev, ranks, counts, base)
+                gc.collect()
+                torch.cuda.empty_cache()
+                summary[name]["seconds"] = time.perf_counter() - t_model
+                print(f"[lm_tp_families] {name}: "
+                      f"{summary[name]['seconds']:.1f} s; device memory "
+                      f"after freeing "
+                      f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        finally:
+            ranks.close()
+    print(f"[lm_tp_families] summary {json.dumps(summary)}")
+    return counts
+
+
+def _lm_tp_family(name, depth, why, parts, seed, dev, ranks, counts, base):
+    """One family over its partitions: exports, single-device references,
+    the ranks' runs and their checks. Returns the family's readings."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core.pruner import tied_prune
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.launch.sharding import leaf_name
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    from repro_torch.serving.servable import _routed_expert
+    cfg = _family_config(name, depth)
+    kinds = list(cfg.layer_plan()[0]) + list(cfg.layer_plan()[1]) * \
+        cfg.layer_plan()[2] + list(cfg.layer_plan()[3])
+    n_attn = sum(1 for k in kinds if k.mixer == "attn")
+    n_moe = sum(1 for k in kinds if k.ffn == "moe")
+    t0 = time.perf_counter()
+    params = init_model(seed, cfg, device=dev)
+    pruned, _ = tied_prune(params, ServingSpec(**base).sparsity_config())
+    del params
+    whole = {part: prepare_servable(
+        pruned, cfg, ServingSpec(**base, prune="none", backend=backend,
+                                 mesh_shape=shape, partition=part),
+        device=dev, place=False) for part, shape, backend, _ in parts}
+    del pruned
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    one = next(iter(whole.values()))
+    k1_per_pass = sum(cfg.layer_plan()[2] if k.startswith("blocks/") else 1
+                      for k in one.packs)
+    expert_total = sum(
+        x.numel() * x.element_size() for p, x in flatten_with_path(one.params)
+        if _routed_expert(leaf_name(p), x.dim()))
+    print(f"[lm_tp_families] {name} ({cfg.family}): {len(kinds)} layers "
+          f"({why}); {n_attn} GQA attention ({cfg.n_kv_heads} KV heads), "
+          f"{len(kinds) - n_attn} MLA (latent rank {cfg.kv_lora_rank}), "
+          f"{n_moe} MoE FFN ({cfg.n_experts} experts); init + prune + "
+          f"{len(whole)} sharded exports (place=False) "
+          f"{time.perf_counter() - t0:.1f} s; routed-expert bytes "
+          f"{expert_total}; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.RandomState(seed + 11)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in LM_TP_FAMILY_PROMPTS]
+    # the decode_step logits' four slots: short prefills of the prompts
+    logit_prompts = [prompts[0], prompts[1][:64], prompts[2][:100],
+                     prompts[0][:20]]
+    vlm = None
+    if cfg.family == "vlm":
+        toks = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (1, LM_TP_VLM_TOKENS)).astype(np.int32)).to(
+                dev)
+        mm = torch.from_numpy((0.02 * rng.randn(
+            1, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+                dev, cfg.tdtype)
+        vlm = (toks, mm)
+    rec = {"layers": len(kinds), "expert_bytes": expert_total,
+           "partitions": {}}
+    for part, shape, backend, layouts in parts:
+        sv = whole[part]
+        # the single-device runs: the same export on this one process
+        t0 = time.perf_counter()
+        refs = {}
+        for layout in layouts:
+            eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
+                            kv_layout=layout)
+            hs = [eng.submit(p, max_new_tokens=LM_TP_FAMILY_NEW)
+                  for p in prompts]
+            eng.run()
+            check(all(h.status == "done" for h in hs),
+                  f"{name} {part} {layout}: a single-device request failed")
+            refs[layout] = [list(h.tokens) for h in hs]
+            del eng
+        with _RouterLog() as ref_log:
+            ref_logits, _ = _tp_decode_logits(sv, logit_prompts)
+        job = {"name": f"{name} {part}", "kind": "lm",
+               "phase": "lm_tp_families",
+               "servable": (sv.params, sv.cfg, sv.spec, sv.packs,
+                            sv.export_stats),
+               "layouts": layouts, "prompts": prompts,
+               "logit_prompts": logit_prompts, "n_new": LM_TP_FAMILY_NEW}
+        if vlm is not None:
+            with torch.inference_mode():
+                ref_fwd = sv.forward({"tokens": vlm[0], "mm_embeds": vlm[1]})
+            job["vlm"] = (vlm[0], vlm[1], ref_fwd)
+        t_ref = time.perf_counter() - t0
+        res = ranks.run(job)
+        rec["partitions"][part] = _lm_tp_family_report(
+            name, cfg, part, shape, layouts, res, refs, ref_logits, ref_log,
+            sv, prompts, logit_prompts, k1_per_pass, n_attn, n_moe,
+            expert_total, counts, t_ref)
+        del job
+    del whole, one, sv
+    return rec
+
+
+def _lm_tp_family_report(name, cfg, part, shape, layouts, res, refs,
+                         ref_logits, ref_log, ref_sv, prompts, logit_prompts,
+                         k1_per_pass, n_attn, n_moe, expert_total, counts,
+                         t_ref):
+    """The checks and readings of one family's partition."""
+    import numpy as np
+    import torch
+    d, m = shape
+    tag = f"[lm_tp_families] {name} {part} {shape}"
+    r0 = res[0]
+    st = r0["sharding"]
+    sh = r0["shards"]
+    print(f"{tag}: {st['sharded_packs']} sharded / {st['replicated_packs']} "
+          f"replicated packs, pack bytes a rank {st['pack_bytes_per_device']}"
+          f" of {st['pack_bytes_total']}; single-device runs {t_ref:.1f} s; "
+          f"placement {max(r['place_s'] for r in res):.1f} s")
+    # expert and latent shards: E/m experts and r/m latent columns a rank
+    for r in res:
+        for leaf, (lshape, _) in r["shards"]["experts"].items():
+            want_e = cfg.n_experts // m if cfg.n_experts % m == 0 \
+                else cfg.n_experts
+            check(lshape[-3] == want_e, f"{tag} rank {r['coord']}: {leaf} "
+                  f"holds {lshape[-3]} experts, want {want_e}")
+        for leaf, lshape in (r["shards"]["latent"] or {}).items():
+            check(lshape[-1] == cfg.kv_lora_rank // m, f"{tag} rank "
+                  f"{r['coord']}: {leaf} {lshape}, want r/{m}")
+    rank_expert = max(sum(b for _, b in r["shards"]["experts"].values())
+                      for r in res)
+    if n_moe:
+        print(f"{tag}: routed-expert bytes a rank {rank_expert} of "
+              f"{expert_total} ({rank_expert / expert_total:.4f}); leaves "
+              f"{ {k: v[0] for k, v in sh['experts'].items()} }; latent "
+              f"cache {sh['latent']}")
+        if m == 4:
+            check(4 * rank_expert <= expert_total,
+                  f"{tag}: a rank holds more than 1/4 of the expert bytes")
+    elif sh["latent"]:
+        print(f"{tag}: latent cache {sh['latent']}")
+    out = {"runs": {}}
+    for layout in layouts:
+        ref = refs[layout]
+        for r in res:
+            run = r["runs"][layout]
+            check(run["layout"] == layout, f"{tag}: fell back from {layout}")
+            check(all(s == "done" for s in run["status"]),
+                  f"{tag} {layout} rank {r['coord']}: {run['status']}")
+            check(all(len(t) == LM_TP_FAMILY_NEW for t in run["tokens"]),
+                  f"{tag} {layout}: a request is short of tokens")
+            steps, pre = run["steps"], run["prefills"]
+            want = {"plan_dds": k1_per_pass * (steps + pre)
+                    if part == "dp" else 0,
+                    "flash_decode": steps * n_attn if layout == "dense"
+                    else 0,
+                    "paged_flash_decode": steps * n_attn
+                    if layout == "paged" else 0}
+            check(run["launches"] == want, f"{tag} {layout} rank "
+                  f"{r['coord']}: launches {run['launches']} differ from the "
+                  f"layer routing {want}")
+            check(run["cache_follows_spec"] and run["cache_kept_shapes"],
+                  f"{tag} {layout} rank {r['coord']}: a cache leaf does not "
+                  f"follow spec_for_cache or changed shape")
+            check(run["tokens"] == r0["runs"][layout]["tokens"],
+                  f"{tag} {layout}: the ranks' tokens differ")
+            for k in LM_TP_KERNELS:
+                counts[k] += run["launches"][k]
+        run = r0["runs"][layout]
+        got = run["tokens"]
+        agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+        coll = run["collectives"]
+        calls = sum(v["calls"] for v in coll.values())
+        ms = 1e3 * run["decode_s"] / run["steps"]
+        print(f"{tag} {layout}: {len(got)} requests done on every rank, "
+              f"{run['steps']} decode steps in {run['windows']} windows, "
+              f"{run['prefills']} prefills; launches a rank "
+              f"{run['launches']} (= the routing); greedy tokens equal to "
+              f"one device's: {agree} of {sum(len(x) for x in ref)}; local "
+              f"cache leaf {run['k_leaf'][0]} {run['k_leaf'][1]}")
+        print(f"{tag} {layout}: host clock (ranks share the card: no "
+              f"tensor-parallel speed) {ms:.2f} ms a decode step, prefill "
+              f"{run['prefill_s']:.2f} s, wall {run['wall_s']:.2f} s; "
+              f"collectives in the run {calls} "
+              f"({sum(v['bytes'] for v in coll.values()) / 2**20:.1f} MiB, "
+              f"{sum(v['s'] for v in coll.values()):.2f} s of the host "
+              f"clock) { {k: v['calls'] for k, v in coll.items()} }")
+        out["runs"][layout] = {"agree": agree, "ms_per_step": ms,
+                               "steps": run["steps"], "collectives": calls,
+                               "launches": run["launches"]}
+        if not n_moe:
+            logits = torch.from_numpy(r0["decode_logits"]).to(
+                ref_logits.device)
+            gap = float((logits - ref_logits).abs().max())
+            _near_tie_check(f"{tag} {layout}", ref_sv, prompts, ref,
+                            _first_differences(ref, got), gap)
+    logits = torch.from_numpy(r0["decode_logits"]).to(ref_logits.device)
+    gap = float((logits - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    tol = TOL_FLASH_VS_XLA * scale
+    sc = r0["step_collectives"]
+    n_sc = sum(v["calls"] for v in sc.values())
+    print(f"{tag}: decode_step logits on 4 prefilled slots vs one device "
+          f"max|d| {gap:.4e}, max|logits| {scale:.4e} (tol {tol:.4e}); one "
+          f"decode step {r0['decode_step_ms']:.2f} ms host clock, {n_sc} "
+          f"collectives ({sum(v['bytes'] for v in sc.values())} bytes; "
+          f"{ {k: v['calls'] for k, v in sc.items()} }); peak memory a rank "
+          f"{[round(r['peak_gib'], 2) for r in res]} GiB (the rank's own "
+          f"allocations; its shards are views of the parent's export)")
+    check(len({r["decode_sum"] for r in res}) == 1,
+          f"{tag}: the ranks' decode logits differ")
+    check(bool(np.isfinite(r0["decode_logits"]).all()),
+          f"{tag}: non-finite decode logits")
+    out.update(gap=gap, scale=scale, step_collectives=n_sc,
+               peak_gib=[r["peak_gib"] for r in res])
+    held = gap <= tol
+    if n_moe:
+        margins = _routing_flips(tag, r0["routing"], ref_log, cfg.top_k,
+                                 what="the mesh's own routing vs one "
+                                      "device's, decode_step and its "
+                                      "prefills")
+        print(f"{tag}: router flips' margins "
+              f"{sorted(round(x, 5) for x in margins)}")
+        out["router_flips"] = len(margins)
+        # a flip at a router near-tie moves whole expert outputs (and at
+        # capacity 1 which tokens drop): hold the arithmetic and the
+        # tokens against one device routed as the mesh's rank 0 was (the
+        # mesh keeps its own routing)
+        with _RouterLog(replay=r0["routing"]):
+            replayed, _ = _tp_decode_logits(ref_sv, logit_prompts)
+        gap_r = float((logits - replayed).abs().max())
+        print(f"{tag}: decode_step logits vs one device routed as the "
+              f"mesh: max|d| {gap_r:.4e} (tol {tol:.4e})")
+        out["gap_same_routing"] = gap_r
+        held = held or (bool(margins) and gap_r <= tol)
+        for layout in layouts:
+            out["runs"][layout]["agree_same_routing"] = _replayed_tokens(
+                f"{tag} {layout}", ref_sv, prompts, layout,
+                r0["runs"][layout], gap_r)
+    if "vlm" in r0:
+        worst = max(r["vlm"]["err"] for r in res)
+        vs = r0["vlm"]["scale"]
+        print(f"{tag}: forward (1, {LM_TP_VLM_TOKENS}) with "
+              f"{cfg.n_patches} patch embeddings handed to every rank vs one "
+              f"device: max|d| {worst:.4e}, max|logits| {vs:.4e} (tol "
+              f"{TOL_FLASH_VS_XLA * vs:.4e})")
+        check(all(r["vlm"]["finite"] for r in res), f"{tag}: vlm non-finite")
+        check(worst <= TOL_FLASH_VS_XLA * vs,
+              f"{tag}: the mesh's vlm forward disagrees with one device")
+        out["vlm"] = {"max_abs_err": worst, "max_logits": vs}
+    check(held, f"{tag}: mesh decode logits disagree with one device")
+    return out
+
+
+def _replayed_tokens(label, ref_sv, prompts, layout, run, gap):
+    """A MoE run's tokens against one device replaying the mesh's routing
+    of the counted run call for call (rank 0's log): a token that differs
+    passes only where the replayed device's top-2 logit margin there is
+    below twice the decode logits' max |difference| under the same routing
+    (a near-tie). Returns the tokens equal."""
+    import numpy as np
+    eng = ref_sv.engine(max_slots=4, cache_len=1280, collect_logits=True,
+                        kv_layout=layout)
+    with _RouterLog(replay=run["routing"]) as log:
+        hs = [eng.submit(p, max_new_tokens=LM_TP_FAMILY_NEW)
+              for p in prompts]
+        eng.run()
+    check(len(log.calls) == len(run["routing"].calls),
+          f"{label}: the replay made {len(log.calls)} routing calls, the "
+          f"mesh {len(run['routing'].calls)}")
+    ref = [list(h.tokens) for h in hs]
+    got = run["tokens"]
+    agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+    print(f"{label}: greedy tokens equal to one device routed as the mesh: "
+          f"{agree} of {sum(len(x) for x in ref)}")
+    for r, i in _first_differences(ref, got):
+        top2 = np.sort(hs[r].step_logits[i])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"{label}: request {r} first differs from the replay at token "
+              f"{i}: top-2 margin {margin:.4e}, decode logits max|d| under "
+              f"the same routing {gap:.4e}")
+        check(margin < 2 * gap, f"{label}: request {r} token {i} differs "
+              f"from one device routed as the mesh where the top-2 margin "
+              f"{margin:.4e} is >= 2 x {gap:.4e}")
+    del eng
+    return agree
 
 
 def _sum_group(recs):
@@ -5462,7 +5900,7 @@ def main() -> int:
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
-                            "training")
+                            "lm_tp_families,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -5547,6 +5985,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_tp"] = phase_lm_tp(args.seed, card, args.requests)
             done("lm_tp")
+        if "lm_tp_families" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp_families"] = phase_lm_tp_families(args.seed,
+                                                              card)
+            done("lm_tp_families")
         if "lm_tp_cards" in phases:
             launches["lm_tp_cards"] = phase_lm_tp_cards(args.seed, card)
             done("lm_tp_cards")

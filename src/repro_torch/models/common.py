@@ -154,6 +154,53 @@ class HeadShard:
         return self.mesh.all_gather(out, "model", dim=2)
 
 
+@dataclasses.dataclass(frozen=True)
+class LatentShard:
+    """MLA over this rank's block of the latent rank (the cache's
+    ``c_kv`` / ``c_kv_pages`` shard their last dim over "model";
+    ``models.mla``): :meth:`block` cuts a whole latent-width tensor to the
+    rank's columns, :meth:`gather` makes a block whole again, exactly, and
+    :meth:`reduce` sums fp32 partials of a product over the blocks."""
+
+    mesh: object
+    rank: int
+
+    def block(self, x):
+        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
+        w = self.rank // n
+        return x[..., s * w:(s + 1) * w]
+
+    def gather(self, x):
+        return self.mesh.all_gather(x, "model", dim=-1)
+
+    def reduce(self, x):
+        return self.mesh.all_reduce(x, "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """A MoE layer on a mesh (``models.moe.apply_moe``): with ``sharded``
+    the rank holds experts ``[s E/m, (s+1) E/m)`` (the routed-expert
+    tensors' E axis over "model"), runs its expert products on them alone
+    and all-gathers the outputs before the combine; with ``gather_rows``
+    (a decode step whose rows shard over "data") it all-gathers the
+    step's rows over "data" first, routes the whole batch and keeps its
+    own rows of the output."""
+
+    mesh: object
+    n_experts: int
+    sharded: bool
+    gather_rows: bool = False
+
+    def local(self, x):
+        """Dim 0 of an (E, ...) tensor cut to this rank's experts."""
+        if not self.sharded:
+            return x
+        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
+        w = self.n_experts // n
+        return x[s * w:(s + 1) * w]
+
+
 def tp_constrain(y, pack, dtype=None):
     """The port's counterpart of the reference's sharding hook for a
     sharded projection's rank-local output ``y``: column-parallel

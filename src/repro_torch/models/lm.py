@@ -177,7 +177,11 @@ def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
     if kind.ffn != "none" and "ffn" in p:
         hn = apply_norm(p["norm2"], h, cfg.norm)
         if kind.ffn == "moe":
-            out, aux = moe_mod.apply_moe(p["ffn"], hn, cfg)
+            ffn_packs = _layer_packs(packs, "ffn")
+            out, aux = moe_mod.apply_moe(
+                p["ffn"], hn, cfg,
+                shard=ffn_packs.get("experts") if ffn_packs else None,
+                shared_packs=_layer_packs(ffn_packs, "shared"))
         else:
             out = apply_mlp(p["ffn"], hn, cfg.act,
                             packs=_layer_packs(packs, "ffn"))

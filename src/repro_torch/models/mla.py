@@ -9,6 +9,14 @@ folded into the query, so scores are taken against the (T, kv_lora_rank)
 latent cache directly. Decode is the plain composition on every device, as
 the reference runs it with XLA and not with a decode kernel.
 
+On a mesh whose cache shards the latent rank over "model" (``packs
+['latent']``, a ``common.LatentShard``) every rank computes the new latent
+rows whole and writes its r-block; the absorbed decode all-reduces its fp32
+partial scores over the blocks before the rope scores are added, and its
+fp32 partial output (``ctx`` block times ``w_uv``'s block columns); a chunk
+prefill all-gathers the slot's latent view (exact) and expands it as one
+device does; the one-pass prefill needs no collective.
+
 Caches are preallocated and written in place (``models/attention.py``).
 The reference also accepts a 1-D shared ``pos_map`` left from an older cache
 layout; the port never builds one, so that branch is not carried over.
@@ -69,12 +77,15 @@ def init_cache_mla(cfg, batch, cache_len, paged=None, device=None):
             "pos_map": pm}
 
 
-def _chunk_prefill(p, cfg, q, c_kv, k_rope, cache, *, length, slot, start):
+def _chunk_prefill(p, cfg, q, c_kv, k_rope, cache, *, length, slot, start,
+                   lat=None):
     """One slot's next prompt slice at absolute positions start.. (the first
     ``length`` real): its latents are written first (the latent cache is
     linear, slot == position), then the queries attend expanded K/V built
     from the slot's updated latent view. Returns (1, S, H, dv)."""
     s, dev = q.shape[1], q.device
+    if lat is not None:
+        c_kv = lat.block(c_kv)
     pos_i = start + torch.arange(s, device=dev)
     valid = torch.arange(s, device=dev) < length
     if "c_kv_pages" in cache:
@@ -101,6 +112,8 @@ def _chunk_prefill(p, cfg, q, c_kv, k_rope, cache, *, length, slot, start):
         pm_row = paged_suffix_positions(t, start, length, device=dev)
         cache["pos_map"][slot] = pm_row
         c_view, r_view = c_row[None], r_row[None]
+    if lat is not None:
+        c_view = lat.gather(c_view)
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
     tv = c_view.shape[1]
@@ -115,10 +128,12 @@ def _chunk_prefill(p, cfg, q, c_kv, k_rope, cache, *, length, slot, start):
 
 
 def _absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope, cache, pos,
-                     out_dtype):
+                     out_dtype, lat=None):
     """One decode step at ragged per-slot ``pos`` (< 0 = inactive, its cache
     rows untouched): the new latent rows are written in place and the
-    absorbed scores run in fp32 against the latent cache. -> (B, 1, H, dv)."""
+    absorbed scores run in fp32 against the latent cache. -> (B, 1, H, dv).
+    With ``lat`` the cache holds this rank's r-block: the scores and the
+    output are fp32 partials over it, all-reduced."""
     b = q_nope.shape[0]
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
@@ -128,6 +143,8 @@ def _absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope, cache, pos,
     active = posv >= 0
     rows = torch.arange(b, device=dev)
     pm = cache["pos_map"]
+    if lat is not None:
+        c_kv = lat.block(c_kv)
     if "c_kv_pages" in cache:
         # paged latents: the new row goes into the slot's current page and
         # the scores read a gathered slot-contiguous view -- elementwise the
@@ -149,7 +166,12 @@ def _absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope, cache, pos,
     # the weights keep the (d_out, d_in) layout: w_uk (H*dn, r), w_uv (H*dv, r)
     w_uk = p["w_uk"]["w"].reshape(h, dn, r)
     q_abs = torch.einsum("bqhd,hdr->bqhr", q_nope, w_uk)
+    w_uv = p["w_uv"]["w"].reshape(h, dv, r)
+    if lat is not None:
+        q_abs, w_uv = lat.block(q_abs), lat.block(w_uv)
     s_lat = torch.einsum("bqhr,btr->bhqt", q_abs.float(), c_cache.float())
+    if lat is not None:
+        s_lat = lat.reduce(s_lat)
     s_rope = torch.einsum("bqhd,btd->bhqt", q_rope.float(), r_cache.float())
     scores = (s_lat + s_rope) * ((dn + dr) ** -0.5)
     ok = (pm >= 0) & (pm <= posv[:, None])              # per-row causal mask
@@ -157,8 +179,10 @@ def _absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope, cache, pos,
                          torch.full((), NEG_INF, device=dev))
     pr = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhqt,btr->bqhr", pr, c_cache.float())
-    w_uv = p["w_uv"]["w"].reshape(h, dv, r)
-    return torch.einsum("bqhr,hvr->bqhv", ctx, w_uv.float()).to(out_dtype)
+    out = torch.einsum("bqhr,hvr->bqhv", ctx, w_uv.float())
+    if lat is not None:
+        out = lat.reduce(out)
+    return out.to(out_dtype)
 
 
 def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
@@ -180,6 +204,7 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
     k_rope = apply_rope(linear(p["w_krope"], x)[:, :, None, :], positions,
                         theta=cfg.rope_theta)                   # (B,S,1,dr)
     wo = packs and packs.get("wo")
+    lat = packs.get("latent") if packs else None
 
     if cache is not None and s > 1 and page_slot is not None:
         if b != 1:
@@ -187,7 +212,8 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
         length = s if prefill_len is None else int(prefill_len)
         o = _chunk_prefill(p, cfg, torch.cat([q_nope, q_rope], dim=-1),
                            c_kv, k_rope, cache, length=length,
-                           slot=int(page_slot), start=int(page_start))
+                           slot=int(page_slot), start=int(page_start),
+                           lat=lat)
         return linear(p["wo"], o.reshape(1, s, h * dv), wo), cache
 
     if cache is None or s > 1:
@@ -212,7 +238,8 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
         length = s if prefill_len is None else int(prefill_len)
         src, slot_pos = prefill_slot_sources(t, length, s, device=x.device)
         keep = (slot_pos >= 0)[None, :, None]
-        for name, val in (("c_kv", c_kv), ("k_rope", k_rope[:, :, 0, :])):
+        c_own = c_kv if lat is None else lat.block(c_kv)
+        for name, val in (("c_kv", c_own), ("k_rope", k_rope[:, :, 0, :])):
             buf = cache[name]
             zero = torch.zeros((), dtype=val.dtype, device=x.device)
             buf.copy_(torch.where(keep, val[:, src], zero).to(buf.dtype))
@@ -222,5 +249,5 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
     if pos is None:
         raise ValueError("a decode step (S == 1) needs pos")
     o = _absorbed_decode(p, cfg, q_nope, q_rope, c_kv, k_rope, cache, pos,
-                         x.dtype)
+                         x.dtype, lat)
     return linear(p["wo"], o.reshape(b, 1, h * dv), wo), cache

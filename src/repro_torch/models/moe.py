@@ -15,6 +15,13 @@ off. The combine sums each token's k weighted expert outputs in ascending
 expert order with plain adds -- the order of the reference's scatter-add
 over the expert-sorted assignments -- and no atomics, so it is bitwise
 repeatable on the card.
+
+On a mesh (``common.ExpertShard``) the router is replicated, so routing,
+capacity and the dispatch buffer are the same on every rank; a rank runs
+the expert products of its E/m experts and all-gathers the (E/m, cap, d)
+outputs over "model" before the unchanged combine, so the output is what
+one device computes from the same expert outputs. A decode step whose
+rows shard over "data" gathers them first and routes the whole batch.
 """
 from __future__ import annotations
 
@@ -65,11 +72,21 @@ def route(router, x2, cfg):
     return probs, gate, idx, sorted_e, order, pos_in_seg
 
 
-def apply_moe(p, x, cfg):
-    """x: (B, S, d) -> (y (B, S, d) in x's dtype, fp32 aux loss)."""
+def apply_moe(p, x, cfg, shard=None, shared_packs=None):
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, fp32 aux loss). On a
+    mesh ``shard`` is the layer's ``common.ExpertShard`` (``p``'s
+    routed-expert tensors then hold this rank's experts only) and
+    ``shared_packs`` the shared experts' (``{'wi': DenseShard, ...}``)."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    rows = None
+    if shard is not None and shard.gather_rows:
+        # a decode step's rows shard over "data": route the whole batch,
+        # so capacity and drops are the batch's, as on one device
+        c, n = shard.mesh.coord("data"), x2.shape[0]
+        rows = (c * n, (c + 1) * n)
+        x2 = shard.mesh.all_gather(x2, "data", dim=0)
+    t, k, e = x2.shape[0], cfg.top_k, cfg.n_experts
     cap = capacity(t, cfg)
     probs, gate, idx, sorted_e, order, pos_in_seg = route(p["router"], x2,
                                                           cfg)
@@ -81,8 +98,12 @@ def apply_moe(p, x, cfg):
     buf = buf[:, :cap]
 
     act = F.silu if cfg.act == "swiglu" else gelu
+    if shard is not None:
+        buf = shard.local(buf)          # this rank's experts' rows
     hdn = act(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
     out = torch.bmm(hdn, p["wo"])                               # (E, cap, d)
+    if shard is not None and shard.sharded:
+        out = shard.mesh.all_gather(out, "model", dim=0)
 
     # combine: a dropped assignment reads the zero overflow row
     out = F.pad(out, (0, 0, 0, 1))
@@ -98,9 +119,12 @@ def apply_moe(p, x, cfg):
         y = y + terms[:, j]
 
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x2, cfg.act).float()
+        y = y + apply_mlp(p["shared"], x2, cfg.act,
+                          packs=shared_packs).float()
 
     # Switch-style aux loss: E * sum(frac_tokens_e * mean_prob_e)
     frac = F.one_hot(idx[:, 0], e).float().mean(dim=0)
     aux = e * torch.sum(frac * probs.mean(dim=0)) * cfg.router_aux_coef
+    if rows is not None:
+        y = y[rows[0]:rows[1]]
     return y.reshape(b, s, d).to(x.dtype), aux

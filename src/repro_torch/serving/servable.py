@@ -23,21 +23,27 @@ jits each engine function once per servable (with the cache donated), the
 port runs them as plain methods (``engine_decode``, ``engine_prefill``,
 ...) that update the preallocated cache in place.
 
-**Meshes** (``spec.mesh_shape = (data, model)``; the dense LM family and
-bert). Where the reference places params and caches with NamedSharding and
-lets GSPMD partition the program, the port runs explicit SPMD: one process
+**Meshes** (``spec.mesh_shape = (data, model)``; the dense, vlm and moe LM
+families -- attention, MLA and MoE layers -- and bert). Where the reference
+places params and caches with NamedSharding and lets GSPMD partition the
+program, the port runs explicit SPMD: one process
 per mesh position (``torch.distributed`` up with ``data * model`` ranks,
 ``launch.mesh.init_distributed``), each calling :func:`prepare_servable` or
 :func:`load_servable` and then serving the same requests. A rank holds its
 shard of every leaf (``serving_param_shardings``: ShardedPlan values split
 on the vrow axis over "model", dense leaves by
 ``launch/sharding.spec_for_param`` in inference mode, the rest replicated)
-and of every cache (slots over "data", KV heads over "model"); every
-sharded projection's output is made whole on every rank
-(``models.common.linear``). Under "data" a rank decodes its own slots and
-the emitted tokens are all-gathered, so every rank's engine runs the same
-schedule; prefills of the batch-1 sub-cache run replicated over "data",
-as the reference's replicated sub-cache does.
+and of every cache (slots over "data", KV heads or MLA's latent rank over
+"model"); every sharded projection's output is made whole on every rank
+(``models.common.linear``), an MLA layer all-reduces its partial scores
+and outputs over its latent block (``models.mla``), a MoE layer runs its
+own experts and all-gathers their outputs before the combine
+(``models.moe``). Under "data" a rank decodes its own slots and the
+emitted tokens are all-gathered, so every rank's engine runs the same
+schedule; a MoE layer of such a decode step gathers the step's rows over
+"data" and routes the whole batch, as one device does (capacity and drops
+are the batch's). Prefills of the batch-1 sub-cache run replicated over
+"data", as the reference's replicated sub-cache does.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
-from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.configs.base import LayerKind, ModelConfig, torch_dtype
 from repro_torch.core.pattern_reuse import PatternRegistry
 from repro_torch.core.pruner import oneshot_prune, tied_prune
 from repro_torch.core.tree import at_path, flatten_with_path, \
@@ -59,7 +65,8 @@ from repro_torch.kernels.flash_decode import decode_kernel_override
 from repro_torch.launch.sharding import (local_shard, shard_index,
                                           spec_for_param)
 from repro_torch.models import api as model_api
-from repro_torch.models.common import DenseShard, HeadShard
+from repro_torch.models.common import (DenseShard, ExpertShard, HeadShard,
+                                       LatentShard)
 from repro_torch.models.sampling import sample_tokens
 from repro_torch.serving.export import export_params
 from repro_torch.serving.serialize import (LeafReader, ServableLoadError,
@@ -74,8 +81,11 @@ SERVABLE_STEP = 0
 _PACKS_FILE = "packs.npz"
 
 
-#: families a mesh serves (the rest come with ROADMAP.md Queue 1 item 7)
-MESH_FAMILIES = ("dense", "bert")
+#: families, mixers and FFNs a mesh serves (the ssm, hybrid and audio
+#: families come with ROADMAP.md Queue 1 item 7)
+MESH_FAMILIES = ("dense", "bert", "vlm", "moe")
+MESH_MIXERS = ("attn", "local", "mla")
+MESH_FFNS = ("dense", "moe", "none")
 
 
 def _check_spec(spec: ServingSpec, cfg: ModelConfig):
@@ -83,16 +93,27 @@ def _check_spec(spec: ServingSpec, cfg: ModelConfig):
     ROADMAP.md item that brings each."""
     if spec.mesh_shape is None:
         return
-    kinds = list(cfg.layer_plan()[0]) + list(cfg.layer_plan()[1]) \
-        + list(cfg.layer_plan()[3]) if cfg.family != "bert" else []
     if cfg.family not in MESH_FAMILIES or any(
-            k.mixer not in ("attn", "local") or k.ffn not in ("dense", "none")
-            for k in kinds):
+            k.mixer not in MESH_MIXERS or k.ffn not in MESH_FFNS
+            for _, k in _layer_scopes(cfg)):
         raise NotImplementedError(
             f"mesh_shape for family {cfg.family!r} ({cfg.arch}) comes with "
-            f"ROADMAP.md Queue 1 item 7 (the vlm, MoE, MLA, ssm, hybrid and "
-            f"audio families on a mesh); the port's mesh serves the dense "
-            f"attention LMs and bert")
+            f"ROADMAP.md Queue 1 item 7 (the ssm, hybrid and audio families "
+            f"on a mesh); the port's mesh serves the dense, vlm and moe LM "
+            f"families (attention, MLA and MoE layers) and bert")
+
+
+def _layer_scopes(cfg: ModelConfig):
+    """[(pack scope, LayerKind)] of every layer kind's scope: bert's
+    layers, or an LM's prefix, period-stacked blocks and suffix."""
+    if cfg.family == "bert":
+        return [(f"layers/{i}", LayerKind("attn", "dense"))
+                for i in range(cfg.n_layers)]
+    prefix, pattern, n_per, suffix = cfg.layer_plan()
+    return ([(f"prefix/{i}", k) for i, k in enumerate(prefix)]
+            + [(f"blocks/{i}", k) for i, k in enumerate(pattern)
+               if n_per > 0]
+            + [(f"suffix/{i}", k) for i, k in enumerate(suffix)])
 
 
 # --------------------------------------------------------------------------
@@ -146,11 +167,14 @@ def serving_param_shardings(params, packs, mesh):
     tree: ShardedPlan-packed values ``(..., V, P, bn, bk)`` and their
     scales ``(..., V, P|1)`` shard the vrow axis over "model"; other packed
     values replicate (their pattern did not divide); every dense leaf
-    follows ``spec_for_param`` in inference mode (TP only) on its row or
-    column dim -- an entry the explicit-SPMD linear does not consume (the
-    period axis of a period-stacked dense FFN, which the rule's expert
-    branch matches; "data") replicates its dim. ``params`` holds whole
-    leaves (or anything with their ``shape``)."""
+    follows ``spec_for_param`` in inference mode (TP only) where the
+    explicit-SPMD code consumes the entry: the row or column dim of a
+    linear weight (``.../w``, the embedding and head tables included),
+    BERT's ``pos`` rows and the expert axis E of a routed-expert tensor.
+    Every other entry replicates its dim: the period axis (of a stacked
+    norm scale, or of a period-stacked dense FFN, which the rule's expert
+    branch matches), biases, "data". ``params`` holds whole leaves (or
+    anything with their ``shape``)."""
     packed = _packed_names(packs)
     return map_with_path(lambda path, leaf: _leaf_spec(
         norm_path(path_name(path)), tuple(leaf.shape), packed, mesh), params)
@@ -166,6 +190,15 @@ def _packed_names(packs) -> Dict[str, object]:
     return packed
 
 
+def _routed_expert(name: str, ndim: int) -> bool:
+    """A MoE layer's routed-expert tensor: a bare ``ffn/wi|wg|wo`` leaf
+    (E, a, b) (period-stacked: a leading axis more). A shared expert's or
+    a dense MLP's weight ends in ``/w``."""
+    toks = name.split("/")
+    return ndim >= 3 and len(toks) >= 2 and toks[-2] == "ffn" \
+        and toks[-1] in ("wi", "wg", "wo")
+
+
 def _leaf_spec(name: str, shape, packed, mesh) -> tuple:
     shape = tuple(shape)
     pk = packed.get(name)
@@ -176,57 +209,80 @@ def _leaf_spec(name: str, shape, packed, mesh) -> tuple:
         return tuple(spec)
     if pk is not None:
         return (None,) * len(shape)
-    # the mesh linear consumes "model" on a weight's rows or columns; any
-    # other entry (the period axis of a period-stacked dense FFN, which the
-    # expert rule matches, or "data") leaves that dim replicated
     spec = spec_for_param(name, shape, mesh, mode="inference")
-    return tuple(e if e == "model" and d >= len(spec) - 2 else None
+    if _routed_expert(name, len(shape)):
+        keep = {len(shape) - 3}                 # E, over "model" (EP)
+    elif name.endswith("/w"):
+        keep = {len(shape) - 2, len(shape) - 1}     # a linear's rows / cols
+    elif name == "pos":
+        keep = {0}                              # BERT's position rows
+    else:
+        keep = set()
+    return tuple(e if e == "model" and d in keep else None
                  for d, e in enumerate(spec))
 
 
 def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
     """The packs a mesh servable runs with: ``packs`` (mesh attached) plus
-    a ``DenseShard`` for every dense leaf sharded over "model" (under its
-    projection's key, or 'embed' / 'lm_head' / 'pos') and a ``HeadShard``
-    for every attention layer whose KV heads divide the "model" axis."""
+    a ``DenseShard`` for every dense linear leaf sharded over "model"
+    (under its projection's key, or 'embed' / 'lm_head' / 'pos') and, by
+    each layer's kind, a ``HeadShard`` for an attention layer whose KV
+    heads divide the "model" axis (``{scope}/attn/heads``), a
+    ``LatentShard`` for an MLA layer whose latent rank does
+    (``{scope}/attn/latent``) and an ``ExpertShard`` for a MoE FFN
+    (``{scope}/ffn/experts``) whose experts shard over "model" or whose
+    decode rows shard over "data"."""
     out = dict(packs)
-    m = mesh.shape["model"]
-    if m == 1:
-        return out
-    for path, _ in flatten_with_path(params):
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    specs_by_name = {}
+    for path, leaf in flatten_with_path(params):
         spec = at_path(specs, path)
         name = norm_path(path_name(path))
-        if "model" not in spec or name.rsplit("/", 1)[0] in packs:
+        specs_by_name[name] = spec
+        if m == 1 or "model" not in spec \
+                or name.rsplit("/", 1)[0] in packs \
+                or _routed_expert(name, leaf.dim()):
             continue
         key = name[:-2] if name.endswith("/w") else name
         out[key] = DenseShard("out" if spec[-2] == "model" else "in", mesh)
-    hkv = cfg.n_kv_heads
-    if hkv % m == 0 and hkv >= m:
-        heads = HeadShard(mesh, hkv)
-        if cfg.family == "bert":
-            scopes = [f"layers/{i}" for i in range(cfg.n_layers)]
-        else:
-            prefix, pattern, n_per, suffix = cfg.layer_plan()
-            scopes = ([f"prefix/{i}" for i in range(len(prefix))]
-                      + [f"blocks/{i}" for i in range(len(pattern))
-                         if n_per > 0]
-                      + [f"suffix/{i}" for i in range(len(suffix))])
-        for scope in scopes:
-            out[f"{scope}/attn/heads"] = heads
+    for scope, kind in _layer_scopes(cfg):
+        if kind.mixer in ("attn", "local"):
+            hkv = cfg.n_kv_heads
+            if m > 1 and hkv % m == 0 and hkv >= m:
+                out[f"{scope}/attn/heads"] = HeadShard(mesh, hkv)
+        elif kind.mixer == "mla":
+            r = cfg.kv_lora_rank
+            if m > 1 and r % m == 0 and r >= m:
+                out[f"{scope}/attn/latent"] = LatentShard(mesh, r)
+        if kind.ffn == "moe":
+            sharded = "model" in specs_by_name[f"{scope}/ffn/wi"]
+            if sharded or d > 1:
+                out[f"{scope}/ffn/experts"] = ExpertShard(
+                    mesh, cfg.n_experts, sharded)
     return out
 
 
-def _local_params(params, specs, mesh):
-    """This rank's shard of every leaf of whole ``params`` (a copy in
-    storage of its own where the leaf is cut)."""
+def _decode_packs(packs):
+    """``packs`` for a decode step whose rows shard over "data": each
+    ``ExpertShard`` gathers the step's rows before routing."""
+    import dataclasses
+    return {k: dataclasses.replace(v, gather_rows=True)
+            if isinstance(v, ExpertShard) else v for k, v in packs.items()}
+
+
+def _local_params(params, specs, mesh, copy: bool = True):
+    """This rank's shard of every leaf of whole ``params``: a copy in
+    storage of its own where the leaf is cut, or with ``copy=False`` a view
+    of the whole leaf."""
     coord = {a: mesh.coord(a) for a in mesh.axis_names}
 
     def one(path, leaf):
         spec = at_path(specs, path)
         if all(e is None for e in spec):
             return leaf
-        return local_shard(leaf, spec, mesh, coord).clone(
-            memory_format=torch.contiguous_format)
+        shard = local_shard(leaf, spec, mesh, coord)
+        return shard.clone(memory_format=torch.contiguous_format) if copy \
+            else shard
     return map_with_path(one, params)
 
 
@@ -284,6 +340,9 @@ class Servable:
         self.param_specs = param_specs
         self._run_packs = packs if mesh is None else _exec_packs(
             packs, params, param_specs, cfg, mesh)
+        #: the packs of a decode step whose rows shard over "data"
+        self._row_packs = None if mesh is None else _decode_packs(
+            self._run_packs)
         self._decode_kind: Optional[str] = None
 
     # -- serving ----------------------------------------------------------
@@ -294,9 +353,10 @@ class Servable:
                 for k, v in batch.items()}
 
     def forward(self, batch):
-        """batch dict (``{'tokens': (B, S)}``) or raw tokens -> logits fp32
-        (on a mesh: the whole batch on every rank, replicated over
-        "data")."""
+        """batch dict (``{'tokens': (B, S)}``; the vlm family also takes
+        ``'mm_embeds'`` (B, P, d)) or raw tokens -> logits fp32 (on a mesh:
+        every rank takes the whole batch and returns the whole logits,
+        replicated over "data")."""
         with torch.inference_mode():
             logits, _aux = model_api.model_forward(
                 self.params, self.cfg, self._as_batch(batch),
@@ -322,6 +382,12 @@ class Servable:
         None when another rank holds it."""
         lo, hi = self.slot_range(batch)
         return int(slot) - lo if lo <= int(slot) < hi else None
+
+    def _step_packs(self, batch: int):
+        """The packs of a decode step over ``batch`` slots: on a mesh whose
+        "data" axis shards them, MoE layers gather the step's rows."""
+        sharded = self.slot_range(batch) != (0, batch)
+        return self._row_packs if sharded else self._run_packs
 
     def _rows(self, x, batch, lo, hi):
         x = self._tensor(x)
@@ -394,7 +460,7 @@ class Servable:
                 self.decode_kernel_kind()):
             logits, cache = model_api.decode_step(
                 self.params, cache, self.cfg, self._rows(token, b, lo, hi),
-                self._rows(pos, b, lo, hi), packs=self._run_packs)
+                self._rows(pos, b, lo, hi), packs=self._step_packs(b))
         return self._gather_rows(logits, b), cache
 
     def decode_many(self, cache, token, pos, n_steps, *, remaining=None,
@@ -417,7 +483,7 @@ class Servable:
                 self.decode_kernel_kind()):
             toks, valid, state = model_api.decode_many(
                 self.params, cache, self.cfg, rows(token), rows(pos),
-                int(n_steps), packs=self._run_packs,
+                int(n_steps), packs=self._step_packs(b),
                 remaining=rows(remaining), eos_id=rows(eos_id), key=key,
                 temperature=temperature, top_k=top_k, slot_offset=lo)
         if (lo, hi) != (0, b):
@@ -832,15 +898,18 @@ def place_servable(servable: Servable) -> Servable:
     """This rank's servable of a whole one prepared with ``place=False``
     (its spec carries the ``mesh_shape``): the same packs, this rank's
     shard of every leaf, the mesh attached -- e.g. when one process
-    prepares the export and hands it to the ranks. Collective like
-    :func:`prepare_servable`."""
+    prepares the export and hands it to the ranks (ranks on one card,
+    through CUDA IPC). Collective like :func:`prepare_servable`. Each cut
+    leaf stays a view of the whole one, whose holder keeps its memory: a
+    copy would only add to it (a rank that must not hold the whole export
+    prepares its shard, or loads it with :func:`load_servable`)."""
     if servable.mesh is not None or servable.spec.mesh_shape is None:
         raise ValueError("place_servable takes a servable prepared with a "
                          "mesh_shape and place=False")
     return _placed(servable.params, servable.cfg, servable.spec,
                    servable.packs, servable.registry, servable.device,
                    servable.export_stats, make_serving_mesh(servable.spec),
-                   servable.stats_at_save)
+                   servable.stats_at_save, copy=False)
 
 
 def _agree_on(mesh, value: int, device) -> int:
@@ -852,14 +921,14 @@ def _agree_on(mesh, value: int, device) -> int:
 
 
 def _placed(params, cfg, spec, packs, registry, dev, stats, mesh,
-            stats_at_save=None) -> Servable:
+            stats_at_save=None, copy: bool = True) -> Servable:
     """A Servable over whole ``params``: off a mesh as they are; on one,
     this rank's shard of every leaf with the mesh attached to the packs."""
     specs = None
     if mesh is not None:
         packs = attach_mesh(packs, mesh)
         specs = serving_param_shardings(params, packs, mesh)
-        params = _local_params(params, specs, mesh)
+        params = _local_params(params, specs, mesh, copy)
     return Servable(params, cfg, spec, packs, registry, dev,
                     export_stats=stats, stats_at_save=stats_at_save,
                     mesh=mesh, param_specs=specs)

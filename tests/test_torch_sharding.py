@@ -459,16 +459,75 @@ def test_spec_validation():
     assert dp.model_shards == 1 and dp.data_shards == 4
 
 
-def test_mesh_spec_for_other_families_names_item_7():
-    """A mesh for the families outside this slice raises naming ROADMAP.md
+MESH_SERVED = ("pixtral_12b", "qwen3_moe_235b_a22b", "deepseek_v2_lite_16b")
+MESH_UNSERVED = ("mamba2_780m", "recurrentgemma_9b", "whisper_base")
+
+
+@pytest.mark.parametrize("arch", MESH_SERVED + MESH_UNSERVED)
+def test_mesh_spec_for_other_families_names_item_7(arch):
+    """The vlm and moe families (attention, MLA and MoE layers) prepare on
+    a (1, 2) mesh (``place=False``: the sharded export on one process); a
+    mesh for the ssm, hybrid and audio families raises naming ROADMAP.md
     Queue 1 item 7, before anything runs."""
     from repro_torch.serving import prepare_servable
-    for arch in ("qwen3_moe_235b_a22b", "mamba2_780m", "whisper_base",
-                 "pixtral_12b", "recurrentgemma_9b", "deepseek_v2_lite_16b"):
-        cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True)
+    spec = ServingSpec(tile=(16, 16), sparsity=0.5, prune="oneshot",
+                       mesh_shape=(1, 2))
+    if arch in MESH_UNSERVED:
         with pytest.raises(NotImplementedError, match="item 7"):
-            prepare_servable({}, cfg, ServingSpec(mesh_shape=(1, 2)),
-                             device="cpu")
+            prepare_servable({}, cfg, spec, device="cpu")
+        return
+    from repro_torch.models.api import init_model
+    sv = prepare_servable(init_model(0, cfg, device="cpu"), cfg, spec,
+                          device="cpu", place=False)
+    assert sv.packs and all(isinstance(p, txp.ShardedPlan)
+                            for p in sv.packs.values())
+
+
+def _model_entries_allowed(name, shape, spec):
+    """Where a serving leaf may carry "model": a linear weight's row or
+    column dim (``.../w``: projections, the embedding and head tables),
+    BERT's ``pos`` rows, a routed-expert tensor's E axis."""
+    from repro_torch.serving.servable import _routed_expert
+    dims = {d for d, e in enumerate(spec) if e == "model"}
+    if not dims:
+        return True
+    if _routed_expert(name, len(shape)):
+        return dims == {len(shape) - 3}
+    if name.endswith("/w"):
+        return dims <= {len(shape) - 2, len(shape) - 1}
+    return name == "pos" and dims == {0}
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (1, 4), (2, 2)],
+                         ids=["1x2", "1x4", "2x2"])
+def test_serving_specs_give_model_only_where_consumed(mesh_shape):
+    """For every registry config at full width (abstract shapes, nothing
+    allocated): a mesh servable's leaf specs put "model" only on a linear
+    weight's rows or columns, the embedding / head tables, BERT's ``pos``
+    and routed experts' E axis -- never on a stacked vector such as the
+    (n_periods, d) norm scales, which ``spec_for_param``'s generic 2-D
+    rule cuts over their period axis once they exceed 4096 elements."""
+    from repro_torch.serving.servable import _leaf_spec
+    mesh = tmesh.make_mesh(mesh_shape, ("data", "model"))
+    cut_by_rule, experts = [], 0
+    for arch in ARCHS:
+        for name, shape in _param_shapes(arch).items():
+            spec = _leaf_spec(name, shape, {}, mesh)
+            assert "data" not in spec, (arch, name)
+            assert _model_entries_allowed(name, shape, spec), \
+                (arch, name, shape, spec)
+            rule = tsh.spec_for_param(name, shape, mesh, mode="inference")
+            if "norm" in name and "model" in rule:
+                cut_by_rule.append((arch, name))
+                assert "model" not in spec
+            experts += "model" in spec and len(shape) >= 3 \
+                and not name.endswith("/w")
+    # the rule would cut chatglm3's, internlm2's and pixtral's stacked
+    # norm scales (the fault the servable repairs); MoE experts shard
+    assert {a for a, _ in cut_by_rule} >= {"chatglm3_6b", "internlm2_20b",
+                                           "pixtral_12b"}
+    assert experts > 0
 
 
 def test_local_cache_allocation_and_shard_cache():

@@ -265,14 +265,16 @@ def _jax_engine(sv, prompts, slots, max_new=8, **kw):
     return [(h.status, list(h.tokens)) for h in hs]
 
 
-def _launch(workdir):
+def _launch(workdir, program=RANK_PROGRAM, world=WORLD):
+    """``world`` rank processes running ``program`` (argv: rank, world,
+    workdir), one torch thread each, with the port on their path."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
-    return [subprocess.Popen([sys.executable, "-c", RANK_PROGRAM, str(r),
-                              str(WORLD), str(workdir)], env=env,
+    return [subprocess.Popen([sys.executable, "-c", program, str(r),
+                              str(world), str(workdir)], env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 def _collect(procs, workdir, t0):
