@@ -991,13 +991,16 @@ def _decode_times(fn, plain, sdpa, plain_reps=50):
 # of min(1280, 2048) = 1280 slots) and whisper_base's decoder (a 448-slot
 # linear cache), neither of which pages; gemma3_4b's decode on one rank of
 # a 4-wide model axis (lm_tp: 1 local KV head of 4, G 2, D 256), its global
-# layers on 1280 slots (and their pages) and its local rings of 1024
+# layers on 1280 slots (and their pages) and its local rings of 1024;
+# whisper_base's decoder on one rank of a 4-wide model axis
+# (lm_tp_recurrent: 2 of its 8 KV heads)
 DECODE_FAMILY_SHAPES = (("pixtral_g4", 8, 4, 128, 1280, 0, True),
                         ("qwen3_g16", 4, 16, 128, 1280, 0, True),
                         ("recurrentgemma_g16_d256", 1, 16, 256, 1280, 2048,
                          False),
                         ("whisper_g1_d64", 8, 1, 64, 448, 0, False),
                         ("gemma3_tp4_g2_d256", 1, 2, 256, 1280, 0, True),
+                        ("whisper_tp4_g1_d64", 2, 1, 64, 448, 0, False),
                         ("gemma3_tp4_ring_g2_d256", 1, 2, 256, 1024, 1024,
                          False))
 
@@ -4711,10 +4714,11 @@ LM_TP_PARTITIONS = (("tp", (1, 4), "plan", ("dense", "paged")),
                     ("dp", (4, 1), "plan_pallas", ("dense",)),
                     ("tp+dp", (2, 2), "plan", ("dense",)))
 BERT_TP_MESHES = ((1, 4), (1, 2))
-#: gemma3_4b's mesh traffic: lm_serving's first four prompts (the four
-#: slots of the decode_step logits), 8 new tokens each
-LM_TP_PROMPTS = LM_PROMPTS[:4]
-LM_TP_NEW_TOKENS = 8
+#: gemma3_4b's mesh traffic: lm_serving's first two prompts, 4 new tokens
+#: each (cut from 4 x 8 to fit lm_tp_recurrent in the run's time limit;
+#: the decode_step logits' four slots are prefills of the two prompts)
+LM_TP_PROMPTS = LM_PROMPTS[:2]
+LM_TP_NEW_TOKENS = 4
 #: seconds one rank may spend on one job (and the collectives' timeout)
 LM_TP_JOB_S = 600
 LM_TP_KERNELS = ("plan_dds", "flash_decode", "paged_flash_decode")
@@ -4744,17 +4748,30 @@ def _zero_launches():
     paged_flash_decode.launches = 0
 
 
-def _tp_decode_logits(sv, prompts):
+def _tp_decode_logits(sv, prompts, cache_len=1280, frames=None,
+                      tokens=None):
     """decode_step logits (4, V) fp32 of a 4-slot cache holding each prompt
-    (one-shot prefill, as the engine admits), the greedy next tokens at the
-    prompts' ends -- the same calls on one device and on a mesh."""
+    (one-shot prefill, as the engine admits; an audio prompt into the
+    batch-1 cache of its ``frames``) at the next tokens ``tokens`` (by
+    default the greedy ones at the prompts' ends) -- the same calls on one
+    device and on a mesh, given the same tokens: a near-tie in a prefill
+    row would otherwise feed the two sides different tokens. Returns
+    (logits, host ms of the step, the greedy tokens of the prefills)."""
     import numpy as np
     import torch
     dev = sv.device
-    cache, sub = sv.init_cache(4, 1280), sv.init_cache(1, 1280)
+    audio = frames is not None
+    if audio:
+        cfg = sv.cfg
+        cache = sv.init_cache(4, cache_len, frames=torch.zeros(
+            (4, cfg.n_audio_ctx, cfg.d_model), dtype=cfg.tdtype, device=dev))
+    else:
+        cache, sub = sv.init_cache(4, cache_len), sv.init_cache(1, cache_len)
     toks, posl = [], []
     for slot, p in enumerate(prompts):
-        bucket = min(1280, 1 << (len(p) - 1).bit_length())
+        if audio:
+            sub = sv.init_cache(1, cache_len, frames=frames[slot][None])
+        bucket = min(cache_len, 1 << (len(p) - 1).bit_length())
         padded = np.zeros((bucket,), np.int32)
         padded[:len(p)] = p
         sub, row = sv.prefill_row(sub, torch.from_numpy(padded).to(dev),
@@ -4762,7 +4779,8 @@ def _tp_decode_logits(sv, prompts):
         sv.engine_write_slot(cache, slot, sub, batch=4)
         toks.append(int(torch.argmax(row)))
         posl.append(len(p))
-    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+    tok = torch.tensor(toks if tokens is None else list(tokens),
+                       dtype=torch.int32, device=dev)[:, None]
     pos = torch.tensor(posl, dtype=torch.int32, device=dev)
     if sv.mesh is not None:
         sv.mesh.reset_stats()
@@ -4770,7 +4788,24 @@ def _tp_decode_logits(sv, prompts):
     t0 = time.perf_counter()
     logits, _ = sv.decode_step(cache, tok, pos)
     torch.cuda.synchronize()
-    return logits[:, 0].float(), (time.perf_counter() - t0) * 1e3
+    return logits[:, 0].float(), (time.perf_counter() - t0) * 1e3, toks
+
+
+def _whole_cache(cfg, batch, cache_len, paged=None):
+    """A whole decode cache's leaves on the meta device (shapes only)."""
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec.cache_like(cfg, cfg.n_layers, batch, cache_len,
+                                  cfg.n_audio_ctx)
+    from repro_torch.models import lm
+    return lm.init_cache(cfg, batch, cache_len, paged=paged, device="meta")
+
+
+#: the cache leaves a rank reports by name, the first of them (by suffix)
+#: the one its engine-run line shows
+_RANK_LEAVES = ("mix/k_pages", "mix/k", "mix/c_kv_pages", "mix/c_kv",
+                "mix/state", "mix/conv", "mix/h", "cross_k", "cross_v",
+                "self/k")
 
 
 def _rank_lm_job(job):
@@ -4781,12 +4816,14 @@ def _rank_lm_job(job):
     family job also runs the vlm forward against the
     parent's logits (``job['vlm']``), logs every MoE routing call of the
     logits step (rank 0 returns it) and reports its expert and latent
-    shards."""
+    shards. An audio job hands every rank each request's frames
+    (``job['frames']``, ``job['logit_frames']``); ``job['cache_len']``
+    sets the engine's cache (1280 by default), ``job['warm_up']`` False
+    skips the warm-up request."""
     import gc
     import torch
     from repro_torch.core.pattern_reuse import PatternRegistry
     from repro_torch.launch.sharding import shard_shape, spec_for_cache
-    from repro_torch.models import lm
     from repro_torch.serving import Servable, place_servable
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -4811,17 +4848,26 @@ def _rank_lm_job(job):
                       "finite": bool(torch.isfinite(y).all())}
         del y, ref
     prompts = job["prompts"]
+    cache_len = job.get("cache_len", 1280)
+    frames = job.get("frames") or [None] * len(prompts)
+
+    def extra(f):
+        return {} if f is None else {"frames": f}
+
+    def want_shapes(batch, paged=None):
+        whole = _whole_cache(cfg, batch, cache_len, paged)
+        return {n: shard_shape(sh, spec_for_cache(n, sh, mesh), mesh)
+                for n, sh in _rank_shapes(whole).items()}
     for i, layout in enumerate(job["layouts"]):
-        eng = sv.engine(max_slots=4, cache_len=1280, sync_every=8,
+        eng = sv.engine(max_slots=4, cache_len=cache_len, sync_every=8,
                         kv_layout=layout)
-        if i == 0:
-            eng.submit(prompts[0][:8], max_new_tokens=2)     # warm-up
+        if i == 0 and job.get("warm_up", True):
+            eng.submit(prompts[0][:8], max_new_tokens=2,
+                       **extra(frames[0]))                  # warm-up
             eng.run()
             say(f"{layout}: warm-up done")
         eng.stats = type(eng.stats)()
-        whole = lm.init_cache(cfg, 4, 1280, paged=eng._layout, device="meta")
-        want = {n: shard_shape(sh, spec_for_cache(n, sh, mesh), mesh)
-                for n, sh in _rank_shapes(whole).items()}
+        want = want_shapes(4, eng._layout)
         before = _rank_shapes(eng.cache)
         torch.cuda.synchronize()
         # --- the counted main-path run: every count set to 0 just before
@@ -4829,8 +4875,8 @@ def _rank_lm_job(job):
         _zero_launches()
         t0 = time.perf_counter()
         with _RouterLog() as run_log:
-            hs = [eng.submit(p, max_new_tokens=job["n_new"])
-                  for p in prompts]
+            hs = [eng.submit(p, max_new_tokens=job["n_new"], **extra(f))
+                  for p, f in zip(prompts, frames)]
             eng.run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -4838,8 +4884,7 @@ def _rank_lm_job(job):
         es = eng.stats
         say(f"{layout}: counted run {wall:.1f} s (prefill "
             f"{es.prefill_s:.1f} s, decode {es.decode_s:.1f} s)")
-        k_leaf = next(n for n in before if n.endswith(
-            ("mix/k_pages", "mix/k", "mix/c_kv_pages", "mix/c_kv")))
+        k_leaf = next(n for n in before if n.endswith(_RANK_LEAVES))
         out["runs"][layout] = {
             "layout": eng.kv_layout, "launches": got,
             "tokens": [list(h.tokens) for h in hs],
@@ -4850,13 +4895,19 @@ def _rank_lm_job(job):
             "collectives": copy.deepcopy(mesh.stats),
             "cache_follows_spec": before == want,
             "cache_kept_shapes": _rank_shapes(eng.cache) == before,
+            "sub_follows_spec": _rank_shapes(eng._sub) == want_shapes(1),
             "k_leaf": (k_leaf, before[k_leaf]),
+            "leaves": {n: sh for n, sh in before.items()
+                       if n.endswith(_RANK_LEAVES)},
+            "buckets": dict(es.bucket_hits),
             "routing": (run_log.to_host() if mesh.rank == 0
                         and run_log.calls else None)}
         del eng, run_log
     with _RouterLog() as log:
-        logits, ms = _tp_decode_logits(
-            sv, job.get("logit_prompts", job["prompts"])[:4])
+        logits, ms, out["prefill_tokens"] = _tp_decode_logits(
+            sv, job.get("logit_prompts", job["prompts"])[:4], cache_len,
+            job.get("logit_frames"), job.get("logit_tokens"))
+    out["logit_tokens"] = job.get("logit_tokens") or out["prefill_tokens"]
     out["step_collectives"] = copy.deepcopy(mesh.stats)
     out["decode_step_ms"] = ms
     out["decode_sum"] = float(logits.double().sum())
@@ -5055,7 +5106,8 @@ def _rank_cards_job(job):
     out = {"mesh": serve(sv), "coord": mesh.coordinate,
            "collectives": copy.deepcopy(mesh.stats)}
     say("mesh run done")
-    logits, out["decode_step_ms"] = _tp_decode_logits(sv, prompts[:4])
+    logits, out["decode_step_ms"], toks = _tp_decode_logits(sv,
+                                                             prompts[:4])
     out["step_collectives"] = copy.deepcopy(mesh.stats)
     out["decode_sum"] = float(logits.double().sum())
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -5065,7 +5117,7 @@ def _rank_cards_job(job):
     if mesh.rank == 0:
         one = prepare_servable(pruned, cfg, spec, device=dev, place=False)
         out["one"] = serve(one)
-        ref, _ = _tp_decode_logits(one, prompts[:4])
+        ref, _, _ = _tp_decode_logits(one, prompts[:4], tokens=toks)
         out["gap"] = float((logits - ref).abs().max())
         out["scale"] = float(ref.abs().max())
         out["margins"] = []
@@ -5080,9 +5132,54 @@ def _rank_cards_job(job):
     return out
 
 
+def _trace_layers(sv, prompt):
+    """The residual after every layer of a one-pass prefill of ``prompt``
+    into a batch-1 cache and of the decode step after it, fed ``token``
+    (host fp32 copies)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    rec = []
+    orig = lm._apply_layer
+
+    def hook(*a, **k):
+        h, aux = orig(*a, **k)
+        rec.append(h.detach().float().cpu())
+        return h, aux
+    dev = sv.device
+    sub = sv.init_cache(1, 1280)
+    padded = np.zeros((1 << (len(prompt["tokens"]) - 1).bit_length(),),
+                      np.int32)
+    padded[:len(prompt["tokens"])] = prompt["tokens"]
+    lm._apply_layer = hook
+    try:
+        sub, _ = sv.prefill_row(sub, torch.from_numpy(padded).to(dev),
+                                len(prompt["tokens"]))
+        n_pre = len(rec)
+        sv.decode_step(sub, torch.tensor([[prompt["next"]]], dtype=torch.int32,
+                                         device=dev),
+                       torch.tensor([len(prompt["tokens"])],
+                                    dtype=torch.int32, device=dev))
+    finally:
+        lm._apply_layer = orig
+    return rec[:n_pre], rec[n_pre:]
+
+
+def _rank_trace_job(job):
+    """A rank's per-layer residual trace (rank 0 returns it)."""
+    import torch
+    from repro_torch.core.pattern_reuse import PatternRegistry
+    from repro_torch.serving import Servable, place_servable
+    params, cfg, spec, packs, stats = job.pop("servable")
+    sv = place_servable(Servable(params, cfg, spec, packs, PatternRegistry(),
+                                 torch.device("cuda"), export_stats=stats))
+    out = _trace_layers(sv, job["prompt"])
+    return out if sv.mesh.rank == 0 else None
+
+
 _RANK_JOBS = {"lm": _rank_lm_job, "bert": _rank_bert_job,
               "probe": _rank_gloo_probe, "collectives": _rank_collectives,
-              "cards": _rank_cards_job}
+              "cards": _rank_cards_job, "trace": _rank_trace_job}
 
 
 def phase_lm_tp_cards(seed: int, card: str):
@@ -5244,15 +5341,21 @@ def _first_differences(ref, got):
     return out
 
 
-def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap):
+def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap,
+                    frames=None):
     """A token that differs from the single-device run passes only where
     the single-device top-2 logit margin at that position is below twice
-    the decode logits' max |difference| (a near tie)."""
+    the decode logits' max |difference| (a near tie). An audio request's
+    forward takes its ``frames``. Returns the margins."""
     import numpy as np
     import torch
+    margins = []
     for r, i in diffs:
-        seq = list(prompts[r]) + list(ref_tokens[r][:i])
-        logits = ref_sv.forward(np.asarray(seq, np.int32)[None])[0, -1]
+        seq = np.asarray(list(prompts[r]) + list(ref_tokens[r][:i]),
+                         np.int32)[None]
+        batch = seq if frames is None else {"tokens": seq,
+                                            "frames": frames[r][None]}
+        logits = ref_sv.forward(batch)[0, -1]
         top2 = torch.topk(logits.float(), 2).values
         margin = float(top2[0] - top2[1])
         print(f"{label}: request {r} first differs at token {i}: "
@@ -5260,6 +5363,8 @@ def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap):
               f"max|d| {gap:.4e}")
         check(margin < 2 * gap, f"{label}: request {r} token {i} differs "
               f"where the top-2 margin {margin:.4e} is >= 2 x {gap:.4e}")
+        margins.append(margin)
+    return margins
 
 
 def phase_lm_tp(seed: int, card: str, n_requests: int):
@@ -5307,15 +5412,17 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
     rng = np.random.RandomState(seed + 2)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in LM_TP_PROMPTS]
+    logit_prompts = [prompts[0], prompts[1][:64], prompts[1],
+                     prompts[0][:20]]
     print(f"[lm_tp] traffic cut to {len(LM_TP_PROMPTS)} requests of "
           f"{LM_TP_PROMPTS} prompt tokens x {LM_TP_NEW_TOKENS} new tokens "
-          f"(lm_serving's {len(LM_PROMPTS)} x {LM_NEW_TOKENS}) to fit "
-          f"lm_tp_families in the run's time limit: gloo costs 3-7 ms a "
-          f"collective")
+          f"(lm_serving's {len(LM_PROMPTS)} x {LM_NEW_TOKENS}), no warm-up, "
+          f"to fit lm_tp_families and lm_tp_recurrent in the run's time "
+          f"limit: gloo costs 3-7 ms a collective")
 
     # the single-device runs: the same exports on this one process
     t0 = time.perf_counter()
-    refs, ref_logits = {}, {}
+    refs, ref_logits, ref_tokens = {}, {}, {}
     for part, _, _, layouts in LM_TP_PARTITIONS:
         for layout in layouts:
             eng = whole[part].engine(max_slots=4, cache_len=1280,
@@ -5327,7 +5434,8 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
                   f"{part} {layout}: a single-device request failed")
             refs[(part, layout)] = [list(h.tokens) for h in hs]
             del eng
-        ref_logits[part], _ = _tp_decode_logits(whole[part], prompts[:4])
+        ref_logits[part], _, ref_tokens[part] = _tp_decode_logits(
+            whole[part], logit_prompts)
     print(f"[lm_tp] single-device runs of the same exports "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -5367,7 +5475,10 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
                                  "servable": (sv.params, sv.cfg, sv.spec,
                                               sv.packs, sv.export_stats),
                                  "layouts": layouts, "prompts": prompts,
-                                 "n_new": LM_TP_NEW_TOKENS})
+                                 "logit_prompts": logit_prompts,
+                                 "logit_tokens": ref_tokens[part],
+                                 "n_new": LM_TP_NEW_TOKENS,
+                                 "warm_up": False})
                 _lm_tp_report(part, shape, layouts, res, refs, ref_logits,
                               whole[part], prompts, k1_per_pass, n_layers,
                               n_global, n_local, counts)
@@ -5520,9 +5631,10 @@ LM_TP_FAMILIES = (
      "GB bf16, does not fit the card's 80 GB)",
      (("tp", (1, 4), "plan", ("dense", "paged")),)))
 #: the traffic of every family's mesh runs (gloo costs 3-7 ms a
-#: collective): 3 requests into 4 slots, 8 new tokens each
-LM_TP_FAMILY_PROMPTS = (37, 300, 150)
-LM_TP_FAMILY_NEW = 8
+#: collective): 2 requests into 4 slots, 4 new tokens each, no warm-up
+#: (cut from 3 x 8 to fit lm_tp_recurrent in the run's time limit)
+LM_TP_FAMILY_PROMPTS = (37, 150)
+LM_TP_FAMILY_NEW = 4
 #: the vlm forward on the mesh: (1, 300) tokens, 256 patch embeddings
 LM_TP_VLM_TOKENS = 300
 
@@ -5619,7 +5731,7 @@ def _lm_tp_family(name, depth, why, parts, seed, dev, ranks, counts, base):
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in LM_TP_FAMILY_PROMPTS]
     # the decode_step logits' four slots: short prefills of the prompts
-    logit_prompts = [prompts[0], prompts[1][:64], prompts[2][:100],
+    logit_prompts = [prompts[0], prompts[1][:64], prompts[1][:100],
                      prompts[0][:20]]
     vlm = None
     if cfg.family == "vlm":
@@ -5648,13 +5760,14 @@ def _lm_tp_family(name, depth, why, parts, seed, dev, ranks, counts, base):
             refs[layout] = [list(h.tokens) for h in hs]
             del eng
         with _RouterLog() as ref_log:
-            ref_logits, _ = _tp_decode_logits(sv, logit_prompts)
+            ref_logits, _, ref_tokens = _tp_decode_logits(sv, logit_prompts)
         job = {"name": f"{name} {part}", "kind": "lm",
                "phase": "lm_tp_families",
                "servable": (sv.params, sv.cfg, sv.spec, sv.packs,
                             sv.export_stats),
                "layouts": layouts, "prompts": prompts,
-               "logit_prompts": logit_prompts, "n_new": LM_TP_FAMILY_NEW}
+               "logit_prompts": logit_prompts, "logit_tokens": ref_tokens,
+               "n_new": LM_TP_FAMILY_NEW, "warm_up": False}
         if vlm is not None:
             with torch.inference_mode():
                 ref_fwd = sv.forward({"tokens": vlm[0], "mm_embeds": vlm[1]})
@@ -5796,7 +5909,8 @@ def _lm_tp_family_report(name, cfg, part, shape, layouts, res, refs,
         # tokens against one device routed as the mesh's rank 0 was (the
         # mesh keeps its own routing)
         with _RouterLog(replay=r0["routing"]):
-            replayed, _ = _tp_decode_logits(ref_sv, logit_prompts)
+            replayed, _, _ = _tp_decode_logits(ref_sv, logit_prompts,
+                                               tokens=r0["logit_tokens"])
         gap_r = float((logits - replayed).abs().max())
         print(f"{tag}: decode_step logits vs one device routed as the "
               f"mesh: max|d| {gap_r:.4e} (tol {tol:.4e})")
@@ -5855,6 +5969,406 @@ def _replayed_tokens(label, ref_sv, prompts, layout, run, gap):
     return agree
 
 
+# --------------------------------------------------------------------------
+# phase 4h: lm_tp_recurrent -- the ssm, hybrid and audio families on a mesh
+# --------------------------------------------------------------------------
+
+#: (model, dtype, [(partition, mesh shape, backend)]), one after the other,
+#: every one at full width and depth
+LM_TP_RECURRENT = (
+    ("mamba2_780m", "bfloat16", (("tp", (1, 4), "plan"),
+                                 ("tp+dp", (2, 2), "plan"))),
+    ("mamba2_780m", "float32", (("tp", (1, 4), "plan"),)),
+    ("recurrentgemma_9b", "bfloat16", (("tp", (1, 4), "plan"),
+                                       ("dp", (4, 1), "plan_pallas"))),
+    ("whisper_base", "bfloat16", (("tp", (1, 4), "dense"),
+                                  ("tp+dp", (2, 2), "dense"))))
+#: the recurrent LMs' traffic: 3 requests into 4 slots, 8 new tokens each
+LM_TP_RECURRENT_PROMPTS = (37, 300, 150)
+LM_TP_RECURRENT_NEW = 8
+#: whisper's: 3 requests of the start-of-transcript prompt's first 1, 2 and
+#: 4 tokens, each with 1500 seeded frames, 8 new tokens, cache 448
+AUDIO_TP_PROMPTS = (AUDIO_PROMPT[:1], AUDIO_PROMPT[:2], AUDIO_PROMPT)
+#: the fp32 mamba2 copy against one device's fp32 logits: PERF.md's bar of
+#: mamba2's fp32 prefill check. It tells a wrong partition from bf16
+#: rounding, which 48 random bf16 layers carry to ~4.5% of max|logits|
+TOL_TP_FP32 = 1e-3
+
+
+def phase_lm_tp_recurrent(seed: int, card: str):
+    """mamba2_780m (ssm, 48 layers; bf16 over tp (1, 4) and tp+dp (2, 2),
+    and an fp32 copy over tp), recurrentgemma_9b (hybrid, 38 layers: RG-LRU
+    and MQA local attention; tp (1, 4) 'plan', dp (4, 1) through kernel K1)
+    and whisper_base (audio, 6 + 6 layers, 1500 frames; tp and tp+dp,
+    dense) at full width and depth over meshes of four processes sharing
+    the card (gloo): each pruned once (whisper served unpruned, as the
+    reference serves it), exported per partition with ``place=False`` and
+    handed to the ranks (CUDA IPC; ``place_servable`` keeps views), against
+    the same export served on one device. Checks: every request done on
+    every rank; K1 / K2 launches a rank = the routing; tokens = one
+    device's except at printed near-ties; decode_step logits within 5% of
+    max|logits| (the fp32 mamba2 copy: 1e-3); every cache leaf
+    ``spec_for_cache``'s shard (SSD ``state`` H/m, ``conv`` C/m, RG-LRU
+    ``h`` W/m, cross K/V Hkv/m); collectives a decode step, their bytes,
+    peak memory a rank printed; K2 at a whisper tp rank's decoder
+    shape."""
+    import gc
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    base = dict(tile=(128, 128), sparsity=0.8, fuse_qkv=True,
+                decode_kernel="flash")
+    print(f"[lm_tp_recurrent] {card}; 4 ranks share the card through gloo, "
+          f"so their step times say nothing of tensor-parallel speed; "
+          f"traffic: {len(LM_TP_RECURRENT_PROMPTS)} requests of "
+          f"{LM_TP_RECURRENT_PROMPTS} prompt tokens (whisper: "
+          f"{[len(p) for p in AUDIO_TP_PROMPTS]}) x {LM_TP_RECURRENT_NEW} "
+          f"new tokens into 4 slots")
+    counts = {k: 0 for k in LM_TP_KERNELS}
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(4, tmp)
+        try:
+            for name, dtype, parts in LM_TP_RECURRENT:
+                t_model = time.perf_counter()
+                key = name if dtype == "bfloat16" else f"{name} {dtype}"
+                summary[key] = _lm_tp_recurrent(name, dtype, parts, seed,
+                                                dev, ranks, counts, base)
+                gc.collect()
+                torch.cuda.empty_cache()
+                summary[key]["seconds"] = time.perf_counter() - t_model
+                print(f"[lm_tp_recurrent] {key}: "
+                      f"{summary[key]['seconds']:.1f} s; device memory "
+                      f"after freeing "
+                      f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        finally:
+            ranks.close()
+    per = {}
+    _decode_family_shapes(np.random.RandomState(seed), dev, per,
+                          labels=("whisper_tp4_g1_d64",))
+    for k, r in per.items():
+        print(f"[lm_tp_recurrent] K2 at a whisper tp (1, 4) rank's decoder "
+              f"shape {k}: {r['ms']:.4f} ms (cold {r['ms_cold']:.4f}), SDPA "
+              f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        summary[k] = r
+    print(f"[lm_tp_recurrent] summary {json.dumps(summary)}")
+    return counts
+
+
+def _lm_tp_recurrent(name, dtype, parts, seed, dev, ranks, counts, base):
+    """One model over its partitions: exports, single-device references,
+    the ranks' runs and their checks. Returns the model's readings."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core.pruner import tied_prune
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    cfg = _recurrent_config(name)
+    if cfg.dtype != dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    audio = cfg.family == "audio"
+    prefix, pattern, n_per, suffix = cfg.layer_plan()
+    kinds = list(prefix) + list(pattern) * n_per + list(suffix)
+    n_attn = cfg.n_layers if audio else sum(
+        1 for k in kinds if k.mixer in ("attn", "local"))
+    t0 = time.perf_counter()
+    pruned = init_model(seed, cfg, device=dev)
+    if not audio:
+        pruned, _ = tied_prune(pruned, ServingSpec(**base).sparsity_config())
+    whole = {part: prepare_servable(
+        pruned, cfg, ServingSpec(**base, prune="none", backend=backend,
+                                 mesh_shape=shape, partition=part),
+        device=dev, place=False) for part, shape, backend in parts}
+    del pruned
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    k1_per_pass = {part: sum(n_per if k.startswith("blocks/") else 1
+                             for k in sv.packs)
+                   for part, sv in whole.items()}
+    mixers = {m: sum(1 for k in kinds if k.mixer == m)
+              for m in sorted({k.mixer for k in kinds})}
+    enc = f"{cfg.n_enc_layers} encoder + " if audio else ""
+    print(f"[lm_tp_recurrent] {name} ({cfg.family}, {cfg.dtype}): {enc}"
+          f"{len(kinds)} layers {mixers}, full width and depth; init"
+          f"{'' if audio else ' + prune'} + {len(whole)} sharded exports "
+          f"(place=False) {time.perf_counter() - t0:.1f} s; packs "
+          f"{ {p: len(sv.packs) for p, sv in whole.items()} }; device "
+          f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.RandomState(seed + 11)
+    if audio:
+        prompts = [list(p) for p in AUDIO_TP_PROMPTS]
+        frames = [rng.randn(cfg.n_audio_ctx, cfg.d_model).astype(np.float32)
+                  for _ in prompts]
+        logit_prompts = prompts + [list(AUDIO_PROMPT[:3])]
+        logit_frames = [torch.from_numpy(f).to(dev)
+                        for f in frames + [frames[0]]]
+        cache_len = AUDIO_CACHE_LEN
+    else:
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in LM_TP_RECURRENT_PROMPTS]
+        frames = logit_frames = None
+        # the decode_step logits' four slots: short prefills of the prompts
+        logit_prompts = [prompts[0], prompts[1][:64], prompts[2][:100],
+                         prompts[0][:20]]
+        cache_len = 1280
+    extra = [{} if f is None else {"frames": f}
+             for f in (frames or [None] * len(prompts))]
+    rec = {"layers": len(kinds), "dtype": cfg.dtype, "partitions": {}}
+    for part, shape, backend in parts:
+        sv = whole[part]
+        # the single-device run: the same export on this one process
+        t0 = time.perf_counter()
+        eng = sv.engine(max_slots=4, cache_len=cache_len, sync_every=8)
+        hs = [eng.submit(p, max_new_tokens=LM_TP_RECURRENT_NEW, **x)
+              for p, x in zip(prompts, extra)]
+        eng.run()
+        check(all(h.status == "done" for h in hs),
+              f"{name} {part}: a single-device request failed")
+        ref = [list(h.tokens) for h in hs]
+        del eng, hs
+        ref_logits, _, ref_tokens = _tp_decode_logits(
+            sv, logit_prompts, cache_len, logit_frames)
+        t_ref = time.perf_counter() - t0
+        job = {"name": f"{name} {part}", "kind": "lm",
+               "phase": "lm_tp_recurrent",
+               "servable": (sv.params, sv.cfg, sv.spec, sv.packs,
+                            sv.export_stats),
+               "layouts": ("dense",), "prompts": prompts,
+               "logit_prompts": logit_prompts, "n_new": LM_TP_RECURRENT_NEW,
+               "cache_len": cache_len, "frames": frames,
+               "logit_frames": logit_frames, "logit_tokens": ref_tokens,
+               "warm_up": False}
+        res = ranks.run(job)
+        own = res[0]["prefill_tokens"]
+        print(f"[lm_tp_recurrent] {name} ({cfg.dtype}) {part} {shape}: the "
+              f"logits step feeds both sides one device's next tokens "
+              f"{ref_tokens}; the mesh's own prefill rows' greedy tokens "
+              f"{own} ({sum(a == b for a, b in zip(own, ref_tokens))} of 4 "
+              f"equal)")
+        rec["partitions"][part] = _lm_tp_recurrent_report(
+            name, cfg, part, shape, res, ref, ref_logits, sv, prompts,
+            frames, k1_per_pass[part], n_attn, counts, t_ref)
+        del job, res
+    del whole, sv
+    return rec
+
+
+def _local_model_dim(cfg, leaf):
+    """(dim, whole size) of a recurrent or audio cache leaf's "model"
+    candidate dim: SSD ``state`` heads, ``conv`` channels, RG-LRU ``h``
+    width, the K/V heads; None for other leaves."""
+    if leaf.endswith("mix/state"):
+        return -3, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    if leaf.endswith("mix/conv"):
+        return -1, (cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state
+                    if cfg.family == "ssm" else cfg.rnn_width or cfg.d_model)
+    if leaf.endswith("mix/h"):
+        return -1, cfg.rnn_width or cfg.d_model
+    if leaf.endswith(("cross_k", "cross_v", "self/k", "mix/k")):
+        return -2, cfg.n_kv_heads
+    return None
+
+
+def _lm_tp_recurrent_report(name, cfg, part, shape, res, ref, ref_logits,
+                            ref_sv, prompts, frames, k1_per_pass, n_attn,
+                            counts, t_ref):
+    """The checks and readings of one model's partition."""
+    import numpy as np
+    import torch
+    d, m = shape
+    tag = f"[lm_tp_recurrent] {name} ({cfg.dtype}) {part} {shape}"
+    r0 = res[0]
+    st = r0["sharding"]
+    print(f"{tag}: {st['sharded_packs']} sharded / {st['replicated_packs']} "
+          f"replicated packs, pack bytes a rank {st['pack_bytes_per_device']}"
+          f" of {st['pack_bytes_total']}; single-device run + logits "
+          f"{t_ref:.1f} s; placement {max(r['place_s'] for r in res):.1f} s")
+    for r in res:
+        run = r["runs"]["dense"]
+        where = f"{tag} rank {r['coord']}"
+        check(run["layout"] == "dense", f"{where}: layout {run['layout']}")
+        check(all(s == "done" for s in run["status"]),
+              f"{where}: {run['status']}")
+        check(all(len(t) == LM_TP_RECURRENT_NEW for t in run["tokens"]),
+              f"{where}: a request is short of tokens")
+        steps, pre = run["steps"], run["prefills"]
+        if cfg.family == "audio":
+            # every prompt prefills through the decode path, padding steps
+            # included, replicated on every rank
+            pre_steps = sum(b * n for b, n in run["buckets"].items())
+            want = {"plan_dds": 0, "flash_decode": n_attn * (steps
+                                                              + pre_steps),
+                    "paged_flash_decode": 0}
+        else:
+            want = {"plan_dds": k1_per_pass * (steps + pre)
+                    if part == "dp" else 0,
+                    "flash_decode": n_attn * steps, "paged_flash_decode": 0}
+        check(run["launches"] == want, f"{where}: launches "
+              f"{run['launches']} differ from the layer routing {want}")
+        check(run["cache_follows_spec"] and run["cache_kept_shapes"]
+              and run["sub_follows_spec"], f"{where}: a cache leaf does not "
+              f"follow spec_for_cache or changed shape")
+        for leaf, lshape in run["leaves"].items():
+            md = _local_model_dim(cfg, leaf)
+            if md is None:
+                continue
+            dim, n = md
+            want_n = n // m if n % m == 0 and n >= m else n
+            check(lshape[dim] == want_n, f"{where}: {leaf} {lshape}, want "
+                  f"{want_n} of {n} along dim {dim}")
+        check(run["tokens"] == r0["runs"]["dense"]["tokens"],
+              f"{tag}: the ranks' tokens differ")
+        for k in LM_TP_KERNELS:
+            counts[k] += run["launches"][k]
+    run = r0["runs"]["dense"]
+    got = run["tokens"]
+    agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+    coll = run["collectives"]
+    calls = sum(v["calls"] for v in coll.values())
+    ms = 1e3 * run["decode_s"] / run["steps"]
+    print(f"{tag}: {len(got)} requests done on every rank, {run['steps']} "
+          f"decode steps in {run['windows']} windows, {run['prefills']} "
+          f"prefills (buckets {run['buckets']}); launches a rank "
+          f"{run['launches']} (= the routing); greedy tokens equal to one "
+          f"device's: {agree} of {sum(len(x) for x in ref)}; local cache "
+          f"leaves {run['leaves']}")
+    print(f"{tag}: host clock (ranks share the card: no tensor-parallel "
+          f"speed) {ms:.2f} ms a decode step, prefill {run['prefill_s']:.2f} "
+          f"s, wall {run['wall_s']:.2f} s; collectives in the run {calls} "
+          f"({sum(v['bytes'] for v in coll.values()) / 2**20:.1f} MiB, "
+          f"{sum(v['s'] for v in coll.values()):.2f} s of the host clock) "
+          f"{ {k: v['calls'] for k, v in coll.items()} }")
+    logits = torch.from_numpy(r0["decode_logits"]).to(ref_logits.device)
+    gap = float((logits - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    by_slot = [round(float(g), 5)
+               for g in (logits - ref_logits).abs().amax(-1)]
+    bar = TOL_TP_FP32 if cfg.dtype == "float32" else TOL_FLASH_VS_XLA
+    margins = _near_tie_check(tag, ref_sv, prompts, ref,
+                              _first_differences(ref, got), gap, frames)
+    sc = r0["step_collectives"]
+    n_sc = sum(v["calls"] for v in sc.values())
+    b_sc = sum(v["bytes"] for v in sc.values())
+    print(f"{tag}: decode_step logits on 4 prefilled slots vs one device "
+          f"max|d| {gap:.4e} (by slot {by_slot}), max|logits| {scale:.4e} "
+          f"({gap / scale:.4%}; tol {bar * scale:.4e}); one decode step "
+          f"{r0['decode_step_ms']:.2f} ms host clock, {n_sc} collectives "
+          f"({b_sc} bytes; { {k: v['calls'] for k, v in sc.items()} }); "
+          f"peak memory a rank {[round(r['peak_gib'], 2) for r in res]} GiB "
+          f"(its own allocations; its shards are views of the parent's "
+          f"export)")
+    check(len({r["decode_sum"] for r in res}) == 1,
+          f"{tag}: the ranks' decode logits differ")
+    check(bool(np.isfinite(r0["decode_logits"]).all()),
+          f"{tag}: non-finite decode logits")
+    check(gap <= bar * scale, f"{tag}: mesh decode logits disagree with one "
+          f"device ({gap / scale:.4%} of max|logits|, bar {bar:.2%})")
+    return {"agree": agree, "tokens": sum(len(x) for x in ref),
+            "near_tie_margins": margins, "gap": gap, "scale": scale,
+            "gap_by_slot": by_slot,
+            "steps": run["steps"], "ms_per_step": ms,
+            "launches": run["launches"], "collectives": calls,
+            "step_collectives": n_sc, "step_collective_bytes": b_sc,
+            "leaves": run["leaves"], "peak_gib": [r["peak_gib"] for r in res]}
+
+
+# --------------------------------------------------------------------------
+# phase 4i (not in the default run): lm_tp_trace -- where a mesh rounds
+# differently from one device
+# --------------------------------------------------------------------------
+
+#: the M of mamba2's in_proj GEMM on the mesh: a decode step over 4 slots,
+#: a 20-token prompt's bucket, a 300-token prompt's
+TRACE_GEMM_M = (4, 32, 512)
+
+
+def phase_lm_tp_trace(seed: int, card: str):
+    """The tool for a bf16 reading near its bar: (a) mamba2_780m's
+    ``in_proj`` (6448 x 1536, bf16) cut into a (1, 4) mesh's column blocks,
+    each block as a bf16 GEMM of its own (cuBLAS's reduced-precision split-K
+    reductions on and off) and through ``common.block_matmul``, against the
+    rows of one device's whole GEMM: the share of outputs that differ; (b)
+    the residual's gap to one device after every layer of a one-pass
+    prefill (37 tokens) and the decode step after it, mamba2 at full width
+    and depth over tp (1, 4), bf16 and fp32."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.api import init_model
+    from repro_torch.models.common import block_matmul
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(0.02 * rng.randn(6448, 1536).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    for m in TRACE_GEMM_M:
+        x = torch.from_numpy(rng.randn(1, m, 1536).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        whole = torch.matmul(x, w.t())
+        share = {}
+        for name, fn, reduced in (
+                ("bf16 GEMM, reduced-precision reductions", torch.matmul,
+                 True),
+                ("bf16 GEMM, fp32 reductions", torch.matmul, False),
+                ("block_matmul", None, flag)):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+                = reduced
+            diff = 0
+            for r in range(4):
+                wb = w[r * 1612:(r + 1) * 1612]
+                blk = (fn(x, wb.t()) if fn is not None
+                       else block_matmul(x, wb))
+                diff += int((blk != whole[..., r * 1612:(r + 1) * 1612]).sum())
+            share[name] = diff / whole.numel()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        print(f"[lm_tp_trace] {card}: mamba2 in_proj at M {m}, a (1, 4) "
+              f"mesh's column blocks against one device's whole bf16 GEMM, "
+              f"share of outputs that differ: "
+              f"{ {k: round(v, 4) for k, v in share.items()} }")
+    vocab = _recurrent_config("mamba2_780m").vocab_size
+    prompt = {"tokens": np.random.RandomState(seed + 11).randint(
+        0, vocab, 37).tolist()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(4, tmp)
+        try:
+            for dtype in ("bfloat16", "float32"):
+                cfg = dataclasses.replace(_recurrent_config("mamba2_780m"),
+                                          dtype=dtype)
+                sv = prepare_servable(
+                    init_model(seed, cfg, device=dev), cfg,
+                    ServingSpec(tile=(128, 128), prune="none",
+                                backend="plan", mesh_shape=(1, 4),
+                                partition="tp"), device=dev, place=False)
+                sub = sv.init_cache(1, 1280)
+                padded = np.zeros((64,), np.int32)
+                padded[:37] = prompt["tokens"]
+                _, row = sv.prefill_row(sub, torch.from_numpy(padded).to(dev),
+                                        37)
+                prompt["next"] = int(row.argmax())
+                one = _trace_layers(sv, prompt)
+                res = ranks.run({"name": f"trace {dtype}", "kind": "trace",
+                                 "servable": (sv.params, sv.cfg, sv.spec,
+                                              sv.packs, sv.export_stats),
+                                 "prompt": prompt})
+                for what, got, ref in (("prefill", res[0][0], one[0]),
+                                       ("decode", res[0][1], one[1])):
+                    gaps = [float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(got, ref)]
+                    print(f"[lm_tp_trace] mamba2_780m ({dtype}) tp (1, 4) "
+                          f"{what}: the residual's max|d| / max|h| against "
+                          f"one device after layers 1, 6, 12, .., 48: "
+                          f"{[f'{g:.2e}' for g in gaps[:1] + gaps[5::6]]}")
+                del sv, res, one
+        finally:
+            ranks.close()
+    return {}
+
+
 def _sum_group(recs):
     """A group of per-shape records summed (one layer's four projections):
     the kernel-line keys."""
@@ -5900,7 +6414,7 @@ def main() -> int:
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
-                            "lm_tp_families,training")
+                            "lm_tp_families,lm_tp_recurrent,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -5992,6 +6506,16 @@ def main() -> int:
             launches["lm_tp_families"] = phase_lm_tp_families(args.seed,
                                                               card)
             done("lm_tp_families")
+        if "lm_tp_recurrent" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp_recurrent"] = phase_lm_tp_recurrent(args.seed,
+                                                                card)
+            done("lm_tp_recurrent")
+        if "lm_tp_trace" in phases:
+            launches["lm_tp_trace"] = phase_lm_tp_trace(args.seed, card)
+            done("lm_tp_trace")
         if "lm_tp_cards" in phases:
             launches["lm_tp_cards"] = phase_lm_tp_cards(args.seed, card)
             done("lm_tp_cards")

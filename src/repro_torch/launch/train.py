@@ -4,7 +4,7 @@ Counterpart of ``repro/launch/train.py``: data pipeline -> train step
 (``launch.steps``) -> AdamW (+prox) -> gradual block pruner -> background
 checkpoints -> Supervisor restart loop -> straggler monitor. Where the
 reference takes a mesh, this driver takes ``device`` (None = the CUDA
-card); sharding comes with ROADMAP.md Queue 1 item 6. The loop logic --
+card); sharding comes with ROADMAP.md Queue 1 item 8. The loop logic --
 ``_one_step``, masks updated and applied after each step, ``fit`` with
 resume -- follows the reference, as does the donated step. Nothing in it
 is BERT's: an LM trains from the same ``tokens`` / ``labels`` batches.

@@ -63,8 +63,9 @@ def init_model(seed, cfg: ModelConfig, device=None):
 
 
 def model_forward(params, cfg: ModelConfig, batch, packs=None):
-    """-> (logits fp32, aux). The audio family takes no packs (the
-    reference's enc-dec forward has no packs route)."""
+    """-> (logits fp32, aux). The audio family exports no packs (the
+    reference's enc-dec forward has no packs route): its ``packs`` are a
+    mesh servable's shard objects or nothing."""
     _known(cfg)
     if cfg.family == "bert":
         logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
@@ -72,7 +73,7 @@ def model_forward(params, cfg: ModelConfig, batch, packs=None):
                                    device=logits.device)
     if cfg.family == "audio":
         return encdec_mod.forward(params, cfg, batch["frames"],
-                                  batch["tokens"])
+                                  batch["tokens"], packs=packs)
     if cfg.family == "vlm":
         return lm_mod.forward(params, cfg, batch["tokens"],
                               mm_embeds=batch.get("mm_embeds"), packs=packs)
@@ -84,21 +85,24 @@ def _device_of(params):
 
 
 def init_cache(params, cfg: ModelConfig, batch_size, cache_len, frames=None,
-               paged=None, mesh=None):
+               paged=None, mesh=None, packs=None):
     """A zeroed decode cache on the params' device. ``paged``
     (``models.common.PagedLayout`` or None): page-pool storage for the
     global attention and MLA layers (lm families only; ``serving/paging.py``
     hands out page ids). The audio family runs its encoder over ``frames``
     (B, T_audio, d) here and caches each decoder layer's cross K/V; its
     batch is the frames' batch. With ``mesh`` (a ``launch.mesh.
-    ProcessMesh``; lm families) only this rank's shard of every leaf is
-    allocated (:func:`cache_shardings`): request slots over "data", KV
-    heads over "model"."""
+    ProcessMesh``) only this rank's shard of every leaf is allocated
+    (:func:`cache_shardings`): request slots over "data", KV heads /
+    recurrent state heads, conv channels and RG-LRU width over "model";
+    the audio family encodes its slots' frames with the mesh servable's
+    shard objects (``packs``) and keeps its heads of the cross K/V."""
     _decoder(cfg)
     if cfg.family == "audio":
         if paged is not None:
             raise ValueError("paged KV is not supported for family 'audio'")
-        return encdec_mod.init_cache(params, cfg, frames, cache_len)
+        return encdec_mod.init_cache(params, cfg, frames, cache_len,
+                                     packs=packs, mesh=mesh)
     if mesh is None:
         return lm_mod.init_cache(cfg, batch_size, cache_len, paged=paged,
                                  device=_device_of(params))
@@ -142,7 +146,8 @@ def decode_step(params, cache, cfg: ModelConfig, token, pos, packs=None):
     (logits (B, 1, V) fp32, cache) with the cache written in place."""
     _decoder(cfg)
     if cfg.family == "audio":
-        return encdec_mod.decode_step(params, cache, cfg, token, pos)
+        return encdec_mod.decode_step(params, cache, cfg, token, pos,
+                                      packs=packs)
     return lm_mod.decode_step(params, cache, cfg, token, pos, packs=packs)
 
 

@@ -12,8 +12,17 @@ rank -- a column-parallel ('out') shard computes its rows' block and
 all-gathers it along features, a row-parallel ('in') shard multiplies its
 block columns of the whole ``x`` into an fp32 partial of every output and
 all-reduces it (the reference's one psum a layer), then casts to ``x``'s
-dtype (:func:`tp_constrain`). Replicated leaves compute the whole output
-and take no collective.
+dtype (:func:`tp_constrain`); a column block sums in fp32 too and rounds
+once (:func:`block_matmul`), as one device's whole GEMM does. Replicated
+leaves compute the whole output and take no collective. A layer that
+consumes only its block of a projection's features (the RG-LRU's width,
+an SSM's heads, the audio family's cross K/V heads) takes it without the
+gather (:func:`column_block`) and feeds a block straight into a
+row-parallel shard (:func:`linear_from_block`). Shard objects by kind of
+cache dim:
+:class:`HeadShard`, :class:`LatentShard`, :class:`ExpertShard`,
+:class:`ChannelShard` (conv channels, the RG-LRU width) and
+:class:`SSDHeadShard`.
 """
 from __future__ import annotations
 
@@ -129,6 +138,14 @@ class DenseShard:
     mesh: object
 
 
+def model_block(mesh, n: int):
+    """``[lo, hi)``: this rank's block of ``n`` (divisible by the "model"
+    axis) along a dim sharded over "model", in coordinate order."""
+    s, m = mesh.coord("model"), mesh.shape["model"]
+    w = n // m
+    return s * w, (s + 1) * w
+
+
 @dataclasses.dataclass(frozen=True)
 class HeadShard:
     """Attention over this rank's KV heads (the cache's head dim is
@@ -138,17 +155,16 @@ class HeadShard:
     mesh: object
     n_kv_heads: int
 
-    def _range(self, n_heads):
-        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
-        w = n_heads // n
-        return s * w, (s + 1) * w
-
     def local(self, q, k, v):
         """(B, S, H, D) q / k / v -> their local heads (q's G query heads
-        per KV head follow their KV head)."""
-        g = q.shape[2] // k.shape[2]
-        lo, hi = self._range(self.n_kv_heads)
-        return q[:, :, lo * g:hi * g], k[:, :, lo:hi], v[:, :, lo:hi]
+        per KV head follow their KV head). k / v already cut to the rank's
+        heads (cross-attention's K/V from a head-sharded cache) pass
+        through."""
+        g = q.shape[2] // self.n_kv_heads
+        lo, hi = model_block(self.mesh, self.n_kv_heads)
+        if k.shape[2] == self.n_kv_heads:
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return q[:, :, lo * g:hi * g], k, v
 
     def gather(self, out):
         return self.mesh.all_gather(out, "model", dim=2)
@@ -166,9 +182,8 @@ class LatentShard:
     rank: int
 
     def block(self, x):
-        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
-        w = self.rank // n
-        return x[..., s * w:(s + 1) * w]
+        lo, hi = model_block(self.mesh, self.rank)
+        return x[..., lo:hi]
 
     def gather(self, x):
         return self.mesh.all_gather(x, "model", dim=-1)
@@ -196,9 +211,78 @@ class ExpertShard:
         """Dim 0 of an (E, ...) tensor cut to this rank's experts."""
         if not self.sharded:
             return x
-        s, n = self.mesh.coord("model"), self.mesh.shape["model"]
-        w = self.n_experts // n
-        return x[s * w:(s + 1) * w]
+        lo, hi = model_block(self.mesh, self.n_experts)
+        return x[lo:hi]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelShard:
+    """A depthwise causal conv over this rank's block of channels
+    ``[s C/m, (s+1) C/m)`` (the ``conv`` history cache (B, W-1, C) shards
+    C over "model"; ``models.ssm``, ``models.rglru``): the conv is
+    channel-local, so a rank convolves its block of the history with its
+    slice of the replicated ``conv_w`` / ``conv_b`` (:meth:`block`),
+    writes its block of the new history, and :meth:`gather` makes the
+    output whole again, exactly. The RG-LRU's width W is its conv's
+    channels: the same block is the rank's share of ``h`` (B, W), of the
+    gates (the rows of ``w_a`` / ``w_i`` / ``in_x`` / ``in_gate``) and
+    of ``out``'s input columns."""
+
+    mesh: object
+    channels: int
+
+    @property
+    def range(self):
+        return model_block(self.mesh, self.channels)
+
+    def block(self, x):
+        lo, hi = self.range
+        return x[..., lo:hi]
+
+    def gather(self, x):
+        return self.mesh.all_gather(x, "model", dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDHeadShard:
+    """The SSD over this rank's heads ``[s H/m, (s+1) H/m)`` (the
+    ``state`` cache (B, H, P, N) shards H over "model"; ``models.ssm``):
+    :meth:`heads` cuts a head axis (x, dt and the per-head ``A_log`` /
+    ``D`` / ``dt_bias``; B and C stay whole, one group for every head).
+    The output's ``d_inner`` block is exactly the heads' (H/m x P
+    columns), which ``out_proj``'s row-parallel shard takes as it is;
+    :meth:`rms_norm` normalises that block over the whole ``d_inner``
+    (the blocks all-gathered, so the statistic is one device's) and
+    :meth:`gather` makes a block whole."""
+
+    mesh: object
+    n_heads: int
+
+    def heads(self, x, dim: int = -1):
+        lo, hi = model_block(self.mesh, self.n_heads)
+        return x.narrow(dim, lo, hi - lo)
+
+    def rms_norm(self, y, scale):
+        """This rank's block of :func:`rms_norm` of the whole rows whose
+        block ``y`` it holds (``scale``: the whole row's)."""
+        out = rms_norm(self.gather(y), scale)
+        lo, hi = model_block(self.mesh, out.shape[-1])
+        return out[..., lo:hi]
+
+    def gather(self, x):
+        return self.mesh.all_gather(x, "model", dim=-1)
+
+
+def block_matmul(x, w):
+    """``x @ w.T`` for a rank's block of a weight's rows, accumulated in
+    fp32 and rounded once to ``x``'s dtype. A bf16 GEMM's rounding depends
+    on its shape: cuBLAS splits K by shape and by default rounds the split
+    partial sums to bf16, so a block run as a bf16 GEMM of its own rounds
+    elsewhere than one device's whole GEMM (on an H100, 41% of mamba2's
+    ``in_proj`` block outputs at M 32 and 512, ``chip_smoke.py --phases
+    lm_tp_trace``); one fp32 sum and one rounding is where one device's
+    GEMM rounds."""
+    return torch.matmul(x.float(), w.float().t()).to(x.dtype)
 
 
 def tp_constrain(y, pack, dtype=None):
@@ -283,7 +367,7 @@ def linear(p, x, pack=None, backend=None):
                 xl = _in_block(x, w.shape[1], pack.mesh)
                 y = torch.matmul(xl.float(), w.float().t())
                 return tp_constrain(y, pack, x.dtype)
-            return tp_constrain(torch.matmul(x, w.t()), pack)
+            return tp_constrain(block_matmul(x, w), pack)
         inner = pack.plan if isinstance(pack, QuantPlan) else pack
         if isinstance(inner, ShardedPlan) and inner.mesh is not None:
             return _sharded_plan_linear(
@@ -311,6 +395,36 @@ def linear(p, x, pack=None, backend=None):
             return bsr_matmul(x, _dc.replace(pack, data=p["w"]), backend)
         raise TypeError(f"unknown pack kind {type(pack).__name__}")
     return torch.matmul(x, p["w"].t())
+
+
+def column_block(p, x, pack, lo: int, hi: int):
+    """Output features ``[lo, hi)`` of ``linear(p, x, pack)``: a
+    column-parallel :class:`DenseShard` whose rows are exactly that block
+    multiplies them alone (no collective); any other pack (or none) makes
+    the output whole and cuts it."""
+    if isinstance(pack, DenseShard) and pack.axis == "out" \
+            and p["w"].shape[-2] == hi - lo \
+            and model_block(pack.mesh, (hi - lo) * pack.mesh.shape["model"]
+                            ) == (lo, hi):
+        return block_matmul(x, p["w"])
+    return linear(p, x, pack)[..., lo:hi]
+
+
+def linear_from_block(p, xb, pack, shard=None):
+    """``linear(p, x, pack)`` given only this rank's block ``xb`` of x's
+    features (the block of ``shard``, a :class:`ChannelShard` or
+    :class:`SSDHeadShard`; without one ``xb`` is x): a row-parallel
+    :class:`DenseShard` whose columns are that block multiplies it into an
+    fp32 partial of every output and all-reduces it (the layer's one
+    collective, :func:`tp_constrain`); any other pack gathers x whole
+    first."""
+    if shard is None:
+        return linear(p, xb, pack)
+    if isinstance(pack, DenseShard) and pack.axis == "in" \
+            and p["w"].shape[-1] == xb.shape[-1]:
+        y = torch.matmul(xb.float(), p["w"].float().t())
+        return tp_constrain(y, pack, xb.dtype)
+    return linear(p, shard.gather(xb), pack)
 
 
 def prefill_conv_history(x, valid, length, width, dtype):

@@ -15,16 +15,17 @@ does -- the same odd/even recursion (:func:`associative_scan`), so the fp32
 products and sums happen in the same order; decode carries h.
 
 Caches are written **in place**: ``{'h': (B, W) fp32, 'conv': (B, 3, W)}``;
-a decode step leaves inactive rows (pos < 0) bitwise untouched.
+a decode step leaves inactive rows (pos < 0) bitwise untouched. On a mesh
+a rank holds W/m of both (:func:`apply_rglru`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.attention import as_slot_positions
-from repro_torch.models.common import (gelu, init_linear, linear,
-                                       normal_init, prefill_conv_history,
-                                       softplus)
+from repro_torch.models.common import (column_block, gelu, init_linear,
+                                       linear_from_block, normal_init,
+                                       prefill_conv_history, softplus)
 
 _C = 8.0
 
@@ -66,10 +67,19 @@ def _conv(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
-def _lru_gates(p, xr):
-    r = torch.sigmoid(linear(p["w_a"], xr).float())
-    i = torch.sigmoid(linear(p["w_i"], xr).float())
-    log_a = -_C * softplus(p["lam"])[None] * r         # over (b, s, w)
+def _lru_gates(p, xr, width=None, packs=None):
+    """(a, gated input) of the conv output ``xr``; on a mesh (``width``, a
+    ``common.ChannelShard``) ``xr`` is this rank's width block, the gates'
+    whole input is gathered and each gate is the block of its rows."""
+    packs = packs or {}
+    lo, hi = (0, xr.shape[-1]) if width is None else width.range
+    xw = xr if width is None else width.gather(xr)
+    r = torch.sigmoid(column_block(p["w_a"], xw, packs.get("w_a"), lo,
+                                   hi).float())
+    i = torch.sigmoid(column_block(p["w_i"], xw, packs.get("w_i"), lo,
+                                   hi).float())
+    lam = p["lam"] if width is None else width.block(p["lam"])
+    log_a = -_C * softplus(lam)[None] * r              # over (b, s, w)
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * \
         (i * xr.float())
@@ -115,11 +125,27 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
     """x: (B,S,d) -> (out, cache), in the modes of ``ssm.apply_ssm``: the
     whole-sequence forward, a one-pass prompt prefill (padding steps are
     identities: a = 1, u = 0), a chunk continued from one slot's h and conv
-    history (``page_slot``), and the O(1) decode step."""
+    history (``page_slot``), and the O(1) decode step.
+
+    On a mesh (``packs['width']``, a ``common.ChannelShard`` over W) a
+    rank holds its width block of ``h`` and of the conv history: ``in_x``
+    and ``in_gate`` give that block of their outputs (their column shards'
+    own rows, no collective), the conv runs on it and its output is
+    gathered (``w_a`` / ``w_i`` take the whole of it), the gates are their
+    rows' block, the scan and the decode update run over the block, and
+    the gated block feeds ``out``'s row-parallel shard."""
     b, s, _ = x.shape
-    gate = gelu(linear(p["in_gate"], x,
-                       packs and packs.get("in_gate")).float())
-    xr = linear(p["in_x"], x, packs and packs.get("in_x"))
+    packs = packs or {}
+    width = packs.get("width")
+    lo, hi = (0, cfg.rnn_width or cfg.d_model) if width is None \
+        else width.range
+
+    def block(t):
+        return t if width is None else width.block(t)
+    gate = gelu(column_block(p["in_gate"], x, packs.get("in_gate"), lo,
+                             hi).float())
+    xr = column_block(p["in_x"], x, packs.get("in_x"), lo, hi)
+    conv_w, conv_b = block(p["conv_w"]), block(p["conv_b"])
 
     prefill = cache is not None and s > 1
     chunked = prefill and page_slot is not None
@@ -131,10 +157,10 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
                 raise ValueError("a chunk prefill takes one slot's tokens")
             hist_row = cache["conv"][page_slot].to(xr.dtype)      # (W-1,w)
             hist_stream = torch.cat([hist_row[None], xr], dim=1)
-            xr = _conv(hist_stream, p["conv_w"], p["conv_b"])[:, w1:]
+            xr = _conv(hist_stream, conv_w, conv_b)[:, w1:]
         else:
-            xr = _conv(xr, p["conv_w"], p["conv_b"])
-        a, u = _lru_gates(p, xr)
+            xr = _conv(xr, conv_w, conv_b)
+        a, u = _lru_gates(p, xr, width, packs)
         if prefill:
             # padding steps (>= prefill_len) are identities: a = 1, u = 0,
             # so the scan's value at length-1 persists to the last step
@@ -167,8 +193,8 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
         else:
             active = torch.ones((b,), dtype=torch.bool, device=x.device)
         hist = torch.cat([cache["conv"].to(xr.dtype), xr], dim=1)
-        xr = _conv(hist, p["conv_w"], p["conv_b"])[:, -1:]
-        a, u = _lru_gates(p, xr)
+        xr = _conv(hist, conv_w, conv_b)[:, -1:]
+        a, u = _lru_gates(p, xr, width, packs)
         old = cache["h"]
         h = torch.where(active[:, None], a[:, 0] * old + u[:, 0], old)
         conv = torch.where(active[:, None, None],
@@ -179,4 +205,4 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
         h = h[:, None]
 
     y = (h * gate).to(x.dtype)
-    return linear(p["out"], y, packs and packs.get("out")), cache
+    return linear_from_block(p["out"], y, packs.get("out"), width), cache

@@ -12,7 +12,9 @@ the x/B/C stream, a z-gated output with a D skip -- the mamba2 block.
 
 Caches are written **in place** (the reference returns updated copies):
 ``{'state': (B, H, P, N) fp32, 'conv': (B, W-1, C)}``. A decode step leaves
-the rows of inactive slots (pos < 0) bitwise untouched.
+the rows of inactive slots (pos < 0) bitwise untouched. On a mesh a rank
+holds H/m heads of ``state`` and C/m channels of ``conv``
+(:func:`apply_ssm`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.attention import as_slot_positions
-from repro_torch.models.common import (init_linear, linear, normal_init,
+from repro_torch.models.common import (init_linear, linear,
+                                       linear_from_block, normal_init,
                                        prefill_conv_history, rms_norm,
                                        softplus)
 
@@ -96,10 +99,31 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
     A cache with S > 1: a one-pass prompt prefill (padding steps past
     ``prefill_len`` are identities: dt = 0), rewriting the cache; with
     ``page_slot`` too, the next chunk of one slot's prompt, continued from
-    that slot's state and conv history. S == 1: the O(1) decode step."""
+    that slot's state and conv history. S == 1: the O(1) decode step.
+
+    On a mesh (``packs['conv']``, a ``common.ChannelShard``;
+    ``packs['heads']``, a ``common.SSDHeadShard``): ``in_proj``'s output
+    is whole on every rank (its fused rows cross the segments); a step
+    that continues a history convolves the rank's channel block of it and
+    gathers the output (a one-pass prefill, whose history is zeros,
+    convolves the whole stream where it is and keeps its block); the SSD
+    runs over the rank's heads with B and C whole, the gated norm over the
+    whole ``d_inner`` (the heads' blocks gathered: one device's norm), and
+    the block feeds ``out_proj``'s row-parallel shard."""
     b, s, _ = xin.shape
     d_inner, h, p_dim, n = _dims(cfg)
-    zxbcdt = linear(p["in_proj"], xin, packs and packs.get("in_proj"))
+    packs = packs or {}
+    chan, heads = packs.get("conv"), packs.get("heads")
+
+    def block(x):
+        return x if chan is None else chan.block(x)
+
+    def gather(x):
+        return x if chan is None else chan.gather(x)
+
+    def hcut(x, dim=-1):
+        return x if heads is None else heads.heads(x, dim)
+    zxbcdt = linear(p["in_proj"], xin, packs.get("in_proj"))
     z, x, bmat, cmat, dt = _split_proj(zxbcdt, cfg)
 
     prefill = cache is not None and s > 1
@@ -110,20 +134,23 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
         if b != 1:
             raise ValueError("a chunk prefill takes one slot's tokens")
         hist_row = cache["conv"][page_slot].to(conv_in.dtype)     # (W-1,C)
-        hist_stream = torch.cat([hist_row[None], conv_in], dim=1)
-        conv_out = _causal_conv(hist_stream, p["conv_w"],
-                                p["conv_b"])[:, w1:]
+        hist_stream = torch.cat([hist_row[None], block(conv_in)], dim=1)
+        conv_out = gather(_causal_conv(hist_stream, block(p["conv_w"]),
+                                       block(p["conv_b"]))[:, w1:])
     elif cache is None or prefill:
         conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
     else:
-        hist = torch.cat([cache["conv"].to(conv_in.dtype), conv_in], dim=1)
-        conv_out = _causal_conv(hist, p["conv_w"], p["conv_b"])[:, -1:]
+        hist = torch.cat([cache["conv"].to(conv_in.dtype), block(conv_in)],
+                         dim=1)
+        conv_out = gather(_causal_conv(hist, block(p["conv_w"]),
+                                       block(p["conv_b"]))[:, -1:])
         new_conv = hist[:, 1:]
     x, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
-    xh = x.reshape(b, -1, h, p_dim).float()
-    dt = softplus(dt.float() + p["dt_bias"][None, None, :])      # (b,s,h)
-    a_neg = -torch.exp(p["A_log"])                                # (h,)
+    xh = hcut(x.reshape(b, -1, h, p_dim), 2).float()
+    h_loc = xh.shape[2]
+    dt = softplus(hcut(dt).float() + hcut(p["dt_bias"])[None, None, :])
+    a_neg = -torch.exp(hcut(p["A_log"]))                          # (h,)
     if prefill:
         # padding tokens (>= prefill_len) are identity steps: dt = 0 zeroes
         # their decay (exp(0) = 1) and their state contribution
@@ -149,7 +176,7 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
         elif prefill:
             cache["state"].copy_(state)
             cache["conv"].copy_(prefill_conv_history(
-                conv_in, valid, length, w1, cache["conv"].dtype))
+                block(conv_in), valid, length, w1, cache["conv"].dtype))
     else:
         # the O(1) step; inactive slots (pos < 0) keep their recurrent and
         # conv state bitwise
@@ -168,13 +195,17 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
         old.copy_(state)
         cache["conv"].copy_(conv)
         y = torch.einsum("bhpn,bn->bhp", state, cmat[:, 0])
-        y = y.reshape(b, 1, h, p_dim)
+        y = y.reshape(b, 1, h_loc, p_dim)
 
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(b, -1, d_inner)
-    y = rms_norm(y.to(cfg.tdtype), p["norm"]["scale"])
+    y = y + xh * hcut(p["D"])[None, None, :, None]
+    y = y.reshape(b, -1, h_loc * p_dim).to(cfg.tdtype)
+    if heads is None:
+        y = rms_norm(y, p["norm"]["scale"])
+    else:
+        y = heads.rms_norm(y, p["norm"]["scale"])
+        z = hcut(z.reshape(b, -1, h, p_dim), 2).reshape(b, -1, h_loc * p_dim)
     y = y * F.silu(z.float()).to(y.dtype)
-    out = linear(p["out_proj"], y, packs and packs.get("out_proj"))
+    out = linear_from_block(p["out_proj"], y, packs.get("out_proj"), heads)
     return out, cache
 
 

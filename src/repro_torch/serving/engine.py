@@ -71,8 +71,10 @@ fused and per-step decoding sample alike.
 **Meshes** (a servable prepared or loaded with ``spec.mesh_shape``): every
 rank of the mesh builds the same engine and submits the same requests, and
 every rank runs the same host schedule -- admission, buckets, windows and
-slot recycling. The cache is this rank's shard (slots over "data", KV heads
-over "model"); a rank decodes its own slots and the window's tokens are
+slot recycling. The cache is this rank's shard (slots over "data"; KV
+heads, latent rank, recurrent heads, conv channels or width over "model";
+an audio request's batch-1 cache, built from its frames on every rank,
+holds the rank's heads of its cross K/V); a rank decodes its own slots and the window's tokens are
 all-gathered at the sync, prefill logits rows are agreed over "data", so
 the schedulers never diverge. Clock-driven control (deadlines, SLO
 fast-fail and overload shedding) would diverge across ranks and is refused
@@ -1401,15 +1403,15 @@ class ServingEngine:
                         else:
                             x[rows] = float("nan")
             return
+        if self._mesh is not None:      # this rank's shard of the slots
+            slot = self.servable.local_slot(slot, self.max_slots)
+            if slot is None:
+                return
         if self._audio:                 # every leaf: slot at axis 1
             for _, x in cache_leaves(self.cache):
                 if x.is_floating_point():
                     x[:, slot].fill_(float("nan"))
             return
-        if self._mesh is not None:      # this rank's shard of the slots
-            slot = self.servable.local_slot(slot, self.max_slots)
-            if slot is None:
-                return
         sections = [(c, False) for c in self.cache["prefix"]] \
             + [(c, True) for c in self.cache["blocks"]] \
             + [(c, False) for c in self.cache["suffix"]]

@@ -23,27 +23,31 @@ jits each engine function once per servable (with the cache donated), the
 port runs them as plain methods (``engine_decode``, ``engine_prefill``,
 ...) that update the preallocated cache in place.
 
-**Meshes** (``spec.mesh_shape = (data, model)``; the dense, vlm and moe LM
-families -- attention, MLA and MoE layers -- and bert). Where the reference
-places params and caches with NamedSharding and lets GSPMD partition the
-program, the port runs explicit SPMD: one process
-per mesh position (``torch.distributed`` up with ``data * model`` ranks,
+**Meshes** (``spec.mesh_shape = (data, model)``; every family). Where the
+reference places params and caches with NamedSharding and lets GSPMD
+partition the program, the port runs explicit SPMD: one process per mesh
+position (``torch.distributed`` up with ``data * model`` ranks,
 ``launch.mesh.init_distributed``), each calling :func:`prepare_servable` or
 :func:`load_servable` and then serving the same requests. A rank holds its
 shard of every leaf (``serving_param_shardings``: ShardedPlan values split
 on the vrow axis over "model", dense leaves by
 ``launch/sharding.spec_for_param`` in inference mode, the rest replicated)
-and of every cache (slots over "data", KV heads or MLA's latent rank over
-"model"); every sharded projection's output is made whole on every rank
-(``models.common.linear``), an MLA layer all-reduces its partial scores
-and outputs over its latent block (``models.mla``), a MoE layer runs its
-own experts and all-gathers their outputs before the combine
-(``models.moe``). Under "data" a rank decodes its own slots and the
-emitted tokens are all-gathered, so every rank's engine runs the same
-schedule; a MoE layer of such a decode step gathers the step's rows over
-"data" and routes the whole batch, as one device does (capacity and drops
-are the batch's). Prefills of the batch-1 sub-cache run replicated over
-"data", as the reference's replicated sub-cache does.
+and of every cache (slots over "data"; KV heads, MLA's latent rank, SSD
+heads, conv channels or the RG-LRU width over "model"); every sharded
+projection's output is made whole on every rank (``models.common.linear``)
+unless the layer consumes only its block, an MLA layer all-reduces its
+partial scores and outputs over its latent block (``models.mla``), a MoE
+layer runs its own experts and all-gathers their outputs before the
+combine (``models.moe``), an SSM layer runs its heads and its block of
+conv channels (``models.ssm``), an RG-LRU layer its block of the width
+(``models.rglru``), and the audio family's encoder, self- and
+cross-attention their KV heads (``models.encdec``). Under "data" a rank
+decodes its own slots and the emitted tokens are all-gathered, so every
+rank's engine runs the same schedule; a MoE layer of such a decode step
+gathers the step's rows over "data" and routes the whole batch, as one
+device does (capacity and drops are the batch's). Prefills of the batch-1
+sub-cache run replicated over "data", as the reference's replicated
+sub-cache does; an audio request's frames go to every rank.
 """
 from __future__ import annotations
 
@@ -65,8 +69,9 @@ from repro_torch.kernels.flash_decode import decode_kernel_override
 from repro_torch.launch.sharding import (local_shard, shard_index,
                                           spec_for_param)
 from repro_torch.models import api as model_api
-from repro_torch.models.common import (DenseShard, ExpertShard, HeadShard,
-                                       LatentShard)
+from repro_torch.models.common import (ChannelShard, DenseShard,
+                                       ExpertShard, HeadShard, LatentShard,
+                                       SSDHeadShard)
 from repro_torch.models.sampling import sample_tokens
 from repro_torch.serving.export import export_params
 from repro_torch.serving.serialize import (LeafReader, ServableLoadError,
@@ -81,34 +86,16 @@ SERVABLE_STEP = 0
 _PACKS_FILE = "packs.npz"
 
 
-#: families, mixers and FFNs a mesh serves (the ssm, hybrid and audio
-#: families come with ROADMAP.md Queue 1 item 7)
-MESH_FAMILIES = ("dense", "bert", "vlm", "moe")
-MESH_MIXERS = ("attn", "local", "mla")
-MESH_FFNS = ("dense", "moe", "none")
-
-
-def _check_spec(spec: ServingSpec, cfg: ModelConfig):
-    """Raise for spec options the port does not serve yet, naming the
-    ROADMAP.md item that brings each."""
-    if spec.mesh_shape is None:
-        return
-    if cfg.family not in MESH_FAMILIES or any(
-            k.mixer not in MESH_MIXERS or k.ffn not in MESH_FFNS
-            for _, k in _layer_scopes(cfg)):
-        raise NotImplementedError(
-            f"mesh_shape for family {cfg.family!r} ({cfg.arch}) comes with "
-            f"ROADMAP.md Queue 1 item 7 (the ssm, hybrid and audio families "
-            f"on a mesh); the port's mesh serves the dense, vlm and moe LM "
-            f"families (attention, MLA and MoE layers) and bert")
-
-
 def _layer_scopes(cfg: ModelConfig):
     """[(pack scope, LayerKind)] of every layer kind's scope: bert's
-    layers, or an LM's prefix, period-stacked blocks and suffix."""
+    layers, the audio family's layer-stacked encoder and decoder, or an
+    LM's prefix, period-stacked blocks and suffix."""
     if cfg.family == "bert":
         return [(f"layers/{i}", LayerKind("attn", "dense"))
                 for i in range(cfg.n_layers)]
+    if cfg.family == "audio":
+        return [(s, LayerKind("attn", "dense"))
+                for s in ("enc_layers", "dec_layers")]
     prefix, pattern, n_per, suffix = cfg.layer_plan()
     return ([(f"prefix/{i}", k) for i, k in enumerate(prefix)]
             + [(f"blocks/{i}", k) for i, k in enumerate(pattern)
@@ -222,16 +209,26 @@ def _leaf_spec(name: str, shape, packed, mesh) -> tuple:
                  for d, e in enumerate(spec))
 
 
+def _divides(n: int, m: int) -> bool:
+    """A dim of ``n`` shards over a "model" axis of ``m`` (the rule of
+    ``launch/sharding.spec_for_cache``)."""
+    return m > 1 and n % m == 0 and n >= m
+
+
 def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
     """The packs a mesh servable runs with: ``packs`` (mesh attached) plus
     a ``DenseShard`` for every dense linear leaf sharded over "model"
     (under its projection's key, or 'embed' / 'lm_head' / 'pos') and, by
-    each layer's kind, a ``HeadShard`` for an attention layer whose KV
-    heads divide the "model" axis (``{scope}/attn/heads``), a
-    ``LatentShard`` for an MLA layer whose latent rank does
-    (``{scope}/attn/latent``) and an ``ExpertShard`` for a MoE FFN
-    (``{scope}/ffn/experts``) whose experts shard over "model" or whose
-    decode rows shard over "data"."""
+    each layer's kind, the shard object of each cache dim that divides the
+    "model" axis: a ``HeadShard`` for an attention layer's KV heads
+    (``{scope}/attn/heads``; the audio decoder's cross-attention too,
+    ``dec_layers/xattn/heads``), a ``LatentShard`` for an MLA layer's
+    latent rank (``{scope}/attn/latent``), an ``SSDHeadShard`` for an SSM
+    layer's heads (``{scope}/mixer/heads``) and a ``ChannelShard`` for its
+    conv channels (``{scope}/mixer/conv``), a ``ChannelShard`` for an
+    RG-LRU layer's width (``{scope}/mixer/width``), and an
+    ``ExpertShard`` for a MoE FFN (``{scope}/ffn/experts``) whose experts
+    shard over "model" or whose decode rows shard over "data"."""
     out = dict(packs)
     d, m = mesh.shape["data"], mesh.shape["model"]
     specs_by_name = {}
@@ -247,13 +244,26 @@ def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
         out[key] = DenseShard("out" if spec[-2] == "model" else "in", mesh)
     for scope, kind in _layer_scopes(cfg):
         if kind.mixer in ("attn", "local"):
-            hkv = cfg.n_kv_heads
-            if m > 1 and hkv % m == 0 and hkv >= m:
-                out[f"{scope}/attn/heads"] = HeadShard(mesh, hkv)
+            if _divides(cfg.n_kv_heads, m):
+                out[f"{scope}/attn/heads"] = HeadShard(mesh, cfg.n_kv_heads)
+                if scope == "dec_layers":
+                    out[f"{scope}/xattn/heads"] = out[f"{scope}/attn/heads"]
         elif kind.mixer == "mla":
-            r = cfg.kv_lora_rank
-            if m > 1 and r % m == 0 and r >= m:
-                out[f"{scope}/attn/latent"] = LatentShard(mesh, r)
+            if _divides(cfg.kv_lora_rank, m):
+                out[f"{scope}/attn/latent"] = LatentShard(mesh,
+                                                          cfg.kv_lora_rank)
+        elif kind.mixer == "ssm":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            n_heads = d_inner // cfg.ssm_head_dim
+            if _divides(n_heads, m):
+                out[f"{scope}/mixer/heads"] = SSDHeadShard(mesh, n_heads)
+            if _divides(d_inner + 2 * cfg.ssm_state, m):
+                out[f"{scope}/mixer/conv"] = ChannelShard(
+                    mesh, d_inner + 2 * cfg.ssm_state)
+        elif kind.mixer == "rglru":
+            width = cfg.rnn_width or cfg.d_model
+            if _divides(width, m):
+                out[f"{scope}/mixer/width"] = ChannelShard(mesh, width)
         if kind.ffn == "moe":
             sharded = "model" in specs_by_name[f"{scope}/ffn/wi"]
             if sharded or d > 1:
@@ -412,7 +422,8 @@ class Servable:
         with torch.no_grad():
             return model_api.init_cache(self.params, self.cfg, batch_size,
                                         cache_len, frames=frames,
-                                        paged=paged, mesh=self.mesh)
+                                        paged=paged, mesh=self.mesh,
+                                        packs=self._run_packs)
 
     def decode_kernel_kind(self) -> str:
         """The attention decode kernel every decode call of this servable
@@ -834,7 +845,6 @@ def prepare_servable(params, cfg: ModelConfig, spec: ServingSpec = None, *,
     attaches no mesh -- a valid single-device servable, e.g. to
     :meth:`Servable.save` once for the ranks to :func:`load_servable`."""
     spec = spec or ServingSpec()
-    _check_spec(spec, cfg)
     dev = resolve_device(device)
     mesh = (make_serving_mesh(spec)
             if spec.mesh_shape is not None and place else None)
@@ -957,7 +967,6 @@ def load_servable(path: str, *, registry: Optional[PatternRegistry] = None,
             f"({type(e).__name__}: {e})") from e
     cfg = config_from_dict(meta["cfg"])
     spec = ServingSpec.from_dict(meta["spec"])
-    _check_spec(spec, cfg)
     mesh = make_serving_mesh(spec) if spec.mesh_shape is not None else None
     step_dir = os.path.join(path, f"step_{SERVABLE_STEP:09d}")
     registry = registry if registry is not None else PatternRegistry()

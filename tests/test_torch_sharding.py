@@ -459,29 +459,66 @@ def test_spec_validation():
     assert dp.model_shards == 1 and dp.data_shards == 4
 
 
-MESH_SERVED = ("pixtral_12b", "qwen3_moe_235b_a22b", "deepseek_v2_lite_16b")
-MESH_UNSERVED = ("mamba2_780m", "recurrentgemma_9b", "whisper_base")
+MESH_FAMILIES = ("pixtral_12b", "qwen3_moe_235b_a22b", "deepseek_v2_lite_16b",
+                 "mamba2_780m", "recurrentgemma_9b", "whisper_base")
 
 
-@pytest.mark.parametrize("arch", MESH_SERVED + MESH_UNSERVED)
-def test_mesh_spec_for_other_families_names_item_7(arch):
-    """The vlm and moe families (attention, MLA and MoE layers) prepare on
-    a (1, 2) mesh (``place=False``: the sharded export on one process); a
-    mesh for the ssm, hybrid and audio families raises naming ROADMAP.md
-    Queue 1 item 7, before anything runs."""
-    from repro_torch.serving import prepare_servable
-    cfg = get_config(arch, smoke=True)
-    spec = ServingSpec(tile=(16, 16), sparsity=0.5, prune="oneshot",
-                       mesh_shape=(1, 2))
-    if arch in MESH_UNSERVED:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            prepare_servable({}, cfg, spec, device="cpu")
-        return
+@pytest.mark.parametrize("arch", MESH_FAMILIES)
+def test_every_family_prepares_on_a_mesh(arch):
+    """Every registry family prepares on a (1, 2) mesh (``place=False``:
+    the sharded export on one process) and gets its shard objects on a
+    rank of it: the vlm and moe families' packs are ShardedPlans; mamba2
+    has no packs (no attention or FFN) and its ``in_proj`` / ``out_proj``
+    are column / row DenseShards beside its SSD heads and conv channels;
+    recurrentgemma's FFN and local-attention packs are ShardedPlans, its
+    RG-LRU projections DenseShards with the width shard; whisper, served
+    with ``prune="none"`` as the reference serves it, has no packs and its
+    encoder, decoder and cross-attention heads shard."""
     from repro_torch.models.api import init_model
+    from repro_torch.models import common as tcommon
+    from repro_torch.serving import prepare_servable
+    from repro_torch.serving import servable as tservable
+
+    class Rank(tmesh.AbstractMesh):
+        def coord(self, axis):
+            return {"model": 1}.get(axis, 0)
+    cfg = get_config(arch, smoke=True)
+    spec = ServingSpec(tile=(16, 16), sparsity=0.5,
+                       prune="none" if arch == "whisper_base" else "oneshot",
+                       mesh_shape=(1, 2))
     sv = prepare_servable(init_model(0, cfg, device="cpu"), cfg, spec,
                           device="cpu", place=False)
-    assert sv.packs and all(isinstance(p, txp.ShardedPlan)
-                            for p in sv.packs.values())
+    mesh = Rank((1, 2), ("data", "model"))
+    specs = tservable.serving_param_shardings(sv.params, sv.packs, mesh)
+    run = tservable._exec_packs(sv.packs, sv.params, specs, cfg, mesh)
+    kinds = {k: type(v).__name__ for k, v in run.items()
+             if k not in sv.packs}
+    assert all(isinstance(p, txp.ShardedPlan) for p in sv.packs.values())
+    if arch in ("mamba2_780m", "whisper_base"):
+        assert not sv.packs
+    else:
+        assert sv.packs
+    want = {
+        "mamba2_780m": {"blocks/0/mixer/in_proj": "DenseShard",
+                        "blocks/0/mixer/out_proj": "DenseShard",
+                        "blocks/0/mixer/heads": "SSDHeadShard",
+                        "blocks/0/mixer/conv": "ChannelShard"},
+        "recurrentgemma_9b": {f"blocks/{i}/mixer/{k}": "DenseShard"
+                              for i in (0, 1) for k in (
+                                  "in_x", "in_gate", "w_a", "w_i", "out")},
+        "whisper_base": {f"{s}/{a}/heads": "HeadShard" for s, a in (
+            ("enc_layers", "attn"), ("dec_layers", "attn"),
+            ("dec_layers", "xattn"))},
+    }.get(arch, {})
+    if arch == "recurrentgemma_9b":
+        want.update({f"blocks/{i}/mixer/width": "ChannelShard"
+                     for i in (0, 1)})
+    assert {k: kinds.get(k) for k in want} == want
+    if arch == "mamba2_780m":
+        assert run["blocks/0/mixer/in_proj"].axis == "out"
+        assert run["blocks/0/mixer/out_proj"].axis == "in"
+    if arch == "whisper_base":
+        assert isinstance(run["dec_layers/xattn/wk"], tcommon.DenseShard)
 
 
 def _model_entries_allowed(name, shape, spec):
