@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--phases kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
-                           lm_training,lm_tp,lm_tp_families,training]
+                           lm_training,lm_tp,lm_tp_families,
+                           lm_tp_recurrent,lm_tp_train,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -136,9 +137,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      raises, exactly its request fails (prefill_error) and the others are
      done, stats_dict()['watchdog'] present with 0 stalls of a 30 s
      watchdog.
-  4c. lm_families: pixtral_12b (vlm; 40 layers), deepseek_v2_lite_16b
-     (MLA + MoE; 27 layers) and qwen3_moe_235b_a22b (MoE; full width, 4 of
-     94 layers: the whole model does not fit 80 GB) one after the other,
+  4c. lm_families: pixtral_12b (vlm; 20 of 40 layers), deepseek_v2_lite_16b
+     (MLA + MoE; 9 of 27 layers: the dense first and 8 MoE) and
+     qwen3_moe_235b_a22b (MoE; 4 of 94 layers: the whole model does not fit
+     80 GB), full width, one after the other (the depths cut to fit
+     lm_tp_train in the run's time limit),
      each freed before the next (peak memory printed): seeded bf16 weights
      on the card, pruned 80% at 128x128 with tied masks and served through
      K1 (and K2 / K3 on the GQA attention layers; MLA decodes with the
@@ -155,14 +158,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      prefill gate (SchedSpec(max_chunk=256) logs its blocker and admits
      one-shot); a profiled decode window with the routed-expert bytes
      floor beside its device time.
-  4d. lm_recurrent: mamba2_780m (ssm; 48 layers), recurrentgemma_9b
-     (hybrid: 26 RG-LRU + 12 MQA local-attention layers) and whisper_base
-     (audio enc-dec, 6 + 6 layers, 1500 frames) at full width and depth,
+  4d. lm_recurrent: mamba2_780m (ssm; 24 of 48 layers), recurrentgemma_9b
+     (hybrid; 20 of 38 layers: 14 RG-LRU + 6 MQA local-attention) and
+     whisper_base (audio enc-dec, 6 + 6 layers, 1500 frames) at full width
+     (the two recurrent LMs' depth cut to fit lm_tp_train in the run's
+     time limit),
      bf16, one after the other with the lm_families spec: mamba2 has no
      packs and no attention (no kernel on its path), recurrentgemma serves
-     its FFNs and local-attention projections through K1 (100 a decode
+     its FFNs and local-attention projections through K1 (52 a decode
      step and a prefill; its RG-LRU projections stay dense, as in the
-     reference) and its rings through K2 (12 a step), whisper serves dense
+     reference) and its rings through K2 (6 a step), whisper serves dense
      with K2 on its decoder self-attention (6 a step, prefill steps
      included). mamba2 / recurrentgemma: lm_serving's 6 requests with
      kv_layout='paged' asked (the "no linear attention/MLA layers to page"
@@ -242,8 +247,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      at a rank's decode shapes beside SDPA and the bound.
   4g. lm_tp_families: the vlm, MoE and MLA families over meshes of four
      processes sharing the card (gloo), one family after the other at
-     lm_families' widths and depths (pixtral_12b 40 layers,
-     deepseek_v2_lite_16b 27, qwen3_moe_235b_a22b 4 of 94), each pruned
+     lm_families' widths (pixtral_12b 40 layers, deepseek_v2_lite_16b 9
+     of 27 as lm_families, qwen3_moe_235b_a22b 4 of 94), each pruned
      once and exported per partition with place=False, handed to the
      ranks through CUDA IPC: pixtral tp (1, 4) 'plan' with the vlm
      forward ((1, 300) tokens, 256 patch embeddings handed to every rank)
@@ -251,7 +256,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      a rank's KV head, G 16); deepseek tp (1, 4) dense and paged latents,
      dp (4, 1) 'plan_pallas' (K1 on a rank's slot; its MoE layers gather
      the step's rows over "data" and route the whole batch) and tp+dp
-     (2, 2). Each run: 3 requests (37, 300, 150 prompt tokens) x 8 new
+     (2, 2). Each run: 2 requests (37, 150 prompt tokens) x 4 new
      tokens, every request done on every rank, launches a rank equal to
      the routing, tokens equal to one device's except at near-ties,
      decode_step logits on 4 prefilled slots within 5% of max|logits|
@@ -268,6 +273,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the routing, the ranks' tokens equal, tokens equal to the same export
      on one card except at near-ties, decode_step logits within 5%; ms a
      decode step on four cards and on one (host clock).
+  4h. lm_tp_train: launch/train.Trainer on meshes of four processes
+     sharing the card, their collectives through CUDA IPC staging buffers
+     (launch/staging.SharedStaging, installed on the phase's meshes; gloo's
+     host round trip would take most of the run): gemma3_4b at full width, 6 layers, B 4 x S 512, gradual
+     pruning to 0.7 at 16x16 with the prox, over dp (4, 1) and tp+dp
+     (2, 2) for 6 steps (checkpoints every 4, a fault at step 5: exactly
+     one restart on every rank) and tp (1, 4) for 2, every step's loss
+     and grad_norm equal on every rank and within 1e-3 relative of one
+     device's Trainer on the same seed and batches; fp32 copies of dp and
+     tp at 2 layers within 1e-5; the (2, 2) step-4 checkpoint restored at
+     (1, 4), (4, 1) and on one device, every leaf bitwise its part of the
+     file, then 2 steps at (1, 4) against the (2, 2) run's own; BERT-base
+     over (1, 4) pruned to 0.8 at 128x128 (tiles straddle the 192-row
+     shards), every step's masks equal to one device's except at printed
+     near-ties; 2 packed steps over dp (4, 1) through K1 / K4 / K5, 48 of
+     each a rank a step, against one device's packed step (1e-4).
+     Printed per rank: collectives a step, their bytes and host seconds,
+     host seconds a step, param and optimizer bytes, peak memory.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -3117,8 +3140,13 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
 # --------------------------------------------------------------------------
 
 # (model, depth cut or None, the reason printed); one after the other
-LM_FAMILIES = (("pixtral_12b", None, "full width and depth"),
-               ("deepseek_v2_lite_16b", None, "full width and depth"),
+LM_FAMILIES = (("pixtral_12b", 20,
+                "full width, 20 of 40 layers (cut to fit lm_tp_train in "
+                "the run's time limit)"),
+               ("deepseek_v2_lite_16b", 9,
+                "full width, 9 of 27 layers: the dense first layer and 8 "
+                "MoE layers (cut to fit lm_tp_train in the run's time "
+                "limit)"),
                ("qwen3_moe_235b_a22b", 4,
                 "full width, 4 of 94 layers: the whole model (~470 GB "
                 "bf16) does not fit the card's 80 GB"))
@@ -3575,8 +3603,26 @@ AUDIO_NEW_TOKENS = 64
 AUDIO_CACHE_LEN = 448
 
 
-def _recurrent_config(name):
-    """The published widths, checked."""
+#: the recurrent models' depth in lm_recurrent, the single-device serving
+#: phase: mamba2_780m and recurrentgemma_9b cut to about half their layers
+#: (48 -> 24; 38 -> 20, 6 periods of its RG-LRU, RG-LRU, local pattern and
+#: its 2 RG-LRU suffix layers) to fit lm_tp_train in the run's time limit;
+#: whisper_base whole. The mesh phases run them at full depth.
+RECURRENT_LAYERS = {"mamba2_780m": 24, "recurrentgemma_9b": 20}
+
+
+def _recurrent_depth(name, cfg):
+    """How much of the published depth ``cfg`` has (printed)."""
+    full = {"mamba2_780m": 48, "recurrentgemma_9b": 38}.get(name)
+    if full is None or cfg.n_layers == full:
+        return "full width and depth"
+    return f"full width, {cfg.n_layers} of {full} layers"
+
+
+def _recurrent_config(name, cut=False):
+    """The published widths, checked; with ``cut``, the depth cut to
+    ``RECURRENT_LAYERS``."""
+    import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(name)
     got, want = {
@@ -3592,6 +3638,8 @@ def _recurrent_config(name):
                           cfg.n_audio_ctx),
                          (6, 6, 512, 8, 64, 51865, 1500))}[name]
     check(got == want, f"{name} is not the published configuration: {got}")
+    if cut and name in RECURRENT_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=RECURRENT_LAYERS[name])
     return cfg
 
 
@@ -3984,7 +4032,7 @@ def phase_lm_recurrent(seed: int, card: str):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = _recurrent_config(name)
+        cfg = _recurrent_config(name, cut=True)
         prefix, pattern, n_per, suffix = cfg.layer_plan()
         kinds = list(prefix) + list(pattern) * n_per + list(suffix)
         mixers = {m: sum(1 for k in kinds if k.mixer == m)
@@ -3992,7 +4040,8 @@ def phase_lm_recurrent(seed: int, card: str):
         enc = (f"{cfg.n_enc_layers} encoder + "
                if cfg.family == "audio" else "")
         print(f"[lm_recurrent] {name} ({cfg.family}): {enc}{len(kinds)} "
-              f"layers {mixers}, full width and depth; d={cfg.d_model}, "
+              f"layers {mixers}, {_recurrent_depth(name, cfg)}; "
+              f"d={cfg.d_model}, "
               f"vocab {cfg.vocab_size}, {cfg.dtype}; card {card}")
         t0 = time.perf_counter()
         params = init_model(seed, cfg, device=dev)
@@ -5622,7 +5671,9 @@ def _bert_tp_report(shape, res):
 LM_TP_FAMILIES = (
     ("pixtral_12b", None, "full width and depth",
      (("tp", (1, 4), "plan", ("dense",)),)),
-    ("deepseek_v2_lite_16b", None, "full width and depth",
+    ("deepseek_v2_lite_16b", 9,
+     "full width, 9 of 27 layers: the dense first layer and 8 MoE layers, "
+     "as lm_families (cut to fit lm_tp_train in the run's time limit)",
      (("tp", (1, 4), "plan", ("dense", "paged")),
       ("dp", (4, 1), "plan_pallas", ("dense",)),
       ("tp+dp", (2, 2), "plan", ("dense",)))),
@@ -5640,8 +5691,9 @@ LM_TP_VLM_TOKENS = 300
 
 
 def phase_lm_tp_families(seed: int, card: str):
-    """pixtral_12b (vlm, 40 layers), deepseek_v2_lite_16b (MLA + MoE, 27
-    layers) and qwen3_moe_235b_a22b (MoE, full width, 4 of 94 layers) over
+    """pixtral_12b (vlm, 40 layers), deepseek_v2_lite_16b (MLA + MoE, 9 of
+    27 layers, as lm_families) and qwen3_moe_235b_a22b (MoE, full width, 4
+    of 94 layers) over
     meshes of four processes sharing the card (gloo): each pruned once,
     exported per partition with ``place=False`` and handed to the ranks
     (CUDA IPC; ``place_servable`` keeps views of its shards), against the
@@ -5983,12 +6035,13 @@ LM_TP_RECURRENT = (
                                        ("dp", (4, 1), "plan_pallas"))),
     ("whisper_base", "bfloat16", (("tp", (1, 4), "dense"),
                                   ("tp+dp", (2, 2), "dense"))))
-#: the recurrent LMs' traffic: 3 requests into 4 slots, 8 new tokens each
-LM_TP_RECURRENT_PROMPTS = (37, 300, 150)
-LM_TP_RECURRENT_NEW = 8
-#: whisper's: 3 requests of the start-of-transcript prompt's first 1, 2 and
-#: 4 tokens, each with 1500 seeded frames, 8 new tokens, cache 448
-AUDIO_TP_PROMPTS = (AUDIO_PROMPT[:1], AUDIO_PROMPT[:2], AUDIO_PROMPT)
+#: the recurrent LMs' traffic: 2 requests into 4 slots, 4 new tokens each
+#: (cut from 3 x 8 to fit lm_tp_train in the run's time limit, as lm_tp's)
+LM_TP_RECURRENT_PROMPTS = (37, 300)
+LM_TP_RECURRENT_NEW = 4
+#: whisper's: 2 requests of the start-of-transcript prompt's first 1 and 4
+#: tokens, each with 1500 seeded frames, 4 new tokens, cache 448
+AUDIO_TP_PROMPTS = (AUDIO_PROMPT[:1], AUDIO_PROMPT)
 #: the fp32 mamba2 copy against one device's fp32 logits: PERF.md's bar of
 #: mamba2's fp32 prefill check. It tells a wrong partition from bf16
 #: rounding, which 48 random bf16 layers carry to ~4.5% of max|logits|
@@ -6069,6 +6122,7 @@ def _lm_tp_recurrent(name, dtype, parts, seed, dev, ranks, counts, base):
     cfg = _recurrent_config(name)
     if cfg.dtype != dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    depth = _recurrent_depth(name, cfg)
     audio = cfg.family == "audio"
     prefix, pattern, n_per, suffix = cfg.layer_plan()
     kinds = list(prefix) + list(pattern) * n_per + list(suffix)
@@ -6093,7 +6147,7 @@ def _lm_tp_recurrent(name, dtype, parts, seed, dev, ranks, counts, base):
               for m in sorted({k.mixer for k in kinds})}
     enc = f"{cfg.n_enc_layers} encoder + " if audio else ""
     print(f"[lm_tp_recurrent] {name} ({cfg.family}, {cfg.dtype}): {enc}"
-          f"{len(kinds)} layers {mixers}, full width and depth; init"
+          f"{len(kinds)} layers {mixers}, {depth}; init"
           f"{'' if audio else ' + prune'} + {len(whole)} sharded exports "
           f"(place=False) {time.perf_counter() - t0:.1f} s; packs "
           f"{ {p: len(sv.packs) for p, sv in whole.items()} }; device "
@@ -6103,16 +6157,17 @@ def _lm_tp_recurrent(name, dtype, parts, seed, dev, ranks, counts, base):
         prompts = [list(p) for p in AUDIO_TP_PROMPTS]
         frames = [rng.randn(cfg.n_audio_ctx, cfg.d_model).astype(np.float32)
                   for _ in prompts]
-        logit_prompts = prompts + [list(AUDIO_PROMPT[:3])]
+        logit_prompts = prompts + [list(AUDIO_PROMPT[:3]),
+                                   list(AUDIO_PROMPT[:2])]
         logit_frames = [torch.from_numpy(f).to(dev)
-                        for f in frames + [frames[0]]]
+                        for f in frames + [frames[0], frames[1]]]
         cache_len = AUDIO_CACHE_LEN
     else:
         prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                    for n in LM_TP_RECURRENT_PROMPTS]
         frames = logit_frames = None
         # the decode_step logits' four slots: short prefills of the prompts
-        logit_prompts = [prompts[0], prompts[1][:64], prompts[2][:100],
+        logit_prompts = [prompts[0], prompts[1][:64], prompts[1][:100],
                          prompts[0][:20]]
         cache_len = 1280
     extra = [{} if f is None else {"frames": f}
@@ -6277,7 +6332,722 @@ def _lm_tp_recurrent_report(name, cfg, part, shape, res, ref, ref_logits,
 
 
 # --------------------------------------------------------------------------
-# phase 4i (not in the default run): lm_tp_trace -- where a mesh rounds
+# phase 4i: lm_tp_train -- the Trainer on a mesh (ranks share the card)
+# --------------------------------------------------------------------------
+
+#: gemma3_4b's mesh training: full width, LMT_LAYERS layers, B 4 x S 512
+#: (the 2,048 tokens of lm_training's Trainer step)
+LMT_TP_BATCH, LMT_TP_SEQ = 4, 512
+#: (partition, mesh shape, steps); the 6-step runs checkpoint every 4 steps
+#: and take a fault at step 5
+LMT_TP_PARTS = (("dp", (4, 1), 6), ("tp+dp", (2, 2), 6), ("tp", (1, 4), 2))
+LMT_TP_FAULT = 5
+LMT_TP_CKPT_EVERY = 4
+#: the fp32 copies: dp and tp at 2 layers, 2 steps
+LMT_TP_FP32_LAYERS, LMT_TP_FP32_STEPS = 2, 2
+#: loss and grad_norm of a mesh step against one device's: bf16 (the
+#: mesh's row blocks and fp32 sums round elsewhere than one device's
+#: GEMMs) and fp32 (only the order of fp32 sums differs)
+TOL_MESH_TRAIN = {"bfloat16": 1e-3, "float32": 1e-5}
+#: BERT-base over (1, 4): 768 rows a weight, 192 a rank, 128-row tiles
+BERT_TP_TRAIN_STEPS = 4
+BERT_TP_BATCH, BERT_TP_SEQ = 8, 384
+BERT_TP_PACKED_STEPS = 2
+
+
+def _lmtt_cfg(layers, dtype):
+    import dataclasses
+    from repro_torch.core.sparsity import SparsityConfig
+    sp = SparsityConfig(block_shape=(16, 16), sparsity=0.7, lambda_reg=1e-4,
+                        start_step=2, end_step=6)
+    return dataclasses.replace(_lm_config(), n_layers=layers, dtype=dtype,
+                               sparsity=sp)
+
+
+def _bert_train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.sparsity import SparsityConfig
+    sp = SparsityConfig(block_shape=(128, 128), sparsity=0.8,
+                        lambda_reg=1e-4, start_step=1, end_step=3)
+    cfg = dataclasses.replace(get_config("bert_base"), sparsity=sp)
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+          == (12, 768, 3072, 30522), "not BERT-base at full width")
+    return cfg
+
+
+def _train_counters():
+    from repro_torch.kernels import bsr_matmul as bm
+    from repro_torch.kernels import plan_dds
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    return {"plan_dds": plan_dds, "flash_decode": flash_decode,
+            "paged_flash_decode": paged_flash_decode, "dds": bm.dds,
+            "dds_t": bm.dds_t, "plan_dds_t": bm.plan_dds_t,
+            "sddmm": bm.sddmm, "plan_sddmm": bm.plan_sddmm}
+
+
+def _lmtt_opt(cfg):
+    """AdamW of the phase's runs: gemma3_4b bf16 keeps its moments in
+    bf16 (the reference's option for optimizer memory at scale), so a
+    checkpoint of the 6-layer state is 7.4 GB, not 12.4: four of them fit
+    the run's time limit (the disk takes ~1.3 GB/s); fp32 models keep
+    fp32 moments."""
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(state_dtype="bfloat16" if cfg.dtype == "bfloat16"
+                       and cfg.family != "bert" else "float32")
+
+
+def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
+                  fault=None, batch=LMT_TP_BATCH, seq=LMT_TP_SEQ,
+                  norms=False):
+    """A Trainer (one device or ``mesh``) that records each step: host
+    seconds, the metrics, the mesh's collectives (calls, bytes, host s;
+    reset before the step), the masks and, with ``norms``, the pruned
+    leaves' whole block norms the masks were scored on (their collectives
+    left out of the step's)."""
+    from repro_torch.core.pruner import whole_block_norms
+    from repro_torch.core.tree import flatten_with_path, path_name
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.runtime.fault_tolerance import (FaultInjector,
+                                                     FaultToleranceConfig)
+    import torch
+    tcfg = TrainConfig(n_steps=n_steps, ckpt_dir=ckpt_dir, seed=seed,
+                       log_every=1, opt=_lmtt_opt(cfg), prune=True,
+                       ft=FaultToleranceConfig(
+                           checkpoint_every=LMT_TP_CKPT_EVERY))
+    inj = FaultInjector(fail_at_steps=(fault,)) if fault is not None \
+        else None
+    tr = Trainer(cfg, tcfg, device=dev, data_cfg=DataConfig(
+        seq_len=seq, global_batch=batch, vocab_size=cfg.vocab_size),
+        fault_injector=inj, mesh=mesh)
+    tr.rec = []
+    one, step_fn = tr._one_step, tr.step_fn
+    scored = {}
+
+    def stepped(*args):
+        params, opt, metrics = step_fn(*args)
+        if not norms:
+            return params, opt, metrics
+        sp = cfg.sparsity
+        saved = copy.deepcopy(mesh.stats) if mesh is not None else None
+        shards = tr.shards(params) or {}
+        todo = [(p, x) for p, x in flatten_with_path(params)
+                if sp.applies_to(path_name(p)) and x.dim() in (2, 3)]
+        grids = whole_block_norms([(x, shards.get(p)) for p, x in todo],
+                                  sp.block_shape, sp.group_norm_ord)
+        scored["norms"] = {path_name(p): g.cpu().numpy()
+                           for (p, _), g in zip(todo, grids)}
+        if mesh is not None:
+            mesh.stats = saved
+        return params, opt, metrics
+
+    def recorded(state, step):
+        if mesh is not None:
+            mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = one(state, step)
+        torch.cuda.synchronize()
+        r = {"step": step, "s": time.perf_counter() - t0, **metrics,
+             "stats": copy.deepcopy(mesh.stats) if mesh is not None else {},
+             "norms": scored.pop("norms", None),
+             "masks": {path_name(p): m.cpu().numpy() for p, m in
+                       flatten_with_path(state["masks"] or {})}}
+        tr.rec.append(r)
+        if mesh is not None and mesh.rank == 0:
+            c, b, t = _step_stats(r)
+            print(f"[lm_tp_train] rank 0 {tuple(mesh.shape.values())} step "
+                  f"{step}: {r['s']:.3f} s, loss {r['loss']!r}, grad_norm "
+                  f"{r['grad_norm']!r}, {c} collectives, "
+                  f"{b / 1e9:.3f} GB, {t:.3f} s in them", flush=True)
+        return state, metrics
+
+    def timed(kind, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            tr.io.append((kind, time.perf_counter() - t0))
+            return out
+        return run
+    tr.io = []
+    tr.step_fn, tr._one_step = stepped, recorded
+    tr.save_state = timed("save", tr.save_state)
+    tr.restore_state = timed("restore", tr.restore_state)
+    tr.store.wait = timed("wait", tr.store.wait)
+    tr.injector_ = inj
+    return tr
+
+
+def _lmtt_run(tr, n_steps):
+    """The Trainer's own step ``n_steps`` times from its initial state, no
+    Supervisor and no checkpoint (the references and the short runs)."""
+    from repro_torch.data.pipeline import DataPipeline
+    tr.pipeline = DataPipeline(tr.data_cfg)
+    try:
+        state = tr.init_state()
+        for step in range(n_steps):
+            state, _ = tr._one_step(state, step)
+    finally:
+        tr.pipeline.close()
+    return state
+
+
+def _state_bytes(state):
+    from repro_torch.core.tree import leaves
+    return {k: sum(x.numel() * x.element_size() for x in leaves(state[k]))
+            for k in ("params", "opt")}
+
+
+def _rank_train_job(job):
+    """A rank's part of lm_tp_train: ``what`` 'lm' (a mesh Trainer run:
+    ``fit`` with checkpoints and a fault, or the bare step loop), 'restore'
+    (the (2, 2) checkpoint restored on other shapes, then steps), 'bert'
+    (BERT-base pruned on a mesh) or 'packed' (the dp packed step through
+    K1 / K4 / K5)."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.staging import install as install_staging
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mesh = init_process_mesh(tuple(job["shape"]))
+    # the ranks share the card: collectives through CUDA IPC buffers, not
+    # gloo's host round trip (~0.35 GB/s a 92 MB all_reduce, lm_tp's probe)
+    install_staging(mesh, "cuda")
+    say = _rank_say(mesh.rank, job["name"], "lm_tp_train")
+    try:
+        out = {"lm": _rank_train_lm, "restore": _rank_train_restore,
+               "bert": _rank_train_bert, "packed": _rank_train_packed}[
+            job["what"]](job, mesh, dev, say)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["coord"] = mesh.coordinate
+    return out
+
+
+_RANK_JOBS["train"] = _rank_train_job
+
+
+def _rank_train_lm(job, mesh, dev, say):
+    import torch
+    cfg = _lmtt_cfg(job["layers"], job["dtype"])
+    tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
+                       mesh, job.get("fault"))
+    for fn in _train_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    if job.get("fit"):
+        state, _ = tr.fit(resume=False)
+        restarts = tr.supervisor.restarts
+    else:
+        state, restarts = _lmtt_run(tr, job["steps"]), 0
+    wall = time.perf_counter() - t0
+    say(f"{len(tr.rec)} steps run, {restarts} restarts, {wall:.1f} s")
+    launches = {n: fn.launches for n, fn in _train_counters().items()}
+    local = {n: tuple(x.shape) for n, x in _named_leaves(state["params"])}
+    out = {"rec": [{k: v for k, v in r.items() if k != "masks"}
+                   for r in tr.rec], "restarts": restarts, "wall": wall,
+           "launches": launches, "bytes": _state_bytes(state),
+           "local_shapes": local, "step": int(state["opt"]["step"]),
+           "fired": sorted(tr.injector_.fired) if tr.injector_ else [],
+           "io": tr.io,
+           "masks_last": tr.rec[-1]["masks"] if mesh.rank == 0 else None}
+    del state, tr
+    torch.cuda.synchronize()
+    return out
+
+
+def _named_leaves(tree):
+    from repro_torch.core.tree import flatten_with_path, path_name
+    return [(path_name(p), x) for p, x in flatten_with_path(tree)]
+
+
+def _ckpt_mismatches(state, path, step, specs, mesh=None):
+    """Leaves of a restored state not bitwise equal to their part (a
+    rank's ``local_shard``, or whole) of the checkpoint's arrays, read
+    from the file itself."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import npz_mmap, spec_at
+    from repro_torch.core.tree import flatten_with_path, path_name
+    from repro_torch.launch.sharding import local_shard
+    arrays = npz_mmap(os.path.join(path, f"step_{step:09d}", "arrays.npz"))
+    coord = ({a: mesh.coord(a) for a in mesh.axis_names}
+             if mesh is not None else {})
+    bad, n = [], 0
+    for i, (p, x) in enumerate(flatten_with_path(state)):
+        n += 1
+        arr = arrays[f"a{i}"]
+        spec = spec_at(specs, p) if specs is not None else None
+        if mesh is not None and spec:
+            arr = local_shard(arr, spec, mesh, coord)
+        # the raw bytes, compared on the card
+        want = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(
+            np.uint8)).to(x.device)
+        got = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        if tuple(x.shape) != tuple(arr.shape) or not torch.equal(got, want):
+            bad.append(path_name(p))
+    return bad, n
+
+
+def _rank_train_restore(job, mesh, dev, say):
+    """The (2, 2) checkpoint restored on this mesh shape: every leaf
+    bitwise its shard of the file; then ``steps`` more steps from it."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import DataPipeline
+    cfg = _lmtt_cfg(job["layers"], job["dtype"])
+    tr = _lmtt_trainer(cfg, job["scratch_dir"], job["seed"], 1, dev, mesh)
+    like = tr.init_state()
+    t0 = time.perf_counter()
+    state = tr.restore_state(CheckpointStore(job["ckpt_dir"]), job["step"],
+                             like)
+    restore_s = time.perf_counter() - t0
+    del like
+    bad, n = _ckpt_mismatches(state, job["ckpt_dir"], job["step"],
+                              tr.specs(), mesh)
+    say(f"restored step {job['step']} in {restore_s:.1f} s: {n - len(bad)} "
+        f"of {n} leaves bitwise")
+    tr.pipeline = DataPipeline(tr.data_cfg)
+    try:
+        for step in range(job["step"], job["step"] + job["steps"]):
+            state, _ = tr._one_step(state, step)
+    finally:
+        tr.pipeline.close()
+    out = {"bad": bad, "n": n, "restore_s": restore_s,
+           "rec": [{k: v for k, v in r.items() if k != "masks"}
+                   for r in tr.rec]}
+    del state, tr
+    return out
+
+
+def _rank_train_bert(job, mesh, dev, say):
+    cfg = _bert_train_cfg()
+    tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
+                       mesh, batch=BERT_TP_BATCH, seq=BERT_TP_SEQ,
+                       norms=True)
+    state = _lmtt_run(tr, job["steps"])
+    say(f"{len(tr.rec)} steps")
+    out = {"rec": tr.rec, "bytes": _state_bytes(state)}
+    del state, tr
+    return out
+
+
+def _rank_train_packed(job, mesh, dev, say):
+    """The dp packed step: the whole packs and params the parent shares
+    (CUDA IPC; the step is functional, so they are only read), this rank's
+    rows, K1 / K4 / K5 launches counted a step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.sharding import local_rows
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = _bert_train_cfg()
+    params, packs = job.pop("params"), job.pop("packs")
+    opt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                      weight_decay=0.01)
+    step = make_train_step(cfg, opt, packs=packs, mesh=mesh)
+    ost = init_opt_state(params, opt)
+    counters = _train_counters()
+    rec = []
+    for i, batch in enumerate(job["batches"]):
+        rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            dev, torch.int64) for k, v in local_rows(batch, mesh).items()}
+        for fn in counters.values():
+            fn.launches = 0
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ost, m = step(params, ost, rows)
+        torch.cuda.synchronize()
+        rec.append({"s": time.perf_counter() - t0,
+                    "launches": {n: fn.launches
+                                 for n, fn in counters.items()},
+                    "stats": copy.deepcopy(mesh.stats),
+                    "rows": int(rows["tokens"].shape[0]),
+                    **{k: float(v) for k, v in m.items()}})
+    say(f"{len(rec)} packed steps")
+    del params, ost
+    return {"rec": rec}
+
+
+def _step_stats(rec):
+    """(collectives, bytes, host s) of a recorded step."""
+    st = rec["stats"]
+    return (sum(v["calls"] for v in st.values()),
+            sum(v["bytes"] for v in st.values()),
+            sum(v["s"] for v in st.values()))
+
+
+def _lmtt_compare(tag, res, ref, dtype, steps=None):
+    """Every rank's per-step loss and grad_norm equal across the ranks and
+    within TOL_MESH_TRAIN[dtype] relative of one device's, step by step
+    (the last run of each step: a restart re-runs steps)."""
+    import numpy as np
+    tol = TOL_MESH_TRAIN[dtype]
+    by_step = [{r["step"]: r for r in rank["rec"]} for rank in res]
+    want = {r["step"]: r for r in ref}
+    steps = sorted(by_step[0]) if steps is None else steps
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    rel_by_step, bad = [], []
+    for s in steps:
+        first = by_step[0][s]
+        for r, rank in enumerate(by_step):
+            for k in ("loss", "grad_norm"):
+                if rank[s][k] != first[k]:
+                    bad.append(f"step {s} {k} differs between rank 0 "
+                               f"({first[k]!r}) and rank {r} "
+                               f"({rank[s][k]!r})")
+        rels = {}
+        for k in worst:
+            rel = abs(first[k] - want[s][k]) / abs(want[s][k])
+            rels[k] = rel
+            worst[k] = max(worst[k], rel)
+            if not (np.isfinite(first[k]) and rel <= tol):
+                bad.append(f"step {s} {k} {first[k]!r} against one "
+                           f"device's {want[s][k]!r}: {rel:.3e} relative "
+                           f"> {tol}")
+        rel_by_step.append((s, rels["loss"], rels["grad_norm"]))
+    print(f"{tag}: relative to one device by step (step, loss, grad_norm) "
+          f"{[(s, float(f'{a:.3e}'), float(f'{b:.3e}')) for s, a, b in rel_by_step]}")
+    check(not bad, f"{tag}: " + "; ".join(bad))
+    return worst
+
+
+def _print_rank_steps(tag, res):
+    """Per rank: host clock a step, collectives a step (calls, MB, host
+    s), peak memory, param and optimizer bytes."""
+    for r, rank in enumerate(res):
+        recs = rank["rec"]
+        calls = [_step_stats(x) for x in recs]
+        print(f"{tag} rank {r} {rank['coord']}: host s a step "
+              f"{[round(x['s'], 3) for x in recs]}; collectives a step "
+              f"{[c for c, _, _ in calls]}, MB "
+              f"{[round(b / 1e6, 1) for _, b, _ in calls]}, host s in them "
+              f"{[round(t, 3) for _, _, t in calls]}; peak "
+              f"{rank['peak_gib']:.2f} GiB"
+              + (f"; params {rank['bytes']['params'] / 1e9:.3f} GB, "
+                 f"optimizer {rank['bytes']['opt'] / 1e9:.3f} GB"
+                 if "bytes" in rank else ""))
+    first = res[0]["rec"][-1]["stats"]
+    print(f"{tag} rank 0's last step by collective: "
+          f"{ {k: (v['calls'], round(v['bytes'] / 1e6, 1), round(v['s'], 3)) for k, v in first.items()} }")
+
+
+def _mask_near_ties(tag, mesh_rec, one_rec, sp):
+    """Every mesh step's masks against one device's: a differing block
+    must be a near-tie -- its one-device block norm within twice the
+    leaf's max |norm difference| (mesh vs one device) of its layer's
+    quantile. Returns (blocks compared, differing, the margins)."""
+    import numpy as np
+    from repro_torch.core.pruner import cubic_sparsity
+    one = {r["step"]: r for r in one_rec}
+    n, diff, margins = 0, 0, []
+    for r in mesh_rec:
+        s, want = r["step"], one[r["step"]]
+        target = cubic_sparsity(s, sp)
+        for name, m in r["masks"].items():
+            w = want["masks"][name]
+            n += w.size
+            bad = np.argwhere(m != w)
+            if not len(bad):
+                continue
+            norms_one, norms_mesh = want["norms"][name], r["norms"][name]
+            gap = float(np.abs(norms_mesh - norms_one).max())
+            layers = norms_one if norms_one.ndim == 3 else norms_one[None]
+            for idx in bad:
+                li, bi, bj = idx if norms_one.ndim == 3 else (0, *idx)
+                flat = layers[li].reshape(-1).astype(np.float64)
+                q = float(np.quantile(flat, target))
+                margin = abs(float(layers[li][bi, bj]) - q)
+                diff += 1
+                margins.append(margin)
+                print(f"{tag} near-tie? step {s} {name} block {tuple(idx)}: "
+                      f"|norm - quantile| {margin:.4e}, 2 x max|d norm| "
+                      f"{2 * gap:.4e}")
+                check(margin < 2 * gap, f"{tag}: step {s} {name} block "
+                      f"{tuple(idx)} differs from one device's mask away "
+                      f"from a near-tie ({margin:.4e} >= {2 * gap:.4e})")
+    return n, diff, margins
+
+
+def phase_lm_tp_train(seed: int, card: str):
+    """The Trainer on a mesh: four processes sharing the card, as lm_tp,
+    their collectives through CUDA IPC staging buffers (``launch/
+    staging.py``; gloo, as lm_tp's, would take most of the run). a.
+    gemma3_4b at full width, LMT_LAYERS layers, B 4 x S 512,
+    pruning to 0.7 at 16x16 from step 2 to 6 with the prox, over dp (4, 1)
+    and tp+dp (2, 2) for 6 steps (checkpoints every 4, a fault at step 5)
+    and tp (1, 4) for 2, against one device's Trainer on the same seed
+    and batches (bf16: 1e-3); an fp32 copy of dp and tp at 2 layers
+    (1e-5). b. the (2, 2) step-4 checkpoint restored bitwise at (1, 4),
+    (4, 1) and on one device; 2 more steps at (1, 4). c. BERT-base over
+    (1, 4) pruned at 128x128 (tiles straddle the 192-row shards), masks
+    against one device's; then 2 packed steps over dp (4, 1) through K1 /
+    K4 / K5 (48 each a step a rank). Returns the packed steps' launches."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lmtt_cfg(LMT_LAYERS, "bfloat16")
+    print(f"[lm_tp_train] {card}; {cfg.arch} at full width, {cfg.n_layers} "
+          f"layers, B {LMT_TP_BATCH} x S {LMT_TP_SEQ}; 4 ranks share the "
+          f"card, their collectives through CUDA IPC staging buffers "
+          f"(launch/staging.py), so their times say nothing of the mesh's "
+          f"speed")
+    rec = {}
+    marks = [time.perf_counter()]
+
+    def part(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"[lm_tp_train] {name}: {marks[-1] - marks[-2]:.1f} s")
+
+    # one device's references, first, then freed
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, layers, steps in (("bfloat16", LMT_LAYERS, 6),
+                                     ("float32", LMT_TP_FP32_LAYERS,
+                                      LMT_TP_FP32_STEPS)):
+            tr = _lmtt_trainer(_lmtt_cfg(layers, dtype), tmp, seed, steps,
+                               dev)
+            state = _lmtt_run(tr, steps)
+            refs[dtype] = tr.rec
+            print(f"[lm_tp_train] one device ({dtype}, {layers} layers): "
+                  f"loss {[round(r['loss'], 5) for r in tr.rec]}, grad_norm "
+                  f"{[round(r['grad_norm'], 5) for r in tr.rec]}, host s a "
+                  f"step {[round(r['s'], 3) for r in tr.rec]}; state "
+                  f"{ {k: round(v / 1e9, 3) for k, v in _state_bytes(state).items()} } GB, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del state, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        bcfg = _bert_train_cfg()
+        tr = _lmtt_trainer(bcfg, tmp, seed, BERT_TP_TRAIN_STEPS, dev,
+                           batch=BERT_TP_BATCH, seq=BERT_TP_SEQ, norms=True)
+        bstate = _lmtt_run(tr, BERT_TP_TRAIN_STEPS)["params"]
+        refs["bert"] = tr.rec
+        del tr
+    part("one-device references")
+
+    counts = dict.fromkeys(_train_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(4, tmp)
+        try:
+            # a. gemma3_4b over dp, tp+dp, tp
+            for name, shape, steps in LMT_TP_PARTS:
+                ckpt = os.path.join(tmp, name)
+                fault = LMT_TP_FAULT if steps == 6 else None
+                res = ranks.run({
+                    "name": name, "kind": "train", "what": "lm",
+                    "shape": shape, "layers": LMT_LAYERS,
+                    "dtype": "bfloat16", "steps": steps, "seed": seed,
+                    "ckpt_dir": ckpt, "fault": fault,
+                    "fit": fault is not None})
+                tag = f"[lm_tp_train] a. {name} {shape}"
+                for r, rank in enumerate(res):
+                    check(rank["restarts"] == (1 if fault else 0) and
+                          rank["fired"] == ([fault] if fault else []),
+                          f"{tag} rank {r}: {rank['restarts']} restarts, "
+                          f"faults fired {rank['fired']}")
+                    check(rank["step"] == steps, f"{tag} rank {r}: "
+                          f"optimizer step {rank['step']}")
+                    check(all(v == 0 for v in rank["launches"].values()),
+                          f"{tag} rank {r}: a dense step launched "
+                          f"{rank['launches']}")
+                ran = [r["step"] for r in res[0]["rec"]]
+                print(f"{tag}: steps run {ran} ({res[0]['restarts']} "
+                      f"restart), {res[0]['wall']:.1f} s; checkpoint "
+                      f"saves / restores / waits (rank 0, s) "
+                      f"{[(k, round(t, 2)) for k, t in res[0]['io']]}; "
+                      f"local shapes "
+                      f"{ {k: v for k, v in res[0]['local_shapes'].items() if 'blocks/[0]' in k or 'embed' in k} }")
+                _print_rank_steps(tag, res)
+                worst = _lmtt_compare(tag, res, refs["bfloat16"],
+                                      "bfloat16")
+                print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}; "
+                      f"against one device: loss {worst['loss']:.3e}, "
+                      f"grad_norm {worst['grad_norm']:.3e} relative (bar "
+                      f"{TOL_MESH_TRAIN['bfloat16']})")
+                last = res[0]["rec"][-1]["step"]
+                one_last = {r["step"]: r for r in refs["bfloat16"]}[last][
+                    "masks"]
+                same = sum(int((res[0]["masks_last"][k] == m).sum())
+                           for k, m in one_last.items())
+                total = sum(m.size for m in one_last.values())
+                print(f"{tag}: step {last}'s masks {same} of {total} blocks "
+                      f"equal to one device's")
+                rec[name] = {"worst": worst, "wall": res[0]["wall"],
+                             "peak_gib": [x["peak_gib"] for x in res],
+                             "steps": [_step_stats(x) for x in
+                                       res[0]["rec"]]}
+                if name == "tp+dp":
+                    tpdp = [{k: r[k] for k in ("step", "loss", "grad_norm")}
+                            for r in res[0]["rec"]]
+                if name == "dp":
+                    shutil.rmtree(ckpt, ignore_errors=True)
+            part("a. gemma3_4b bf16 over dp, tp+dp, tp")
+            # the fp32 copies at 2 layers
+            for name, shape in (("dp", (4, 1)), ("tp", (1, 4))):
+                res = ranks.run({
+                    "name": f"{name} fp32", "kind": "train", "what": "lm",
+                    "shape": shape, "layers": LMT_TP_FP32_LAYERS,
+                    "dtype": "float32", "steps": LMT_TP_FP32_STEPS,
+                    "seed": seed, "ckpt_dir": os.path.join(tmp, "fp32")})
+                tag = f"[lm_tp_train] a. fp32 copy {name} {shape}"
+                _print_rank_steps(tag, res)
+                worst = _lmtt_compare(tag, res, refs["float32"], "float32")
+                print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}, "
+                      f"grad_norm {[r['grad_norm'] for r in res[0]['rec']]}"
+                      f"; against one device: loss {worst['loss']:.3e}, "
+                      f"grad_norm {worst['grad_norm']:.3e} relative (bar "
+                      f"{TOL_MESH_TRAIN['float32']})")
+                rec[f"{name} fp32"] = worst
+            part("a. fp32 copies")
+
+            # b. the (2, 2) step-4 checkpoint on other shapes
+            ckpt = os.path.join(tmp, "tp+dp")
+            meta = CheckpointStore(ckpt).meta(LMT_TP_CKPT_EVERY)
+            check(meta.get("mesh", {}).get("shape") == [2, 2],
+                  f"the (2, 2) checkpoint's meta {meta.get('mesh')}")
+            for shape, steps in (((1, 4), 2), ((4, 1), 0)):
+                res = ranks.run({
+                    "name": f"restore {shape}", "kind": "train",
+                    "what": "restore", "shape": shape, "layers": LMT_LAYERS,
+                    "dtype": "bfloat16", "seed": seed, "ckpt_dir": ckpt,
+                    "step": LMT_TP_CKPT_EVERY, "steps": steps,
+                    "scratch_dir": os.path.join(tmp, "scratch")})
+                tag = f"[lm_tp_train] b. (2, 2) step-4 checkpoint at {shape}"
+                for r, rank in enumerate(res):
+                    check(not rank["bad"], f"{tag} rank {r}: leaves not "
+                          f"bitwise their shard: {rank['bad'][:5]}")
+                print(f"{tag}: {res[0]['n']} leaves bitwise their shard of "
+                      f"the file on every rank, restore "
+                      f"{[round(x['restore_s'], 2) for x in res]} s")
+                if steps:
+                    _print_rank_steps(tag, res)
+                    worst = _lmtt_compare(tag, res, tpdp, "bfloat16")
+                    print(f"{tag}: steps 4-5 from it against the (2, 2) "
+                          f"run's own steps 4-5 after its restart: loss "
+                          f"{worst['loss']:.3e}, grad_norm "
+                          f"{worst['grad_norm']:.3e} relative")
+            tr = _lmtt_trainer(cfg, os.path.join(tmp, "scratch1"), seed, 1,
+                               dev)
+            t0 = time.perf_counter()
+            state = tr.restore_state(CheckpointStore(ckpt),
+                                     LMT_TP_CKPT_EVERY, tr.init_state())
+            restore_s = time.perf_counter() - t0
+            bad, n = _ckpt_mismatches(state, ckpt, LMT_TP_CKPT_EVERY, None)
+            check(not bad, f"[lm_tp_train] b. one device: leaves not bitwise "
+                  f"the file's: {bad[:5]}")
+            print(f"[lm_tp_train] b. (2, 2) step-4 checkpoint on one device: "
+                  f"{n} leaves bitwise, restore {restore_s:.2f} s, "
+                  f"{sum(x.numel() * x.element_size() for x in leaves(state)) / 1e9:.2f} GB")
+            del state, tr
+            shutil.rmtree(ckpt, ignore_errors=True)
+            part("b. restores")
+
+            # c. BERT-base over (1, 4), masks against one device's
+            res = ranks.run({"name": "bert (1, 4)", "kind": "train",
+                             "what": "bert", "shape": (1, 4), "seed": seed,
+                             "steps": BERT_TP_TRAIN_STEPS,
+                             "ckpt_dir": os.path.join(tmp, "bert")})
+            tag = "[lm_tp_train] c. BERT-base (1, 4)"
+            _print_rank_steps(tag, res)
+            worst = _lmtt_compare(tag, res, refs["bert"], "float32")
+            n, diff, margins = _mask_near_ties(tag, res[0]["rec"],
+                                               refs["bert"], bcfg.sparsity)
+            print(f"{tag}: {BERT_TP_TRAIN_STEPS} steps, loss "
+                  f"{[round(r['loss'], 6) for r in res[0]['rec']]}; against "
+                  f"one device: loss {worst['loss']:.3e}, grad_norm "
+                  f"{worst['grad_norm']:.3e} relative; masks: {n} blocks "
+                  f"compared over the steps, {diff} differ (each a near-tie, "
+                  f"printed)")
+            rec["bert"] = {"worst": worst, "blocks": n, "differ": diff}
+
+            # the hand-off, then the dp packed step
+            spec = ServingSpec(tile=(128, 128), prune="none", fuse_qkv=True,
+                               cross_layer_union=True,
+                               backend="plan_pallas")
+            servable = prepare_servable(bstate, bcfg, spec, device=dev)
+            del bstate
+            packs = servable.packs
+            check(len(packs) == 4 * bcfg.n_layers,
+                  f"{len(packs)} packed projections")
+            pipe = DataPipeline(DataConfig(seq_len=BERT_TP_SEQ,
+                                           global_batch=BERT_TP_BATCH,
+                                           vocab_size=bcfg.vocab_size))
+            batches = [pipe.batch_at(100 + i)
+                       for i in range(BERT_TP_PACKED_STEPS)]
+            pipe.close()
+            opt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                              weight_decay=0.01)
+            step = make_train_step(bcfg, opt, packs=packs)
+            params, one = servable.params, []
+            ost = init_opt_state(params, opt)
+            for b in batches:
+                params, ost, m = step(params, ost, {
+                    k: torch.from_numpy(v).to(dev, torch.int64)
+                    for k, v in b.items()})
+                one.append({k: float(v) for k, v in m.items()})
+            del params, ost
+            res = ranks.run({"name": "packed dp (4, 1)", "kind": "train",
+                             "what": "packed", "shape": (4, 1),
+                             "params": servable.params, "packs": packs,
+                             "batches": batches})
+            tag = "[lm_tp_train] c. packed fine-tuning dp (4, 1)"
+            want = dict.fromkeys(counts, 0)
+            want.update(plan_dds=len(packs), plan_dds_t=len(packs),
+                        plan_sddmm=len(packs))
+            for r, rank in enumerate(res):
+                for i, x in enumerate(rank["rec"]):
+                    check(x["launches"] == want, f"{tag} rank {r} step {i}: "
+                          f"launches {x['launches']}, the routing {want}")
+                    check(x["rows"] == BERT_TP_BATCH // 4,
+                          f"{tag}: rank {r} ran {x['rows']} rows")
+                    for k in counts:
+                        counts[k] += x["launches"][k]
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for i, w in enumerate(one):
+                first = res[0]["rec"][i]
+                for r, rank in enumerate(res):
+                    for k in worst:
+                        check(rank["rec"][i][k] == first[k], f"{tag}: step "
+                              f"{i} {k} differs between ranks 0 and {r}")
+                for k in worst:
+                    rel = abs(first[k] - w[k]) / abs(w[k])
+                    worst[k] = max(worst[k], rel)
+                    check(rel <= TOL_PACKED_STEP, f"{tag}: step {i} {k} "
+                          f"{first[k]!r} against one device's {w[k]!r}")
+            print(f"{tag}: launches a rank a step {res[0]['rec'][0]['launches']}"
+                  f" (= the routing: {len(packs)} packed projections); loss "
+                  f"{[round(x['loss'], 6) for x in res[0]['rec']]} against "
+                  f"one device's {[round(x['loss'], 6) for x in one]}: "
+                  f"{worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} "
+                  f"relative (bar {TOL_PACKED_STEP})")
+            _print_rank_steps(tag, res)
+            rec["packed"] = worst
+            del servable, packs
+            part("c. BERT-base")
+        finally:
+            ranks.close()
+    print(f"[lm_tp_train] summary {json.dumps(rec, default=str)}")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4j (not in the default run): lm_tp_trace -- where a mesh rounds
 # differently from one device
 # --------------------------------------------------------------------------
 
@@ -6414,7 +7184,8 @@ def main() -> int:
                     default="kernels,serving,serving_quant,serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
-                            "lm_tp_families,lm_tp_recurrent,training")
+                            "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
+                            "training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -6513,6 +7284,12 @@ def main() -> int:
             launches["lm_tp_recurrent"] = phase_lm_tp_recurrent(args.seed,
                                                                 card)
             done("lm_tp_recurrent")
+        if "lm_tp_train" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp_train"] = phase_lm_tp_train(args.seed, card)
+            done("lm_tp_train")
         if "lm_tp_trace" in phases:
             launches["lm_tp_trace"] = phase_lm_tp_trace(args.seed, card)
             done("lm_tp_trace")

@@ -46,8 +46,13 @@ _RAW_DTYPES = {"bfloat16": (torch.bfloat16, torch.int16, np.int16),
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array (bfloat16 / float8_e4m3fn as raw
-    2- / 1-byte values)."""
-    t = t.detach().cpu().contiguous()
+    2- / 1-byte values) in memory of its own: a host tensor is copied, so
+    a step that later writes into it (a donated update) cannot reach a
+    checkpoint still being written."""
+    src = t.detach()
+    t = src.cpu().contiguous()
+    if t.data_ptr() == src.data_ptr():
+        t = t.clone()
     for dt, raw, _ in _RAW_DTYPES.values():
         if t.dtype == dt:
             return t.view(raw).numpy().view(f"V{t.element_size()}")
@@ -84,14 +89,41 @@ def _npy_bytes(arr: np.ndarray) -> bytes:
     return out
 
 
+#: bytes a member's data is written in (zipfile checksums each piece)
+_WRITE_PIECE = 64 << 20
+
+
 def _savez(path: str, arrays: dict):
     """``np.savez`` (uncompressed zip of ``<name>.npy`` members) with
-    :func:`_npy_bytes` members."""
+    :func:`_npy_bytes` members, each written as its header and then its
+    data straight from the array, in pieces (no copy of the whole
+    member)."""
     with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for name, arr in arrays.items():
+            arr = np.asanyarray(arr)
             with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
-                f.write(_npy_bytes(np.asanyarray(arr)))
+                if arr.dtype.hasobject or not arr.size or \
+                        not arr.flags.c_contiguous:
+                    f.write(_npy_bytes(arr))
+                    continue
+                f.write(_npy_header_of(arr))
+                flat = arr.reshape(-1).view(np.uint8)
+                for lo in range(0, flat.size, _WRITE_PIECE):
+                    f.write(memoryview(flat[lo:lo + _WRITE_PIECE]))
+
+
+def _npy_header_of(arr: np.ndarray) -> bytes:
+    """The ``.npy`` header :func:`_npy_bytes` writes for ``arr`` (format
+    1.0 as ``np.save`` picks it, a raw-byte leaf's descr ``<V<n>``)."""
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        buf, np.lib.format.header_data_from_array_1_0(arr))
+    out = buf.getvalue()
+    if arr.dtype.kind == "V" and arr.dtype.names is None:
+        out = out.replace(f"'descr': '|V{arr.dtype.itemsize}'".encode(),
+                          f"'descr': '<V{arr.dtype.itemsize}'".encode(), 1)
+    return out
 
 
 def npz_mmap(path: str) -> dict:
@@ -124,26 +156,83 @@ def npz_mmap(path: str) -> dict:
     return out
 
 
+def spec_at(specs, path):
+    """The spec of the leaf at ``path`` in a spec tree, or None where the
+    tree has no entry (a None subtree: replicated)."""
+    node = specs
+    for k in path:
+        if node is None:
+            return None
+        node = node[k]
+    return node
+
+
 class CheckpointStore:
+    """On a mesh (``save(mesh=, specs=)``) every rank calls each method in
+    the same order: a save gathers each leaf whole, leaf by leaf in tree
+    order (so a rank's memory holds one whole leaf at a time beside its
+    shards), and rank 0 alone writes, in the reference's layout, with the
+    mesh in ``meta``; the other ranks' :meth:`wait` waits for the step to
+    appear on the shared directory. A restore is per rank: ``select`` cuts
+    each memory-mapped leaf to the rank's shard under the mesh it runs on,
+    so a checkpoint moves between mesh shapes and to or from one device."""
+
+    #: how long a rank other than 0 waits for rank 0's write to land
+    WAIT_S = 1800.0
+
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._pending: Optional[tuple] = None
+        self._saves = 0
 
     def save(self, step: int, tree: Any, blocking: bool = True,
-             extra: Optional[dict] = None):
+             extra: Optional[dict] = None, mesh=None, specs=None):
         """Write ``tree``'s leaves and ``extra`` meta as step ``step``: the
         host copy now, the files now or (``blocking=False``) on a background
-        thread."""
-        host = [to_host(leaf) for leaf in tree_leaves(tree)]
+        thread. ``mesh`` (a ``launch.mesh.ProcessMesh``) and ``specs`` (the
+        leaves' spec tree; None entries replicated): ``tree`` holds this
+        rank's shards, which are gathered whole, and rank 0 writes."""
+        extra = dict(extra or {})
+        if mesh is None:
+            host = [to_host(leaf) for leaf in tree_leaves(tree)]
+        else:
+            host = self._gathered(tree, mesh, specs)
+            self._saves += 1        # every rank counts the same saves
+            extra["mesh"] = {"shape": [mesh.shape[a]
+                                       for a in mesh.axis_names],
+                             "axes": list(mesh.axis_names),
+                             "save": self._saves}
+            if mesh.rank != 0:
+                self._pending = (step, self._saves)
+                if blocking:
+                    self.wait()
+                return
         self.wait()   # one in-flight save at a time
         if blocking:  # in this thread, so a failed write raises here
-            self._write(step, host, extra or {})
+            self._write(step, host, extra)
             return
         self._thread = threading.Thread(
-            target=self._write, args=(step, host, extra or {}), daemon=True)
+            target=self._write, args=(step, host, extra), daemon=True)
         self._thread.start()
+
+    @staticmethod
+    def _gathered(tree, mesh, specs):
+        """Rank 0's host copies of ``tree``'s whole leaves (other ranks:
+        None), each gathered from the ranks' shards in tree order."""
+        from repro_torch.launch.sharding import whole_leaf
+        host = []
+        with torch.no_grad():
+            for path, leaf in flatten_with_path(tree):
+                spec = spec_at(specs, path)
+                x = leaf.detach()
+                if spec and any(e is not None for e in spec):
+                    x = whole_leaf(x, spec, mesh)
+                host.append(to_host(x) if mesh.rank == 0 else None)
+                del x
+        return host
 
     def _write(self, step: int, host, extra: dict):
         tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
@@ -160,9 +249,29 @@ class CheckpointStore:
         self._gc()
 
     def wait(self):
-        """Block until the in-flight save (if any) is on disk."""
+        """Block until the in-flight save (if any) is on disk; on a mesh
+        rank other than 0, until rank 0's last save is."""
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
+        if self._pending is not None:
+            step, n = self._pending
+            final = os.path.join(self.dir, f"step_{step:09d}")
+            deadline = time.time() + self.WAIT_S
+            while self._mesh_save(final) != n:
+                if time.time() > deadline:
+                    raise TimeoutError(f"save {n} of {final} did not "
+                                       f"appear in {self.WAIT_S} s")
+                time.sleep(0.05)
+            self._pending = None
+
+    @staticmethod
+    def _mesh_save(final: str):
+        """The mesh save count in ``final``'s meta (None if not there)."""
+        try:
+            with open(os.path.join(final, "meta.json")) as f:
+                return json.load(f).get("mesh", {}).get("save")
+        except (OSError, ValueError):
+            return None
 
     def _gc(self):
         steps = self.all_steps()
@@ -185,20 +294,24 @@ class CheckpointStore:
                 device=None, select=None) -> Any:
         """Restore step ``step`` (default: the latest) into the structure of
         ``like``, whose leaves are dtype names
-        (``serving.serialize.build_like``), onto ``device``. ``select(path,
-        array) -> array`` picks the part of each leaf to load (e.g. a
-        rank's shard): the arrays are then memory-mapped, so only that
-        part is read."""
+        (``serving.serialize.build_like``), onto ``device``. The arrays
+        are memory-mapped (a compressed archive is read whole), and
+        ``select(path, array) -> array`` picks the part of each leaf to
+        load (e.g. a rank's shard), so only that part is read."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:09d}", "arrays.npz")
-        if select is None:
+        try:
+            members = npz_mmap(path)
+        except ValueError:              # a compressed archive
+            members = None
+        if members is None:
             with np.load(path) as data:
                 new = [from_host(data[f"a{i}"], dtype, device)
                        for i, dtype in enumerate(tree_leaves(like))]
             return unflatten(like, new)
-        members = npz_mmap(path)
+        select = select or (lambda _, arr: arr)
         # np.array: the selected part read into memory of its own
         new = [from_host(np.array(select(p, members[f"a{i}"])), dtype,
                          device)

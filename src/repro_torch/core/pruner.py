@@ -18,9 +18,10 @@ import torch
 
 import numpy as np
 
-from repro_torch.core.sparsity import (SparsityConfig, actual_sparsity,
-                                       apply_block_mask, block_norms,
-                                       expand_block_mask, topk_block_mask,
+from repro_torch.core.sparsity import (SparsityConfig, apply_block_mask,
+                                       block_norms, block_partials,
+                                       expand_block_mask, local_of_grid,
+                                       reduce_grids, topk_block_mask,
                                        topk_flat_mask)
 from repro_torch.core.tree import (flatten_with_path, map_with_path,
                                    path_name, unflatten)
@@ -86,46 +87,87 @@ def init_masks(params, cfg: SparsityConfig):
     return map_with_path(one, params)
 
 
-def update_masks(params, masks, step: int, cfg: SparsityConfig):
+def whole_block_norms(items, block_shape, ord: int):
+    """[(leaf, shard)] -> each leaf's whole block norms (..., R/bh, C/bw)
+    in fp32. A leaf without a shard is whole (``block_norms`` layer by
+    layer); a rank's shard (``launch.sharding.LeafShard``) gives partial
+    sums of the norm's own kind -- squares for ``ord`` 2, |w| for 1 --
+    reduced over the axes that cut it (one collective an axis for all the
+    leaves), so every rank holds every whole grid."""
+    grids, shards = [], []
+    for leaf, sh in items:
+        if sh is None:
+            grids.append(_per_layer(lambda w: block_norms(
+                w.float(), block_shape, ord), leaf))
+        else:
+            grids.append(block_partials(leaf, block_shape, ord,
+                                        sh.offsets, sh.shape))
+        shards.append(sh)
+    grids = reduce_grids(grids, shards)
+    return [g.sqrt() if sh is not None and ord == 2 else g
+            for g, sh in zip(grids, shards)]
+
+
+def update_masks(params, masks, step: int, cfg: SparsityConfig,
+                 shards=None):
     """Recompute block masks at the scheduled sparsity for this step: a
     block is kept where its norm exceeds the target quantile of its leaf's
-    block norms."""
+    block norms. ``shards`` (path -> ``LeafShard``; the mesh Trainer)
+    marks leaves this rank holds a shard of: their whole block norms come
+    from reduced partials, so every rank builds the same whole mask."""
     target = cubic_sparsity(step, cfg)
-
-    def upd_2d(leaf):
-        norms = block_norms(leaf.float(), cfg.block_shape,
-                            cfg.group_norm_ord)
-        return norms > _quantile(norms.reshape(-1), target)
-
-    def upd(path, leaf):
-        if _mask_at(masks, path) is None:
-            return None
-        return _per_layer(upd_2d, leaf)
-    return map_with_path(upd, params)
+    shards = shards or {}
+    todo = [(path, leaf) for path, leaf in flatten_with_path(params)
+            if _mask_at(masks, path) is not None]
+    norms = whole_block_norms([(leaf, shards.get(path))
+                               for path, leaf in todo], cfg.block_shape,
+                              cfg.group_norm_ord)
+    new = {path: _per_layer(lambda n: n > _quantile(n.reshape(-1), target),
+                            g) for (path, _), g in zip(todo, norms)}
+    return map_with_path(lambda path, _: new.get(path), params)
 
 
-def apply_masks(params, masks, cfg: SparsityConfig):
+def apply_masks(params, masks, cfg: SparsityConfig, shards=None):
     """Zero out masked blocks (keeps pruned weights dead after the optimizer
-    step)."""
+    step). A leaf with a shard in ``shards`` takes its slice of the whole
+    mask: each local element reads its global block."""
+    shards = shards or {}
+
     def app(path, leaf):
         mask = _mask_at(masks, path)
         if mask is None:
             return leaf
+        sh = shards.get(path)
+        if sh is not None:
+            keep = local_of_grid(mask, cfg.block_shape, sh.offsets,
+                                 tuple(leaf.shape))
+            return leaf * keep.to(leaf.dtype)
         return _per_layer(lambda w, m: apply_block_mask(w, m, cfg.block_shape),
                           leaf, mask)
     return map_with_path(app, params)
 
 
-def sparsity_report(params, cfg: SparsityConfig) -> Dict[str, float]:
-    """Per-target actual block sparsity (mean over a stack's layers)."""
-    out = {}
-    for path, leaf in flatten_with_path(params):
-        name = path_name(path)
-        if _prunable(cfg, name, leaf):
-            s = _per_layer(lambda w: actual_sparsity(w, cfg.block_shape),
-                           leaf)
-            out[name] = float(s.float().mean())
-    return out
+def sparsity_report(params, cfg: SparsityConfig, shards=None
+                    ) -> Dict[str, float]:
+    """Per-target actual block sparsity (mean over a stack's layers), of
+    the whole leaf where ``shards`` holds the rank's shard of it."""
+    shards = shards or {}
+    todo = [(path, leaf) for path, leaf in flatten_with_path(params)
+            if _prunable(cfg, path_name(path), _whole_like(
+                leaf, shards.get(path)))]
+    norms = whole_block_norms([(leaf, shards.get(path))
+                               for path, leaf in todo], cfg.block_shape, 1)
+    return {path_name(path): float((g == 0).float().mean(dim=(-2, -1))
+                                   .mean())
+            for (path, _), g in zip(todo, norms)}
+
+
+def _whole_like(leaf, shard):
+    """``leaf`` or, for a shard, a meta tensor of the whole leaf's shape
+    (what ``_prunable`` reads)."""
+    if shard is None:
+        return leaf
+    return torch.empty(shard.shape, dtype=leaf.dtype, device="meta")
 
 
 def oneshot_prune(params, cfg: SparsityConfig):

@@ -14,7 +14,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.sparsity import block_norms
+from repro_torch.core.sparsity import (block_norms, block_partials,
+                                       reduce_grids)
 from repro_torch.core.tree import flatten_with_path, path_name
 
 
@@ -29,9 +30,14 @@ def group_penalty(w: torch.Tensor, block_shape: Tuple[int, int],
 
 
 def tree_group_penalty(params, block_shape: Tuple[int, int], p: int,
-                       applies) -> torch.Tensor:
+                       applies, shards=None) -> torch.Tensor:
     """Sum ``group_penalty`` over every 2-D (or layer-stacked 3-D) leaf whose
-    path satisfies ``applies``; fp32."""
+    path satisfies ``applies``; fp32. ``shards`` (path -> ``LeafShard``,
+    the mesh Trainer) marks leaves held as a rank's shard: their whole
+    leaf's penalty comes from partial sums reduced over the axes that cut
+    them (every rank gets the same total)."""
+    if shards:
+        return _sharded_penalty(params, block_shape, p, applies, shards)
     total = None
     bh, bw = block_shape
     for path, leaf in flatten_with_path(params):
@@ -47,6 +53,33 @@ def tree_group_penalty(params, block_shape: Tuple[int, int], p: int,
                    None)
         return torch.zeros((), dtype=torch.float32, device=dev)
     return total
+
+
+def _sharded_penalty(params, block_shape, p, applies, shards):
+    bh, bw = block_shape
+    grids, owners = [], []
+    for path, leaf in flatten_with_path(params):
+        sh = shards.get(path)
+        whole = sh.shape if sh is not None else tuple(leaf.shape)
+        if leaf.ndim not in (2, 3) or not applies(path_name(path)) \
+                or whole[-2] % bh or whole[-1] % bw:
+            continue
+        if p == 1:          # the block partition is irrelevant for l1
+            grids.append(leaf.float().abs().sum().reshape(1))
+        elif p == 2:
+            grids.append(block_partials(
+                leaf, block_shape, 2,
+                sh.offsets if sh else (0,) * leaf.ndim, whole))
+        else:
+            raise ValueError(f"p={p} not supported")
+        owners.append(sh)
+    if not grids:
+        dev = next((leaf.device for _, leaf in flatten_with_path(params)),
+                   None)
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    grids = reduce_grids(grids, owners)
+    return torch.stack([(g if p == 1 else g.sqrt()).sum()
+                        for g in grids]).sum()
 
 
 def group_prox(w: torch.Tensor, block_shape: Tuple[int, int],

@@ -103,3 +103,79 @@ def pad_to_blocks(w: torch.Tensor,
     if pr == 0 and pc == 0:
         return w
     return torch.nn.functional.pad(w, (0, pc, 0, pr))
+
+
+# -- a rank's shard of a leaf (the mesh Trainer) ------------------------------
+#
+# On a mesh a leaf lies cut over ranks (``launch.sharding.LeafShard``: the
+# shard's offsets in the whole leaf and the sum over the axes that cut it),
+# and a block may straddle two shards. Block norms then come from partial
+# sums over the WHOLE leaf's block grid -- zeros where the shard has no
+# element -- summed over the ranks, and a whole-grid value (a mask, a prox
+# scale) is read back at each local element.
+
+
+def block_partials(w: torch.Tensor, block_shape: Tuple[int, int], ord: int,
+                   offsets: Tuple[int, ...], whole: Tuple[int, ...]
+                   ) -> torch.Tensor:
+    """Partial block sums of a shard ``w`` (..., r, c) whose first element
+    sits at ``offsets`` (one per dim) of a ``whole``-shaped (..., R, C)
+    leaf: (..., R/bh, C/bw) fp32 sums of squares (``ord`` 2) or of |w| (1)
+    over the shard's elements of each block, 0 elsewhere -- leading dims
+    (a stack's layers) included, so a rank holding some layers leaves the
+    others' zero. Summed over the ranks they are the whole leaf's (fp32,
+    in another order of addition)."""
+    bh, bw = block_shape
+    *lead0, r0, c0 = (int(o) for o in offsets)
+    x = w.float()
+    x = x.abs() if ord == 1 else x * x
+    if ord not in (1, 2):
+        raise ValueError(f"unsupported block norm ord={ord}")
+    r, c = x.shape[-2:]
+    pr, pc = r0 % bh, c0 % bw
+    x = torch.nn.functional.pad(x, (pc, (-(pc + c)) % bw,
+                                    pr, (-(pr + r)) % bh))
+    lead = tuple(x.shape[:-2])
+    part = x.reshape(lead + (x.shape[-2] // bh, bh, x.shape[-1] // bw, bw)
+                     ).sum(dim=(-3, -1))
+    grid = torch.zeros(tuple(whole[:-2]) + (whole[-2] // bh,
+                                            whole[-1] // bw),
+                       dtype=torch.float32, device=w.device)
+    at = tuple(slice(o, o + n) for o, n in zip(lead0, lead))
+    grid[at + (slice(r0 // bh, r0 // bh + part.shape[-2]),
+               slice(c0 // bw, c0 // bw + part.shape[-1]))] = part
+    return grid
+
+
+def local_of_grid(grid: torch.Tensor, block_shape: Tuple[int, int],
+                  offsets: Tuple[int, ...], local: Tuple[int, ...]
+                  ) -> torch.Tensor:
+    """A whole-leaf block grid (..., R/bh, C/bw) read at every element of
+    a ``local``-shaped (..., r, c) shard at ``offsets`` (one per dim; the
+    leading dims pick the shard's layers): (..., r, c)."""
+    bh, bw = block_shape
+    *lead0, r0, c0 = (int(o) for o in offsets)
+    grid = grid[tuple(slice(o, o + n) for o, n in zip(lead0, local[:-2]))]
+    rows = (r0 + torch.arange(local[-2], device=grid.device)) // bh
+    cols = (c0 + torch.arange(local[-1], device=grid.device)) // bw
+    return grid.index_select(-2, rows).index_select(-1, cols)
+
+
+def reduce_grids(grids, shards):
+    """Each partial grid summed over the axes of its shard (None: a whole
+    leaf, kept as it is), one collective an axis for all of them: the grids
+    of leaves cut over the same axes travel flattened together."""
+    out = list(grids)
+    groups = {}
+    for i, sh in enumerate(shards):
+        if sh is not None and sh.axes:
+            groups.setdefault(sh.axes, []).append(i)
+    for axes, idx in groups.items():
+        flat = torch.cat([grids[i].reshape(-1) for i in idx])
+        flat = shards[idx[0]].sum(flat)
+        at = 0
+        for i in idx:
+            n = grids[i].numel()
+            out[i] = flat[at:at + n].reshape(grids[i].shape)
+            at += n
+    return out

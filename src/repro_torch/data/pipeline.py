@@ -8,6 +8,11 @@ file (memory-mapped uint16/uint32). Every host pulls only its own slice of
 the global batch (host-local sharding); the iterator is stateless given
 (seed, step), so restart-after-failure resumes at the exact batch without
 data loss or duplication -- required for fault-tolerant training.
+
+A mesh Trainer draws one global batch (``n_hosts=1``) on every rank and
+keeps its data coordinate's rows (``launch.sharding.local_rows``): the
+draw is seeded by ``host_id``, so ``n_hosts`` draws are not one global
+batch.
 """
 from __future__ import annotations
 

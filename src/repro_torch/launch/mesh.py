@@ -14,7 +14,10 @@ groups along each axis carrying the collectives. Two forms:
     process group (``init_device_mesh`` with the axis names): this rank's
     coordinate and one group per axis. Its collectives are thin functions
     over those groups and count their calls, bytes and host seconds
-    (``stats``).
+    (``stats``). The groups' transfers go through one seam, the mesh's
+    ``transport`` (:class:`GroupTransport`: the process group's own);
+    a harness whose ranks share one card or host may install another
+    (``launch/staging.py``).
 
 Ranks are laid out row-major over the axes (rank ``r`` of a ``(data,
 model)`` mesh sits at ``(r // model, r % model)``), the order
@@ -27,6 +30,13 @@ card a rank) alike. Sums of floating tensors narrower than fp32 travel as
 fp32; a gather moves its tensors as they are. Which backend a run uses is
 the caller's choice, made when it initialises the process group
 (:func:`init_distributed`).
+
+Training differentiates through the collectives: ``copy_to`` /
+``reduce_from`` / ``gather_from`` / ``scatter_to`` (tensor parallelism's
+conjugate pairs over "model") and ``fsdp_gather`` (a weight's "data"
+blocks gathered, its gradient reduce-scattered) are autograd Functions
+over the same counted collectives; without grad they are the plain
+collectives.
 """
 from __future__ import annotations
 
@@ -122,6 +132,7 @@ class ProcessMesh(AbstractMesh):
                 raise RuntimeError(f"axis {a!r}: group rank differs from "
                                    f"the mesh coordinate {c}")
         self.stats: Dict[str, Dict[str, int]] = {}
+        self.transport = GroupTransport(self)
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 for an axis it lacks)."""
@@ -138,16 +149,11 @@ class ProcessMesh(AbstractMesh):
         st = self.stats.setdefault(f"{op}:{axis}",
                                    {"calls": 0, "bytes": 0, "s": 0.0})
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         st["s"] += time.perf_counter() - t0
         st["calls"] += 1
         st["bytes"] += nbytes
-
-    def _reduce(self, op: str, axis: str, buf: torch.Tensor):
-        """``all_reduce`` of ``buf`` in place over ``axis``'s group."""
-        import torch.distributed as dist
-        self._timed(op, axis, buf.numel() * buf.element_size(),
-                    lambda: dist.all_reduce(buf, group=self.groups[axis]))
+        return out
 
     @staticmethod
     def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -159,14 +165,92 @@ class ProcessMesh(AbstractMesh):
             return x.to(torch.int32).contiguous()
         return x.contiguous()
 
+    def _sum(self, op: str, axis: str, buf: torch.Tensor) -> torch.Tensor:
+        """The sum of ``buf`` (a fresh copy) over ``axis``, counted."""
+        return self._timed(op, axis, buf.numel() * buf.element_size(),
+                           lambda: self.transport.sum(buf, axis))
+
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of ``x`` over the ranks along ``axis`` (a new tensor in
         ``x``'s dtype; ``x`` itself when the axis has one rank)."""
         if self.shape.get(axis, 1) == 1:
             return x
-        buf = self._wire(x).clone()
-        self._reduce("all_reduce", axis, buf)
-        return buf.to(x.dtype)
+        return self._sum("all_reduce", axis,
+                         self._wire(x).clone()).to(x.dtype)
+
+    def all_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Elementwise max of ``x`` over the ranks along ``axis``."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        buf = x.contiguous().clone()
+        return self._timed("all_max", axis, buf.numel() * buf.element_size(),
+                           lambda: self.transport.max(buf, axis))
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = -1
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``x`` over the
+        ranks along ``axis``, summed in fp32 for narrower floats."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        buf = self._wire(x).movedim(dim, 0).contiguous()
+        if buf.data_ptr() == x.data_ptr():
+            buf = buf.clone()
+        out = self._timed("reduce_scatter", axis,
+                          buf.numel() * buf.element_size(),
+                          lambda: self.transport.reduce_scatter(buf, axis))
+        return out.movedim(0, dim).to(x.dtype).contiguous()
+
+    # -- differentiable collectives (training) -----------------------------
+    # Conjugate pairs: the backward of each is the forward of its partner,
+    # so a tensor replicated over an axis keeps a gradient that is whole
+    # and equal on every rank of the axis. Each backward issues its
+    # collective from the Function itself, in the autograd engine's order,
+    # which every rank shares (same graph).
+
+    def copy_to(self, x, axis: str):
+        """Identity forward; the gradient all-reduced over ``axis`` (the
+        input of a column-parallel block or of a vocabulary block)."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        return _CopyToAxis.apply(x, self, axis)
+
+    def reduce_from(self, x, axis: str):
+        """All-reduce forward; the gradient passed through (a row-parallel
+        partial, an embedding lookup's rows)."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        return _ReduceFromAxis.apply(x, self, axis)
+
+    def gather_from(self, x, axis: str, dim: int = -1):
+        """All-gather forward; backward keeps this rank's block of the
+        gradient (a column block made whole)."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        return _GatherFromAxis.apply(x, self, axis, dim)
+
+    def scatter_to(self, x, axis: str, dim: int = -1):
+        """This rank's block forward; the gradient all-gathered (a
+        replicated tensor cut to the rank's block)."""
+        n = self.shape.get(axis, 1)
+        if n == 1:
+            return x
+        return _ScatterToAxis.apply(x, self, axis, dim)
+
+    def fsdp_gather(self, x, axis: str, dim: int):
+        """FSDP's weight gather: all-gather forward; backward
+        reduce-scatters the gradient, the sum over ``axis``'s ranks of
+        this rank's block."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        return _FsdpGather.apply(x, self, axis, dim)
+
+    def block_of(self, x, axis: str, dim: int = -1):
+        """This rank's block of ``x`` along ``dim`` (no collective)."""
+        n = self.shape.get(axis, 1)
+        if n == 1:
+            return x
+        w = x.shape[dim] // n
+        return x.narrow(dim, self.coord(axis) * w, w)
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1
                    ) -> torch.Tensor:
@@ -175,14 +259,11 @@ class ProcessMesh(AbstractMesh):
         n = self.shape.get(axis, 1)
         if n == 1:
             return x
-        import torch.distributed as dist
         part = x.to(torch.int32) if x.dtype == torch.bool else x
         part = part.contiguous()
-        parts = [torch.empty_like(part) for _ in range(n)]
-        self._timed("all_gather", axis,
-                    n * part.numel() * part.element_size(),
-                    lambda: dist.all_gather(parts, part,
-                                            group=self.groups[axis]))
+        parts = self._timed("all_gather", axis,
+                            n * part.numel() * part.element_size(),
+                            lambda: self.transport.gather(part, axis))
         return torch.cat(parts, dim=dim).to(x.dtype)
 
     def broadcast(self, x: torch.Tensor, axis: str, src: int = 0
@@ -194,8 +275,107 @@ class ProcessMesh(AbstractMesh):
         buf = self._wire(x).clone()
         if self.coord(axis) != int(src):
             buf.zero_()
-        self._reduce("broadcast", axis, buf)
-        return buf.to(x.dtype)
+        return self._sum("broadcast", axis, buf).to(x.dtype)
+
+
+class GroupTransport:
+    """A :class:`ProcessMesh`'s transfers over its axis groups, through
+    the process group's backend (gloo or NCCL). Each call is collective
+    over the axis group; ``buf`` is the caller's own copy and may be
+    overwritten."""
+
+    def __init__(self, mesh: ProcessMesh):
+        self.mesh = mesh
+
+    def sum(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(buf, group=self.mesh.groups[axis])
+        return buf
+
+    def max(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX,
+                        group=self.mesh.groups[axis])
+        return buf
+
+    def gather(self, part: torch.Tensor, axis: str) -> list:
+        """Every group rank's ``part``, in group order."""
+        import torch.distributed as dist
+        parts = [torch.empty_like(part)
+                 for _ in range(self.mesh.shape[axis])]
+        dist.all_gather(parts, part, group=self.mesh.groups[axis])
+        return parts
+
+    def reduce_scatter(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        """This rank's block along dim 0 of the sum of ``buf``. NCCL
+        reduce-scatters; gloo has no reduce-scatter, so there it is an
+        all-reduce and a slice."""
+        import torch.distributed as dist
+        n, c = self.mesh.shape[axis], self.mesh.coord(axis)
+        w = buf.shape[0] // n
+        if self.mesh.backend == "nccl":
+            out = torch.empty((w,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                              device=buf.device)
+            dist.reduce_scatter_tensor(out, buf,
+                                       group=self.mesh.groups[axis])
+            return out
+        return self.sum(buf, axis)[c * w:(c + 1) * w]
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.block_of(g, ctx.axis, ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _ScatterToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.block_of(x, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axis, dim=ctx.dim), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim),
+                None, None, None)
 
 
 _MESHES: Dict[Tuple, ProcessMesh] = {}

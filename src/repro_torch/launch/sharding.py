@@ -22,10 +22,14 @@ Caches/batches shard batch over DP and heads/state over "model".
 Stacked (period) leaves get leading None specs automatically.
 
 :func:`local_shard` cuts a whole tensor to one rank's shard from a spec
-and the rank's coordinate; :func:`shard_shape` is that shard's shape.
+and the rank's coordinate; :func:`shard_shape` is that shard's shape;
+:class:`LeafShard` is a rank's place in one sharded leaf (offsets, and the
+sum over the axes that cut it), what the block-norm code of the pruner,
+the regularizer and the optimizer needs on a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -106,8 +110,12 @@ def param_shardings(shape_tree: Any, mesh, mode: str = "train"):
 
 
 def opt_shardings(opt_shape_tree: Any, mesh):
-    """m/v mirror the params rules; scalars replicated."""
-    return param_shardings(opt_shape_tree, mesh)
+    """``m`` / ``v`` take the spec of their param (the rule applied to the
+    param's own name and shape); ``step`` is replicated."""
+    return {k: (param_shardings(v, mesh) if k in ("m", "v")
+                else map_with_path(lambda _, leaf: (None,) * len(
+                    tuple(leaf.shape)), v))
+            for k, v in opt_shape_tree.items()}
 
 
 # model-axis candidate dim per cache leaf kind, relative to the unstacked
@@ -175,6 +183,10 @@ def cache_shardings(cache_shape_tree: Any, mesh):
 
 
 def batch_shardings(batch_shape_tree: Any, mesh):
+    """Rows (dim 0) over the dp axes where they divide; otherwise
+    replicated. The reference's sequence-parallel branch (a batch of one
+    row whose dim 1 divides: S over the dp axes) is not ported: such a
+    leaf raises a ValueError rather than replicate silently."""
     sizes = _sizes(mesh)
     dp = dp_axes(mesh)
     dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
@@ -187,7 +199,11 @@ def batch_shardings(batch_shape_tree: Any, mesh):
             spec[0] = dp if len(dp) > 1 else (dp[0] if dp else None)
         elif len(shape) >= 2 and shape[0] == 1 and \
                 shape[1] % dp_size == 0:
-            spec[1] = dp if len(dp) > 1 else (dp[0] if dp else None)  # SP
+            raise ValueError(
+                f"batch leaf {leaf_name(path)!r} {shape}: one row over "
+                f"{dp_size} data ranks takes the sequence-parallel branch "
+                f"(S over the dp axes), which is later work (ROADMAP Queue "
+                f"1 item 8, the sequence-parallel batch)")
         return tuple(spec)
     return map_with_path(one, batch_shape_tree)
 
@@ -246,3 +262,91 @@ def local_shard(x, spec, mesh, coord):
         sl[d] = slice(idx * w, (idx + 1) * w)
         x = x[tuple(sl)]
     return x
+
+
+def _coord(mesh) -> dict:
+    return {a: mesh.coord(a) for a in mesh.axis_names}
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """This rank's shard of a leaf of whole shape ``shape`` under ``spec``
+    on the process mesh ``mesh``."""
+
+    mesh: object
+    spec: tuple
+    shape: tuple
+
+    @property
+    def axes(self) -> tuple:
+        """The mesh axes that cut the leaf, in mesh order."""
+        used = {a for e in self.spec for a in _axes(e)}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    @property
+    def offsets(self) -> tuple:
+        """The whole-leaf index of the shard's first element, per dim."""
+        coord = _coord(self.mesh)
+        out = []
+        for d, entry in enumerate(self.spec):
+            idx, count = shard_index(entry, self.mesh, coord)
+            out.append(idx * (self.shape[d] // count))
+        return tuple(out)
+
+    def sum(self, x):
+        """``x`` summed over the ranks of every axis that cuts the leaf
+        (fp32 on the wire): partial sums of the shard's elements become
+        the whole leaf's."""
+        for a in self.axes:
+            x = self.mesh.all_reduce(x, a)
+        return x
+
+
+def leaf_shards(local_tree: Any, spec_tree: Any, mesh) -> dict:
+    """{path: :class:`LeafShard`} for every leaf of a rank's ``local_tree``
+    that its spec cuts (a replicated leaf has no entry; the whole shape is
+    the local shape times the shard counts)."""
+    from repro_torch.core.tree import at_path, flatten_with_path
+    out = {}
+    for path, leaf in flatten_with_path(local_tree):
+        spec = at_path(spec_tree, path)
+        counts = [shard_index(e, mesh, {})[1] for e in spec]
+        if any(c > 1 for c in counts):
+            out[path] = LeafShard(mesh, tuple(spec), tuple(
+                n * c for n, c in zip(leaf.shape, counts)))
+    return out
+
+
+def whole_leaf(x, spec, mesh):
+    """The whole leaf from this rank's shard ``x``: each cut dim gathered
+    over its axes, innermost axis first. Under autograd a "data" gather is
+    FSDP's (gradient reduce-scattered: the data ranks' rows add up) and a
+    "model" gather keeps the rank's block of a gradient that every model
+    rank holds whole (the leaf's use is replicated over "model")."""
+    for d, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            if mesh.shape.get(a, 1) == 1:
+                continue
+            if a == "model":
+                x = mesh.gather_from(x, a, dim=d)
+            else:
+                x = mesh.fsdp_gather(x, a, dim=d)
+    return x
+
+
+def local_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch (a dict of arrays or tensors),
+    cut by :func:`batch_shardings` at the rank's data coordinate. A batch
+    whose rows do not divide over the dp axes raises: every data rank
+    must take its own rows."""
+    specs = batch_shardings(batch, mesh)
+    coord = _coord(mesh)
+    out = {}
+    for k, v in batch.items():
+        dp = dp_axes(mesh)
+        if int(np.prod([mesh.shape[a] for a in dp])) > 1 and \
+                specs[k][0] is None:
+            raise ValueError(f"batch leaf {k!r} {tuple(v.shape)}: its rows "
+                             f"do not divide over the data axes {dp}")
+        out[k] = local_shard(v, specs[k], mesh, coord)
+    return out

@@ -21,17 +21,49 @@ from repro_torch.models.api import model_forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """logits (B, S, V) fp32, labels (B, S) int; mean over all tokens."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
+    """logits (B, S, V) fp32, labels (B, S) int; mean over all tokens.
+
+    With ``mesh`` the logits are this rank's vocabulary block (B, S,
+    V / model) -- the mesh Trainer's head never gathers them -- and the
+    loss is vocabulary-parallel: the log-sum-exp from an all-reduced row
+    max and an fp32 all-reduce of the blocks' sums of exp, the gold logit
+    from the block that holds it (an all-reduce of one value and zeros);
+    the reference's loss up to the order of the sums."""
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return (lse - gold).mean()
+    v = logits.shape[-1]
+    with torch.no_grad():
+        top = mesh.all_max(logits.max(dim=-1).values, "model")
+    total = mesh.reduce_from(torch.exp(logits - top[..., None]).sum(-1),
+                             "model")
+    lse = top + torch.log(total)
+    t = labels.long() - mesh.coord("model") * v
+    mine = (t >= 0) & (t < v)
+    gold = torch.gather(logits, -1, t.clamp(0, v - 1)[..., None])[..., 0]
+    gold = mesh.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)),
+                            "model")
     return (lse - gold).mean()
 
 
-def make_loss_fn(cfg: ModelConfig, packs=None):
+def make_loss_fn(cfg: ModelConfig, packs=None, mesh_plan=None):
+    """``loss_fn(params, batch) -> (loss, {ce, aux})``. ``mesh_plan`` (a
+    :class:`MeshPlan`) runs this rank's part on a mesh: the leaves no
+    shard object consumes are gathered whole first, the loss is
+    vocabulary-parallel where the head is cut, and the reported penalty
+    is the whole model's."""
+    run_packs = packs or (mesh_plan.packs if mesh_plan else None) or None
+
     def loss_fn(params, batch):
-        logits, aux = model_forward(params, cfg, batch, packs=packs)
-        ce = cross_entropy(logits, batch["labels"])
+        local = params
+        if mesh_plan is not None:
+            params = mesh_plan.whole(params)
+        logits, aux = model_forward(params, cfg, batch, packs=run_packs)
+        ce = cross_entropy(logits, batch["labels"],
+                           mesh_plan.vocab_mesh if mesh_plan else None)
         loss = ce + aux
         if cfg.sparsity is not None and cfg.sparsity.lambda_reg > 0:
             # proximal gradient: the group-lasso term is handled exactly by
@@ -39,11 +71,136 @@ def make_loss_fn(cfg: ModelConfig, packs=None):
             # reported in the loss but carries no gradient (d||w||/dw is
             # NaN at the zero blocks the prox creates)
             with torch.no_grad():
-                reg = tree_group_penalty(params, cfg.sparsity.block_shape, 2,
-                                         cfg.sparsity.applies_to)
+                reg = tree_group_penalty(
+                    local, cfg.sparsity.block_shape, 2,
+                    cfg.sparsity.applies_to,
+                    mesh_plan.shards(local) if mesh_plan else None)
             loss = loss + cfg.sparsity.lambda_reg * reg
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
+
+
+class MeshPlan:
+    """How a train step runs this rank's part of the model on a
+    ``launch.mesh.ProcessMesh``: the spec of every param leaf
+    (``spec_for_param`` in train mode: TP over "model" + FSDP over
+    "data"), the shard objects the layers run with (``packs``:
+    ``common.DenseShard(train=True)`` for every cut linear weight and
+    table, ``common.HeadShard`` where the KV heads divide "model") and
+    the leaves no shard object consumes (e.g. a layer-stacked norm scale
+    the rule cuts), gathered whole before the forward (``whole``).
+
+    ``replicated``: every leaf whole on every rank (``specs`` None), no
+    shard object -- the dp packed step, whose params and packs every rank
+    holds whole."""
+
+    def __init__(self, cfg: ModelConfig, mesh, replicated: bool = False):
+        from repro_torch.launch.sharding import param_shardings
+        from repro_torch.models.api import param_shapes
+        self.mesh = mesh
+        self.packs, self.whole_paths, self.vocab_mesh = {}, set(), None
+        self.shapes = self.specs = None
+        if replicated:
+            return
+        self.shapes = param_shapes(cfg)
+        self.specs = param_shardings(self.shapes, mesh, "train")
+        self._build(cfg, self.shapes)
+
+    def _build(self, cfg, shapes):
+        from repro_torch.core.tree import (at_path, flatten_with_path,
+                                           norm_path, path_name)
+        from repro_torch.models.common import DenseShard, HeadShard
+        from repro_torch.serving.servable import _layer_scopes
+        mesh, m = self.mesh, self.mesh.shape.get("model", 1)
+        sizes = dict(mesh.shape)
+        for path, leaf in flatten_with_path(shapes):
+            spec = at_path(self.specs, path)
+            cut = [e for e in spec if e is not None and sizes[e] > 1]
+            if not cut:
+                continue
+            name = norm_path(path_name(path))
+            linear = (name.endswith("/w") and leaf.dim() >= 2) \
+                or name == "pos"
+            if not linear or any(e is not None for e in spec[:-2]):
+                self.whole_paths.add(path)
+                continue
+            axis = ("out" if m > 1 and spec[-2] == "model" else
+                    "in" if m > 1 and spec[-1] == "model" else None)
+            data = (-2 if spec[-2] == "data" else
+                    -1 if spec[-1] == "data" else None)
+            key = name[:-2] if name.endswith("/w") else name
+            self.packs[key] = DenseShard(axis, mesh, data, train=True)
+        for scope, kind in _layer_scopes(cfg):
+            if kind.mixer in ("attn", "local") and m > 1 \
+                    and cfg.n_kv_heads % m == 0:
+                self.packs[f"{scope}/attn/heads"] = HeadShard(
+                    mesh, cfg.n_kv_heads)
+        head = self.packs.get("embed" if cfg.tie_embeddings
+                              or cfg.family == "bert" else "lm_head")
+        if head is not None and head.axis == "out":
+            self.vocab_mesh = mesh
+
+    def cut(self, path, x, period=None):
+        """This rank's part of the whole leaf ``x`` at ``path`` or, with
+        ``period``, of that period of a layer-stacked leaf (None when the
+        rank's block of the period axis does not hold it):
+        ``models.api.init_model_local``'s ``cut``."""
+        from repro_torch.core.tree import at_path
+        from repro_torch.launch.sharding import local_shard, shard_index
+        coord = {a: self.mesh.coord(a) for a in self.mesh.axis_names}
+        spec = at_path(self.specs, path)
+        if period is None:
+            return local_shard(x, spec, self.mesh, coord)
+        idx, count = shard_index(spec[0], self.mesh, coord)
+        w = at_path(self.shapes, path).shape[0] // count
+        if not idx * w <= period < (idx + 1) * w:
+            return None
+        return local_shard(x, spec[1:], self.mesh, coord)
+
+    def whole(self, params):
+        """``params`` with every leaf in ``whole_paths`` gathered whole
+        (differentiable)."""
+        if not self.whole_paths:
+            return params
+        from repro_torch.core.tree import at_path, map_with_path
+        from repro_torch.launch.sharding import whole_leaf
+        return map_with_path(
+            lambda path, x: whole_leaf(x, at_path(self.specs, path),
+                                       self.mesh)
+            if path in self.whole_paths else x, params)
+
+    def shards(self, params) -> dict:
+        """{path: LeafShard} of this rank's ``params``."""
+        from repro_torch.launch.sharding import leaf_shards
+        if self.specs is None:
+            return {}
+        return leaf_shards(params, self.specs, self.mesh)
+
+    def sync_grads(self, grads):
+        """Each rank's gradient of its own rows' mean loss -> the mean over
+        the data ranks, in tree order: a leaf cut over "data" already holds
+        its block's sum (FSDP's reduce-scatter) and is divided by the data
+        size; every other leaf is all-reduced over "data" first. Leaves
+        replicated over "model" need nothing over "model": the conjugate
+        collectives leave their gradient whole and equal on every model
+        rank."""
+        from repro_torch.core.tree import at_path, map_with_path
+        from repro_torch.launch.sharding import _axes
+        n = self.mesh.shape.get("data", 1)
+        if n == 1:
+            return grads
+
+        def one(path, g):
+            spec = () if self.specs is None else at_path(self.specs, path)
+            if not any("data" in _axes(e) for e in spec):
+                g = self.mesh.all_reduce(g, "data")
+            return g / n
+        return map_with_path(one, grads)
+
+    def mean(self, x):
+        """A rank's metric -> its mean over the data ranks."""
+        n = self.mesh.shape.get("data", 1)
+        return x if n == 1 else self.mesh.all_reduce(x, "data") / n
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -61,15 +218,47 @@ def value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    grad_accum: int = 1, packs=None, donate: bool = False):
+                    grad_accum: int = 1, packs=None, donate: bool = False,
+                    mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``grad_accum`` splits the batch into that many microbatches
     and averages their fp32 gradients. ``donate=True`` updates the given
     params and optimizer state in place and returns them (``adamw_update``'s
-    ``donate``): the caller must not expect the old values after the step."""
-    loss_fn = make_loss_fn(cfg, packs)
+    ``donate``): the caller must not expect the old values after the step.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``): every rank calls the step on
+    its shards of the params and optimizer state (``step.plan.specs``, the
+    reference's ``param_shardings`` / ``opt_shardings`` in train mode) and
+    its rows of the batch (``launch.sharding.local_rows``); the gradients
+    are the data ranks' mean, the global norm and the prox are the whole
+    model's, and the metrics are equal on every rank. With ``packs`` (the
+    packed fine-tuning step) the mesh is (data, 1): params and packs are
+    whole on every rank, each runs its own rows and the gradients are
+    all-reduced as a mean over "data"."""
+    plan = None
+    if mesh is not None:
+        if packs is not None:
+            if mesh.shape.get("model", 1) != 1:
+                raise ValueError(
+                    f"a packed train step runs over data parallelism only: "
+                    f"mesh {dict(mesh.shape)} has a model axis")
+        plan = MeshPlan(cfg, mesh, replicated=packs is not None)
+    loss_fn = make_loss_fn(cfg, packs, plan)
 
     def train_step(params, opt_state, batch):
+        metrics, loss, grads = _grads(params, batch)
+        shards = None
+        if plan is not None:
+            grads = plan.sync_grads(grads)
+            loss = plan.mean(loss)
+            metrics = {k: plan.mean(v) for k, v in metrics.items()}
+            shards = plan.shards(params)
+        new_params, new_opt, om = adamw_update(grads, opt_state, params,
+                                               opt_cfg, cfg.sparsity,
+                                               donate=donate, shards=shards)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+
+    def _grads(params, batch):
         if grad_accum == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -85,11 +274,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             grads = unflatten(params, [s / grad_accum for s in gsum])
             loss = lsum / grad_accum
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
-        new_params, new_opt, om = adamw_update(grads, opt_state, params,
-                                               opt_cfg, cfg.sparsity,
-                                               donate=donate)
-        return new_params, new_opt, {"loss": loss, **metrics, **om}
+        return metrics, loss, grads
 
+    train_step.plan = plan
     return train_step
 
 

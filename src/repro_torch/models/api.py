@@ -52,7 +52,9 @@ def init_model(seed, cfg: ModelConfig, device=None):
     _known(cfg)
     dev = resolve_device(device)
     gen = seed
-    if not isinstance(gen, torch.Generator):
+    if dev.type == "meta":                  # deferred draws: no generator
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
     if cfg.family == "bert":
@@ -60,6 +62,94 @@ def init_model(seed, cfg: ModelConfig, device=None):
     if cfg.family == "audio":
         return encdec_mod.init_encdec(gen, cfg, device=dev)
     return lm_mod.init_lm(gen, cfg, device=dev)
+
+
+def _deferred_tree(cfg: ModelConfig, device):
+    """(the init tree with each draw deferred -- ``common.Draw`` /
+    ``StackedDraw`` leaves beside the real zeros and ones --, the draws in
+    order)."""
+    from repro_torch.models.common import deferred_draws
+    with deferred_draws() as draws:
+        tree = init_model(0, cfg, device=device)
+    return tree, draws
+
+
+def param_shapes(cfg: ModelConfig):
+    """The tree of ``init_model``'s leaves as meta tensors (shape and
+    dtype, no storage, nothing drawn)."""
+    from repro_torch.models.common import Draw, StackedDraw
+    tree, _ = _deferred_tree(cfg, "meta")
+
+    def one(_, leaf):
+        if isinstance(leaf, Draw):
+            return torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+        if isinstance(leaf, StackedDraw):
+            return torch.empty(leaf.shape, dtype=leaf.parts[0].dtype,
+                               device="meta")
+        return leaf
+    return map_with_path(one, tree)
+
+
+def init_model_local(seed: int, cfg: ModelConfig, cut, device=None):
+    """This rank's part of ``init_model(seed, cfg, device)``, bitwise, with
+    no whole leaf kept: the draws are replayed in ``init_model``'s order
+    from the same generator, and each is cut as soon as it is drawn.
+    ``cut(path, x, period)`` returns the part of ``x`` to keep -- the
+    whole leaf at ``path`` (``period`` None) or period ``period`` of a
+    layer-stacked leaf, or None to keep nothing of that period. At most
+    one drawn leaf (one period) is whole at a time."""
+    from repro_torch.models.common import Draw, StackedDraw
+    dev = resolve_device(device)
+    tree, draws = _deferred_tree(cfg, dev)
+    owner = {}
+    for path, leaf in _flat_draws(tree):
+        if isinstance(leaf, Draw):
+            owner[leaf.index] = (path, None)
+        elif isinstance(leaf, StackedDraw):
+            for i, d in enumerate(leaf.parts):
+                owner[d.index] = (path, i)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    got = {}
+    for d in draws:
+        w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        w = (d.scale * w).to(d.dtype)
+        path, per = owner[d.index]
+        part = cut(path, w, per)
+        del w
+        if part is not None:
+            part = part.clone(memory_format=torch.contiguous_format)
+        if per is None:
+            got[path] = part
+        else:
+            got.setdefault(path, [])
+            if part is not None:
+                got[path].append(part)
+
+    def one(path, leaf):
+        if isinstance(leaf, Draw):
+            return got[path]
+        if isinstance(leaf, StackedDraw):
+            return torch.stack(got[path])
+        return cut(path, leaf, None).clone(
+            memory_format=torch.contiguous_format)
+    return map_with_path(one, tree)
+
+
+def _flat_draws(tree, path=()):
+    """(path, leaf) of a deferred init tree: like ``flatten_with_path``,
+    with ``StackedDraw`` leaves kept whole."""
+    from repro_torch.models.common import StackedDraw
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_draws(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, StackedDraw):
+        return [x for i, v in enumerate(tree)
+                for x in _flat_draws(v, path + (i,))]
+    return [(path, tree)]
 
 
 def model_forward(params, cfg: ModelConfig, batch, packs=None):

@@ -37,7 +37,8 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               paged_flash_decode,
                                               resolved_decode_kernel)
 from repro_torch.models.common import (apply_rope, init_linear, linear,
-                                       paged_row_write, paged_view, rms_norm)
+                                       paged_row_write, paged_view, rms_norm,
+                                       tp_copy)
 
 NEG_INF = -1e30
 
@@ -599,7 +600,8 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
     On a mesh whose cache shards the KV heads (``packs['heads']``, a
     ``common.HeadShard``), the projections come out whole on every rank,
     attention (and every cache write) runs over this rank's KV heads and
-    their query heads, and the output is gathered before ``wo``.
+    their query heads, and the output is gathered before ``wo``; the
+    mesh Trainer's forward runs the same code with grad on.
 
     ``kv_override`` (k, v) (B, T, Hkv, D) is cross-attention over encoder
     K/V: only q is projected (and normalized), nothing is rotated; without
@@ -618,6 +620,8 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
         k = _split_heads(qkv[..., dq:dq + dkv], cfg.n_kv_heads, hd)
         v = _split_heads(qkv[..., dq + dkv:], cfg.n_kv_heads, hd)
     else:
+        x = tp_copy(x, *(packs.get(n) for n in ("wq", "wk", "wv"))) \
+            if packs else x
         q = _split_heads(linear(p["wq"], x, packs and packs.get("wq")),
                          cfg.n_heads, hd)
         if kv_override is None:
@@ -627,9 +631,6 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                              cfg.n_kv_heads, hd)
         else:
             k, v = kv_override
-    heads = packs.get("heads") if packs else None
-    if heads is not None:           # a mesh: this rank's KV heads only
-        q, k, v = heads.local(q, k, v)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"]["scale"])
         if kv_override is None:
@@ -640,6 +641,12 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                        rotary_fraction=cfg.rotary_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        rotary_fraction=cfg.rotary_fraction)
+    heads = packs.get("heads") if packs else None
+    if heads is not None:
+        # a mesh: this rank's KV heads only, cut after the per-head norms
+        # and RoPE (both act head by head), so a replicated norm scale
+        # sees every head's gradient
+        q, k, v = heads.local(q, k, v)
 
     paged = cache is not None and "k_pages" in cache
     if kv_override is not None and cache is not None:

@@ -16,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm, embed_lookup,
                                        gelu, head_logits, init_mlp,
-                                       init_norm, linear, normal_init)
+                                       init_norm, linear, normal_init,
+                                       tp_copy)
 
 MAX_POSITIONS = 512
 
@@ -51,8 +52,11 @@ def forward(params, cfg: ModelConfig, tokens, *, packs=None):
     b, s = tokens.shape
     top = packs or {}
     pos = torch.arange(s, device=tokens.device)
-    h = embed_lookup(params["embed"]["w"], tokens, top.get("embed")) \
-        + embed_lookup(params["pos"], pos, top.get("pos"))[None]
+    # a mesh Trainer's shards gather their "data" blocks here, once
+    emb = _weight(params["embed"]["w"], top.get("embed"))
+    h = embed_lookup(emb, tokens, top.get("embed")) \
+        + embed_lookup(_weight(params["pos"], top.get("pos")), pos,
+                       top.get("pos"))[None]
     h = apply_norm(params["embed_norm"], h, "ln")
     for i, lp in enumerate(params["layers"]):
         lpacks = _sel(packs, f"layers/{i}")
@@ -61,10 +65,15 @@ def forward(params, cfg: ModelConfig, tokens, *, packs=None):
         h = apply_norm(lp["norm1"], h + out, "ln")           # post-LN
         out = apply_mlp(lp["ffn"], h, "gelu", packs=_sel(lpacks, "ffn"))
         h = apply_norm(lp["norm2"], h + out, "ln")
-    t = gelu(linear(params["mlm_dense"], h, top.get("mlm_dense")))
+    t = gelu(linear(params["mlm_dense"], tp_copy(h, top.get("mlm_dense")),
+                    top.get("mlm_dense")))
     t = apply_norm(params["mlm_norm"], t, "ln")
     # a plain product outside any kernel, as the reference leaves it to XLA
-    return head_logits(t, params["embed"]["w"].float(), top.get("embed"))
+    return head_logits(t, emb.float(), top.get("embed"))
+
+
+def _weight(w, shard):
+    return w if shard is None else shard.weight(w)
 
 
 def _sel(packs, scope):

@@ -23,6 +23,14 @@ cache dim:
 :class:`HeadShard`, :class:`LatentShard`, :class:`ExpertShard`,
 :class:`ChannelShard` (conv channels, the RG-LRU width) and
 :class:`SSDHeadShard`.
+
+The mesh Trainer runs the same code with grad on (the dense LM family and
+BERT): each collective is one of ``launch.mesh``'s differentiable
+conjugate pairs (a gather's gradient keeps the rank's block, a cut's is
+gathered, a reduce's passes through, a column shard's input all-reduces
+its gradient), so a tensor replicated over "model" keeps a gradient
+that is whole and equal on every rank; a training :class:`DenseShard`
+also gathers its weight's "data" blocks first (FSDP).
 """
 from __future__ import annotations
 
@@ -32,9 +40,59 @@ import torch
 import torch.nn.functional as F
 
 
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """A :func:`normal_init` call recorded instead of drawn (under
+    :func:`deferred_draws`): its place in the draw order and arguments."""
+
+    index: int
+    shape: tuple
+    scale: float
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedDraw:
+    """A layer-stacked leaf of deferred draws: one :class:`Draw` a
+    period, stacked on a new leading axis when drawn."""
+
+    parts: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + self.parts[0].shape
+
+
+#: the list deferred draws are recorded in, or None (draw at once)
+_DEFERRED = None
+
+
+class deferred_draws:
+    """Within the block, :func:`normal_init` draws nothing and returns a
+    :class:`Draw`, appended to ``draws``: an init run this way gives the
+    tree's shapes and draw order, and ``models.api.init_model_local``
+    replays the draws one at a time."""
+
+    def __init__(self):
+        self.draws = []
+
+    def __enter__(self):
+        global _DEFERRED
+        self._prev, _DEFERRED = _DEFERRED, self.draws
+        return self.draws
+
+    def __exit__(self, *exc):
+        global _DEFERRED
+        _DEFERRED = self._prev
+
+
 def normal_init(gen: torch.Generator, shape, scale=0.02,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in fp32 from ``gen``, cast to ``dtype``."""
+    if _DEFERRED is not None:
+        d = Draw(len(_DEFERRED), tuple(int(n) for n in shape), scale, dtype)
+        _DEFERRED.append(d)
+        return d
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return (scale * w).to(dtype)
@@ -129,13 +187,48 @@ def init_linear(gen, d_in, d_out, dtype=torch.float32, scale=0.02,
 class DenseShard:
     """A dense weight that ``launch/sharding.spec_for_param`` shards over
     the "model" axis of ``mesh`` (a ``launch.mesh.ProcessMesh``): ``axis``
-    'out' (its output rows) or 'in' (its input columns). Mesh servables
-    pass it to :func:`linear` in place of a pack; ``'embed'`` / ``'head'``
-    shards of a (V, d) table mark vocabulary rows (:func:`embed_lookup`,
-    :func:`head_logits`)."""
+    'out' (its output rows) or 'in' (its input columns), None when "model"
+    cuts neither. Mesh servables pass it to :func:`linear` in place of a
+    pack; the shards of a (V, d) table under 'embed' / 'lm_head' / 'pos'
+    mark vocabulary rows (:func:`embed_lookup`, :func:`head_logits`).
 
-    axis: str
+    Training (``train=True``, the mesh Trainer's shards) adds FSDP: the
+    stored weight's dim ``data_dim`` (-2 or -1) is cut over "data" too and
+    :meth:`weight` gathers it before use (its gradient reduce-scattered),
+    and a vocabulary head keeps its logits block (the loss is
+    vocabulary-parallel, ``launch.steps.cross_entropy``)."""
+
+    axis: object
     mesh: object
+    data_dim: object = None
+    train: bool = False
+
+    def weight(self, w):
+        """The rank's "model" block of the weight, whole along "data"."""
+        if self.data_dim is None:
+            return w
+        return self.mesh.fsdp_gather(w, "data", self.data_dim)
+
+
+def _column(pk) -> bool:
+    return isinstance(pk, DenseShard) and pk.axis == "out"
+
+
+def tp_copy(x, *packs):
+    """``x`` as the shared input of column-parallel shards: when every
+    one of ``packs`` is such a shard, one ``copy_to`` (identity forward,
+    the gradient's per-rank partials all-reduced over "model" backward)
+    serves them all, marked so :func:`linear` copies no more. Otherwise
+    ``x`` itself: each column shard copies its own input, and a
+    replicated projection's gradient -- already whole on every rank --
+    is not summed over the ranks."""
+    if packs and all(_column(pk) for pk in packs):
+        mesh = packs[0].mesh
+        xc = mesh.copy_to(x, "model")
+        if xc is not x:
+            xc._tp_input = mesh
+        return xc
+    return x
 
 
 def model_block(mesh, n: int):
@@ -157,17 +250,18 @@ class HeadShard:
 
     def local(self, q, k, v):
         """(B, S, H, D) q / k / v -> their local heads (q's G query heads
-        per KV head follow their KV head). k / v already cut to the rank's
-        heads (cross-attention's K/V from a head-sharded cache) pass
-        through."""
-        g = q.shape[2] // self.n_kv_heads
-        lo, hi = model_block(self.mesh, self.n_kv_heads)
+        per KV head follow their KV head: the rank's block of each head
+        axis). k / v already cut to the rank's heads (cross-attention's K/V
+        from a head-sharded cache) pass through. Under autograd the other
+        ranks' head gradients are gathered back (``scatter_to``)."""
+        mesh = self.mesh
         if k.shape[2] == self.n_kv_heads:
-            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-        return q[:, :, lo * g:hi * g], k, v
+            k, v = mesh.scatter_to(k, "model", 2), mesh.scatter_to(
+                v, "model", 2)
+        return mesh.scatter_to(q, "model", 2), k, v
 
     def gather(self, out):
-        return self.mesh.all_gather(out, "model", dim=2)
+        return self.mesh.gather_from(out, "model", dim=2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,12 +387,15 @@ def tp_constrain(y, pack, dtype=None):
     psum -- and casts the sum to ``dtype``."""
     axis = getattr(pack, "shard_axis", None) or pack.axis
     if axis == "out":
-        return pack.mesh.all_gather(y, "model", dim=-1)
-    return pack.mesh.all_reduce(y, "model").to(dtype or y.dtype)
+        return pack.mesh.gather_from(y, "model", dim=-1)
+    return pack.mesh.reduce_from(y, "model").to(dtype or y.dtype)
 
 
 def _in_block(x, k_local, mesh):
-    """This rank's block of input features for a row-parallel shard."""
+    """This rank's block of input features for a row-parallel shard (under
+    autograd the gradient's blocks are gathered back, ``scatter_to``)."""
+    if x.shape[-1] == k_local * mesh.shape["model"]:
+        return mesh.scatter_to(x, "model", -1)
     s = mesh.coord("model")
     return x[..., s * k_local:(s + 1) * k_local]
 
@@ -350,7 +447,9 @@ def linear(p, x, pack=None, backend=None):
         collective that makes the output whole (:func:`tp_constrain`); a
         ``QuantPlan`` over one likewise ('plan' backend only);
       * a :class:`DenseShard` -- this rank's rows or columns of a dense
-        weight, then the same collective;
+        weight (gathered over "data" first in training), then the same
+        collective; a column shard's input passes ``copy_to`` first
+        (once for all of a layer's column shards, :func:`tp_copy`);
       * None -- a dense weight, ``x @ w.T``.
     Every fp plan and pack route is differentiable; the quantized plain
     route in ``x`` only, K6 and K7 are forward-only.
@@ -362,12 +461,16 @@ def linear(p, x, pack=None, backend=None):
                                                    RowPackPlan, ShardedPlan,
                                                    plan_matmul)
         if isinstance(pack, DenseShard):
-            w = p["w"]
+            w = pack.weight(p["w"])
             if pack.axis == "in":
                 xl = _in_block(x, w.shape[1], pack.mesh)
                 y = torch.matmul(xl.float(), w.float().t())
                 return tp_constrain(y, pack, x.dtype)
-            return tp_constrain(block_matmul(x, w), pack)
+            if pack.axis == "out":
+                if getattr(x, "_tp_input", None) is not pack.mesh:
+                    x = pack.mesh.copy_to(x, "model")
+                return tp_constrain(block_matmul(x, w), pack)
+            return torch.matmul(x, w.t())
         inner = pack.plan if isinstance(pack, QuantPlan) else pack
         if isinstance(inner, ShardedPlan) and inner.mesh is not None:
             return _sharded_plan_linear(
@@ -456,33 +559,81 @@ def init_mlp(gen, d_model, d_ff, act="gelu", dtype=torch.float32,
     return p
 
 
+class _BatchRows(torch.autograd.Function):
+    """``w[t]`` on a rank of a data mesh. Backward adds the rows'
+    gradients into the table as one device adds its batch's: every data
+    rank's rows and token ids are gathered over "data" (global row order)
+    and indexing's own accumulation runs over all of them, in the table's
+    dtype -- a bf16 table takes a row's repeats one at a time, as one
+    device and the reference do, where a sum of each rank's own partials
+    would round elsewhere. Data coordinate 0 returns that gradient and the
+    other data ranks zeros, so the sum over "data" that follows (FSDP's
+    reduce-scatter, or the all-reduce of a leaf replicated over "data") is
+    the batch's."""
+
+    @staticmethod
+    def forward(ctx, w, t, mesh):
+        ctx.save_for_backward(t)
+        ctx.mesh, ctx.like = mesh, (tuple(w.shape), w.dtype)
+        return w[t]
+
+    @staticmethod
+    def backward(ctx, g):
+        t, = ctx.saved_tensors
+        mesh = ctx.mesh
+        shape, dtype = ctx.like
+        rows = mesh.all_gather(g.contiguous(), "data", dim=0)
+        ids = mesh.all_gather(t.contiguous(), "data", dim=0)
+        gw = torch.zeros(shape, dtype=dtype, device=g.device)
+        if mesh.coord("data") == 0:
+            gw.index_put_((ids,), rows.to(dtype), accumulate=True)
+        return gw, None, None
+
+
+def _rows(w, t, shard):
+    """``w[t]``; a mesh Trainer's shard on a data mesh under autograd
+    takes :class:`_BatchRows`."""
+    if shard is not None and shard.train \
+            and shard.mesh.shape.get("data", 1) > 1 \
+            and torch.is_grad_enabled() and w.requires_grad:
+        return _BatchRows.apply(w, t, shard.mesh)
+    return w[t]
+
+
 def embed_lookup(w, tokens, shard=None):
     """Rows ``tokens`` of the table ``w``. With a :class:`DenseShard`, ``w``
-    is this rank's block of vocabulary rows: tokens outside it read zeros
-    and an all-reduce over "model" assembles the rows (exact: one value
-    plus zeros)."""
-    if shard is None:
-        return w[tokens.long()]
+    is this rank's block of vocabulary rows (whole along d: pass
+    ``shard.weight(w)`` in training): tokens outside it read zeros and an
+    all-reduce over "model" assembles the rows (exact: one value plus
+    zeros). A training shard on a data mesh adds the rows' gradients over
+    the whole batch (:class:`_BatchRows`)."""
+    if shard is None or shard.axis is None:
+        return _rows(w, tokens.long(), shard)
     mesh = shard.mesh
     v = w.shape[0]
     t = tokens.long() - mesh.coord("model") * v
     ok = ((t >= 0) & (t < v))[..., None]
-    h = torch.where(ok, w[t.clamp(0, v - 1)],
+    h = torch.where(ok, _rows(w, t.clamp(0, v - 1), shard),
                     torch.zeros((), dtype=w.dtype, device=w.device))
-    return mesh.all_reduce(h, "model")
+    return mesh.reduce_from(h, "model")
 
 
 def head_logits(h, head_f32, shard=None):
     """fp32 logits ``h @ head.T``; with a :class:`DenseShard` the head is
-    this rank's vocabulary rows and the logits blocks are all-gathered."""
-    y = torch.matmul(h.float(), head_f32.t())
-    return y if shard is None else shard.mesh.all_gather(y, "model", dim=-1)
+    this rank's vocabulary rows and the logits blocks are all-gathered --
+    or, for a training shard, kept: (..., V / model) for the
+    vocabulary-parallel loss."""
+    if shard is None or shard.axis is None:
+        return torch.matmul(h.float(), head_f32.t())
+    y = torch.matmul(shard.mesh.copy_to(h, "model").float(), head_f32.t())
+    return y if shard.train else shard.mesh.gather_from(y, "model", dim=-1)
 
 
 def apply_mlp(p, x, act="gelu", packs=None):
     """Gated: ``wo(g(wg x) * wi x)`` with g = silu (swiglu) or tanh-gelu
     (geglu); otherwise ``wo(act(wi x))``."""
     packs = packs or {}
+    x = tp_copy(x, packs.get("wi"), packs.get("wg"))
     if act in ("swiglu", "geglu"):
         g = F.silu if act == "swiglu" else gelu
         h = g(linear(p["wg"], x, packs.get("wg"))) * \

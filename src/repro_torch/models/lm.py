@@ -45,7 +45,8 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (apply_mlp, apply_norm,
+from repro_torch.models.common import (Draw, StackedDraw, apply_mlp,
+                                       apply_norm,
                                        embed_lookup, head_logits, init_mlp,
                                        init_norm, normal_init,
                                        paged_bulk_write)
@@ -64,6 +65,8 @@ def _tree_stack(parts):
     first = parts[0]
     if isinstance(first, dict):
         return {k: _tree_stack([p[k] for p in parts]) for k in first}
+    if isinstance(first, Draw):         # deferred: the periods' draws
+        return StackedDraw(tuple(parts))
     return torch.stack(parts)
 
 
@@ -218,8 +221,17 @@ def _run_layers(params, cfg, h, cache=None, packs=None, remat=False, **kw):
     return h, aux
 
 
-def _embed(params, cfg: ModelConfig, tokens, packs=None):
-    h = embed_lookup(params["embed"]["w"], tokens,
+def _table(params, name, packs):
+    """The (V, d) table ``params[name]['w']`` as this rank uses it: a mesh
+    Trainer's shard gathers its "data" blocks (``DenseShard.weight``)."""
+    shard = packs.get(name) if packs else None
+    w = params[name]["w"]
+    return w if shard is None else shard.weight(w)
+
+
+def _embed(params, cfg: ModelConfig, tokens, packs=None, table=None):
+    h = embed_lookup(_table(params, "embed", packs) if table is None
+                     else table, tokens,
                      packs.get("embed") if packs else None)
     if cfg.scale_embedding:
         # the reference multiplies by sqrt(d) rounded to the model dtype;
@@ -253,11 +265,14 @@ def _head_f32(head: torch.Tensor) -> torch.Tensor:
     return f32
 
 
-def _logits(params, cfg: ModelConfig, h, packs=None):
-    """Final norm, then fp32 logits (B, S, V) over the (tied) head."""
+def _logits(params, cfg: ModelConfig, h, packs=None, table=None):
+    """Final norm, then fp32 logits (B, S, V) over the (tied) head
+    (``table``: the embedding as ``_table`` gave it, reused when tied)."""
     h = apply_norm(params["final_norm"], h, cfg.norm)
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    return head_logits(h, _head_f32(params[name]["w"]),
+    head = table if table is not None and name == "embed" else \
+        _table(params, name, packs)
+    return head_logits(h, _head_f32(head),
                        packs.get(name) if packs else None)
 
 
@@ -271,14 +286,15 @@ def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
     patch embeddings, replace the first P positions after the embedding
     scale."""
     b, s = tokens.shape
-    h = _embed(params, cfg, tokens, packs)
+    table = _table(params, "embed", packs)     # one gather when tied
+    h = _embed(params, cfg, tokens, packs, table)
     if mm_embeds is not None:
         n_p = mm_embeds.shape[1]
         h = torch.cat([mm_embeds.to(h.dtype), h[:, n_p:]], dim=1)
     positions = torch.arange(s, device=h.device)[None, :]
     h, aux = _run_layers(params, cfg, h, packs=packs,
                          remat=remat_active(params), positions=positions)
-    return _logits(params, cfg, h, packs), aux
+    return _logits(params, cfg, h, packs, table), aux
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.regularizer import group_prox
-from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.core.sparsity import (SparsityConfig, block_partials,
+                                       local_of_grid)
 from repro_torch.core.tree import (flatten_with_path, leaves, map_with_path,
                                    path_name, unflatten)
 
@@ -65,9 +66,25 @@ def init_opt_state(params, cfg: AdamWConfig):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [leaf.float().square().sum() for leaf in leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, fp32. With ``shards``
+    (path -> ``launch.sharding.LeafShard``; the mesh Trainer) a leaf held
+    as a rank's shard adds its local squares summed over the axes that cut
+    it, a replicated leaf counts once: every rank gets one device's norm
+    (up to the order of the sums)."""
+    if not shards:
+        sq = [leaf.float().square().sum() for leaf in leaves(tree)]
+        return torch.stack(sq).sum().sqrt()
+    groups = {}
+    for path, leaf in flatten_with_path(tree):
+        sh = shards.get(path)
+        groups.setdefault(sh.axes if sh is not None else (), (sh, []))[
+            1].append(leaf.float().square().sum())
+    total = []
+    for axes, (sh, sq) in groups.items():
+        part = torch.stack(sq).sum()
+        total.append(sh.sum(part) if axes else part)
+    return torch.stack(total).sum().sqrt()
 
 
 #: leaves above this many elements are updated in chunks along axis 0, so
@@ -77,23 +94,27 @@ def global_norm(tree) -> torch.Tensor:
 CHUNK_ELEMS = 1 << 28
 
 
-def _chunks(p, prox_rows: int) -> list:
+def _chunks(p, prox_rows: int, row0: int = 0) -> list:
     """The pieces of a leaf the update takes one at a time: the whole leaf
     up to CHUNK_ELEMS elements, else slices of axis 0 with as many rows as
     fit, a multiple of ``prox_rows`` (the prox's block height on a 2-D
     weight; 1 elsewhere) and at least one block row, so the prox sees whole
-    blocks."""
+    blocks. A rank's shard whose axis 0 starts at whole-leaf row ``row0``
+    is cut on the whole leaf's block-row boundaries (its first and last
+    pieces may hold part of a block row)."""
     if p.numel() <= CHUNK_ELEMS:
         return [Ellipsis]
     rows = max(1, CHUNK_ELEMS // (p.numel() // p.shape[0]))
     rows = max(prox_rows, rows // prox_rows * prox_rows)
-    return [slice(lo, lo + rows) for lo in range(0, p.shape[0], rows)]
+    cuts = list(range((-row0) % prox_rows or rows, p.shape[0], rows))
+    edges = [0] + [c for c in cuts if c > 0] + [p.shape[0]]
+    return [slice(lo, hi) for lo, hi in zip(edges, edges[1:]) if hi > lo]
 
 
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig,
                  sparsity: Optional[SparsityConfig] = None,
-                 donate: bool = False):
+                 donate: bool = False, shards=None):
     """One AdamW step (+ the group-lasso prox on targeted 2-D / 3-D weights
     when ``sparsity.lambda_reg > 0``). Returns (new_params, new_state,
     metrics) with metrics ``grad_norm`` and ``lr`` as 0-d tensors.
@@ -104,9 +125,17 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     ``donate=False`` bit for bit. Either way a leaf above CHUNK_ELEMS
     elements is updated chunk by chunk along axis 0 (the update is
     elementwise, or blockwise for the prox over whole block rows, and the
-    global norm is taken first, so the chunks change no number)."""
+    global norm is taken first, so the chunks change no number).
+
+    ``shards`` (path -> ``LeafShard``; the mesh Trainer): the params,
+    grads and moments are this rank's shards. The global norm sums over
+    the ranks (:func:`global_norm`), and the prox of a cut leaf takes its
+    block norms from partial sums over the whole leaf's block grid,
+    reduced over the axes that cut it -- a block may straddle two shards
+    -- in two passes over the chunks (norms, then the update)."""
+    shards = shards or {}
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -119,7 +148,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     prox = (sparsity is not None and sparsity.lambda_reg > 0)
     thresh = lr * sparsity.lambda_reg if prox else None
 
-    def update(p, g, m, v, blocks):
+    def moments(p, g, m, v):
         g = g.float() * scale
         mm = (b1 * m.float() + (1 - b1) * g).to(cfg.tdtype)
         vv = (b2 * v.float() + (1 - b2) * g * g).to(cfg.tdtype)
@@ -128,6 +157,10 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
         p32 = p.float()
         newp = p32 - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                            + cfg.weight_decay * p32)
+        return newp, mm, vv
+
+    def update(p, g, m, v, blocks):
+        newp, mm, vv = moments(p, g, m, v)
         if blocks is not None:
             if newp.ndim == 3:     # layer-stacked
                 newp = torch.stack([group_prox(layer, blocks, thresh)
@@ -141,20 +174,28 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     new_p, new_m, new_v = [], [], []
     for i, (path, p) in enumerate(flatten_with_path(params)):
         blocks = None
+        sh = shards.get(path)
+        whole = sh.shape if sh is not None else tuple(p.shape)
         if (prox and sparsity.applies_to(path_name(path))
                 and p.ndim in (2, 3)):
             bh, bw = sparsity.block_shape
-            if p.shape[-2] % bh == 0 and p.shape[-1] % bw == 0:
+            if whole[-2] % bh == 0 and whole[-1] % bw == 0:
                 blocks = (bh, bw)
         g, m, v = g_leaves[i], m_leaves[i], v_leaves[i]
         out = (p, m, v) if donate else (
             torch.empty_like(p),
             torch.empty(m.shape, dtype=cfg.tdtype, device=m.device),
             torch.empty(v.shape, dtype=cfg.tdtype, device=v.device))
-        for sl in _chunks(p, blocks[0] if blocks and p.ndim == 2 else 1):
-            for dst, x in zip(out, update(p[sl], g[sl], m[sl], v[sl],
-                                          blocks)):
-                dst[sl].copy_(x)
+        chunks = _chunks(p, blocks[0] if blocks and p.ndim == 2 else 1,
+                         sh.offsets[0] if sh is not None else 0)
+        if blocks is not None and sh is not None:
+            _sharded_prox_update(out, (p, g, m, v), chunks, moments, sh,
+                                 blocks, thresh)
+        else:
+            for sl in chunks:
+                for dst, x in zip(out, update(p[sl], g[sl], m[sl], v[sl],
+                                              blocks)):
+                    dst[sl].copy_(x)
         new_p.append(out[0])
         new_m.append(out[1])
         new_v.append(out[2])
@@ -165,3 +206,38 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
                  "v": unflatten(state["v"], new_v), "step": step + 1}
     return (unflatten(params, new_p), new_state,
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _sharded_prox_update(out, args, chunks, moments, shard, blocks, thresh):
+    """The update of a rank's shard of a prox leaf: pass 1 sums each
+    chunk's updated values into partial block sums over the whole leaf's
+    grid, reduced over the axes that cut the leaf; pass 2 recomputes each
+    chunk (one chunk: reuses it) and writes it scaled by the blockwise soft
+    threshold read at its elements."""
+    p = args[0]
+    first = None
+
+    def at(sl):
+        """The offsets in the whole leaf of chunk ``sl``'s first element
+        (chunks slice axis 0)."""
+        off = list(shard.offsets)
+        if sl is not Ellipsis:
+            off[0] += sl.start
+        return tuple(off)
+
+    parts = []
+    for sl in chunks:
+        res = moments(*(a[sl] for a in args))
+        if len(chunks) == 1:
+            first = res
+        parts.append(block_partials(res[0], blocks, 2, at(sl), shard.shape))
+    norms = shard.sum(torch.stack(parts).sum(dim=0)).sqrt()
+    scale = torch.clamp_min(1.0 - thresh / torch.clamp_min(norms, 1e-30),
+                            0.0)
+    for sl in chunks:
+        newp, mm, vv = first if first is not None else moments(
+            *(a[sl] for a in args))
+        newp = newp * local_of_grid(scale, blocks, at(sl),
+                                    tuple(newp.shape)).to(newp.dtype)
+        for dst, x in zip(out, (newp.to(p.dtype), mm, vv)):
+            dst[sl].copy_(x)
