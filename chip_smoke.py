@@ -5,7 +5,8 @@
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
                            lm_training,lm_tp,lm_tp_families,
-                           lm_tp_recurrent,lm_tp_train,training]
+                           lm_tp_recurrent,lm_tp_train,lm_pipe_compress,
+                           training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -291,6 +292,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each a rank a step, against one device's packed step (1e-4).
      Printed per rank: collectives a step, their bytes and host seconds,
      host seconds a step, param and optimizer bytes, peak memory.
+  4i. lm_pipe_compress: block-sparse gradient compression and GPipe on
+     four processes sharing the card, their collectives through CUDA IPC
+     staging buffers (as lm_tp_train). a. BERT-base at full width (fp32)
+     over dp (4, 1), 3 steps of (8, 384) with 2 rows a rank: every leaf
+     that optim/compression.compressible admits synced by
+     compressed_allreduce (density 0.05, the default 8 x 128 blocks), the
+     rest by one fp32 all_reduce, then adamw_update; every rank's params
+     and error buffers after each step bitwise a one-process run on the
+     card that computes the four ranks' gradients from the same rows,
+     compresses them with the same functions and adds the blocks in peer
+     order; density 1.0 within 1e-6 of the dense mean; wire bytes a rank
+     a step against the dense fp32 all-reduce of the same leaves. b.
+     gemma3_4b at full width, 4 stages of one period (5 local + 1 global
+     layers: 24 in all), 6 microbatches of (1, 512) bf16 through
+     launch/pipeline.pipeline_apply with the LM's own layer body: the
+     outputs on every rank against one device running the 24 layers in
+     order (bitwise, or 1e-3 of max|y|), the gradients of every stage's
+     params and of X against autograd through that run within 1e-3 of
+     each leaf's max|g|, and an fp32 copy of 2 layers a stage within
+     1e-5; layer_fn runs M times a stage forward and M backward (no bubble
+     tick computes), 2 (M + S - 2) ring shifts a rank. c. the same
+     periods pruned and packed by prepare_servable ('plan_pallas', 128 x
+     128 tiles, union packs over the periods) through the pipeline,
+     forward: bitwise the sequential packed run, 24 K1 launches a rank a
+     microbatch (fused QKV, wo, ffn wi and wo of 6 layers). Printed: wire
+     bytes, ppermute calls and bytes, host seconds, peak memory a rank.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -464,25 +491,27 @@ def _profile(label, fn, top: int = 8):
     """One call of ``fn`` under torch.profiler: device time by kernel (the
     trace's device-side events only), their total, and the device's idle
     share of the wall time (the profiler's own overhead counts in the wall
-    time). Returns the (ms, count, name) rows, largest first."""
+    time). Only device activity is recorded, and the rows are summed from
+    the trace's raw events: the host's operator events and the profiler's
+    own event tree, which no reading uses, took ~36 s to build for one
+    chunked window of 42,544 device events. Returns the (ms, count, name)
+    rows, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
             continue
-        dev_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = [(ms, n, name) for name, (ms, n) in by_name.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
@@ -2832,6 +2861,11 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     print(f"[lm_serving_sched] card: {card}; {sched}; prompts {LM_PROMPTS}, "
           f"the {LM_PROMPTS[LONG]}-token one after two windows")
     counts = {"plan_dds": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    marks = [time.perf_counter()]
+
+    def part(name):
+        marks.append(time.perf_counter())
+        print(f"[lm_serving_sched] {name}: {marks[-1] - marks[-2]:.1f} s")
 
     def zero():
         plan_dds.launches = 0
@@ -2913,6 +2947,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     print(f"[lm_serving_sched] K1 instance by chunk M: "
           f"{ {m: plan_instance(m, (128, 128), torch.bfloat16, torch.bfloat16) for m in chunk_ms} }")
 
+    part("1. chunked beside one-shot, dense and paged")
+
     # prefill logits and decode_step logits: one-shot against chunked
     for lo in (0, 4):
         group = prompts[lo:lo + 4]
@@ -2935,6 +2971,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
               "chunked prefill disagree with the one-shot caches'")
         del cache1, cache2
 
+    part("1. prefill and decode_step logits, one-shot against chunked")
+
     # one chunked window under the profiler: three slots decoding, the long
     # prompt admitted and prefilled chunk by chunk in the same step
     prof = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
@@ -2948,6 +2986,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     _kernel_share(label, _profile(label, prof.step, top=14))
     print(f"[lm_serving_sched] (profile on {card})")
     del prof
+
+    part("1. a profiled chunked window")
 
     # --- 2. SLO: deadline fast-fail and overload shedding. The bound on
     # the queue delay is one request's service time as this card measures
@@ -3004,6 +3044,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     eng.verify_invariants()
     del eng
 
+    part("2. SLO")
+
     # --- 3. sampling: temperature 0.8, top-k 64, seed 1234, dense
     runs = []
     for _ in range(2):
@@ -3054,6 +3096,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     print(f"[lm_serving_sched] sampling keys of 4 slots x 64 positions: "
           f"card == CPU bitwise; sample_tokens on 64 unit-scale rows: card "
           f"== CPU, {drawn} rows (by top_k) away from the argmax")
+
+    part("3. sampling")
 
     # --- 4. int8 KV: dense layout, one-shot
     cfg8 = dataclasses.replace(cfg, kv_cache_quant=True)
@@ -3108,6 +3152,8 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
           err <= TOL_KV_DECODE * scale,
           "int8-KV decode logits disagree with the bf16 KV cache's")
 
+    part("4. int8 KV")
+
     # --- 5. chaos and the watchdog: the 3rd prefill chunk raises
     chaos = ChaosInjector()
     chaos.inject(SITE_PREFILL_CHUNK, at=3, exc=RuntimeError("injected "
@@ -3132,6 +3178,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     check(wd is not None and wd["stalls"] == 0,
           f"stats_dict()['watchdog'] is {wd}, not present with 0 stalls")
     eng.verify_invariants()
+    part("5. chaos")
     return counts
 
 
@@ -6505,22 +6552,28 @@ def _rank_train_job(job):
     ``fit`` with checkpoints and a fault, or the bare step loop), 'restore'
     (the (2, 2) checkpoint restored on other shapes, then steps), 'bert'
     (BERT-base pruned on a mesh) or 'packed' (the dp packed step through
-    K1 / K4 / K5)."""
+    K1 / K4 / K5); or of lm_pipe_compress (``phase``): 'compress'
+    (compressed DP), 'pipe' (GPipe forward and backward) or 'pipe_packed'
+    (GPipe through K1). The mesh's axes are ``axes`` (("data", "model")
+    by default)."""
     import gc
     import torch
     from repro_torch.launch.mesh import init_process_mesh
     from repro_torch.launch.staging import install as install_staging
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    mesh = init_process_mesh(tuple(job["shape"]))
+    mesh = init_process_mesh(tuple(job["shape"]),
+                             tuple(job.get("axes", ("data", "model"))))
     # the ranks share the card: collectives through CUDA IPC buffers, not
     # gloo's host round trip (~0.35 GB/s a 92 MB all_reduce, lm_tp's probe)
     install_staging(mesh, "cuda")
-    say = _rank_say(mesh.rank, job["name"], "lm_tp_train")
+    say = _rank_say(mesh.rank, job["name"], job.get("phase", "lm_tp_train"))
     try:
         out = {"lm": _rank_train_lm, "restore": _rank_train_restore,
-               "bert": _rank_train_bert, "packed": _rank_train_packed}[
-            job["what"]](job, mesh, dev, say)
+               "bert": _rank_train_bert, "packed": _rank_train_packed,
+               "compress": _rank_pc_compress, "pipe": _rank_pipe,
+               "pipe_packed": _rank_pipe_packed}[job["what"]](job, mesh,
+                                                              dev, say)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -7047,6 +7100,589 @@ def phase_lm_tp_train(seed: int, card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 4i: lm_pipe_compress -- block-sparse gradient compression over a
+# data axis and GPipe over a "pipe" axis, four ranks sharing the card
+# --------------------------------------------------------------------------
+
+#: a. BERT-base over dp (4, 1): (8, 384) batches, 2 rows a rank, 3 steps
+PC_STEPS = 3
+PC_BATCH, PC_SEQ = 8, 384
+PC_RANKS = 4
+#: density 1.0 against the dense mean: only the order of the fp32 sums
+#: differs
+TOL_DENSE_MEAN = 1e-6
+#: b. gemma3_4b at full width, 4 stages of one period (5 local + 1 global)
+#: each; M microbatches of (1, PIPE_SEQ)
+PIPE_STAGES, PIPE_M, PIPE_SEQ = 4, 6, 512
+#: the GPipe gradients against autograd through the sequential run, of each
+#: leaf's max|g|: bf16, and an fp32 copy of 2 layers a stage that tells a
+#: wrong schedule from rounding
+TOL_PIPE_GRAD = {"bfloat16": 1e-3, "float32": 1e-5}
+#: the forward, where it is not bitwise, of max|y|
+TOL_PIPE_FWD = 1e-3
+
+
+def _pc_bert_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config("bert_base")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+          == (12, 768, 3072, 30522, "float32"),
+          "not BERT-base at full width and depth, fp32")
+    return cfg
+
+
+def _pc_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                       weight_decay=0.01)
+
+
+def _pc_rows(batch, rank, dev):
+    """Data rank ``rank``'s rows of a global batch (its contiguous block)."""
+    import numpy as np
+    import torch
+    n = PC_BATCH // PC_RANKS
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[rank * n:(rank + 1) * n])).to(dev, torch.int64)
+        for k, v in batch.items()}
+
+
+def _pc_grads(params, cfg, rows):
+    from repro_torch.launch.steps import make_loss_fn, value_and_grad
+    loss, _, grads = value_and_grad(make_loss_fn(cfg), params, rows)
+    return loss, grads
+
+
+def _pc_sync_mesh(grads, errs, ccfg, mesh):
+    """This rank's gradients -> (their mean over "data", the new error
+    buffers): the compressible leaves through ``compressed_allreduce``, the
+    rest in one fp32 ``all_reduce`` (summed in rank order), then divided."""
+    import torch
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.optim.compression import (compressed_allreduce,
+                                               compressible)
+    gs, es = leaves(grads), leaves(errs)
+    out, new = list(gs), list(es)
+    dense = [i for i, g in enumerate(gs) if not compressible(g, ccfg)]
+    summed = mesh.all_reduce(torch.cat([gs[i].reshape(-1) for i in dense]),
+                             "data") / mesh.shape["data"]
+    for i, part in zip(dense, torch.split(summed, [gs[i].numel()
+                                                   for i in dense])):
+        out[i] = part.view_as(gs[i])
+    for i, g in enumerate(gs):
+        if compressible(g, ccfg):
+            out[i], new[i] = compressed_allreduce(g, es[i], ccfg, "data",
+                                                  mesh)
+    return unflatten(grads, out), unflatten(errs, new)
+
+
+def _pc_sync_peers(grads, errs, ccfg):
+    """One process standing in for ``_pc_sync_mesh`` over the ranks'
+    gradients ``grads[r]`` and buffers ``errs[r]``: each rank's blocks
+    compressed by the same functions and added in peer order, the rest
+    summed in rank order. Returns (the mean, every rank's new buffers)."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.optim.compression import (compress, compressible,
+                                               decompress)
+    import torch
+    n = len(grads)
+    gs, es = [leaves(g) for g in grads], [leaves(e) for e in errs]
+    mean, new = [], [list(e) for e in es]
+    for i, g0 in enumerate(gs[0]):
+        if compressible(g0, ccfg):
+            parts = [compress(g[i], e[i], ccfg) for g, e in zip(gs, es)]
+            summed = decompress(torch.cat([p[0] for p in parts]),
+                                torch.cat([p[1] for p in parts]), g0.shape,
+                                ccfg)
+            mean.append((summed / n).to(g0.dtype))
+            for r, p in enumerate(parts):
+                new[r][i] = p[2]
+        else:
+            s = g0.clone()
+            for g in gs[1:]:
+                s += g[i]
+            mean.append(s / n)
+    return (unflatten(grads[0], mean),
+            [unflatten(errs[r], new[r]) for r in range(n)])
+
+
+def _pc_reference(params, cfg, batches, dev):
+    """The one-process plain run of part a: per step the four ranks'
+    gradients from their rows, synced by ``_pc_sync_peers``, AdamW.
+    Returns each step's params and the four ranks' error buffers."""
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               init_error_buffers)
+    ccfg, opt = CompressionConfig(), _pc_opt()
+    errs = [init_error_buffers(params, ccfg) for _ in range(PC_RANKS)]
+    ost = init_opt_state(params, opt)
+    refs = []
+    for batch in batches:
+        grads = [_pc_grads(params, cfg, _pc_rows(batch, r, dev))[1]
+                 for r in range(PC_RANKS)]
+        synced, errs = _pc_sync_peers(grads, errs, ccfg)
+        params, ost, m = adamw_update(synced, ost, params, opt)
+        refs.append({"params": params, "errs": errs,
+                     "grad_norm": float(m["grad_norm"])})
+    return refs
+
+
+def _pc_unequal(tree, ref):
+    """Paths of the leaves of ``tree`` not bitwise those of ``ref``."""
+    import torch
+    from repro_torch.core.tree import flatten_with_path, leaves, path_name
+    return [path_name(p) for (p, x), y in zip(flatten_with_path(tree),
+                                              leaves(ref))
+            if not torch.equal(x, y)]
+
+
+def _pc_full_density(grads, mesh):
+    """Worst relative gap over the compressible leaves between
+    ``compressed_allreduce`` at density 1.0 (no error) and the dense mean
+    (an fp32 all_reduce over "data", divided)."""
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               compressed_allreduce,
+                                               compressible)
+    ccfg = CompressionConfig(density=1.0)
+    worst = 0.0
+    for g in leaves(grads):
+        if compressible(g, ccfg):
+            mean, err = compressed_allreduce(
+                g, torch.zeros_like(g, dtype=torch.float32), ccfg, "data",
+                mesh)
+            check(not err.any(), "density 1.0 left an error")
+            dense = mesh.all_reduce(g, "data") / mesh.shape["data"]
+            worst = max(worst, float((mean - dense).abs().max()
+                                     / dense.abs().max()))
+    return worst
+
+
+def _rank_pc_compress(job, mesh, dev, say):
+    """Part a on one data rank: three compressed-DP steps from the
+    parent's initial params, each checked bitwise against the one-process
+    run's params and this rank's error buffers."""
+    import torch
+    from repro_torch.core.tree import map_with_path
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               init_error_buffers)
+    cfg, ccfg, opt = _pc_bert_cfg(), CompressionConfig(), _pc_opt()
+    params = map_with_path(lambda _, x: x.clone(), job.pop("params"))
+    errs = init_error_buffers(params, ccfg)
+    ost = init_opt_state(params, opt)
+    r = mesh.coord("data")
+    rec = []
+    for step, (batch, ref) in enumerate(zip(job["batches"], job["refs"])):
+        rows = _pc_rows(batch, r, dev)
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = _pc_grads(params, cfg, rows)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        synced, errs = _pc_sync_mesh(grads, errs, ccfg, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, ost, m = adamw_update(synced, ost, params, opt)
+        torch.cuda.synchronize()
+        x = {"s": time.perf_counter() - t0, "sync_s": t2 - t1,
+             "stats": copy.deepcopy(mesh.stats), "loss": float(loss),
+             "grad_norm": float(m["grad_norm"]),
+             "bad": (_pc_unequal(params, ref["params"])
+                     + [f"err {p}" for p in _pc_unequal(errs,
+                                                        ref["errs"][r])])}
+        if step == 0:
+            x["dense_rel"] = _pc_full_density(grads, mesh)
+        rec.append(x)
+        say(f"step {step}: {x['s']:.3f} s, sync {x['sync_s']:.3f} s")
+    return {"rec": rec}
+
+
+def _pipe_cfg(dtype="bfloat16"):
+    """gemma3_4b at full width, one period (5 local + 1 global) a stage."""
+    import dataclasses
+    cfg = dataclasses.replace(_lm_config(), n_layers=6 * PIPE_STAGES,
+                              dtype=dtype)
+    prefix, pattern, n_periods, suffix = cfg.layer_plan()
+    check(not prefix and not suffix and n_periods == PIPE_STAGES
+          and len(pattern) == 6, f"{cfg.n_layers} gemma3_4b layers are not "
+          f"{PIPE_STAGES} periods of 6")
+    return cfg
+
+
+def _pipe_kinds(cfg, fp32_copy):
+    """The layer kinds of a stage: the period's six, or for the fp32 copy
+    its first local and its global layer."""
+    pattern = cfg.layer_plan()[1]
+    return (pattern[0], pattern[-1]) if fp32_copy else tuple(pattern)
+
+
+def _pipe_layer_fn(cfg, kinds, packs=None, calls=None):
+    """``layer_fn(stage params, h)``: the LM's own layer body
+    (``models/lm._apply_layer``) over ``kinds`` at positions
+    0..PIPE_SEQ-1, with the servable's union packs when given."""
+    import torch
+    from repro_torch.models import lm
+    positions = torch.arange(PIPE_SEQ, device="cuda")[None, :]
+
+    def layer_fn(p, h):
+        if calls is not None:
+            calls[0] += 1
+        for i, kind in enumerate(kinds):
+            h, _ = lm._apply_layer(p[i], h, cfg, kind, positions=positions,
+                                   packs=lm._layer_packs(packs,
+                                                         f"blocks/{i}"))
+        return h
+    return layer_fn
+
+
+def _pipe_stage(blocks, s):
+    """Stage ``s`` of a stage-stacked tree (views)."""
+    from repro_torch.core.tree import map_with_path
+    return map_with_path(lambda _, t: t[s], blocks)
+
+
+def _pipe_reference(layer_fn, blocks, xs, ct):
+    """One device: the stages in order on each microbatch -> y; then, last
+    microbatch first, autograd of <ct, y> through all of them, each
+    stage's parameter gradient accumulated in fp32 (the schedule's order)
+    and cast once. Returns (y, dX, the gradients stacked like
+    ``blocks``)."""
+    import torch
+    from repro_torch.core.tree import leaves, map_with_path, unflatten
+    stages = [_pipe_stage(blocks, s) for s in range(PIPE_STAGES)]
+    with torch.no_grad():
+        ys = []
+        for x in xs:
+            for st in stages:
+                x = layer_fn(st, x)
+            ys.append(x)
+    live = [[t.detach().requires_grad_(True) for t in leaves(st)]
+            for st in stages]
+    trees = [unflatten(st, lv) for st, lv in zip(stages, live)]
+    acc = [[torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+            for t in lv] for lv in live]
+    dxs = [None] * xs.shape[0]
+    for mb in reversed(range(xs.shape[0])):
+        x = xs[mb].detach().requires_grad_(True)
+        h = x
+        for tr in trees:
+            h = layer_fn(tr, h)
+        got = torch.autograd.grad(h, [x] + [t for lv in live for t in lv],
+                                  ct[mb])
+        dxs[mb] = got[0]
+        it = iter(got[1:])
+        for a_s in acc:
+            for a in a_s:
+                a += next(it).float()
+        del h, got
+    flat = [torch.stack([a_s[j] for a_s in acc]).to(leaves(blocks)[j].dtype)
+            for j in range(len(acc[0]))]
+    return (torch.stack(ys), torch.stack(dxs),
+            unflatten(map_with_path(lambda _, t: t, blocks), flat))
+
+
+def _rank_pipe(job, mesh, dev, say):
+    """Part b on one stage: the rank's block of one of the stage-stacked
+    params, the pipeline forward and backward, checked against the
+    parent's sequential run."""
+    import torch
+    from repro_torch.core.tree import (flatten_with_path, leaves,
+                                       map_with_path, path_name)
+    from repro_torch.launch.pipeline import pipeline_apply
+    fp32 = job["dtype"] == "float32"
+    cfg = _pipe_cfg(job["dtype"])
+    calls = [0]
+    layer_fn = _pipe_layer_fn(cfg, _pipe_kinds(cfg, fp32), calls=calls)
+    s = mesh.coord("pipe")
+    local = map_with_path(lambda _, t: t[s:s + 1].detach().requires_grad_(
+        True), job["blocks"])
+    x = job["xs"].detach().requires_grad_(True)
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline_apply(layer_fn, local, x, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = (calls[0], copy.deepcopy(mesh.stats))
+    y.backward(job["ct"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.float()
+        return float((a - b).abs().max() / b.abs().max())
+    grads = {path_name(p): (rel(t.grad[0], r[s]), torch.equal(t.grad[0],
+                                                               r[s]))
+             for (p, t), r in zip(flatten_with_path(local),
+                                  leaves(job["grads"]))}
+    say(f"{job['dtype']}: forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s")
+    return {"y_equal": torch.equal(y, job["y"]), "y_rel": rel(y, job["y"]),
+            "dx_equal": torch.equal(x.grad, job["dx"]),
+            "dx_rel": rel(x.grad, job["dx"]), "grads": grads,
+            "fwd_s": t1 - t0, "bwd_s": t2 - t1, "fwd_calls": fwd[0],
+            "calls": calls[0], "fwd_stats": fwd[1],
+            "stats": copy.deepcopy(mesh.stats), "stage": s}
+
+
+def _rank_pipe_packed(job, mesh, dev, say):
+    """Part c on one stage: the servable's period-stacked values (the
+    whole stack, shared by the parent) through the pipeline with the union
+    packs, K1 launches counted around the forward alone."""
+    import torch
+    from repro_torch.kernels import plan_dds
+    from repro_torch.launch.pipeline import pipeline_apply
+    cfg = _pipe_cfg()
+    layer_fn = _pipe_layer_fn(cfg, _pipe_kinds(cfg, False), job["packs"])
+    mesh.reset_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan_dds.launches = 0
+        y = pipeline_apply(layer_fn, job["blocks"], job["xs"], mesh)
+        torch.cuda.synchronize()
+        launches = plan_dds.launches
+    say(f"packed forward {time.perf_counter() - t0:.3f} s")
+    return {"y_equal": torch.equal(y, job["y"]),
+            "y_rel": float((y.float() - job["y"].float()).abs().max()
+                           / job["y"].float().abs().max()),
+            "launches": launches, "s": time.perf_counter() - t0,
+            "stats": copy.deepcopy(mesh.stats)}
+
+
+def phase_lm_pipe_compress(seed: int, card: str):
+    """Block-sparse gradient compression and the GPipe schedule on four
+    processes sharing the card, their collectives through CUDA IPC staging
+    buffers (as lm_tp_train). a. BERT-base over dp (4, 1): 3 steps of
+    (8, 384), 2 rows a rank, the compressible leaves through
+    ``compressed_allreduce`` (density 0.05), the rest an fp32 all-reduce,
+    AdamW; every rank's params and error buffers bitwise a one-process run
+    that compresses the same four ranks' gradients with the same functions;
+    density 1.0 against the dense mean (1e-6); wire bytes. b. gemma3_4b at
+    full width, 4 stages of one period, 6 microbatches of (1, 512) bf16:
+    the pipeline forward on every rank bitwise (or 1e-3 of max|y|) one
+    device's 24 layers in order, the gradients of every stage's params and
+    of X within 1e-3 of max|g| of autograd through that run, an fp32 copy
+    of 2 layers a stage within 1e-5. c. the same periods packed by
+    ``prepare_servable`` (plan_pallas) through the pipeline: bitwise the
+    sequential packed run, K1 launches a rank = 24 packs x 6 microbatches.
+    Returns the K1 launches."""
+    import gc
+    import torch
+    from repro_torch.core.tree import leaves, map_with_path
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.kernels import plan_dds
+    from repro_torch.models.api import init_model
+    from repro_torch.optim.compression import CompressionConfig, compressible
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[lm_pipe_compress] {card}; four ranks share the card, their "
+          f"collectives through CUDA IPC staging buffers, so no time here "
+          f"says anything of pipeline or compressed-DP speed")
+    marks = [time.perf_counter()]
+
+    def part(name):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"[lm_pipe_compress] {name}: {marks[-1] - marks[-2]:.1f} s")
+
+    counts = {"plan_dds": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _Ranks(PC_RANKS, tmp)    # they start while the parent works
+        try:
+            # a. BERT-base compressed DP
+            bcfg = _pc_bert_cfg()
+            params = init_model(seed, bcfg, device=dev)
+            pipe = DataPipeline(DataConfig(seq_len=PC_SEQ,
+                                           global_batch=PC_BATCH,
+                                           vocab_size=bcfg.vocab_size))
+            batches = [pipe.batch_at(200 + i) for i in range(PC_STEPS)]
+            pipe.close()
+            refs = _pc_reference(params, bcfg, batches, dev)
+            ccfg = CompressionConfig()
+            packed = [x for x in leaves(params) if compressible(x, ccfg)]
+            dense_bytes = sum(x.numel() * 4 for x in packed)
+            part("a. the one-process reference")
+            res = ranks.run({"name": "compress dp (4, 1)",
+                             "kind": "train", "what": "compress",
+                             "phase": "lm_pipe_compress",
+                             "shape": (PC_RANKS, 1),
+                             "axes": ("data", "model"), "params": params,
+                             "batches": batches, "refs": refs})
+            tag = "[lm_pipe_compress] a. BERT-base dp (4, 1)"
+            for r, rank in enumerate(res):
+                for i, x in enumerate(rank["rec"]):
+                    check(not x["bad"], f"{tag} rank {r} step {i}: not "
+                          f"bitwise the one-process run: {x['bad'][:5]}")
+                    check(x["grad_norm"] == refs[i]["grad_norm"],
+                          f"{tag} rank {r} step {i}: grad_norm "
+                          f"{x['grad_norm']!r}, one process "
+                          f"{refs[i]['grad_norm']!r}")
+                check(rank["rec"][0]["dense_rel"] <= TOL_DENSE_MEAN,
+                      f"{tag} rank {r}: density 1.0 is "
+                      f"{rank['rec'][0]['dense_rel']:.3e} from the dense "
+                      f"mean (bar {TOL_DENSE_MEAN})")
+            st = res[0]["rec"][0]["stats"]
+            wire = st["all_gather:data"]["bytes"]
+            rest = st["all_reduce:data"]["bytes"]
+            print(f"{tag}: {len(packed)} compressed leaves "
+                  f"({sum(x.numel() for x in packed) / 1e6:.1f} M of "
+                  f"{sum(x.numel() for x in leaves(params)) / 1e6:.1f} M "
+                  f"params); {PC_STEPS} steps, every rank's params and error "
+                  f"buffers bitwise the one-process run after each; "
+                  f"grad_norm {[r['grad_norm'] for r in refs]}; wire bytes "
+                  f"a rank a step on those leaves {wire} (all_gather, "
+                  f"{st['all_gather:data']['calls']} calls) against "
+                  f"{dense_bytes} for their dense fp32 all-reduce: "
+                  f"{wire / dense_bytes:.4f}; the other leaves {rest} "
+                  f"(one all_reduce); density 1.0 against the dense mean "
+                  f"{max(x['rec'][0]['dense_rel'] for x in res):.3e} "
+                  f"(bar {TOL_DENSE_MEAN})")
+            print(f"{tag}: host s a step (ranks) "
+                  f"{[[round(x['s'], 3) for x in rk['rec']] for rk in res]}"
+                  f", of it in the sync "
+                  f"{[round(x['sync_s'], 3) for x in res[0]['rec']]} "
+                  f"(rank 0); peak "
+                  f"{[round(x['peak_gib'], 2) for x in res]} GiB a rank "
+                  f"({card})")
+            del params, refs, res
+            part("a. BERT-base compressed DP")
+
+            # b. gemma3_4b GPipe, bf16 then the fp32 copy
+            cfg = _pipe_cfg()
+            full = init_model(seed, cfg, device=dev)
+            blocks = full["blocks"]
+            gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+            shape = (PIPE_M, 1, PIPE_SEQ, cfg.d_model)
+            xs = torch.randn(shape, generator=gen, device=dev)
+            ct = torch.randn(shape, generator=gen, device=dev)
+            for dtype in ("bfloat16", "float32"):
+                fp32 = dtype == "float32"
+                c = _pipe_cfg(dtype)
+                kinds = _pipe_kinds(c, fp32)
+                stage_blocks = (tuple(map_with_path(lambda _, t: t.float(),
+                                                    blocks[i])
+                                      for i in (0, len(blocks) - 1))
+                                if fp32 else blocks)
+                x_in = xs.to(c.tdtype)
+                c_in = ct.to(c.tdtype)
+                y, dx, grads = _pipe_reference(_pipe_layer_fn(c, kinds),
+                                               stage_blocks, x_in, c_in)
+                part(f"b. {dtype}: the sequential reference")
+                res = ranks.run({"name": f"pipe {dtype}",
+                                 "kind": "train", "what": "pipe",
+                                 "phase": "lm_pipe_compress",
+                                 "shape": (PIPE_STAGES,), "axes": ("pipe",),
+                                 "dtype": dtype, "blocks": stage_blocks,
+                                 "xs": x_in, "ct": c_in, "y": y, "dx": dx,
+                                 "grads": grads})
+                _pipe_report(dtype, len(kinds), res, x_in)
+                del y, dx, grads, stage_blocks, res
+                part(f"b. GPipe {dtype}")
+
+            # c. the same periods packed, through K1
+            spec = ServingSpec(tile=(128, 128), sparsity=0.8, prune="tied",
+                               fuse_qkv=True, backend="plan_pallas")
+            del blocks
+            servable = prepare_servable(full, cfg, spec, device=dev)
+            del full
+            k1 = sum(1 for k in servable.packs if k.startswith("blocks/"))
+            sv_blocks = servable.params["blocks"]
+            layer_fn = _pipe_layer_fn(cfg, _pipe_kinds(cfg, False),
+                                      servable.packs)
+            x_in = xs.to(cfg.tdtype)
+            with torch.no_grad():
+                plan_dds.launches = 0
+                ys = []
+                for x in x_in:
+                    for s in range(PIPE_STAGES):
+                        x = layer_fn(_pipe_stage(sv_blocks, s), x)
+                    ys.append(x)
+                y = torch.stack(ys)
+                torch.cuda.synchronize()
+                seq_launches = plan_dds.launches
+            check(seq_launches == k1 * PIPE_STAGES * PIPE_M,
+                  f"the sequential packed run launched {seq_launches} K1")
+            res = ranks.run({"name": "pipe packed", "kind": "train",
+                             "what": "pipe_packed",
+                             "phase": "lm_pipe_compress",
+                             "shape": (PIPE_STAGES,),
+                             "axes": ("pipe",), "blocks": sv_blocks,
+                             "packs": servable.packs, "xs": x_in, "y": y})
+            tag = "[lm_pipe_compress] c. GPipe through K1"
+            want = k1 * PIPE_M
+            for r, rank in enumerate(res):
+                check(rank["y_equal"], f"{tag} rank {r}: outputs not "
+                      f"bitwise the sequential packed run "
+                      f"({rank['y_rel']:.3e} of max|y|)")
+                check(rank["launches"] == want, f"{tag} rank {r}: "
+                      f"{rank['launches']} K1 launches, the routing {want}")
+                counts["plan_dds"] += rank["launches"]
+            print(f"{tag}: {k1} packs a stage (fused QKV, attn wo, ffn wi "
+                  f"and wo of its {len(cfg.pattern)} layers), union-packed "
+                  f"over the {PIPE_STAGES} periods; "
+                  f"K1 launches a rank {[x['launches'] for x in res]} (= "
+                  f"{k1} x {PIPE_M} microbatches, no bubble tick computes); "
+                  f"outputs bitwise the sequential packed run on every "
+                  f"rank; host s {[round(x['s'], 3) for x in res]}; peak "
+                  f"{[round(x['peak_gib'], 2) for x in res]} GiB a rank")
+            del servable, sv_blocks, y, res
+            part("c. GPipe through K1")
+        finally:
+            ranks.close()
+    return counts
+
+
+def _pipe_report(dtype, layers, res, xs):
+    """Part b's checks and prints for one dtype."""
+    tag = f"[lm_pipe_compress] b. GPipe {dtype}, {layers} layers a stage"
+    bar = TOL_PIPE_GRAD[dtype]
+    m = xs.shape[0]
+    mb_bytes = xs[0].numel() * xs.element_size()
+    worst = {"y": 0.0, "dx": 0.0, "grad": 0.0}
+    equal = {"y": True, "dx": True, "grad": True}
+    for r, rank in enumerate(res):
+        check(rank["y_equal"] or rank["y_rel"] <= TOL_PIPE_FWD,
+              f"{tag} rank {r}: forward {rank['y_rel']:.3e} of max|y| "
+              f"from the sequential run (bar {TOL_PIPE_FWD})")
+        check(rank["dx_rel"] <= bar, f"{tag} rank {r}: dX "
+              f"{rank['dx_rel']:.3e} of max|g| (bar {bar})")
+        for name, (rel, eq) in rank["grads"].items():
+            check(rel <= bar, f"{tag} rank {r}: d{name} {rel:.3e} of "
+                  f"max|g| (bar {bar})")
+            worst["grad"] = max(worst["grad"], rel)
+            equal["grad"] &= eq
+        worst["y"] = max(worst["y"], rank["y_rel"])
+        worst["dx"] = max(worst["dx"], rank["dx_rel"])
+        equal["y"] &= rank["y_equal"]
+        equal["dx"] &= rank["dx_equal"]
+        check(rank["fwd_calls"] == m and rank["calls"] == 2 * m,
+              f"{tag} rank {r}: layer_fn ran {rank['fwd_calls']} / "
+              f"{rank['calls']} times, not {m} / {2 * m}")
+        pp = rank["stats"]["ppermute:pipe"]
+        check(pp["calls"] == 2 * (m + PIPE_STAGES - 2)
+              and pp["bytes"] == pp["calls"] * mb_bytes,
+              f"{tag} rank {r}: ppermute {pp}")
+    pp = res[0]["stats"]["ppermute:pipe"]
+
+    def said(key):
+        return "bitwise" if equal[key] else f"{worst[key]:.3e} of max|.|"
+    print(f"{tag}: on every rank against the sequential run: forward "
+          f"{said('y')}, dX {said('dx')}, every stage's parameter "
+          f"gradients {said('grad')} (bar {bar} of max|g|); a rank: "
+          f"layer_fn {res[0]['fwd_calls']} forward + "
+          f"{res[0]['calls'] - res[0]['fwd_calls']} recomputed, ppermute "
+          f"{pp['calls']} calls, {pp['bytes']} bytes; host s forward "
+          f"{[round(x['fwd_s'], 3) for x in res]}, backward "
+          f"{[round(x['bwd_s'], 3) for x in res]}; peak "
+          f"{[round(x['peak_gib'], 2) for x in res]} GiB a rank")
+
+
+# --------------------------------------------------------------------------
 # phase 4j (not in the default run): lm_tp_trace -- where a mesh rounds
 # differently from one device
 # --------------------------------------------------------------------------
@@ -7185,7 +7821,7 @@ def main() -> int:
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
-                            "training")
+                            "lm_pipe_compress,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -7290,6 +7926,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_tp_train"] = phase_lm_tp_train(args.seed, card)
             done("lm_tp_train")
+        if "lm_pipe_compress" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_pipe_compress"] = phase_lm_pipe_compress(args.seed,
+                                                                  card)
+            done("lm_pipe_compress")
         if "lm_tp_trace" in phases:
             launches["lm_tp_trace"] = phase_lm_tp_trace(args.seed, card)
             done("lm_tp_trace")

@@ -27,7 +27,10 @@ The collectives work on CPU and CUDA tensors over gloo (several ranks
 sharing one card: gloo takes CUDA tensors for all_reduce, broadcast and
 all_gather, as ``chip_smoke.py`` lm_tp's probe records) and NCCL (one
 card a rank) alike. Sums of floating tensors narrower than fp32 travel as
-fp32; a gather moves its tensors as they are. Which backend a run uses is
+fp32; a gather and the ring shift ``ppermute`` (a pipeline's hand-off)
+move their tensors as they are -- gloo sends point to point only from host
+tensors, so there a CUDA tensor's shift goes through a host copy. Which
+backend a run uses is
 the caller's choice, made when it initialises the process group
 (:func:`init_distributed`).
 
@@ -266,6 +269,21 @@ class ProcessMesh(AbstractMesh):
                             lambda: self.transport.gather(part, axis))
         return torch.cat(parts, dim=dim).to(x.dtype)
 
+    def ppermute(self, x: torch.Tensor, axis: str, shift: int = 1
+                 ) -> torch.Tensor:
+        """The ring shift along ``axis``: the rank at index i receives the
+        ``x`` of the rank at index (i - shift) mod n (``jax.lax.ppermute``
+        with the pairs (i, (i + shift) mod n)); exact. Counted under
+        ``ppermute:<axis>`` with the bytes this rank sends."""
+        n = self.shape.get(axis, 1)
+        if n == 1 or shift % n == 0:
+            return x
+        part = x.contiguous()
+        return self._timed("ppermute", axis,
+                           part.numel() * part.element_size(),
+                           lambda: self.transport.shift(part, axis,
+                                                        shift % n))
+
     def broadcast(self, x: torch.Tensor, axis: str, src: int = 0
                   ) -> torch.Tensor:
         """The ``x`` of the rank at index ``src`` along ``axis``, on every
@@ -305,6 +323,28 @@ class GroupTransport:
                  for _ in range(self.mesh.shape[axis])]
         dist.all_gather(parts, part, group=self.mesh.groups[axis])
         return parts
+
+    def shift(self, part: torch.Tensor, axis: str, shift: int
+              ) -> torch.Tensor:
+        """The ``part`` of the group rank ``shift`` places before this one
+        (mod n); this rank's goes ``shift`` places on. gloo sends only
+        host tensors point to point, so a CUDA tensor on gloo goes through
+        a host copy each way."""
+        import torch.distributed as dist
+        group = self.mesh.groups[axis]
+        n, me = self.mesh.shape[axis], self.mesh.coord(axis)
+        staged = part.is_cuda and self.mesh.backend == "gloo"
+        send = part.cpu() if staged else part
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send,
+                          dist.get_global_rank(group, (me + shift) % n),
+                          group),
+               dist.P2POp(dist.irecv, recv,
+                          dist.get_global_rank(group, (me - shift) % n),
+                          group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(part.device) if staged else recv
 
     def reduce_scatter(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
         """This rank's block along dim 0 of the sum of ``buf``. NCCL

@@ -94,23 +94,37 @@ class SharedStaging:
             torch.cuda.synchronize()
         dist.barrier(group=self.mesh.groups[axis])
 
-    def gather(self, part: torch.Tensor, axis: str) -> list:
-        """Every group rank's ``part`` (same shape and dtype), in group
-        order."""
-        if not self._takes(part):
-            return self.fallback.gather(part, axis)
-        n = self.mesh.shape[axis]
+    def _exchange(self, part: torch.Tensor, axis: str, sources) -> list:
+        """The ``part`` (same shape and dtype on every rank) of each group
+        rank in ``sources``: every rank writes its own, reads theirs."""
         flat = part.reshape(-1).view(torch.uint8)
-        outs = [torch.empty_like(part) for _ in range(n)]
+        outs = [torch.empty_like(part) for _ in sources]
         flats = [o.reshape(-1).view(torch.uint8) for o in outs]
         for lo in range(0, flat.numel(), self.chunk):
             k = min(self.chunk, flat.numel() - lo)
             mine, peers = self._step(axis)
             mine[:k].copy_(flat[lo:lo + k])
             self._meet(axis)
-            for o, p in zip(flats, peers):
-                o[lo:lo + k].copy_(p[:k])
+            for o, src in zip(flats, sources):
+                o[lo:lo + k].copy_(peers[src][:k])
         return outs
+
+    def gather(self, part: torch.Tensor, axis: str) -> list:
+        """Every group rank's ``part`` (same shape and dtype), in group
+        order."""
+        if not self._takes(part):
+            return self.fallback.gather(part, axis)
+        return self._exchange(part, axis, range(self.mesh.shape[axis]))
+
+    def shift(self, part: torch.Tensor, axis: str, shift: int
+              ) -> torch.Tensor:
+        """The ``part`` of the group rank ``shift`` places before this one
+        (mod n), read from that one peer's buffer: the ring shift costs
+        its own bytes, not a gather's n times as many."""
+        if not self._takes(part):
+            return self.fallback.shift(part, axis, shift)
+        src = (self.mesh.coord(axis) - shift) % self.mesh.shape[axis]
+        return self._exchange(part, axis, [src])[0]
 
     @staticmethod
     def _combine(out, parts, op):
