@@ -5,8 +5,8 @@
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
                            lm_training,lm_tp,lm_tp_families,
-                           lm_tp_recurrent,lm_tp_train,lm_pipe_compress,
-                           training]
+                           lm_tp_recurrent,lm_tp_train,
+                           lm_tp_train_families,lm_pipe_compress,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -117,9 +117,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4b. lm_serving_sched: the same gemma3_4b (bf16 packs) through the rest of
      the engine. Chunked prefill (SchedSpec(max_chunk=256, token_budget=
      2048, decode_priority=True)) beside one-shot admission, dense and
-     paged KV, on lm_serving's prompts with the 1100-token one submitted
-     after two windows: every request done, K1 / K2 / K3 launches equal to
-     the layer routing (136 K1 a decode step, a one-shot prefill and a
+     paged KV, on lm_serving's prompts (16 new tokens a request, 32 in
+     the SLO part) with the
+     1100-token one submitted after two windows: every request done, K1 /
+     K2 / K3 launches equal to the layer routing (136 K1 a decode step, a
+     one-shot prefill and a
      chunk; each chunk of the direct chunked prefill checked on its own),
      greedy-token agreement printed, a differing first token failing only
      where the one-shot top-2 margin is at least twice the prefill logits'
@@ -203,9 +205,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      against plain autograd, bitwise, and the donated update (the embedding in chunks) against a
      functional unchunked one on the same gradients, bitwise; d. the
      Trainer on that model: gradual pruning to 0.7 at 16x16 from step 2 to
-     6, the prox, a fault at step 5 (exactly 1 restart from the step-4
-     checkpoint), every targeted leaf within 0.02 of 0.7, checkpoint
-     host-copy, write and restore times; e. the trained model through
+     6, the prox, a fault at step 5 (exactly 1 restart from the step-5
+     checkpoint, the run's one checkpoint before fit's closing save),
+     every targeted leaf within 0.02 of 0.7, checkpoint host-copy, write
+     and restore times; e. the trained model through
      prepare_servable(prune='none', 16x16 tiles, plan_pallas) and the
      engine: 4 greedy requests done, K1 and K2 launches equal to the
      routing, decode_step logits kernels vs plain within 5%; f. 2 packed
@@ -292,6 +295,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each a rank a step, against one device's packed step (1e-4).
      Printed per rank: collectives a step, their bytes and host seconds,
      host seconds a step, param and optimizer bytes, peak memory.
+  4h2. lm_tp_train_families: the vlm and MoE families' training on meshes
+     of four processes sharing the card (staging buffers, as lm_tp_train),
+     one device's references first, each freed: deepseek_v2_lite_16b at
+     full width, 4 layers (the dense first layer and 3 MoE periods), B 4 x
+     S 512, over tp+dp (2, 2) through Trainer.fit for 3 steps (a
+     checkpoint at 2, a fault at 2: one restart a rank), dp (4, 1) for 3
+     and tp (1, 4) for 2, an fp32
+     copy at 2 layers over (2, 2); qwen3_moe 1 layer over tp+dp (2, 2),
+     64 of its 128 experts a model rank; pixtral_12b 4 layers over tp
+     (1, 4) and one make_train_step(mesh=) step with 256 patch
+     embeddings. Every step's loss and grad_norm equal on every rank and
+     within 1e-3 (bf16) / 1e-5 (fp32) relative of one device's; the
+     assignments whose experts differ from one device's printed with
+     their router margins (each must be a near-tie), and where any differ
+     one device replays the mesh's routing and the bar holds against it;
+     each rank's expert shards E/m. First of the ranks' work, deepseek at
+     2 layers in fp32 pruned to 0.8 at 64x64 (attention and the dense
+     layer's FFN) and packed ('plan_pallas'), 2 packed steps over dp
+     (4, 1), every rank building and holding the whole state: the MoE
+     routes the global batch, K1 / K4 / K5 launched a rank a step as the
+     packs predict (a period's K1 twice under remat), against one
+     device's packed step (1e-4). Printed per rank: expert-shard shapes,
+     collectives a step, peak memory.
   4i. lm_pipe_compress: block-sparse gradient compression and GPipe on
      four processes sharing the card, their collectives through CUDA IPC
      staging buffers (as lm_tp_train). a. BERT-base at full width (fp32)
@@ -2731,6 +2757,10 @@ def phase_lm_serving_quant(seed: int, fp=None, fp_tokens=None):
 # 2048 prefill tokens a window, decode tokens reserved first
 SCHED_CHUNK = 256
 SCHED_BUDGET = 2048
+#: new tokens a request but in the SLO part (lm_serving's 32 cut to make
+#: room for lm_tp_train_families in the run's time limit; the SLO part's
+#: blockers must outlast 4 windows of 8 steps, so it keeps 32)
+SCHED_NEW_TOKENS = 16
 # index of the 1100-token prompt in LM_PROMPTS, submitted after two windows
 LONG = 3
 # the int8-KV decode_step logits against the bf16-KV cache's; and the
@@ -2897,13 +2927,14 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
             torch.cuda.synchronize()
             zero()              # the counted run: counts 0 just before
             t0 = time.perf_counter()
-            hs, gap = _drive_staggered(eng, prompts, LM_NEW_TOKENS)
+            hs, gap = _drive_staggered(eng, prompts, SCHED_NEW_TOKENS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = read() if kind == "chunked" else None
             es = eng.stats
             for h in hs:
-                check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+                check(h.status == "done"
+                      and len(h.tokens) == SCHED_NEW_TOKENS,
                       f"{layout} {kind}: request {h.req_id} ended "
                       f"{h.status} ({h.failure}) with {len(h.tokens)} tokens")
             runs[kind] = [list(h.tokens) for h in hs]
@@ -2938,7 +2969,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
                                              runs["chunked"])
                     for a, b in zip(ra, rb))
         print(f"[lm_serving_sched] {layout}: greedy tokens chunked vs "
-              f"one-shot {agree} of {len(prompts) * LM_NEW_TOKENS} equal")
+              f"one-shot {agree} of {len(prompts) * SCHED_NEW_TOKENS} equal")
         tokens[layout] = runs["chunked"]
     chunk_ms = sorted({max(8, 1 << (min(SCHED_CHUNK, len(p) - s) - 1)
                            .bit_length())
@@ -2978,9 +3009,9 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     prof = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
                            sched=sched)
     for i in (0, 1, 5):
-        prof.submit(prompts[i], max_new_tokens=LM_NEW_TOKENS)
+        prof.submit(prompts[i], max_new_tokens=SCHED_NEW_TOKENS)
     prof.step()
-    prof.submit(prompts[LONG], max_new_tokens=LM_NEW_TOKENS)
+    prof.submit(prompts[LONG], max_new_tokens=SCHED_NEW_TOKENS)
     label = (f"chunked window ({LM_PROMPTS[LONG]}-token prompt in "
              f"{SCHED_CHUNK}-token chunks, then 8 decode steps of 4 slots)")
     _kernel_share(label, _profile(label, prof.step, top=14))
@@ -3055,7 +3086,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
         eng.run()
         eng.stats = type(eng.stats)()
         zero()
-        hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+        hs = [eng.submit(p, max_new_tokens=SCHED_NEW_TOKENS) for p in prompts]
         eng.run()
         read()
         for h in hs:
@@ -3067,7 +3098,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     same = sum(a == b for ra, rb in zip(runs[0], tokens["dense"])
                for a, b in zip(ra, rb))
     print(f"[lm_serving_sched] sampling {SAMPLING}: two runs bitwise equal "
-          f"{runs[0] == runs[1]}; {same} of {len(prompts) * LM_NEW_TOKENS} "
+          f"{runs[0] == runs[1]}; {same} of {len(prompts) * SCHED_NEW_TOKENS} "
           f"tokens equal to the greedy run (random full-width weights: "
           f"top-2 logit margins of ~20, so T=0.8 rarely leaves the argmax); "
           f"{1e3 * es.decode_s / es.steps:.3f} ms per decode step ({card})")
@@ -3110,14 +3141,14 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     torch.cuda.synchronize()
     zero()
     t0 = time.perf_counter()
-    hs = [eng.submit(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+    hs = [eng.submit(p, max_new_tokens=SCHED_NEW_TOKENS) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = read()
     es = eng.stats
     for h in hs:
-        check(h.status == "done" and len(h.tokens) == LM_NEW_TOKENS,
+        check(h.status == "done" and len(h.tokens) == SCHED_NEW_TOKENS,
               f"int8 KV: request {h.req_id} ended {h.status} ({h.failure})")
     want = {"plan_dds": k1 * (es.steps + es.prefills), "flash_decode": 0,
             "paged_flash_decode": 0}
@@ -3147,7 +3178,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     print(f"[lm_serving_sched] decode_step logits, int8 vs bf16 KV: "
           f"max|d|={err:.4e}, max|logits|={scale:.4e}, tol "
           f"{TOL_KV_DECODE * scale:.4e}; greedy tokens equal to the bf16-KV "
-          f"chunked run {agree} of {len(prompts) * LM_NEW_TOKENS}")
+          f"chunked run {agree} of {len(prompts) * SCHED_NEW_TOKENS}")
     check(bool(torch.isfinite(outs[0]).all()) and
           err <= TOL_KV_DECODE * scale,
           "int8-KV decode logits disagree with the bf16 KV cache's")
@@ -3161,7 +3192,7 @@ def phase_lm_serving_sched(seed: int, card: str, servable=None):
     eng = servable.engine(max_slots=4, cache_len=1280, sync_every=8,
                           sched=sched, chaos=chaos, watchdog_timeout_s=30.0)
     try:
-        hs = [eng.submit(prompts[i], max_new_tokens=LM_NEW_TOKENS)
+        hs = [eng.submit(prompts[i], max_new_tokens=SCHED_NEW_TOKENS)
               for i in (2, 1, 0)]       # 700 (3 chunks), 300, 37 tokens
         eng.run()
         wd = eng.stats_dict().get("watchdog")
@@ -3242,9 +3273,11 @@ class _RouterLog:
 
         def route(router, x2, cfg):
             out = self._route(router, x2, cfg)
-            logits = torch.matmul(x2.float(), router)
-            self.calls.append((logits, out[2]))
-            self.routes.append(out)
+            with torch.no_grad():
+                logits = torch.matmul(x2.float(), router)
+            # detached: under autograd a kept tensor would keep its graph
+            self.calls.append((logits, out[2].detach()))
+            self.routes.append(tuple(r.detach() for r in out))
             if self._replay is not None:
                 return tuple(r.to(x2.device) for r in
                              self._replay.routes[len(self.calls) - 1])
@@ -4422,7 +4455,8 @@ def _lmt_remat_donation(seed, dev):
 def _lmt_trainer(seed, dev):
     """d. launch/train.Trainer at full width, 6 layers, S 2048, B 1:
     gradual pruning to 0.7 at 16x16 from step 2 to 6, the prox, a fault at
-    step 5 recovered from the step-4 checkpoint."""
+    step 5 recovered from the step-5 checkpoint (the run's one checkpoint
+    before fit's closing save: each 12.4 GB save takes ~20 s of the run)."""
     import dataclasses
 
     import numpy as np
@@ -4442,7 +4476,7 @@ def _lmt_trainer(seed, dev):
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(n_steps=8, ckpt_dir=tmp, seed=seed, log_every=1,
                            opt=AdamWConfig(), prune=True,
-                           ft=FaultToleranceConfig(checkpoint_every=4))
+                           ft=FaultToleranceConfig(checkpoint_every=5))
         inj = FaultInjector(fail_at_steps=(5,))
         tr = Trainer(cfg, tcfg, device=dev, data_cfg=DataConfig(
             seq_len=LMT_SHORT_SEQ, global_batch=1,
@@ -4478,7 +4512,7 @@ def _lmt_trainer(seed, dev):
     report = sparsity_report(state["params"], sp)
     low, high = min(report.values()), max(report.values())
     print(f"[lm_training] d. Trainer: {len(hist)} steps run for 8 (fault at "
-          f"step 5, {restarts} restart from the step-4 checkpoint), wall "
+          f"step 5, {restarts} restart from the step-5 checkpoint), wall "
           f"{wall:.1f} s; loss by step "
           f"{[(s, round(x, 4)) for s, x in hist]}")
     print(f"[lm_training] d. checkpoints: {len(times['save'])} saves of "
@@ -6447,12 +6481,13 @@ def _lmtt_opt(cfg):
 
 def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
                   fault=None, batch=LMT_TP_BATCH, seq=LMT_TP_SEQ,
-                  norms=False):
+                  norms=False, ckpt_every=LMT_TP_CKPT_EVERY,
+                  tag="lm_tp_train"):
     """A Trainer (one device or ``mesh``) that records each step: host
     seconds, the metrics, the mesh's collectives (calls, bytes, host s;
     reset before the step), the masks and, with ``norms``, the pruned
     leaves' whole block norms the masks were scored on (their collectives
-    left out of the step's)."""
+    left out of the step's). Rank 0 prints each step under ``tag``."""
     from repro_torch.core.pruner import whole_block_norms
     from repro_torch.core.tree import flatten_with_path, path_name
     from repro_torch.data.pipeline import DataConfig
@@ -6462,8 +6497,7 @@ def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
     import torch
     tcfg = TrainConfig(n_steps=n_steps, ckpt_dir=ckpt_dir, seed=seed,
                        log_every=1, opt=_lmtt_opt(cfg), prune=True,
-                       ft=FaultToleranceConfig(
-                           checkpoint_every=LMT_TP_CKPT_EVERY))
+                       ft=FaultToleranceConfig(checkpoint_every=ckpt_every))
     inj = FaultInjector(fail_at_steps=(fault,)) if fault is not None \
         else None
     tr = Trainer(cfg, tcfg, device=dev, data_cfg=DataConfig(
@@ -6505,7 +6539,7 @@ def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
         tr.rec.append(r)
         if mesh is not None and mesh.rank == 0:
             c, b, t = _step_stats(r)
-            print(f"[lm_tp_train] rank 0 {tuple(mesh.shape.values())} step "
+            print(f"[{tag}] rank 0 {tuple(mesh.shape.values())} step "
                   f"{step}: {r['s']:.3f} s, loss {r['loss']!r}, grad_norm "
                   f"{r['grad_norm']!r}, {c} collectives, "
                   f"{b / 1e9:.3f} GB, {t:.3f} s in them", flush=True)
@@ -6571,6 +6605,7 @@ def _rank_train_job(job):
     try:
         out = {"lm": _rank_train_lm, "restore": _rank_train_restore,
                "bert": _rank_train_bert, "packed": _rank_train_packed,
+               "family": _rank_train_family,
                "compress": _rank_pc_compress, "pipe": _rank_pipe,
                "pipe_packed": _rank_pipe_packed}[job["what"]](job, mesh,
                                                               dev, say)
@@ -6692,39 +6727,52 @@ def _rank_train_bert(job, mesh, dev, say):
 def _rank_train_packed(job, mesh, dev, say):
     """The dp packed step: the whole packs and params the parent shares
     (CUDA IPC; the step is functional, so they are only read), this rank's
-    rows, K1 / K4 / K5 launches counted a step."""
+    rows, K1 / K4 / K5 launches counted a step. The model is BERT-base or
+    the job's ``cfg`` (with its ``opt``); with ``build`` each rank prunes
+    and packs the model from the seed itself (``_lmtf_packed_servable``)
+    and donates its update."""
     import numpy as np
     import torch
     from repro_torch.launch.sharding import local_rows
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    cfg = _bert_train_cfg()
-    params, packs = job.pop("params"), job.pop("packs")
-    opt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
-                      weight_decay=0.01)
-    step = make_train_step(cfg, opt, packs=packs, mesh=mesh)
+    cfg = job.get("cfg") or _bert_train_cfg()
+    if "build" in job:
+        servable = _lmtf_packed_servable(cfg, job["build"]["seed"], dev)
+        params, packs = servable.params, servable.packs
+        del servable
+    else:
+        params, packs = job.pop("params"), job.pop("packs")
+    opt = job.get("opt") or AdamWConfig(peak_lr=1e-4, warmup_steps=2,
+                                        total_steps=10, weight_decay=0.01)
+    # a rank's own packed state updates in place (the functional update
+    # holds the old and new params and moments at once)
+    step = make_train_step(cfg, opt, packs=packs, mesh=mesh,
+                           donate="build" in job)
     ost = init_opt_state(params, opt)
     counters = _train_counters()
     rec = []
-    for i, batch in enumerate(job["batches"]):
-        rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            dev, torch.int64) for k, v in local_rows(batch, mesh).items()}
-        for fn in counters.values():
-            fn.launches = 0
-        mesh.reset_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, ost, m = step(params, ost, rows)
-        torch.cuda.synchronize()
-        rec.append({"s": time.perf_counter() - t0,
-                    "launches": {n: fn.launches
-                                 for n, fn in counters.items()},
-                    "stats": copy.deepcopy(mesh.stats),
-                    "rows": int(rows["tokens"].shape[0]),
-                    **{k: float(v) for k, v in m.items()}})
+    with _RouterLog() as log:       # a MoE model's routing (rank 0 sends it)
+        for batch in job["batches"]:
+            rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                dev, torch.int64) for k, v in local_rows(batch, mesh).items()}
+            for fn in counters.values():
+                fn.launches = 0
+            mesh.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, ost, m = step(params, ost, rows)
+            torch.cuda.synchronize()
+            rec.append({"s": time.perf_counter() - t0,
+                        "launches": {n: fn.launches
+                                     for n, fn in counters.items()},
+                        "stats": copy.deepcopy(mesh.stats),
+                        "rows": int(rows["tokens"].shape[0]),
+                        **{k: float(v) for k, v in m.items()}})
     say(f"{len(rec)} packed steps")
     del params, ost
-    return {"rec": rec}
+    return {"rec": rec, "routing": log.to_host()
+            if mesh.rank == 0 and log.calls else None}
 
 
 def _step_stats(rec):
@@ -7096,6 +7144,541 @@ def phase_lm_tp_train(seed: int, card: str):
         finally:
             ranks.close()
     print(f"[lm_tp_train] summary {json.dumps(rec, default=str)}")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4h2: lm_tp_train_families -- the vlm and MoE families' training on
+# a mesh (ranks share the card)
+# --------------------------------------------------------------------------
+
+#: layers of each model (full width): deepseek_v2_lite's dense first layer
+#: and 3 MoE periods, qwen3_moe's first layer (its 128 experts 64 a model
+#: rank over (2, 2)), pixtral_12b's first 4
+LMTF_LAYERS = {"deepseek_v2_lite_16b": 4, "qwen3_moe_235b_a22b": 1,
+               "pixtral_12b": 4}
+LMTF_BATCH, LMTF_SEQ = 4, 512
+#: deepseek_v2_lite's (partition, mesh shape, steps, through fit with a
+#: fault): the tp+dp run (experts cut over "model", their ``a`` dim over
+#: "data") checkpoints every 2 steps and takes a fault at step 2 (one
+#: restart a rank); the others run the Trainer's step alone (a fault run
+#: more costs ~50 s of 13.5 GB checkpoint I/O: two saves and a restore)
+LMTF_DS_PARTS = (("dp", (4, 1), 3, False), ("tp+dp", (2, 2), 3, True),
+                 ("tp", (1, 4), 2, False))
+LMTF_FAULT = LMTF_CKPT_EVERY = 2
+#: the fp32 copy (deepseek_v2_lite's dense layer and one MoE period over
+#: (2, 2)), qwen3_moe over (2, 2), pixtral_12b over (1, 4): 2 steps each
+LMTF_FP32_LAYERS, LMTF_STEPS = 2, 2
+LMTF_PACKED_STEPS = 2
+#: the packed step: the dense first layer and one MoE period (every rank
+#: holds the whole state: 4 layers took the card's 80 GB), in fp32 -- the
+#: 1e-4 bar against one device tells a wrong partition from rounding only
+#: where rounding is fp32's (each rank rounds its bf16 gradients before
+#: the sum over "data": ~1e-4 of grad_norm in bf16)
+LMTF_PACKED_LAYERS = 2
+#: 64 x 64 tiles: the dense layer's FFN width (10,944) is no multiple of 128
+LMTF_PACK_SPEC = dict(tile=(64, 64), sparsity=0.8, prune="tied",
+                      fuse_qkv=True, cross_layer_union=True,
+                      backend="plan_pallas",
+                      targets=("attn/wq", "attn/wo", "ffn/wi", "ffn/wg",
+                               "ffn/wo"))
+#: the vlm step's batch: pipeline tokens with random patch embeddings
+#: (pixtral_12b's 256 patches) in their first positions
+LMTF_MM_BATCH = 100
+
+
+def _lmtf_cfg(name, dtype="bfloat16", layers=None):
+    import dataclasses
+    return dataclasses.replace(_family_config(name, layers or
+                                              LMTF_LAYERS[name]),
+                               dtype=dtype)
+
+
+class _TrainReplay:
+    """``models.moe.route`` taking another run's expert choices (a
+    ``_RouterLog.to_host()`` log): each call keeps the logged top-k
+    indices and dispatch and computes the router probabilities and gates
+    from this run's own router, so gradients flow as without it -- one
+    device replaying a mesh's routing."""
+
+    def __init__(self, log):
+        from repro_torch.models import moe
+        self.moe, self.log, self.n = moe, log, 0
+        self._route = moe.route
+
+    def __enter__(self):
+        import torch
+
+        def route(router, x2, cfg):
+            probs = torch.softmax(torch.matmul(x2.float(), router), dim=-1)
+            _, _, idx, sorted_e, order, pos = (
+                r.to(x2.device) for r in self.log.routes[self.n])
+            self.n += 1
+            gate = torch.gather(probs, 1, idx)
+            return (probs, gate / gate.sum(dim=-1, keepdim=True), idx,
+                    sorted_e, order, pos)
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+
+
+def _lmtf_batch(cfg, seed):
+    """The vlm step's global batch (host arrays): pipeline tokens and
+    labels, and seeded N(0, 1) patch embeddings for the first
+    ``n_patches`` positions."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    pipe = DataPipeline(DataConfig(seq_len=LMTF_SEQ, global_batch=LMTF_BATCH,
+                                   vocab_size=cfg.vocab_size))
+    batch = dict(pipe.batch_at(LMTF_MM_BATCH))
+    pipe.close()
+    batch["mm_embeds"] = np.random.RandomState(seed).standard_normal(
+        (LMTF_BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _lmtf_packed_servable(cfg, seed, dev):
+    """``cfg``'s seeded weights pruned and packed by LMTF_PACK_SPEC (the
+    same on the parent and on every rank)."""
+    from repro_torch.models.api import init_model
+    from repro_torch.serving import ServingSpec, prepare_servable
+    params = init_model(seed, cfg, device=dev)
+    return prepare_servable(params, cfg, ServingSpec(**LMTF_PACK_SPEC),
+                            device=dev)
+
+
+def _lmtf_mm_step(cfg, params, batch, dev, mesh=None):
+    """One ``make_train_step`` step (functional; on ``mesh``, this rank's
+    rows) on ``batch`` with patch embeddings -> its metrics."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.sharding import local_rows
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import init_opt_state
+    opt = _lmtt_opt(cfg)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    rows = local_rows(batch, mesh) if mesh is not None else batch
+    b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        dev, cfg.tdtype if k == "mm_embeds" else torch.int64)
+        for k, v in rows.items()}
+    _, _, m = step(params, init_opt_state(params, opt), b)
+    return {k: float(v) for k, v in m.items()}
+
+
+def _lmtf_reference(cfg, steps, seed, dev, tmp, replay=None, mm=None):
+    """One device's Trainer steps (no checkpoint) with the routing logged,
+    or replaying ``replay``'s expert choices; with ``mm`` (a batch) also
+    one ``make_train_step`` step with patch embeddings from the initial
+    params. Freed before it returns."""
+    import gc
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    tr = _lmtt_trainer(cfg, tmp, seed, steps, dev,
+                       tag="lm_tp_train_families")
+    ctx = _TrainReplay(replay) if replay is not None else _RouterLog()
+    with ctx as log:
+        state = _lmtt_run(tr, steps)
+    out = {"rec": [{k: v for k, v in r.items() if k != "masks"}
+                   for r in tr.rec],
+           "log": log.to_host() if replay is None else None,
+           "bytes": _state_bytes(state)}
+    del state
+    if mm is not None:
+        out["mm"] = _lmtf_mm_step(cfg, tr.init_state()["params"], mm, dev)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_train_family(job, mesh, dev, say):
+    """A rank's mesh Trainer run of a vlm / MoE model: ``fit`` with a
+    checkpoint and a fault, or the bare step loop, its routing logged
+    (rank 0 sends the log back); with ``mm`` (a batch) then one
+    ``make_train_step(mesh=)`` step with patch embeddings from the
+    initial params."""
+    import torch
+    from repro_torch.core.tree import norm_path
+    from repro_torch.models.common import ExpertShard
+    from repro_torch.serving.servable import _routed_expert
+    cfg = _lmtf_cfg(job["model"], job["dtype"], job.get("layers"))
+    tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
+                       mesh, job.get("fault"), ckpt_every=LMTF_CKPT_EVERY,
+                       tag="lm_tp_train_families")
+    for fn in _train_counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with _RouterLog() as log:
+        if job.get("fit"):
+            state, _ = tr.fit(resume=False)
+            restarts = tr.supervisor.restarts
+        else:
+            state, restarts = _lmtt_run(tr, job["steps"]), 0
+    wall = time.perf_counter() - t0
+    say(f"{len(tr.rec)} steps run, {restarts} restarts, {wall:.1f} s")
+    out = {"rec": [{k: v for k, v in r.items() if k != "masks"}
+                   for r in tr.rec], "restarts": restarts, "wall": wall,
+           "launches": {n: fn.launches
+                        for n, fn in _train_counters().items()},
+           "bytes": _state_bytes(state),
+           "experts": {n: tuple(x.shape) for n, x in
+                       _named_leaves(state["params"])
+                       if _routed_expert(norm_path(n), x.dim())},
+           "whole_paths": len(tr.plan.whole_paths),
+           "shards": {k: (v.sharded, v.gather_rows, v.fsdp) for k, v in
+                      tr.plan.packs.items() if isinstance(v, ExpertShard)},
+           "heads": sorted(k for k in tr.plan.packs if k.endswith("/heads")),
+           "step": int(state["opt"]["step"]),
+           "fired": sorted(tr.injector_.fired) if tr.injector_ else [],
+           "io": tr.io,
+           "routing": log.to_host() if mesh.rank == 0 else None}
+    del state
+    if job.get("mm") is not None:
+        mesh.reset_stats()
+        out["mm"] = _lmtf_mm_step(cfg, tr.init_state()["params"], job["mm"],
+                                  dev, mesh)
+        out["mm_collectives"] = sum(v["calls"] for v in mesh.stats.values())
+    del tr
+    torch.cuda.synchronize()
+    return out
+
+
+def _lmtf_agree(tag, res, ref, dtype, cfg, steps, seed, dev, tmp):
+    """A mesh run's per-step loss and grad_norm against one device's: equal
+    on every rank, and within TOL_MESH_TRAIN[dtype] of one device's run
+    -- or, where a token's experts differ between the two runs (each such
+    assignment a near-tie, printed with its router margin), of one device
+    replaying the mesh's routing. Returns the worst relative gaps and the
+    flips' margins."""
+    import types
+    n = len(res[0]["routing"].calls)
+    one = types.SimpleNamespace(calls=ref["log"].calls[:n],
+                                routes=ref["log"].routes[:n])
+    margins = []
+    if n:
+        margins = _routing_flips(tag, res[0]["routing"], one, cfg.top_k,
+                                 "the mesh vs one device")
+    if not margins:
+        return _lmtt_compare(tag, res, ref["rec"], dtype), margins
+    print(f"{tag}: {len(margins)} routed tokens' expert sets differ from "
+          f"one device's over the routing calls (forward and remat "
+          f"recompute); the largest router margins "
+          f"{sorted(float(f'{m:.3e}') for m in margins)[-5:]}; one device "
+          f"replays the mesh's routing")
+    try:
+        _lmtt_compare(f"{tag} (against one device's own routing, not held)",
+                      res, ref["rec"], dtype)
+    except PhaseError as e:
+        print(f"{tag}: {e}")
+    replayed = _lmtf_reference(cfg, steps, seed, dev, tmp,
+                               replay=res[0]["routing"])
+    return (_lmtt_compare(f"{tag} (against one device replaying the "
+                          f"mesh's routing)", res, replayed["rec"], dtype),
+            margins)
+
+
+def _lmtf_report(tag, res, steps, fault=None):
+    """Every rank ran ``steps`` steps (one restart where a fault was
+    injected) and launched no kernel; its expert shards and collectives a
+    step printed."""
+    for r, rank in enumerate(res):
+        check(rank["restarts"] == (1 if fault else 0) and rank["fired"] ==
+              ([fault] if fault else []), f"{tag} rank {r}: "
+              f"{rank['restarts']} restarts, faults fired {rank['fired']}")
+        check(rank["step"] == steps, f"{tag} rank {r}: optimizer step "
+              f"{rank['step']}")
+        check(all(v == 0 for v in rank["launches"].values()),
+              f"{tag} rank {r}: a dense step launched {rank['launches']}")
+    print(f"{tag}: steps run {[x['step'] for x in res[0]['rec']]} "
+          f"({res[0]['restarts']} restart), {res[0]['wall']:.1f} s; "
+          f"checkpoint saves / restores / waits (rank 0, s) "
+          f"{[(k, round(t, 2)) for k, t in res[0]['io']]}")
+    for r, rank in enumerate(res):
+        print(f"{tag} rank {r} {rank['coord']}: expert shards "
+              f"{rank['experts']}; ExpertShards (sharded, rows gathered, "
+              f"fsdp) {rank['shards']}; head shards {rank['heads']}; "
+              f"{rank['whole_paths']} leaves gathered whole")
+    _print_rank_steps(tag, res)
+
+
+def phase_lm_tp_train_families(seed: int, card: str):
+    """The vlm and MoE families' training on a mesh: four processes
+    sharing the card, their collectives through CUDA IPC staging buffers
+    (as lm_tp_train). One device's references first, each freed. a.
+    deepseek_v2_lite_16b (MLA + MoE) at full width, 4 layers, B 4 x S 512
+    over tp+dp (2, 2) through ``Trainer.fit`` for 3 steps (a checkpoint at
+    2, a fault at 2: one restart a rank), dp (4, 1) for 3 steps and tp
+    (1, 4) for 2; an fp32 copy at
+    2 layers over (2, 2). b. qwen3_moe 1 layer over tp+dp (2, 2), 64 of
+    its 128 experts a model rank. c. pixtral_12b 4 layers over tp (1, 4),
+    then one make_train_step(mesh=) step with patch embeddings. Every
+    step's loss and grad_norm equal on every rank and within 1e-3 (bf16)
+    / 1e-5 (fp32) of one device's, the routing differences printed with
+    their margins (one device replays the mesh's routing where any
+    differ). d. deepseek at 2 layers in fp32 pruned and packed
+    ('plan_pallas'), 2 packed steps over dp (4, 1): the MoE routes the
+    global batch, K1 / K4 / K5 launched as the packs predict, against one
+    device's packed step (1e-4; one device replays the mesh's routing
+    where any token's experts differ).
+    Returns the packed steps' launches."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "[lm_tp_train_families]"
+    ds = _lmtf_cfg("deepseek_v2_lite_16b")
+    qw = _lmtf_cfg("qwen3_moe_235b_a22b")
+    px = _lmtf_cfg("pixtral_12b")
+    ds32 = _lmtf_cfg("deepseek_v2_lite_16b", "float32", LMTF_FP32_LAYERS)
+    print(f"{name} {card}; full width, B {LMTF_BATCH} x S {LMTF_SEQ}: "
+          f"{ds.arch} {ds.n_layers} layers ({ds.n_experts} experts, top "
+          f"{ds.top_k}), {qw.arch} {qw.n_layers} layer ({qw.n_experts} "
+          f"experts, top {qw.top_k}), {px.arch} {px.n_layers} layers; 4 "
+          f"ranks share the card, their collectives through CUDA IPC "
+          f"staging buffers, so their times say nothing of the mesh's speed")
+    rec = {}
+    marks = [time.perf_counter()]
+
+    def part(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"{name} {what}: {marks[-1] - marks[-2]:.1f} s")
+
+    mm = _lmtf_batch(px, seed)
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, cfg, steps, batch in (("ds", ds, 3, None),
+                                       ("ds32", ds32, LMTF_STEPS, None),
+                                       ("qw", qw, LMTF_STEPS, None),
+                                       ("px", px, LMTF_STEPS, mm)):
+            refs[key] = _lmtf_reference(cfg, steps, seed, dev, tmp, mm=batch)
+            r = refs[key]
+            print(f"{name} one device {cfg.arch} ({cfg.dtype}, "
+                  f"{cfg.n_layers} layers): loss "
+                  f"{[x['loss'] for x in r['rec']]}, grad_norm "
+                  f"{[x['grad_norm'] for x in r['rec']]}, aux "
+                  f"{[x['aux'] for x in r['rec']]}, host s a step "
+                  f"{[round(x['s'], 3) for x in r['rec']]}; state "
+                  f"{ {k: round(v / 1e9, 3) for k, v in r['bytes'].items()} }"
+                  f" GB, peak {r['peak_gib']:.2f} GiB"
+                  + (f"; vlm step {r['mm']}" if "mm" in r else ""))
+        # d.'s packs: deepseek's initial weights pruned and packed, each
+        # rank building its own (every rank holds the whole state, so the
+        # parent frees its copy before they run)
+        dsp = _lmtf_cfg("deepseek_v2_lite_16b", "float32",
+                        LMTF_PACKED_LAYERS)
+        pipe = DataPipeline(DataConfig(seq_len=LMTF_SEQ,
+                                       global_batch=LMTF_BATCH,
+                                       vocab_size=dsp.vocab_size))
+        batches = [pipe.batch_at(200 + i) for i in range(LMTF_PACKED_STEPS)]
+        pipe.close()
+        popt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                           weight_decay=0.01, state_dtype="bfloat16")
+
+        def packed_ref(replay=None):
+            """One device's packed steps on the whole batches: (the packs'
+            keys, metrics a step, the routing log), or replaying
+            ``replay``'s routing."""
+            servable = _lmtf_packed_servable(dsp, seed, dev)
+            step = make_train_step(dsp, popt, packs=servable.packs)
+            p, hist = servable.params, []
+            ost = init_opt_state(p, popt)
+            with (_TrainReplay(replay) if replay is not None
+                  else _RouterLog()) as log:
+                for b in batches:
+                    p, ost, m = step(p, ost, {k: torch.from_numpy(v).to(
+                        dev, torch.int64) for k, v in b.items()})
+                    hist.append({k: float(v) for k, v in m.items()})
+            return (sorted(servable.packs), hist,
+                    log.to_host() if replay is None else None)
+        packs, one_packed, one_packed_log = packed_ref()
+        n_per = dsp.layer_plan()[2]
+        k1 = sum(2 * n_per if k.startswith("blocks/") else 1 for k in packs)
+        k45 = sum(n_per if k.startswith("blocks/") else 1 for k in packs)
+        print(f"{name} one device packed {dsp.arch} ({dsp.n_layers} "
+              f"layers, {dsp.dtype}): {packs}; loss "
+              f"{[x['loss'] for x in one_packed]}, grad_norm "
+              f"{[x['grad_norm'] for x in one_packed]}")
+        part("one-device references")
+
+        counts = dict.fromkeys(_train_counters(), 0)
+        print(f"{name} the parent holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as the "
+              f"ranks start")
+        ranks = _Ranks(4, tmp)
+        try:
+            # d. the packed dp step of deepseek_v2_lite, first: every rank
+            # holds the whole state, on ranks that hold nothing else yet
+            res = ranks.run({"name": "packed dp (4, 1)", "kind": "train",
+                             "what": "packed", "shape": (4, 1),
+                             "phase": "lm_tp_train_families",
+                             "build": {"seed": seed}, "batches": batches,
+                             "cfg": dsp, "opt": popt})
+            tag = f"{name} d. packed deepseek_v2_lite dp (4, 1)"
+            want = dict.fromkeys(counts, 0)
+            want.update(plan_dds=k1, plan_dds_t=k45, plan_sddmm=k45)
+            for r, rank in enumerate(res):
+                for i, x in enumerate(rank["rec"]):
+                    check(x["launches"] == want, f"{tag} rank {r} step {i}: "
+                          f"launches {x['launches']}, the packs predict "
+                          f"{want}")
+                    check(x["rows"] == LMTF_BATCH // 4,
+                          f"{tag}: rank {r} ran {x['rows']} rows")
+                    for k in counts:
+                        counts[k] += x["launches"][k]
+            margins = _routing_flips(tag, res[0]["routing"], one_packed_log,
+                                     dsp.top_k, "the mesh vs one device")
+            if margins:
+                print(f"{tag}: {len(margins)} routed tokens' expert sets "
+                      f"differ from one device's (the largest router "
+                      f"margins {sorted(float(f'{m:.3e}') for m in margins)[-5:]}"
+                      f"); held against one device replaying the mesh's "
+                      f"routing, its own routing's "
+                      f"{[(x['loss'], x['grad_norm']) for x in one_packed]}")
+                _, one_packed, _ = packed_ref(res[0]["routing"])
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for i, w in enumerate(one_packed):
+                first = res[0]["rec"][i]
+                for r, rank in enumerate(res):
+                    for k in worst:
+                        check(rank["rec"][i][k] == first[k], f"{tag}: step "
+                              f"{i} {k} differs between ranks 0 and {r}")
+                for k in worst:
+                    rel = abs(first[k] - w[k]) / abs(w[k])
+                    worst[k] = max(worst[k], rel)
+                    check(rel <= TOL_PACKED_STEP, f"{tag}: step {i} {k} "
+                          f"{first[k]!r} against one device's {w[k]!r}")
+            for r, rank in enumerate(res):
+                print(f"{tag} rank {r}: K1 / K4 / K5 launches a step "
+                      f"{[(x['launches']['plan_dds'], x['launches']['plan_dds_t'], x['launches']['plan_sddmm']) for x in rank['rec']]}")
+            print(f"{tag}: {len(packs)} packs ({k1} K1, {k45} K4, {k45} K5 "
+                  f"a rank a step: the prefix's once, each of the {n_per} "
+                  f"periods' K1 twice under remat); loss "
+                  f"{[x['loss'] for x in res[0]['rec']]} against one "
+                  f"device's {[x['loss'] for x in one_packed]}: "
+                  f"{worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} "
+                  f"relative (bar {TOL_PACKED_STEP})")
+            _print_rank_steps(tag, res)
+            rec["packed"] = {"worst": worst, "launches": want,
+                             "flips": len(margins)}
+            part("d. packed deepseek_v2_lite")
+            # a. deepseek_v2_lite over dp, tp+dp, tp; the fp32 copy
+            for part_name, shape, steps, fit in LMTF_DS_PARTS:
+                fault = LMTF_FAULT if fit else None
+                ckpt = os.path.join(tmp, "ds_" + part_name)
+                res = ranks.run({
+                    "name": f"deepseek {part_name}", "kind": "train",
+                    "what": "family", "phase": "lm_tp_train_families",
+                    "model": "deepseek_v2_lite_16b",
+                    "dtype": "bfloat16", "shape": shape, "steps": steps,
+                    "seed": seed, "ckpt_dir": ckpt, "fault": fault,
+                    "fit": fault is not None})
+                shutil.rmtree(ckpt, ignore_errors=True)
+                tag = f"{name} a. deepseek_v2_lite {part_name} {shape}"
+                _lmtf_report(tag, res, steps, fault)
+                for r, rank in enumerate(res):
+                    for path, local in rank["experts"].items():
+                        check(local[-3] == ds.n_experts // shape[1],
+                              f"{tag} rank {r}: {path} holds {local}")
+                worst, margins = _lmtf_agree(tag, res, refs["ds"],
+                                             "bfloat16", ds, steps, seed,
+                                             dev, tmp)
+                print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}, "
+                      f"aux {[x['aux'] for x in res[0]['rec']]}; against "
+                      f"one device: loss {worst['loss']:.3e}, grad_norm "
+                      f"{worst['grad_norm']:.3e} relative (bar "
+                      f"{TOL_MESH_TRAIN['bfloat16']}); "
+                      f"{len(margins)} routing differences")
+                rec[f"ds {part_name}"] = {
+                    "worst": worst, "flips": len(margins),
+                    "peak_gib": [x["peak_gib"] for x in res],
+                    "steps": [_step_stats(x) for x in res[0]["rec"]]}
+            res = ranks.run({
+                "name": "deepseek fp32", "kind": "train", "what": "family",
+                "phase": "lm_tp_train_families",
+                "model": "deepseek_v2_lite_16b", "dtype": "float32",
+                "layers": LMTF_FP32_LAYERS, "shape": (2, 2),
+                "steps": LMTF_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "ds32")})
+            tag = f"{name} a. fp32 copy deepseek_v2_lite tp+dp (2, 2)"
+            _lmtf_report(tag, res, LMTF_STEPS)
+            worst, margins = _lmtf_agree(tag, res, refs["ds32"], "float32",
+                                         ds32, LMTF_STEPS, seed, dev, tmp)
+            print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}, "
+                  f"grad_norm {[x['grad_norm'] for x in res[0]['rec']]}; "
+                  f"against one device: loss {worst['loss']:.3e}, "
+                  f"grad_norm {worst['grad_norm']:.3e} relative (bar "
+                  f"{TOL_MESH_TRAIN['float32']})")
+            rec["ds fp32"] = {"worst": worst, "flips": len(margins)}
+            part("a. deepseek_v2_lite")
+
+            # b. qwen3_moe over tp+dp
+            res = ranks.run({
+                "name": "qwen3_moe tp+dp", "kind": "train",
+                "what": "family", "phase": "lm_tp_train_families",
+                "model": "qwen3_moe_235b_a22b", "dtype": "bfloat16",
+                "shape": (2, 2), "steps": LMTF_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "qw")})
+            tag = f"{name} b. qwen3_moe tp+dp (2, 2)"
+            _lmtf_report(tag, res, LMTF_STEPS)
+            for r, rank in enumerate(res):
+                for path, local in rank["experts"].items():
+                    check(local[-3] == qw.n_experts // 2,
+                          f"{tag} rank {r}: {path} holds {local}")
+            worst, margins = _lmtf_agree(tag, res, refs["qw"], "bfloat16",
+                                         qw, LMTF_STEPS, seed, dev, tmp)
+            print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}; "
+                  f"against one device: loss {worst['loss']:.3e}, "
+                  f"grad_norm {worst['grad_norm']:.3e} relative; "
+                  f"{len(margins)} routing differences")
+            rec["qwen3 tp+dp"] = {"worst": worst, "flips": len(margins),
+                                  "peak_gib": [x["peak_gib"] for x in res]}
+            part("b. qwen3_moe")
+
+            # c. pixtral over tp, then the vlm step with patch embeddings
+            res = ranks.run({
+                "name": "pixtral tp", "kind": "train", "what": "family",
+                "phase": "lm_tp_train_families", "model": "pixtral_12b",
+                "dtype": "bfloat16", "shape": (1, 4), "steps": LMTF_STEPS,
+                "seed": seed, "ckpt_dir": os.path.join(tmp, "px"),
+                "mm": mm})
+            tag = f"{name} c. pixtral_12b tp (1, 4)"
+            _lmtf_report(tag, res, LMTF_STEPS)
+            worst = _lmtt_compare(tag, res, refs["px"]["rec"], "bfloat16")
+            want = refs["px"]["mm"]
+            vlm = {}
+            for k in ("loss", "grad_norm"):
+                for r, rank in enumerate(res):
+                    check(rank["mm"][k] == res[0]["mm"][k],
+                          f"{tag}: the vlm step's {k} differs between ranks "
+                          f"0 and {r}")
+                vlm[k] = abs(res[0]["mm"][k] - want[k]) / abs(want[k])
+                check(vlm[k] <= TOL_MESH_TRAIN["bfloat16"],
+                      f"{tag}: the vlm step's {k} {res[0]['mm'][k]!r} "
+                      f"against one device's {want[k]!r}")
+            print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}; "
+                  f"against one device: loss {worst['loss']:.3e}, grad_norm "
+                  f"{worst['grad_norm']:.3e} relative; the vlm step "
+                  f"({mm['mm_embeds'].shape[1]} patch embeddings) loss "
+                  f"{res[0]['mm']['loss']!r}, grad_norm "
+                  f"{res[0]['mm']['grad_norm']!r}, against one device "
+                  f"{vlm['loss']:.3e} / {vlm['grad_norm']:.3e} relative, "
+                  f"{res[0]['mm_collectives']} collectives a rank")
+            rec["pixtral tp"] = {"worst": worst, "vlm": vlm}
+            part("c. pixtral_12b")
+
+        finally:
+            ranks.close()
+    print(f"{name} summary {json.dumps(rec, default=str)}")
     return counts
 
 
@@ -7821,7 +8404,8 @@ def main() -> int:
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
-                            "lm_pipe_compress,training")
+                            "lm_tp_train_families,lm_pipe_compress,"
+                            "training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -7926,6 +8510,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_tp_train"] = phase_lm_tp_train(args.seed, card)
             done("lm_tp_train")
+        if "lm_tp_train_families" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp_train_families"] = phase_lm_tp_train_families(
+                args.seed, card)
+            done("lm_tp_train_families")
         if "lm_pipe_compress" in phases:
             import gc
             gc.collect()

@@ -15,6 +15,7 @@ keep the process group's transport.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict
 
@@ -33,9 +34,13 @@ class SharedStaging:
     buffer goes in chunks. Sums run in group-rank order, the same on every
     rank, so every rank holds the same bits. Tensors of the other kind (a
     CPU tensor on 'cuda') go through ``fallback``, the transport it
-    replaced."""
+    replaced. Each staging maps files of its own ('host'): a rank that
+    moves on to another mesh, whose staging opens its buffers, must not
+    truncate one a slower peer is still reading (no barrier separates
+    the last collective of one mesh from the first of the next)."""
 
     CHUNK_BYTES = 128 << 20
+    _serial = itertools.count()
 
     def __init__(self, mesh, kind: str, directory: str = None,
                  chunk_bytes: int = None):
@@ -48,6 +53,7 @@ class SharedStaging:
         self.chunk = int(chunk_bytes or self.CHUNK_BYTES) // 16 * 16
         self._bufs: Dict[str, list] = {}
         self._turn: Dict[str, int] = {}
+        self._id = next(SharedStaging._serial)
 
     def _takes(self, x: torch.Tensor) -> bool:
         return x.is_cuda if self.kind == "cuda" else x.device.type == "cpu"
@@ -68,7 +74,7 @@ class SharedStaging:
                      for i, a in enumerate(handles)]
         else:
             path = os.path.join(self.dir, f"stage_{self.mesh.rank}_{axis}_"
-                                          f"{parity}")
+                                          f"{parity}_{self._id}")
             with open(path, "wb") as f:
                 f.truncate(self.chunk)
             mine = torch.from_file(path, shared=True, size=self.chunk,

@@ -55,7 +55,8 @@ def make_loss_fn(cfg: ModelConfig, packs=None, mesh_plan=None):
     shard object consumes are gathered whole first, the loss is
     vocabulary-parallel where the head is cut, and the reported penalty
     is the whole model's."""
-    run_packs = packs or (mesh_plan.packs if mesh_plan else None) or None
+    run_packs = dict(packs or {}, **(mesh_plan.packs if mesh_plan else {})
+                     ) or None
 
     def loss_fn(params, batch):
         local = params
@@ -84,15 +85,22 @@ class MeshPlan:
     """How a train step runs this rank's part of the model on a
     ``launch.mesh.ProcessMesh``: the spec of every param leaf
     (``spec_for_param`` in train mode: TP over "model" + FSDP over
-    "data"), the shard objects the layers run with (``packs``:
+    "data" + EP), the shard objects the layers run with (``packs``:
     ``common.DenseShard(train=True)`` for every cut linear weight and
-    table, ``common.HeadShard`` where the KV heads divide "model") and
+    table, ``common.HeadShard`` where the KV heads -- an MLA layer's
+    query heads -- divide "model", ``common.ExpertShard(train=True)`` for
+    a MoE layer whose experts "model" cuts or whose rows "data" cuts) and
     the leaves no shard object consumes (e.g. a layer-stacked norm scale
-    the rule cuts), gathered whole before the forward (``whole``).
+    the rule cuts), gathered whole before the forward (``whole``). A
+    routed-expert leaf is never gathered whole: a rank holds its E/m
+    experts, whole along ``a`` only while its layer runs.
 
-    ``replicated``: every leaf whole on every rank (``specs`` None), no
-    shard object -- the dp packed step, whose params and packs every rank
-    holds whole."""
+    ``replicated``: every leaf whole on every rank (``specs`` None) -- the
+    dp packed step, whose params and packs every rank holds whole. On a
+    data mesh its only shard objects are the embedding's (a
+    ``DenseShard(None, train=True)``: the table's gradient accumulates the
+    whole batch's rows in one device's order, ``common._BatchRows``) and
+    each MoE layer's row gather (the global batch's routing)."""
 
     def __init__(self, cfg: ModelConfig, mesh, replicated: bool = False):
         from repro_torch.launch.sharding import param_shardings
@@ -101,6 +109,10 @@ class MeshPlan:
         self.packs, self.whole_paths, self.vocab_mesh = {}, set(), None
         self.shapes = self.specs = None
         if replicated:
+            from repro_torch.models.common import DenseShard
+            if mesh.shape.get("data", 1) > 1:
+                self.packs["embed"] = DenseShard(None, mesh, train=True)
+            self._experts(cfg, {})
             return
         self.shapes = param_shapes(cfg)
         self.specs = param_shardings(self.shapes, mesh, "train")
@@ -110,15 +122,20 @@ class MeshPlan:
         from repro_torch.core.tree import (at_path, flatten_with_path,
                                            norm_path, path_name)
         from repro_torch.models.common import DenseShard, HeadShard
-        from repro_torch.serving.servable import _layer_scopes
+        from repro_torch.serving.servable import (_layer_scopes,
+                                                  _routed_expert)
         mesh, m = self.mesh, self.mesh.shape.get("model", 1)
         sizes = dict(mesh.shape)
+        experts = {}
         for path, leaf in flatten_with_path(shapes):
             spec = at_path(self.specs, path)
+            name = norm_path(path_name(path))
+            if _routed_expert(name, leaf.dim()):
+                experts[name] = spec
+                continue
             cut = [e for e in spec if e is not None and sizes[e] > 1]
             if not cut:
                 continue
-            name = norm_path(path_name(path))
             linear = (name.endswith("/w") and leaf.dim() >= 2) \
                 or name == "pos"
             if not linear or any(e is not None for e in spec[:-2]):
@@ -135,10 +152,39 @@ class MeshPlan:
                     and cfg.n_kv_heads % m == 0:
                 self.packs[f"{scope}/attn/heads"] = HeadShard(
                     mesh, cfg.n_kv_heads)
+            wq, wo = (self.packs.get(f"{scope}/attn/{n}") for n in
+                      ("wq", "wo"))
+            if kind.mixer == "mla" and m > 1 and cfg.n_heads % m == 0 \
+                    and getattr(wq, "axis", None) == "out" \
+                    and getattr(wo, "axis", None) == "in":
+                self.packs[f"{scope}/attn/heads"] = HeadShard(
+                    mesh, cfg.n_heads)
+        self._experts(cfg, experts)
         head = self.packs.get("embed" if cfg.tie_embeddings
                               or cfg.family == "bert" else "lm_head")
         if head is not None and head.axis == "out":
             self.vocab_mesh = mesh
+
+    def _experts(self, cfg, specs):
+        """An ``ExpertShard(train=True)`` for every MoE layer whose experts
+        "model" cuts (``specs``: {name: spec} of the routed-expert leaves;
+        empty when every leaf is whole) or whose rows "data" cuts."""
+        from repro_torch.models.common import ExpertShard
+        from repro_torch.serving.servable import _layer_scopes
+        m, d = self.mesh.shape.get("model", 1), self.mesh.shape.get("data", 1)
+        for scope, kind in _layer_scopes(cfg):
+            if kind.ffn != "moe":
+                continue
+            wi = specs.get(f"{scope}/ffn/wi")
+            sharded = m > 1 and wi is not None and wi[-3] == "model"
+            if not (sharded or d > 1):
+                continue
+            fsdp = tuple(n for n in ("wi", "wg", "wo") if d > 1
+                         and specs[f"{scope}/ffn/{n}"][-2] == "data") \
+                if wi is not None else ()
+            self.packs[f"{scope}/ffn/experts"] = ExpertShard(
+                self.mesh, cfg.n_experts, sharded, gather_rows=d > 1,
+                train=True, fsdp=fsdp)
 
     def cut(self, path, x, period=None):
         """This rank's part of the whole leaf ``x`` at ``path`` or, with

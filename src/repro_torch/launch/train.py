@@ -9,16 +9,21 @@ is BERT's: an LM trains from the same ``tokens`` / ``labels`` batches.
 
 ``device`` (None = the CUDA card) places one device's run. ``mesh`` (a
 ``launch.mesh.ProcessMesh``; one process per mesh position, every rank
-building its own Trainer) trains the dense LM family and BERT as the
-reference's Trainer does on a mesh: each rank holds its shard of every
-param and AdamW leaf under the train-mode rules (TP over "model", FSDP
-over "data"), takes its rows of one device's global batch, and the step
-computes one device's step up to the order of fp32 sums. The block masks
-are whole on every rank. Checkpoints hold whole leaves (rank 0 writes)
-and restore onto any mesh shape or one device. A ``FaultInjector`` fault
-fails the step on every rank and every rank restores; a rank that dies
-alone ends the job when its peers' next collective times out (the
-process group's timeout) -- recovering from that is not done here.
+building its own Trainer) trains the dense LM family, BERT, the vlm and
+the MoE families as the reference's Trainer does on a mesh: each rank
+holds its shard of every param and AdamW leaf under the train-mode rules
+(TP over "model", FSDP over "data", routed experts' E over "model"),
+takes its rows of one device's global batch, and the step computes one
+device's step up to the order of fp32 sums (a MoE layer routes the
+global batch: ``common.ExpertShard``). The Trainer's batches are
+``tokens`` / ``labels``, as the data pipeline gives them; a vlm step with
+``mm_embeds`` goes through ``launch.steps.make_train_step(mesh=)``. The
+block masks are whole on every rank. Checkpoints hold whole leaves (rank
+0 writes) and restore onto any mesh shape or one device. A
+``FaultInjector`` fault fails the step on every rank and every rank
+restores; a rank that dies alone ends the job when its peers' next
+collective times out (the process group's timeout) -- recovering from
+that is not done here.
 """
 from __future__ import annotations
 
@@ -68,7 +73,7 @@ def _dtype_tree(tree):
 
 
 #: the families a mesh Trainer trains
-MESH_FAMILIES = ("dense", "bert")
+MESH_FAMILIES = ("dense", "bert", "vlm", "moe")
 
 
 class Trainer:
@@ -84,7 +89,7 @@ class Trainer:
                 raise ValueError(
                     f"a mesh Trainer trains the {MESH_FAMILIES} families; "
                     f"{cfg.family!r} on a mesh is ROADMAP Queue 1 item 8 "
-                    f"part 5")
+                    f"part 5b")
             if self.data_cfg.n_hosts != 1:
                 raise ValueError(
                     "a mesh Trainer takes each rank's rows of one global "

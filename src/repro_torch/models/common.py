@@ -292,14 +292,32 @@ class ExpertShard:
     the rank holds experts ``[s E/m, (s+1) E/m)`` (the routed-expert
     tensors' E axis over "model"), runs its expert products on them alone
     and all-gathers the outputs before the combine; with ``gather_rows``
-    (a decode step whose rows shard over "data") it all-gathers the
-    step's rows over "data" first, routes the whole batch and keeps its
-    own rows of the output."""
+    (a decode step whose rows shard over "data", or a training step on a
+    data mesh) it all-gathers the step's rows over "data" first, routes
+    the whole batch and keeps its own rows of the output.
+
+    Training (``train=True``, the mesh Trainer's shards) runs the same
+    through the differentiable collectives: the rows' gather sums every
+    data rank's cotangent for the rank's rows (``fsdp_gather``: every
+    rank's loss carries the whole batch's aux), the expert products take
+    their input through ``copy_to`` over "model" (its gradient the sum of
+    the ranks' expert blocks) and their outputs are made whole by
+    ``gather_from``; the expert tensors named in ``fsdp`` hold their
+    dim ``a`` (``wi`` / ``wg``: d, ``wo``: f) cut over "data", gathered
+    for use by :meth:`weight` (gradient reduce-scattered). On a data mesh
+    a data rank runs the products for its block of the capacity slots
+    alone (:meth:`slots`; each product row is one slot's, so the block's
+    rows are what the whole buffer's would be) and the blocks are
+    gathered over "data" (:meth:`gather_slots`, whose backward sums every
+    data rank's cotangent for the rank's slots), so the expert FLOPs are
+    split over every rank of the mesh."""
 
     mesh: object
     n_experts: int
     sharded: bool
     gather_rows: bool = False
+    train: bool = False
+    fsdp: tuple = ()
 
     def local(self, x):
         """Dim 0 of an (E, ...) tensor cut to this rank's experts."""
@@ -307,6 +325,53 @@ class ExpertShard:
             return x
         lo, hi = model_block(self.mesh, self.n_experts)
         return x[lo:hi]
+
+    def weight(self, name: str, w):
+        """The rank's experts' ``name`` tensor (E/m, a, b), whole along
+        ``a``."""
+        if name not in self.fsdp:
+            return w
+        return self.mesh.fsdp_gather(w, "data", 1)
+
+    def rows(self, x2):
+        """(T, d) rows of this data rank -> the whole batch's rows."""
+        if self.train:
+            return self.mesh.fsdp_gather(x2, "data", 0)
+        return self.mesh.all_gather(x2, "data", dim=0)
+
+    def expert_input(self, x2):
+        """The rows as the expert products' input: a training shard whose
+        experts are cut sums the gradient's expert blocks over "model"."""
+        if self.train and self.sharded:
+            return self.mesh.copy_to(x2, "model")
+        return x2
+
+    def _split_slots(self) -> bool:
+        return self.train and self.gather_rows
+
+    def slots(self, buf):
+        """(E/m, cap, d) dispatch buffer -> this data rank's block of the
+        slots (a training shard on a data mesh; the slots padded with
+        zero rows to a multiple of the data ranks), else ``buf``."""
+        if not self._split_slots():
+            return buf
+        n, c = self.mesh.shape["data"], self.mesh.coord("data")
+        per = -(-buf.shape[1] // n)
+        buf = F.pad(buf, (0, 0, 0, per * n - buf.shape[1]))
+        return buf[:, c * per:(c + 1) * per]
+
+    def gather_slots(self, out, cap: int):
+        """The data ranks' slot blocks of the expert outputs -> the
+        (E/m, cap, d) outputs of every slot (:meth:`slots`' inverse)."""
+        if not self._split_slots():
+            return out
+        return self.mesh.fsdp_gather(out, "data", 1)[:, :cap]
+
+    def gather(self, out):
+        """(E/m, cap, d) expert outputs -> (E, cap, d) on every rank."""
+        if self.train:
+            return self.mesh.gather_from(out, "model", dim=0)
+        return self.mesh.all_gather(out, "model", dim=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -503,13 +568,17 @@ def linear(p, x, pack=None, backend=None):
 def column_block(p, x, pack, lo: int, hi: int):
     """Output features ``[lo, hi)`` of ``linear(p, x, pack)``: a
     column-parallel :class:`DenseShard` whose rows are exactly that block
-    multiplies them alone (no collective); any other pack (or none) makes
-    the output whole and cuts it."""
+    multiplies them alone (no collective forward; a training shard's input
+    passes ``copy_to`` and its weight its "data" gather, as in
+    :func:`linear`); any other pack (or none) makes the output whole and
+    cuts it."""
     if isinstance(pack, DenseShard) and pack.axis == "out" \
             and p["w"].shape[-2] == hi - lo \
             and model_block(pack.mesh, (hi - lo) * pack.mesh.shape["model"]
                             ) == (lo, hi):
-        return block_matmul(x, p["w"])
+        if pack.train and getattr(x, "_tp_input", None) is not pack.mesh:
+            x = pack.mesh.copy_to(x, "model")
+        return block_matmul(x, pack.weight(p["w"]))
     return linear(p, x, pack)[..., lo:hi]
 
 
@@ -525,7 +594,7 @@ def linear_from_block(p, xb, pack, shard=None):
         return linear(p, xb, pack)
     if isinstance(pack, DenseShard) and pack.axis == "in" \
             and p["w"].shape[-1] == xb.shape[-1]:
-        y = torch.matmul(xb.float(), p["w"].float().t())
+        y = torch.matmul(xb.float(), pack.weight(p["w"]).float().t())
         return tp_constrain(y, pack, xb.dtype)
     return linear(p, shard.gather(xb), pack)
 

@@ -15,7 +15,9 @@ rows whole and writes its r-block; the absorbed decode all-reduces its fp32
 partial scores over the blocks before the rope scores are added, and its
 fp32 partial output (``ctx`` block times ``w_uv``'s block columns); a chunk
 prefill all-gathers the slot's latent view (exact) and expands it as one
-device does; the one-pass prefill needs no collective.
+device does; the one-pass prefill needs no collective. The mesh Trainer
+cuts the query heads instead (``packs['heads']``): its train path runs
+over the rank's heads and keeps the latent projections replicated.
 
 Caches are preallocated and written in place (``models/attention.py``).
 The reference also accepts a 1-D shared ``pos_map`` left from an older cache
@@ -31,7 +33,9 @@ from repro_torch.models.attention import (NEG_INF, _masked_row_write,
                                           full_attention, masked_attention,
                                           paged_suffix_positions,
                                           prefill_slot_sources)
-from repro_torch.models.common import (apply_rope, init_linear, linear,
+from repro_torch.models.common import (apply_rope, column_block,
+                                       init_linear, linear,
+                                       linear_from_block, model_block,
                                        paged_row_write, paged_view, rms_norm)
 
 
@@ -192,12 +196,21 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
     ``page_slot`` / ``page_start``, dense or paged latents), a one-pass
     prompt prefill (S > 1; dense latents only) and one absorbed decode step
     (S == 1 at ``pos``). ``packs`` may hold ``wq`` and ``wo`` (the
-    export's MLA targets)."""
+    export's MLA targets, or the mesh Trainer's shards) and ``heads``."""
     b, s, _ = x.shape
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
-    q = linear(p["wq"], x, packs and packs.get("wq")).reshape(b, s, h,
-                                                              dn + dr)
+    # the mesh Trainer's head cut (a ``common.HeadShard`` over the H query
+    # heads): q from the rank's rows of ``wq``'s column shard, K/V
+    # expanded for every head by the replicated ``w_uk`` / ``w_uv`` and cut
+    # to the rank's heads (``scatter_to``: their gradient is gathered
+    # whole, so the latent projections' gradient is whole and equal on
+    # every rank with no "model" reduce), the heads' output block straight
+    # into ``wo``'s row-parallel shard
+    heads = packs.get("heads") if packs and cache is None else None
+    lo, hi = model_block(heads.mesh, h) if heads is not None else (0, h)
+    q = column_block(p["wq"], x, packs and packs.get("wq"), lo * (dn + dr),
+                     hi * (dn + dr)).reshape(b, s, hi - lo, dn + dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, theta=cfg.rope_theta)
     c_kv = rms_norm(linear(p["w_dkv"], x), p["kv_norm"]["scale"])
@@ -221,11 +234,15 @@ def apply_mla(p, x, cfg, *, positions, cache=None, pos=None, packs=None,
         k_nope = linear(p["w_uk"], c_kv).reshape(b, s, h, dn)
         v = linear(p["w_uv"], c_kv).reshape(b, s, h, dv)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+        if heads is not None:
+            k = heads.mesh.scatter_to(k, "model", 2)
+            v = heads.mesh.scatter_to(v, "model", 2)
         qf = torch.cat([q_nope, q_rope], dim=-1)
         # v padded to the q/k head width so the shared attention applies
         attn = full_attention if s <= 1024 else flash_attention
         o = attn(qf, k, F.pad(v, (0, dn + dr - dv)), causal=True)[..., :dv]
-        out = linear(p["wo"], o.reshape(b, s, h * dv), wo)
+        out = linear_from_block(p["wo"], o.reshape(b, s, (hi - lo) * dv),
+                                wo, heads)
         if cache is None:
             return out, None
         if "c_kv_pages" in cache:

@@ -22,6 +22,11 @@ the expert products of its E/m experts and all-gathers the (E/m, cap, d)
 outputs over "model" before the unchanged combine, so the output is what
 one device computes from the same expert outputs. A decode step whose
 rows shard over "data" gathers them first and routes the whole batch.
+The mesh Trainer's shard (``ExpertShard(train=True)``) does the same
+through differentiable collectives, so a training step on a data mesh
+routes, drops and takes its aux over the global batch, as one device;
+there each data rank runs the products for its block of the capacity
+slots and the blocks are gathered over "data" before the combine.
 """
 from __future__ import annotations
 
@@ -81,11 +86,11 @@ def apply_moe(p, x, cfg, shard=None, shared_packs=None):
     x2 = x.reshape(b * s, d)
     rows = None
     if shard is not None and shard.gather_rows:
-        # a decode step's rows shard over "data": route the whole batch,
-        # so capacity and drops are the batch's, as on one device
+        # the rows shard over "data": route the whole batch, so capacity,
+        # drops and the aux are the batch's, as on one device
         c, n = shard.mesh.coord("data"), x2.shape[0]
         rows = (c * n, (c + 1) * n)
-        x2 = shard.mesh.all_gather(x2, "data", dim=0)
+        x2 = shard.rows(x2)
     t, k, e = x2.shape[0], cfg.top_k, cfg.n_experts
     cap = capacity(t, cfg)
     probs, gate, idx, sorted_e, order, pos_in_seg = route(p["router"], x2,
@@ -93,17 +98,22 @@ def apply_moe(p, x, cfg, shard=None, shared_packs=None):
     token_src = order // k
     slot = pos_in_seg.clamp_max(cap)            # cap = the overflow row
 
+    xe = x2 if shard is None else shard.expert_input(x2)
     buf = torch.zeros((e, cap + 1, d), dtype=x2.dtype, device=x2.device)
-    buf[sorted_e, slot] = x2[token_src]
+    buf[sorted_e, slot] = xe[token_src]
     buf = buf[:, :cap]
 
     act = F.silu if cfg.act == "swiglu" else gelu
+    w = {n: p[n] if shard is None else shard.weight(n, p[n])
+         for n in ("wi", "wg", "wo")}
     if shard is not None:
-        buf = shard.local(buf)          # this rank's experts' rows
-    hdn = act(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
-    out = torch.bmm(hdn, p["wo"])                               # (E, cap, d)
-    if shard is not None and shard.sharded:
-        out = shard.mesh.all_gather(out, "model", dim=0)
+        buf = shard.slots(shard.local(buf))  # this rank's experts and slots
+    hdn = act(torch.bmm(buf, w["wg"])) * torch.bmm(buf, w["wi"])
+    out = torch.bmm(hdn, w["wo"])                               # (E, cap, d)
+    if shard is not None:
+        out = shard.gather_slots(out, cap)
+        if shard.sharded:
+            out = shard.gather(out)
 
     # combine: a dropped assignment reads the zero overflow row
     out = F.pad(out, (0, 0, 0, 1))

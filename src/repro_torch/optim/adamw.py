@@ -87,11 +87,12 @@ def global_norm(tree, shards=None) -> torch.Tensor:
     return torch.stack(total).sum().sqrt()
 
 
-#: leaves above this many elements are updated in chunks along axis 0, so
-#: the update's fp32 temporaries stay near a chunk's size (a 2**28-element
-#: chunk: 1 GiB a temporary) -- gemma3_4b's 671 M-element embedding would
-#: otherwise take ~13 GB of them
-CHUNK_ELEMS = 1 << 28
+#: leaves above this many elements are updated in chunks (of the flat leaf,
+#: or along axis 0 under the prox), so the update's fp32 temporaries stay
+#: near a chunk's size (a 2**24-element chunk: 64 MiB a temporary) --
+#: gemma3_4b's 671 M-element embedding would otherwise take ~13 GB of them,
+#: and four ranks sharing one card a period of stacked experts' ~6 GB each
+CHUNK_ELEMS = 1 << 24
 
 
 def _chunks(p, prox_rows: int, row0: int = 0) -> list:
@@ -123,9 +124,10 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     the given tensors (the counterpart of the reference Trainer's
     ``donate_argnums``) and returns the same trees; the numbers are those of
     ``donate=False`` bit for bit. Either way a leaf above CHUNK_ELEMS
-    elements is updated chunk by chunk along axis 0 (the update is
-    elementwise, or blockwise for the prox over whole block rows, and the
-    global norm is taken first, so the chunks change no number).
+    elements is updated chunk by chunk: pieces of the flat leaf, or under
+    the prox slices of axis 0 holding whole block rows (the update is
+    elementwise, or blockwise for the prox, and the global norm is taken
+    first, so the chunks change no number).
 
     ``shards`` (path -> ``LeafShard``; the mesh Trainer): the params,
     grads and moments are this rank's shards. The global norm sums over
@@ -186,19 +188,23 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
             torch.empty_like(p),
             torch.empty(m.shape, dtype=cfg.tdtype, device=m.device),
             torch.empty(v.shape, dtype=cfg.tdtype, device=v.device))
-        chunks = _chunks(p, blocks[0] if blocks and p.ndim == 2 else 1,
-                         sh.offsets[0] if sh is not None else 0)
+        args = (p, g, m, v)
+        if blocks is None and all(x.is_contiguous() for x in args + out):
+            # elementwise: CHUNK_ELEMS pieces of the flat leaf
+            args, out = ([x.view(-1) for x in a] for a in (args, out))
+        chunks = _chunks(args[0], blocks[0] if blocks and p.ndim == 2
+                         else 1, sh.offsets[0] if sh is not None else 0)
         if blocks is not None and sh is not None:
-            _sharded_prox_update(out, (p, g, m, v), chunks, moments, sh,
-                                 blocks, thresh)
+            _sharded_prox_update(out, args, chunks, moments, sh, blocks,
+                                 thresh)
         else:
             for sl in chunks:
-                for dst, x in zip(out, update(p[sl], g[sl], m[sl], v[sl],
+                for dst, x in zip(out, update(*(a[sl] for a in args),
                                               blocks)):
                     dst[sl].copy_(x)
-        new_p.append(out[0])
-        new_m.append(out[1])
-        new_v.append(out[2])
+        new_p.append(out[0].view(p.shape))
+        new_m.append(out[1].view(m.shape))
+        new_v.append(out[2].view(v.shape))
     if donate:
         step.add_(1)
         return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -501,11 +501,11 @@ def test_local_rows_are_one_devices_rows(shape):
         local_rows(odd, _Mesh(shape, (0, 0)))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "mamba2_780m",
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_780m",
                                   "whisper_base"])
 def test_mesh_trainer_refuses_other_families(arch, tmp_path):
-    """The mesh Trainer trains the dense LM family and BERT; another family
-    raises, naming the later work."""
+    """The mesh Trainer trains the dense LM family, BERT, the vlm and the
+    MoE families; another family raises, naming the later work."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import TrainConfig, Trainer

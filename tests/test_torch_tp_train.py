@@ -518,6 +518,36 @@ def test_staged_mesh_step_matches_jax(world, shape):
     test_mesh_step_update_matches_jax((parent, staged), "gemma3_4b", shape)
 
 
+def test_staging_reinstalled_keeps_the_buffers_peers_read(tmp_path,
+                                                           monkeypatch):
+    """A rank that moves on to another mesh installs a new staging in the
+    same directory and opens its buffers while a slower peer may still
+    read the last collective's from the old one (no barrier between the
+    two): the new staging maps files of its own, so the old buffers keep
+    their bytes. Opening the old names truncated them to zeros, which read
+    as one 4 KiB chunk of a staged step's gradient gone wrong under a
+    loaded full test run."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.staging import SharedStaging
+
+    def gather(out, obj, group=None):
+        out[:] = [obj] * len(out)
+    monkeypatch.setattr(dist, "all_gather_object", gather)
+    mesh = types.SimpleNamespace(groups={"model": None}, shape={"model": 1},
+                                 rank=0, coord=lambda axis: 0,
+                                 transport=None)
+    first = SharedStaging(mesh, "host", str(tmp_path), chunk_bytes=64)
+    bufs = [first._step("model")[0] for _ in range(2)]
+    for i, b in enumerate(bufs):
+        b.fill_(7 + i)
+    SharedStaging(mesh, "host", str(tmp_path), chunk_bytes=64)._step("model")
+    assert [bool((b == 7 + i).all()) for i, b in enumerate(bufs)] == [
+        True, True]
+
+
 @pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
 def test_mesh_embedding_gradient_adds_rows_as_one_device(world, shape):
     """A bf16 table whose row 3 three quarters of the tokens read: its
