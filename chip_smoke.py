@@ -6,7 +6,8 @@
                            lm_serving_sched,lm_families,lm_recurrent,
                            lm_training,lm_tp,lm_tp_families,
                            lm_tp_recurrent,lm_tp_train,
-                           lm_tp_train_families,lm_pipe_compress,training]
+                           lm_tp_train_families,lm_tp_train_recurrent,
+                           lm_pipe_compress,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -281,9 +282,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      sharing the card, their collectives through CUDA IPC staging buffers
      (launch/staging.SharedStaging, installed on the phase's meshes; gloo's
      host round trip would take most of the run): gemma3_4b at full width, 6 layers, B 4 x S 512, gradual
-     pruning to 0.7 at 16x16 with the prox, over dp (4, 1) and tp+dp
-     (2, 2) for 6 steps (checkpoints every 4, a fault at step 5: exactly
-     one restart on every rank) and tp (1, 4) for 2, every step's loss
+     pruning to 0.7 at 16x16 with the prox, over tp+dp (2, 2) through
+     Trainer.fit for 6 steps (checkpoints every 4, a fault at step 5:
+     exactly one restart on every rank), dp (4, 1) for 6 and tp (1, 4)
+     for 2, every step's loss
      and grad_norm equal on every rank and within 1e-3 relative of one
      device's Trainer on the same seed and batches; fp32 copies of dp and
      tp at 2 layers within 1e-5; the (2, 2) step-4 checkpoint restored at
@@ -298,12 +300,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4h2. lm_tp_train_families: the vlm and MoE families' training on meshes
      of four processes sharing the card (staging buffers, as lm_tp_train),
      one device's references first, each freed: deepseek_v2_lite_16b at
-     full width, 4 layers (the dense first layer and 3 MoE periods), B 4 x
-     S 512, over tp+dp (2, 2) through Trainer.fit for 3 steps (a
-     checkpoint at 2, a fault at 2: one restart a rank), dp (4, 1) for 3
-     and tp (1, 4) for 2, an fp32
+     full width, B 4 x S 512, over tp+dp (2, 2) at 2 layers (the dense
+     first layer and one MoE period) through Trainer.fit for 3 steps (a
+     checkpoint at 2, a fault at 2: one restart a rank), at 4 layers (3
+     MoE periods) over dp (4, 1) for 3 and tp (1, 4) for 2, an fp32
      copy at 2 layers over (2, 2); qwen3_moe 1 layer over tp+dp (2, 2),
-     64 of its 128 experts a model rank; pixtral_12b 4 layers over tp
+     64 of its 128 experts a model rank, 2 microbatches a step
+     (grad_accum 2: each data rank its rows of each global microbatch,
+     the MoE routing the microbatch with capacity) against one device's
+     grad_accum=2 step; pixtral_12b 4 layers over tp
      (1, 4) and one make_train_step(mesh=) step with 256 patch
      embeddings. Every step's loss and grad_norm equal on every rank and
      within 1e-3 (bf16) / 1e-5 (fp32) relative of one device's; the
@@ -318,6 +323,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      packs predict (a period's K1 twice under remat), against one
      device's packed step (1e-4). Printed per rank: expert-shard shapes,
      collectives a step, peak memory.
+  4h3. lm_tp_train_recurrent: the ssm, hybrid and audio families'
+     training on meshes of four processes sharing the card (staging
+     buffers, as lm_tp_train), one device's references first, each freed;
+     full width, B 4 x S 512, bf16 params and AdamW moments, 2 of the
+     Trainer's steps a run: mamba2_780m at 8 of 48 layers over dp (4, 1),
+     tp+dp (2, 2) and tp (1, 4) and an fp32 copy at 2 layers over tp;
+     recurrentgemma_9b at 3 of 38 layers (one RG-LRU, RG-LRU, local
+     attention period) over tp+dp and tp; whisper_base at full depth
+     (1500 seeded frames a row) over tp+dp, its state saved there and
+     restored at (1, 4) byte for byte against the file. Every step's loss
+     and grad_norm equal on every rank and within 1e-3 (bf16) / 1e-5
+     (fp32) relative of one device's on the same global batch; each rank
+     computes on SSD heads H/m, conv channels C/m, RG-LRU width W/m and
+     attention heads H/m (checked, printed with the shard objects and the
+     rank's collectives a step).
   4i. lm_pipe_compress: block-sparse gradient compression and GPipe on
      four processes sharing the card, their collectives through CUDA IPC
      staging buffers (as lm_tp_train). a. BERT-base at full width (fp32)
@@ -4456,7 +4476,9 @@ def _lmt_trainer(seed, dev):
     """d. launch/train.Trainer at full width, 6 layers, S 2048, B 1:
     gradual pruning to 0.7 at 16x16 from step 2 to 6, the prox, a fault at
     step 5 recovered from the step-5 checkpoint (the run's one checkpoint
-    before fit's closing save: each 12.4 GB save takes ~20 s of the run)."""
+    before fit's closing save). The AdamW moments are bf16 (the
+    reference's ``state_dtype`` option, as lm_tp_train's): a checkpoint of
+    7.4 GB where fp32 moments wrote 12.4 (~20 s a save and write)."""
     import dataclasses
 
     import numpy as np
@@ -4475,7 +4497,8 @@ def _lmt_trainer(seed, dev):
     times = {"save": [], "restore": [], "wait": []}
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(n_steps=8, ckpt_dir=tmp, seed=seed, log_every=1,
-                           opt=AdamWConfig(), prune=True,
+                           opt=AdamWConfig(state_dtype="bfloat16"),
+                           prune=True,
                            ft=FaultToleranceConfig(checkpoint_every=5))
         inj = FaultInjector(fail_at_steps=(5,))
         tr = Trainer(cfg, tcfg, device=dev, data_cfg=DataConfig(
@@ -6421,7 +6444,13 @@ def _lm_tp_recurrent_report(name, cfg, part, shape, res, ref, ref_logits,
 LMT_TP_BATCH, LMT_TP_SEQ = 4, 512
 #: (partition, mesh shape, steps); the 6-step runs checkpoint every 4 steps
 #: and take a fault at step 5
-LMT_TP_PARTS = (("dp", (4, 1), 6), ("tp+dp", (2, 2), 6), ("tp", (1, 4), 2))
+#: gemma3_4b's (partition, mesh shape, steps, through fit with a fault):
+#: tp+dp (its step-4 checkpoint restored in b.) runs Trainer.fit with
+#: checkpoints every 4 and a fault at 5; dp runs the Trainer's 6 steps
+#: alone (its fault run cost ~25 s of 7.4 GB checkpoint I/O: two saves
+#: and a restore, the same code tp+dp runs)
+LMT_TP_PARTS = (("dp", (4, 1), 6, False), ("tp+dp", (2, 2), 6, True),
+                ("tp", (1, 4), 2, False))
 LMT_TP_FAULT = 5
 LMT_TP_CKPT_EVERY = 4
 #: the fp32 copies: dp and tp at 2 layers, 2 steps
@@ -6482,8 +6511,9 @@ def _lmtt_opt(cfg):
 def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
                   fault=None, batch=LMT_TP_BATCH, seq=LMT_TP_SEQ,
                   norms=False, ckpt_every=LMT_TP_CKPT_EVERY,
-                  tag="lm_tp_train"):
-    """A Trainer (one device or ``mesh``) that records each step: host
+                  tag="lm_tp_train", accum=1):
+    """A Trainer (one device or ``mesh``; ``accum`` microbatches a step)
+    that records each step: host
     seconds, the metrics, the mesh's collectives (calls, bytes, host s;
     reset before the step), the masks and, with ``norms``, the pruned
     leaves' whole block norms the masks were scored on (their collectives
@@ -6497,6 +6527,7 @@ def _lmtt_trainer(cfg, ckpt_dir, seed, n_steps, dev, mesh=None,
     import torch
     tcfg = TrainConfig(n_steps=n_steps, ckpt_dir=ckpt_dir, seed=seed,
                        log_every=1, opt=_lmtt_opt(cfg), prune=True,
+                       grad_accum=accum,
                        ft=FaultToleranceConfig(checkpoint_every=ckpt_every))
     inj = FaultInjector(fail_at_steps=(fault,)) if fault is not None \
         else None
@@ -6606,6 +6637,7 @@ def _rank_train_job(job):
         out = {"lm": _rank_train_lm, "restore": _rank_train_restore,
                "bert": _rank_train_bert, "packed": _rank_train_packed,
                "family": _rank_train_family,
+               "recurrent": _rank_train_recurrent,
                "compress": _rank_pc_compress, "pipe": _rank_pipe,
                "pipe_packed": _rank_pipe_packed}[job["what"]](job, mesh,
                                                               dev, say)
@@ -6880,9 +6912,10 @@ def phase_lm_tp_train(seed: int, card: str):
     their collectives through CUDA IPC staging buffers (``launch/
     staging.py``; gloo, as lm_tp's, would take most of the run). a.
     gemma3_4b at full width, LMT_LAYERS layers, B 4 x S 512,
-    pruning to 0.7 at 16x16 from step 2 to 6 with the prox, over dp (4, 1)
-    and tp+dp (2, 2) for 6 steps (checkpoints every 4, a fault at step 5)
-    and tp (1, 4) for 2, against one device's Trainer on the same seed
+    pruning to 0.7 at 16x16 from step 2 to 6 with the prox, over tp+dp
+    (2, 2) through ``Trainer.fit`` for 6 steps (checkpoints every 4, a
+    fault at step 5), dp (4, 1) for 6 steps and tp (1, 4) for 2, against
+    one device's Trainer on the same seed
     and batches (bf16: 1e-3); an fp32 copy of dp and tp at 2 layers
     (1e-5). b. the (2, 2) step-4 checkpoint restored bitwise at (1, 4),
     (4, 1) and on one device; 2 more steps at (1, 4). c. BERT-base over
@@ -6947,9 +6980,9 @@ def phase_lm_tp_train(seed: int, card: str):
         ranks = _Ranks(4, tmp)
         try:
             # a. gemma3_4b over dp, tp+dp, tp
-            for name, shape, steps in LMT_TP_PARTS:
+            for name, shape, steps, fit in LMT_TP_PARTS:
                 ckpt = os.path.join(tmp, name)
-                fault = LMT_TP_FAULT if steps == 6 else None
+                fault = LMT_TP_FAULT if fit else None
                 res = ranks.run({
                     "name": name, "kind": "train", "what": "lm",
                     "shape": shape, "layers": LMT_LAYERS,
@@ -7166,9 +7199,18 @@ LMTF_BATCH, LMTF_SEQ = 4, 512
 LMTF_DS_PARTS = (("dp", (4, 1), 3, False), ("tp+dp", (2, 2), 3, True),
                  ("tp", (1, 4), 2, False))
 LMTF_FAULT = LMTF_CKPT_EVERY = 2
+#: the fault run's depth: the dense first layer and one MoE period (the
+#: experts cut over both axes as at 4 layers; the save and restore code
+#: is the same at any depth), 6.5 GB a checkpoint where 4 layers wrote
+#: 13.5 (a 45.0 s run on an H100 80GB HBM3 at 700 W, most of it that I/O)
+LMTF_FAULT_LAYERS = 2
 #: the fp32 copy (deepseek_v2_lite's dense layer and one MoE period over
 #: (2, 2)), qwen3_moe over (2, 2), pixtral_12b over (1, 4): 2 steps each
 LMTF_FP32_LAYERS, LMTF_STEPS = 2, 2
+#: qwen3_moe's steps take 2 microbatches (B 4 = 2 x 2 data ranks): each
+#: data rank its rows of each global microbatch, the MoE routing the
+#: microbatch's rows with capacity, as one device's grad_accum=2 step
+LMTF_QW_ACCUM = 2
 LMTF_PACKED_STEPS = 2
 #: the packed step: the dense first layer and one MoE period (every rank
 #: holds the whole state: 4 layers took the card's 80 GB), in fp32 -- the
@@ -7267,16 +7309,17 @@ def _lmtf_mm_step(cfg, params, batch, dev, mesh=None):
     return {k: float(v) for k, v in m.items()}
 
 
-def _lmtf_reference(cfg, steps, seed, dev, tmp, replay=None, mm=None):
-    """One device's Trainer steps (no checkpoint) with the routing logged,
-    or replaying ``replay``'s expert choices; with ``mm`` (a batch) also
-    one ``make_train_step`` step with patch embeddings from the initial
-    params. Freed before it returns."""
+def _lmtf_reference(cfg, steps, seed, dev, tmp, replay=None, mm=None,
+                    accum=1):
+    """One device's Trainer steps (no checkpoint; ``accum`` microbatches a
+    step) with the routing logged, or replaying ``replay``'s expert
+    choices; with ``mm`` (a batch) also one ``make_train_step`` step with
+    patch embeddings from the initial params. Freed before it returns."""
     import gc
     import torch
     torch.cuda.reset_peak_memory_stats()
     tr = _lmtt_trainer(cfg, tmp, seed, steps, dev,
-                       tag="lm_tp_train_families")
+                       tag="lm_tp_train_families", accum=accum)
     ctx = _TrainReplay(replay) if replay is not None else _RouterLog()
     with ctx as log:
         state = _lmtt_run(tr, steps)
@@ -7307,7 +7350,8 @@ def _rank_train_family(job, mesh, dev, say):
     cfg = _lmtf_cfg(job["model"], job["dtype"], job.get("layers"))
     tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
                        mesh, job.get("fault"), ckpt_every=LMTF_CKPT_EVERY,
-                       tag="lm_tp_train_families")
+                       tag="lm_tp_train_families",
+                       accum=job.get("accum", 1))
     for fn in _train_counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -7346,7 +7390,8 @@ def _rank_train_family(job, mesh, dev, say):
     return out
 
 
-def _lmtf_agree(tag, res, ref, dtype, cfg, steps, seed, dev, tmp):
+def _lmtf_agree(tag, res, ref, dtype, cfg, steps, seed, dev, tmp,
+                accum=1):
     """A mesh run's per-step loss and grad_norm against one device's: equal
     on every rank, and within TOL_MESH_TRAIN[dtype] of one device's run
     -- or, where a token's experts differ between the two runs (each such
@@ -7374,7 +7419,7 @@ def _lmtf_agree(tag, res, ref, dtype, cfg, steps, seed, dev, tmp):
     except PhaseError as e:
         print(f"{tag}: {e}")
     replayed = _lmtf_reference(cfg, steps, seed, dev, tmp,
-                               replay=res[0]["routing"])
+                               replay=res[0]["routing"], accum=accum)
     return (_lmtt_compare(f"{tag} (against one device replaying the "
                           f"mesh's routing)", res, replayed["rec"], dtype),
             margins)
@@ -7408,10 +7453,10 @@ def phase_lm_tp_train_families(seed: int, card: str):
     """The vlm and MoE families' training on a mesh: four processes
     sharing the card, their collectives through CUDA IPC staging buffers
     (as lm_tp_train). One device's references first, each freed. a.
-    deepseek_v2_lite_16b (MLA + MoE) at full width, 4 layers, B 4 x S 512
-    over tp+dp (2, 2) through ``Trainer.fit`` for 3 steps (a checkpoint at
-    2, a fault at 2: one restart a rank), dp (4, 1) for 3 steps and tp
-    (1, 4) for 2; an fp32 copy at
+    deepseek_v2_lite_16b (MLA + MoE) at full width, B 4 x S 512, at 2
+    layers over tp+dp (2, 2) through ``Trainer.fit`` for 3 steps (a
+    checkpoint at 2, a fault at 2: one restart a rank), at 4 layers over
+    dp (4, 1) for 3 steps and tp (1, 4) for 2; an fp32 copy at
     2 layers over (2, 2). b. qwen3_moe 1 layer over tp+dp (2, 2), 64 of
     its 128 experts a model rank. c. pixtral_12b 4 layers over tp (1, 4),
     then one make_train_step(mesh=) step with patch embeddings. Every
@@ -7455,11 +7500,15 @@ def phase_lm_tp_train_families(seed: int, card: str):
     mm = _lmtf_batch(px, seed)
     refs = {}
     with tempfile.TemporaryDirectory() as tmp:
+        ds2 = _lmtf_cfg("deepseek_v2_lite_16b", layers=LMTF_FAULT_LAYERS)
         for key, cfg, steps, batch in (("ds", ds, 3, None),
+                                       ("ds2", ds2, 3, None),
                                        ("ds32", ds32, LMTF_STEPS, None),
                                        ("qw", qw, LMTF_STEPS, None),
                                        ("px", px, LMTF_STEPS, mm)):
-            refs[key] = _lmtf_reference(cfg, steps, seed, dev, tmp, mm=batch)
+            refs[key] = _lmtf_reference(
+                cfg, steps, seed, dev, tmp, mm=batch,
+                accum=LMTF_QW_ACCUM if key == "qw" else 1)
             r = refs[key]
             print(f"{name} one device {cfg.arch} ({cfg.dtype}, "
                   f"{cfg.n_layers} layers): loss "
@@ -7574,24 +7623,26 @@ def phase_lm_tp_train_families(seed: int, card: str):
             # a. deepseek_v2_lite over dp, tp+dp, tp; the fp32 copy
             for part_name, shape, steps, fit in LMTF_DS_PARTS:
                 fault = LMTF_FAULT if fit else None
+                dcfg, dref = (ds2, refs["ds2"]) if fit else (ds, refs["ds"])
                 ckpt = os.path.join(tmp, "ds_" + part_name)
                 res = ranks.run({
                     "name": f"deepseek {part_name}", "kind": "train",
                     "what": "family", "phase": "lm_tp_train_families",
                     "model": "deepseek_v2_lite_16b",
-                    "dtype": "bfloat16", "shape": shape, "steps": steps,
+                    "dtype": "bfloat16", "layers": dcfg.n_layers,
+                    "shape": shape, "steps": steps,
                     "seed": seed, "ckpt_dir": ckpt, "fault": fault,
                     "fit": fault is not None})
                 shutil.rmtree(ckpt, ignore_errors=True)
-                tag = f"{name} a. deepseek_v2_lite {part_name} {shape}"
+                tag = (f"{name} a. deepseek_v2_lite {part_name} {shape}, "
+                       f"{dcfg.n_layers} layers")
                 _lmtf_report(tag, res, steps, fault)
                 for r, rank in enumerate(res):
                     for path, local in rank["experts"].items():
                         check(local[-3] == ds.n_experts // shape[1],
                               f"{tag} rank {r}: {path} holds {local}")
-                worst, margins = _lmtf_agree(tag, res, refs["ds"],
-                                             "bfloat16", ds, steps, seed,
-                                             dev, tmp)
+                worst, margins = _lmtf_agree(tag, res, dref, "bfloat16",
+                                             dcfg, steps, seed, dev, tmp)
                 print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}, "
                       f"aux {[x['aux'] for x in res[0]['rec']]}; against "
                       f"one device: loss {worst['loss']:.3e}, grad_norm "
@@ -7621,21 +7672,23 @@ def phase_lm_tp_train_families(seed: int, card: str):
             rec["ds fp32"] = {"worst": worst, "flips": len(margins)}
             part("a. deepseek_v2_lite")
 
-            # b. qwen3_moe over tp+dp
+            # b. qwen3_moe over tp+dp, 2 microbatches a step
             res = ranks.run({
                 "name": "qwen3_moe tp+dp", "kind": "train",
                 "what": "family", "phase": "lm_tp_train_families",
                 "model": "qwen3_moe_235b_a22b", "dtype": "bfloat16",
                 "shape": (2, 2), "steps": LMTF_STEPS, "seed": seed,
-                "ckpt_dir": os.path.join(tmp, "qw")})
-            tag = f"{name} b. qwen3_moe tp+dp (2, 2)"
+                "accum": LMTF_QW_ACCUM, "ckpt_dir": os.path.join(tmp, "qw")})
+            tag = (f"{name} b. qwen3_moe tp+dp (2, 2), grad_accum "
+                   f"{LMTF_QW_ACCUM}")
             _lmtf_report(tag, res, LMTF_STEPS)
             for r, rank in enumerate(res):
                 for path, local in rank["experts"].items():
                     check(local[-3] == qw.n_experts // 2,
                           f"{tag} rank {r}: {path} holds {local}")
             worst, margins = _lmtf_agree(tag, res, refs["qw"], "bfloat16",
-                                         qw, LMTF_STEPS, seed, dev, tmp)
+                                         qw, LMTF_STEPS, seed, dev, tmp,
+                                         LMTF_QW_ACCUM)
             print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}; "
                   f"against one device: loss {worst['loss']:.3e}, "
                   f"grad_norm {worst['grad_norm']:.3e} relative; "
@@ -7680,6 +7733,368 @@ def phase_lm_tp_train_families(seed: int, card: str):
             ranks.close()
     print(f"{name} summary {json.dumps(rec, default=str)}")
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4h3: lm_tp_train_recurrent -- the ssm, hybrid and audio families'
+# training on a mesh (ranks share the card)
+# --------------------------------------------------------------------------
+
+#: layers of each model (full width): mamba2_780m 8 of 48,
+#: recurrentgemma_9b 3 of 38 (one period: RG-LRU, RG-LRU, local
+#: attention), whisper_base whole (6 encoder + 6 decoder layers)
+LMTR_LAYERS = {"mamba2_780m": 8, "recurrentgemma_9b": 3,
+               "whisper_base": None}
+LMTR_BATCH, LMTR_SEQ = 4, 512
+LMTR_STEPS = 2
+#: (model, [(partition, mesh shape)]): 2 of the Trainer's steps each
+LMTR_PARTS = (("mamba2_780m", (("dp", (4, 1)), ("tp+dp", (2, 2)),
+                               ("tp", (1, 4)))),
+              ("recurrentgemma_9b", (("tp+dp", (2, 2)), ("tp", (1, 4)))))
+#: the fp32 copy: mamba2_780m at 2 layers over tp (1, 4)
+LMTR_FP32_LAYERS = 2
+#: whisper's batches: pipeline tokens from this index, seeded frames
+LMTR_AUDIO_BATCH = 300
+
+
+def _lmtr_cfg(name, dtype="bfloat16", layers=None):
+    import dataclasses
+    cfg = _recurrent_config(name)
+    n = layers or LMTR_LAYERS[name]
+    if n is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _lmtr_audio_batches(cfg, seed):
+    """whisper's global batches (host arrays): pipeline tokens and labels
+    with seeded N(0, 1) encoder frames (the data pipeline draws tokens
+    only, as the reference's)."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    pipe = DataPipeline(DataConfig(seq_len=LMTR_SEQ, global_batch=LMTR_BATCH,
+                                   vocab_size=cfg.vocab_size))
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(LMTR_STEPS):
+        b = dict(pipe.batch_at(LMTR_AUDIO_BATCH + i))
+        b["frames"] = rng.standard_normal(
+            (LMTR_BATCH, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    pipe.close()
+    return out
+
+
+def _lmtr_audio_run(tr, batches, dev, mesh=None):
+    """The Trainer's own (donated) step on each frame batch -- on a mesh,
+    this rank's rows -- recorded as ``_lmtt_trainer`` records a step.
+    Returns the final state."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.sharding import local_rows
+    state = tr.init_state()
+    for i, b in enumerate(batches):
+        rows = local_rows(b, mesh) if mesh is not None else b
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            dev, tr.cfg.tdtype if k == "frames" else torch.int64)
+            for k, v in rows.items()}
+        if mesh is not None:
+            mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = tr.step_fn(state["params"], state["opt"], batch)
+        torch.cuda.synchronize()
+        state = dict(state, params=params, opt=opt)
+        tr.rec.append({"step": i, "s": time.perf_counter() - t0,
+                       **{k: float(v) for k, v in m.items()},
+                       "stats": copy.deepcopy(mesh.stats)
+                       if mesh is not None else {}})
+    return state
+
+
+class _BlockLog:
+    """The blocks a mesh rank's layers compute on, while a step runs:
+    (kind, size) of each SSD scan's heads, SSM conv's channels, RG-LRU
+    conv's and scan's width, and (q heads, K/V heads) of each attention
+    cut by a ``HeadShard`` (module functions wrapped, restored on exit)."""
+
+    def __enter__(self):
+        from repro_torch.models import rglru, ssm
+        from repro_torch.models.common import HeadShard
+        self.seen, self.saved = set(), []
+
+        def wrap(owner, name, kind, size):
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+
+            def run(*a, **kw):
+                out = fn(*a, **kw)
+                self.seen.add((kind,) + tuple(size(a, out)))
+                return out
+            setattr(owner, name, run)
+        wrap(ssm, "_ssd_chunked", "ssd heads", lambda a, o: (a[0].shape[2],))
+        wrap(ssm, "_causal_conv", "conv channels",
+             lambda a, o: (a[0].shape[-1],))
+        wrap(rglru, "_conv", "rglru width", lambda a, o: (a[0].shape[-1],))
+        wrap(rglru, "associative_scan", "scan width",
+             lambda a, o: (a[0].shape[-1],))
+        wrap(HeadShard, "local", "heads",
+             lambda a, o: (o[0].shape[2], o[1].shape[2]))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def _lmtr_blocks(cfg, m):
+    """The blocks ``_BlockLog`` must see on a model axis of ``m`` ranks:
+    SSD heads H/m and conv channels C/m, RG-LRU width W/m, attention heads
+    H/m where a ``HeadShard`` cuts them (recurrentgemma's one KV head does
+    not divide: its local attention runs whole)."""
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        return {("ssd heads", d_inner // cfg.ssm_head_dim // m),
+                ("conv channels", (d_inner + 2 * cfg.ssm_state) // m)}
+    if cfg.family == "hybrid":
+        return {("rglru width", cfg.rnn_width // m),
+                ("scan width", cfg.rnn_width // m)}
+    return {("heads", cfg.n_heads // m, cfg.n_kv_heads // m)} if m > 1 \
+        else set()
+
+
+def _rank_train_recurrent(job, mesh, dev, say):
+    """A rank's mesh Trainer run of an ssm / hybrid / audio model: the
+    Trainer's step ``steps`` times (whisper's on the job's frame batches),
+    the blocks its layers computed on; with ``ckpt`` the final state
+    saved (rank 0 writes), or with ``restore`` the job's checkpoint
+    restored here and compared with the file byte for byte."""
+    import torch
+    from repro_torch.checkpoint.store import CheckpointStore
+    cfg = _lmtr_cfg(job["model"], job["dtype"], job.get("layers"))
+    tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
+                       mesh, batch=LMTR_BATCH, seq=LMTR_SEQ,
+                       tag="lm_tp_train_recurrent")
+    for fn in _train_counters().values():
+        fn.launches = 0
+    out = {}
+    if job.get("restore"):
+        t0 = time.perf_counter()
+        state = tr.restore_state(CheckpointStore(job["restore"]),
+                                 job["steps"], tr.init_state())
+        out["restore_s"] = time.perf_counter() - t0
+        out["bad"], out["n"] = _ckpt_mismatches(
+            state, job["restore"], job["steps"], tr.specs(), mesh)
+        say(f"restored step {job['steps']} in {out['restore_s']:.1f} s: "
+            f"{out['n'] - len(out['bad'])} of {out['n']} leaves bitwise")
+        del state, tr
+        return out
+    t0 = time.perf_counter()
+    with _BlockLog() as blocks:
+        if job.get("batches") is not None:
+            state = _lmtr_audio_run(tr, job["batches"], dev, mesh)
+        else:
+            state = _lmtt_run(tr, job["steps"])
+    wall = time.perf_counter() - t0
+    say(f"{len(tr.rec)} steps run, {wall:.1f} s")
+    if job.get("ckpt"):
+        t1 = time.perf_counter()
+        tr.save_state(tr.store, job["steps"], state)
+        tr.store.wait()
+        out["save_s"] = time.perf_counter() - t1
+    out.update({
+        "rec": [{k: v for k, v in r.items() if k != "masks"}
+                for r in tr.rec], "wall": wall,
+        "launches": {n: fn.launches for n, fn in _train_counters().items()},
+        "bytes": _state_bytes(state), "blocks": sorted(blocks.seen),
+        "shards": {k: (type(v).__name__, getattr(v, "n_heads", None),
+                       getattr(v, "channels", None),
+                       getattr(v, "n_kv_heads", None))
+                   for k, v in tr.plan.packs.items()
+                   if type(v).__name__ != "DenseShard"},
+        "whole_paths": len(tr.plan.whole_paths),
+        "step": int(state["opt"]["step"]),
+        "local": {n: tuple(x.shape) for n, x in
+                  _named_leaves(state["params"])
+                  if "blocks/[0]/" in n or "dec_layers/xattn" in n}})
+    del state, tr
+    torch.cuda.synchronize()
+    return out
+
+
+def _lmtr_reference(cfg, seed, dev, tmp, batches=None):
+    """One device's Trainer steps (no checkpoint; whisper's on
+    ``batches``); freed before it returns."""
+    import gc
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    tr = _lmtt_trainer(cfg, tmp, seed, LMTR_STEPS, dev, batch=LMTR_BATCH,
+                       seq=LMTR_SEQ, tag="lm_tp_train_recurrent")
+    if batches is not None:
+        state = _lmtr_audio_run(tr, batches, dev)
+    else:
+        state = _lmtt_run(tr, LMTR_STEPS)
+    out = {"rec": [{k: v for k, v in r.items() if k != "masks"}
+                   for r in tr.rec], "bytes": _state_bytes(state),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmtr_report(tag, res, cfg, shape, ref, dtype):
+    """Every rank ran LMTR_STEPS steps, launched no kernel and computed on
+    its blocks (printed with its shard objects); loss and grad_norm equal
+    on every rank and within TOL_MESH_TRAIN[dtype] of one device's."""
+    m = shape[1]
+    want = _lmtr_blocks(cfg, m)
+    for r, rank in enumerate(res):
+        check(rank["step"] == LMTR_STEPS, f"{tag} rank {r}: optimizer step "
+              f"{rank['step']}")
+        check(all(v == 0 for v in rank["launches"].values()),
+              f"{tag} rank {r}: a dense step launched {rank['launches']}")
+        check(set(map(tuple, rank["blocks"])) == want,
+              f"{tag} rank {r}: computed on blocks {rank['blocks']}, the "
+              f"shards give {sorted(want)}")
+    print(f"{tag}: {res[0]['wall']:.1f} s for {LMTR_STEPS} steps; rank 0's "
+          f"blocks {res[0]['blocks']} (whole: "
+          f"{sorted(_lmtr_blocks(cfg, 1))}); shard objects "
+          f"{sorted(set(res[0]['shards'].values()))}; "
+          f"{res[0]['whole_paths']} leaves gathered whole; local shapes "
+          f"{res[0]['local']}")
+    _print_rank_steps(tag, res)
+    worst = _lmtt_compare(tag, res, ref["rec"], dtype)
+    print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}, grad_norm "
+          f"{[x['grad_norm'] for x in res[0]['rec']]}; one device's loss "
+          f"{[x['loss'] for x in ref['rec']]}, grad_norm "
+          f"{[x['grad_norm'] for x in ref['rec']]}; against one device: "
+          f"loss {worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} "
+          f"relative (bar {TOL_MESH_TRAIN[dtype]})")
+    return worst
+
+
+def phase_lm_tp_train_recurrent(seed: int, card: str):
+    """The ssm, hybrid and audio families' training on a mesh: four
+    processes sharing the card, their collectives through CUDA IPC
+    staging buffers (as lm_tp_train), one device's references first, each
+    freed. At full width, B 4 x S 512, bf16 params and AdamW moments, 2 of
+    the Trainer's steps a run: a. mamba2_780m at 8 of 48 layers over dp
+    (4, 1), tp+dp (2, 2) and tp (1, 4), and an fp32 copy at 2 layers over
+    tp; b. recurrentgemma_9b at 3 of 38 layers (one period) over tp+dp and
+    tp; c. whisper_base at full depth (1500 frames) over tp+dp, its state
+    saved there and restored at (1, 4), byte for byte against the file.
+    Every step's loss and grad_norm equal on every rank and within 1e-3
+    (bf16) / 1e-5 (fp32) relative of one device's on the same global
+    batch; each rank computes on SSD heads H/m, conv channels C/m, RG-LRU
+    width W/m, attention heads H/m. No kernel runs (the families' dense
+    training step has no pack)."""
+    import gc
+    import shutil
+    import torch
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "[lm_tp_train_recurrent]"
+    cfgs = {n: _lmtr_cfg(n) for n in LMTR_LAYERS}
+    m32 = _lmtr_cfg("mamba2_780m", "float32", LMTR_FP32_LAYERS)
+    for n, cfg in cfgs.items():
+        print(f"{name} {card}; {cfg.arch} {_recurrent_depth(n, cfg)}, "
+              f"{cfg.dtype}, B {LMTR_BATCH} x S {LMTR_SEQ}")
+    print(f"{name} 4 ranks share the card, their collectives through CUDA "
+          f"IPC staging buffers, so their times say nothing of the mesh's "
+          f"speed")
+    rec = {}
+    marks = [time.perf_counter()]
+
+    def part(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"{name} {what}: {marks[-1] - marks[-2]:.1f} s")
+
+    audio = _lmtr_audio_batches(cfgs["whisper_base"], seed)
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, cfg, batches in (
+                ("mamba2_780m", cfgs["mamba2_780m"], None),
+                ("mamba2 fp32", m32, None),
+                ("recurrentgemma_9b", cfgs["recurrentgemma_9b"], None),
+                ("whisper_base", cfgs["whisper_base"], audio)):
+            refs[key] = r = _lmtr_reference(cfg, seed, dev, tmp, batches)
+            print(f"{name} one device {cfg.arch} ({cfg.dtype}, "
+                  f"{cfg.n_layers} layers): loss "
+                  f"{[x['loss'] for x in r['rec']]}, grad_norm "
+                  f"{[x['grad_norm'] for x in r['rec']]}, host s a step "
+                  f"{[round(x['s'], 3) for x in r['rec']]}; state "
+                  f"{ {k: round(v / 1e9, 3) for k, v in r['bytes'].items()} }"
+                  f" GB, peak {r['peak_gib']:.2f} GiB")
+        part("one-device references")
+
+        ranks = _Ranks(4, tmp)
+        try:
+            # a., b. mamba2_780m and recurrentgemma_9b over their meshes
+            for model, parts in LMTR_PARTS:
+                for part_name, shape in parts:
+                    res = ranks.run({
+                        "name": f"{model} {part_name}", "kind": "train",
+                        "what": "recurrent",
+                        "phase": "lm_tp_train_recurrent", "model": model,
+                        "dtype": "bfloat16", "shape": shape,
+                        "steps": LMTR_STEPS, "seed": seed,
+                        "ckpt_dir": os.path.join(tmp, model)})
+                    tag = f"{name} {model} {part_name} {shape}"
+                    rec[f"{model} {part_name}"] = {
+                        "worst": _lmtr_report(tag, res, cfgs[model], shape,
+                                              refs[model], "bfloat16"),
+                        "peak_gib": [x["peak_gib"] for x in res]}
+                part(model)
+            res = ranks.run({
+                "name": "mamba2 fp32 tp", "kind": "train",
+                "what": "recurrent", "phase": "lm_tp_train_recurrent",
+                "model": "mamba2_780m", "dtype": "float32",
+                "layers": LMTR_FP32_LAYERS, "shape": (1, 4),
+                "steps": LMTR_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "m32")})
+            rec["mamba2 fp32 tp"] = {"worst": _lmtr_report(
+                f"{name} fp32 copy mamba2_780m tp (1, 4)", res, m32, (1, 4),
+                refs["mamba2 fp32"], "float32")}
+            part("mamba2_780m fp32 copy")
+
+            # c. whisper_base over tp+dp, its state saved; restored on tp
+            ckpt = os.path.join(tmp, "whisper")
+            res = ranks.run({
+                "name": "whisper tp+dp", "kind": "train",
+                "what": "recurrent", "phase": "lm_tp_train_recurrent",
+                "model": "whisper_base", "dtype": "bfloat16",
+                "shape": (2, 2), "steps": LMTR_STEPS, "seed": seed,
+                "ckpt_dir": ckpt, "ckpt": True, "batches": audio})
+            tag = f"{name} whisper_base tp+dp (2, 2)"
+            rec["whisper tp+dp"] = {"worst": _lmtr_report(
+                tag, res, cfgs["whisper_base"], (2, 2),
+                refs["whisper_base"], "bfloat16")}
+            print(f"{tag}: state saved at step {LMTR_STEPS} in "
+                  f"{res[0]['save_s']:.2f} s ({res[0]['bytes']} bytes a "
+                  f"rank)")
+            res = ranks.run({
+                "name": "whisper restore (1, 4)", "kind": "train",
+                "what": "recurrent", "phase": "lm_tp_train_recurrent",
+                "model": "whisper_base", "dtype": "bfloat16",
+                "shape": (1, 4), "steps": LMTR_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "scratch"), "restore": ckpt})
+            tag = f"{name} whisper_base (2, 2) checkpoint at (1, 4)"
+            for r, rank in enumerate(res):
+                check(not rank["bad"], f"{tag} rank {r}: leaves not bitwise "
+                      f"their shard of the file: {rank['bad'][:5]}")
+            print(f"{tag}: {res[0]['n']} leaves bitwise their shard of the "
+                  f"file on every rank, restore "
+                  f"{[round(x['restore_s'], 2) for x in res]} s")
+            rec["whisper restore"] = res[0]["n"]
+            shutil.rmtree(ckpt, ignore_errors=True)
+            part("whisper_base")
+        finally:
+            ranks.close()
+    print(f"{name} summary {json.dumps(rec, default=str)}")
+    return dict.fromkeys(_train_counters(), 0)
 
 
 # --------------------------------------------------------------------------
@@ -8404,8 +8819,8 @@ def main() -> int:
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
-                            "lm_tp_train_families,lm_pipe_compress,"
-                            "training")
+                            "lm_tp_train_families,lm_tp_train_recurrent,"
+                            "lm_pipe_compress,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -8517,6 +8932,13 @@ def main() -> int:
             launches["lm_tp_train_families"] = phase_lm_tp_train_families(
                 args.seed, card)
             done("lm_tp_train_families")
+        if "lm_tp_train_recurrent" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_tp_train_recurrent"] = phase_lm_tp_train_recurrent(
+                args.seed, card)
+            done("lm_tp_train_recurrent")
         if "lm_pipe_compress" in phases:
             import gc
             gc.collect()

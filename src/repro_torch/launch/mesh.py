@@ -189,19 +189,43 @@ class ProcessMesh(AbstractMesh):
         return self._timed("all_max", axis, buf.numel() * buf.element_size(),
                            lambda: self.transport.max(buf, axis))
 
+    #: the wire copy a reduce-scatter makes at a time: a larger gradient
+    #: goes in slabs of another dim (an FSDP expert gradient of GBs would
+    #: otherwise take a whole fp32 copy, twice over for ``dim`` > 0)
+    SLAB_BYTES = 256 << 20
+
     def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = -1
                        ) -> torch.Tensor:
         """This rank's block along ``dim`` of the sum of ``x`` over the
-        ranks along ``axis``, summed in fp32 for narrower floats."""
-        if self.shape.get(axis, 1) == 1:
+        ranks along ``axis``, summed in fp32 for narrower floats. The sum
+        is elementwise, so a large ``x`` goes in slabs along another dim,
+        each moved to the wire dtype in one copy (the same sums)."""
+        n = self.shape.get(axis, 1)
+        if n == 1:
             return x
-        buf = self._wire(x).movedim(dim, 0).contiguous()
-        if buf.data_ptr() == x.data_ptr():
-            buf = buf.clone()
-        out = self._timed("reduce_scatter", axis,
-                          buf.numel() * buf.element_size(),
-                          lambda: self.transport.reduce_scatter(buf, axis))
-        return out.movedim(0, dim).to(x.dtype).contiguous()
+        dim %= x.dim()
+        wire = torch.float32 if x.is_floating_point() \
+            and x.element_size() < 4 else x.dtype
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        others = [d for d in range(x.dim()) if d != dim]
+        s = max(others, key=lambda d: x.shape[d]) if others else dim
+        nbytes = x.numel() * torch.empty((), dtype=wire).element_size()
+        slabs = max(1, -(-nbytes // self.SLAB_BYTES))
+        k = x.shape[s] if s == dim else max(1, -(-x.shape[s] // slabs))
+
+        def run():
+            for lo in range(0, x.shape[s], k):
+                piece = x.narrow(s, lo, min(k, x.shape[s] - lo))
+                src = piece.movedim(dim, 0)
+                buf = torch.empty(src.shape, dtype=wire, device=x.device)
+                buf.copy_(src)
+                part = self.transport.reduce_scatter(buf, axis)
+                dst = out if s == dim else out.narrow(s, lo, piece.shape[s])
+                dst.copy_(part.movedim(0, dim))
+            return out
+        return self._timed("reduce_scatter", axis, nbytes, run)
 
     # -- differentiable collectives (training) -----------------------------
     # Conjugate pairs: the backward of each is the forward of its partner,

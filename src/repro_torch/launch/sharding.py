@@ -334,18 +334,45 @@ def whole_leaf(x, spec, mesh):
     return x
 
 
-def local_rows(batch: dict, mesh) -> dict:
+def local_rows(batch: dict, mesh, grad_accum: int = 1) -> dict:
     """This rank's rows of a global batch (a dict of arrays or tensors),
     cut by :func:`batch_shardings` at the rank's data coordinate. A batch
     whose rows do not divide over the dp axes raises: every data rank
-    must take its own rows."""
+    must take its own rows.
+
+    ``grad_accum`` = A > 1 (a step that splits its rows into A
+    microbatches, ``launch.steps.make_train_step``): the reference's
+    microbatch a is global rows [a B/A, (a+1) B/A), so the rank takes its
+    block of each microbatch's rows, microbatch by microbatch, and the
+    step's reshape of them to (A, B/(A d), ...) gives each microbatch's
+    rows of this rank in global order. B must divide by A times the
+    data ranks."""
+    dp = dp_axes(mesh)
+    n_data = int(np.prod([mesh.shape[a] for a in dp]))
+    if grad_accum > 1 and n_data > 1:
+        out = {}
+        for k, v in batch.items():
+            b = v.shape[0]
+            if b % (grad_accum * n_data):
+                raise ValueError(
+                    f"batch leaf {k!r} {tuple(v.shape)}: {b} rows do not "
+                    f"divide into grad_accum {grad_accum} microbatches of "
+                    f"{n_data} data ranks' rows ({grad_accum * n_data})")
+            micro = v.reshape((grad_accum, b // grad_accum)
+                              + tuple(v.shape[1:]))
+            parts = [local_rows({k: micro[a]}, mesh)[k]
+                     for a in range(grad_accum)]
+            if isinstance(v, np.ndarray):
+                out[k] = np.concatenate(parts)
+            else:
+                import torch
+                out[k] = torch.cat(parts)
+        return out
     specs = batch_shardings(batch, mesh)
     coord = _coord(mesh)
     out = {}
     for k, v in batch.items():
-        dp = dp_axes(mesh)
-        if int(np.prod([mesh.shape[a] for a in dp])) > 1 and \
-                specs[k][0] is None:
+        if n_data > 1 and specs[k][0] is None:
             raise ValueError(f"batch leaf {k!r} {tuple(v.shape)}: its rows "
                              f"do not divide over the data axes {dp}")
         out[k] = local_shard(v, specs[k], mesh, coord)

@@ -88,9 +88,13 @@ class MeshPlan:
     "data" + EP), the shard objects the layers run with (``packs``:
     ``common.DenseShard(train=True)`` for every cut linear weight and
     table, ``common.HeadShard`` where the KV heads -- an MLA layer's
-    query heads -- divide "model", ``common.ExpertShard(train=True)`` for
-    a MoE layer whose experts "model" cuts or whose rows "data" cuts) and
-    the leaves no shard object consumes (e.g. a layer-stacked norm scale
+    query heads -- divide "model" (the audio decoder's cross-attention
+    too), ``common.SSDHeadShard`` / ``common.ChannelShard`` where an SSM
+    layer's heads / conv channels or an RG-LRU layer's width divide it,
+    as the mesh servable's (``servable._mixer_shards``),
+    ``common.ExpertShard(train=True)`` for a MoE layer whose experts
+    "model" cuts or whose rows "data" cuts) and the leaves no shard
+    object consumes (e.g. a layer-stacked norm scale or a conv's taps
     the rule cuts), gathered whole before the forward (``whole``). A
     routed-expert leaf is never gathered whole: a rank holds its E/m
     experts, whole along ``a`` only while its layer runs.
@@ -123,6 +127,7 @@ class MeshPlan:
                                            norm_path, path_name)
         from repro_torch.models.common import DenseShard, HeadShard
         from repro_torch.serving.servable import (_layer_scopes,
+                                                  _mixer_shards,
                                                   _routed_expert)
         mesh, m = self.mesh, self.mesh.shape.get("model", 1)
         sizes = dict(mesh.shape)
@@ -148,10 +153,7 @@ class MeshPlan:
             key = name[:-2] if name.endswith("/w") else name
             self.packs[key] = DenseShard(axis, mesh, data, train=True)
         for scope, kind in _layer_scopes(cfg):
-            if kind.mixer in ("attn", "local") and m > 1 \
-                    and cfg.n_kv_heads % m == 0:
-                self.packs[f"{scope}/attn/heads"] = HeadShard(
-                    mesh, cfg.n_kv_heads)
+            self.packs.update(_mixer_shards(cfg, scope, kind, mesh))
             wq, wo = (self.packs.get(f"{scope}/attn/{n}") for n in
                       ("wq", "wo"))
             if kind.mixer == "mla" and m > 1 and cfg.n_heads % m == 0 \
@@ -161,7 +163,8 @@ class MeshPlan:
                     mesh, cfg.n_heads)
         self._experts(cfg, experts)
         head = self.packs.get("embed" if cfg.tie_embeddings
-                              or cfg.family == "bert" else "lm_head")
+                              or cfg.family in ("bert", "audio")
+                              else "lm_head")
         if head is not None and head.axis == "out":
             self.vocab_mesh = mesh
 
@@ -275,7 +278,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``mesh`` (a ``launch.mesh.ProcessMesh``): every rank calls the step on
     its shards of the params and optimizer state (``step.plan.specs``, the
     reference's ``param_shardings`` / ``opt_shardings`` in train mode) and
-    its rows of the batch (``launch.sharding.local_rows``); the gradients
+    its rows of the batch (``launch.sharding.local_rows(batch, mesh,
+    grad_accum)``: its rows of each of the reference's microbatches, which
+    the reshape below takes apart again); the gradients
     are the data ranks' mean, the global norm and the prox are the whole
     model's, and the metrics are equal on every rank. With ``packs`` (the
     packed fine-tuning step) the mesh is (data, 1): params and packs are
@@ -308,16 +313,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if grad_accum == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
+            # fp32 sums of the microbatches' gradients, added in place (one
+            # fp32 copy of the gradients beside a microbatch's own)
             gsum, lsum = None, None
             for a in range(grad_accum):
                 mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                                    + tuple(v.shape[1:]))[a]
                       for k, v in batch.items()}
                 loss_a, _, g = value_and_grad(loss_fn, params, mb)
-                g = [x.float() for x in leaves(g)]
-                gsum = g if gsum is None else [s + x for s, x in zip(gsum, g)]
+                if gsum is None:
+                    gsum = [x.float() for x in leaves(g)]
+                else:
+                    for s, x in zip(gsum, leaves(g)):
+                        s.add_(x)
+                del g
                 lsum = loss_a if lsum is None else lsum + loss_a
-            grads = unflatten(params, [s / grad_accum for s in gsum])
+            grads = unflatten(params, [s.div_(grad_accum) for s in gsum])
             loss = lsum / grad_accum
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
         return metrics, loss, grads

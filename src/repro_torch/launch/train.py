@@ -9,15 +9,16 @@ is BERT's: an LM trains from the same ``tokens`` / ``labels`` batches.
 
 ``device`` (None = the CUDA card) places one device's run. ``mesh`` (a
 ``launch.mesh.ProcessMesh``; one process per mesh position, every rank
-building its own Trainer) trains the dense LM family, BERT, the vlm and
-the MoE families as the reference's Trainer does on a mesh: each rank
-holds its shard of every param and AdamW leaf under the train-mode rules
-(TP over "model", FSDP over "data", routed experts' E over "model"),
-takes its rows of one device's global batch, and the step computes one
-device's step up to the order of fp32 sums (a MoE layer routes the
-global batch: ``common.ExpertShard``). The Trainer's batches are
-``tokens`` / ``labels``, as the data pipeline gives them; a vlm step with
-``mm_embeds`` goes through ``launch.steps.make_train_step(mesh=)``. The
+building its own Trainer) trains every family of the registry as the
+reference's Trainer does on a mesh: each rank holds its shard of every
+param and AdamW leaf under the train-mode rules (TP over "model", FSDP
+over "data", routed experts' E over "model"), takes its rows of one
+device's global batch (with ``grad_accum`` its rows of each global
+microbatch), and the step computes one device's step up to the order of
+fp32 sums (a MoE layer routes the global batch: ``common.ExpertShard``).
+The Trainer's batches are ``tokens`` / ``labels``, as the data pipeline
+gives them; a vlm step with ``mm_embeds`` or an audio step with
+``frames`` goes through ``launch.steps.make_train_step(mesh=)``. The
 block masks are whole on every rank. Checkpoints hold whole leaves (rank
 0 writes) and restore onto any mesh shape or one device. A
 ``FaultInjector`` fault fails the step on every rank and every rank
@@ -72,10 +73,6 @@ def _dtype_tree(tree):
     return map_with_path(lambda _, leaf: dtype_name(leaf.dtype), tree)
 
 
-#: the families a mesh Trainer trains
-MESH_FAMILIES = ("dense", "bert", "vlm", "moe")
-
-
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device=None,
                  data_cfg: Optional[DataConfig] = None,
@@ -85,11 +82,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.data_cfg = data_cfg or DataConfig(vocab_size=cfg.vocab_size)
         if mesh is not None:
-            if cfg.family not in MESH_FAMILIES:
-                raise ValueError(
-                    f"a mesh Trainer trains the {MESH_FAMILIES} families; "
-                    f"{cfg.family!r} on a mesh is ROADMAP Queue 1 item 8 "
-                    f"part 5b")
             if self.data_cfg.n_hosts != 1:
                 raise ValueError(
                     "a mesh Trainer takes each rank's rows of one global "
@@ -170,7 +162,7 @@ class Trainer:
         batch, or on a mesh this rank's rows of it."""
         batch = self.pipeline.batch_at(step)
         if self.mesh is not None:
-            batch = local_rows(batch, self.mesh)
+            batch = local_rows(batch, self.mesh, self.tcfg.grad_accum)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device, torch.int64) for k, v in batch.items()}
 

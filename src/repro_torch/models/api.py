@@ -101,13 +101,15 @@ def init_model_local(seed: int, cfg: ModelConfig, cut, device=None):
     from repro_torch.models.common import Draw, StackedDraw
     dev = resolve_device(device)
     tree, draws = _deferred_tree(cfg, dev)
+    # draw index -> (path, period, the constant the init adds to it: the
+    # tree's Draw holds it, the recorded one predates the addition)
     owner = {}
     for path, leaf in _flat_draws(tree):
         if isinstance(leaf, Draw):
-            owner[leaf.index] = (path, None)
+            owner[leaf.index] = (path, None, leaf.offset)
         elif isinstance(leaf, StackedDraw):
             for i, d in enumerate(leaf.parts):
-                owner[d.index] = (path, i)
+                owner[d.index] = (path, i, d.offset)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     got = {}
@@ -115,7 +117,9 @@ def init_model_local(seed: int, cfg: ModelConfig, cut, device=None):
         w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                         device=dev)
         w = (d.scale * w).to(d.dtype)
-        path, per = owner[d.index]
+        path, per, offset = owner[d.index]
+        if offset:
+            w = w + offset
         part = cut(path, w, per)
         del w
         if part is not None:

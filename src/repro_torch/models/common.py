@@ -24,8 +24,8 @@ cache dim:
 :class:`ChannelShard` (conv channels, the RG-LRU width) and
 :class:`SSDHeadShard`.
 
-The mesh Trainer runs the same code with grad on (the dense LM family and
-BERT): each collective is one of ``launch.mesh``'s differentiable
+The mesh Trainer runs the same code with grad on (every family): each
+collective is one of ``launch.mesh``'s differentiable
 conjugate pairs (a gather's gradient keeps the rank's block, a cut's is
 gathered, a reduce's passes through, a column shard's input all-reduces
 its gradient), so a tensor replicated over "model" keeps a gradient
@@ -43,12 +43,17 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class Draw:
     """A :func:`normal_init` call recorded instead of drawn (under
-    :func:`deferred_draws`): its place in the draw order and arguments."""
+    :func:`deferred_draws`): its place in the draw order and arguments,
+    and a constant the init adds to the draw (the RG-LRU's ``lam``)."""
 
     index: int
     shape: tuple
     scale: float
     dtype: torch.dtype
+    offset: float = 0.0
+
+    def __add__(self, c: float) -> "Draw":
+        return dataclasses.replace(self, offset=self.offset + float(c))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,13 +384,21 @@ class ChannelShard:
     """A depthwise causal conv over this rank's block of channels
     ``[s C/m, (s+1) C/m)`` (the ``conv`` history cache (B, W-1, C) shards
     C over "model"; ``models.ssm``, ``models.rglru``): the conv is
-    channel-local, so a rank convolves its block of the history with its
-    slice of the replicated ``conv_w`` / ``conv_b`` (:meth:`block`),
+    channel-local, so a rank convolves its block of the stream with its
+    block of the replicated ``conv_w`` / ``conv_b`` (:meth:`block`),
     writes its block of the new history, and :meth:`gather` makes the
     output whole again, exactly. The RG-LRU's width W is its conv's
     channels: the same block is the rank's share of ``h`` (B, W), of the
-    gates (the rows of ``w_a`` / ``w_i`` / ``in_x`` / ``in_gate``) and
-    of ``out``'s input columns."""
+    gates (the rows of ``w_a`` / ``w_i`` / ``in_x`` / ``in_gate``, the
+    replicated ``lam``) and of ``out``'s input columns.
+
+    The cut and the gather are ``launch.mesh``'s conjugate pair (without
+    grad, a slice and an all-gather): a whole tensor -- an activation or
+    a replicated per-channel leaf -- is cut by ``scatter_to``, whose
+    backward all-gathers the blocks' cotangents, so its gradient is whole
+    and equal on every model rank (as one device's; ``MeshPlan.sync_grads``
+    does no reduce over "model"); ``gather_from``'s backward keeps the
+    rank's block of a cotangent every model rank holds whole."""
 
     mesh: object
     channels: int
@@ -395,41 +408,50 @@ class ChannelShard:
         return model_block(self.mesh, self.channels)
 
     def block(self, x):
-        lo, hi = self.range
-        return x[..., lo:hi]
+        return self.mesh.scatter_to(x, "model", -1)
 
     def gather(self, x):
-        return self.mesh.all_gather(x, "model", dim=-1)
+        return self.mesh.gather_from(x, "model", dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
 class SSDHeadShard:
     """The SSD over this rank's heads ``[s H/m, (s+1) H/m)`` (the
     ``state`` cache (B, H, P, N) shards H over "model"; ``models.ssm``):
-    :meth:`heads` cuts a head axis (x, dt and the per-head ``A_log`` /
-    ``D`` / ``dt_bias``; B and C stay whole, one group for every head).
-    The output's ``d_inner`` block is exactly the heads' (H/m x P
-    columns), which ``out_proj``'s row-parallel shard takes as it is;
-    :meth:`rms_norm` normalises that block over the whole ``d_inner``
-    (the blocks all-gathered, so the statistic is one device's) and
-    :meth:`gather` makes a block whole."""
+    :meth:`heads` cuts a head axis (x, dt, z and the per-head ``A_log`` /
+    ``D`` / ``dt_bias``); B and C stay whole, one group for every head
+    (:meth:`shared`). The output's ``d_inner`` block is exactly the heads'
+    (H/m x P columns), which ``out_proj``'s row-parallel shard takes as it
+    is; :meth:`rms_norm` normalises that block over the whole ``d_inner``
+    (the blocks gathered, so the statistic is one device's) and
+    :meth:`gather` makes a block whole.
+
+    Cuts and gathers are conjugate pairs, as :class:`ChannelShard`'s: a
+    head axis is cut by ``scatter_to`` (the gradient of a replicated
+    per-head leaf or of ``in_proj``'s output whole on every model rank),
+    the norm's blocks gathered by ``gather_from`` and its whole output cut
+    by ``scatter_to`` again (the statistic's gradient takes every head's
+    cotangent), and B and C enter the rank's heads through ``copy_to``
+    (their gradient, each rank's heads' partial, summed over "model")."""
 
     mesh: object
     n_heads: int
 
     def heads(self, x, dim: int = -1):
-        lo, hi = model_block(self.mesh, self.n_heads)
-        return x.narrow(dim, lo, hi - lo)
+        return self.mesh.scatter_to(x, "model", dim)
+
+    def shared(self, x):
+        """B or C, whole, as the input of this rank's heads."""
+        return self.mesh.copy_to(x, "model")
 
     def rms_norm(self, y, scale):
         """This rank's block of :func:`rms_norm` of the whole rows whose
         block ``y`` it holds (``scale``: the whole row's)."""
-        out = rms_norm(self.gather(y), scale)
-        lo, hi = model_block(self.mesh, out.shape[-1])
-        return out[..., lo:hi]
+        return self.mesh.scatter_to(rms_norm(self.gather(y), scale),
+                                    "model", -1)
 
     def gather(self, x):
-        return self.mesh.all_gather(x, "model", dim=-1)
+        return self.mesh.gather_from(x, "model", dim=-1)
 
 
 def block_matmul(x, w):
@@ -565,13 +587,15 @@ def linear(p, x, pack=None, backend=None):
     return torch.matmul(x, p["w"].t())
 
 
-def column_block(p, x, pack, lo: int, hi: int):
+def column_block(p, x, pack, lo: int, hi: int, mesh=None):
     """Output features ``[lo, hi)`` of ``linear(p, x, pack)``: a
     column-parallel :class:`DenseShard` whose rows are exactly that block
     multiplies them alone (no collective forward; a training shard's input
     passes ``copy_to`` and its weight its "data" gather, as in
     :func:`linear`); any other pack (or none) makes the output whole and
-    cuts it."""
+    cuts it -- with ``mesh`` (the block is this rank's over "model") by
+    ``scatter_to``, so the gradient of the whole output, and of a
+    replicated weight, is whole on every model rank."""
     if isinstance(pack, DenseShard) and pack.axis == "out" \
             and p["w"].shape[-2] == hi - lo \
             and model_block(pack.mesh, (hi - lo) * pack.mesh.shape["model"]
@@ -579,7 +603,10 @@ def column_block(p, x, pack, lo: int, hi: int):
         if pack.train and getattr(x, "_tp_input", None) is not pack.mesh:
             x = pack.mesh.copy_to(x, "model")
         return block_matmul(x, pack.weight(p["w"]))
-    return linear(p, x, pack)[..., lo:hi]
+    y = linear(p, x, pack)
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return mesh.scatter_to(y, "model", -1)
+    return y[..., lo:hi]
 
 
 def linear_from_block(p, xb, pack, shard=None):

@@ -29,8 +29,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm,
                                        column_block, embed_lookup,
                                        head_logits, init_mlp, init_norm,
-                                       model_block, normal_init)
-from repro_torch.models.lm import (_head_f32, _index, _layer_packs,
+                                       model_block, normal_init, tp_copy)
+from repro_torch.models.lm import (_head_f32, _index, _layer_packs, _table,
                                    _tree_stack, remat_active)
 
 
@@ -100,17 +100,22 @@ def encode(params, cfg: ModelConfig, frames, packs=None):
 def _cross_kv(lp, cfg, enc_out, packs=None):
     """The cross K/V (B, T, Hkv, D) of ``enc_out``; with a ``HeadShard``
     in ``packs`` (``dec_layers/xattn/...``) only this rank's heads, from
-    its own rows of ``wk`` / ``wv`` where they are exactly those heads."""
+    its own rows of ``wk`` / ``wv`` where they are exactly those heads
+    (in training ``enc_out`` enters them through one ``copy_to``: its
+    gradient sums every rank's heads)."""
     b, t, _ = enc_out.shape
     packs = packs or {}
     heads = packs.get("heads")
     lo, hi = (0, cfg.n_kv_heads) if heads is None \
         else model_block(heads.mesh, cfg.n_kv_heads)
     hd = cfg.head_dim
+    enc_out = tp_copy(enc_out, packs.get("wk"), packs.get("wv"))
 
     def proj(name):
         return column_block(lp["xattn"][name], enc_out, packs.get(name),
-                            lo * hd, hi * hd).reshape(b, t, hi - lo, hd)
+                            lo * hd, hi * hd,
+                            None if heads is None else heads.mesh
+                            ).reshape(b, t, hi - lo, hd)
     return proj("wk"), proj("wv")
 
 
@@ -135,27 +140,31 @@ def _dec_layer(lp, h, cfg, *, positions, enc_out=None, cross_kv=None,
                          packs=_layer_packs(packs, "ffn"))
 
 
-def _embed(params, tokens, packs):
-    return embed_lookup(params["embed"]["w"], tokens,
+def _embed(params, tokens, packs, table=None):
+    return embed_lookup(_table(params, "embed", packs) if table is None
+                        else table, tokens,
                         packs.get("embed") if packs else None)
 
 
-def _logits(params, cfg, h, packs=None):
+def _logits(params, cfg, h, packs=None, table=None):
     """Decoder norm, then fp32 logits over the tied embedding (one fp32
     copy of a bf16 embedding, as ``lm._head_f32`` keeps it; a mesh
-    gathers the vocabulary blocks)."""
+    servable gathers the vocabulary blocks, a mesh Trainer keeps its
+    block; ``table``: the embedding as ``lm._table`` gave it)."""
     h = apply_norm(params["dec_norm"], h, cfg.norm)
-    return head_logits(h, _head_f32(params["embed"]["w"]),
+    head = _table(params, "embed", packs) if table is None else table
+    return head_logits(h, _head_f32(head),
                        packs.get("embed") if packs else None)
 
 
 def forward(params, cfg: ModelConfig, frames, tokens, packs=None):
     """(frames, decoder tokens (B, S)) -> (logits (B, S, V) fp32, aux 0).
-    ``packs``: a mesh servable's shard objects (the family exports no
-    packs)."""
+    ``packs``: a mesh servable's or a mesh Trainer's shard objects (the
+    family exports no packs)."""
     enc_out = encode(params, cfg, frames, packs)
     s = tokens.shape[1]
-    h = _embed(params, tokens, packs)
+    table = _table(params, "embed", packs)     # one gather, tied head
+    h = _embed(params, tokens, packs, table)
     positions = torch.arange(s, device=h.device)[None]
     layers = params["dec_layers"]
     scope = _layer_packs(packs, "dec_layers")
@@ -168,7 +177,7 @@ def forward(params, cfg: ModelConfig, frames, tokens, packs=None):
         else:
             h = _dec_layer(_index(layers, i), h, cfg, positions=positions,
                            enc_out=enc_out, packs=scope)
-    return _logits(params, cfg, h, packs), torch.zeros(
+    return _logits(params, cfg, h, packs, table), torch.zeros(
         (), dtype=torch.float32, device=h.device)
 
 

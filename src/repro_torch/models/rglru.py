@@ -25,7 +25,8 @@ import torch
 from repro_torch.models.attention import as_slot_positions
 from repro_torch.models.common import (column_block, gelu, init_linear,
                                        linear_from_block, normal_init,
-                                       prefill_conv_history, softplus)
+                                       prefill_conv_history, softplus,
+                                       tp_copy)
 
 _C = 8.0
 
@@ -73,11 +74,13 @@ def _lru_gates(p, xr, width=None, packs=None):
     whole input is gathered and each gate is the block of its rows."""
     packs = packs or {}
     lo, hi = (0, xr.shape[-1]) if width is None else width.range
+    mesh = None if width is None else width.mesh
     xw = xr if width is None else width.gather(xr)
+    xw = tp_copy(xw, packs.get("w_a"), packs.get("w_i"))
     r = torch.sigmoid(column_block(p["w_a"], xw, packs.get("w_a"), lo,
-                                   hi).float())
+                                   hi, mesh).float())
     i = torch.sigmoid(column_block(p["w_i"], xw, packs.get("w_i"), lo,
-                                   hi).float())
+                                   hi, mesh).float())
     lam = p["lam"] if width is None else width.block(p["lam"])
     log_a = -_C * softplus(lam)[None] * r              # over (b, s, w)
     a = torch.exp(log_a)
@@ -133,7 +136,10 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
     own rows, no collective), the conv runs on it and its output is
     gathered (``w_a`` / ``w_i`` take the whole of it), the gates are their
     rows' block, the scan and the decode update run over the block, and
-    the gated block feeds ``out``'s row-parallel shard."""
+    the gated block feeds ``out``'s row-parallel shard. Every cut and
+    gather there is differentiable (the mesh Trainer's forward): a
+    replicated per-channel leaf (``conv_w``, ``conv_b``, ``lam``) is cut
+    by ``scatter_to``, so its gradient is whole on every model rank."""
     b, s, _ = x.shape
     packs = packs or {}
     width = packs.get("width")
@@ -142,9 +148,11 @@ def apply_rglru(p, x, cfg, *, cache=None, pos=None, packs=None,
 
     def block(t):
         return t if width is None else width.block(t)
+    mesh = None if width is None else width.mesh
+    x = tp_copy(x, packs.get("in_gate"), packs.get("in_x"))
     gate = gelu(column_block(p["in_gate"], x, packs.get("in_gate"), lo,
-                             hi).float())
-    xr = column_block(p["in_x"], x, packs.get("in_x"), lo, hi)
+                             hi, mesh).float())
+    xr = column_block(p["in_x"], x, packs.get("in_x"), lo, hi, mesh)
     conv_w, conv_b = block(p["conv_w"]), block(p["conv_b"])
 
     prefill = cache is not None and s > 1

@@ -103,13 +103,15 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
 
     On a mesh (``packs['conv']``, a ``common.ChannelShard``;
     ``packs['heads']``, a ``common.SSDHeadShard``): ``in_proj``'s output
-    is whole on every rank (its fused rows cross the segments); a step
-    that continues a history convolves the rank's channel block of it and
-    gathers the output (a one-pass prefill, whose history is zeros,
-    convolves the whole stream where it is and keeps its block); the SSD
-    runs over the rank's heads with B and C whole, the gated norm over the
-    whole ``d_inner`` (the heads' blocks gathered: one device's norm), and
-    the block feeds ``out_proj``'s row-parallel shard."""
+    is whole on every rank (its fused rows cross the segments); the
+    whole-sequence forward and a step that continues a history convolve
+    the rank's channel block and gather the output (a one-pass prefill,
+    whose history is zeros, convolves the whole stream where it is and
+    keeps its block); the SSD runs over the rank's heads with B and C
+    whole, the gated norm over the whole ``d_inner`` (the heads' blocks
+    gathered: one device's norm), and the block feeds ``out_proj``'s
+    row-parallel shard. Every cut and gather there is differentiable (the
+    mesh Trainer's forward, ``launch.steps.MeshPlan``)."""
     b, s, _ = xin.shape
     d_inner, h, p_dim, n = _dims(cfg)
     packs = packs or {}
@@ -137,6 +139,9 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
         hist_stream = torch.cat([hist_row[None], block(conv_in)], dim=1)
         conv_out = gather(_causal_conv(hist_stream, block(p["conv_w"]),
                                        block(p["conv_b"]))[:, w1:])
+    elif cache is None and chan is not None:
+        conv_out = gather(_causal_conv(block(conv_in), block(p["conv_w"]),
+                                       block(p["conv_b"])))
     elif cache is None or prefill:
         conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
     else:
@@ -160,6 +165,8 @@ def apply_ssm(p, xin, cfg, *, cache=None, pos=None, packs=None,
     da = dt * a_neg[None, None, :]                                # (b,s,h)
     bmat = bmat.float()
     cmat = cmat.float()
+    if heads is not None:
+        bmat, cmat = heads.shared(bmat), heads.shared(cmat)
 
     if cache is None or prefill:
         init_state = cache["state"][page_slot][None] if chunked else None

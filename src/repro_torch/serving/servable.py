@@ -215,6 +215,38 @@ def _divides(n: int, m: int) -> bool:
     return m > 1 and n % m == 0 and n >= m
 
 
+def _mixer_shards(cfg: ModelConfig, scope: str, kind, mesh) -> dict:
+    """The shard objects of a layer's mixer whose cache dims divide the
+    "model" axis, as the mesh servable and the mesh Trainer
+    (``launch.steps.MeshPlan``) both run them: a ``HeadShard`` for an
+    attention layer's KV heads (``{scope}/attn/heads``; the audio
+    decoder's cross-attention too, ``dec_layers/xattn/heads``), an
+    ``SSDHeadShard`` for an SSM layer's heads (``{scope}/mixer/heads``)
+    and a ``ChannelShard`` for its conv channels (``{scope}/mixer/conv``),
+    a ``ChannelShard`` for an RG-LRU layer's width
+    (``{scope}/mixer/width``)."""
+    m = mesh.shape.get("model", 1)
+    out = {}
+    if kind.mixer in ("attn", "local"):
+        if _divides(cfg.n_kv_heads, m):
+            out[f"{scope}/attn/heads"] = HeadShard(mesh, cfg.n_kv_heads)
+            if scope == "dec_layers":
+                out[f"{scope}/xattn/heads"] = out[f"{scope}/attn/heads"]
+    elif kind.mixer == "ssm":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        n_heads = d_inner // cfg.ssm_head_dim
+        if _divides(n_heads, m):
+            out[f"{scope}/mixer/heads"] = SSDHeadShard(mesh, n_heads)
+        if _divides(d_inner + 2 * cfg.ssm_state, m):
+            out[f"{scope}/mixer/conv"] = ChannelShard(
+                mesh, d_inner + 2 * cfg.ssm_state)
+    elif kind.mixer == "rglru":
+        width = cfg.rnn_width or cfg.d_model
+        if _divides(width, m):
+            out[f"{scope}/mixer/width"] = ChannelShard(mesh, width)
+    return out
+
+
 def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
     """The packs a mesh servable runs with: ``packs`` (mesh attached) plus
     a ``DenseShard`` for every dense linear leaf sharded over "model"
@@ -243,27 +275,9 @@ def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
         key = name[:-2] if name.endswith("/w") else name
         out[key] = DenseShard("out" if spec[-2] == "model" else "in", mesh)
     for scope, kind in _layer_scopes(cfg):
-        if kind.mixer in ("attn", "local"):
-            if _divides(cfg.n_kv_heads, m):
-                out[f"{scope}/attn/heads"] = HeadShard(mesh, cfg.n_kv_heads)
-                if scope == "dec_layers":
-                    out[f"{scope}/xattn/heads"] = out[f"{scope}/attn/heads"]
-        elif kind.mixer == "mla":
-            if _divides(cfg.kv_lora_rank, m):
-                out[f"{scope}/attn/latent"] = LatentShard(mesh,
-                                                          cfg.kv_lora_rank)
-        elif kind.mixer == "ssm":
-            d_inner = cfg.ssm_expand * cfg.d_model
-            n_heads = d_inner // cfg.ssm_head_dim
-            if _divides(n_heads, m):
-                out[f"{scope}/mixer/heads"] = SSDHeadShard(mesh, n_heads)
-            if _divides(d_inner + 2 * cfg.ssm_state, m):
-                out[f"{scope}/mixer/conv"] = ChannelShard(
-                    mesh, d_inner + 2 * cfg.ssm_state)
-        elif kind.mixer == "rglru":
-            width = cfg.rnn_width or cfg.d_model
-            if _divides(width, m):
-                out[f"{scope}/mixer/width"] = ChannelShard(mesh, width)
+        out.update(_mixer_shards(cfg, scope, kind, mesh))
+        if kind.mixer == "mla" and _divides(cfg.kv_lora_rank, m):
+            out[f"{scope}/attn/latent"] = LatentShard(mesh, cfg.kv_lora_rank)
         if kind.ffn == "moe":
             sharded = "model" in specs_by_name[f"{scope}/ffn/wi"]
             if sharded or d > 1:

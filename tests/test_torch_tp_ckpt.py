@@ -501,20 +501,6 @@ def test_local_rows_are_one_devices_rows(shape):
         local_rows(odd, _Mesh(shape, (0, 0)))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_780m",
-                                  "whisper_base"])
-def test_mesh_trainer_refuses_other_families(arch, tmp_path):
-    """The mesh Trainer trains the dense LM family, BERT, the vlm and the
-    MoE families; another family raises, naming the later work."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import TrainConfig, Trainer
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8 part 5"):
-        Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path)), "cpu",
-                mesh=make_mesh((1, 2), ("data", "model")))
-
-
 def test_mesh_trainer_refuses_per_host_draws(tmp_path):
     """``DataConfig(n_hosts > 1)`` seeds each host's draw by its host id,
     so the hosts' batches are not one global batch: a mesh Trainer

@@ -31,8 +31,7 @@ results, so each case still counts:
     device's Trainer;
   * deepseek_v2_lite's packed step (MLA and FFN projections through the
     plan packs) over dp (4, 1) in the capacity-binding case, against one
-    device's packed step on the whole batch;
-  * the families still to come (ssm, hybrid, audio) raising on a mesh.
+    device's packed step on the whole batch.
 """
 import dataclasses
 import os
@@ -888,20 +887,6 @@ def test_replicated_plan_embedding_gradient_adds_rows_as_one_device(world):
         got = res["replicated_embed"]
         assert np.array_equal(got["plan"], want), r
         assert not np.array_equal(got["plain"], want), r
-
-
-@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_9b",
-                                  "whisper_base"])
-def test_mesh_trainer_refuses_later_families(arch, tmp_path):
-    """The ssm, hybrid and audio families' training on a mesh is the next
-    part of the work: the mesh Trainer raises, naming it."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import TrainConfig, Trainer
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8 part 5b"):
-        Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path)), "cpu",
-                mesh=make_mesh((2, 2), ("data", "model")))
 
 
 def test_donated_update_chunks_one_period_of_experts():
