@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases kernels,serving,serving_quant,
+    python3 chip_smoke.py [--phases dryrun,kernels,serving,serving_quant,
                            serving_auto,lm_serving,lm_serving_quant,
                            lm_serving_sched,lm_families,lm_recurrent,
                            lm_training,lm_tp,lm_tp_families,
@@ -16,6 +16,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      CUDA kernel from src/repro_torch/kernels/csrc (one nvcc a source, all
      started together) and its time; any spill byte in a K1, K4, K5, K6 or
      K7 kernel fails the run;
+  1a. dryrun: a. launch/dryrun at full configs on the (16, 16) production
+     mesh -- every ASSIGNED arch at train_4k, gemma3_4b prefill_32k and
+     decode_32k, qwen3_moe decode_32k, mamba2_780m and recurrentgemma_9b
+     long_500k: rank 0's step on meta tensors in host worker processes
+     that see no card, each cell's per-device flops, bytes, collective
+     bytes, peak and argument bytes, roofline terms on the H100 and
+     bottleneck, and its trace seconds; b. meanwhile on the card, one
+     donated train step of gemma3_4b at full width, 6 layers, B 1 x S
+     2048 (make_train_step on a (1, 1) mesh) under launch/op_cost.OpCost
+     against the dry-run of the same cell: flops equal exactly (any op
+     whose flops differ is named and fails), argument bytes equal the
+     card's exactly, the predicted peak within 10% of
+     torch.cuda.max_memory_allocated() over the step;
   2. kernels: kernel K1 (plan_dds) against its plain PyTorch version on the
      card -- small layout cases (random, padded, spilling, fused QKV, 32x1
      tiles, every epilogue with bias, bf16) through every instance of
@@ -228,7 +241,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4f. lm_tp: mesh-first serving, one process per mesh position, all on
      the one card and joined by gloo (the ranks share the card, so their
      step times say nothing of tensor-parallel speed). gemma3_4b at full
-     width and depth, lm_serving's spec with tied pruning done once,
+     width, 12 of 34 layers (two 5 local : 1 global periods; the depth
+     cut to make room for dryrun), lm_serving's spec with tied pruning
+     done once,
      exported three ways with place=False -- tp (1, 4) backend 'plan',
      dp (4, 1) 'plan_pallas' (K1), tp+dp (2, 2) 'plan' -- and handed to
      the ranks through CUDA IPC (place_servable: each rank keeps views of
@@ -246,14 +261,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      changed; printed: per-rank peak memory, ms per decode step by the host
      clock, collectives and their bytes per run and per decode step.
      BERT-base (backend 'plan') saved by one process, loaded by every rank
-     of (1, 4) and (1, 2) (memory-mapped shards): the serving traffic,
+     of (1, 4) (memory-mapped shards): the serving traffic,
      logits within 1e-3 of one device. Then what gloo takes on CUDA tensors
      (all_reduce / broadcast / all_gather by dtype: a reading), and K2 / K3
      at a rank's decode shapes beside SDPA and the bound.
   4g. lm_tp_families: the vlm, MoE and MLA families over meshes of four
      processes sharing the card (gloo), one family after the other at
-     lm_families' widths (pixtral_12b 40 layers, deepseek_v2_lite_16b 9
-     of 27 as lm_families, qwen3_moe_235b_a22b 4 of 94), each pruned
+     lm_families' widths (pixtral_12b 20 of 40 layers and
+     deepseek_v2_lite_16b 9 of 27 as lm_families, qwen3_moe_235b_a22b 4
+     of 94), each pruned
      once and exported per partition with place=False, handed to the
      ranks through CUDA IPC: pixtral tp (1, 4) 'plan' with the vlm
      forward ((1, 300) tokens, 256 patch embeddings handed to every rank)
@@ -4866,7 +4882,13 @@ def phase_lm_training(seed: int, card: str):
 LM_TP_PARTITIONS = (("tp", (1, 4), "plan", ("dense", "paged")),
                     ("dp", (4, 1), "plan_pallas", ("dense",)),
                     ("tp+dp", (2, 2), "plan", ("dense",)))
-BERT_TP_MESHES = ((1, 4), (1, 2))
+#: ((1, 2) cut to make room for the dryrun phase, and with it the second,
+#: 2-rank world; tests/test_torch_tp_serving.py holds BERT over a mesh)
+BERT_TP_MESHES = ((1, 4),)
+#: gemma3_4b's depth in lm_tp: two 5 local : 1 global periods of 34 layers
+#: (cut to make room for the dryrun phase; every layer kind and shard kind
+#: stays)
+LM_TP_LAYERS = 12
 #: gemma3_4b's mesh traffic: lm_serving's first two prompts, 4 new tokens
 #: each (cut from 4 x 8 to fit lm_tp_recurrent in the run's time limit;
 #: the decode_step logits' four slots are prefills of the two prompts)
@@ -5521,11 +5543,12 @@ def _near_tie_check(label, ref_sv, prompts, ref_tokens, diffs, gap,
 
 
 def phase_lm_tp(seed: int, card: str, n_requests: int):
-    """gemma3_4b at full width and depth over tp (1, 4) dense and paged KV,
-    dp (4, 1) through kernel K1 and tp+dp (2, 2), one process per mesh
-    position on the one card (gloo), against the same export served on
-    one device; BERT-base over (1, 4) and (1, 2) from saved exports; what
-    gloo takes on CUDA tensors; K2 at a rank's decode shape."""
+    """gemma3_4b at full width, 12 of 34 layers, over tp (1, 4) dense and
+    paged KV, dp (4, 1) through kernel K1 and tp+dp (2, 2), one process per
+    mesh position on the one card (gloo), against the same export served
+    on one device; BERT-base over (1, 4) from a saved export; what gloo
+    takes on CUDA tensors; K2 at a rank's decode shape."""
+    import dataclasses
     import gc
     import numpy as np
     import torch
@@ -5534,7 +5557,7 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
     from repro_torch.models.api import init_model
     from repro_torch.serving import ServingSpec, prepare_servable
     dev = torch.device("cuda")
-    cfg = _lm_config()
+    cfg = dataclasses.replace(_lm_config(), n_layers=LM_TP_LAYERS)
     n_layers, n_global, n_local = _layer_counts(cfg)
     print(f"[lm_tp] {cfg.arch}: {n_layers} layers ({n_local} local, "
           f"{n_global} global), {cfg.n_heads} query / {cfg.n_kv_heads} KV "
@@ -5637,18 +5660,13 @@ def phase_lm_tp(seed: int, card: str, n_requests: int):
                               n_global, n_local, counts)
             res = ranks.run(bert_jobs[(1, 4)])
             _bert_tp_report((1, 4), res)
+            probe = ranks.run({"name": "probe", "kind": "probe"}, timeout=200)
+            print(f"[lm_tp] gloo on CUDA tensors (4 ranks): {probe[0]}")
         finally:
             ranks.close()
         del whole
         gc.collect()
         torch.cuda.empty_cache()
-        ranks = _Ranks(2, tmp)
-        try:
-            _bert_tp_report((1, 2), ranks.run(bert_jobs[(1, 2)]))
-            probe = ranks.run({"name": "probe", "kind": "probe"}, timeout=200)
-            print(f"[lm_tp] gloo on CUDA tensors (2 ranks): {probe[0]}")
-        finally:
-            ranks.close()
 
     per = {}
     _decode_family_shapes(np.random.RandomState(seed), dev, per,
@@ -5773,7 +5791,9 @@ def _bert_tp_report(shape, res):
 #: (model, depth cut or None, why, [(partition, mesh shape, backend, KV
 #: layouts)]), one after the other
 LM_TP_FAMILIES = (
-    ("pixtral_12b", None, "full width and depth",
+    ("pixtral_12b", 20,
+     "full width, 20 of 40 layers, as lm_families (cut to make room for "
+     "the dryrun phase)",
      (("tp", (1, 4), "plan", ("dense",)),)),
     ("deepseek_v2_lite_16b", 9,
      "full width, 9 of 27 layers: the dense first layer and 8 MoE layers, "
@@ -6131,6 +6151,8 @@ def _replayed_tokens(label, ref_sv, prompts, layout, run, gap):
 
 #: (model, dtype, [(partition, mesh shape, backend)]), one after the other,
 #: every one at full width and depth
+#: (the recurrent LMs' depth cut to lm_recurrent's, RECURRENT_LAYERS, to
+#: make room for the dryrun phase)
 LM_TP_RECURRENT = (
     ("mamba2_780m", "bfloat16", (("tp", (1, 4), "plan"),
                                  ("tp+dp", (2, 2), "plan"))),
@@ -6153,11 +6175,12 @@ TOL_TP_FP32 = 1e-3
 
 
 def phase_lm_tp_recurrent(seed: int, card: str):
-    """mamba2_780m (ssm, 48 layers; bf16 over tp (1, 4) and tp+dp (2, 2),
-    and an fp32 copy over tp), recurrentgemma_9b (hybrid, 38 layers: RG-LRU
+    """mamba2_780m (ssm, 24 of 48 layers; bf16 over tp (1, 4) and tp+dp
+    (2, 2), and an fp32 copy over tp), recurrentgemma_9b (hybrid, 20 of 38
+    layers: RG-LRU
     and MQA local attention; tp (1, 4) 'plan', dp (4, 1) through kernel K1)
     and whisper_base (audio, 6 + 6 layers, 1500 frames; tp and tp+dp,
-    dense) at full width and depth over meshes of four processes sharing
+    dense) at full width over meshes of four processes sharing
     the card (gloo): each pruned once (whisper served unpruned, as the
     reference serves it), exported per partition with ``place=False`` and
     handed to the ranks (CUDA IPC; ``place_servable`` keeps views), against
@@ -6223,7 +6246,7 @@ def _lm_tp_recurrent(name, dtype, parts, seed, dev, ranks, counts, base):
     from repro_torch.core.pruner import tied_prune
     from repro_torch.models.api import init_model
     from repro_torch.serving import ServingSpec, prepare_servable
-    cfg = _recurrent_config(name)
+    cfg = _recurrent_config(name, cut=True)
     if cfg.dtype != dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     depth = _recurrent_depth(name, cfg)
@@ -8773,6 +8796,191 @@ def phase_lm_tp_trace(seed: int, card: str):
     return {}
 
 
+# ---------------------------------------------------------------------------
+# dryrun: launch/dryrun at full configs on the production mesh, and one real
+# train step on the card against the dry-run of the same cell
+# ---------------------------------------------------------------------------
+
+#: a. the cells traced at full configs on the (16, 16) production mesh
+DRYRUN_CELLS = tuple((a, "train_4k") for a in (
+    "qwen3_moe_235b_a22b", "deepseek_v2_lite_16b", "gemma3_4b",
+    "internlm2_20b", "deepseek_7b", "chatglm3_6b", "whisper_base",
+    "mamba2_780m", "recurrentgemma_9b", "pixtral_12b")) + (
+    ("gemma3_4b", "prefill_32k"), ("gemma3_4b", "decode_32k"),
+    ("qwen3_moe_235b_a22b", "decode_32k"), ("mamba2_780m", "long_500k"),
+    ("recurrentgemma_9b", "long_500k"))
+#: the host processes tracing them (the card's machine has 8 cores; the
+#: parent runs check b on the card meanwhile)
+DRYRUN_WORKERS = 6
+#: b. the card check: gemma3_4b at full width, one 5 local : 1 global
+#: period, B 1 x S 2048
+DRYRUN_CHECK_LAYERS, DRYRUN_CHECK_SEQ = 6, 2048
+#: the predicted peak against torch.cuda.max_memory_allocated() over the
+#: step: the caching allocator rounds each block up (512 B, 2 MiB segments
+#: for large ones) and cuBLAS takes its workspace from it, which the
+#: dry-run does not model
+DRYRUN_PEAK_BAR = 0.10
+
+
+def _dryrun_worker_init(src):
+    """A dry-run worker: the port on its path and no card in sight (the
+    dry-run allocates on no device)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+
+
+def _dryrun_job(job):
+    """One worker job: ('cell', arch, shape) -> launch.dryrun.run_cell's
+    record; ('check', layers, seq) -> trace_cell of the card check's cell
+    on a (1, 1) mesh."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    if job[0] == "cell":
+        return dryrun.run_cell(job[1], job[2], False, None)
+    cfg = dataclasses.replace(get_config("gemma3_4b"), n_layers=job[1])
+    return dryrun.trace_cell(cfg, ShapeSpec("train_4k", job[2], 1, "train"),
+                             make_mesh((1, 1), ("data", "model")))
+
+
+def _dryrun_card_step(dev):
+    """b. The card's side: the check cell's train step (make_train_step
+    on a (1, 1) mesh: no collective, so its dry transport is never
+    called) on seeded leaves on the card, under OpCost(dry=False)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import cell_step
+    from repro_torch.launch.mesh import ProcessMesh, make_mesh
+    from repro_torch.launch.op_cost import OpCost
+    cfg = dataclasses.replace(_lm_config(), n_layers=DRYRUN_CHECK_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def make(shape, dtype):
+        if dtype.is_floating_point:
+            return (0.02 * torch.randn(shape, generator=gen, device=dev)
+                    ).to(dtype)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mesh = ProcessMesh.dry(make_mesh((1, 1), ("data", "model")))
+    step, args, _ = cell_step(cfg, ShapeSpec("train_4k", DRYRUN_CHECK_SEQ, 1,
+                                             "train"), mesh, make=make)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with OpCost(dry=False) as real:
+        real.hold(args)
+        _, _, metrics = step(*args)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    card_peak = torch.cuda.max_memory_allocated() - before
+    loss = float(metrics["loss"])
+    check(loss == loss and abs(loss) < 1e4, f"card step loss {loss}")
+    check(not mesh.stats, f"a (1, 1) mesh made collectives: {mesh.stats}")
+    rec = {"flops": real.flops, "bytes": real.bytes, "ops": real.ops,
+           "by_op": dict(real.by_op), "argument_bytes": real.argument_bytes,
+           "tracked_peak": real.peak, "card_peak": card_peak,
+           "step_s": step_s, "loss": loss}
+    del args, step, metrics
+    return rec
+
+
+def phase_dryrun(seed: int, card: str):
+    """a. launch/dryrun at full configs on the (16, 16) production mesh
+    (DRYRUN_CELLS, traced in worker processes on the host, no card): each
+    cell's roofline line; b. meanwhile, one real train step of gemma3_4b at
+    full width, 6 layers, B 1 x S 2048 on the card under OpCost against the
+    dry-run of the same cell on a (1, 1) mesh: flops equal exactly,
+    argument bytes equal the card's exactly, the predicted peak within
+    DRYRUN_PEAK_BAR of torch.cuda.max_memory_allocated() over the step."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    dev = torch.device("cuda")
+    print(f"[dryrun] {card}; torch {torch.__version__}; a. "
+          f"{len(DRYRUN_CELLS)} cells at full configs "
+          f"on the (16, 16) production mesh, rank 0's step on meta tensors "
+          f"({DRYRUN_WORKERS} host processes, no card); b. the card check")
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_dryrun_worker_init, initargs=(SRC,))
+    try:
+        check_job = pool.submit(_dryrun_job, ("check", DRYRUN_CHECK_LAYERS,
+                                              DRYRUN_CHECK_SEQ))
+        cells = [pool.submit(_dryrun_job, ("cell", a, s))
+                 for a, s in DRYRUN_CELLS]
+        real = _dryrun_card_step(dev)
+        t_card = time.perf_counter() - t0
+        dry = check_job.result(timeout=600)
+        results = [f.result(timeout=600) for f in cells]
+        t_host = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    wall = time.perf_counter() - t0
+
+    # a. every cell's roofline line
+    for res in results:
+        check(res["status"] == "OK", f"dry-run {res['arch']} {res['shape']}"
+              f": {res['status']} {res.get('error', res.get('reason'))}")
+        r, m = res["roofline"], res["memory"]
+        print(f"[dryrun] a. {res['arch']} {res['shape']} {res['mesh']}: "
+              f"flops/dev {r['flops_per_dev']:.4e}, bytes/dev "
+              f"{r['hbm_bytes_per_dev']:.4e}, collective bytes/dev "
+              f"{r['coll_bytes_per_dev']:.4e}, peak {m['peak_bytes'] / 2**30:.2f}"
+              f" GiB (arguments {m['argument_bytes'] / 2**30:.2f}); t_compute "
+              f"{r['t_compute_s']:.4f} s, t_memory {r['t_memory_s']:.4f} s, "
+              f"t_collective {r['t_collective_s']:.4f} s: {r['bottleneck']}; "
+              f"useful flops {r['useful_flop_ratio']:.4f}, roofline fraction "
+              f"{r['roofline_fraction']:.4f}; {res['ops']} ops traced in "
+              f"{res['trace_s']} s" + (f"; counted {res['counted']}"
+                                       if res["counted"] else ""))
+        check(r["flops_per_dev"] > 0 and m["peak_bytes"] > 0,
+              f"{res['arch']} {res['shape']}: an empty count")
+        if res["shape"] == "train_4k":
+            check(res["collectives"]["total"] > 0, f"{res['arch']} train_4k "
+                  f"on (16, 16) made no collective")
+
+    # b. the card's step against the dry-run of the same cell
+    diff = {k: (real["by_op"].get(k, [0, 0.0, 0.0])[1],
+                dry["by_op"].get(k, [0, 0.0, 0.0])[1])
+            for k in set(real["by_op"]) | set(dry["by_op"])}
+    diff = {k: v for k, v in diff.items() if v[0] != v[1]}
+    peak_err = abs(dry["memory"]["peak_bytes"] - real["card_peak"]) / \
+        real["card_peak"]
+    print(f"[dryrun] b. gemma3_4b full width, {DRYRUN_CHECK_LAYERS} layers, "
+          f"B 1 x S {DRYRUN_CHECK_SEQ}, one donated train step on the card "
+          f"({real['step_s']:.2f} s under OpCost, loss {real['loss']:.6f}) vs"
+          f" its dry-run on a (1, 1) mesh ({dry['trace_s']:.2f} s): flops "
+          f"card {real['flops']:.6e} / dry {dry['flops']:.6e} (ops "
+          f"{real['ops']} / {dry['ops']}; differing ops {diff or 'none'}); "
+          f"bytes card {real['bytes']:.6e} / dry {dry['bytes']:.6e}; "
+          f"argument bytes card {real['argument_bytes']} / dry "
+          f"{dry['memory']['argument_bytes']}; peak: dry "
+          f"{dry['memory']['peak_bytes']} B, tracked on the card "
+          f"{real['tracked_peak']} B, torch.cuda.max_memory_allocated over "
+          f"the step {real['card_peak']} B ({peak_err:.4f} apart, bar "
+          f"{DRYRUN_PEAK_BAR})")
+    check(real["flops"] == dry["flops"] and not diff,
+          f"card flops {real['flops']} vs dry {dry['flops']}: {diff}")
+    check(real["argument_bytes"] == dry["memory"]["argument_bytes"],
+          "the dry-run's argument bytes differ from the card's")
+    check(peak_err <= DRYRUN_PEAK_BAR, f"predicted peak {peak_err:.4f} "
+          f"from the card's, bar {DRYRUN_PEAK_BAR}")
+    traced = {f"{r['arch']}/{r['shape']}": r["trace_s"] for r in results}
+    print(f"[dryrun] {len(results)} cells + the check cell traced on the "
+          f"host while the card ran b. (b. done at {t_card:.1f} s, the host's "
+          f"cells at {t_host:.1f} s); wall {wall:.1f} s; trace seconds "
+          f"{traced}")
+    return {"cells": len(results)}
+
+
 def _sum_group(recs):
     """A group of per-shape records summed (one layer's four projections):
     the kernel-line keys."""
@@ -8815,7 +9023,8 @@ def _k1k6_record(name, source, replaces, launches, groups, by_path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serving,serving_quant,serving_auto,"
+                    default="dryrun,kernels,serving,serving_quant,"
+                            "serving_auto,"
                             "lm_serving,lm_serving_quant,lm_serving_sched,"
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
@@ -8849,6 +9058,12 @@ def main() -> int:
     try:
         card = phase_build()
         done("build")
+        if "dryrun" in phases:
+            phase_dryrun(args.seed, card)
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            done("dryrun")
         per_shape, bwd_shapes, decode_shapes, launches = {}, {}, {}, {}
         quant_shapes, masked_shapes = {}, []
         if "kernels" in phases:

@@ -5,7 +5,7 @@ Counterpart of ``repro/launch/mesh.py``. The reference builds a
 ``jax.sharding.Mesh`` and lets GSPMD partition every jitted program over
 it. The port runs explicit SPMD instead: one process per mesh position,
 each holding and computing only its shard, with ``torch.distributed``
-groups along each axis carrying the collectives. Two forms:
+groups along each axis carrying the collectives. Three forms:
 
   * :class:`AbstractMesh` -- axis names and sizes, no process group. The
     sharding rules (``launch/sharding.py``) read only these, so the
@@ -17,7 +17,12 @@ groups along each axis carrying the collectives. Two forms:
     (``stats``). The groups' transfers go through one seam, the mesh's
     ``transport`` (:class:`GroupTransport`: the process group's own);
     a harness whose ranks share one card or host may install another
-    (``launch/staging.py``).
+    (``launch/staging.py``);
+  * a dry :class:`ProcessMesh` (:meth:`ProcessMesh.dry`) -- one rank's
+    place on an abstract mesh with no process group, whose transport is a
+    :class:`MetaTransport`: every collective hands back a meta tensor of
+    its output's shape and is counted in ``stats`` as a real one is. The
+    dry-run (``launch/dryrun.py``) runs a rank's step on it.
 
 Ranks are laid out row-major over the axes (rank ``r`` of a ``(data,
 model)`` mesh sits at ``(r // model, r % model)``), the order
@@ -136,6 +141,36 @@ class ProcessMesh(AbstractMesh):
                                    f"the mesh coordinate {c}")
         self.stats: Dict[str, Dict[str, int]] = {}
         self.transport = GroupTransport(self)
+
+    @classmethod
+    def dry(cls, mesh: AbstractMesh, coordinate=None) -> "ProcessMesh":
+        """The rank at ``coordinate`` (rank 0 by default) of the abstract
+        ``mesh`` with no process group: ``backend`` 'dry', its transport a
+        :class:`MetaTransport`. Nothing above the transport changes, so
+        ``stats`` counts calls and bytes as that rank of a real run would;
+        the tensors must be on the meta device."""
+        self = cls.__new__(cls)
+        AbstractMesh.__init__(self, tuple(mesh.shape.values()),
+                              mesh.axis_names)
+        coordinate = tuple(int(c) for c in (
+            coordinate or (0,) * len(self.axis_names)))
+        if len(coordinate) != len(self.axis_names) or any(
+                not 0 <= c < self.shape[a]
+                for a, c in zip(self.axis_names, coordinate)):
+            raise ValueError(f"coordinate {coordinate} is not on {self}")
+        rank = 0
+        for a, c in zip(self.axis_names, coordinate):
+            rank = rank * self.shape[a] + c
+        self.device_mesh, self.groups = None, {}
+        self.rank, self.backend, self.coordinate = rank, "dry", coordinate
+        self.stats = {}
+        self.transport = MetaTransport(self)
+        return self
+
+    @property
+    def is_dry(self) -> bool:
+        """True on a dry mesh (:meth:`dry`): collectives move nothing."""
+        return self.backend == "dry"
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 for an axis it lacks)."""
@@ -384,6 +419,42 @@ class GroupTransport:
                                        group=self.mesh.groups[axis])
             return out
         return self.sum(buf, axis)[c * w:(c + 1) * w]
+
+
+class MetaTransport:
+    """A dry mesh's transfers (:meth:`ProcessMesh.dry`): no peer, no
+    process group. Each returns meta tensors of the collective's output
+    shape -- what the card's NCCL run would allocate -- and refuses a
+    tensor that is not on the meta device, whose values it could not
+    give."""
+
+    def __init__(self, mesh: ProcessMesh):
+        self.mesh = mesh
+
+    @staticmethod
+    def _meta(x: torch.Tensor) -> torch.Tensor:
+        if not x.is_meta:
+            raise ValueError(f"a dry mesh moves meta tensors only, got one "
+                             f"on {x.device}")
+        return x
+
+    def sum(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        return self._meta(buf)
+
+    def max(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        return self._meta(buf)
+
+    def gather(self, part: torch.Tensor, axis: str) -> list:
+        self._meta(part)
+        return [torch.empty_like(part) for _ in range(self.mesh.shape[axis])]
+
+    def shift(self, part: torch.Tensor, axis: str, shift: int
+              ) -> torch.Tensor:
+        return torch.empty_like(self._meta(part))
+
+    def reduce_scatter(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        w = self._meta(buf).shape[0] // self.mesh.shape[axis]
+        return buf.new_empty((w,) + tuple(buf.shape[1:]))
 
 
 class _CopyToAxis(torch.autograd.Function):

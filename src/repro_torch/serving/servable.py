@@ -937,11 +937,15 @@ def place_servable(servable: Servable) -> Servable:
 
 
 def _agree_on(mesh, value: int, device) -> int:
-    """The integer ``value`` of the mesh's rank 0, on every rank."""
-    t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    """The integer ``value`` of the mesh's rank 0, on every rank. A dry
+    mesh (``ProcessMesh.dry``) counts the broadcasts and takes the rank's
+    own value: the meta result holds none."""
+    dry = getattr(mesh, "is_dry", False)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device="meta" if dry else device)
     for axis in mesh.axis_names:
         t = mesh.broadcast(t, axis, 0)
-    return int(t[0])
+    return int(value) if dry else int(t[0])
 
 
 def _placed(params, cfg, spec, packs, registry, dev, stats, mesh,
