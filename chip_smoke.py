@@ -7,7 +7,7 @@
                            lm_training,lm_tp,lm_tp_families,
                            lm_tp_recurrent,lm_tp_train,
                            lm_tp_train_families,lm_tp_train_recurrent,
-                           lm_pipe_compress,training]
+                           lm_pipe_compress,lm_pod,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -19,7 +19,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1a. dryrun: a. launch/dryrun at full configs on the (16, 16) production
      mesh -- every ASSIGNED arch at train_4k, gemma3_4b prefill_32k and
      decode_32k, qwen3_moe decode_32k, mamba2_780m and recurrentgemma_9b
-     long_500k: rank 0's step on meta tensors in host worker processes
+     long_500k -- and on the (2, 16, 16) multipod mesh over ("pod",
+     "data", "model") -- qwen3_moe, gemma3_4b and deepseek_7b train_4k,
+     gemma3_4b prefill_32k and decode_32k, qwen3_moe decode_32k (a train
+     cell's collectives over "pod" too): rank 0's step on meta tensors in
+     host worker processes
      that see no card, each cell's per-device flops, bytes, collective
      bytes, peak and argument bytes, roofline terms on the H100 and
      bottleneck, and its trace seconds; b. meanwhile on the card, one
@@ -380,6 +384,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      forward: bitwise the sequential packed run, 24 K1 launches a rank a
      microbatch (fused QKV, wo, ffn wi and wo of 6 layers). Printed: wire
      bytes, ppermute calls and bytes, host seconds, peak memory a rank.
+  4j. lm_pod: data parallelism over the tuple ("pod", "data") on meshes
+     over ("pod", "data", "model"), four processes sharing the card
+     (staging buffers, as lm_tp_train), one device's references first: a.
+     BERT-base pruned to 0.8 at 128x128 and packed ('plan_pallas'), 2
+     packed steps over (2, 2, 1), 2 rows of (8, 384) a rank: 48 K1, K4
+     and K5 a rank a step, loss and grad_norm within 1e-4 of one
+     device's; b. gemma3_4b at full width, 6 layers, B 4 x S 512, bf16,
+     over (2, 2, 1) through Trainer.fit and (2, 1, 2), 2 steps each, and
+     an fp32 copy at 2 layers over (2, 2, 1): every step's loss and
+     grad_norm equal on every rank, within 1e-3 (bf16) / 1e-5 (fp32)
+     relative of one device's Trainer on the same global batch; c. the
+     (2, 2, 1) run's checkpoint restored on (2, 2), every leaf bitwise its
+     shard of the file; d. deepseek_v2_lite_16b at 2 layers over (2, 2,
+     1), its MoE routing the global batch gathered over both dp axes, the
+     same bars (where a token's experts differ, each a near-tie, one
+     device replays the mesh's routing); e. the dry-run's prefill and
+     decode cells of gemma3_4b (6 layers; prefill B 4 x S 512, decode 4
+     slots of a 1280-position cache prefilled with 300 tokens) for real
+     on (2, 1, 2) and (2, 2, 1) through make_prefill_step /
+     make_serve_step on the mesh servable's shards (K2 on the rank's slots
+     and heads), logits against one device's rows within 5% of
+     max|logits| (bf16) and 1e-3 (an fp32 copy at 2 layers), next tokens
+     equal but at
+     near-ties; f. one (2, 2, 1) train step of the dry-run's cell on the
+     card: every rank's ProcessMesh.stats equal, call for call and byte
+     for byte, to the dry mesh's at its coordinate.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -6642,7 +6672,8 @@ def _rank_train_job(job):
     (BERT-base pruned on a mesh) or 'packed' (the dp packed step through
     K1 / K4 / K5); or of lm_pipe_compress (``phase``): 'compress'
     (compressed DP), 'pipe' (GPipe forward and backward) or 'pipe_packed'
-    (GPipe through K1). The mesh's axes are ``axes`` (("data", "model")
+    (GPipe through K1); or of lm_pod: 'pod_serve' (the serving cells) or
+    'pod_stats' (a train cell's collective counts). The mesh's axes are ``axes`` (("data", "model")
     by default)."""
     import gc
     import torch
@@ -6662,8 +6693,10 @@ def _rank_train_job(job):
                "family": _rank_train_family,
                "recurrent": _rank_train_recurrent,
                "compress": _rank_pc_compress, "pipe": _rank_pipe,
-               "pipe_packed": _rank_pipe_packed}[job["what"]](job, mesh,
-                                                              dev, say)
+               "pipe_packed": _rank_pipe_packed,
+               "pod_serve": _rank_pod_serve,
+               "pod_stats": _rank_pod_stats}[job["what"]](job, mesh, dev,
+                                                          say)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -6679,7 +6712,8 @@ def _rank_train_lm(job, mesh, dev, say):
     import torch
     cfg = _lmtt_cfg(job["layers"], job["dtype"])
     tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
-                       mesh, job.get("fault"))
+                       mesh, job.get("fault"),
+                       tag=job.get("phase", "lm_tp_train"))
     for fn in _train_counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -7373,7 +7407,7 @@ def _rank_train_family(job, mesh, dev, say):
     cfg = _lmtf_cfg(job["model"], job["dtype"], job.get("layers"))
     tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
                        mesh, job.get("fault"), ckpt_every=LMTF_CKPT_EVERY,
-                       tag="lm_tp_train_families",
+                       tag=job.get("phase", "lm_tp_train_families"),
                        accum=job.get("accum", 1))
     for fn in _train_counters().values():
         fn.launches = 0
@@ -8797,6 +8831,525 @@ def phase_lm_tp_trace(seed: int, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h4: lm_pod -- data parallelism over ("pod", "data") on a multi-pod
+# mesh (ranks share the card)
+# ---------------------------------------------------------------------------
+
+POD_AXES = ("pod", "data", "model")
+#: gemma3_4b's runs (bf16, LMT_LAYERS layers): (name, mesh shape, through
+#: fit -- whose closing save is the checkpoint restored on (2, 2))
+LMP_PARTS = (("pod dp", (2, 2, 1), True), ("pod tp", (2, 1, 2), False))
+LMP_STEPS = 2
+#: the fp32 copy and deepseek_v2_lite's run: 2 layers over (2, 2, 1)
+LMP_FP32_LAYERS = LMP_DS_LAYERS = 2
+#: the serving cells of gemma3_4b (bf16 at LMT_LAYERS layers, an fp32
+#: copy at LMP_FP32_LAYERS): prefill_32k cut to B 4 x S 512; decode_32k to
+#: 4 slots of a 1280-position cache prefilled with LMP_PROMPT tokens a
+#: slot. One device's side is built after the training runs (with an
+#: fp32 copy at 6 layers held by the parent, the ranks' fp32 training
+#: run took the card's 80 GB on an H100 80GB HBM3)
+LMP_PREFILL = (4, 512)
+LMP_SLOTS, LMP_CACHE, LMP_PROMPT = 4, 1280, 300
+#: logits of a mesh serving step against one device's, in units of
+#: max|logits|: bf16 (lm_tp's bar) and the fp32 copy
+TOL_POD_SERVE = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def _lmp_serve_cfg(dtype):
+    import dataclasses
+    return dataclasses.replace(
+        _lm_config(), dtype=dtype, n_layers=LMT_LAYERS
+        if dtype == "bfloat16" else LMP_FP32_LAYERS)
+
+
+def _lmp_serve_reference(cfg, seed, dev):
+    """One device's side of the serving cells: seeded weights, the
+    prompts, the prefill step's last logits and tokens, the cache
+    prefilled with LMP_PROMPT tokens a slot and the decode step from it."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    params = api.init_model(seed, cfg, device=dev)
+    rng = np.random.RandomState(seed)
+    b, s = LMP_PREFILL
+    tokens = rng.randint(0, cfg.vocab_size, (b, s))
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (LMP_SLOTS, LMP_PROMPT))).to(dev)
+    token = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        LMP_SLOTS, 1)).astype(np.int32)).to(dev)
+    pos = torch.tensor(LMP_PROMPT, dtype=torch.int32, device=dev)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    with torch.no_grad():
+        logits, _ = api.model_forward(params, cfg, batch)
+        last = logits[:, -1].float().cpu().numpy()
+        del logits
+        nxt = make_prefill_step(cfg)(params, batch).cpu().numpy()
+        cache = api.init_cache(params, cfg, LMP_SLOTS, LMP_CACHE)
+        _, cache = api.prefill_cache(params, cache, cfg, prompt,
+                                     last_only=True)
+        dlogits, _ = api.decode_step(params, _clone_cache(cache), cfg,
+                                     token, pos)
+        dnext, _ = make_serve_step(cfg)(params, _clone_cache(cache), token,
+                                        pos)
+    return {"params": params, "cache": cache, "tokens": tokens,
+            "token": token.cpu().numpy(), "pos": LMP_PROMPT,
+            "prefill": last, "prefill_next": nxt,
+            "decode": dlogits[:, 0].float().cpu().numpy(),
+            "decode_next": dnext[:, 0].cpu().numpy()}
+
+
+def _rank_pod_serve(job, mesh, dev, say):
+    """The dry-run's prefill and decode cells of ``cfg`` for real on this
+    rank: the mesh servable's TP-only shards of the parent's weights
+    (views of its CUDA IPC tensors), this rank's rows of the prompts and
+    slots of the cache (cut over ("pod", "data")), the steps a user
+    calls (``make_prefill_step`` / ``make_serve_step``) and the logits
+    they take the argmax of."""
+    import torch
+    from repro_torch.launch.sharding import batch_shardings, local_shard
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import api
+    from repro_torch.serving.servable import (_decode_packs, _exec_packs,
+                                              _local_params,
+                                              serving_param_shardings)
+    cfg, whole = job["cfg"], job.pop("params")
+    coord = {a: mesh.coord(a) for a in mesh.axis_names}
+    specs = serving_param_shardings(whole, {}, mesh)
+    params = _local_params(whole, specs, mesh, copy=False)
+    packs = _exec_packs({}, params, specs, cfg, mesh)
+    tokens = torch.from_numpy(job["tokens"]).to(dev)
+    tspec = batch_shardings({"t": tokens}, mesh)["t"]
+    rows = local_shard(tokens, tspec, mesh, coord)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    mesh.reset_stats()
+    with torch.no_grad():
+        logits, _ = api.model_forward(params, cfg, {"tokens": rows},
+                                      packs=packs)
+        out["prefill"] = logits[:, -1].float().cpu().numpy()
+        del logits
+        out["prefill_next"] = make_prefill_step(cfg, packs)(
+            params, {"tokens": rows}).cpu().numpy()
+    out["prefill_stats"] = {k: v["calls"] for k, v in mesh.stats.items()}
+    cache = api.shard_cache(job.pop("cache"), cfg, mesh)
+    token = torch.from_numpy(job["token"]).to(dev)
+    kspec = batch_shardings({"t": token}, mesh)["t"]
+    token = local_shard(token, kspec, mesh, coord)
+    if kspec[0] is not None:
+        packs = _decode_packs(packs)
+    pos = torch.tensor(job["pos"], dtype=torch.int32, device=dev)
+    mesh.reset_stats()
+    with torch.no_grad():
+        dlogits, _ = api.decode_step(params, _clone_cache(cache), cfg, token,
+                                     pos, packs=packs)
+    out["decode"] = dlogits[:, 0].float().cpu().numpy()
+    nxt, cache = make_serve_step(cfg, packs)(params, cache, token, pos)
+    out["decode_next"] = nxt[:, 0].cpu().numpy()
+    out["decode_stats"] = {k: v["calls"] for k, v in mesh.stats.items()}
+    out["launches"] = {n: fn.launches for n, fn in counters.items()}
+    out["rows"] = int(rows.shape[0])
+    out["slots"] = int(token.shape[0])
+    out["cache_shapes"] = {k: tuple(v.shape) for k, v in
+                           _named_leaves(cache)[:3]}
+    say(f"prefill rows {out['rows']}, decode slots {out['slots']}")
+    del params, whole, cache, dlogits
+    torch.cuda.synchronize()
+    return out
+
+
+def _rank_pod_stats(job, mesh, dev, say):
+    """One train step of the dry-run's cell (``launch.dryrun.cell_step``:
+    the step a user calls, on this rank's shards of seeded leaves on the
+    card): ``ProcessMesh.stats`` over the step, calls and bytes."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import cell_step
+    cfg = job["cfg"]
+    gen = torch.Generator(device=dev).manual_seed(job["seed"] + mesh.rank)
+
+    def make(shape, dtype):
+        if dtype.is_floating_point:
+            return (0.02 * torch.randn(shape, generator=gen, device=dev)
+                    ).to(dtype)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=dtype)
+    b, s = job["batch"]
+    step, args, _ = cell_step(cfg, ShapeSpec("train_4k", s, b, "train"),
+                              mesh, make=make)
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step(*args)
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0, "loss": float(metrics["loss"]),
+           "stats": {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                     for k, v in sorted(mesh.stats.items())}}
+    say(f"the train cell's step: {out['s']:.2f} s, "
+        f"{sum(v['calls'] for v in out['stats'].values())} collectives")
+    del step, args, metrics
+    return out
+
+
+def _lmp_dp_rows(coord, shape, n):
+    """[lo, hi) of ``n`` rows that the dp index of ``coord`` (pod x data +
+    data) holds on a (pod, data, model) mesh of ``shape``."""
+    d = shape[0] * shape[1]
+    c = coord[0] * shape[1] + coord[1]
+    if n % d:
+        return 0, n
+    return c * (n // d), (c + 1) * (n // d)
+
+
+def _lmp_serve_check(tag, res, ref, shape, dtype):
+    """Every rank's prefill and decode logits against one device's rows
+    (TOL_POD_SERVE[dtype] of max|logits|) and its next tokens: equal
+    unless the one-device top-2 margin there is below twice the logits'
+    max |difference| (a near-tie, printed). Returns the worst gaps."""
+    import numpy as np
+    tol = TOL_POD_SERVE[dtype]
+    worst = {}
+    for what, n in (("prefill", LMP_PREFILL[0]), ("decode", LMP_SLOTS)):
+        gaps = []
+        for r, rank in enumerate(res):
+            lo, hi = _lmp_dp_rows(rank["coord"], shape, n)
+            want, got = ref[what][lo:hi], rank[what]
+            check(got.shape == want.shape, f"{tag} rank {r} {what}: logits "
+                  f"{got.shape}, one device's rows {want.shape}")
+            check(bool(np.isfinite(got).all()), f"{tag} rank {r} {what}: "
+                  f"non-finite logits")
+            gap = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            gaps.append(gap / scale)
+            check(gap <= tol * scale, f"{tag} rank {r} {what}: logits "
+                  f"{gap:.4e} from one device's, bar {tol} x {scale:.4e}")
+            nxt = rank[f"{what}_next"].reshape(-1)
+            for i in np.flatnonzero(nxt != ref[f"{what}_next"][lo:hi]):
+                top2 = np.sort(want[i])[-2:]
+                margin = float(top2[1] - top2[0])
+                print(f"{tag} rank {r} {what} row {lo + i}: next token "
+                      f"{nxt[i]} vs one device's "
+                      f"{ref[f'{what}_next'][lo + i]}, top-2 margin "
+                      f"{margin:.4e}, 2 x max|d| {2 * gap:.4e}")
+                check(margin < 2 * gap, f"{tag} rank {r} {what} row "
+                      f"{lo + i}: a next token differs away from a near-tie")
+        worst[what] = max(gaps)
+    return worst
+
+
+def phase_lm_pod(seed: int, card: str):
+    """Data parallelism over the tuple ("pod", "data") on meshes over
+    ("pod", "data", "model"): four processes sharing the card, their
+    collectives through CUDA IPC staging buffers (as lm_tp_train). One
+    device's references first. a. BERT-base's dp packed step over
+    (2, 2, 1): K1 / K4 / K5 launches a rank a step the packs' count, loss
+    and grad_norm within 1e-4 of one device's. b. gemma3_4b at full width,
+    LMT_LAYERS layers, B 4 x S 512, bf16, over (2, 2, 1) through
+    ``Trainer.fit`` (its closing save the checkpoint of c.) and (2, 1, 2),
+    2 steps each, an fp32 copy at 2 layers over (2, 2, 1): every step's
+    loss and grad_norm equal on every rank, within 1e-3 (bf16) / 1e-5
+    (fp32) relative of one device's Trainer on the same global batch. c.
+    the (2, 2, 1) checkpoint restored on (2, 2), every leaf bitwise its
+    shard of the file. d. deepseek_v2_lite_16b at 2 layers over (2, 2, 1):
+    routing over the global batch on both dp axes, as b.'s bars (where a
+    token's experts differ, one device replays the mesh's routing). e.
+    the prefill and decode cells of gemma3_4b run for real on (2, 1, 2)
+    and (2, 2, 1) against one device on the same weights (bf16 within 5%
+    of max|logits|, an fp32 copy at 2 layers within 1e-3). f. one
+    (2, 2, 1) train step's ``ProcessMesh.stats`` equal to the dry mesh's
+    counts of the same cell at each rank's coordinate, call for call and
+    byte for byte.
+    Returns the ranks' kernel launches."""
+    import dataclasses
+    import gc
+    import shutil
+    import torch
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import ProcessMesh, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import init_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "[lm_pod]"
+    cfg = _lmtt_cfg(LMT_LAYERS, "bfloat16")
+    print(f"{name} {card}; meshes over {POD_AXES}: data parallelism over "
+          f"the tuple (\"pod\", \"data\"), weights cut over \"data\" alone; "
+          f"{cfg.arch} at full width, {cfg.n_layers} layers, B "
+          f"{LMT_TP_BATCH} x S {LMT_TP_SEQ}; 4 ranks share the card, their "
+          f"collectives through CUDA IPC staging buffers, so their times say "
+          f"nothing of a pod mesh's speed")
+    rec = {}
+    marks = [time.perf_counter()]
+
+    def part(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"{name} {what}: {marks[-1] - marks[-2]:.1f} s")
+
+    # f.'s dry counts, on the host: rank r of (2, 2, 1) at its coordinate
+    stats_cfg = dataclasses.replace(_lm_config(), n_layers=LMT_LAYERS)
+    stats_shape = ShapeSpec("train_4k", LMT_TP_SEQ, LMT_TP_BATCH, "train")
+    pod_mesh = make_mesh((2, 2, 1), POD_AXES)
+    dry = {}
+    for r in range(4):
+        coord = (r // 2, r % 2, 0)
+        dry[coord] = trace_cell(stats_cfg, stats_shape,
+                                ProcessMesh.dry(pod_mesh, coord))["stats"]
+    part("f. the dry mesh's counts (host)")
+
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, layers in (("bfloat16", LMT_LAYERS),
+                              ("float32", LMP_FP32_LAYERS)):
+            tr = _lmtt_trainer(_lmtt_cfg(layers, dtype), tmp, seed,
+                               LMP_STEPS, dev, tag="lm_pod")
+            state = _lmtt_run(tr, LMP_STEPS)
+            refs[dtype] = tr.rec
+            print(f"{name} one device ({dtype}, {layers} layers): loss "
+                  f"{[r['loss'] for r in tr.rec]}, grad_norm "
+                  f"{[r['grad_norm'] for r in tr.rec]}")
+            del state, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        ds = _lmtf_cfg("deepseek_v2_lite_16b", layers=LMP_DS_LAYERS)
+        refs["ds"] = _lmtf_reference(ds, LMP_STEPS, seed, dev, tmp)
+        print(f"{name} one device {ds.arch} ({ds.n_layers} layers): loss "
+              f"{[x['loss'] for x in refs['ds']['rec']]}, grad_norm "
+              f"{[x['grad_norm'] for x in refs['ds']['rec']]}")
+        # a.'s packs: BERT-base's seeded weights pruned and packed
+        bcfg = get_config("bert_base")
+        servable = prepare_servable(init_model(seed, bcfg, device=dev), bcfg,
+                                    ServingSpec(**BERT_SPEC,
+                                                backend="plan_pallas"),
+                                    device=dev)
+        packs = servable.packs
+        pipe = DataPipeline(DataConfig(seq_len=BERT_TP_SEQ,
+                                       global_batch=BERT_TP_BATCH,
+                                       vocab_size=bcfg.vocab_size))
+        batches = [pipe.batch_at(300 + i)
+                   for i in range(BERT_TP_PACKED_STEPS)]
+        pipe.close()
+        popt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                           weight_decay=0.01)
+        step = make_train_step(bcfg, popt, packs=packs)
+        params, one_packed = servable.params, []
+        ost = init_opt_state(params, popt)
+        for b in batches:
+            params, ost, m = step(params, ost, {
+                k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in b.items()})
+            one_packed.append({k: float(v) for k, v in m.items()})
+        del params, ost, step
+        part("one-device references")
+
+        counts = dict.fromkeys(_train_counters(), 0)
+        ranks = _Ranks(4, tmp)
+        try:
+            # a. the dp packed step over (2, 2, 1)
+            res = ranks.run({"name": "packed (2, 2, 1)", "kind": "train",
+                             "what": "packed", "shape": (2, 2, 1),
+                             "axes": POD_AXES, "phase": "lm_pod",
+                             "cfg": bcfg, "opt": popt,
+                             "params": servable.params, "packs": packs,
+                             "batches": batches})
+            tag = f"{name} a. packed BERT-base (2, 2, 1)"
+            want = dict.fromkeys(counts, 0)
+            want.update(plan_dds=len(packs), plan_dds_t=len(packs),
+                        plan_sddmm=len(packs))
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for r, rank in enumerate(res):
+                for i, x in enumerate(rank["rec"]):
+                    check(x["launches"] == want, f"{tag} rank {r} step {i}: "
+                          f"launches {x['launches']}, the packs {want}")
+                    check(x["rows"] == BERT_TP_BATCH // 4,
+                          f"{tag}: rank {r} ran {x['rows']} rows")
+                    for k in counts:
+                        counts[k] += x["launches"][k]
+                    for k in worst:
+                        check(x[k] == res[0]["rec"][i][k], f"{tag}: step "
+                              f"{i} {k} differs between ranks 0 and {r}")
+            for i, w in enumerate(one_packed):
+                for k in worst:
+                    got = res[0]["rec"][i][k]
+                    rel = abs(got - w[k]) / abs(w[k])
+                    worst[k] = max(worst[k], rel)
+                    check(rel <= TOL_PACKED_STEP, f"{tag}: step {i} {k} "
+                          f"{got!r} against one device's {w[k]!r}")
+            print(f"{tag}: K1 / K4 / K5 a rank a step "
+                  f"{[[(x['launches']['plan_dds'], x['launches']['plan_dds_t'], x['launches']['plan_sddmm']) for x in rank['rec']] for rank in res]}"
+                  f" (the packs: {len(packs)}); loss "
+                  f"{[x['loss'] for x in res[0]['rec']]} against one "
+                  f"device's {[x['loss'] for x in one_packed]}: "
+                  f"{worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} "
+                  f"relative (bar {TOL_PACKED_STEP})")
+            _print_rank_steps(tag, res)
+            rec["packed"] = worst
+            del servable, packs
+            part("a. packed BERT-base")
+
+            # b. gemma3_4b over (2, 2, 1) and (2, 1, 2), the fp32 copy
+            for part_name, shape, fit in LMP_PARTS:
+                res = ranks.run({
+                    "name": part_name, "kind": "train", "what": "lm",
+                    "shape": shape, "axes": POD_AXES, "phase": "lm_pod",
+                    "layers": LMT_LAYERS, "dtype": "bfloat16",
+                    "steps": LMP_STEPS, "seed": seed,
+                    "ckpt_dir": os.path.join(tmp, part_name), "fit": fit})
+                tag = f"{name} b. {part_name} {shape}"
+                for r, rank in enumerate(res):
+                    check(rank["restarts"] == 0 and rank["step"] ==
+                          LMP_STEPS, f"{tag} rank {r}: {rank['restarts']} "
+                          f"restarts, optimizer step {rank['step']}")
+                _print_rank_steps(tag, res)
+                worst = _lmtt_compare(tag, res, refs["bfloat16"],
+                                      "bfloat16")
+                print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}; "
+                      f"against one device: loss {worst['loss']:.3e}, "
+                      f"grad_norm {worst['grad_norm']:.3e} relative (bar "
+                      f"{TOL_MESH_TRAIN['bfloat16']}); checkpoint I/O "
+                      f"(rank 0, s) "
+                      f"{[(k, round(t, 2)) for k, t in res[0]['io']]}")
+                rec[part_name] = {"worst": worst,
+                                  "peak_gib": [x["peak_gib"] for x in res]}
+            res = ranks.run({
+                "name": "pod fp32", "kind": "train", "what": "lm",
+                "shape": (2, 2, 1), "axes": POD_AXES, "phase": "lm_pod",
+                "layers": LMP_FP32_LAYERS, "dtype": "float32",
+                "steps": LMP_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "fp32")})
+            tag = f"{name} b. fp32 copy (2, 2, 1)"
+            worst = _lmtt_compare(tag, res, refs["float32"], "float32")
+            print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}, "
+                  f"grad_norm {[r['grad_norm'] for r in res[0]['rec']]}; "
+                  f"against one device: loss {worst['loss']:.3e}, grad_norm "
+                  f"{worst['grad_norm']:.3e} relative (bar "
+                  f"{TOL_MESH_TRAIN['float32']})")
+            rec["fp32"] = worst
+            part("b. gemma3_4b over (2, 2, 1), (2, 1, 2), fp32")
+
+            # c. the (2, 2, 1) checkpoint restored on (2, 2)
+            ckpt = os.path.join(tmp, LMP_PARTS[0][0])
+            meta = CheckpointStore(ckpt).meta(LMP_STEPS)
+            check(meta.get("mesh", {}).get("shape") == [2, 2, 1] and
+                  meta["mesh"].get("axes") == list(POD_AXES),
+                  f"{name} c. the checkpoint's meta {meta.get('mesh')}")
+            res = ranks.run({
+                "name": "restore (2, 2)", "kind": "train",
+                "what": "restore", "shape": (2, 2), "layers": LMT_LAYERS,
+                "dtype": "bfloat16", "seed": seed, "ckpt_dir": ckpt,
+                "step": LMP_STEPS, "steps": 0, "phase": "lm_pod",
+                "scratch_dir": os.path.join(tmp, "scratch")})
+            tag = f"{name} c. the (2, 2, 1) checkpoint at (2, 2)"
+            for r, rank in enumerate(res):
+                check(not rank["bad"], f"{tag} rank {r}: leaves not bitwise "
+                      f"their shard: {rank['bad'][:5]}")
+            print(f"{tag}: {res[0]['n']} leaves bitwise their shard of the "
+                  f"file on every rank, restore "
+                  f"{[round(x['restore_s'], 2) for x in res]} s")
+            rec["restore"] = res[0]["n"]
+            shutil.rmtree(ckpt, ignore_errors=True)
+            part("c. restore")
+
+            # d. deepseek_v2_lite over (2, 2, 1)
+            res = ranks.run({
+                "name": "deepseek (2, 2, 1)", "kind": "train",
+                "what": "family", "phase": "lm_pod",
+                "model": "deepseek_v2_lite_16b", "dtype": "bfloat16",
+                "layers": LMP_DS_LAYERS, "shape": (2, 2, 1),
+                "axes": POD_AXES, "steps": LMP_STEPS, "seed": seed,
+                "ckpt_dir": os.path.join(tmp, "ds")})
+            tag = f"{name} d. deepseek_v2_lite (2, 2, 1), {ds.n_layers} layers"
+            _lmtf_report(tag, res, LMP_STEPS)
+            for r, rank in enumerate(res):
+                check(all(s[1] for s in rank["shards"].values()) and
+                      rank["shards"], f"{tag} rank {r}: expert shards "
+                      f"{rank['shards']} do not gather the rows")
+            worst, margins = _lmtf_agree(tag, res, refs["ds"], "bfloat16",
+                                         ds, LMP_STEPS, seed, dev, tmp)
+            print(f"{tag}: loss {[x['loss'] for x in res[0]['rec']]}, aux "
+                  f"{[x['aux'] for x in res[0]['rec']]}; against one "
+                  f"device: loss {worst['loss']:.3e}, grad_norm "
+                  f"{worst['grad_norm']:.3e} relative (bar "
+                  f"{TOL_MESH_TRAIN['bfloat16']}); {len(margins)} routing "
+                  f"differences")
+            rec["ds"] = {"worst": worst, "flips": len(margins)}
+            part("d. deepseek_v2_lite")
+
+            # e. the serving cells on (2, 1, 2) and (2, 2, 1)
+            serve = {dtype: _lmp_serve_reference(_lmp_serve_cfg(dtype),
+                                                 seed, dev)
+                     for dtype in ("bfloat16", "float32")}
+            for dtype in ("bfloat16", "float32"):
+                ref = serve[dtype]
+                for shape in ((2, 1, 2), (2, 2, 1)):
+                    res = ranks.run({
+                        "name": f"serve {dtype} {shape}", "kind": "train",
+                        "what": "pod_serve", "shape": shape,
+                        "axes": POD_AXES, "phase": "lm_pod",
+                        "cfg": _lmp_serve_cfg(dtype),
+                        "params": ref["params"], "cache": ref["cache"],
+                        "tokens": ref["tokens"], "token": ref["token"],
+                        "pos": ref["pos"]})
+                    tag = f"{name} e. {dtype} serving cells {shape}"
+                    worst = _lmp_serve_check(tag, res, ref, shape, dtype)
+                    for rank in res:
+                        for k in counts:
+                            counts[k] += rank["launches"][k]
+                    print(f"{tag}: prefill rows / decode slots a rank "
+                          f"{[(x['rows'], x['slots']) for x in res]}; logits "
+                          f"against one device's rows: prefill "
+                          f"{worst['prefill']:.3e}, decode "
+                          f"{worst['decode']:.3e} of max|logits| (bar "
+                          f"{TOL_POD_SERVE[dtype]}); K2 a rank "
+                          f"{[x['launches']['flash_decode'] for x in res]}; "
+                          f"collectives (rank 0) prefill "
+                          f"{res[0]['prefill_stats']}, decode "
+                          f"{res[0]['decode_stats']}; cache shards (rank 0) "
+                          f"{res[0]['cache_shapes']}")
+                    rec[f"serve {dtype} {shape}"] = worst
+            del serve, ref
+            part("e. serving cells")
+
+            # f. a (2, 2, 1) train step's collectives against the dry mesh
+            res = ranks.run({"name": "stats (2, 2, 1)", "kind": "train",
+                             "what": "pod_stats", "shape": (2, 2, 1),
+                             "axes": POD_AXES, "phase": "lm_pod",
+                             "cfg": stats_cfg,
+                             "batch": (LMT_TP_BATCH, LMT_TP_SEQ),
+                             "seed": seed})
+            tag = f"{name} f. the train cell's collectives on (2, 2, 1)"
+            for r, rank in enumerate(res):
+                want = dry[tuple(rank["coord"])]
+                bad = {k: (rank["stats"].get(k), want.get(k))
+                       for k in set(rank["stats"]) | set(want)
+                       if rank["stats"].get(k) != want.get(k)}
+                check(not bad, f"{tag} rank {r} {rank['coord']}: real vs "
+                      f"dry {bad}")
+                check(any(k.endswith(":pod") for k in want), f"{tag}: no "
+                      f"collective over 'pod'")
+            print(f"{tag}: every rank's {len(res[0]['stats'])} op:axis "
+                  f"counts equal the dry mesh's at its coordinate "
+                  f"(rank 0: {res[0]['stats']}); step "
+                  f"{[round(x['s'], 2) for x in res]} s, loss "
+                  f"{[round(x['loss'], 5) for x in res]}")
+            rec["stats"] = len(res[0]["stats"])
+            part("f. collective counts")
+        finally:
+            ranks.close()
+    print(f"{name} summary {json.dumps(rec, default=str)}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # dryrun: launch/dryrun at full configs on the production mesh, and one real
 # train step on the card against the dry-run of the same cell
 # ---------------------------------------------------------------------------
@@ -8809,6 +9362,13 @@ DRYRUN_CELLS = tuple((a, "train_4k") for a in (
     ("gemma3_4b", "prefill_32k"), ("gemma3_4b", "decode_32k"),
     ("qwen3_moe_235b_a22b", "decode_32k"), ("mamba2_780m", "long_500k"),
     ("recurrentgemma_9b", "long_500k"))
+#: a.'s multipod cells: counterparts of DRYRUN_CELLS on the (2, 16, 16)
+#: ("pod", "data", "model") mesh (``--multipod``), train, prefill and
+#: decode
+DRYRUN_POD_CELLS = (("qwen3_moe_235b_a22b", "train_4k"),
+                    ("gemma3_4b", "train_4k"), ("deepseek_7b", "train_4k"),
+                    ("gemma3_4b", "prefill_32k"), ("gemma3_4b", "decode_32k"),
+                    ("qwen3_moe_235b_a22b", "decode_32k"))
 #: the host processes tracing them (the card's machine has 8 cores; the
 #: parent runs check b on the card meanwhile)
 DRYRUN_WORKERS = 6
@@ -8832,16 +9392,16 @@ def _dryrun_worker_init(src):
 
 
 def _dryrun_job(job):
-    """One worker job: ('cell', arch, shape) -> launch.dryrun.run_cell's
-    record; ('check', layers, seq) -> trace_cell of the card check's cell
-    on a (1, 1) mesh."""
+    """One worker job: ('cell', arch, shape, multi_pod) ->
+    launch.dryrun.run_cell's record; ('check', layers, seq) -> trace_cell
+    of the card check's cell on a (1, 1) mesh."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     if job[0] == "cell":
-        return dryrun.run_cell(job[1], job[2], False, None)
+        return dryrun.run_cell(job[1], job[2], job[3], None)
     cfg = dataclasses.replace(get_config("gemma3_4b"), n_layers=job[1])
     return dryrun.trace_cell(cfg, ShapeSpec("train_4k", job[2], 1, "train"),
                              make_mesh((1, 1), ("data", "model")))
@@ -8893,8 +9453,10 @@ def _dryrun_card_step(dev):
 
 def phase_dryrun(seed: int, card: str):
     """a. launch/dryrun at full configs on the (16, 16) production mesh
-    (DRYRUN_CELLS, traced in worker processes on the host, no card): each
-    cell's roofline line; b. meanwhile, one real train step of gemma3_4b at
+    (DRYRUN_CELLS) and on the (2, 16, 16) multipod mesh (DRYRUN_POD_CELLS),
+    traced in worker processes on the host, no card: each cell's roofline
+    line, the multipod train cells' collectives over "pod" too; b.
+    meanwhile, one real train step of gemma3_4b at
     full width, 6 layers, B 1 x S 2048 on the card under OpCost against the
     dry-run of the same cell on a (1, 1) mesh: flops equal exactly,
     argument bytes equal the card's exactly, the predicted peak within
@@ -8905,7 +9467,8 @@ def phase_dryrun(seed: int, card: str):
     dev = torch.device("cuda")
     print(f"[dryrun] {card}; torch {torch.__version__}; a. "
           f"{len(DRYRUN_CELLS)} cells at full configs "
-          f"on the (16, 16) production mesh, rank 0's step on meta tensors "
+          f"on the (16, 16) production mesh and {len(DRYRUN_POD_CELLS)} on "
+          f"the (2, 16, 16) multipod mesh, rank 0's step on meta tensors "
           f"({DRYRUN_WORKERS} host processes, no card); b. the card check")
     t0 = time.perf_counter()
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -8914,8 +9477,10 @@ def phase_dryrun(seed: int, card: str):
     try:
         check_job = pool.submit(_dryrun_job, ("check", DRYRUN_CHECK_LAYERS,
                                               DRYRUN_CHECK_SEQ))
-        cells = [pool.submit(_dryrun_job, ("cell", a, s))
-                 for a, s in DRYRUN_CELLS]
+        cells = [pool.submit(_dryrun_job, ("cell", a, s, pod))
+                 for pod, group in ((False, DRYRUN_CELLS),
+                                    (True, DRYRUN_POD_CELLS))
+                 for a, s in group]
         real = _dryrun_card_step(dev)
         t_card = time.perf_counter() - t0
         dry = check_job.result(timeout=600)
@@ -8945,7 +9510,11 @@ def phase_dryrun(seed: int, card: str):
               f"{res['arch']} {res['shape']}: an empty count")
         if res["shape"] == "train_4k":
             check(res["collectives"]["total"] > 0, f"{res['arch']} train_4k "
-                  f"on (16, 16) made no collective")
+                  f"on {res['mesh']} made no collective")
+            pod = [k for k in res["collective_calls"] if k.endswith(":pod")]
+            check(bool(pod) == (res["mesh"] == "2x16x16"),
+                  f"{res['arch']} train_4k on {res['mesh']}: collectives "
+                  f"over 'pod' {pod}")
 
     # b. the card's step against the dry-run of the same cell
     diff = {k: (real["by_op"].get(k, [0, 0.0, 0.0])[1],
@@ -8973,7 +9542,8 @@ def phase_dryrun(seed: int, card: str):
           "the dry-run's argument bytes differ from the card's")
     check(peak_err <= DRYRUN_PEAK_BAR, f"predicted peak {peak_err:.4f} "
           f"from the card's, bar {DRYRUN_PEAK_BAR}")
-    traced = {f"{r['arch']}/{r['shape']}": r["trace_s"] for r in results}
+    traced = {f"{r['arch']}/{r['shape']}/{r['mesh']}": r["trace_s"]
+              for r in results}
     print(f"[dryrun] {len(results)} cells + the check cell traced on the "
           f"host while the card ran b. (b. done at {t_card:.1f} s, the host's "
           f"cells at {t_host:.1f} s); wall {wall:.1f} s; trace seconds "
@@ -9029,7 +9599,7 @@ def main() -> int:
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
                             "lm_tp_train_families,lm_tp_train_recurrent,"
-                            "lm_pipe_compress,training")
+                            "lm_pipe_compress,lm_pod,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -9161,6 +9731,12 @@ def main() -> int:
             launches["lm_pipe_compress"] = phase_lm_pipe_compress(args.seed,
                                                                   card)
             done("lm_pipe_compress")
+        if "lm_pod" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_pod"] = phase_lm_pod(args.seed, card)
+            done("lm_pod")
         if "lm_tp_trace" in phases:
             launches["lm_tp_trace"] = phase_lm_tp_trace(args.seed, card)
             done("lm_tp_trace")

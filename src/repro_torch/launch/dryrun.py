@@ -8,9 +8,11 @@ XLA's analyses. The port runs explicit SPMD, one process a mesh position,
 so the dry-run runs rank 0's own program: the cell's step on rank 0's
 shards of meta-device inputs (``launch/specs.py``), over a dry
 ``ProcessMesh`` (``ProcessMesh.dry``) at rank 0's coordinate of
-``make_production_mesh()``, whose collectives return meta tensors of
-their output shapes and are counted as a real run counts them, under
-``launch/op_cost.OpCost``. Nothing is allocated on any device, as the
+``make_production_mesh()`` -- (16, 16) over ("data", "model"), or with
+``--multipod`` (2, 16, 16) over ("pod", "data", "model") --, whose
+collectives return meta tensors of their output shapes and are counted as
+a real run counts them (over the dp axes ("pod", "data") one count an
+axis), under ``launch/op_cost.OpCost``. Nothing is allocated on any device, as the
 reference compiles on the host; this is not a CPU fallback.
 
 Three cell kinds, each through the step a user would call:
@@ -21,8 +23,8 @@ Three cell kinds, each through the step a user would call:
     mesh servable's TP-only inference shards and shard objects
     (``servable.serving_param_shardings`` / ``_exec_packs``);
   * decode: ``make_serve_step`` on rank 0's slots and cache shard, with
-    the same shards (MoE layers gather the step's rows where "data" cuts
-    the slots, as the servable's ``_decode_packs``).
+    the same shards (MoE layers gather the step's rows where the dp axes
+    cut the slots, as the servable's ``_decode_packs``).
 
 The meta device runs no CUDA kernel: where the card would run K2 / K3, the
 dry-run counts the plain ``decode_attention`` composition, and a decode
@@ -65,17 +67,9 @@ OUT_DIR = "results/dryrun_torch"
 
 def dry_mesh(mesh) -> ProcessMesh:
     """Rank 0 of ``mesh`` as a dry ``ProcessMesh`` (``mesh`` itself when it
-    is one: any rank). A "pod" axis raises: the spec rules fold it into data
-    parallelism, but the runtime names "data" alone (``launch/steps.py``,
-    ``models/common.py``, ``serving/servable.py``), so a rank on a
-    multi-pod mesh would run the one-pod program and report it as its
-    own."""
-    if "pod" in mesh.axis_names:
-        raise ValueError(
-            f"mesh {dict(mesh.shape)}: the runtime runs data parallelism "
-            f"over the 'data' axis only and would ignore 'pod'; a "
-            f"multi-pod mesh is later work (ROADMAP Queue 1 item 10, the "
-            f"pod axis)")
+    is one: any rank). A multi-pod mesh's "pod" axis is data parallelism
+    with "data" (``launch.mesh.dp_axes``): batches, caches and the
+    gradients' means run over both, weights are cut over "data" alone."""
     if isinstance(mesh, ProcessMesh) and mesh.is_dry:
         return mesh
     return ProcessMesh.dry(mesh)
@@ -128,7 +122,7 @@ def cell_step(cfg, shape, mesh, make=_meta):
     cache = _shards(specs["cache"], cache_shardings(specs["cache"], mesh),
                     mesh, make)
     tok = batch_shardings({"t": specs["token"]}, mesh)["t"]
-    if tok[0] is not None:                  # slots cut over "data"
+    if tok[0] is not None:                  # slots cut over the dp axes
         packs = _decode_packs(packs)
     if _has_decode_attention(cfg):
         counted["decode_attention"] = (
@@ -214,7 +208,6 @@ def main(argv=None):
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)
 
-    dry_mesh(make_production_mesh(multi_pod=args.multipod))
     os.makedirs(args.out, exist_ok=True)
     cells = ([(a, s) for a in ASSIGNED for s in SHAPES] if args.all
              else [(args.arch, args.shape)])

@@ -39,6 +39,16 @@ backend a run uses is
 the caller's choice, made when it initialises the process group
 (:func:`init_distributed`).
 
+Every collective takes ``axis`` as one axis name or a tuple of names --
+the data-parallel axes ("pod", "data") of a multi-pod mesh -- and runs
+over a tuple as one collective an axis over the groups that exist: a
+gather the last axis first and a reduce-scatter the first axis first, so
+either is exact and in the row-major order of the tuple (first axis
+outermost, :meth:`ProcessMesh.coord`'s and ``jax.make_mesh``'s); a sum
+one fp32 sum an axis, the last axis first, rounded once (its order of
+additions differs from one group's over the product, which is never
+built). ``stats`` counts each axis moved under its own ``op:axis`` key.
+
 Training differentiates through the collectives: ``copy_to`` /
 ``reduce_from`` / ``gather_from`` / ``scatter_to`` (tensor parallelism's
 conjugate pairs over "model") and ``fsdp_gather`` (a weight's "data"
@@ -96,10 +106,17 @@ def dp_axes(mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
+def axis_names_of(axis) -> tuple:
+    """``axis`` -- one axis name or a tuple of them -- as a tuple."""
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
 def axis_size(mesh, names) -> int:
+    """The ranks along ``names`` (one axis name or a tuple: the product of
+    their sizes; 1 for an axis the mesh lacks)."""
     s = 1
     sizes = dict(mesh.shape)
-    for n in (names if isinstance(names, (tuple, list)) else (names,)):
+    for n in axis_names_of(names):
         s *= sizes.get(n, 1)
     return s
 
@@ -172,11 +189,22 @@ class ProcessMesh(AbstractMesh):
         """True on a dry mesh (:meth:`dry`): collectives move nothing."""
         return self.backend == "dry"
 
-    def coord(self, axis: str) -> int:
-        """This rank's index along ``axis`` (0 for an axis it lacks)."""
-        if axis not in self.shape:
-            return 0
-        return self.coordinate[self.axis_names.index(axis)]
+    def coord(self, axis) -> int:
+        """This rank's index along ``axis`` (0 for an axis it lacks); for a
+        tuple of axes the row-major index over them, first axis outermost
+        (``launch.sharding.shard_index``'s order, and ``jax.make_mesh``'s)."""
+        idx = 0
+        for a in axis_names_of(axis):
+            if a in self.shape:
+                idx = idx * self.shape[a] + self.coordinate[
+                    self.axis_names.index(a)]
+        return idx
+
+    def _moved(self, axis) -> tuple:
+        """The axes of ``axis`` (a name or a tuple) with more than one
+        rank: the ones a collective over it moves data along."""
+        return tuple(a for a in axis_names_of(axis)
+                     if self.shape.get(a, 1) > 1)
 
     def reset_stats(self):
         self.stats = {}
@@ -203,47 +231,67 @@ class ProcessMesh(AbstractMesh):
             return x.to(torch.int32).contiguous()
         return x.contiguous()
 
-    def _sum(self, op: str, axis: str, buf: torch.Tensor) -> torch.Tensor:
-        """The sum of ``buf`` (a fresh copy) over ``axis``, counted."""
-        return self._timed(op, axis, buf.numel() * buf.element_size(),
-                           lambda: self.transport.sum(buf, axis))
+    def _sum(self, op: str, axis, buf: torch.Tensor) -> torch.Tensor:
+        """The sum of ``buf`` (a fresh copy) over ``axis``, counted: over a
+        tuple, one sum an axis, the last axis first (every rank of the
+        tuple ends with the same bits)."""
+        for a in reversed(self._moved(axis)):
+            buf = self._timed(op, a, buf.numel() * buf.element_size(),
+                              lambda: self.transport.sum(buf, a))
+        return buf
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum of ``x`` over the ranks along ``axis`` (a new tensor in
-        ``x``'s dtype; ``x`` itself when the axis has one rank)."""
-        if self.shape.get(axis, 1) == 1:
+    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Sum of ``x`` over the ranks along ``axis`` -- one name or a
+        tuple: the sums over each axis in fp32 for narrower floats, one
+        rounding at the end (a new tensor in ``x``'s dtype; ``x`` itself
+        when the axes have one rank)."""
+        if not self._moved(axis):
             return x
         return self._sum("all_reduce", axis,
                          self._wire(x).clone()).to(x.dtype)
 
-    def all_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_max(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Elementwise max of ``x`` over the ranks along ``axis``."""
-        if self.shape.get(axis, 1) == 1:
+        moved = self._moved(axis)
+        if not moved:
             return x
         buf = x.contiguous().clone()
-        return self._timed("all_max", axis, buf.numel() * buf.element_size(),
-                           lambda: self.transport.max(buf, axis))
+        for a in reversed(moved):
+            buf = self._timed("all_max", a, buf.numel() * buf.element_size(),
+                              lambda: self.transport.max(buf, a))
+        return buf
 
     #: the wire copy a reduce-scatter makes at a time: a larger gradient
     #: goes in slabs of another dim (an FSDP expert gradient of GBs would
     #: otherwise take a whole fp32 copy, twice over for ``dim`` > 0)
     SLAB_BYTES = 256 << 20
 
-    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = -1
+    def reduce_scatter(self, x: torch.Tensor, axis, dim: int = -1
                        ) -> torch.Tensor:
         """This rank's block along ``dim`` of the sum of ``x`` over the
         ranks along ``axis``, summed in fp32 for narrower floats. The sum
         is elementwise, so a large ``x`` goes in slabs along another dim,
-        each moved to the wire dtype in one copy (the same sums)."""
-        n = self.shape.get(axis, 1)
-        if n == 1:
-            return x
+        each moved to the wire dtype in one copy (the same sums). Over a
+        tuple of axes, one reduce-scatter an axis, the first axis first:
+        its block is the outer one, so the rank ends with block
+        ``coord(axis)`` of the row-major order; the partial stays in the
+        wire dtype between them."""
+        moved, dtype = self._moved(axis), x.dtype
+        for i, a in enumerate(moved):
+            x = self._reduce_scatter(x, a, dim, dtype if i == len(moved) - 1
+                                     else None)
+        return x
+
+    def _reduce_scatter(self, x, axis: str, dim: int, dtype):
+        """One axis's reduce-scatter, its block in ``dtype`` (None: the
+        wire dtype, a partial another axis sums on)."""
+        n = self.shape[axis]
         dim %= x.dim()
         wire = torch.float32 if x.is_floating_point() \
             and x.element_size() < 4 else x.dtype
         shape = list(x.shape)
         shape[dim] //= n
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        out = torch.empty(shape, dtype=dtype or wire, device=x.device)
         others = [d for d in range(x.dim()) if d != dim]
         s = max(others, key=lambda d: x.shape[d]) if others else dim
         nbytes = x.numel() * torch.empty((), dtype=wire).element_size()
@@ -267,66 +315,71 @@ class ProcessMesh(AbstractMesh):
     # so a tensor replicated over an axis keeps a gradient that is whole
     # and equal on every rank of the axis. Each backward issues its
     # collective from the Function itself, in the autograd engine's order,
-    # which every rank shares (same graph).
+    # which every rank shares (same graph). ``axis`` is one name or a
+    # tuple of names (the data-parallel axes ("pod", "data")).
 
-    def copy_to(self, x, axis: str):
+    def copy_to(self, x, axis):
         """Identity forward; the gradient all-reduced over ``axis`` (the
         input of a column-parallel block or of a vocabulary block)."""
-        if self.shape.get(axis, 1) == 1:
+        if not self._moved(axis):
             return x
         return _CopyToAxis.apply(x, self, axis)
 
-    def reduce_from(self, x, axis: str):
+    def reduce_from(self, x, axis):
         """All-reduce forward; the gradient passed through (a row-parallel
         partial, an embedding lookup's rows)."""
-        if self.shape.get(axis, 1) == 1:
+        if not self._moved(axis):
             return x
         return _ReduceFromAxis.apply(x, self, axis)
 
-    def gather_from(self, x, axis: str, dim: int = -1):
+    def gather_from(self, x, axis, dim: int = -1):
         """All-gather forward; backward keeps this rank's block of the
         gradient (a column block made whole)."""
-        if self.shape.get(axis, 1) == 1:
+        if not self._moved(axis):
             return x
         return _GatherFromAxis.apply(x, self, axis, dim)
 
-    def scatter_to(self, x, axis: str, dim: int = -1):
+    def scatter_to(self, x, axis, dim: int = -1):
         """This rank's block forward; the gradient all-gathered (a
         replicated tensor cut to the rank's block)."""
-        n = self.shape.get(axis, 1)
-        if n == 1:
+        if not self._moved(axis):
             return x
         return _ScatterToAxis.apply(x, self, axis, dim)
 
-    def fsdp_gather(self, x, axis: str, dim: int):
+    def fsdp_gather(self, x, axis, dim: int):
         """FSDP's weight gather: all-gather forward; backward
         reduce-scatters the gradient, the sum over ``axis``'s ranks of
         this rank's block."""
-        if self.shape.get(axis, 1) == 1:
+        if not self._moved(axis):
             return x
         return _FsdpGather.apply(x, self, axis, dim)
 
-    def block_of(self, x, axis: str, dim: int = -1):
+    def block_of(self, x, axis, dim: int = -1):
         """This rank's block of ``x`` along ``dim`` (no collective)."""
-        n = self.shape.get(axis, 1)
+        n = axis_size(self, axis)
         if n == 1:
             return x
         w = x.shape[dim] // n
         return x.narrow(dim, self.coord(axis) * w, w)
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1
+    def all_gather(self, x: torch.Tensor, axis, dim: int = -1
                    ) -> torch.Tensor:
         """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in
-        coordinate order (exact: nothing is added)."""
-        n = self.shape.get(axis, 1)
-        if n == 1:
+        coordinate order (exact: nothing is added). Over a tuple of axes,
+        one gather an axis, the last axis first, so the first axis ends up
+        major: the row-major order of ``coord(axis)``."""
+        moved = self._moved(axis)
+        if not moved:
             return x
         part = x.to(torch.int32) if x.dtype == torch.bool else x
-        part = part.contiguous()
-        parts = self._timed("all_gather", axis,
-                            n * part.numel() * part.element_size(),
-                            lambda: self.transport.gather(part, axis))
-        return torch.cat(parts, dim=dim).to(x.dtype)
+        for a in reversed(moved):
+            part = part.contiguous()
+            n = self.shape[a]
+            parts = self._timed("all_gather", a,
+                                n * part.numel() * part.element_size(),
+                                lambda: self.transport.gather(part, a))
+            part = torch.cat(parts, dim=dim)
+        return part.to(x.dtype)
 
     def ppermute(self, x: torch.Tensor, axis: str, shift: int = 1
                  ) -> torch.Tensor:
@@ -343,11 +396,12 @@ class ProcessMesh(AbstractMesh):
                            lambda: self.transport.shift(part, axis,
                                                         shift % n))
 
-    def broadcast(self, x: torch.Tensor, axis: str, src: int = 0
+    def broadcast(self, x: torch.Tensor, axis, src: int = 0
                   ) -> torch.Tensor:
-        """The ``x`` of the rank at index ``src`` along ``axis``, on every
-        rank of the axis group (exact: the others send zeros)."""
-        if self.shape.get(axis, 1) == 1:
+        """The ``x`` of the rank at index ``src`` along ``axis`` (over a
+        tuple: the row-major index of :meth:`coord`), on every rank of
+        the axes (exact: the others send zeros)."""
+        if not self._moved(axis):
             return x
         buf = self._wire(x).clone()
         if self.coord(axis) != int(src):

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regularizer import tree_group_penalty
 from repro_torch.core.tree import leaves, unflatten
+from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.api import decode_step as model_decode_step
 from repro_torch.models.api import model_forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -93,15 +94,15 @@ class MeshPlan:
     layer's heads / conv channels or an RG-LRU layer's width divide it,
     as the mesh servable's (``servable._mixer_shards``),
     ``common.ExpertShard(train=True)`` for a MoE layer whose experts
-    "model" cuts or whose rows "data" cuts) and the leaves no shard
+    "model" cuts or whose rows the dp axes cut) and the leaves no shard
     object consumes (e.g. a layer-stacked norm scale or a conv's taps
     the rule cuts), gathered whole before the forward (``whole``). A
     routed-expert leaf is never gathered whole: a rank holds its E/m
     experts, whole along ``a`` only while its layer runs.
 
     ``replicated``: every leaf whole on every rank (``specs`` None) -- the
-    dp packed step, whose params and packs every rank holds whole. On a
-    data mesh its only shard objects are the embedding's (a
+    dp packed step, whose params and packs every rank holds whole. Where
+    the dp axes have more than one rank its only shard objects are the embedding's (a
     ``DenseShard(None, train=True)``: the table's gradient accumulates the
     whole batch's rows in one device's order, ``common._BatchRows``) and
     each MoE layer's row gather (the global batch's routing)."""
@@ -114,7 +115,7 @@ class MeshPlan:
         self.shapes = self.specs = None
         if replicated:
             from repro_torch.models.common import DenseShard
-            if mesh.shape.get("data", 1) > 1:
+            if axis_size(mesh, dp_axes(mesh)) > 1:
                 self.packs["embed"] = DenseShard(None, mesh, train=True)
             self._experts(cfg, {})
             return
@@ -171,22 +172,23 @@ class MeshPlan:
     def _experts(self, cfg, specs):
         """An ``ExpertShard(train=True)`` for every MoE layer whose experts
         "model" cuts (``specs``: {name: spec} of the routed-expert leaves;
-        empty when every leaf is whole) or whose rows "data" cuts."""
+        empty when every leaf is whole) or whose rows the dp axes cut."""
         from repro_torch.models.common import ExpertShard
         from repro_torch.serving.servable import _layer_scopes
         m, d = self.mesh.shape.get("model", 1), self.mesh.shape.get("data", 1)
+        dp = axis_size(self.mesh, dp_axes(self.mesh))
         for scope, kind in _layer_scopes(cfg):
             if kind.ffn != "moe":
                 continue
             wi = specs.get(f"{scope}/ffn/wi")
             sharded = m > 1 and wi is not None and wi[-3] == "model"
-            if not (sharded or d > 1):
+            if not (sharded or dp > 1):
                 continue
             fsdp = tuple(n for n in ("wi", "wg", "wo") if d > 1
                          and specs[f"{scope}/ffn/{n}"][-2] == "data") \
                 if wi is not None else ()
             self.packs[f"{scope}/ffn/experts"] = ExpertShard(
-                self.mesh, cfg.n_experts, sharded, gather_rows=d > 1,
+                self.mesh, cfg.n_experts, sharded, gather_rows=dp > 1,
                 train=True, fsdp=fsdp)
 
     def cut(self, path, x, period=None):
@@ -227,29 +229,32 @@ class MeshPlan:
 
     def sync_grads(self, grads):
         """Each rank's gradient of its own rows' mean loss -> the mean over
-        the data ranks, in tree order: a leaf cut over "data" already holds
-        its block's sum (FSDP's reduce-scatter) and is divided by the data
-        size; every other leaf is all-reduced over "data" first. Leaves
-        replicated over "model" need nothing over "model": the conjugate
-        collectives leave their gradient whole and equal on every model
-        rank."""
+        the dp ranks (every rank of the dp axes ("pod", "data")), in tree
+        order: a leaf cut over "data" already holds its block's sum over
+        its pod's data ranks (FSDP's reduce-scatter) and is summed over
+        the remaining dp axes ("pod"); every other leaf is all-reduced
+        over all of them; then divided by the dp size. Leaves replicated
+        over "model" need nothing over "model": the conjugate collectives
+        leave their gradient whole and equal on every model rank."""
         from repro_torch.core.tree import at_path, map_with_path
         from repro_torch.launch.sharding import _axes
-        n = self.mesh.shape.get("data", 1)
+        dp = dp_axes(self.mesh)
+        n = axis_size(self.mesh, dp)
         if n == 1:
             return grads
 
         def one(path, g):
             spec = () if self.specs is None else at_path(self.specs, path)
-            if not any("data" in _axes(e) for e in spec):
-                g = self.mesh.all_reduce(g, "data")
-            return g / n
+            cut = {a for e in spec for a in _axes(e)}
+            return self.mesh.all_reduce(
+                g, tuple(a for a in dp if a not in cut)) / n
         return map_with_path(one, grads)
 
     def mean(self, x):
-        """A rank's metric -> its mean over the data ranks."""
-        n = self.mesh.shape.get("data", 1)
-        return x if n == 1 else self.mesh.all_reduce(x, "data") / n
+        """A rank's metric -> its mean over the dp ranks."""
+        dp = dp_axes(self.mesh)
+        n = axis_size(self.mesh, dp)
+        return x if n == 1 else self.mesh.all_reduce(x, dp) / n
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -281,11 +286,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     its rows of the batch (``launch.sharding.local_rows(batch, mesh,
     grad_accum)``: its rows of each of the reference's microbatches, which
     the reshape below takes apart again); the gradients
-    are the data ranks' mean, the global norm and the prox are the whole
-    model's, and the metrics are equal on every rank. With ``packs`` (the
-    packed fine-tuning step) the mesh is (data, 1): params and packs are
-    whole on every rank, each runs its own rows and the gradients are
-    all-reduced as a mean over "data"."""
+    are the dp ranks' mean (over "data", and "pod" where the mesh has
+    one), the global norm and the prox are the whole model's, and the
+    metrics are equal on every rank. With ``packs`` (the packed
+    fine-tuning step) the mesh has no model axis (a (data, 1) or
+    (pod, data, 1) mesh): params and packs are whole on every rank, each
+    runs its own rows and the gradients are all-reduced as a mean over the
+    dp axes."""
     plan = None
     if mesh is not None:
         if packs is not None:

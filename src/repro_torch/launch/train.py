@@ -16,6 +16,9 @@ over "data", routed experts' E over "model"), takes its rows of one
 device's global batch (with ``grad_accum`` its rows of each global
 microbatch), and the step computes one device's step up to the order of
 fp32 sums (a MoE layer routes the global batch: ``common.ExpertShard``).
+On a multi-pod mesh (("pod", "data", "model")) "pod" is data parallelism
+too: a rank's rows and the gradients' mean run over ("pod", "data"),
+weights are cut over "data" alone.
 The Trainer's batches are ``tokens`` / ``labels``, as the data pipeline
 gives them; a vlm step with ``mm_embeds`` or an audio step with
 ``frames`` goes through ``launch.steps.make_train_step(mesh=)``. The

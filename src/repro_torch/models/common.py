@@ -39,6 +39,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import axis_size, dp_axes
+
 
 @dataclasses.dataclass(frozen=True)
 class Draw:
@@ -297,25 +299,28 @@ class ExpertShard:
     the rank holds experts ``[s E/m, (s+1) E/m)`` (the routed-expert
     tensors' E axis over "model"), runs its expert products on them alone
     and all-gathers the outputs before the combine; with ``gather_rows``
-    (a decode step whose rows shard over "data", or a training step on a
-    data mesh) it all-gathers the step's rows over "data" first, routes
-    the whole batch and keeps its own rows of the output.
+    (a decode step whose rows shard over the dp axes, or a training step
+    on a mesh whose dp axes have more than one rank) it all-gathers the
+    step's rows over the dp axes ("data", and "pod" outermost on a
+    multi-pod mesh) first, routes the whole batch and keeps its own rows
+    of the output.
 
     Training (``train=True``, the mesh Trainer's shards) runs the same
     through the differentiable collectives: the rows' gather sums every
-    data rank's cotangent for the rank's rows (``fsdp_gather``: every
+    dp rank's cotangent for the rank's rows (``fsdp_gather``: every
     rank's loss carries the whole batch's aux), the expert products take
     their input through ``copy_to`` over "model" (its gradient the sum of
     the ranks' expert blocks) and their outputs are made whole by
     ``gather_from``; the expert tensors named in ``fsdp`` hold their
     dim ``a`` (``wi`` / ``wg``: d, ``wo``: f) cut over "data", gathered
-    for use by :meth:`weight` (gradient reduce-scattered). On a data mesh
-    a data rank runs the products for its block of the capacity slots
-    alone (:meth:`slots`; each product row is one slot's, so the block's
-    rows are what the whole buffer's would be) and the blocks are
-    gathered over "data" (:meth:`gather_slots`, whose backward sums every
-    data rank's cotangent for the rank's slots), so the expert FLOPs are
-    split over every rank of the mesh."""
+    for use by :meth:`weight` (gradient reduce-scattered; the rule cuts
+    weights over "data" alone, so a weight is whole across pods). Where
+    the rows are gathered a dp rank runs the products for its block of
+    the capacity slots alone (:meth:`slots`; each product row is one
+    slot's, so the block's rows are what the whole buffer's would be) and
+    the blocks are gathered over the dp axes (:meth:`gather_slots`, whose
+    backward sums every dp rank's cotangent for the rank's slots), so the
+    expert FLOPs are split over every rank of the mesh."""
 
     mesh: object
     n_experts: int
@@ -339,10 +344,11 @@ class ExpertShard:
         return self.mesh.fsdp_gather(w, "data", 1)
 
     def rows(self, x2):
-        """(T, d) rows of this data rank -> the whole batch's rows."""
+        """(T, d) rows of this dp rank -> the whole batch's rows, in global
+        row order (gathered over the dp axes, "pod" outermost)."""
         if self.train:
-            return self.mesh.fsdp_gather(x2, "data", 0)
-        return self.mesh.all_gather(x2, "data", dim=0)
+            return self.mesh.fsdp_gather(x2, dp_axes(self.mesh), 0)
+        return self.mesh.all_gather(x2, dp_axes(self.mesh), dim=0)
 
     def expert_input(self, x2):
         """The rows as the expert products' input: a training shard whose
@@ -355,22 +361,24 @@ class ExpertShard:
         return self.train and self.gather_rows
 
     def slots(self, buf):
-        """(E/m, cap, d) dispatch buffer -> this data rank's block of the
-        slots (a training shard on a data mesh; the slots padded with
-        zero rows to a multiple of the data ranks), else ``buf``."""
+        """(E/m, cap, d) dispatch buffer -> this dp rank's block of the
+        slots (a training shard whose rows the dp axes cut; the slots
+        padded with zero rows to a multiple of the dp ranks), else
+        ``buf``."""
         if not self._split_slots():
             return buf
-        n, c = self.mesh.shape["data"], self.mesh.coord("data")
+        dp = dp_axes(self.mesh)
+        n, c = axis_size(self.mesh, dp), self.mesh.coord(dp)
         per = -(-buf.shape[1] // n)
         buf = F.pad(buf, (0, 0, 0, per * n - buf.shape[1]))
         return buf[:, c * per:(c + 1) * per]
 
     def gather_slots(self, out, cap: int):
-        """The data ranks' slot blocks of the expert outputs -> the
+        """The dp ranks' slot blocks of the expert outputs -> the
         (E/m, cap, d) outputs of every slot (:meth:`slots`' inverse)."""
         if not self._split_slots():
             return out
-        return self.mesh.fsdp_gather(out, "data", 1)[:, :cap]
+        return self.mesh.fsdp_gather(out, dp_axes(self.mesh), 1)[:, :cap]
 
     def gather(self, out):
         """(E/m, cap, d) expert outputs -> (E, cap, d) on every rank."""
@@ -656,16 +664,17 @@ def init_mlp(gen, d_model, d_ff, act="gelu", dtype=torch.float32,
 
 
 class _BatchRows(torch.autograd.Function):
-    """``w[t]`` on a rank of a data mesh. Backward adds the rows'
-    gradients into the table as one device adds its batch's: every data
-    rank's rows and token ids are gathered over "data" (global row order)
-    and indexing's own accumulation runs over all of them, in the table's
-    dtype -- a bf16 table takes a row's repeats one at a time, as one
-    device and the reference do, where a sum of each rank's own partials
-    would round elsewhere. Data coordinate 0 returns that gradient and the
-    other data ranks zeros, so the sum over "data" that follows (FSDP's
-    reduce-scatter, or the all-reduce of a leaf replicated over "data") is
-    the batch's."""
+    """``w[t]`` on a rank of a mesh whose dp axes ("pod", "data") have
+    more than one rank. Backward adds the rows' gradients into the table
+    as one device adds its batch's: every dp rank's rows and token ids
+    are gathered over the dp axes (global row order) and indexing's own
+    accumulation runs over all of them, in the table's dtype -- a bf16
+    table takes a row's repeats one at a time, as one device and the
+    reference do, where a sum of each rank's own partials would round
+    elsewhere. Dp index 0 returns that gradient and the other dp ranks
+    zeros, so the sums that follow (FSDP's reduce-scatter over "data" and
+    the sum over "pod", or the all-reduce of a leaf replicated over the dp
+    axes) are the batch's."""
 
     @staticmethod
     def forward(ctx, w, t, mesh):
@@ -678,19 +687,20 @@ class _BatchRows(torch.autograd.Function):
         t, = ctx.saved_tensors
         mesh = ctx.mesh
         shape, dtype = ctx.like
-        rows = mesh.all_gather(g.contiguous(), "data", dim=0)
-        ids = mesh.all_gather(t.contiguous(), "data", dim=0)
+        dp = dp_axes(mesh)
+        rows = mesh.all_gather(g.contiguous(), dp, dim=0)
+        ids = mesh.all_gather(t.contiguous(), dp, dim=0)
         gw = torch.zeros(shape, dtype=dtype, device=g.device)
-        if mesh.coord("data") == 0:
+        if mesh.coord(dp) == 0:
             gw.index_put_((ids,), rows.to(dtype), accumulate=True)
         return gw, None, None
 
 
 def _rows(w, t, shard):
-    """``w[t]``; a mesh Trainer's shard on a data mesh under autograd
-    takes :class:`_BatchRows`."""
+    """``w[t]``; a mesh Trainer's shard on a mesh with dp ranks under
+    autograd takes :class:`_BatchRows`."""
     if shard is not None and shard.train \
-            and shard.mesh.shape.get("data", 1) > 1 \
+            and axis_size(shard.mesh, dp_axes(shard.mesh)) > 1 \
             and torch.is_grad_enabled() and w.requires_grad:
         return _BatchRows.apply(w, t, shard.mesh)
     return w[t]

@@ -21,18 +21,20 @@ capacity and the dispatch buffer are the same on every rank; a rank runs
 the expert products of its E/m experts and all-gathers the (E/m, cap, d)
 outputs over "model" before the unchanged combine, so the output is what
 one device computes from the same expert outputs. A decode step whose
-rows shard over "data" gathers them first and routes the whole batch.
+rows shard over the dp axes ("data", and "pod" on a multi-pod mesh)
+gathers them first, in global row order, and routes the whole batch.
 The mesh Trainer's shard (``ExpertShard(train=True)``) does the same
 through differentiable collectives, so a training step on a data mesh
 routes, drops and takes its aux over the global batch, as one device;
-there each data rank runs the products for its block of the capacity
-slots and the blocks are gathered over "data" before the combine.
+there each dp rank runs the products for its block of the capacity
+slots and the blocks are gathered over the dp axes before the combine.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.common import apply_mlp, gelu, init_mlp, normal_init
 
 
@@ -86,9 +88,9 @@ def apply_moe(p, x, cfg, shard=None, shared_packs=None):
     x2 = x.reshape(b * s, d)
     rows = None
     if shard is not None and shard.gather_rows:
-        # the rows shard over "data": route the whole batch, so capacity,
-        # drops and the aux are the batch's, as on one device
-        c, n = shard.mesh.coord("data"), x2.shape[0]
+        # the rows shard over the dp axes: route the whole batch, so
+        # capacity, drops and the aux are the batch's, as on one device
+        c, n = shard.mesh.coord(dp_axes(shard.mesh)), x2.shape[0]
         rows = (c * n, (c + 1) * n)
         x2 = shard.rows(x2)
     t, k, e = x2.shape[0], cfg.top_k, cfg.n_experts

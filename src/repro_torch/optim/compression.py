@@ -119,12 +119,9 @@ def compressed_allreduce(g, err, cfg: CompressionConfig, axis_names, mesh):
     tuple) of ``mesh`` at reduced traffic. Returns (reduced_grad in
     ``g``'s dtype, new_error fp32)."""
     vals, idx, new_err = compress(g, err, cfg)
-    names = ((axis_names,) if isinstance(axis_names, str)
-             else tuple(axis_names))
-    gv, gi = vals[None], idx[None]                        # (P, K, ...)
-    for axis in reversed(names):        # the last axis first: the first
-        gv = mesh.all_gather(gv, axis, dim=0)             # ends up major
-        gi = mesh.all_gather(gi, axis, dim=0)
+    # (P, K, ...): every peer's blocks, in the axes' row-major order
+    gv = mesh.all_gather(vals[None], axis_names, dim=0)
+    gi = mesh.all_gather(idx[None], axis_names, dim=0)
     n_peers = gv.shape[0]
     summed = decompress(gv.reshape(-1, *vals.shape[1:]), gi.reshape(-1),
                         g.shape, cfg)

@@ -66,6 +66,7 @@ from repro_torch.core.tree import at_path, flatten_with_path, \
 from repro_torch.device import resolve_device
 from repro_torch.kernels.exec_plan import QuantPlan, RowPackPlan, ShardedPlan
 from repro_torch.kernels.flash_decode import decode_kernel_override
+from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.launch.sharding import (local_shard, shard_index,
                                           spec_for_param)
 from repro_torch.models import api as model_api
@@ -260,9 +261,10 @@ def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
     conv channels (``{scope}/mixer/conv``), a ``ChannelShard`` for an
     RG-LRU layer's width (``{scope}/mixer/width``), and an
     ``ExpertShard`` for a MoE FFN (``{scope}/ffn/experts``) whose experts
-    shard over "model" or whose decode rows shard over "data"."""
+    shard over "model" or whose decode rows shard over the dp axes
+    ("data", and "pod" on the dry-run's multi-pod mesh)."""
     out = dict(packs)
-    d, m = mesh.shape["data"], mesh.shape["model"]
+    d, m = axis_size(mesh, dp_axes(mesh)), mesh.shape["model"]
     specs_by_name = {}
     for path, leaf in flatten_with_path(params):
         spec = at_path(specs, path)
@@ -287,7 +289,7 @@ def _exec_packs(packs, params, specs, cfg: ModelConfig, mesh):
 
 
 def _decode_packs(packs):
-    """``packs`` for a decode step whose rows shard over "data": each
+    """``packs`` for a decode step whose rows shard over the dp axes: each
     ``ExpertShard`` gathers the step's rows before routing."""
     import dataclasses
     return {k: dataclasses.replace(v, gather_rows=True)
@@ -391,14 +393,15 @@ class Servable:
     def slot_range(self, batch: int) -> Tuple[int, int]:
         """The slots ``[lo, hi)`` of a ``batch``-slot cache this rank holds
         (all of them off a mesh, or when ``batch`` does not divide over
-        "data": the cache's batch dim then replicates)."""
+        the dp axes: the cache's batch dim then replicates)."""
         if self.mesh is None:
             return 0, batch
-        d = self.mesh.shape["data"]
+        dp = dp_axes(self.mesh)
+        d = axis_size(self.mesh, dp)
         if d == 1 or batch % d or batch < d:
             return 0, batch
         w = batch // d
-        c = self.mesh.coord("data")
+        c = self.mesh.coord(dp)
         return c * w, (c + 1) * w
 
     def local_slot(self, slot: int, batch: int) -> Optional[int]:
@@ -421,7 +424,7 @@ class Servable:
         lo, hi = self.slot_range(batch)
         if (lo, hi) == (0, batch):
             return x
-        return self.mesh.all_gather(x, "data", dim=dim)
+        return self.mesh.all_gather(x, dp_axes(self.mesh), dim=dim)
 
     # -- decoding (LM families) -------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int, frames=None,
@@ -593,7 +596,8 @@ class Servable:
             logits, cache1 = model_api.prefill_cache(
                 self.params, cache1, self.cfg, self._tensor(tokens)[None],
                 int(length), packs=self._run_packs, last_only=True)
-        return cache1, self.mesh.broadcast(logits[0, 0], "data", 0)
+        return cache1, self.mesh.broadcast(logits[0, 0],
+                                           dp_axes(self.mesh), 0)
 
     def suffix_prefill_row(self, cache, tokens, slot, start, length,
                            batch: int):
@@ -615,9 +619,10 @@ class Servable:
                     self._tensor(tokens)[None], local, int(start),
                     int(length), packs=self._run_packs, last_only=True)
             row = logits[0, 0]
-        owner = (int(slot) // (batch // self.mesh.shape["data"])
+        dp = dp_axes(self.mesh)
+        owner = (int(slot) // (batch // axis_size(self.mesh, dp))
                  if self.slot_range(batch) != (0, batch) else 0)
-        return cache, self.mesh.broadcast(row, "data", owner)
+        return cache, self.mesh.broadcast(row, dp, owner)
 
     def engine_write_slot(self, cache, slot, sub, batch=None):
         """Copy the batch-1 prefill cache ``sub`` into ``slot``, in place.
@@ -637,7 +642,8 @@ class Servable:
         return model_api.free_slot(cache, self.cfg, local)
 
     def _engine_slot(self, slot, batch):
-        if self.mesh is None or self.mesh.shape["data"] == 1:
+        if self.mesh is None or axis_size(self.mesh,
+                                          dp_axes(self.mesh)) == 1:
             return int(slot)
         if batch is None:
             raise ValueError("a slot op on a data-sharded mesh needs the "

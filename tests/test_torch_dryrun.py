@@ -10,11 +10,17 @@ of ``launch/mesh.py``) against the JAX reference and against a real run.
   * the dry mesh's collective counts (calls and bytes per ``op:axis``)
     equal every rank's ``ProcessMesh.stats`` from a real 4-rank gloo run
     of the same step: the smoke train step of deepseek_7b and qwen3_moe
-    over (2, 2), (4, 1) and (1, 4), their decode step over (2, 2) (world 4
-    started once; four processes, one torch thread each, no JAX);
+    over (2, 2), (4, 1) and (1, 4), their decode step over (2, 2), and
+    their train, prefill and decode steps over the pod meshes (2, 2, 1)
+    and (2, 1, 2) on ("pod", "data", "model") (world 4 started once; four
+    processes, one torch thread each, no JAX);
+  * a dense arch's train cell on a dry (2, 2, 2) pod mesh at B does rank
+    0 of (2, 2) at B / 2's work exactly, and its collectives are (2, 2)'s
+    plus the pod axis's;
   * ``run_cell`` writes the reference's keys (the reference's own
     ``run_cell`` at a smoke config, small shapes and a (1, 1) mesh);
-    ``main`` writes a cell's JSON; ``--multipod`` raises;
+    ``main`` writes a cell's JSON, and with ``--multipod`` a multipod
+    cell's;
   * no dispatched op of a dry-run leaves the meta device.
 """
 import json
@@ -49,10 +55,16 @@ WORLD = 4
 DEADLINE_S = 240
 TRAIN_MESHES = ((2, 2), (4, 1), (1, 4))
 STAT_ARCHS = ("deepseek_7b", "qwen3_moe_235b_a22b")
+POD_MESHES = ((2, 2, 1), (2, 1, 2))
 #: (arch, kind, mesh) of every real-run case
 STAT_CASES = [(a, "train", m) for a in STAT_ARCHS for m in TRAIN_MESHES] + \
-    [(a, "decode", (2, 2)) for a in STAT_ARCHS]
-STAT_IDS = [f"{a}-{k}-{m[0]}x{m[1]}" for a, k, m in STAT_CASES]
+    [(a, "decode", (2, 2)) for a in STAT_ARCHS] + \
+    [(a, k, m) for a in STAT_ARCHS for m in POD_MESHES
+     for k in ("train", "prefill", "decode")]
+STAT_IDS = [f"{a}-{k}-{'x'.join(map(str, m))}" for a, k, m in STAT_CASES]
+#: the mesh axes by the mesh's rank
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+DENSE_ARCHS = ("gemma3_4b", "deepseek_7b")
 CONFIGS = [(a, s) for a in ARCHS for s in (False, True)]
 CONFIG_IDS = [f"{a}-{'smoke' if s else 'full'}" for a, s in CONFIGS]
 
@@ -131,7 +143,7 @@ RANK_PROGRAM = textwrap.dedent('''
                          rank, world, timeout_s=60)
         R = {}
         for arch, kind, shape in IN["cases"]:
-            mesh = init_process_mesh(tuple(shape))
+            mesh = init_process_mesh(tuple(shape), IN["axes"][len(shape)])
             step, args, _ = cell_step(get_config(arch, smoke=True),
                                       ShapeSpec(*IN["shapes"][kind]), mesh,
                                       make=make)
@@ -160,7 +172,8 @@ def real_stats(tmp_path_factory):
     shapes = {k: (torch_shape(k).name, torch_shape(k).seq_len,
                   torch_shape(k).global_batch, k) for k in SMALL}
     with open(workdir / "inputs.pkl", "wb") as f:
-        pickle.dump({"cases": STAT_CASES, "shapes": shapes}, f)
+        pickle.dump({"cases": STAT_CASES, "shapes": shapes, "axes": AXES},
+                    f)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
@@ -199,16 +212,24 @@ def real_stats(tmp_path_factory):
 @pytest.mark.parametrize("arch,kind,shape", STAT_CASES, ids=STAT_IDS)
 def test_dry_mesh_counts_equal_a_real_run(arch, kind, shape, real_stats):
     """Every rank's collective calls and bytes equal the dry mesh's at
-    that rank's coordinate, rank 0's the dry-run's own."""
+    that rank's coordinate, rank 0's the dry-run's own. On a pod mesh
+    the counts come one key an axis moved (``:pod`` beside ``:data``).
+    On (2, 2, 1) a prefill (its rows, or the whole batch where they do
+    not divide) and a dense decode -- no model axis -- make none; a MoE
+    decode gathers its rows over the dp axes."""
     cfg = get_config(arch, smoke=True)
-    mesh = make_mesh(shape, ("data", "model"))
+    mesh = make_mesh(shape, AXES[len(shape)])
     for r, ranks in enumerate(real_stats):
         coord, stats = ranks[(arch, kind, shape)]
         dry = ProcessMesh.dry(mesh, coord)
         assert dry.rank == r
         got = dryrun.trace_cell(cfg, torch_shape(kind), dry)["stats"]
         assert got == stats, (r, coord)
-        assert stats, "the case makes no collective"
+        if kind == "train" or shape[-1] > 1 or (kind == "decode"
+                                                and cfg.n_experts):
+            assert stats, "the case makes no collective"
+        if kind == "train" and len(shape) == 3:
+            assert any(k.endswith(":pod") for k in stats), stats
     assert dryrun.trace_cell(cfg, torch_shape(kind), mesh)["stats"] == \
         real_stats[0][(arch, kind, shape)][1]
 
@@ -262,27 +283,52 @@ def test_skipped_cells_say_why(tmp_path):
         "SKIP", "encoder-only: no decode step")
 
 
-def test_main_writes_a_cell_and_multipod_raises(monkeypatch, tmp_path,
+def test_main_writes_a_cell_and_a_multipod_cell(monkeypatch, tmp_path,
                                                 capsys):
+    """``main`` writes a cell's JSON on the (patched) one-pod mesh and,
+    with ``--multipod``, the multipod cell's on the (patched) pod mesh:
+    both OK, the multipod cell's collectives over "pod" too."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda a: get_config(a, smoke=True))
     monkeypatch.setattr(dryrun, "make_production_mesh",
                         lambda multi_pod=False: make_mesh(
-                            (2, 2), ("data", "model")))
+                            (2, 2, 2), AXES[3]) if multi_pod
+                        else make_mesh((2, 2), AXES[2]))
     monkeypatch.setattr(dryrun, "SHAPES",
                         {"train_4k": torch_shape("train")})
-    dryrun.main(["--arch", "gemma3_4b", "--shape", "train_4k", "--out",
-                 str(tmp_path)])
-    cell = json.loads((tmp_path / "gemma3_4b__train_4k__pod.json")
-                      .read_text())
-    assert (cell["status"], cell["mesh"], cell["n_devices"]) == (
-        "OK", "2x2", 4)
-    assert cell["collectives"]["total"] > 0
-    assert '"status": "OK"' in capsys.readouterr().out
-    monkeypatch.undo()
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 10"):
-        dryrun.main(["--all", "--multipod", "--out", str(tmp_path)])
-    assert not list(tmp_path.glob("*multipod*"))
+    for flags, tag, mesh, n in (([], "pod", "2x2", 4),
+                                (["--multipod"], "multipod", "2x2x2", 8)):
+        dryrun.main(["--arch", "gemma3_4b", "--shape", "train_4k", "--out",
+                     str(tmp_path)] + flags)
+        cell = json.loads((tmp_path / f"gemma3_4b__train_4k__{tag}.json")
+                          .read_text())
+        assert (cell["status"], cell["mesh"], cell["n_devices"]) == (
+            "OK", mesh, n), cell.get("error")
+        assert cell["collectives"]["total"] > 0
+        pod = [k for k in cell["collective_calls"] if k.endswith(":pod")]
+        assert bool(pod) == (tag == "multipod"), cell["collective_calls"]
+        assert '"status": "OK"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_pod_cell_is_half_batch_one_pod_cell(arch):
+    """A dense arch's train cell: rank 0 of a dry (2, 2, 2) pod mesh at
+    B rows does exactly the flops of rank 0 of (2, 2) at B / 2 (the same
+    rows a rank, the same weight shards: "pod" cuts no weight), and its
+    collectives are (2, 2)'s, call for call and byte for byte, plus
+    entries under ``:pod`` (the gradients' and metrics' sums over the
+    second pod, the embedding rows' gather)."""
+    cfg = get_config(arch, smoke=True)
+    name, s, b = SMALL["train"]
+    pod = dryrun.trace_cell(cfg, specs.ShapeSpec(name, s, b, "train"),
+                            make_mesh((2, 2, 2), AXES[3]))
+    one = dryrun.trace_cell(cfg, specs.ShapeSpec(name, s, b // 2, "train"),
+                            make_mesh((2, 2), AXES[2]))
+    assert pod["flops"] == one["flops"] > 0
+    extra = {k: v for k, v in pod["stats"].items() if k.endswith(":pod")}
+    assert extra and all(v["calls"] > 0 for v in extra.values())
+    assert {k: v for k, v in pod["stats"].items()
+            if not k.endswith(":pod")} == one["stats"]
 
 
 class _Devices(torch.utils._python_dispatch.TorchDispatchMode):
