@@ -7,7 +7,7 @@
                            lm_training,lm_tp,lm_tp_families,
                            lm_tp_recurrent,lm_tp_train,
                            lm_tp_train_families,lm_tp_train_recurrent,
-                           lm_pipe_compress,lm_pod,training]
+                           lm_pipe_compress,lm_pod,lm_sp,training]
                           [--requests 8]
 
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -410,6 +410,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      near-ties; f. one (2, 2, 1) train step of the dry-run's cell on the
      card: every rank's ProcessMesh.stats equal, call for call and byte
      for byte, to the dry mesh's at its coordinate.
+  4k. lm_sp: the sequence-parallel batch -- a global batch of one row
+     whose S the dp axes cut (the reference's batch_shardings SP branch),
+     four processes sharing the card (staging buffers), one device's
+     references first: a. gemma3_4b at full width, 6 layers, bf16, one
+     (1, 4096) row (1024 positions a rank on (4, 1): the local layers'
+     1024-wide bands cross the blocks), over (4, 1) through Trainer.fit
+     and (2, 2), 2 steps each, and an fp32 copy at 2 layers over (4, 1):
+     every step's loss and grad_norm equal on every rank, within 1e-3
+     (bf16) / 1e-5 (fp32) relative of one device's Trainer on the row; b.
+     BERT-base's packed step over (4, 1) on one (1, 384) row, 96
+     positions a rank: 48 K1, K4 and K5 a rank a step, loss and
+     grad_norm within 1e-4 of one device's packed step; c. gemma3_4b's
+     prefill cell on the row over (4, 1) and (2, 2) (bf16, and the fp32
+     copy): one token on every rank, one device's but at a near-tie, the
+     last rank's last-position logits within 5% (bf16) / 1e-3 (fp32) of
+     max|logits|; d. one (2, 2) SP train step of the dry-run's cell: every
+     rank's ProcessMesh.stats equal to the dry mesh's at its coordinate.
   5. training: BERT-base at full width from seeded random weights,
      trained 12 steps at (8, 384) by launch/train.Trainer with gradual block
      pruning to 80% at 128x128 (attention projections) and one injected
@@ -6673,8 +6690,9 @@ def _rank_train_job(job):
     K1 / K4 / K5); or of lm_pipe_compress (``phase``): 'compress'
     (compressed DP), 'pipe' (GPipe forward and backward) or 'pipe_packed'
     (GPipe through K1); or of lm_pod: 'pod_serve' (the serving cells) or
-    'pod_stats' (a train cell's collective counts). The mesh's axes are ``axes`` (("data", "model")
-    by default)."""
+    'pod_stats' (a train cell's collective counts); or of lm_sp:
+    'sp_serve' (a one-row prefill cell). The mesh's axes are ``axes``
+    (("data", "model") by default)."""
     import gc
     import torch
     from repro_torch.launch.mesh import init_process_mesh
@@ -6695,8 +6713,8 @@ def _rank_train_job(job):
                "compress": _rank_pc_compress, "pipe": _rank_pipe,
                "pipe_packed": _rank_pipe_packed,
                "pod_serve": _rank_pod_serve,
-               "pod_stats": _rank_pod_stats}[job["what"]](job, mesh, dev,
-                                                          say)
+               "pod_stats": _rank_pod_stats,
+               "sp_serve": _rank_sp_serve}[job["what"]](job, mesh, dev, say)
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -6713,6 +6731,8 @@ def _rank_train_lm(job, mesh, dev, say):
     cfg = _lmtt_cfg(job["layers"], job["dtype"])
     tr = _lmtt_trainer(cfg, job["ckpt_dir"], job["seed"], job["steps"], dev,
                        mesh, job.get("fault"),
+                       batch=job.get("batch", LMT_TP_BATCH),
+                       seq=job.get("seq", LMT_TP_SEQ),
                        tag=job.get("phase", "lm_tp_train"))
     for fn in _train_counters().values():
         fn.launches = 0
@@ -6823,7 +6843,7 @@ def _rank_train_packed(job, mesh, dev, say):
     import numpy as np
     import torch
     from repro_torch.launch.sharding import local_rows
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import make_train_step, sequence_shard
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     cfg = job.get("cfg") or _bert_train_cfg()
     if "build" in job:
@@ -6832,6 +6852,10 @@ def _rank_train_packed(job, mesh, dev, say):
         del servable
     else:
         params, packs = job.pop("params"), job.pop("packs")
+    # a one-row batch: the rank's block of S (the sequence-parallel step)
+    seq = sequence_shard(cfg, job["batches"][0], mesh)
+    if seq is not None:
+        packs = dict(packs, seq=seq)
     opt = job.get("opt") or AdamWConfig(peak_lr=1e-4, warmup_steps=2,
                                         total_steps=10, weight_decay=0.01)
     # a rank's own packed state updates in place (the functional update
@@ -6857,6 +6881,7 @@ def _rank_train_packed(job, mesh, dev, say):
                                      for n, fn in counters.items()},
                         "stats": copy.deepcopy(mesh.stats),
                         "rows": int(rows["tokens"].shape[0]),
+                        "shape": tuple(rows["tokens"].shape),
                         **{k: float(v) for k, v in m.items()}})
     say(f"{len(rec)} packed steps")
     del params, ost
@@ -9350,6 +9375,350 @@ def phase_lm_pod(seed: int, card: str):
 
 
 # ---------------------------------------------------------------------------
+# lm_sp: the sequence-parallel batch -- one row with S cut over the dp axes,
+# trained, packed-trained and prefilled on a mesh
+# ---------------------------------------------------------------------------
+
+#: the row: train_4k's sequence length, one row; a dp rank's block is
+#: S / d positions (1024 on (4, 1): gemma3_4b's window, so the local
+#: layers' bands cross the blocks' edges)
+LMS_SEQ = 4096
+LMS_STEPS = 2
+#: gemma3_4b's runs (bf16, LMT_LAYERS layers): (name, mesh, through fit)
+LMS_PARTS = (("sp dp", (4, 1), True), ("sp tp+dp", (2, 2), False))
+LMS_FP32_LAYERS = 2
+#: BERT-base's packed step: one row of 384 positions, 96 a rank
+LMS_BERT_SEQ = 384
+#: the dry-run's cell whose collectives are held against a real step
+LMS_STATS_MESH = (2, 2)
+
+
+def _rank_sp_serve(job, mesh, dev, say):
+    """The prefill cell of one row on this rank: the mesh servable's
+    TP-only shards of the parent's weights (views of its CUDA IPC
+    tensors), the rank's block of S, ``make_prefill_step`` with the
+    ``SeqShard``; the last dp rank's last-position logits."""
+    import torch
+    from repro_torch.launch.sharding import local_rows
+    from repro_torch.launch.steps import make_prefill_step, sequence_shard
+    from repro_torch.models import api
+    from repro_torch.serving.servable import (_exec_packs, _local_params,
+                                              serving_param_shardings)
+    cfg, whole = job["cfg"], job.pop("params")
+    specs = serving_param_shardings(whole, {}, mesh)
+    params = _local_params(whole, specs, mesh, copy=False)
+    packs = _exec_packs({}, params, specs, cfg, mesh)
+    tokens = {"tokens": job["tokens"]}
+    seq = packs["seq"] = sequence_shard(cfg, tokens, mesh)
+    rows = {"tokens": torch.from_numpy(
+        local_rows(tokens, mesh)["tokens"]).to(dev)}
+    with torch.no_grad():
+        logits, _ = api.model_forward(params, cfg, rows, packs=packs,
+                                      last_only=True)
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt = make_prefill_step(cfg, packs)(params, rows)
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0, "next": nxt.cpu().numpy(),
+           "last": seq.last, "offset": seq.offset,
+           "rows": tuple(rows["tokens"].shape),
+           "logits": None if logits is None else
+           logits[:, -1].float().cpu().numpy(),
+           "stats": {k: v["calls"] for k, v in mesh.stats.items()}}
+    say(f"prefill block {out['rows']} at {seq.offset}: {out['s']:.2f} s")
+    del params, whole, logits
+    torch.cuda.synchronize()
+    return out
+
+
+def _lms_serve_check(tag, res, ref, dtype):
+    """Every rank's token equal, and one device's unless its top-2 margin
+    is below twice the last logits' max |difference| (a near-tie,
+    printed); the last rank's last-position logits within
+    TOL_POD_SERVE[dtype] of max|logits|. Returns the gap."""
+    import numpy as np
+    tol = TOL_POD_SERVE[dtype]
+    nxt = [int(x["next"][0]) for x in res]
+    check(len(set(nxt)) == 1, f"{tag}: tokens differ between ranks {nxt}")
+    last = [x for x in res if x["last"]]
+    check(last and all(x["logits"] is not None for x in last) and all(
+        x["logits"] is None for x in res if not x["last"]),
+        f"{tag}: the head ran on {[x['last'] for x in res]}")
+    want = ref["logits"]
+    gaps = []
+    for x in last:
+        got = x["logits"]
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"{tag}: logits {got.shape}, one device's {want.shape}")
+        gaps.append(float(np.abs(got - want).max()))
+    gap, scale = max(gaps), float(np.abs(want).max())
+    check(gap <= tol * scale, f"{tag}: last logits {gap:.4e} from one "
+          f"device's, bar {tol} x {scale:.4e}")
+    if nxt[0] != int(ref["next"][0]):
+        top2 = np.sort(want[0])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"{tag}: token {nxt[0]} vs one device's {int(ref['next'][0])},"
+              f" top-2 margin {margin:.4e}, 2 x max|d| {2 * gap:.4e}")
+        check(margin < 2 * gap, f"{tag}: the token differs away from a "
+              f"near-tie")
+    return gap / scale
+
+
+def phase_lm_sp(seed: int, card: str):
+    """The sequence-parallel batch: a global batch of one row whose S the
+    dp axes cut, four processes sharing the card through CUDA IPC staging
+    buffers (as lm_tp_train and lm_pod). One device's references first.
+    a. gemma3_4b at full width, LMT_LAYERS layers, bf16, one (1, 4096)
+    row, over (4, 1) through ``Trainer.fit`` and over (2, 2), 2 steps
+    each, and a 2-layer fp32 copy over (4, 1): every step's loss and
+    grad_norm bitwise equal across the ranks and within 1e-3 (bf16) /
+    1e-5 (fp32) relative of one device's Trainer on the same row. b.
+    BERT-base's packed step over (4, 1) on one (1, 384) row: 48 K1 / K4 /
+    K5 launches a rank a step, loss and grad_norm within 1e-4 of one
+    device's packed step. c. gemma3_4b's prefill cell on the row over
+    (4, 1) and (2, 2), bf16 and the fp32 copy: one token on every rank,
+    one device's but at a near-tie, the last logits within 5% (bf16) /
+    1e-3 (fp32) of max|logits|. d. one (2, 2) SP train step's collectives
+    on every rank equal the dry mesh's at its coordinate, call for call
+    and byte for byte. Returns the ranks' kernel launches."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import ProcessMesh, make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.serving import ServingSpec, prepare_servable
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "[lm_sp]"
+    cfg = _lmtt_cfg(LMT_LAYERS, "bfloat16")
+    print(f"{name} {card}; one row of {LMS_SEQ} positions cut over the dp "
+          f"axes; {cfg.arch} at full width, {cfg.n_layers} layers; 4 ranks "
+          f"share the card, their collectives through CUDA IPC staging "
+          f"buffers, so their times say nothing of a mesh's speed")
+    rec = {}
+    marks = [time.perf_counter()]
+
+    def part(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        print(f"{name} {what}: {marks[-1] - marks[-2]:.1f} s")
+
+    # d.'s dry counts, on the host: each rank of LMS_STATS_MESH
+    stats_cfg = dataclasses.replace(_lm_config(), n_layers=LMT_LAYERS)
+    stats_shape = ShapeSpec("train_4k", LMS_SEQ, 1, "train")
+    sm = make_mesh(LMS_STATS_MESH, ("data", "model"))
+    dry = {}
+    for r in range(4):
+        coord = (r // LMS_STATS_MESH[1], r % LMS_STATS_MESH[1])
+        dry[coord] = trace_cell(stats_cfg, stats_shape,
+                                ProcessMesh.dry(sm, coord))["stats"]
+    part("d. the dry mesh's counts (host)")
+
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, layers in (("bfloat16", LMT_LAYERS),
+                              ("float32", LMS_FP32_LAYERS)):
+            tr = _lmtt_trainer(_lmtt_cfg(layers, dtype), tmp, seed,
+                               LMS_STEPS, dev, batch=1, seq=LMS_SEQ,
+                               tag="lm_sp")
+            state = _lmtt_run(tr, LMS_STEPS)
+            refs[dtype] = tr.rec
+            print(f"{name} one device ({dtype}, {layers} layers, (1, "
+                  f"{LMS_SEQ})): loss {[r['loss'] for r in tr.rec]}, "
+                  f"grad_norm {[r['grad_norm'] for r in tr.rec]}, host s a "
+                  f"step {[round(r['s'], 3) for r in tr.rec]}")
+            del state, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        # b.'s packs: BERT-base's seeded weights pruned and packed
+        bcfg = get_config("bert_base")
+        servable = prepare_servable(api.init_model(seed, bcfg, device=dev),
+                                    bcfg, ServingSpec(**BERT_SPEC,
+                                                      backend="plan_pallas"),
+                                    device=dev)
+        packs = servable.packs
+        pipe = DataPipeline(DataConfig(seq_len=LMS_BERT_SEQ, global_batch=1,
+                                       vocab_size=bcfg.vocab_size))
+        batches = [pipe.batch_at(400 + i)
+                   for i in range(BERT_TP_PACKED_STEPS)]
+        pipe.close()
+        popt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10,
+                           weight_decay=0.01)
+        step = make_train_step(bcfg, popt, packs=packs)
+        params, one_packed = servable.params, []
+        ost = init_opt_state(params, popt)
+        for b in batches:
+            params, ost, m = step(params, ost, {
+                k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in b.items()})
+            one_packed.append({k: float(v) for k, v in m.items()})
+        del params, ost, step
+        # c.'s weights, row and one device's prefill
+        serve = {}
+        for dtype in ("bfloat16", "float32"):
+            scfg = _lmp_serve_cfg(dtype)
+            sparams = api.init_model(seed, scfg, device=dev)
+            tokens = np.random.RandomState(seed).randint(
+                0, scfg.vocab_size, (1, LMS_SEQ))
+            batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+            with torch.no_grad():
+                logits, _ = api.model_forward(sparams, scfg, batch,
+                                              last_only=True)
+                nxt = make_prefill_step(scfg)(sparams, batch)
+            serve[dtype] = {"cfg": scfg, "params": sparams,
+                            "tokens": tokens,
+                            "logits": logits[:, -1].float().cpu().numpy(),
+                            "next": nxt.cpu().numpy()}
+            del logits
+        part("one-device references")
+
+        counts = dict.fromkeys(_train_counters(), 0)
+        ranks = _Ranks(4, tmp)
+        try:
+            # b. the packed SP step over (4, 1)
+            res = ranks.run({"name": "packed sp (4, 1)", "kind": "train",
+                             "what": "packed", "shape": (4, 1),
+                             "phase": "lm_sp", "cfg": bcfg, "opt": popt,
+                             "params": servable.params, "packs": packs,
+                             "batches": batches})
+            tag = f"{name} b. packed BERT-base (4, 1), one row"
+            want = dict.fromkeys(counts, 0)
+            want.update(plan_dds=len(packs), plan_dds_t=len(packs),
+                        plan_sddmm=len(packs))
+            check(len(packs) == 48, f"{tag}: {len(packs)} packs, not 48")
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for r, rank in enumerate(res):
+                for i, x in enumerate(rank["rec"]):
+                    check(x["launches"] == want, f"{tag} rank {r} step {i}: "
+                          f"launches {x['launches']}, the packs {want}")
+                    check(x["shape"] == (1, LMS_BERT_SEQ // 4),
+                          f"{tag}: rank {r} ran a block {x['shape']}")
+                    for k in counts:
+                        counts[k] += x["launches"][k]
+                    for k in worst:
+                        check(x[k] == res[0]["rec"][i][k], f"{tag}: step "
+                              f"{i} {k} differs between ranks 0 and {r}")
+            for i, w in enumerate(one_packed):
+                for k in worst:
+                    got = res[0]["rec"][i][k]
+                    rel = abs(got - w[k]) / abs(w[k])
+                    worst[k] = max(worst[k], rel)
+                    check(rel <= TOL_PACKED_STEP, f"{tag}: step {i} {k} "
+                          f"{got!r} against one device's {w[k]!r}")
+            print(f"{tag}: K1 / K4 / K5 a rank a step "
+                  f"{[[(x['launches']['plan_dds'], x['launches']['plan_dds_t'], x['launches']['plan_sddmm']) for x in rank['rec']] for rank in res]}"
+                  f" (the packs: {len(packs)}); loss "
+                  f"{[x['loss'] for x in res[0]['rec']]} against one "
+                  f"device's {[x['loss'] for x in one_packed]}: "
+                  f"{worst['loss']:.3e}, grad_norm {worst['grad_norm']:.3e} "
+                  f"relative (bar {TOL_PACKED_STEP})")
+            _print_rank_steps(tag, res)
+            rec["packed"] = worst
+            del servable, packs
+            part("b. packed BERT-base")
+
+            # a. gemma3_4b over (4, 1) and (2, 2), the fp32 copy
+            for part_name, shape, fit in LMS_PARTS:
+                res = ranks.run({
+                    "name": part_name, "kind": "train", "what": "lm",
+                    "shape": shape, "phase": "lm_sp",
+                    "layers": LMT_LAYERS, "dtype": "bfloat16",
+                    "steps": LMS_STEPS, "seed": seed, "batch": 1,
+                    "seq": LMS_SEQ, "fit": fit,
+                    "ckpt_dir": os.path.join(tmp, part_name)})
+                tag = f"{name} a. {part_name} {shape}"
+                for r, rank in enumerate(res):
+                    check(rank["restarts"] == 0 and rank["step"] ==
+                          LMS_STEPS, f"{tag} rank {r}: {rank['restarts']} "
+                          f"restarts, optimizer step {rank['step']}")
+                _print_rank_steps(tag, res)
+                worst = _lmtt_compare(tag, res, refs["bfloat16"],
+                                      "bfloat16")
+                print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}; "
+                      f"against one device: loss {worst['loss']:.3e}, "
+                      f"grad_norm {worst['grad_norm']:.3e} relative (bar "
+                      f"{TOL_MESH_TRAIN['bfloat16']}); checkpoint I/O "
+                      f"(rank 0, s) "
+                      f"{[(k, round(t, 2)) for k, t in res[0]['io']]}")
+                rec[part_name] = {"worst": worst,
+                                  "peak_gib": [x["peak_gib"] for x in res]}
+            res = ranks.run({
+                "name": "sp fp32", "kind": "train", "what": "lm",
+                "shape": (4, 1), "phase": "lm_sp",
+                "layers": LMS_FP32_LAYERS, "dtype": "float32",
+                "steps": LMS_STEPS, "seed": seed, "batch": 1,
+                "seq": LMS_SEQ, "ckpt_dir": os.path.join(tmp, "fp32")})
+            tag = f"{name} a. fp32 copy (4, 1)"
+            worst = _lmtt_compare(tag, res, refs["float32"], "float32")
+            print(f"{tag}: loss {[r['loss'] for r in res[0]['rec']]}, "
+                  f"grad_norm {[r['grad_norm'] for r in res[0]['rec']]}; "
+                  f"against one device: loss {worst['loss']:.3e}, grad_norm "
+                  f"{worst['grad_norm']:.3e} relative (bar "
+                  f"{TOL_MESH_TRAIN['float32']}); peak GiB a rank "
+                  f"{[round(x['peak_gib'], 2) for x in res]}")
+            rec["fp32"] = worst
+            part("a. gemma3_4b over (4, 1), (2, 2), fp32")
+
+            # c. the prefill cell over (4, 1) and (2, 2)
+            for dtype in ("bfloat16", "float32"):
+                ref = serve[dtype]
+                for shape in ((4, 1), (2, 2)):
+                    res = ranks.run({
+                        "name": f"sp prefill {dtype} {shape}",
+                        "kind": "train", "what": "sp_serve", "shape": shape,
+                        "phase": "lm_sp", "cfg": ref["cfg"],
+                        "params": ref["params"], "tokens": ref["tokens"]})
+                    tag = f"{name} c. {dtype} prefill {shape}"
+                    gap = _lms_serve_check(tag, res, ref, dtype)
+                    print(f"{tag}: token {int(res[0]['next'][0])} on every "
+                          f"rank (one device's {int(ref['next'][0])}); last "
+                          f"logits {gap:.3e} of max|logits| (bar "
+                          f"{TOL_POD_SERVE[dtype]}); blocks "
+                          f"{[(x['offset'], x['rows']) for x in res]}; host "
+                          f"s {[round(x['s'], 3) for x in res]}; "
+                          f"collectives (rank 0) {res[0]['stats']}; peak "
+                          f"GiB {[round(x['peak_gib'], 2) for x in res]}")
+                    rec[f"prefill {dtype} {shape}"] = gap
+            del serve, ref
+            part("c. prefill cells")
+
+            # d. an SP train step's collectives against the dry mesh
+            res = ranks.run({"name": "sp stats", "kind": "train",
+                             "what": "pod_stats", "shape": LMS_STATS_MESH,
+                             "phase": "lm_sp", "cfg": stats_cfg,
+                             "batch": (1, LMS_SEQ), "seed": seed})
+            tag = f"{name} d. the SP train cell's collectives on " \
+                  f"{LMS_STATS_MESH}"
+            for r, rank in enumerate(res):
+                want = dry[tuple(rank["coord"])]
+                bad = {k: (rank["stats"].get(k), want.get(k))
+                       for k in set(rank["stats"]) | set(want)
+                       if rank["stats"].get(k) != want.get(k)}
+                check(not bad, f"{tag} rank {r} {rank['coord']}: real vs "
+                      f"dry {bad}")
+            print(f"{tag}: every rank's {len(res[0]['stats'])} op:axis "
+                  f"counts equal the dry mesh's at its coordinate "
+                  f"(rank 0: {res[0]['stats']}); step "
+                  f"{[round(x['s'], 2) for x in res]} s, loss "
+                  f"{[round(x['loss'], 5) for x in res]}")
+            rec["stats"] = res[0]["stats"]
+            part("d. collective counts")
+        finally:
+            ranks.close()
+    print(f"{name} summary {json.dumps(rec, default=str)}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # dryrun: launch/dryrun at full configs on the production mesh, and one real
 # train step on the card against the dry-run of the same cell
 # ---------------------------------------------------------------------------
@@ -9599,7 +9968,7 @@ def main() -> int:
                             "lm_families,lm_recurrent,lm_training,lm_tp,"
                             "lm_tp_families,lm_tp_recurrent,lm_tp_train,"
                             "lm_tp_train_families,lm_tp_train_recurrent,"
-                            "lm_pipe_compress,lm_pod,training")
+                            "lm_pipe_compress,lm_pod,lm_sp,training")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -9737,6 +10106,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             launches["lm_pod"] = phase_lm_pod(args.seed, card)
             done("lm_pod")
+        if "lm_sp" in phases:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            launches["lm_sp"] = phase_lm_sp(args.seed, card)
+            done("lm_sp")
         if "lm_tp_trace" in phases:
             launches["lm_tp_trace"] = phase_lm_tp_trace(args.seed, card)
             done("lm_tp_trace")

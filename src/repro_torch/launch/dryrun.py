@@ -26,6 +26,13 @@ Three cell kinds, each through the step a user would call:
     the same shards (MoE layers gather the step's rows where the dp axes
     cut the slots, as the servable's ``_decode_packs``).
 
+A train or prefill cell given as a ``ShapeSpec`` of one row whose S
+divides over the dp axes takes the sequence-parallel branch, as the
+reference's batch shardings do: the rank's block of S and the step's
+``packs['seq']`` (``steps.sequence_shard``), attention's K / V gathers
+counted as a real run counts them. No ``SHAPES`` entry has one row but
+``long_500k``, a decode cell.
+
 The meta device runs no CUDA kernel: where the card would run K2 / K3, the
 dry-run counts the plain ``decode_attention`` composition, and a decode
 cell's JSON says so (``counted``). The reference's ``XLA_FLAGS`` /
@@ -59,7 +66,7 @@ from repro_torch.launch.sharding import (batch_shardings, cache_shardings,
 from repro_torch.launch.specs import (cell_is_supported, input_specs,
                                        shape_spec)
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                       make_train_step)
+                                       make_train_step, sequence_shard)
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
 OUT_DIR = "results/dryrun_torch"
@@ -103,9 +110,13 @@ def cell_step(cfg, shape, mesh, make=_meta):
     shape = shape_spec(shape)
     specs = input_specs(cfg, shape)
     counted = {}
+    # a one-row batch whose S divides: the sequence-parallel branch
+    seq = sequence_shard(cfg, specs["batch"], mesh) \
+        if shape.kind != "decode" else None
     if shape.kind == "train":
         opt_cfg = AdamWConfig()
-        step = make_train_step(cfg, opt_cfg, donate=True, mesh=mesh)
+        step = make_train_step(cfg, opt_cfg, donate=True, mesh=mesh,
+                               packs=None if seq is None else {"seq": seq})
         params = _shards(specs["params"], step.plan.specs, mesh, make)
         opt = init_opt_state(params, opt_cfg)
         batch = _shards(specs["batch"],
@@ -118,6 +129,8 @@ def cell_step(cfg, shape, mesh, make=_meta):
     if shape.kind == "prefill":
         batch = _shards(specs["batch"],
                         batch_shardings(specs["batch"], mesh), mesh, make)
+        if seq is not None:
+            packs = dict(packs, seq=seq)
         return make_prefill_step(cfg, packs), (params, batch), counted
     cache = _shards(specs["cache"], cache_shardings(specs["cache"], mesh),
                     mesh, make)

@@ -183,29 +183,32 @@ def cache_shardings(cache_shape_tree: Any, mesh):
 
 
 def batch_shardings(batch_shape_tree: Any, mesh):
-    """Rows (dim 0) over the dp axes where they divide; otherwise
-    replicated. The reference's sequence-parallel branch (a batch of one
-    row whose dim 1 divides: S over the dp axes) is not ported: such a
-    leaf raises a ValueError rather than replicate silently."""
+    """Rows (dim 0) over the dp axes where they divide; a batch of one row
+    whose dim 1 divides takes the sequence-parallel branch: S (dim 1) over
+    the dp axes (a tuple on a multi-pod mesh); otherwise replicated. Leaf
+    for leaf the reference's spec."""
     sizes = _sizes(mesh)
     dp = dp_axes(mesh)
     dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    entry = dp if len(dp) > 1 else (dp[0] if dp else None)
 
     def one(path, leaf):
         shape = tuple(leaf.shape)
         spec = [None] * len(shape)
         if len(shape) >= 1 and shape[0] % dp_size == 0 and \
                 shape[0] >= dp_size:
-            spec[0] = dp if len(dp) > 1 else (dp[0] if dp else None)
+            spec[0] = entry
         elif len(shape) >= 2 and shape[0] == 1 and \
                 shape[1] % dp_size == 0:
-            raise ValueError(
-                f"batch leaf {leaf_name(path)!r} {shape}: one row over "
-                f"{dp_size} data ranks takes the sequence-parallel branch "
-                f"(S over the dp axes), which is later work (ROADMAP Queue "
-                f"1 item 8, the sequence-parallel batch)")
+            spec[1] = entry                                    # SP
         return tuple(spec)
     return map_with_path(one, batch_shape_tree)
+
+
+def is_sequence_parallel(spec) -> bool:
+    """True for a batch leaf's spec from the sequence-parallel branch of
+    :func:`batch_shardings` (one row, S cut)."""
+    return len(spec) >= 2 and spec[0] is None and spec[1] is not None
 
 
 def replicated(mesh=None) -> tuple:
@@ -336,9 +339,10 @@ def whole_leaf(x, spec, mesh):
 
 def local_rows(batch: dict, mesh, grad_accum: int = 1) -> dict:
     """This rank's rows of a global batch (a dict of arrays or tensors),
-    cut by :func:`batch_shardings` at the rank's data coordinate. A batch
-    whose rows do not divide over the dp axes raises: every data rank
-    must take its own rows.
+    cut by :func:`batch_shardings` at the rank's data coordinate: its
+    rows, or of a one-row batch on the sequence-parallel branch its block
+    of S. A batch that the dp axes cut neither way raises: every data
+    rank must take its own part.
 
     ``grad_accum`` = A > 1 (a step that splits its rows into A
     microbatches, ``launch.steps.make_train_step``): the reference's
@@ -346,9 +350,17 @@ def local_rows(batch: dict, mesh, grad_accum: int = 1) -> dict:
     block of each microbatch's rows, microbatch by microbatch, and the
     step's reshape of them to (A, B/(A d), ...) gives each microbatch's
     rows of this rank in global order. B must divide by A times the
-    data ranks."""
+    data ranks; one row cannot split into microbatches at all."""
     dp = dp_axes(mesh)
     n_data = int(np.prod([mesh.shape[a] for a in dp]))
+    if grad_accum > 1:
+        for k, v in batch.items():
+            if v.shape[0] == 1:
+                raise ValueError(
+                    f"batch leaf {k!r} {tuple(v.shape)}: a batch of one row "
+                    f"cannot split into grad_accum {grad_accum} "
+                    f"microbatches (the reference reshapes its rows to "
+                    f"(A, B/A))")
     if grad_accum > 1 and n_data > 1:
         out = {}
         for k, v in batch.items():
@@ -372,8 +384,10 @@ def local_rows(batch: dict, mesh, grad_accum: int = 1) -> dict:
     coord = _coord(mesh)
     out = {}
     for k, v in batch.items():
-        if n_data > 1 and specs[k][0] is None:
+        if n_data > 1 and specs[k][0] is None and \
+                not is_sequence_parallel(specs[k]):
             raise ValueError(f"batch leaf {k!r} {tuple(v.shape)}: its rows "
-                             f"do not divide over the data axes {dp}")
+                             f"do not divide over the data axes {dp}, nor "
+                             f"does its one row's S")
         out[k] = local_shard(v, specs[k], mesh, coord)
     return out

@@ -8,6 +8,15 @@ come from ``torch.autograd.grad`` over the param leaves, the counterpart of
 ``jax.value_and_grad``. With ``packs`` the packed projections run through
 the layouts ``serving.export`` produced -- with ``PlanChoice`` packs the
 plan kernels: K1 forward, K4 for dX and K5 for the values' gradient.
+
+A global batch of one row on a mesh whose dp axes have more than one rank
+takes the reference's sequence-parallel branch (``launch.sharding.
+batch_shardings``: S over the dp axes): the steps then take the rank's
+block of S and ``packs['seq']``, the ``common.SeqShard`` that
+:func:`sequence_shard` builds from the global batch's shapes (the rank's
+local block alone cannot tell: B 4 over 4 data ranks also gives a rank
+one row). The dense LM family and BERT run it; the others raise
+(``models.api.check_sequence_parallel``).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regularizer import tree_group_penalty
 from repro_torch.core.tree import leaves, unflatten
 from repro_torch.launch.mesh import axis_size, dp_axes
+from repro_torch.models.api import check_sequence_parallel
 from repro_torch.models.api import decode_step as model_decode_step
 from repro_torch.models.api import model_forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -48,6 +58,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = mesh.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)),
                             "model")
     return (lse - gold).mean()
+
+
+def sequence_shard(cfg: ModelConfig, batch, mesh):
+    """The ``common.SeqShard`` of this rank for the global batch ``batch``
+    (a dict of leaves with ``.shape``: arrays, tensors or meta tensors) on
+    ``mesh``, or None where ``launch.sharding.batch_shardings`` cuts no
+    leaf's S (rows over the dp axes, or nothing to cut). A batch it does
+    cut raises for a family that cannot run it
+    (``models.api.check_sequence_parallel``). Pass it to a step as
+    ``packs={'seq': ...}`` (merged with a servable's or an export's
+    packs)."""
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             is_sequence_parallel)
+    from repro_torch.models.common import SeqShard
+    if mesh is None:
+        return None
+    specs = batch_shardings(batch, mesh)
+    if not any(is_sequence_parallel(sp) for sp in specs.values()):
+        return None
+    check_sequence_parallel(cfg)
+    if not is_sequence_parallel(specs["tokens"]):
+        raise ValueError(f"a sequence-parallel batch whose tokens "
+                         f"{tuple(batch['tokens'].shape)} are not cut")
+    return SeqShard.of(mesh, int(batch["tokens"].shape[1]))
+
+
+def _split_seq(packs):
+    """(the packs without 'seq', the ``SeqShard`` or None)."""
+    if not packs or "seq" not in packs:
+        return packs, None
+    rest = {k: v for k, v in packs.items() if k != "seq"}
+    return rest or None, packs["seq"]
 
 
 def make_loss_fn(cfg: ModelConfig, packs=None, mesh_plan=None):
@@ -292,7 +334,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     fine-tuning step) the mesh has no model axis (a (data, 1) or
     (pod, data, 1) mesh): params and packs are whole on every rank, each
     runs its own rows and the gradients are all-reduced as a mean over the
-    dp axes."""
+    dp axes.
+
+    ``packs['seq']`` (a ``common.SeqShard``, :func:`sequence_shard`): a
+    sequence-parallel step, the batch a rank's (1, S/d) block of one
+    global row. Its loss is the mean over the block's tokens, so the dp
+    ranks' mean is the row's (the blocks are equal); attention gathers
+    K / V over the dp axes. It takes no ``grad_accum`` (one row has no
+    microbatches)."""
+    packs, seq = _split_seq(packs)
+    if seq is not None:
+        check_sequence_parallel(cfg)
+        if mesh is None or seq.mesh is not mesh:
+            raise ValueError("a sequence-parallel step runs on the mesh its "
+                             "SeqShard cuts S over: pass it as mesh=")
+        if grad_accum > 1:
+            raise ValueError(
+                f"grad_accum {grad_accum} on a sequence-parallel batch: one "
+                f"row cannot split into microbatches (the reference "
+                f"reshapes its rows to (A, B/A))")
     plan = None
     if mesh is not None:
         if packs is not None:
@@ -301,6 +361,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     f"a packed train step runs over data parallelism only: "
                     f"mesh {dict(mesh.shape)} has a model axis")
         plan = MeshPlan(cfg, mesh, replicated=packs is not None)
+    if seq is not None:
+        packs = dict(packs or {}, seq=seq)
     loss_fn = make_loss_fn(cfg, packs, plan)
 
     def train_step(params, opt_state, batch):
@@ -347,11 +409,30 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_prefill_step(cfg: ModelConfig, packs=None):
     """``prefill_step(params, batch) -> (B,)`` greedy next token after the
-    last position of ``batch['tokens']``."""
+    last position of ``batch['tokens']``.
+
+    ``packs['seq']`` (a ``common.SeqShard``): ``batch`` is the rank's
+    block of a sequence-parallel row. The rank holding the row's last
+    position computes the head on that position alone and the token is
+    broadcast from it over the dp axes: every rank returns one device's
+    token."""
+    _, seq = _split_seq(packs)
+    if seq is not None:
+        check_sequence_parallel(cfg)
+
     def prefill_step(params, batch):
         with torch.no_grad():
-            logits, _ = model_forward(params, cfg, batch, packs=packs)
-        return torch.argmax(logits[:, -1], dim=-1)
+            if seq is None:
+                logits, _ = model_forward(params, cfg, batch, packs=packs)
+                return torch.argmax(logits[:, -1], dim=-1)
+            logits, _ = model_forward(params, cfg, batch, packs=packs,
+                                      last_only=True)
+            b = batch["tokens"].shape[0]
+            tok = torch.zeros((b,), dtype=torch.int64,
+                              device=batch["tokens"].device) \
+                if logits is None else torch.argmax(logits[:, -1], dim=-1)
+            n = axis_size(seq.mesh, seq.axes)
+            return seq.mesh.broadcast(tok, seq.axes, n - 1)
     return prefill_step
 
 

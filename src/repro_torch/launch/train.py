@@ -16,6 +16,10 @@ over "data", routed experts' E over "model"), takes its rows of one
 device's global batch (with ``grad_accum`` its rows of each global
 microbatch), and the step computes one device's step up to the order of
 fp32 sums (a MoE layer routes the global batch: ``common.ExpertShard``).
+A global batch of one row (``DataConfig(global_batch=1)``) whose S divides
+over the dp axes is cut along S, the reference's sequence-parallel branch:
+each rank trains its block of the row (the dense LM family and BERT; the
+other families raise, and so does ``grad_accum`` > 1).
 On a multi-pod mesh (("pod", "data", "model")) "pod" is data parallelism
 too: a rank's rows and the gradients' mean run over ("pod", "data"),
 weights are cut over "data" alone.
@@ -48,7 +52,7 @@ from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.sharding import (local_rows, local_shard,
                                          opt_shardings)
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_train_step, sequence_shard
 from repro_torch.models.api import init_model, init_model_local
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.runtime.fault_tolerance import (FaultInjector,
@@ -97,8 +101,17 @@ class Trainer:
         # donated, as the reference jits its step with donate_argnums=(0, 1):
         # the update writes into the state's tensors (a checkpoint copies
         # them to the host inside save(), so none can be torn)
+        # a global batch of one row cut along S over the dp axes (the
+        # reference's sequence-parallel branch): the steps take the
+        # rank's block and its SeqShard
+        d = self.data_cfg
+        seq = sequence_shard(cfg, {k: torch.empty(
+            (d.global_batch, d.seq_len), device="meta")
+            for k in ("tokens", "labels")}, mesh)
         self.step_fn = make_train_step(cfg, tcfg.opt, tcfg.grad_accum,
-                                       donate=True, mesh=mesh)
+                                       donate=True, mesh=mesh,
+                                       packs=None if seq is None
+                                       else {"seq": seq})
         self.plan = self.step_fn.plan
         self._specs = None
 

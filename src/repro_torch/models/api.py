@@ -156,22 +156,60 @@ def _flat_draws(tree, path=()):
     return [(path, tree)]
 
 
-def model_forward(params, cfg: ModelConfig, batch, packs=None):
+#: families whose sequence-parallel batch is later work, by their part of
+#: ROADMAP Queue 1 item 8
+_SP_LATER = {"vlm": "6b", "moe": "6b", "ssm": "6c", "hybrid": "6c",
+             "audio": "6c"}
+
+
+def check_sequence_parallel(cfg: ModelConfig):
+    """Raises unless ``cfg`` trains and prefills a sequence-parallel batch
+    (one row, S over the dp axes): the dense LM family and BERT, whose ops
+    act token by token but for attention. The vlm family's patch rows, a
+    MoE layer's capacity and aux over the global tokens and MLA (part 6b)
+    and the ssm / hybrid scan and conv state and audio's frames (part 6c)
+    would compute something else block by block."""
+    part = _SP_LATER.get(cfg.family)
+    if part is not None:
+        mla = any(k.mixer == "mla" for k in cfg.prefix + cfg.pattern)
+        what = cfg.family + (" (MLA)" if mla else "")
+        raise ValueError(
+            f"{cfg.arch}: a sequence-parallel batch (one row, S over the dp "
+            f"axes) of the {what} family is not ported: ROADMAP Queue 1 "
+            f"item 8 part {part}")
+
+
+def model_forward(params, cfg: ModelConfig, batch, packs=None,
+                  last_only: bool = False):
     """-> (logits fp32, aux). The audio family exports no packs (the
     reference's enc-dec forward has no packs route): its ``packs`` are a
-    mesh servable's shard objects or nothing."""
+    mesh servable's shard objects or nothing.
+
+    ``packs['seq']`` (a ``common.SeqShard``): ``batch`` is this rank's
+    block of a sequence-parallel row (dense and BERT families; the others
+    raise, :func:`check_sequence_parallel`). ``last_only`` (not audio):
+    the logits of the last position alone, (B, 1, V); on a
+    sequence-parallel block only the rank holding the row's last position
+    computes them, the others return None."""
     _known(cfg)
+    if packs and packs.get("seq") is not None:
+        check_sequence_parallel(cfg)
     if cfg.family == "bert":
-        logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs)
+        logits = bert_mod.forward(params, cfg, batch["tokens"], packs=packs,
+                                  last_only=last_only)
         return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+                                   device=batch["tokens"].device)
     if cfg.family == "audio":
+        if last_only:
+            raise ValueError("last_only: no such path for family 'audio'")
         return encdec_mod.forward(params, cfg, batch["frames"],
                                   batch["tokens"], packs=packs)
     if cfg.family == "vlm":
         return lm_mod.forward(params, cfg, batch["tokens"],
-                              mm_embeds=batch.get("mm_embeds"), packs=packs)
-    return lm_mod.forward(params, cfg, batch["tokens"], packs=packs)
+                              mm_embeds=batch.get("mm_embeds"), packs=packs,
+                              last_only=last_only)
+    return lm_mod.forward(params, cfg, batch["tokens"], packs=packs,
+                          last_only=last_only)
 
 
 def _device_of(params):

@@ -299,51 +299,61 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 def local_attention(q, k, v, *, window, q_offset=0):
     """Banded causal attention: FLOPs O(S * window), not O(S^2). Each query
     chunk (chunk size C divides the window) attends the previous
-    ``window // C`` key chunks plus its own."""
+    ``window // C`` key chunks plus its own.
+
+    ``q`` holds positions ``[q_offset, q_offset + S)`` of a row whose keys
+    ``k`` / ``v`` hold positions ``[0, T)`` (T >= q_offset + S; a
+    sequence-parallel block against the gathered row). The chunks are the
+    row's, from position 0, so every query takes the keys and the score
+    row one device gives it: a block whose offset is not a multiple of C
+    is padded in front to its chunk's start."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    if s != t:
-        raise ValueError("local_attention is a self-attention prefill path")
+    if q_offset + s > t:
+        raise ValueError(f"queries at [{q_offset}, {q_offset + s}) past the "
+                         f"{t} keys: a self-attention prefill path")
     g = hq // hkv
     c = min(window, 1024)
     if window % c:
         raise ValueError(f"window {window} is not a multiple of {c}")
     n_prev = window // c
-    pad = (-s) % c
-
-    def padded(x):
-        if not pad:
-            return x
-        z = x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))
-        return torch.cat([x, z], dim=1)
-    q, k, v = padded(q), padded(k), padded(v)
-    n = (s + pad) // c
+    lead = q_offset % c
+    c0 = (q_offset - lead) // c           # the row's chunk of the first query
+    n = -(-(lead + s) // c)
+    q = torch.cat([q.new_zeros((b, lead) + tuple(q.shape[2:])), q,
+                   q.new_zeros((b, n * c - lead - s) + tuple(q.shape[2:]))],
+                  dim=1)
     qb = q.reshape(b, n, c, hkv, g, d)
-    kc = k.reshape(b, n, c, hkv, d)
-    vc = v.reshape(b, n, c, hkv, d)
 
-    def shifted(x, sh):  # chunk i -> chunk i-sh (zero for i<sh)
-        z = x.new_zeros((x.shape[0], sh) + tuple(x.shape[2:]))
-        return torch.cat([z, x], dim=1)[:, :n]
+    def key_chunks(x):
+        # the row's key chunks c0 - n_prev .. c0 + n - 1 (zeros outside
+        # [0, t)), as (b, n + n_prev, c, h, d)
+        lo, hi = (c0 - n_prev) * c, (c0 + n) * c
+        sl = x[:, max(lo, 0):min(hi, t)]
+        z = x.new_zeros((b, max(-lo, 0)) + tuple(x.shape[2:]))
+        e = x.new_zeros((b, hi - lo - z.shape[1] - sl.shape[1])
+                        + tuple(x.shape[2:]))
+        return torch.cat([z, sl, e], dim=1).reshape(
+            b, n + n_prev, c, hkv, d)
 
-    k_ext = torch.cat([shifted(kc, p) for p in range(n_prev, 0, -1)] + [kc],
+    kc, vc = key_chunks(k), key_chunks(v)
+    k_ext = torch.cat([kc[:, p:p + n] for p in range(n_prev + 1)],
                       dim=2)                       # (b, n, (n_prev+1)c, h, d)
-    v_ext = torch.cat([shifted(vc, p) for p in range(n_prev, 0, -1)] + [vc],
-                      dim=2)
+    v_ext = torch.cat([vc[:, p:p + n] for p in range(n_prev + 1)], dim=2)
     scores = torch.einsum("bnchgd,bnkhd->bnhgck", qb.float(),
                           k_ext.float()) * (d ** -0.5)
     dev = q.device
-    ci = torch.arange(n, device=dev)[:, None, None]
+    ci = c0 + torch.arange(n, device=dev)[:, None, None]
     a = torch.arange(c, device=dev)[None, :, None]
     bcol = torch.arange((n_prev + 1) * c, device=dev)[None, None, :]
     qpos = ci * c + a
     kpos = (ci - n_prev) * c + bcol
-    ok = (kpos >= 0) & (kpos <= qpos) & (qpos - kpos < window) & (kpos < s)
+    ok = (kpos >= 0) & (kpos <= qpos) & (qpos - kpos < window) & (kpos < t)
     scores = torch.where(ok[None, :, None, None], scores,
                          _neg_inf_like(scores))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bnhgck,bnkhd->bnchgd", p.to(v_ext.dtype), v_ext)
-    return out.reshape(b, n * c, hq, d)[:, :s]
+    return out.reshape(b, n * c, hq, d)[:, lead:lead + s]
 
 
 def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0):
@@ -575,7 +585,8 @@ def _suffix_prefill_paged(q, k, v, cache, *, length, page_slot,
 
 def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
                     pos=None, packs=None, causal=True, kv_override=None,
-                    prefill_len=None, page_slot=None, page_start=None):
+                    prefill_len=None, page_slot=None, page_start=None,
+                    seq=None):
     """x: (B,S,d) -> (out, cache). No cache: the train/encoder path (BERT
     calls it with ``causal=False``). With a cache and S > 1, a prompt
     prefill: causal attention over the S tokens plus an in-place bulk write
@@ -607,7 +618,14 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
     K/V: only q is projected (and normalized), nothing is rotated; without
     a cache it attends every position (``causal=False``), with a cache
     (the audio decoder passes ``{}``) and S == 1 it is the plain decode
-    composition over all T positions and writes nothing."""
+    composition over all T positions and writes nothing.
+
+    ``seq`` (a ``common.SeqShard``; no cache): ``x`` is this rank's block
+    of S of a sequence-parallel row. Q, K and V are projected, normed,
+    rotated and head-cut for the block, K and V are all-gathered along S
+    over the dp axes, and the block's queries attend the whole row at
+    their offset, through the path one device takes for the row's length
+    (a window's band crosses the blocks' edges)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     fused = packs.get("wqkv") if packs else None
@@ -647,6 +665,13 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
         # and RoPE (both act head by head), so a replicated norm scale
         # sees every head's gradient
         q, k, v = heads.local(q, k, v)
+    s_all, q_offset = s, 0
+    if seq is not None:
+        if cache is not None or kv_override is not None:
+            raise ValueError("a sequence-parallel block is the train / "
+                             "prefill path: no cache, no cross-attention")
+        k, v = seq.gather(k), seq.gather(v)
+        s_all, q_offset = seq.length, seq.offset
 
     paged = cache is not None and "k_pages" in cache
     if kv_override is not None and cache is not None:
@@ -673,17 +698,21 @@ def apply_attention(p, x, cfg, *, positions=None, window=0, cache=None,
             "write_slot_paged, or pass page_slot/page_start for a "
             "shared-prefix suffix prefill")
     elif cache is None or s > 1:
-        if not causal:
-            out = full_attention(q, k, v, causal=False) if s <= 2048 else \
-                flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
-                                kv_chunk=cfg.kv_chunk)
-        elif window > 0 and s > window:
-            out = local_attention(q, k, v, window=window)
-        elif s <= 1024:
-            out = full_attention(q, k, v, causal=True, window=window)
+        # the path is the one device's for the whole row (s_all)
+        if not causal and s_all <= 2048:
+            out = full_attention(q, k, v, causal=False, q_offset=q_offset)
+        elif not causal:
+            out = flash_attention(q, k, v, causal=False, q_offset=q_offset,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        elif window > 0 and s_all > window:
+            out = local_attention(q, k, v, window=window, q_offset=q_offset)
+        elif s_all <= 1024:
+            out = full_attention(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset)
         else:
             out = flash_attention(q, k, v, causal=True, window=window,
-                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                  q_offset=q_offset, q_chunk=cfg.q_chunk,
+                                  kv_chunk=cfg.kv_chunk,
                                   softcap=cfg.attn_logit_softcap)
         if cache is not None:       # prompt prefill: bulk-write the KV
             _write_prefill_kv(cache, k, v,

@@ -47,11 +47,20 @@ def init_bert(gen: torch.Generator, cfg: ModelConfig, device=None):
     }
 
 
-def forward(params, cfg: ModelConfig, tokens, *, packs=None):
-    """tokens (B, S) int -> MLM logits (B, S, V) fp32."""
+def forward(params, cfg: ModelConfig, tokens, *, packs=None,
+            last_only: bool = False):
+    """tokens (B, S) int -> MLM logits (B, S, V) fp32; with ``last_only``
+    the last position's alone (B, 1, V).
+
+    ``packs['seq']`` (a ``common.SeqShard``): ``tokens`` are this rank's
+    block of S of a sequence-parallel row: its position rows start at the
+    block's offset and attention sees the whole row; with ``last_only``
+    the ranks not holding the row's last position return None."""
     b, s = tokens.shape
     top = packs or {}
-    pos = torch.arange(s, device=tokens.device)
+    seq = top.get("seq")
+    pos = torch.arange(s, device=tokens.device) if seq is None else \
+        seq.positions(s, tokens.device)
     # a mesh Trainer's shards gather their "data" blocks here, once
     emb = _weight(params["embed"]["w"], top.get("embed"))
     h = embed_lookup(emb, tokens, top.get("embed")) \
@@ -61,10 +70,14 @@ def forward(params, cfg: ModelConfig, tokens, *, packs=None):
     for i, lp in enumerate(params["layers"]):
         lpacks = _sel(packs, f"layers/{i}")
         out, _ = attn.apply_attention(lp["attn"], h, cfg, causal=False,
-                                      packs=_sel(lpacks, "attn"))
+                                      packs=_sel(lpacks, "attn"), seq=seq)
         h = apply_norm(lp["norm1"], h + out, "ln")           # post-LN
         out = apply_mlp(lp["ffn"], h, "gelu", packs=_sel(lpacks, "ffn"))
         h = apply_norm(lp["norm2"], h + out, "ln")
+    if last_only:
+        if seq is not None and not seq.last:
+            return None
+        h = h[:, -1:]
     t = gelu(linear(params["mlm_dense"], tp_copy(h, top.get("mlm_dense")),
                     top.get("mlm_dense")))
     t = apply_norm(params["mlm_norm"], t, "ln")

@@ -22,7 +22,8 @@ row-parallel shard (:func:`linear_from_block`). Shard objects by kind of
 cache dim:
 :class:`HeadShard`, :class:`LatentShard`, :class:`ExpertShard`,
 :class:`ChannelShard` (conv channels, the RG-LRU width) and
-:class:`SSDHeadShard`.
+:class:`SSDHeadShard`; a sequence-parallel batch's block of S is a
+:class:`SeqShard`.
 
 The mesh Trainer runs the same code with grad on (every family): each
 collective is one of ``launch.mesh``'s differentiable
@@ -269,6 +270,52 @@ class HeadShard:
 
     def gather(self, out):
         return self.mesh.gather_from(out, "model", dim=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A sequence-parallel batch: one row whose S the dp axes cut
+    (``launch.sharding.batch_shardings``' SP branch), this rank holding
+    positions ``[offset, offset + block)`` of the ``length`` of the
+    global row. Position ids start at ``offset`` (RoPE, BERT's position
+    rows) and attention gathers every rank's K / V along S
+    (:meth:`gather`: its backward sums every rank's cotangent for the
+    rank's block), so the rank's queries see the whole row and take the
+    path one device takes for ``length``; every other op of the dense and
+    BERT families acts token by token. Carried in a step's ``packs``
+    under ``"seq"`` (``launch.steps.sequence_shard``)."""
+
+    mesh: object
+    axes: tuple
+    offset: int
+    length: int
+
+    @classmethod
+    def of(cls, mesh, length: int) -> "SeqShard":
+        """This rank's block of a row of ``length`` cut over the dp axes."""
+        axes = dp_axes(mesh)
+        block = length // axis_size(mesh, axes)
+        return cls(mesh, axes, mesh.coord(axes) * block, length)
+
+    @property
+    def block(self) -> int:
+        return self.length // axis_size(self.mesh, self.axes)
+
+    @property
+    def last(self) -> bool:
+        """True on the rank holding the row's last position."""
+        return self.offset + self.block == self.length
+
+    def positions(self, s: int, device):
+        """(S/d,) position ids of the rank's block (``s`` its length)."""
+        if s != self.block:
+            raise ValueError(f"a sequence block of {s} positions, the "
+                             f"shard's is {self.block} of {self.length}")
+        return self.offset + torch.arange(s, device=device)
+
+    def gather(self, x):
+        """(B, S/d, ...) -> (B, S, ...): every rank's block along S."""
+        return self.mesh.fsdp_gather(x, self.axes, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -671,7 +718,10 @@ class _BatchRows(torch.autograd.Function):
     accumulation runs over all of them, in the table's dtype -- a bf16
     table takes a row's repeats one at a time, as one device and the
     reference do, where a sum of each rank's own partials would round
-    elsewhere. Dp index 0 returns that gradient and the other dp ranks
+    elsewhere. On a sequence-parallel batch (each rank a (1, S/d) block
+    of one row) the gathered (d, S/d) ids are the row's tokens in order,
+    so the adds are one device's there too. Dp index 0 returns that
+    gradient and the other dp ranks
     zeros, so the sums that follow (FSDP's reduce-scatter over "data" and
     the sum over "pod", or the all-reduce of a leaf replicated over the dp
     axes) are the batch's."""

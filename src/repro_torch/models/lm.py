@@ -156,8 +156,9 @@ def _layer_groups(params, cfg: ModelConfig, cache=None):
 
 def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
                  pos=None, packs=None, prefill_len=None, page_slot=None,
-                 page_start=None):
-    """One layer -> (h, the MoE aux loss or None)."""
+                 page_start=None, seq=None):
+    """One layer -> (h, the MoE aux loss or None). ``seq``: a
+    sequence-parallel block (``common.SeqShard``; attention layers)."""
     hn = apply_norm(p["norm1"], h, cfg.norm)
     mix_packs = _layer_packs(packs, "attn") or _layer_packs(packs, "mixer")
     kw = dict(cache=cache["mix"] if cache else None, pos=pos,
@@ -165,7 +166,7 @@ def _apply_layer(p, h, cfg, kind: LayerKind, *, positions, cache=None,
     if kind.mixer in ("attn", "local"):
         out, _ = attn.apply_attention(p["attn"], hn, cfg, window=kind.window,
                                       positions=positions,
-                                      page_start=page_start, **kw)
+                                      page_start=page_start, seq=seq, **kw)
     elif kind.mixer == "mla":
         out, _ = mla_mod.apply_mla(p["attn"], hn, cfg, positions=positions,
                                    page_start=page_start, **kw)
@@ -280,20 +281,33 @@ def _logits(params, cfg: ModelConfig, h, packs=None, table=None):
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None):
+def forward(params, cfg: ModelConfig, tokens, *, mm_embeds=None, packs=None,
+            last_only: bool = False):
     """tokens (B, S) -> (logits (B, S, V) fp32, the MoE aux loss summed over
     the layers; 0 without MoE). ``mm_embeds`` (B, P, d), the vlm family's
     patch embeddings, replace the first P positions after the embedding
-    scale."""
+    scale. ``last_only``: the logits of the last position alone.
+
+    ``packs['seq']`` (a ``common.SeqShard``): ``tokens`` are this rank's
+    block of S of a sequence-parallel row -- its positions start at the
+    block's offset and attention sees the whole row; with ``last_only``
+    the ranks not holding the row's last position return None logits."""
     b, s = tokens.shape
+    seq = packs.get("seq") if packs else None
     table = _table(params, "embed", packs)     # one gather when tied
     h = _embed(params, cfg, tokens, packs, table)
     if mm_embeds is not None:
         n_p = mm_embeds.shape[1]
         h = torch.cat([mm_embeds.to(h.dtype), h[:, n_p:]], dim=1)
-    positions = torch.arange(s, device=h.device)[None, :]
+    positions = (torch.arange(s, device=h.device) if seq is None
+                 else seq.positions(s, h.device))[None, :]
     h, aux = _run_layers(params, cfg, h, packs=packs,
-                         remat=remat_active(params), positions=positions)
+                         remat=remat_active(params), positions=positions,
+                         seq=seq)
+    if last_only:
+        if seq is not None and not seq.last:
+            return None, aux
+        h = h[:, -1:]
     return _logits(params, cfg, h, packs, table), aux
 
 

@@ -381,9 +381,10 @@ def test_agree_takes_the_ranks_own_value_on_a_dry_mesh():
 
 
 def test_long_context_decode_replicates_its_one_slot():
-    """long_500k's (1, 1) token does not divide over 16 data ranks: the
-    slot replicates and the batch's sequence-parallel branch is never
-    reached, as the reference's."""
+    """long_500k's (1, 1) token does not divide over 16 data ranks, and
+    neither does its one position (the sequence-parallel branch cuts a
+    one-row leaf's dim 1 only where it divides): the slot replicates, as
+    the reference's."""
     cfg = get_config("mamba2_780m", smoke=True)
     got = dryrun.trace_cell(cfg, specs.shape_spec("long_500k"),
                             make_mesh((16, 16), ("data", "model")))

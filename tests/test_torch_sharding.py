@@ -306,21 +306,15 @@ def test_batch_shardings_equal_reference(mesh_i):
         jsh.batch_shardings(jb, jm),
         is_leaf=lambda x: isinstance(x, NamedSharding))
     want = {jsh._leaf_name(p): s.spec for p, s in flat}
-    # the reference's sequence-parallel branch (one row, S over the dp
-    # axes) is not ported: the port raises on such a leaf, naming it
-    sp = {k for k, v in shapes.items()
-          if len(v) >= 2 and _norm(want[k], len(v))[0] is None
-          and _norm(want[k], len(v))[1] is not None}
-    for k in sp:
-        with pytest.raises(ValueError, match="sequence-parallel"):
-            tsh.batch_shardings({k: torch.empty(shapes[k], device="meta")},
-                                tm)
     got = tsh.batch_shardings({k: torch.empty(v, device="meta")
-                               for k, v in shapes.items() if k not in sp},
-                              tm)
+                               for k, v in shapes.items()}, tm)
     for k, v in shapes.items():
-        if k not in sp:
-            assert got[k] == _norm(want[k], len(v)), k
+        assert got[k] == _norm(want[k], len(v)), k
+        # the sequence-parallel branch (one row, S over the dp axes),
+        # named as the reference's spec takes it
+        ref = _norm(want[k], len(v))
+        assert tsh.is_sequence_parallel(got[k]) == (
+            ref[0] is None and ref[1] is not None), k
     assert tsh.replicated(tm) == tuple(jsh.replicated(jm).spec)
 
 
